@@ -1,0 +1,571 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch package on one NVIDIA card (Hopper, sm_90a).
+
+    python3 chip_smoke.py [--seed N] [--revs N]
+
+Run from the root of a checkout.  Phases, each printing one JSON line:
+
+  1. device   — the card (nvidia-smi name and power limit), torch version,
+                compute capability (must be 9.0);
+  2. build    — nvcc builds every CUDA kernel of the package from csrc/;
+  3. kernels  — each kernel against its plain PyTorch version on the card
+                (exact equality; +inf equals +inf), then timed beside the
+                plain version and a library yardstick;
+  4. chain    — the main path: ScanFilterChain at the headline geometry
+                (W=64, 2048 beams, 256x256 grid at 0.25 m and 0.1 m, wire
+                capacity 4096) over seeded 3200-point revolutions, through
+                process_raw and process_raw_pipelined with each kernel
+                backend, every output held equal to the package's own CPU
+                chain; the launch counts are read around this phase;
+  5. profile  — where a revolution's time goes (torch.profiler);
+  6. ab       — B1 against B2 end to end, in alternating order;
+  7. node     — launch_lifecycle in dummy mode on the card (filter chain and
+                raw paths), deactivate/activate, shutdown;
+  8. kernels  — one line listing every kernel with its launches and times.
+
+Then the card's name and power limit, then {"ok": true, "device": ...}.
+Any mismatch or error exits non-zero.  Without a CUDA device it exits 1
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+GEOMETRY = dict(window=64, beams=2048, grid=256, capacity=4096, points=3200)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def exact(a, b) -> tuple[bool, float]:
+    """(equal, max |a-b| over entries that differ); +inf == +inf."""
+    import torch
+
+    a, b = a.float(), b.float()
+    if a.shape != b.shape:
+        return False, math.inf
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    err = 0.0 if bool(same.all()) else float((a - b).abs()[~same].max())
+    return bool(same.all()), err
+
+
+def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """Milliseconds per call from CUDA events around ``iters`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 50):
+    """Device (kernel) milliseconds per call from torch.profiler, summed
+    over every CUDA kernel the call launches; None when the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(
+        ev.time_range.elapsed_us() for ev in prof.events() if ev.device_type == DeviceType.CUDA
+    )
+    return total_us / iters / 1e3 if total_us > 0 else None
+
+
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_device() -> dict:
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    cap = torch.cuda.get_device_capability(0)
+    info = {
+        "phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+        "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
+        "capability": list(cap), "count": torch.cuda.device_count(),
+    }
+    emit(info)
+    check(tuple(cap) == (9, 0), f"compute capability {cap} is not (9, 0)")
+    return info
+
+
+def phase_build() -> None:
+    from rplidar_ros2_driver_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    per_lib = cuda_build.build_libraries()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_library_s": per_lib,
+          "nvcc": cuda_build.find_nvcc()})
+
+
+def _median_fixtures(rng, w: int, b: int):
+    import numpy as np
+
+    base = rng.uniform(0.1, 40.0, (w, b)).astype(np.float32)
+    holes = base.copy()
+    holes[rng.random((w, b)) < 0.3] = np.inf
+    holes[:, : max(1, b // 100)] = np.inf  # all-inf beams
+    ties = (np.round(holes * 1000.0) / 1000.0).astype(np.float32)  # 1 mm quantization
+    coarse = np.round(holes, 0).astype(np.float32)                 # heavy ties
+    return {"random_inf": holes, "ties_1mm": ties, "heavy_ties": coarse, "all_finite": base}
+
+
+def phase_kernels(device, rng) -> dict:
+    """Each kernel against its plain version on the card, then timed."""
+    import numpy as np
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+
+    max_err = {"temporal_median": 0.0, "sorted_replace": 0.0}
+    checked = 0
+    # (400, 300) takes B1's unstaged path (the column does not fit the
+    # block's shared memory); the odd shapes exercise the ragged beam edge
+    for w, b in [(64, 2048), (16, 2048), (7, 1000), (33, 2050), (400, 300)]:
+        for name, win in _median_fixtures(rng, w, b).items():
+            x = torch.from_numpy(win).to(device)
+            ok, err = exact(mk.temporal_median_kernel(x), mk.temporal_median_plain(x))
+            max_err["temporal_median"] = max(max_err["temporal_median"], err)
+            check(ok, f"B1 differs from its plain version at (W, B)=({w}, {b}) {name}: {err}")
+            checked += 1
+
+    # B2 over successive ring steps: the sorted window evolves by the
+    # kernel's own output and must stay equal to the plain evolution
+    b2_steps = 0
+    for w, b, steps in [(GEOMETRY["window"], GEOMETRY["beams"], 300), (7, 1000, 40),
+                        (33, 2050, 80), (400, 300, 820)]:
+        ring = torch.full((w, b), math.inf, device=device)
+        sor_k = ring.clone()
+        sor_p = ring.clone()
+        for step in range(steps):
+            new = rng.uniform(0.1, 40.0, b).astype(np.float32)
+            new[rng.random(b) < 0.3] = np.inf
+            if step % 3 == 0:
+                new = np.round(new, 0).astype(np.float32)  # ties with the window
+            if step % 7 == 0:
+                new[: b // 2] = new[0]
+            new_t = torch.from_numpy(new).to(device)
+            old = ring[step % w].clone()
+            out_k, med_k = mk.sorted_replace_kernel(sor_k, old, new_t)
+            out_p, med_p = mk.sorted_replace_plain(sor_p, old, new_t)
+            for got, want, what in ((out_k, out_p, "window"), (med_k, med_p, "median")):
+                ok, err = exact(got, want)
+                max_err["sorted_replace"] = max(max_err["sorted_replace"], err)
+                check(ok, f"B2 {what} differs from its plain version at (W, B)=({w}, {b}) "
+                          f"step {step}: {err}")
+            sor_k, sor_p = out_k, out_p
+            ring[step % w] = new_t
+        ok, _ = exact(sor_k, torch.sort(ring, dim=0).values)
+        check(ok, f"B2's carried window is not the sorted ring after {steps} steps")
+        b2_steps += steps
+
+    # timing at the main path's shape, on a filled ring
+    w, b = GEOMETRY["window"], GEOMETRY["beams"]
+    win = torch.from_numpy(_median_fixtures(rng, w, b)["random_inf"]).to(device)
+    nan_win = torch.where(torch.isinf(win), torch.full_like(win, math.nan), win)
+    sor = torch.sort(win, dim=0).values
+    old = win[5].clone()
+    new_t = win[9].clone()
+    times = {
+        "temporal_median": {
+            "ms": cuda_ms(lambda: mk.temporal_median_kernel(win)),
+            "plain_ms": cuda_ms(lambda: mk.temporal_median_plain(win)),
+            "library_ms": cuda_ms(lambda: torch.nanmedian(nan_win, dim=0)),
+            "device_ms": device_ms(lambda: mk.temporal_median_kernel(win)),
+            "plain_device_ms": device_ms(lambda: mk.temporal_median_plain(win)),
+        },
+        "sorted_replace": {
+            "ms": cuda_ms(lambda: mk.sorted_replace_kernel(sor, old, new_t)),
+            "plain_ms": cuda_ms(lambda: mk.sorted_replace_plain(sor, old, new_t)),
+            # no single PyTorch call computes the delete/insert; the median
+            # part's yardstick is the same nanmedian as B1's
+            "library_ms": None,
+            "yardstick_nanmedian_ms": cuda_ms(lambda: torch.nanmedian(nan_win, dim=0)),
+            "device_ms": device_ms(lambda: mk.sorted_replace_kernel(sor, old, new_t)),
+            "plain_device_ms": device_ms(lambda: mk.sorted_replace_plain(sor, old, new_t)),
+        },
+    }
+    emit({"phase": "kernels", "checked_b1_fixtures": checked, "b2_steps": b2_steps,
+          "max_abs_err": max_err, "times_ms": times, "shape": [w, b]})
+    return {"max_abs_err": max_err, "times": times}
+
+
+def make_revolutions(seed: int, n: int, points: int):
+    """Seeded DenseBoost-shaped revolutions: a 2 m +/- 0.5 m ring with
+    noise, angle jitter, drop-outs (dist 0) and out-of-range points."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    i = np.arange(points)
+    revs = []
+    for k in range(n):
+        angle = ((i * 65536) // points + rng.integers(-8, 9, points)).clip(0, 65535)
+        dist_m = 2.0 + 0.5 * np.sin(i * (2 * np.pi / points) + 0.1 * k)
+        dist_m = dist_m + rng.normal(0.0, 0.01, points)
+        dist = (dist_m * 4000.0).astype(np.int32)
+        dist[rng.random(points) < 0.05] = 0                  # drop-outs
+        dist[rng.random(points) < 0.02] = 50 * 4000          # beyond range_max
+        dist[rng.random(points) < 0.01] = int(0.05 * 4000)   # below range_min
+        revs.append({
+            "angle_q14": angle.astype(np.int32),
+            "dist_q2": dist,
+            "quality": rng.integers(0, 256, points).astype(np.int32),
+            "flag": (i == 0).astype(np.int32),
+        })
+    return revs
+
+
+def _chain(backend: str, median: str, cell_m: float):
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+    from rplidar_ros2_driver_tpu_torch.filters.chain import ScanFilterChain
+
+    params = DriverParams(
+        filter_backend=backend, filter_chain=("clip", "polar", "median", "voxel"),
+        filter_window=GEOMETRY["window"], voxel_grid_size=GEOMETRY["grid"],
+        voxel_cell_m=cell_m, median_backend=median,
+    )
+    return ScanFilterChain(params, GEOMETRY["beams"], capacity=GEOMETRY["capacity"])
+
+
+def _run_chain(chain, revs, pipelined: bool):
+    """Drive ``revs`` through one chain; returns (outputs, per-call
+    seconds, wall seconds).  The pipelined seam's outputs lag one call,
+    and the flush collects the last."""
+    outs, lat = [], []
+    t_all = time.perf_counter()
+    for r in revs:
+        t0 = time.perf_counter()
+        if pipelined:
+            out = chain.process_raw_pipelined(r["angle_q14"], r["dist_q2"], r["quality"], r["flag"])
+        else:
+            out = chain.process_raw(r["angle_q14"], r["dist_q2"], r["quality"], r["flag"])
+        lat.append(time.perf_counter() - t0)
+        if out is not None:
+            outs.append(out)
+    if pipelined:
+        outs.append(chain.flush_pipelined())
+    return outs, lat, time.perf_counter() - t_all
+
+
+def _same_output(a, b) -> bool:
+    import numpy as np
+
+    return all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        for f in ("ranges", "intensities", "points_xy", "point_mask", "voxel")
+    )
+
+
+def phase_chain(device, revs) -> dict:
+    """The main path at the headline geometry, every output held equal to
+    the package's own CPU chain on the same revolutions."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+
+    arms = []
+    counts = {k: 0 for k in mk.launch_counts}
+    for cell_m in (0.25, 0.1):
+        ref, _, ref_wall = _run_chain(_chain("cpu", "pallas", cell_m), revs, False)
+        for median in ("pallas", "inc_pallas"):
+            for pipelined in (False, True):
+                chain = _chain(device.type, median, cell_m)
+                check(chain.device == device, "chain did not land on the card")
+                mk.reset_launch_counts()
+                outs, lat, wall = _run_chain(chain, revs, pipelined)
+                launched = dict(mk.launch_counts)
+                for k in counts:
+                    counts[k] += launched[k]
+                kernel = "temporal_median" if median == "pallas" else "sorted_replace"
+                check(launched[kernel] == len(revs),
+                      f"{median}: {launched[kernel]} launches for {len(revs)} steps")
+                check(len(outs) == len(ref), f"{median}: {len(outs)} outputs for {len(ref)}")
+                for k, (a, b) in enumerate(zip(outs, ref)):
+                    check(_same_output(a, b),
+                          f"{median} cell {cell_m} pipelined={pipelined}: revolution {k} "
+                          "differs from the CPU chain")
+                last = outs[-1]
+                fin = np.isfinite(last.ranges)
+                check(fin.sum() > 0.9 * GEOMETRY["beams"], "too few finite ranges")
+                check(float(np.abs(last.ranges[fin] - 2.0).max()) < 0.6,
+                      "ranges off the 2 m +/- 0.5 m ring")
+                check(int(last.voxel.sum()) > 0, "empty voxel grid")
+                lat_ms = np.asarray(lat) * 1e3
+                arm = {
+                    "median_backend": median, "cell_m": cell_m,
+                    "seam": "pipelined" if pipelined else "sync",
+                    "revolutions": len(revs), "scans_per_s": len(revs) / wall,
+                    "p50_ms": float(np.percentile(lat_ms, 50)),
+                    "p99_ms": float(np.percentile(lat_ms, 99)),
+                    "max_ms": float(lat_ms.max()),
+                    "launches": launched, "cpu_reference_scans_per_s": len(revs) / ref_wall,
+                }
+                arms.append(arm)
+                emit({"phase": "chain", **arm})
+    return {"arms": arms, "launches": counts}
+
+
+def phase_profile(device, revs, trace_dir=None) -> list:
+    """Where a revolution's time goes: host wall per revolution beside
+    the device time of every kernel and copy it launched (torch.profiler,
+    20 revolutions after 10 of warm-up, per kernel backend).  The
+    profiler's own overhead inflates the host side of this window."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = []
+    for median in ("pallas", "inc_pallas"):
+        chain = _chain(device.type, median, 0.25)
+        _run_chain(chain, revs[:10], False)
+        window = revs[10:30]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, lat, wall = _run_chain(chain, window, False)
+        n = len(window)
+        dev_events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        busy_us = sum(ev.time_range.elapsed_us() for ev in dev_events)
+        by_kernel = {}
+        for ev in dev_events:
+            by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+        top_device = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+        host_ops = sorted(
+            (ev for ev in prof.key_averages() if ev.self_cpu_time_total > 0),
+            key=lambda ev: -ev.self_cpu_time_total,
+        )[:8]
+        row = {
+            "phase": "profile", "median_backend": median, "revolutions": n,
+            "wall_ms_per_rev": wall / n * 1e3,
+            "p50_ms": float(np.percentile(np.asarray(lat) * 1e3, 50)),
+            "device_busy_ms_per_rev": busy_us / n / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_ops_per_rev": len(dev_events) / n,
+            "top_device_ms_per_rev": [[k[:80], v / n / 1e3] for k, v in top_device],
+            "top_host_self_ms_per_rev": [
+                [ev.key[:80], ev.self_cpu_time_total / n / 1e3] for ev in host_ops
+            ],
+        }
+        if trace_dir:
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, f"chain_{median}.json"))
+        rows.append(row)
+        emit(row)
+    return rows
+
+
+def phase_ab(device, revs, rounds: int = 10, per_arm: int = 100) -> dict:
+    """B1 against B2 end to end: the sync seam at config 5 (0.25 m), two
+    warmed chains, the backends in alternating order (AB, BA, ...) so
+    neither always runs first, ``per_arm`` revolutions per arm and round.
+    Outputs are not compared here: the chain phase held both arms to the
+    CPU chain."""
+    import numpy as np
+
+    arms = ("pallas", "inc_pallas")
+    chains = {m: _chain(device.type, m, 0.25) for m in arms}
+    for chain in chains.values():
+        _run_chain(chain, revs[:20], False)
+    window = revs[20 : 20 + per_arm]
+    rates = {m: [] for m in arms}
+    p99 = {m: [] for m in arms}
+    for r in range(rounds):
+        for m in (arms if r % 2 == 0 else arms[::-1]):
+            _, lat, wall = _run_chain(chains[m], window, False)
+            rates[m].append(len(window) / wall)
+            p99[m].append(float(np.percentile(np.asarray(lat) * 1e3, 99)))
+    row = {
+        "phase": "ab", "rounds": rounds, "revolutions_per_arm": len(window),
+        "scans_per_s": rates, "p99_ms": p99,
+        "median_scans_per_s": {m: float(np.median(v)) for m, v in rates.items()},
+        "median_p99_ms": {m: float(np.median(v)) for m, v in p99.items()},
+        "pallas_wins": int(sum(a > b for a, b in zip(rates["pallas"], rates["inc_pallas"]))),
+    }
+    emit(row)
+    return row
+
+
+def phase_node(device) -> dict:
+    """The user's entry point: launch_lifecycle in dummy mode on the card."""
+    import numpy as np
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.driver.dummy import synth_scan
+    from rplidar_ros2_driver_tpu_torch.launch import launch_lifecycle
+    from rplidar_ros2_driver_tpu_torch.node.lifecycle import LifecycleState
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+    from rplidar_ros2_driver_tpu_torch.ops.ascend import apply_angle_compensation
+    from rplidar_ros2_driver_tpu_torch.ops.laserscan import to_laserscan
+
+    result = {"phase": "node"}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, chain_yaml in (("chain", "[clip, polar, median, voxel]"), ("raw", "[]")):
+            path = os.path.join(tmp, f"{name}.yaml")
+            with open(path, "w") as f:
+                f.write(
+                    "rplidar_node:\n  ros__parameters:\n"
+                    "    dummy_mode: true\n"
+                    f"    filter_chain: {chain_yaml}\n"
+                    "    filter_window: 64\n"
+                    # the default filter_backend is the card
+                    + ("" if device.type == "cuda" else "    filter_backend: cpu\n")
+                )
+            mk.reset_launch_counts()
+            node = launch_lifecycle(path)
+            try:
+                check(node.lifecycle_state is LifecycleState.ACTIVE, f"{name} node not ACTIVE")
+                if name == "chain":
+                    check(node.chain.device == device, "node chain is not on the card")
+                    check(node.chain.cfg.median_backend == "pallas", "auto did not resolve to B1")
+                else:
+                    check(node.raw_device == device, "raw path is not on the card")
+                time.sleep(3.0 if name == "chain" else 1.5)
+                node._update_diagnostics()
+                pub = node.publisher
+                n1 = pub.scan_count
+                check(n1 > 0, f"{name} node published no scans")
+                check(node.diagnostics.last.message == "Scanning",
+                      f"{name} diagnostics say {node.diagnostics.last.message!r}")
+                ranges = pub.scans[-1].ranges
+                fin = np.isfinite(ranges)
+                check(fin.any() and float(np.abs(ranges[fin] - 2.0).max()) < 0.6,
+                      f"{name} node ranges off the dummy's 2 m +/- 0.5 m ring")
+                info = {"scans": n1}
+                if name == "chain":
+                    check(mk.launch_counts["temporal_median"] > 0, "node never launched B1")
+                    check(int(pub.clouds[-1].voxel.sum()) > 0, "node voxel grid empty")
+                    info["b1_launches"] = mk.launch_counts["temporal_median"]
+                    filled = int(node.chain.state.filled)
+                    check(node.deactivate() and node.activate(), "deactivate/activate failed")
+                    time.sleep(1.0)
+                    check(pub.scan_count > n1, "no scans after re-activation")
+                    check(int(node.chain.state.filled) >= filled, "window lost on re-activation")
+                    info["scans_after_reactivate"] = pub.scan_count
+                    info["filter_p99_ms"] = node.tracer.percentile("filter", 99.0) * 1e3
+                result[name] = info
+            finally:
+                node.shutdown()
+            check(node.lifecycle_state is LifecycleState.FINALIZED, f"{name} node not FINALIZED")
+
+    # the raw path's conversion on the card equals the CPU's
+    scan = synth_scan(0.3)
+    for sp in (False, True):
+        ls = [
+            to_laserscan(apply_angle_compensation(scan.to(dev), True), 0.1, 40.0,
+                         scan_processing=sp)
+            for dev in (device, torch.device("cpu"))
+        ]
+        for f in ("ranges", "intensities", "beam_count", "angle_increment", "time_increment"):
+            ok, _ = exact(getattr(ls[0], f).cpu(), getattr(ls[1], f))
+            check(ok, f"raw to_laserscan {f} differs between card and CPU (mode A={sp})")
+    emit(result)
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--revs", type=int, default=300)
+    ap.add_argument("--trace-dir", default=None,
+                    help="also write the profiled chain windows as Chrome traces here")
+    args = ap.parse_args(argv)
+
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke run needs the card")
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "rplidar_ros2_driver_tpu_torch")):
+        fail("run chip_smoke.py from the root of a checkout of the repository")
+    sys.path.insert(0, here)
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    info = phase_device()
+    phase_build()
+    kern = phase_kernels(device, np.random.default_rng(args.seed))
+    revs = make_revolutions(args.seed, args.revs, GEOMETRY["points"])
+    chain = phase_chain(device, revs)
+    phase_profile(device, revs, args.trace_dir)
+    phase_ab(device, revs)
+    phase_node(device)
+
+    w, b = GEOMETRY["window"], GEOMETRY["beams"]
+    src = "rplidar_ros2_driver_tpu_torch/csrc/median.cu"
+    b1_bound, b1_by = bound(w * b * 4 + b * 4, 2 * w * b)
+    b2_bound, b2_by = bound(2 * w * b * 4 + 3 * b * 4, 2 * w * b)
+    kernels = []
+    for name, replaces, bnd, by in (
+        ("temporal_median", "rplidar_ros2_driver_tpu/ops/pallas_kernels.py:396", b1_bound, b1_by),
+        ("sorted_replace", "rplidar_ros2_driver_tpu/ops/pallas_kernels.py:337", b2_bound, b2_by),
+    ):
+        t = kern["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": chain["launches"][name], "max_abs_err": kern["max_abs_err"][name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bnd, "bound_by": by,
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "plain_device_ms": t["plain_device_ms"],
+        })
+    for k in kernels:
+        check(k["launches"] > 0, f"kernel {k['name']} never launched on the main path")
+    emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
+    print(info["nvidia_smi"], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,493 @@
+"""RPlidarNode — the top-level lifecycle node.
+
+Behavioral mirror of the reference node (src/rplidar_node.cpp) and of the
+JAX package's node:
+
+  * on_configure  — load params, build the driver factory, set up
+    publishing + static TF + diagnostics, build the filter chain
+    (:116-211)
+  * on_activate   — spawn the scan-loop FSM thread (:213-225)
+  * on_deactivate — stop the thread, stop the motor (:227-242)
+  * on_cleanup    — drop driver + chain state (:244-256)
+  * dynamic reconfigure — rpm / scan_processing / scan_mode at runtime
+    (:689-774), rejected while disconnected
+
+When ``filter_chain`` stages are configured, each revolution runs through
+the ScanFilterChain between grab and publish (on the card unless
+``filter_backend: cpu``); the LaserScan then carries the temporal-median
+ranges and a PointCloud + voxel grid are published alongside.  With an
+empty chain the raw path converts the revolution with ``to_laserscan`` on
+the same device.
+
+Not yet in this package, each raising NotImplementedError naming the
+ROADMAP item that brings it: the real (wire-protocol) driver, fused
+device ingest, and the SLAM mapper / loop closure.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+
+from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+from rplidar_ros2_driver_tpu_torch.core.types import ScanBatch
+from rplidar_ros2_driver_tpu_torch.driver.dummy import DummyLidarDriver
+from rplidar_ros2_driver_tpu_torch.filters.chain import (
+    ScanFilterChain,
+    pick_device,
+    resolve_ingest_backend,
+)
+from rplidar_ros2_driver_tpu_torch.node.diagnostics import DiagnosticsUpdater
+from rplidar_ros2_driver_tpu_torch.node.fsm import DriverState, FsmTimings, ScanLoopFsm
+from rplidar_ros2_driver_tpu_torch.node.lifecycle import LifecycleNode, LifecycleState
+from rplidar_ros2_driver_tpu_torch.node.messages import (
+    LaserScanHost,
+    PointCloudHost,
+    StaticTransform,
+)
+from rplidar_ros2_driver_tpu_torch.node.publisher import CollectingPublisher, PublisherBase
+from rplidar_ros2_driver_tpu_torch.ops.ascend import apply_angle_compensation
+from rplidar_ros2_driver_tpu_torch.ops.laserscan import to_laserscan
+from rplidar_ros2_driver_tpu_torch.utils.tracing import StageTimer
+
+log = logging.getLogger("rplidar_tpu.node")
+
+# combined-checkpoint key prefixes of the JAX package's mapper / loop-closure
+# state; this package has no SLAM yet, so such keys are dropped on load
+_SLAM_KEY_PREFIXES = ("mapper.", "loop.")
+
+
+class RPlidarNode(LifecycleNode):
+    def __init__(
+        self,
+        params: Optional[DriverParams] = None,
+        publisher: Optional[PublisherBase] = None,
+        *,
+        driver_factory=None,
+        fsm_timings: Optional[FsmTimings] = None,
+        name: str = "rplidar_node",
+    ) -> None:
+        super().__init__(name)
+        self.params = params or DriverParams()
+        self.params.validate()
+        self.publisher = publisher or CollectingPublisher()
+        self._driver_factory = driver_factory
+        self._fsm_timings = fsm_timings
+        self.fsm: Optional[ScanLoopFsm] = None
+        self.chain: Optional[ScanFilterChain] = None
+        # device of the raw publish path (filter_chain empty)
+        self.raw_device = None
+        self.diagnostics: Optional[DiagnosticsUpdater] = None
+        self.tracer = StageTimer()
+        self._param_lock = threading.Lock()
+        self._chain_snapshot = None
+        # (stamp, duration, max_range) of the revolution whose chain
+        # output is still in flight when pipelined_publish is on
+        self._pipeline_meta: Optional[tuple[float, float, float]] = None
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+
+    def _default_factory(self):
+        return DummyLidarDriver()
+
+    def _resolve_fused_ingest(self) -> bool:
+        """Whether this configure would build the fused ingest seam (not
+        in this package yet).  The dummy driver synthesizes host scans
+        above the protocol layer, so dummy mode falls back to the host
+        path with a notice, as the JAX package does."""
+        backend = resolve_ingest_backend(self.params.ingest_backend)
+        if backend != "fused" or not self.params.filter_chain:
+            if getattr(self.params, "deskew_enable", False):
+                raise ValueError(
+                    "deskew_enable requires this node's ingest seam to "
+                    f"resolve fused (ingest_backend="
+                    f"{self.params.ingest_backend!r} resolved "
+                    f"{backend!r}) — de-skew/reconstruction runs inside "
+                    "the fused ingest program only"
+                )
+            return False
+        if self.params.dummy_mode and self._driver_factory is None:
+            log.warning(
+                "ingest_backend='fused' needs a wire-streaming driver; "
+                "dummy_mode synthesizes scans above the protocol layer — "
+                "falling back to the host ingest path"
+            )
+            return False
+        raise NotImplementedError(
+            "ingest_backend='fused' is not ported to the PyTorch package "
+            "yet (ROADMAP A.6, fused device ingest)"
+        )
+
+    def on_configure(self) -> bool:
+        log.info("%s: configuring (port=%s)", self.name, self.params.serial_port)
+        if self.params.map_enable:
+            raise NotImplementedError(
+                "map_enable (SLAM mapper and loop closure) is not ported to "
+                "the PyTorch package yet (ROADMAP A.8/A.9)"
+            )
+        if self._driver_factory is None and not self.params.dummy_mode:
+            raise NotImplementedError(
+                "the real (wire-protocol) driver is not ported to the PyTorch "
+                "package yet (ROADMAP A.4, bytes -> revolution); use "
+                "dummy_mode or pass a driver_factory"
+            )
+        factory = self._driver_factory or self._default_factory
+        self._resolve_fused_ingest()
+        self.fsm = ScanLoopFsm(
+            factory,
+            self._on_scan,
+            params=self.params,
+            timings=self._fsm_timings,
+            on_state_change=self._on_fsm_state,
+        )
+        if self.params.filter_chain:
+            self.chain = ScanFilterChain(self.params)
+            if self._chain_snapshot is not None:
+                if not self.chain.restore(self._chain_snapshot):
+                    # geometry changed since the snapshot: drop it rather
+                    # than re-trying (and re-warning) every configure
+                    self._chain_snapshot = None
+        else:
+            self.raw_device = pick_device(self.params.filter_backend)
+        self.diagnostics = DiagnosticsUpdater(
+            hardware_id=f"rplidar-{self.params.serial_port}",
+            publisher=self.publisher,
+        )
+        if self.params.publish_tf:
+            self.publisher.publish_tf_static(
+                StaticTransform(child=self.params.frame_id)
+            )
+        self._update_diagnostics()
+        return True
+
+    def on_activate(self) -> bool:
+        assert self.fsm is not None
+        self.fsm.start()
+        self._update_diagnostics()
+        return True
+
+    def _on_fsm_state(self, state) -> None:
+        # leaving RUNNING (deactivate, hot-unplug, RESETTING): drain the
+        # pipelined publish seam NOW — the chain (and its pending output)
+        # survives driver recreation, and an output held across a
+        # recovery gap would otherwise be published arbitrarily late
+        if state is not DriverState.RUNNING:
+            self._drain_pipeline()
+        self._update_diagnostics()
+
+    def _drain_pipeline(self) -> None:
+        """Publish the pipelined seam's in-flight revolution, if any.
+
+        Must never raise: it runs inside the FSM loop's error handler,
+        where an escaping exception would unwind the scan thread and kill
+        recovery.  The pending output is dropped in that case."""
+        if self.chain is None or self._pipeline_meta is None:
+            return
+        meta, self._pipeline_meta = self._pipeline_meta, None
+        try:
+            out = self.chain.flush_pipelined()
+            if out is not None:
+                self._publish_chain_output(out, *meta)
+        except Exception:
+            # the meta is spent, so the re-stashed output must go too
+            self.chain.discard_pipelined()
+            log.warning("dropping in-flight pipelined output (drain failed)",
+                        exc_info=True)
+
+    def on_deactivate(self) -> bool:
+        if self.fsm:
+            self.fsm.stop()
+        # drain the pipelined publish seam: the last revolution's output
+        # is still in flight when the scan thread stops
+        self._drain_pipeline()
+        # preserve the rolling window across deactivate/activate
+        if self.chain is not None:
+            self._chain_snapshot = self.chain.snapshot()
+        self._update_diagnostics()
+        return True
+
+    def on_cleanup(self) -> bool:
+        self.fsm = None
+        self.chain = None
+        self.raw_device = None
+        # _chain_snapshot intentionally survives cleanup: it is the
+        # checkpoint/resume surface — a later configure restores the
+        # rolling window.  discard_checkpoint() drops it.
+        return True
+
+    def discard_checkpoint(self) -> None:
+        """Forget the saved filter-window snapshot (next configure starts
+        cold)."""
+        self._chain_snapshot = None
+
+    def save_checkpoint(self, path: str) -> bool:
+        """Persist the filter-chain state to one atomic file
+        (utils/checkpoint.py; the JAX package's format).
+
+        Uses the live state when active/inactive, else the last
+        deactivate-time snapshot.  Returns False when there is nothing to
+        save (no chain configured and no snapshot held)."""
+        from rplidar_ros2_driver_tpu_torch.utils.checkpoint import save_checkpoint
+
+        snap = self.chain.snapshot() if self.chain is not None else self._chain_snapshot
+        if snap is None:
+            return False
+        save_checkpoint(path, dict(snap), extra={"node": self.name})
+        return True
+
+    def load_checkpoint(self, path: str) -> bool:
+        """Stage an on-disk checkpoint for the next configure (or restore it
+        immediately into an already-configured chain).
+
+        Returns False — touching nothing — when the file is absent/torn
+        or its geometry doesn't match the current chain parameters.  A
+        checkpoint written by the JAX package loads here; its mapper /
+        loop-closure keys, if any, are dropped with a warning (no SLAM in
+        this package yet)."""
+        from rplidar_ros2_driver_tpu_torch.utils.checkpoint import load_checkpoint
+
+        if not self.params.filter_chain:
+            return False
+        loaded = load_checkpoint(path)
+        if loaded is None:
+            return False
+        snap, _meta = loaded
+        slam = [k for k in snap if k.startswith(_SLAM_KEY_PREFIXES)]
+        if slam:
+            log.warning("dropping %d SLAM checkpoint entries (not ported)", len(slam))
+            snap = {k: v for k, v in snap.items() if k not in slam}
+        if self.chain is not None:
+            if not self.chain.restore(snap):  # rejects mismatch untouched
+                return False
+            self._chain_snapshot = snap
+            return True
+        # no live chain yet: validate host-side against the geometry the
+        # next configure will build (no device transfers)
+        if not ScanFilterChain.snapshot_compatible(self.params, snap):
+            return False
+        self._chain_snapshot = snap
+        return True
+
+    def on_shutdown(self) -> bool:
+        return True
+
+    # ------------------------------------------------------------------
+    # hot path: one revolution
+    # ------------------------------------------------------------------
+
+    def _on_scan(self, scan: dict, start_time: float, duration: float) -> None:
+        """One revolution, as raw host arrays (angle_q14/dist_q2/quality/
+        flag numpy).  Chain path: one bit-packed upload + the step.  Raw
+        path: ScanBatch upload + optional angle compensation +
+        to_laserscan (publish_scan, src/rplidar_node.cpp:558-683)."""
+        params = self.params
+        max_range = self.fsm.cached_max_range or 40.0
+        is_new = True
+        if self.fsm.driver is not None:
+            is_new = self.fsm.driver.is_new_type()
+
+        with self.tracer.stage("filter"):
+            out = None
+            if self.chain is not None:
+                if params.pipelined_publish:
+                    # publish revolution N-1 while N computes (one
+                    # revolution of declared staleness; the stamp below
+                    # is N-1's own)
+                    out = self.chain.process_raw_pipelined(
+                        scan["angle_q14"], scan["dist_q2"], scan["quality"],
+                        scan.get("flag"),
+                    )
+                    # max_range travels with the revolution too
+                    meta, self._pipeline_meta = (
+                        self._pipeline_meta, (start_time, duration, max_range)
+                    )
+                    if out is None or meta is None:
+                        return  # first revolution of the stream: nothing pending
+                    start_time, duration, max_range = meta
+                else:
+                    if self._pipeline_meta is not None:
+                        # pipelined_publish was toggled off mid-stream:
+                        # drain the in-flight revolution now, in order
+                        self._drain_pipeline()
+                    out = self.chain.process_raw(
+                        scan["angle_q14"], scan["dist_q2"], scan["quality"],
+                        scan.get("flag"),
+                    )
+
+        if out is not None:
+            self._publish_chain_output(out, start_time, duration, max_range)
+            return
+
+        with self.tracer.stage("convert"):
+            batch = apply_angle_compensation(
+                ScanBatch.from_numpy(
+                    scan["angle_q14"], scan["dist_q2"], scan["quality"],
+                    scan.get("flag"), device=self.raw_device,
+                ),
+                params.angle_compensate,
+            )
+            ls = to_laserscan(
+                batch,
+                duration,
+                max_range,
+                scan_processing=params.scan_processing,
+                inverted=params.inverted,
+                is_new_type=is_new,
+            )
+            bc = int(ls.beam_count)
+            if bc == 0:
+                return
+            msg = LaserScanHost(
+                stamp=start_time,
+                frame_id=params.frame_id,
+                angle_min=float(ls.angle_min),
+                angle_max=float(ls.angle_max),
+                angle_increment=float(ls.angle_increment),
+                time_increment=float(ls.time_increment),
+                scan_time=float(ls.scan_time),
+                range_min=float(ls.range_min),
+                range_max=float(ls.range_max),
+                ranges=ls.ranges[:bc].cpu().numpy(),
+                intensities=ls.intensities[:bc].cpu().numpy(),
+            )
+
+        with self.tracer.stage("publish"):
+            self.publisher.publish_scan(msg)
+
+    def _publish_chain_output(
+        self, out, stamp: float, duration: float, max_range: Optional[float] = None
+    ) -> None:
+        """Convert + publish one chain FilterOutput (shared by the
+        synchronous path, the pipelined path and the deactivate-time
+        pipeline drain).  The output is already on the fixed angular
+        grid."""
+        params = self.params
+        if max_range is None:
+            max_range = (self.fsm.cached_max_range if self.fsm else None) or 40.0
+        with self.tracer.stage("convert"):
+            beams = int(np.asarray(out.ranges).shape[0])
+            msg = LaserScanHost(
+                stamp=stamp,
+                frame_id=params.frame_id,
+                angle_min=0.0,
+                angle_max=2.0 * np.pi,
+                angle_increment=2.0 * np.pi / beams,
+                time_increment=duration / beams,
+                scan_time=duration,
+                range_min=params.range_clip_min_m,
+                range_max=max_range,
+                ranges=np.asarray(out.ranges),
+                intensities=np.asarray(out.intensities),
+            )
+        with self.tracer.stage("publish"):
+            self.publisher.publish_scan(msg)
+            self.publisher.publish_cloud(
+                PointCloudHost(
+                    stamp=stamp,
+                    frame_id=params.frame_id,
+                    points_xy=np.asarray(out.points_xy)[np.asarray(out.point_mask)],
+                    voxel=np.asarray(out.voxel),
+                )
+            )
+
+    # ------------------------------------------------------------------
+    # diagnostics (src/rplidar_node.cpp:490-545)
+    # ------------------------------------------------------------------
+
+    def _update_diagnostics(self) -> None:
+        if self.diagnostics is None:
+            return
+        lat = {}
+        for stage in ("filter", "convert", "publish"):
+            p = self.tracer.percentile(stage, 99.0)
+            if p > 0:
+                lat[stage] = 1e3 * p
+        driver = self.fsm.driver if self.fsm else None
+        reconnect = None
+        if self.fsm is not None and (
+            self.fsm.connect_attempts or self.fsm.reconnect_backoff_s
+        ):
+            reconnect = {
+                "attempts": self.fsm.connect_attempts,
+                "backoff_s": self.fsm.reconnect_backoff_s,
+            }
+            drv_failures = getattr(driver, "connect_failures", None)
+            if drv_failures:
+                reconnect["driver_failures"] = drv_failures
+        self.diagnostics.update(
+            lifecycle=self.lifecycle_state,
+            fsm_state=self.fsm.state if self.fsm else None,
+            port=self.params.serial_port,
+            rpm=self.params.rpm,
+            device_info=self.fsm.cached_device_info if self.fsm else "",
+            latency_p99_ms=lat or None,
+            rx_scheduling=driver.rx_scheduling_class() if driver is not None else None,
+            reconnect=reconnect,
+        )
+
+    # ------------------------------------------------------------------
+    # dynamic reconfigure (src/rplidar_node.cpp:689-774)
+    # ------------------------------------------------------------------
+
+    def set_parameters(self, updates: dict) -> tuple[bool, str]:
+        """Runtime parameter updates; returns (successful, reason)."""
+        with self._param_lock:
+            if self.fsm is None or self.fsm.driver is None:
+                return False, "Driver not ready"
+            with self.fsm.driver_mutex:
+                if not self.fsm.driver.is_connected():
+                    return False, "Driver not ready"
+                for key, value in updates.items():
+                    if key == "rpm":
+                        if not isinstance(value, int) or not (0 <= value <= 1200):
+                            return False, f"rpm {value} out of range [0, 1200]"
+                        if not self.fsm.driver.set_motor_speed(value):
+                            return False, "failed to apply motor speed"
+                        self.params.rpm = value
+                    elif key == "scan_processing":
+                        self.params.scan_processing = bool(value)
+                    elif key == "scan_mode":
+                        ok = self._hot_swap_scan_mode(str(value))
+                        if not ok:
+                            return False, f"scan mode '{value}' rejected"
+                    else:
+                        return False, f"parameter '{key}' is not runtime-mutable"
+            self._update_diagnostics()
+            return True, "success"
+
+    def _hot_swap_scan_mode(self, mode: str) -> bool:
+        """stop motor -> 500 ms -> restart in new mode; fall back to auto
+        on failure (src/rplidar_node.cpp:740-770)."""
+        drv = self.fsm.driver
+        drv.stop_motor()
+        time.sleep(0.5 if self._fsm_timings is None else self._fsm_timings.idle_tick_s)
+        if drv.start_motor(mode, self.params.rpm):
+            self.params.scan_mode = mode
+            return True
+        log.error("scan mode '%s' failed; falling back to auto", mode)
+        drv.start_motor("", self.params.rpm)
+        self.params.scan_mode = ""
+        return False
+
+
+def make_node_from_yaml(path: str, **kwargs) -> RPlidarNode:
+    """Launch-file equivalent: YAML is the single source of truth
+    (launch/rplidar.launch.py:86-93)."""
+    return RPlidarNode(DriverParams.from_yaml(path), **kwargs)
+
+
+def launch(node: RPlidarNode) -> RPlidarNode:
+    """Auto lifecycle bringup: CONFIGURE on start, ACTIVATE once inactive
+    (launch/rplidar.launch.py:109-141)."""
+    if node.lifecycle_state is LifecycleState.UNCONFIGURED:
+        if not node.configure():
+            return node
+    if node.lifecycle_state is LifecycleState.INACTIVE:
+        node.activate()
+    return node

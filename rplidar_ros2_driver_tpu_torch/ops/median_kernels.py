@@ -1,0 +1,137 @@
+"""Wrappers of the temporal-median CUDA kernels (csrc/median.cu).
+
+Two kernels replace the JAX package's Pallas TPU kernels on the
+streaming step:
+
+  * B1 :func:`temporal_median_kernel` — ``temporal_median_pallas``
+    (``median_backend="pallas"``): per-beam lower median of a (W, B) ring.
+  * B2 :func:`sorted_replace_kernel` — ``sorted_replace_pallas``
+    (``median_backend="inc_pallas"``): delete/insert on the carried
+    sorted window, plus its lower median, in one pass.
+
+Each wrapper checks dtype, shape, contiguity and device.  A tensor on the
+CPU runs the kernel's plain PyTorch version (:func:`temporal_median_plain`,
+:func:`sorted_replace_plain`); a CUDA tensor launches the kernel (built
+from the source at first use, utils/cuda_build.py) or raises — there is no
+fallback.  ``launch_counts`` counts the launches of each kernel; only a
+launch adds to it.  What bounds the kernels and how they are built is in
+the source's header note.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rplidar_ros2_driver_tpu_torch.ops.filters import (
+    median_from_sorted,
+    sorted_replace,
+    temporal_median,
+)
+from rplidar_ros2_driver_tpu_torch.utils.cuda_build import load_library
+
+# kernel name -> launches since the last reset_launch_counts()
+launch_counts = {"temporal_median": 0, "sorted_replace": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _median_lib() -> ctypes.CDLL:
+    lib = load_library("median")
+    if not getattr(lib, "_signatures_set", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.temporal_median_f32.argtypes = [vp, vp, i, i, vp]
+        lib.temporal_median_f32.restype = i
+        lib.sorted_replace_f32.argtypes = [vp, vp, vp, vp, vp, i, i, vp]
+        lib.sorted_replace_f32.restype = i
+        lib._signatures_set = True
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
+
+
+def temporal_median_plain(window: torch.Tensor) -> torch.Tensor:
+    """Plain version of B1: sort the ring, pick the lower median."""
+    return temporal_median(window)
+
+
+def sorted_replace_plain(
+    sorted_w: torch.Tensor, old_v: torch.Tensor, new_v: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B2: :func:`sorted_replace` then
+    :func:`median_from_sorted`."""
+    out = sorted_replace(sorted_w, old_v, new_v)
+    return out, median_from_sorted(out)
+
+
+def temporal_median_kernel(window: torch.Tensor) -> torch.Tensor:
+    """(W, B) float32 ring (+inf = missing) -> (B,) lower medians."""
+    if window.ndim != 2 or window.shape[0] < 1:
+        raise ValueError(f"window must be (W>=1, B), got {tuple(window.shape)}")
+    w, b = window.shape
+    _check("window", window, (w, b), window.device)
+    if window.device.type == "cpu":
+        return temporal_median_plain(window)
+    if window.device.type != "cuda":
+        raise RuntimeError(f"no temporal-median kernel for device {window.device}")
+    out = torch.empty((b,), dtype=torch.float32, device=window.device)
+    if b == 0:
+        return out
+    stream = torch.cuda.current_stream(window.device).cuda_stream
+    with torch.cuda.device(window.device):
+        rc = _median_lib().temporal_median_f32(
+            window.data_ptr(), out.data_ptr(), w, b, stream
+        )
+    _raise_on(rc, "temporal_median")
+    launch_counts["temporal_median"] += 1
+    return out
+
+
+def sorted_replace_kernel(
+    sorted_w: torch.Tensor, old_v: torch.Tensor, new_v: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sorted (W, B) window, evicted (B,), inserted (B,) -> (updated
+    window (W, B), its lower medians (B,)).  ``old_v`` must be present in
+    each column (it came from the same ring)."""
+    if sorted_w.ndim != 2 or sorted_w.shape[0] < 1:
+        raise ValueError(f"sorted_w must be (W>=1, B), got {tuple(sorted_w.shape)}")
+    w, b = sorted_w.shape
+    dev = sorted_w.device
+    _check("sorted_w", sorted_w, (w, b), dev)
+    _check("old_v", old_v, (b,), dev)
+    _check("new_v", new_v, (b,), dev)
+    if dev.type == "cpu":
+        return sorted_replace_plain(sorted_w, old_v, new_v)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no sorted-replace kernel for device {dev}")
+    out = torch.empty((w, b), dtype=torch.float32, device=dev)
+    med = torch.empty((b,), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out, med
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _median_lib().sorted_replace_f32(
+            sorted_w.data_ptr(), old_v.data_ptr(), new_v.data_ptr(),
+            out.data_ptr(), med.data_ptr(), w, b, stream,
+        )
+    _raise_on(rc, "sorted_replace")
+    launch_counts["sorted_replace"] += 1
+    return out, med

@@ -1,0 +1,82 @@
+"""The PyTorch package stands alone: no JAX, no JAX package.
+
+The check reads the source (an AST scan of every import, top level and
+nested), not ``sys.modules``: this environment imports JAX at interpreter
+start-up, so a module-table check would prove nothing.
+"""
+
+import ast
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "rplidar_ros2_driver_tpu_torch")
+JAX_PACKAGE = "rplidar_ros2_driver_tpu"
+
+
+def port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", None))
+            in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            yield str(node.args[0].value)
+
+
+def forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib") or top == JAX_PACKAGE
+
+
+@pytest.mark.parametrize("path", port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_jax_package_import(path):
+    bad = [m for m in imported_modules(path) if forbidden(m)]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_scan_sees_the_whole_port():
+    rel = {os.path.relpath(p, PORT) for p in port_sources()}
+    for module in (
+        "core/config.py", "core/types.py", "ops/filters.py", "ops/median_kernels.py",
+        "filters/chain.py", "driver/dummy.py", "node/node.py", "launch/lifecycle_launch.py",
+        "__main__.py",
+    ):
+        assert module in rel
+    assert os.path.exists(os.path.join(PORT, "csrc", "median.cu"))
+
+
+def test_detector_catches_jax_imports():
+    src = "import jax\nfrom rplidar_ros2_driver_tpu.ops import filters\nimport rplidar_ros2_driver_tpu_torch\n"
+    tree_mods = []
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            tree_mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            tree_mods.append(node.module)
+    assert [m for m in tree_mods if forbidden(m)] == ["jax", "rplidar_ros2_driver_tpu.ops"]
+
+
+def test_kernels_are_hand_written_not_compiled_torch():
+    """No torch.compile or library-kernel builder stands in for a kernel."""
+    for path in port_sources():
+        text = open(path).read()
+        assert "torch.compile" not in text, path
+        assert "cpp_extension" not in text, path

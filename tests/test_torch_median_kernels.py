@@ -1,0 +1,157 @@
+"""The temporal-median kernels' plain versions against the JAX package.
+
+B1 (temporal_median_kernel) and B2 (sorted_replace_kernel) launch CUDA
+kernels for CUDA tensors; for CPU tensors their wrappers run the plain
+PyTorch versions, which are what these tests hold to the JAX package's
+Pallas kernels (interpret mode on the CPU, as tests/test_pallas_median.py
+runs them) and jnp formulations — bit-exact.  The CUDA kernels themselves
+are held to the plain versions on the card by chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rplidar_ros2_driver_tpu.ops.filters import median_from_sorted, sorted_replace, temporal_median
+from rplidar_ros2_driver_tpu.ops.pallas_kernels import sorted_replace_pallas, temporal_median_pallas
+from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+from rplidar_ros2_driver_tpu_torch.utils import cuda_build
+
+
+def rand_window(rng, w, b, inf_frac=0.3):
+    win = rng.uniform(0.1, 40.0, (w, b)).astype(np.float32)
+    win[rng.uniform(size=(w, b)) < inf_frac] = np.inf
+    return win
+
+
+FIXTURES = ["random_inf", "ties_1mm", "heavy_ties", "all_finite"]
+
+
+def fixture(rng, w, b, kind):
+    if kind == "all_finite":
+        return rand_window(rng, w, b, inf_frac=0.0)
+    win = rand_window(rng, w, b)
+    win[:, 0] = np.inf  # an all-missing beam stays +inf
+    if kind == "ties_1mm":
+        win = (np.round(win * 1000.0) / 1000.0).astype(np.float32)
+    elif kind == "heavy_ties":
+        win = np.round(win, 0).astype(np.float32)
+    return win
+
+
+@pytest.mark.parametrize("kind", FIXTURES)
+@pytest.mark.parametrize(
+    "w,b", [(1, 5), (2, 128), (4, 16), (7, 100), (16, 640), (64, 2048), (33, 257)]
+)
+def test_b1_plain_matches_pallas_and_jnp(w, b, kind):
+    rng = np.random.default_rng(w * 1000 + b)
+    win = fixture(rng, w, b, kind)
+    got = mk.temporal_median_kernel(torch.from_numpy(win)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(temporal_median(jnp.asarray(win))))
+    np.testing.assert_array_equal(got, np.asarray(temporal_median_pallas(jnp.asarray(win))))
+
+
+def test_b1_all_finite_is_exact_lower_median():
+    rng = np.random.default_rng(7)
+    win = rand_window(rng, 8, 64, inf_frac=0.0)
+    got = mk.temporal_median_kernel(torch.from_numpy(win)).numpy()
+    np.testing.assert_array_equal(got, np.sort(win, axis=0)[(8 - 1) // 2])
+
+
+@pytest.mark.parametrize("w,b", [(4, 16), (8, 64), (16, 640), (7, 100), (33, 257), (64, 130)])
+def test_b2_plain_matches_pallas_and_jnp_over_ring_steps(w, b):
+    """Successive ring steps (unfilled window, then wraparound) with +inf
+    and ties, odd W and a ragged beam count."""
+    rng = np.random.default_rng(w * 77 + b)
+    ring = np.full((w, b), np.inf, np.float32)
+    sor = ring.copy()
+    cursor = 0
+    for step in range(2 * w + 5):
+        new = rng.uniform(0.1, 40.0, b).astype(np.float32)
+        new[rng.random(b) < 0.3] = np.inf
+        if step % 5 == 0:
+            new[:] = new[0]
+        if step % 3 == 0:
+            new = np.round(new, 0).astype(np.float32)
+        old = ring[cursor].copy()
+        got, got_med = mk.sorted_replace_kernel(
+            torch.from_numpy(sor), torch.from_numpy(old), torch.from_numpy(new)
+        )
+        ref = np.array(sorted_replace(jnp.asarray(sor), jnp.asarray(old), jnp.asarray(new)))
+        np.testing.assert_array_equal(got.numpy(), ref)
+        np.testing.assert_array_equal(got_med.numpy(), np.asarray(median_from_sorted(jnp.asarray(ref))))
+        if step % 4 == 0:  # the interpret-mode kernel is slow: every 4th step
+            p_out, p_med = sorted_replace_pallas(jnp.asarray(sor), jnp.asarray(old), jnp.asarray(new))
+            np.testing.assert_array_equal(got.numpy(), np.asarray(p_out))
+            np.testing.assert_array_equal(got_med.numpy(), np.asarray(p_med))
+        sor = ref
+        ring[cursor] = new
+        cursor = (cursor + 1) % w
+    np.testing.assert_array_equal(sor, np.sort(ring, axis=0))
+
+
+def test_plain_versions_are_the_filter_functions():
+    rng = np.random.default_rng(3)
+    win = torch.from_numpy(rand_window(rng, 9, 33))
+    assert torch.equal(mk.temporal_median_plain(win), mk.temporal_median_kernel(win))
+    s = torch.sort(win, dim=0).values
+    out, med = mk.sorted_replace_plain(s, win[2].clone(), win[4].clone())
+    out2, med2 = mk.sorted_replace_kernel(s, win[2].clone(), win[4].clone())
+    assert torch.equal(out, out2) and torch.equal(med, med2)
+
+
+def test_wrappers_check_their_inputs():
+    x = torch.zeros(4, 8)
+    with pytest.raises(TypeError):
+        mk.temporal_median_kernel(x.double())
+    with pytest.raises(ValueError):
+        mk.temporal_median_kernel(torch.zeros(8))
+    with pytest.raises(ValueError):
+        mk.temporal_median_kernel(torch.zeros(0, 8))
+    with pytest.raises(ValueError):
+        mk.temporal_median_kernel(torch.zeros(8, 4).T)  # not contiguous
+    with pytest.raises(ValueError):
+        mk.sorted_replace_kernel(x, torch.zeros(7), torch.zeros(8))
+    with pytest.raises(TypeError):
+        mk.sorted_replace_kernel(x, torch.zeros(8, dtype=torch.int32), torch.zeros(8))
+    with pytest.raises(ValueError):
+        mk.sorted_replace_kernel(x, torch.zeros(8).expand(2, 8)[0], torch.zeros(16)[::2])
+
+
+def test_wrappers_raise_on_a_device_without_a_kernel():
+    """Only a CPU tensor takes the plain version: any other device launches
+    the kernel or raises, never falls back."""
+    x = torch.zeros(4, 8, device="meta")
+    with pytest.raises(RuntimeError):
+        mk.temporal_median_kernel(x)
+    with pytest.raises(RuntimeError):
+        mk.sorted_replace_kernel(x, torch.zeros(8, device="meta"), torch.zeros(8, device="meta"))
+
+
+def test_cpu_tensors_count_no_launch():
+    mk.reset_launch_counts()
+    win = torch.full((4, 8), 1.0)
+    mk.temporal_median_kernel(win)
+    mk.sorted_replace_kernel(win, win[0].clone(), win[1].clone())
+    assert mk.launch_counts == {"temporal_median": 0, "sorted_replace": 0}
+
+
+def test_build_is_keyed_on_the_source_and_needs_nvcc(monkeypatch, tmp_path):
+    path = cuda_build.library_path("median")
+    assert path.parent == cuda_build.BUILD_DIR and path.name.startswith("libmedian_")
+    assert cuda_build.library_path("median") == path  # stable for the same source
+    assert (cuda_build.CSRC_DIR / cuda_build.SOURCES["median"]).exists()
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(cuda_build.os, "access", lambda *a: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.find_nvcc()
+
+
+def test_cuda_source_exports_both_kernels():
+    src = (cuda_build.CSRC_DIR / "median.cu").read_text()
+    assert 'extern "C" int temporal_median_f32(' in src
+    assert 'extern "C" int sorted_replace_f32(' in src
+    assert "cudaGetLastError()" in src
+    assert "sm_90a" in " ".join(cuda_build.NVCC_FLAGS)
