@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch package on one NVIDIA card (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--seed N] [--revs N]
+    python3 chip_smoke.py [--seed N] [--revs N] [--trace-dir DIR]
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
   1. device   — the card (nvidia-smi name and power limit), torch version,
                 compute capability (must be 9.0);
   2. build    — nvcc builds every CUDA kernel of the package from csrc/;
-  3. kernels  — each kernel against its plain PyTorch version on the card
-                (exact equality; +inf equals +inf), then timed beside the
-                plain version and a library yardstick;
+  3. kernels  — each kernel (B1, B2, B3) against its plain PyTorch version
+                on the card (exact equality; +inf equals +inf), then timed
+                beside the plain version and a library yardstick;
   4. chain    — the main path: ScanFilterChain at the headline geometry
                 (W=64, 2048 beams, 256x256 grid at 0.25 m and 0.1 m, wire
                 capacity 4096) over seeded 3200-point revolutions, through
@@ -21,7 +21,14 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
   6. ab       — B1 against B2 end to end, in alternating order;
   7. node     — launch_lifecycle in dummy mode on the card (filter chain and
                 raw paths), deactivate/activate, shutdown;
-  8. kernels  — one line listing every kernel with its launches and times.
+  8. replay   — the offline replay path at config 7's geometry (W=64, 2048
+                beams, 256x256 grid at 0.25 m, chunk 512, capacity 4096): a
+                seeded 3200-point DenseBoost capture written with the
+                package's FrameRecorder, decoded on the card, run through the
+                fused K-scan chain (kernel B3), held equal to the package's
+                CPU replay and to K streaming steps on the card; its launch
+                counts are read around the card's replay;
+  9. kernels  — one line listing every kernel with its launches and times.
 
 Then the card's name and power limit, then {"ok": true, "device": ...}.
 Any mismatch or error exits non-zero.  Without a CUDA device it exits 1
@@ -42,6 +49,11 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 GEOMETRY = dict(window=64, beams=2048, grid=256, capacity=4096, points=3200)
+# bench.py GRADED[7]: the offline replay of a DenseBoost capture through
+# the fused K-scan chain; 520 turns give a full 512-scan chunk and a
+# ragged tail chunk shorter than the window
+REPLAY = dict(window=64, beams=2048, grid=256, cell_m=0.25, chunk=512, capacity=4096,
+              points=3200, revs=520)
 
 
 def emit(obj) -> None:
@@ -233,8 +245,36 @@ def phase_kernels(device, rng) -> dict:
             "plain_device_ms": device_ms(lambda: mk.sorted_replace_plain(sor, old, new_t)),
         },
     }
+    # B3 over the test grid (odd W, K not a multiple of 8, W=1, ragged
+    # beams) and the replay path's stripe (W=64, K=512, B=2048)
+    max_err["sliding_median"] = 0.0
+    b3_checked = 0
+    b3_shapes = [(4, 8, 64), (6, 8, 100), (7, 16, 257), (8, 3, 128), (16, 24, 640), (1, 8, 32),
+                 (REPLAY["window"], REPLAY["chunk"], REPLAY["beams"])]
+    for w3, k3, b3 in b3_shapes:
+        for name, ext in _median_fixtures(rng, w3 + k3, b3).items():
+            x = torch.from_numpy(ext).to(device)
+            ok, err = exact(mk.sliding_median_kernel(x, w3), mk.sliding_median_plain(x, w3))
+            max_err["sliding_median"] = max(max_err["sliding_median"], err)
+            check(ok, f"B3 differs from its plain version at (W, K, B)=({w3}, {k3}, {b3}) "
+                      f"{name}: {err}")
+            b3_checked += 1
+    w3, k3, b3 = b3_shapes[-1]
+    ext = torch.from_numpy(_median_fixtures(rng, w3 + k3, b3)["ties_1mm"]).to(device)
+    nan_ext = torch.where(torch.isinf(ext), torch.full_like(ext, math.nan), ext)
+    times["sliding_median"] = {
+        "ms": cuda_ms(lambda: mk.sliding_median_kernel(ext, w3), iters=50),
+        "plain_ms": cuda_ms(lambda: mk.sliding_median_plain(ext, w3), iters=10, warmup=2),
+        # the same K windows' lower medians in one PyTorch call (NaN for +inf)
+        "library_ms": cuda_ms(
+            lambda: torch.nanmedian(nan_ext.unfold(0, w3, 1)[1 : k3 + 1], dim=-1), iters=10,
+            warmup=2),
+        "device_ms": device_ms(lambda: mk.sliding_median_kernel(ext, w3), iters=20),
+        "plain_device_ms": device_ms(lambda: mk.sliding_median_plain(ext, w3), iters=5),
+    }
     emit({"phase": "kernels", "checked_b1_fixtures": checked, "b2_steps": b2_steps,
-          "max_abs_err": max_err, "times_ms": times, "shape": [w, b]})
+          "checked_b3_fixtures": b3_checked, "max_abs_err": max_err, "times_ms": times,
+          "shape": [w, b], "b3_shape": [w3, k3, b3]})
     return {"max_abs_err": max_err, "times": times}
 
 
@@ -431,6 +471,160 @@ def phase_ab(device, revs, rounds: int = 10, per_arm: int = 100) -> dict:
     return row
 
 
+def denseboost_frames(seed: int, revs: int, points: int) -> list[bytes]:
+    """Seeded DenseBoost capture (dense capsules of 40 samples; the pattern
+    of bench.py's _denseboost_wire_frames): a 2 m +/- 0.5 m ring with 10 mm
+    noise, 5% drop-outs and 2% returns beyond range_max."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.ops import wire
+
+    rng = np.random.default_rng(seed)
+    frames = []
+    for n, idx in enumerate(range(0, revs * points, 40)):
+        pts = (np.arange(40) + idx) % points
+        mm = 2000.0 + 500.0 * np.sin(2 * np.pi * pts / points + 0.1 * (idx // points))
+        mm = mm + rng.normal(0.0, 10.0, 40)
+        mm[rng.random(40) < 0.05] = 0
+        mm[rng.random(40) < 0.02] = 50000
+        start_q6 = int(360.0 * (idx % points) / points * 64) & 0x7FFF
+        frames.append(wire.encode_dense_capsule(start_q6, n == 0, mm.astype(int)))
+    return frames
+
+
+def _replay_params(backend: str):
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+
+    return DriverParams(
+        filter_backend=backend, filter_chain=("clip", "median", "voxel"),
+        filter_window=REPLAY["window"], voxel_grid_size=REPLAY["grid"],
+        voxel_cell_m=REPLAY["cell_m"], median_backend="pallas",
+    )
+
+
+def _same_state(a, b) -> bool:
+    import numpy as np
+
+    sa, sb = a.to_numpy(), b.to_numpy()
+    return sa.keys() == sb.keys() and all(np.array_equal(sa[k], sb[k]) for k in sa)
+
+
+def phase_replay(device, seed: int) -> dict:
+    """The offline replay path at config 7's geometry: a seeded DenseBoost
+    capture written with the package's FrameRecorder, decoded on the card,
+    split into revolutions, and run through the fused K-scan chain with
+    B3 — every result held equal to the package's CPU replay, and the
+    card's fused chain to K streaming steps on the card."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rplidar_ros2_driver_tpu_torch.filters.chain import config_from_params
+    from rplidar_ros2_driver_tpu_torch.ops import filters as tf
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+    from rplidar_ros2_driver_tpu_torch.replay import (
+        FrameRecorder,
+        decode_recording,
+        replay_through_chain,
+    )
+
+    t0 = time.perf_counter()
+    frames = denseboost_frames(seed, REPLAY["revs"], REPLAY["points"])
+    encode_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "denseboost.rplr")
+        with FrameRecorder(path) as rec:
+            for i, fr in enumerate(frames):
+                rec.write(int(Ans.MEASUREMENT_DENSE_CAPSULED), fr, i * 1e-3)
+        decode_recording(path, device)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec = decode_recording(path, device)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        dec_cpu = decode_recording(path, "cpu")
+        decode_cpu_ms = (time.perf_counter() - t0) * 1e3
+    check(dec.runs == dec_cpu.runs, f"decode runs differ: {dec.runs} vs {dec_cpu.runs}")
+    for key in ("angle_q14", "dist_q2", "quality", "flag"):
+        check(np.array_equal(getattr(dec, key), getattr(dec_cpu, key)),
+              f"card decode differs from the CPU decode in {key}")
+    revs, revs_cpu = dec.revolutions(), dec_cpu.revolutions()
+    check(len(revs) == len(revs_cpu) == REPLAY["revs"] - 1,
+          f"{len(revs)} / {len(revs_cpu)} revolutions for {REPLAY['revs']} turns")
+    check(all(np.array_equal(a[k], b[k]) for a, b in zip(revs, revs_cpu) for k in a),
+          "revolutions differ between the card and CPU decodes")
+
+    kw = dict(beams=REPLAY["beams"], capacity=REPLAY["capacity"], chunk=REPLAY["chunk"])
+    n_chunks = -(-len(revs) // REPLAY["chunk"])
+    replay_through_chain(revs[: REPLAY["chunk"]], _replay_params("cuda"), **kw)  # warm-up
+    torch.cuda.synchronize()
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    ranges, state = replay_through_chain(revs, _replay_params("cuda"), **kw)
+    wall = time.perf_counter() - t0
+    launched = dict(mk.launch_counts)
+    check(launched["sliding_median"] == n_chunks,
+          f"B3 launched {launched['sliding_median']} times for {n_chunks} chunks")
+
+    t0 = time.perf_counter()
+    ranges_cpu, state_cpu = replay_through_chain(revs, _replay_params("cpu"), **kw)
+    cpu_wall = time.perf_counter() - t0
+    check(ranges.shape == (len(revs), REPLAY["beams"]), f"ranges shape {ranges.shape}")
+    ok, err = exact(torch.from_numpy(ranges), torch.from_numpy(ranges_cpu))
+    check(ok, f"card replay ranges differ from the CPU replay: {err}")
+    check(_same_state(state, state_cpu), "card replay's final state differs from the CPU's")
+    check(state.median_sorted is None and state_cpu.median_sorted is None, "unexpected sorted state")
+
+    # the fused chain on the card equals K streaming steps on the card
+    cfg = config_from_params(_replay_params("cuda"), REPLAY["beams"], platform="cuda")
+    seq, counts = tf.pack_host_scans_compact(revs, REPLAY["capacity"])
+    seq_state, seq_ranges = tf._compact_filter_scan_sequential(
+        tf.FilterState.for_config(cfg, device=device),
+        torch.from_numpy(seq.view(np.int16)).to(device), torch.from_numpy(counts).to(device), cfg,
+    )
+    ok, err = exact(seq_ranges.cpu(), torch.from_numpy(ranges))
+    check(ok, f"fused replay differs from {len(revs)} streaming steps on the card: {err}")
+    check(_same_state(seq_state.to("cpu"), state), "fused final state differs from the steps'")
+
+    fin = np.isfinite(ranges[-1])
+    check(fin.sum() > 0.9 * REPLAY["beams"], "too few finite replay ranges")
+    check(float(np.abs(ranges[-1][fin] - 2.0).max()) < 0.6, "replay ranges off the ring")
+    check(int(state.voxel_acc.sum()) > 0, "empty replay voxel grid")
+
+    # where a replay's time goes: host packing of one chunk, then the
+    # device's share of one whole replay under the profiler
+    t0 = time.perf_counter()
+    tf.pack_host_scans_compact(revs[: REPLAY["chunk"]], REPLAY["capacity"])
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        replay_through_chain(revs, _replay_params("cuda"), **kw)
+        prof_wall = time.perf_counter() - t0
+    dev_events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    busy_us = sum(ev.time_range.elapsed_us() for ev in dev_events)
+    by_kernel = {}
+    for ev in dev_events:
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    b3_us = sum(v for k, v in by_kernel.items() if "sliding_median" in k)
+    row = {
+        "phase": "replay", "turns": REPLAY["revs"], "frames": len(frames),
+        "nodes": dec.num_nodes, "revolutions": len(revs), "chunks": n_chunks,
+        "encode_s": encode_s, "decode_ms": decode_ms, "decode_cpu_ms": decode_cpu_ms,
+        "chain_scans_per_s": len(revs) / wall, "chain_ms_per_chunk": wall / n_chunks * 1e3,
+        "cpu_chain_scans_per_s": len(revs) / cpu_wall, "pack_ms_per_chunk": pack_ms,
+        "launches": launched,
+        "profiled_wall_ms": prof_wall * 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
+        "device_ops": len(dev_events), "b3_device_ms_per_chunk": b3_us / n_chunks / 1e3,
+        "top_device_ms": [[k[:80], v / 1e3]
+                          for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]],
+    }
+    emit(row)
+    return row
+
+
 def phase_node(device) -> dict:
     """The user's entry point: launch_lifecycle in dummy mode on the card."""
     import numpy as np
@@ -540,20 +734,26 @@ def main(argv=None) -> int:
     phase_profile(device, revs, args.trace_dir)
     phase_ab(device, revs)
     phase_node(device)
+    replay = phase_replay(device, args.seed)
 
     w, b = GEOMETRY["window"], GEOMETRY["beams"]
-    src = "rplidar_ros2_driver_tpu_torch/csrc/median.cu"
-    b1_bound, b1_by = bound(w * b * 4 + b * 4, 2 * w * b)
-    b2_bound, b2_by = bound(2 * w * b * 4 + 3 * b * 4, 2 * w * b)
+    w3, k3, b3 = REPLAY["window"], REPLAY["chunk"], REPLAY["beams"]
+    src = "rplidar_ros2_driver_tpu_torch/csrc/"
     kernels = []
-    for name, replaces, bnd, by in (
-        ("temporal_median", "rplidar_ros2_driver_tpu/ops/pallas_kernels.py:396", b1_bound, b1_by),
-        ("sorted_replace", "rplidar_ros2_driver_tpu/ops/pallas_kernels.py:337", b2_bound, b2_by),
+    for name, source, replaces, (bnd, by), launches in (
+        ("temporal_median", "median.cu", "rplidar_ros2_driver_tpu/ops/pallas_kernels.py:396",
+         bound(w * b * 4 + b * 4, 2 * w * b), chain["launches"]["temporal_median"]),
+        ("sorted_replace", "median.cu", "rplidar_ros2_driver_tpu/ops/pallas_kernels.py:337",
+         bound(2 * w * b * 4 + 3 * b * 4, 2 * w * b), chain["launches"]["sorted_replace"]),
+        # B3 reads the (W+K, B) stripe once and writes (K, B) medians; the
+        # least compare work of a sliding selection is 2·W per output
+        ("sliding_median", "sliding_median.cu", "rplidar_ros2_driver_tpu/ops/pallas_kernels.py:215",
+         bound((w3 + 2 * k3) * b3 * 4, 2 * w3 * k3 * b3), replay["launches"]["sliding_median"]),
     ):
         t = kern["times"][name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": chain["launches"][name], "max_abs_err": kern["max_abs_err"][name],
+            "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+            "launches": launches, "max_abs_err": kern["max_abs_err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bnd, "bound_by": by,
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "plain_device_ms": t["plain_device_ms"],

@@ -4,9 +4,10 @@ The reference's main is rclcpp::init -> RPlidarNode -> executor spin
 (src/standalone_main.cpp:6-17).  Here:
 
     python -m rplidar_ros2_driver_tpu_torch run [--params FILE] [--dummy] [--duration S] [--cpu]
+    python -m rplidar_ros2_driver_tpu_torch replay CAP.rplr [--chain] [--cpu]
 
-The filter chain runs on the CUDA card unless ``filter_backend: cpu`` (or
-``--cpu``) keeps it on the host.
+The filter chain and the replay's decode run on the CUDA card unless
+``filter_backend: cpu`` (or ``--cpu``) keeps them on the host.
 """
 
 from __future__ import annotations
@@ -55,6 +56,60 @@ def _cmd_run(args) -> int:
     return 0
 
 
+def _cmd_replay(args) -> int:
+    """Batch-decode capture(s) and, with ``--chain``, run the revolutions
+    through the fused multi-scan chain — on the card unless ``--cpu``.
+    The report lines are the JAX package's ``replay`` subcommand's."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.filters.chain import pick_device
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+    from rplidar_ros2_driver_tpu_torch.replay import decode_recording
+
+    backend = "cpu" if args.cpu else "cuda"
+    if args.chain and len(args.recordings) > 1:
+        raise NotImplementedError(
+            "replay --chain of several recordings is the sharded fleet replay, "
+            "not ported yet (ROADMAP A.7)"
+        )
+    device = pick_device(backend)
+    per_stream = []
+    for path in args.recordings:
+        dec = decode_recording(path, device=device)
+        revs = dec.revolutions()
+        per_stream.append(revs)
+        print(f"{path}: {dec.num_nodes} nodes, {len(revs)} complete revolutions")
+        for ans_type, n_frames, n_nodes in dec.runs:
+            try:
+                name = Ans(ans_type).name
+            except ValueError:
+                name = f"0x{ans_type:02x}"
+            print(f"  run: {name:34s} {n_frames:6d} frames -> {n_nodes:7d} nodes")
+        if revs:
+            pts = [len(r["angle_q14"]) for r in revs]
+            print(f"  points/rev: min={min(pts)} median={sorted(pts)[len(pts)//2]} max={max(pts)}")
+    if args.chain and not per_stream[0]:
+        print(f"  --chain skipped: no complete revolutions in {args.recordings[0]}")
+    elif args.chain:
+        from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+        from rplidar_ros2_driver_tpu_torch.replay import replay_through_chain
+
+        params = DriverParams(filter_backend=backend, filter_chain=("clip", "median", "voxel"))
+        t0 = time.perf_counter()
+        ranges, state = replay_through_chain(per_stream[0], params)
+        dt = time.perf_counter() - t0
+        occupancy = int(state.voxel_acc.sum())
+        n_scans = int(np.prod(ranges.shape[:-1]))
+        finite = np.isfinite(ranges)
+        print(
+            f"  chain: {n_scans} scans through the fused multi-scan step in "
+            f"{dt:.2f} s ({n_scans / dt:.0f} scans/s); "
+            f"median range {np.median(ranges[finite]):.2f} m, "
+            f"voxel occupancy {occupancy}"
+        )
+    return 0
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     ap = argparse.ArgumentParser(prog="rplidar_ros2_driver_tpu_torch")
@@ -68,9 +123,22 @@ def main(argv=None) -> int:
     run.add_argument("--stats", action="store_true",
                      help="print per-stage latency percentiles (JSON) at exit")
 
+    replay = sub.add_parser("replay", help="batch-decode frame recording(s)")
+    replay.add_argument("recordings", nargs="+", help="capture file(s) (.rplr)")
+    replay.add_argument("--cpu", action="store_true",
+                        help="decode and run the chain on the host instead of the card")
+    replay.add_argument(
+        "--chain",
+        action="store_true",
+        help="also run the decoded revolutions through the filter chain "
+        "(fused multi-scan step)",
+    )
+
     args = ap.parse_args(argv)
     if args.cmd == "run":
         return _cmd_run(args)
+    if args.cmd == "replay":
+        return _cmd_replay(args)
     ap.print_help()
     return 2
 

@@ -1,8 +1,8 @@
-"""ScanFilterChain tensor ops — the streaming step of the filter chain.
+"""ScanFilterChain tensor ops — the streaming step of the filter chain and
+its fused K-scan form for offline replay (:func:`compact_filter_scan`).
 
-The PyTorch counterpart of the JAX package's ``ops/filters.py`` streaming
-step, held to it bit for bit (``points_xy`` to 2 ulp, see
-:func:`polar_to_cartesian`):
+The PyTorch counterpart of the JAX package's ``ops/filters.py``, held to
+it bit for bit (``points_xy`` to 2 ulp, see :func:`polar_to_cartesian`):
 
   * range/intensity clip        (folded into the resample key mask)
   * angular-grid resample       (scatter-min range image, B fixed beams)
@@ -19,9 +19,11 @@ per-revolution host sync), and only the derived sorted window of the
 incremental median is replaced by a fresh tensor.  The one device->host
 copy per revolution is the flat output wire (:func:`_pack_output_wire`).
 
-The temporal median's two kernels (B1 ``pallas``, B2 ``inc_pallas``) are
-hand-written CUDA in ``csrc/median.cu``, wrapped by ops/median_kernels.py;
-the plain functions here are their reference versions.
+The temporal median's kernels are hand-written CUDA in ``csrc/``, wrapped
+by ops/median_kernels.py: B1 (``pallas``) and B2 (``inc_pallas``) on the
+streaming step, B3 (``pallas``) on the fused path.  The plain functions
+here (:func:`temporal_median`, :func:`sorted_replace`,
+:func:`sliding_median`) are their reference versions.
 """
 
 from __future__ import annotations
@@ -144,6 +146,13 @@ class FilterState:
             for f in dataclasses.fields(self)
         })
 
+    def to(self, device) -> "FilterState":
+        """The same state on ``device`` (a copy unless already there)."""
+        return FilterState(**{
+            f.name: (None if getattr(self, f.name) is None else getattr(self, f.name).to(device))
+            for f in dataclasses.fields(self)
+        })
+
 
 @dataclasses.dataclass(frozen=True)
 class FilterConfig:
@@ -242,15 +251,40 @@ def _grid_decode(grid: torch.Tensor):
     return ranges, inten
 
 
-def grid_resample(batch: ScanBatch, beams: int, cfg: Optional[FilterConfig] = None):
-    """Scatter-min a scan onto a fixed angular grid of ``beams`` cells.
+def _offset_rows(idx: torch.Tensor, stride: int) -> torch.Tensor:
+    """Flat keys of a (..., P) batch of per-row indices: ``idx + row *
+    stride`` for each row.  A single row (no batch dims) is returned as it
+    is, so the streaming step's one scan costs no extra device operation."""
+    lead = tuple(idx.shape[:-1])
+    if not lead:
+        return idx
+    n = math.prod(lead)
+    rows = torch.arange(0, n * stride, stride, dtype=idx.dtype, device=idx.device)
+    return idx + rows.reshape(lead + (1,))
 
-    Returns (ranges (B,), intensities (B,)) with +inf where no return.
-    The min is order-independent, so the scatter is exact in any order."""
+
+def _scatter_min(beam: torch.Tensor, packed: torch.Tensor, beams: int):
+    """Per-beam packed min of (..., P) keys -> (..., B) ranges and
+    intensities, every row in ONE scatter keyed by ``row * B + beam``.
+    The min is order-independent, so the scatter is exact in any order
+    and equals the JAX package's dense masked-min bit for bit."""
+    lead = tuple(beam.shape[:-1])
+    rows = math.prod(lead)
+    grid = torch.full((rows * beams,), _INT_INF, dtype=torch.int32, device=packed.device)
+    key = _offset_rows(beam, beams)
+    grid.scatter_reduce_(0, key.reshape(-1).long(), packed.reshape(-1), reduce="amin",
+                         include_self=True)
+    return _grid_decode(grid.reshape(lead + (beams,)))
+
+
+def grid_resample(batch: ScanBatch, beams: int, cfg: Optional[FilterConfig] = None):
+    """Scatter-min a scan (or a (K, N) batch of scans) onto a fixed
+    angular grid of ``beams`` cells.
+
+    Returns (ranges (..., B), intensities (..., B)) with +inf where no
+    return."""
     beam, packed = _resample_keys(batch, beams, cfg)
-    grid = torch.full((beams,), _INT_INF, dtype=torch.int32, device=packed.device)
-    grid.scatter_reduce_(0, beam.long(), packed, reduce="amin", include_self=True)
-    return _grid_decode(grid)
+    return _scatter_min(beam, packed, beams)
 
 
 def grid_resample_batch(beam: torch.Tensor, packed: torch.Tensor, beams: int, block: int = 256):
@@ -274,6 +308,23 @@ def temporal_median(window: torch.Tensor) -> torch.Tensor:
     no return in the whole window stay +inf."""
     s = torch.sort(window, dim=0).values  # inf sorts last
     return median_from_sorted(s)
+
+
+def sliding_median(ext: torch.Tensor, window: int) -> torch.Tensor:
+    """K sliding per-beam lower medians over an extended history: ``ext``
+    is (W + K, B), the previous ring in age order then K new rows; row i
+    of the (K, B) result is the median of ``ext[i+1 : i+1+W]`` — what K
+    successive :func:`temporal_median` calls on the advancing ring give.
+
+    The unfold-and-sort form of the JAX package's XLA branch: the K
+    windows are views of the stripe, sorted along the window axis."""
+    k = ext.shape[0] - window
+    windows = ext.unfold(0, window, 1)[1 : k + 1]  # (K, B, W)
+    s = torch.sort(windows, dim=-1).values  # inf sorts last
+    nvalid = torch.isfinite(windows).sum(dim=-1)
+    pick = torch.div(nvalid - 1, 2, rounding_mode="floor").clamp(0, window - 1)
+    med = torch.gather(s, -1, pick[..., None])[..., 0]
+    return med.masked_fill(nvalid == 0, math.inf)
 
 
 def sorted_replace(
@@ -388,10 +439,10 @@ def _f32_scalar(value: float, device: torch.device) -> torch.Tensor:
 
 
 def polar_to_cartesian(ranges: torch.Tensor, beams: int):
-    """Beam-grid ranges -> (B, 2) XY metres + finite mask."""
+    """Beam-grid ranges (..., B) -> (..., B, 2) XY metres + finite mask."""
     finite = torch.isfinite(ranges)
     r = ranges.masked_fill(~finite, 0.0)
-    xy = r[:, None] * _trig_table(beams, ranges.device)
+    xy = r[..., None] * _trig_table(beams, ranges.device)
     return xy, finite
 
 
@@ -404,27 +455,34 @@ def _voxel_cells(
     masked polar projection, so the float->int cast stays in range."""
     half = grid // 2
     ij = torch.floor(xy / _f32_scalar(cell_m, xy.device)).to(torch.int32) + half
-    gx, gy = ij[:, 0], ij[:, 1]
+    gx, gy = ij[..., 0], ij[..., 1]
     inb = mask & (gx >= 0) & (gx < grid) & (gy >= 0) & (gy < grid)
     return gx, gy, inb
 
 
 def voxel_hits(xy: torch.Tensor, mask: torch.Tensor, grid: int, cell_m: float) -> torch.Tensor:
-    """(G, G) occupancy counts for one scan, origin at the grid centre.
+    """(..., G, G) occupancy counts, one grid per scan of ``xy`` (..., B, 2),
+    origin at the grid centre.
 
-    Out-of-grid points go to a spill cell G*G that is cut off; integer
-    atomics are order-independent, so the counts are exact."""
+    All scans go through ONE ``index_add_`` keyed by ``scan * G*G + cell``
+    (``bincount`` would sync the host on CUDA to size its output).
+    Out-of-grid points go to a spill cell that is cut off; integer atomics
+    are order-independent, so the counts are exact."""
     gx, gy, inb = _voxel_cells(xy, mask, grid, cell_m)
-    flat = torch.where(inb, gx * grid + gy, torch.full_like(gx, grid * grid))
-    counts = torch.zeros((grid * grid + 1,), dtype=torch.int32, device=xy.device)
-    counts.index_add_(0, flat.long(), torch.ones_like(flat))
-    return counts[: grid * grid].reshape(grid, grid)
+    lead = tuple(gx.shape[:-1])
+    cells = grid * grid
+    scans = math.prod(lead)
+    cell = _offset_rows(gx * grid + gy, cells)
+    flat = torch.where(inb, cell, scans * cells)
+    counts = torch.zeros((scans * cells + 1,), dtype=torch.int32, device=xy.device)
+    counts.index_add_(0, flat.reshape(-1).long(), torch.ones_like(flat).reshape(-1))
+    return counts[: scans * cells].reshape(lead + (grid, grid))
 
 
 def voxel_hits_matmul(
     xy: torch.Tensor, mask: torch.Tensor, grid: int, cell_m: float
 ) -> torch.Tensor:
-    """(G, G) occupancy counts via a one-hot product (G, B) @ (B, G).
+    """(..., G, G) occupancy counts via one-hot products (G, B) @ (B, G).
 
     Exact: the one-hots are 0/1, every product is exact, and float32
     accumulation is exact for counts below 2**24 (a scan contributes at
@@ -432,9 +490,9 @@ def voxel_hits_matmul(
     gx, gy, inb = _voxel_cells(xy, mask, grid, cell_m)
     cells = torch.arange(grid, dtype=torch.int32, device=xy.device)
     # mask folded into one side only: a dead/out-of-grid point is all-zero
-    ohx = ((gx[:, None] == cells[None, :]) & inb[:, None]).to(torch.float32)
-    ohy = (gy[:, None] == cells[None, :]).to(torch.float32)
-    return (ohx.T @ ohy).to(torch.int32)
+    ohx = ((gx[..., None] == cells) & inb[..., None]).to(torch.float32)
+    ohy = (gy[..., None] == cells).to(torch.float32)
+    return (ohx.transpose(-1, -2) @ ohy).to(torch.int32)
 
 
 def select_voxel_hits(backend: str):
@@ -573,18 +631,20 @@ def pack_host_scan_counted(angle_q14, dist_q2, quality, flag=None, n: int | None
 
 
 def _unpack_compact(packed: torch.Tensor, count: torch.Tensor) -> ScanBatch:
-    """Device-side inverse of the compact rows.  ``packed`` holds the
-    uint16 wire bytes as int16 (PyTorch's full-featured 16-bit integer);
-    ``& 0xFFFF`` after widening recovers the unsigned values."""
+    """Device-side inverse of the compact rows: a (3, N) scan with a 0-d
+    count, or a (K, 3, N) sequence with (K,) counts (fields (K, N)).
+    ``packed`` holds the uint16 wire bytes as int16 (PyTorch's
+    full-featured 16-bit integer); ``& 0xFFFF`` after widening recovers
+    the unsigned values."""
     p = packed.to(torch.int32) & 0xFFFF
-    hi = p[2]
-    i = torch.arange(p.shape[1], dtype=torch.int32, device=p.device)
+    hi = p[..., 2, :]
+    i = torch.arange(p.shape[-1], dtype=torch.int32, device=p.device)
     return ScanBatch(
-        angle_q14=p[0],
-        dist_q2=p[1] | ((hi & 0x3) << 16),
+        angle_q14=p[..., 0, :],
+        dist_q2=p[..., 1, :] | ((hi & 0x3) << 16),
         quality=(hi >> 2) & 0xFF,
         flag=(hi >> 10) & 0x3F,
-        valid=i < count,
+        valid=i < count[..., None],
         count=count,
     )
 
@@ -618,6 +678,164 @@ def counted_filter_step_wire(
     count = packed[0, -1].to(torch.int32) & 0xFFFF
     state, out = _filter_step_impl(state, _unpack_compact(packed, count), cfg)
     return state, _pack_output_wire(out)
+
+
+def pack_host_scan_compact(angle_q14, dist_q2, quality, flag=None, n: int | None = None):
+    """Bit-packed wire form: ``(3, n)`` uint16, 6 bytes/point (row layout
+    and clamps in :func:`_pack_compact_rows`), plus the node count."""
+    n = n or MAX_SCAN_NODES
+    buf = np.zeros((3, n), np.uint16)
+    count = _pack_compact_rows(buf, n, angle_q14, dist_q2, quality, flag)
+    return buf, count
+
+
+def pack_host_scans_compact(scans, n: int | None = None):
+    """Stack host scans (dicts of angle_q14/dist_q2/quality[/flag]) into
+    the ``(K, 3, n)`` uint16 sequence buffer + ``(K,)`` int32 counts."""
+    n = n or MAX_SCAN_NODES
+    seq = np.zeros((len(scans), 3, n), np.uint16)
+    counts = np.zeros((len(scans),), np.int32)
+    for i, s in enumerate(scans):
+        counts[i] = _pack_compact_rows(
+            seq[i], n, s["angle_q14"], s["dist_q2"], s["quality"], s.get("flag")
+        )
+    return seq, counts
+
+
+# -- fused multi-scan sequence step ------------------------------------------
+#
+# Offline/replay path: K scans advance the rolling window in one call of a
+# few dozen device operations instead of K streaming steps.  It returns the
+# per-scan median range images and the final state (whose voxel_acc is the
+# window accumulation after the last scan); the full per-scan FilterOutput
+# is not materialized.  None of the chain's dependencies is sequential:
+#   * unpack/clip/resample are per-scan independent -> one scatter-min over
+#     all K scans, keyed by k * B + beam;
+#   * the window after step i is the W most recent rows of [previous ring
+#     in age order] ++ [new rows], so every step's median is a sliding
+#     window over one (W + K, B) stripe — kernel B3 (sliding_median_kernel)
+#     for median_backend "pallas", else the plain sliding_median;
+#   * the voxel accumulator after the last step is the sum of the final
+#     window's per-scan hit grids (the streaming add-new/retire-old
+#     telescopes).
+# The ring is addressed by device-side index arithmetic on the 0-d cursor
+# ((arange(W) + cursor) % W and its inverse), never a torch.roll by a
+# Python int, so a chunk costs no host synchronisation.
+#
+# _compact_filter_scan_sequential is the semantic definition (exactly K
+# streaming steps) that the fused path is parity-tested against.
+
+
+def _compact_filter_scan_sequential(
+    state: FilterState, packed_seq: torch.Tensor, counts: torch.Tensor, cfg: FilterConfig
+) -> tuple[FilterState, torch.Tensor]:
+    """Reference form: literally K successive streaming steps over the
+    ``(K, 3, N)`` sequence (``state`` updated in place).  Returns (state,
+    (K, B) ranges)."""
+    ranges = []
+    for i in range(packed_seq.shape[0]):
+        state, out = _filter_step_impl(state, _unpack_compact(packed_seq[i], counts[i]), cfg)
+        ranges.append(out.ranges)
+    return state, torch.stack(ranges)
+
+
+def fused_scan_core(
+    state: FilterState,
+    packed_seq: torch.Tensor,
+    counts: torch.Tensor,
+    cfg: FilterConfig,
+    *,
+    keys_fn,
+    polar_fn,
+    hits_fn,
+) -> tuple[FilterState, torch.Tensor]:
+    """The one fused K-scan formulation (the JAX package shares it with
+    its sharded path, which injects the three partition-dependent
+    primitives; every piece of boundary arithmetic lives only here):
+
+    * ``keys_fn(batch) -> (beam, packed)`` — (K, N) resample keys;
+    * ``polar_fn(rows) -> (xy, mask)`` — Cartesian projection of (m, B)
+      range rows;
+    * ``hits_fn(xy, mask) -> (m, G, G)`` — per-scan occupancy grids.
+
+    Updates ``state`` IN PLACE, like the streaming step: the ring, hit
+    grids, accumulator, cursor and fill count are written into the
+    tensors it holds; only the derived ``median_sorted`` is replaced (one
+    re-sort per chunk).  Returns (state, (K, B) ranges)."""
+    k = packed_seq.shape[0]
+    w, b_local = state.range_window.shape
+    dev = state.range_window.device
+
+    # 1. unpack + clip + resample every scan at once
+    beam_k, packed_k = keys_fn(_unpack_compact(packed_seq, counts))  # (K, N) each
+    new_r, new_i = _scatter_min(beam_k, packed_k, b_local)  # (K, B)
+
+    # 2. extended history: previous ring in age order (oldest first), then
+    # the new rows.  After step i the live window is ext[i+1 : i+1+W].
+    iota_w = torch.arange(w, device=dev)
+    age = torch.remainder(iota_w + state.cursor, w)  # roll(ring, -cursor)
+    ext_r = torch.cat([state.range_window.index_select(0, age), new_r])  # (W+K, B)
+
+    # 3. every step's median in one pass over the history stripe
+    if cfg.enable_median:
+        if cfg.median_backend == "pallas":
+            from rplidar_ros2_driver_tpu_torch.ops.median_kernels import sliding_median_kernel
+
+            med = sliding_median_kernel(ext_r, w)
+        else:
+            med = sliding_median(ext_r, w)
+    else:
+        med = new_r
+
+    # 4. final window: the W most recent rows, back in ring layout
+    # (ring = roll(age-ordered, +cursor'))
+    cursor2 = torch.remainder(state.cursor + k, w).to(state.cursor.dtype)
+    ring = torch.remainder(iota_w - cursor2, w)
+    ext_i = torch.cat([state.inten_window.index_select(0, age), new_i])
+    state.range_window.copy_(ext_r[k : k + w].index_select(0, ring))
+    state.inten_window.copy_(ext_i[k : k + w].index_select(0, ring))
+
+    # 5. voxel: the accumulator after the last step is the sum of the
+    # final window's hit grids; only the last min(K, W) scans' grids
+    # survive, so only those scans are projected
+    if cfg.enable_voxel:
+        m = min(k, w)
+        new_hits = hits_fn(*polar_fn(med[k - m :]))  # (m, G, G)
+        if m < w:
+            kept = state.hit_window.index_select(0, age[k:])  # the W-K newest old grids
+            ext_h = torch.cat([kept, new_hits])
+        else:
+            ext_h = new_hits
+        state.hit_window.copy_(ext_h.index_select(0, ring))
+        state.voxel_acc.copy_(ext_h.sum(dim=0, dtype=torch.int32))
+
+    state.cursor.copy_(cursor2)
+    state.filled.add_(k).clamp_(max=w)
+    if state.median_sorted is not None:
+        # K scans at once: the incremental backends' sorted window is
+        # re-sorted wholesale to restore its invariant
+        state.median_sorted = recompute_median_sorted(state.range_window)
+    return state, med
+
+
+def compact_filter_scan(
+    state: FilterState, packed_seq: torch.Tensor, counts: torch.Tensor, cfg: FilterConfig
+) -> tuple[FilterState, torch.Tensor]:
+    """Run the chain over a ``(K, 3, N)`` packed scan sequence (uint16
+    wire bytes as int16) with ``(K,)`` int32 counts, on their device.
+
+    The same state trajectory as K successive streaming steps
+    (:func:`_compact_filter_scan_sequential`; tests/test_torch_replay.py
+    and chip_smoke.py hold the two equal).  ``state`` is updated in place
+    (see :func:`fused_scan_core`).  Returns (state, (K, beams) ranges)."""
+    return fused_scan_core(
+        state, packed_seq, counts, cfg,
+        keys_fn=lambda batch: _resample_keys(batch, cfg.beams, cfg),
+        polar_fn=lambda rows: polar_to_cartesian(rows, cfg.beams),
+        hits_fn=lambda xy, mask: select_voxel_hits(cfg.voxel_backend)(
+            xy, mask, cfg.grid, cfg.cell_m
+        ),
+    )
 
 
 def unpack_output_wire(wire, cfg: FilterConfig) -> FilterOutput:

@@ -1,21 +1,25 @@
-"""Wrappers of the temporal-median CUDA kernels (csrc/median.cu).
+"""Wrappers of the temporal-median CUDA kernels (csrc/).
 
-Two kernels replace the JAX package's Pallas TPU kernels on the
-streaming step:
+Three kernels replace the JAX package's Pallas TPU kernels:
 
-  * B1 :func:`temporal_median_kernel` — ``temporal_median_pallas``
-    (``median_backend="pallas"``): per-beam lower median of a (W, B) ring.
-  * B2 :func:`sorted_replace_kernel` — ``sorted_replace_pallas``
-    (``median_backend="inc_pallas"``): delete/insert on the carried
-    sorted window, plus its lower median, in one pass.
+  * B1 :func:`temporal_median_kernel` (csrc/median.cu) —
+    ``temporal_median_pallas`` (streaming step, ``median_backend="pallas"``):
+    per-beam lower median of a (W, B) ring.
+  * B2 :func:`sorted_replace_kernel` (csrc/median.cu) —
+    ``sorted_replace_pallas`` (streaming step, ``"inc_pallas"``):
+    delete/insert on the carried sorted window, plus its lower median, in
+    one pass.
+  * B3 :func:`sliding_median_kernel` (csrc/sliding_median.cu) —
+    ``sliding_median_pallas`` (fused K-scan path, ``"pallas"``): the K
+    sliding per-beam lower medians of a (W + K, B) history stripe.
 
 Each wrapper checks dtype, shape, contiguity and device.  A tensor on the
 CPU runs the kernel's plain PyTorch version (:func:`temporal_median_plain`,
-:func:`sorted_replace_plain`); a CUDA tensor launches the kernel (built
-from the source at first use, utils/cuda_build.py) or raises — there is no
-fallback.  ``launch_counts`` counts the launches of each kernel; only a
-launch adds to it.  What bounds the kernels and how they are built is in
-the source's header note.
+:func:`sorted_replace_plain`, :func:`sliding_median_plain`); a CUDA tensor
+launches the kernel (built from the source at first use,
+utils/cuda_build.py) or raises — there is no fallback.  ``launch_counts``
+counts the launches of each kernel; only a launch adds to it.  What bounds
+the kernels and how they are built is in each source's header note.
 """
 
 from __future__ import annotations
@@ -26,13 +30,14 @@ import torch
 
 from rplidar_ros2_driver_tpu_torch.ops.filters import (
     median_from_sorted,
+    sliding_median,
     sorted_replace,
     temporal_median,
 )
 from rplidar_ros2_driver_tpu_torch.utils.cuda_build import load_library
 
 # kernel name -> launches since the last reset_launch_counts()
-launch_counts = {"temporal_median": 0, "sorted_replace": 0}
+launch_counts = {"temporal_median": 0, "sorted_replace": 0, "sliding_median": 0}
 
 
 def reset_launch_counts() -> None:
@@ -40,14 +45,24 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _median_lib() -> ctypes.CDLL:
-    lib = load_library("median")
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+# library name -> exported kernel entry -> its argument types (each returns
+# the launch's cudaError_t as an int)
+_SIGNATURES = {
+    "median": {
+        "temporal_median_f32": [_VP, _VP, _I, _I, _VP],
+        "sorted_replace_f32": [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
+    },
+    "sliding_median": {"sliding_median_f32": [_VP, _VP, _I, _I, _I, _VP]},
+}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = load_library(name)
     if not getattr(lib, "_signatures_set", False):
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.temporal_median_f32.argtypes = [vp, vp, i, i, vp]
-        lib.temporal_median_f32.restype = i
-        lib.sorted_replace_f32.argtypes = [vp, vp, vp, vp, vp, i, i, vp]
-        lib.sorted_replace_f32.restype = i
+        for entry, argtypes in _SIGNATURES[name].items():
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = _I
         lib._signatures_set = True
     return lib
 
@@ -97,7 +112,7 @@ def temporal_median_kernel(window: torch.Tensor) -> torch.Tensor:
         return out
     stream = torch.cuda.current_stream(window.device).cuda_stream
     with torch.cuda.device(window.device):
-        rc = _median_lib().temporal_median_f32(
+        rc = _lib("median").temporal_median_f32(
             window.data_ptr(), out.data_ptr(), w, b, stream
         )
     _raise_on(rc, "temporal_median")
@@ -128,10 +143,43 @@ def sorted_replace_kernel(
         return out, med
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _median_lib().sorted_replace_f32(
+        rc = _lib("median").sorted_replace_f32(
             sorted_w.data_ptr(), old_v.data_ptr(), new_v.data_ptr(),
             out.data_ptr(), med.data_ptr(), w, b, stream,
         )
     _raise_on(rc, "sorted_replace")
     launch_counts["sorted_replace"] += 1
     return out, med
+
+
+def sliding_median_plain(ext: torch.Tensor, window: int) -> torch.Tensor:
+    """Plain version of B3: :func:`sliding_median` (unfold the K windows,
+    sort each, pick the lower median)."""
+    return sliding_median(ext, window)
+
+
+def sliding_median_kernel(ext: torch.Tensor, window: int) -> torch.Tensor:
+    """(W + K, B) float32 history stripe (+inf = missing) -> (K, B): row i
+    is the per-beam lower median of ``ext[i+1 : i+1+W]``."""
+    if not isinstance(window, int) or window < 1:
+        raise ValueError(f"window must be an int >= 1, got {window!r}")
+    if ext.ndim != 2 or ext.shape[0] < window:
+        raise ValueError(f"ext must be (W+K, B) with W={window}, got {tuple(ext.shape)}")
+    wk, b = ext.shape
+    k = wk - window
+    _check("ext", ext, (wk, b), ext.device)
+    if ext.device.type == "cpu":
+        return sliding_median_plain(ext, window)
+    if ext.device.type != "cuda":
+        raise RuntimeError(f"no sliding-median kernel for device {ext.device}")
+    out = torch.empty((k, b), dtype=torch.float32, device=ext.device)
+    if k == 0 or b == 0:
+        return out
+    stream = torch.cuda.current_stream(ext.device).cuda_stream
+    with torch.cuda.device(ext.device):
+        rc = _lib("sliding_median").sliding_median_f32(
+            ext.data_ptr(), out.data_ptr(), window, k, b, stream
+        )
+    _raise_on(rc, "sliding_median")
+    launch_counts["sliding_median"] += 1
+    return out

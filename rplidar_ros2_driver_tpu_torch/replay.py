@@ -1,0 +1,228 @@
+"""Record / replay: capture raw wire frames, batch-decode them on the card,
+run the revolutions through the fused K-scan filter chain.
+
+The PyTorch counterpart of the JAX package's ``replay.py`` (its recorder,
+reader, batched decode and ``replay_through_chain``): a capture decodes as
+a handful of ``(M, frame_bytes)`` batch decodes (ops/unpack.py) on the
+chosen device instead of a per-byte loop; the revolution split stays numpy
+on the host; then the revolutions advance the rolling window ``chunk``
+scans per call of ops/filters.compact_filter_scan.  Every entry point runs
+on ``cuda:0`` unless the caller passes a CPU device, and raises without a
+card — never a silent fall back to the host.
+
+File format (little-endian), append-only and tail-truncation safe — the
+JAX package's, byte for byte:
+
+    magic  b"RPLR" | u16 version | u16 reserved
+    record u8 ans_type | u8 pad | u16 payload_len | f64 ts | payload
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import io
+import struct
+import threading
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from rplidar_ros2_driver_tpu_torch.ops import unpack
+from rplidar_ros2_driver_tpu_torch.protocol.constants import ANS_PAYLOAD_BYTES, Ans
+
+MAGIC = b"RPLR"
+VERSION = 1
+_HEADER = struct.Struct("<4sHH")
+_REC = struct.Struct("<BBHd")
+
+
+class FrameRecorder:
+    """Appends measurement frames to a capture file (thread-safe enough for
+    the single decode thread that feeds it)."""
+
+    def __init__(self, path: str) -> None:
+        self._f: Optional[io.BufferedWriter] = open(path, "wb")
+        self._f.write(_HEADER.pack(MAGIC, VERSION, 0))
+        self.frames = 0
+        # serializes write vs close: a close racing the decode thread
+        # mid-write must not abort the live decode of that frame
+        self._lock = threading.Lock()
+
+    def write(self, ans_type: int, payload: bytes, ts: float = 0.0) -> None:
+        with self._lock:
+            f = self._f
+            if f is None:
+                return  # closed concurrently: drop silently
+            f.write(_REC.pack(ans_type & 0xFF, 0, len(payload), ts))
+            f.write(payload)
+            self.frames += 1
+
+    def close(self) -> None:
+        with self._lock:
+            if self._f is not None:
+                self._f.close()
+                self._f = None
+
+    def __enter__(self) -> "FrameRecorder":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def read_frames(path: str) -> Iterator[tuple[int, float, bytes]]:
+    """Yield (ans_type, ts, payload); stops cleanly at a truncated tail."""
+    with open(path, "rb") as f:
+        head = f.read(_HEADER.size)
+        if len(head) < _HEADER.size:
+            return
+        magic, version, _ = _HEADER.unpack(head)
+        if magic != MAGIC or version != VERSION:
+            raise ValueError(f"{path}: not a frame recording (or wrong version)")
+        while True:
+            rec = f.read(_REC.size)
+            if len(rec) < _REC.size:
+                return
+            ans_type, _, length, ts = _REC.unpack(rec)
+            payload = f.read(length)
+            if len(payload) < length:
+                return  # torn tail: crash mid-write
+            yield ans_type, ts, payload
+
+
+def _device(device) -> torch.device:
+    """The replay's device: ``None`` means the card (``cuda:0``, raising
+    without one); anything else is taken as given."""
+    if device is None:
+        from rplidar_ros2_driver_tpu_torch.filters.chain import pick_device
+
+        return pick_device("cuda")
+    return torch.device(device)
+
+
+# -- batched decode ----------------------------------------------------------
+
+# ans_type -> batch decoder
+_BATCH_KERNELS = {
+    int(Ans.MEASUREMENT): unpack.unpack_normal_nodes,
+    int(Ans.MEASUREMENT_CAPSULED): unpack.unpack_capsules,
+    int(Ans.MEASUREMENT_CAPSULED_ULTRA): unpack.unpack_ultra_capsules,
+    int(Ans.MEASUREMENT_DENSE_CAPSULED): unpack.unpack_dense_capsules,
+    int(Ans.MEASUREMENT_ULTRA_DENSE_CAPSULED): unpack.unpack_ultra_dense_capsules,
+    int(Ans.MEASUREMENT_HQ): unpack.unpack_hq_capsules,
+}
+
+
+@dataclasses.dataclass
+class DecodedRecording:
+    """Flat, time-ordered node stream (numpy) + per-run stats."""
+
+    angle_q14: np.ndarray
+    dist_q2: np.ndarray
+    quality: np.ndarray
+    flag: np.ndarray
+    runs: list  # [(ans_type, n_frames, n_valid_nodes)]
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.angle_q14.shape[0])
+
+    def revolutions(self) -> list[dict[str, np.ndarray]]:
+        """Split the node stream at sync flags into complete revolutions
+        (partial leading/trailing data dropped, like the live assembler)."""
+        sync = np.flatnonzero(self.flag & 1)
+        return [
+            {
+                "angle_q14": self.angle_q14[a:b],
+                "dist_q2": self.dist_q2[a:b],
+                "quality": self.quality[a:b],
+                "flag": self.flag[a:b],
+            }
+            for a, b in zip(sync[:-1], sync[1:])
+        ]
+
+
+def decode_recording(path: str, device=None) -> DecodedRecording:
+    """Batch-decode a capture: consecutive same-type frames become ONE
+    decode over a (M, frame_bytes) uint8 tensor on ``device`` (default the
+    card); the valid nodes come back to the host as one numpy stream."""
+    dev = _device(device)
+    runs: list[tuple[int, list[bytes]]] = []
+    for ans_type, _ts, payload in read_frames(path):
+        expect = ANS_PAYLOAD_BYTES.get(ans_type)
+        if expect is None or len(payload) != expect:
+            continue  # non-measurement or malformed record
+        if runs and runs[-1][0] == ans_type:
+            runs[-1][1].append(payload)
+        else:
+            runs.append((ans_type, [payload]))
+
+    keys = ("angle_q14", "dist_q2", "quality", "flag")
+    parts = {k: [] for k in keys}
+    stats = []
+    for ans_type, frames in runs:
+        arr = np.frombuffer(b"".join(frames), np.uint8).reshape(len(frames), -1)
+        dec = _BATCH_KERNELS[ans_type](torch.from_numpy(arr.copy()).to(dev))
+        valid = dec.node_valid.reshape(-1)
+        # one device->host copy per run: the four fields' valid nodes
+        nodes = torch.stack([getattr(dec, k).reshape(-1)[valid] for k in keys]).cpu().numpy()
+        for key, row in zip(keys, nodes):
+            parts[key].append(row)
+        stats.append((ans_type, len(frames), int(nodes.shape[1])))
+
+    cat = {
+        k: (np.concatenate(v).astype(np.int32) if v else np.zeros(0, np.int32))
+        for k, v in parts.items()
+    }
+    return DecodedRecording(runs=stats, **cat)
+
+
+def replay_through_chain(
+    revolutions: list[dict],
+    params,
+    *,
+    beams: int | None = None,
+    capacity: int = 4096,
+    chunk: int = 256,
+):
+    """Batch-process decoded revolutions through the filter chain with the
+    fused multi-scan step (ops/filters.compact_filter_scan): the whole
+    capture advances the rolling window in ``len(revs)/chunk`` calls
+    instead of one per scan — the offline twin of the streaming
+    ScanFilterChain (identical state trajectory).  The device is
+    ``params.filter_backend``'s (filters/chain.pick_device: the card
+    unless it says ``cpu``).
+
+    Returns (per-scan (K, beams) float32 median range images, final
+    FilterState copied to the host — whose ``voxel_acc`` is the window
+    accumulation after the last scan)."""
+    from rplidar_ros2_driver_tpu_torch.filters.chain import (
+        DEFAULT_BEAMS,
+        config_from_params,
+        pick_device,
+    )
+    from rplidar_ros2_driver_tpu_torch.ops.filters import (
+        FilterState,
+        compact_filter_scan,
+        pack_host_scans_compact,
+    )
+
+    device = pick_device(params.filter_backend)
+    cfg = config_from_params(params, beams or DEFAULT_BEAMS, platform=device.type)
+    state = FilterState.for_config(cfg, device=device)
+    outs = []
+    for i in range(0, len(revolutions), chunk):
+        seq, counts = pack_host_scans_compact(revolutions[i : i + chunk], capacity)
+        state, ranges = compact_filter_scan(
+            state,
+            torch.from_numpy(seq.view(np.int16)).to(device),
+            torch.from_numpy(counts).to(device),
+            cfg,
+        )
+        outs.append(ranges)
+    # one device->host copy at the end: no per-chunk synchronisation
+    ranges = (
+        torch.cat(outs).cpu().numpy() if outs else np.zeros((0, cfg.beams), np.float32)
+    )
+    return ranges, state.to(torch.device("cpu"))

@@ -57,10 +57,12 @@ def test_scan_sees_the_whole_port():
     for module in (
         "core/config.py", "core/types.py", "ops/filters.py", "ops/median_kernels.py",
         "filters/chain.py", "driver/dummy.py", "node/node.py", "launch/lifecycle_launch.py",
-        "__main__.py",
+        "__main__.py", "protocol/constants.py", "protocol/crc.py", "ops/unpack.py",
+        "ops/wire.py", "replay.py",
     ):
         assert module in rel
-    assert os.path.exists(os.path.join(PORT, "csrc", "median.cu"))
+    for source in ("median.cu", "sliding_median.cu"):
+        assert os.path.exists(os.path.join(PORT, "csrc", source))
 
 
 def test_detector_catches_jax_imports():

@@ -1,10 +1,11 @@
 """The temporal-median kernels' plain versions against the JAX package.
 
-B1 (temporal_median_kernel) and B2 (sorted_replace_kernel) launch CUDA
-kernels for CUDA tensors; for CPU tensors their wrappers run the plain
-PyTorch versions, which are what these tests hold to the JAX package's
-Pallas kernels (interpret mode on the CPU, as tests/test_pallas_median.py
-runs them) and jnp formulations — bit-exact.  The CUDA kernels themselves
+B1 (temporal_median_kernel), B2 (sorted_replace_kernel) and B3
+(sliding_median_kernel) launch CUDA kernels for CUDA tensors; for CPU
+tensors their wrappers run the plain PyTorch versions, which are what
+these tests hold to the JAX package's Pallas kernels (interpret mode on
+the CPU, as tests/test_pallas_median.py runs them) and jnp formulations —
+bit-exact.  The CUDA kernels themselves
 are held to the plain versions on the card by chip_smoke.py.
 """
 
@@ -14,7 +15,11 @@ import pytest
 import torch
 
 from rplidar_ros2_driver_tpu.ops.filters import median_from_sorted, sorted_replace, temporal_median
-from rplidar_ros2_driver_tpu.ops.pallas_kernels import sorted_replace_pallas, temporal_median_pallas
+from rplidar_ros2_driver_tpu.ops.pallas_kernels import (
+    sliding_median_pallas,
+    sorted_replace_pallas,
+    temporal_median_pallas,
+)
 from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
 from rplidar_ros2_driver_tpu_torch.utils import cuda_build
 
@@ -134,7 +139,8 @@ def test_cpu_tensors_count_no_launch():
     win = torch.full((4, 8), 1.0)
     mk.temporal_median_kernel(win)
     mk.sorted_replace_kernel(win, win[0].clone(), win[1].clone())
-    assert mk.launch_counts == {"temporal_median": 0, "sorted_replace": 0}
+    mk.sliding_median_kernel(torch.full((6, 8), 1.0), 4)
+    assert mk.launch_counts == {"temporal_median": 0, "sorted_replace": 0, "sliding_median": 0}
 
 
 def test_build_is_keyed_on_the_source_and_needs_nvcc(monkeypatch, tmp_path):
@@ -155,3 +161,68 @@ def test_cuda_source_exports_both_kernels():
     assert 'extern "C" int sorted_replace_f32(' in src
     assert "cudaGetLastError()" in src
     assert "sm_90a" in " ".join(cuda_build.NVCC_FLAGS)
+
+
+# ---------------------------------------------------------------------------
+# B3: the sliding median of the fused K-scan path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", FIXTURES)
+@pytest.mark.parametrize(
+    "w,k,b", [(4, 8, 64), (6, 8, 100), (7, 16, 257), (8, 3, 128), (16, 24, 640), (1, 8, 32)]
+)
+def test_b3_plain_matches_pallas_and_successive_windows(w, k, b, kind):
+    """The grid of tests/test_pallas_median.py: non-power-of-two W, K not
+    a multiple of 8, W=1, a ragged beam count."""
+    rng = np.random.default_rng(w * 100 + k * 10 + b)
+    ext = fixture(rng, w + k, b, kind)
+    got = mk.sliding_median_kernel(torch.from_numpy(ext), w).numpy()
+    assert got.shape == (k, b) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, np.asarray(sliding_median_pallas(jnp.asarray(ext), w)))
+    want = np.stack([np.asarray(temporal_median(jnp.asarray(ext[i + 1 : i + 1 + w])))
+                     for i in range(k)])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(mk.sliding_median_plain(torch.from_numpy(ext), w).numpy(), got)
+
+
+def test_b3_rows_are_b1_on_the_advancing_window():
+    rng = np.random.default_rng(12)
+    ext = torch.from_numpy(fixture(rng, 9 + 11, 70, "heavy_ties"))
+    got = mk.sliding_median_kernel(ext, 9)
+    for i in range(11):
+        assert torch.equal(got[i], mk.temporal_median_kernel(ext[i + 1 : i + 10].contiguous()))
+
+
+def test_b3_no_steps_gives_an_empty_result():
+    ext = torch.full((5, 16), 2.0)
+    out = mk.sliding_median_kernel(ext, 5)
+    assert out.shape == (0, 16)
+
+
+def test_b3_wrapper_checks_its_inputs():
+    ext = torch.zeros(10, 8)
+    with pytest.raises(TypeError):
+        mk.sliding_median_kernel(ext.double(), 4)
+    with pytest.raises(ValueError):
+        mk.sliding_median_kernel(torch.zeros(10), 4)  # not 2-D
+    with pytest.raises(ValueError):
+        mk.sliding_median_kernel(ext, 11)  # window taller than the stripe
+    with pytest.raises(ValueError):
+        mk.sliding_median_kernel(ext, 0)
+    with pytest.raises(ValueError):
+        mk.sliding_median_kernel(ext, 2.5)
+    with pytest.raises(ValueError):
+        mk.sliding_median_kernel(torch.zeros(8, 10).T, 4)  # not contiguous
+    with pytest.raises(RuntimeError):
+        mk.sliding_median_kernel(torch.zeros(10, 8, device="meta"), 4)
+
+
+def test_cuda_source_exports_the_sliding_median_kernel():
+    assert cuda_build.SOURCES["sliding_median"] == "sliding_median.cu"
+    src = (cuda_build.CSRC_DIR / "sliding_median.cu").read_text()
+    assert 'extern "C" int sliding_median_f32(' in src
+    assert "cudaGetLastError()" in src
+    assert "sliding_median_pallas" in src  # the note names the TPU kernel it replaces
+    path = cuda_build.library_path("sliding_median")
+    assert path.name.startswith("libsliding_median_") and path != cuda_build.library_path("median")
