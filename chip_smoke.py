@@ -19,8 +19,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 chain; the launch counts are read around this phase;
   5. profile  — where a revolution's time goes (torch.profiler);
   6. ab       — B1 against B2 end to end, in alternating order;
-  7. node     — launch_lifecycle in dummy mode on the card (filter chain and
-                raw paths), deactivate/activate, shutdown;
+  7. node     — launch_lifecycle in dummy mode on the card (filter chain,
+                raw and map_enable paths), deactivate/activate, shutdown;
   8. replay   — the offline replay path at config 7's geometry (W=64, 2048
                 beams, 256x256 grid at 0.25 m, chunk 512, capacity 4096): a
                 seeded 3200-point DenseBoost capture written with the
@@ -28,7 +28,21 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 fused K-scan chain (kernel B3), held equal to the package's
                 CPU replay and to K streaming steps on the card; its launch
                 counts are read around the card's replay;
-  9. kernels  — one line listing every kernel with its launches and times.
+  9. mapkernels — the matcher kernels B6, B7, B8 against their plain
+                PyTorch versions on the card (exact) over edge fixtures,
+                grids 8/64/256/1024 and fleets of 1, 3 and 4 streams, then
+                timed at config 12's fleet tick (N=4, G=256, B=2048);
+ 10. mapping  — config 12 (bench.py bench_mapping): 4 streams, 256x256 map
+                at 0.05 m, 2048 beams, map_match_window 0.4; one warm tick,
+                then 20 ticks of the drifting-room scene through FleetMapper
+                fused on the card (B6/B7/B8), every pose and snapshot key held
+                equal to the package's host reference and its CPU torch arm,
+                the drift tracked; its launch counts are read around the 20
+                ticks; then a profiled pass;
+ 11. replay_map — the config-7 capture through replay_with_map on the card
+                (the chain with B3, then the fused mapper with B6/B7/B8), held
+                equal to the CPU replay with the host reference mapper;
+ 12. kernels  — one line listing every kernel with its launches and times.
 
 Then the card's name and power limit, then {"ok": true, "device": ...}.
 Any mismatch or error exits non-zero.  Without a CUDA device it exits 1
@@ -54,6 +68,8 @@ GEOMETRY = dict(window=64, beams=2048, grid=256, capacity=4096, points=3200)
 # ragged tail chunk shorter than the window
 REPLAY = dict(window=64, beams=2048, grid=256, cell_m=0.25, chunk=512, capacity=4096,
               points=3200, revs=520)
+# bench.py GRADED[12] (bench_mapping): the SLAM front-end fleet tick
+MAPPING = dict(streams=4, grid=256, cell_m=0.05, beams=2048, window_m=0.4, ticks=20)
 
 
 def emit(obj) -> None:
@@ -71,10 +87,11 @@ def check(cond, msg: str) -> None:
 
 
 def exact(a, b) -> tuple[bool, float]:
-    """(equal, max |a-b| over entries that differ); +inf == +inf."""
+    """(equal, max |a-b| over entries that differ); +inf == +inf.  Compared
+    in float64, exact for float32 and int32 alike."""
     import torch
 
-    a, b = a.float(), b.float()
+    a, b = a.double(), b.double()
     if a.shape != b.shape:
         return False, math.inf
     same = (a == b) | (torch.isnan(a) & torch.isnan(b))
@@ -102,7 +119,8 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
 def device_ms(fn, iters: int = 50):
     """Device (kernel) milliseconds per call from torch.profiler, summed
     over every CUDA kernel the call launches; None when the profiler
-    records no device time."""
+    records no device time.  Host activity is traced too: without it the
+    profiler has been seen to keep only some of a run's kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -110,7 +128,7 @@ def device_ms(fn, iters: int = 50):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -492,13 +510,13 @@ def denseboost_frames(seed: int, revs: int, points: int) -> list[bytes]:
     return frames
 
 
-def _replay_params(backend: str):
+def _replay_params(backend: str, **over):
     from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
 
     return DriverParams(
         filter_backend=backend, filter_chain=("clip", "median", "voxel"),
         filter_window=REPLAY["window"], voxel_grid_size=REPLAY["grid"],
-        voxel_cell_m=REPLAY["cell_m"], median_backend="pallas",
+        voxel_cell_m=REPLAY["cell_m"], median_backend="pallas", **over,
     )
 
 
@@ -622,7 +640,7 @@ def phase_replay(device, seed: int) -> dict:
                           for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]],
     }
     emit(row)
-    return row
+    return row, revs
 
 
 def phase_node(device) -> dict:
@@ -634,12 +652,16 @@ def phase_node(device) -> dict:
     from rplidar_ros2_driver_tpu_torch.launch import launch_lifecycle
     from rplidar_ros2_driver_tpu_torch.node.lifecycle import LifecycleState
     from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
     from rplidar_ros2_driver_tpu_torch.ops.ascend import apply_angle_compensation
     from rplidar_ros2_driver_tpu_torch.ops.laserscan import to_laserscan
 
     result = {"phase": "node"}
+    map_yaml = "    map_enable: true\n    map_grid: 256\n    map_cell_m: 0.05\n"
     with tempfile.TemporaryDirectory() as tmp:
-        for name, chain_yaml in (("chain", "[clip, polar, median, voxel]"), ("raw", "[]")):
+        for name, chain_yaml, extra in (("chain", "[clip, polar, median, voxel]", ""),
+                                        ("raw", "[]", ""),
+                                        ("map", "[clip, polar, median, voxel]", map_yaml)):
             path = os.path.join(tmp, f"{name}.yaml")
             with open(path, "w") as f:
                 f.write(
@@ -649,12 +671,19 @@ def phase_node(device) -> dict:
                     "    filter_window: 64\n"
                     # the default filter_backend is the card
                     + ("" if device.type == "cuda" else "    filter_backend: cpu\n")
+                    + extra
                 )
             mk.reset_launch_counts()
+            smk.reset_launch_counts()
             node = launch_lifecycle(path)
             try:
                 check(node.lifecycle_state is LifecycleState.ACTIVE, f"{name} node not ACTIVE")
-                if name == "chain":
+                if name == "map":
+                    check(node.mapper.backend == "fused" and node.mapper.device == device,
+                          "node mapper is not the fused mapper on the card")
+                    check(node.mapper.cfg.match_backend == "pallas",
+                          "auto did not resolve to the matcher kernels")
+                if name != "raw":
                     check(node.chain.device == device, "node chain is not on the card")
                     check(node.chain.cfg.median_backend == "pallas", "auto did not resolve to B1")
                 else:
@@ -682,6 +711,22 @@ def phase_node(device) -> dict:
                     check(int(node.chain.state.filled) >= filled, "window lost on re-activation")
                     info["scans_after_reactivate"] = pub.scan_count
                     info["filter_p99_ms"] = node.tracer.percentile("filter", 99.0) * 1e3
+                if name == "map":
+                    check(len(pub.poses) > 0, "map node published no poses")
+                    last = pub.poses[-1]
+                    check(last.matched_points > 0, "map node poses matched no points")
+                    launched = dict(smk.launch_counts)
+                    check(all(v > 0 for v in launched.values()),
+                          f"map node did not launch every matcher kernel: {launched}")
+                    rev = int(node.mapper.snapshot()["revision"][0])
+                    check(node.deactivate() and node.activate(), "deactivate/activate failed")
+                    time.sleep(1.0)
+                    rev2 = int(node.mapper.snapshot()["revision"][0])
+                    check(rev2 > rev and pub.poses[-1].map_revision > rev,
+                          f"map revision did not grow across re-activation ({rev} -> {rev2})")
+                    info.update(poses=len(pub.poses), revision_before=rev, revision_after=rev2,
+                                matcher_launches=launched,
+                                map_p99_ms=node.tracer.percentile("map", 99.0) * 1e3)
                 result[name] = info
             finally:
                 node.shutdown()
@@ -700,6 +745,409 @@ def phase_node(device) -> dict:
             check(ok, f"raw to_laserscan {f} differs between card and CPU (mode A={sp})")
     emit(result)
     return result
+
+
+def room_fleet_ticks(streams: int, beams: int, n_ticks: int):
+    """The config-12/14 scene (bench.py _room_fleet_ticks): a 5x5 m square
+    room seen from per-stream drifting poses, B rays cast to the walls in
+    the sensor frame, one (N, B, 2) float32 plane per tick; drift is one to
+    two cells per tick.  Returns (ticks, truth_pose)."""
+    import numpy as np
+
+    half_room = 2.5
+    t = np.linspace(0, 2 * np.pi, beams, endpoint=False)
+    dx, dy = np.cos(t), np.sin(t)
+    with np.errstate(divide="ignore"):
+        r_wall = np.minimum(
+            np.where(np.abs(dx) > 1e-12, half_room / np.abs(dx), np.inf),
+            np.where(np.abs(dy) > 1e-12, half_room / np.abs(dy), np.inf),
+        )
+    wx, wy = dx * r_wall, dy * r_wall
+
+    def truth_pose(s: int, k: int) -> tuple:
+        return (0.03 * k * (1 + 0.1 * s), -0.02 * k * (1 + 0.2 * s), 0.004 * k)
+
+    ticks = []
+    for k in range(n_ticks):
+        pts = np.zeros((streams, beams, 2), np.float32)
+        for s in range(streams):
+            x0, y0, th = truth_pose(s, k)
+            c, si = np.cos(-th), np.sin(-th)
+            pts[s, :, 0] = c * (wx - x0) - si * (wy - y0)
+            pts[s, :, 1] = si * (wx - x0) + c * (wy - y0)
+        ticks.append(pts)
+    return ticks, truth_pose
+
+
+def _map_params(backend: str, map_backend: str = "fused", **over):
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+
+    kw = dict(filter_backend=backend, filter_chain=("clip", "median", "voxel"), map_enable=True,
+              map_backend=map_backend, map_grid=MAPPING["grid"], map_cell_m=MAPPING["cell_m"],
+              map_match_window=MAPPING["window_m"])
+    kw.update(over)
+    return DriverParams(**kw)
+
+
+def _map_fixtures(rng):
+    """(name, MapConfig, log_odds (N, G, G), pose (N, 3), pq (N, B, 2), ok
+    (N, B)) of the kernels' edge cases and the grid range, fleets of 1, 3
+    and 4 streams (the JAX suite's fixtures, stacked over streams)."""
+    import dataclasses
+
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.ops.scan_match import (
+        PQ_LIMIT,
+        SUB,
+        MapConfig,
+        min_quant_shift,
+    )
+
+    def cfg_of(grid, beams, clamp_q=8192, **kw):
+        kw.setdefault("quant_shift", min_quant_shift(clamp_q, beams))
+        return MapConfig(grid=grid, cell_m=0.1, beams=beams, clamp_q=clamp_q, **kw)
+
+    def rand(cfg, n, beams):
+        g = cfg.grid
+        lo = rng.integers(-cfg.clamp_q, cfg.clamp_q + 1, (n, g, g), np.int32)
+        for i in range(n):
+            lo[i, rng.integers(0, g, g), rng.integers(0, g, g)] = cfg.clamp_q
+        lim = cfg.t_limit_sub
+        pose = np.stack([rng.integers(-lim // 2, lim // 2, n), rng.integers(-lim // 2, lim // 2, n),
+                         rng.integers(0, cfg.theta_divisions, n)], 1).astype(np.int32)
+        span = min((g // 2) * SUB, PQ_LIMIT)
+        pq = rng.integers(-span, span + 1, (n, beams, 2)).astype(np.int32)
+        ok = rng.uniform(size=(n, beams)) > 0.15
+        return lo, pose, pq, ok
+
+    out = []
+    for grid, n, beams in ((8, 1, 192), (64, 3, 192), (256, 4, 2048), (1024, 1, 2048), (92, 3, 192),
+                           (44, 4, 192)):
+        cfg = cfg_of(grid, beams)
+        out.append((f"random_g{grid}_n{n}", cfg, *rand(cfg, n, beams)))
+    cfg = cfg_of(64, 192)
+    lo, pose, pq, ok = rand(cfg, 3, 192)
+    out.append(("all_invalid", cfg, lo, pose, pq, np.zeros_like(ok)))
+    one = np.zeros_like(ok)
+    one[:, 0] = True
+    out.append(("single_valid_beam", cfg, lo, pose, pq, one))
+    cfg1 = cfg_of(64, 1)
+    out.append(("one_beam_config", cfg1, *rand(cfg1, 4, 1)))
+    far = np.asarray([[PQ_LIMIT, PQ_LIMIT], [-PQ_LIMIT, PQ_LIMIT], [PQ_LIMIT, -PQ_LIMIT],
+                      [-PQ_LIMIT, -PQ_LIMIT], [PQ_LIMIT, 0], [0, -PQ_LIMIT]] + [[0, 0]] * 186,
+                     np.int32)
+    out.append(("far_points", cfg, rng.integers(0, 8193, (3, 64, 64)).astype(np.int32),
+                np.asarray([[0, 0, 0], [0, 0, 137], [0, 0, 359]], np.int32),
+                np.repeat(far[None], 3, 0), np.ones((3, 192), bool)))
+    center_beam = np.zeros((1, 192), bool)
+    center_beam[0, 0] = True
+    out.append(("uniform_map_tie", cfg, np.full((1, 64, 64), 4096, np.int32),
+                np.zeros((1, 3), np.int32), np.zeros((1, 192, 2), np.int32), center_beam))
+    pair = np.zeros((1, 64, 64), np.int32)
+    for d in (2, 6):
+        pair[0, 32 - d, 32] = pair[0, 32 + d, 32] = 4096
+    out.append(("two_way_tie", cfg, pair, np.zeros((1, 3), np.int32),
+                np.zeros((1, 192, 2), np.int32), center_beam))
+    sat = MapConfig(grid=64, cell_m=0.1, beams=2048, clamp_q=16384,
+                    quant_shift=min_quant_shift(16384, 2048))
+    out.append(("saturated_min_quant_shift", sat, np.full((4, 64, 64), 16384, np.int32),
+                np.zeros((4, 3), np.int32), np.zeros((4, 2048, 2), np.int32),
+                np.ones((4, 2048), bool)))
+    for name, over in (("free_samples_0", dict(free_samples=0)),
+                       ("other_increments", dict(hit_q=300, miss_q=-1000, free_samples=7,
+                                                 window_cells=3, fine_radius=2,
+                                                 theta_window=3))):
+        c2 = dataclasses.replace(cfg, **over)
+        out.append((name, c2, *rand(c2, 3, 192)))
+    return out
+
+
+def _map_kernel_args(cfg, lo, pose, pq, ok, device):
+    import numpy as np
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops.scan_match import SUB, rotation_table
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    posec = (pose[:, :2] + (cfg.grid // 2) * SUB).astype(np.int32)
+    trig = rotation_table(cfg.theta_divisions)[pose[:, 2]]
+    return t(lo), t(pq), t(ok), t(posec), t(trig), t(pose)
+
+
+def phase_mapkernels(device, rng) -> dict:
+    """B6, B7 and B8 against their plain versions on the card (exact) over
+    the fixtures, then timed at config 12's fleet tick."""
+    import numpy as np
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper, map_config_from_params
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+
+    names = ("coarse_scores", "fine_scores", "log_odds_update")
+    max_err = {k: 0.0 for k in names}
+
+    def same(name, got, want, what):
+        ok, err = exact(got, want)
+        max_err[name] = max(max_err[name], err)
+        check(ok, f"{name} differs from its plain version on {what}: {err}")
+
+    checked = []
+    for name, cfg, lo, pose, pq, okm in _map_fixtures(rng):
+        lo_t, pq_t, ok_t, posec, trig, pose_t = _map_kernel_args(cfg, lo, pose, pq, okm, device)
+        mq_k, sc_k = smk.coarse_scores_kernel(lo_t, pq_t, ok_t, posec, trig, cfg)
+        mq_p, sc_p = smk.coarse_scores_plain(lo_t, pq_t, ok_t, posec, trig, cfg)
+        same("coarse_scores", mq_k, mq_p, f"{name} (mq)")
+        same("coarse_scores", sc_k, sc_p, f"{name} (scores)")
+        cos_q, sin_q = tsm._theta_trig(pose_t, cfg)
+        w = cfg.window_cells
+        kbest = torch.argmax(sc_p.reshape(lo.shape[0], -1), dim=1).to(torch.int32)
+        uv_best = torch.stack([kbest // (2 * w + 1) - w, kbest % (2 * w + 1) - w], 1)
+        uv_rand = torch.from_numpy(rng.integers(-w, w + 1, (lo.shape[0], 2)).astype(np.int32))
+        for uv in (uv_best, uv_rand.to(device)):
+            same("fine_scores", smk.fine_scores_kernel(mq_k, pq_t, ok_t, posec, cos_q, sin_q, uv, cfg),
+                 smk.fine_scores_plain(mq_p, pq_t, ok_t, posec, cos_q, sin_q, uv, cfg), name)
+        same("log_odds_update", smk.log_odds_update_kernel(lo_t, pq_t, ok_t, posec, trig, cfg),
+             smk.log_odds_update_plain(lo_t, pq_t, ok_t, posec, trig, cfg), name)
+        checked.append(f"{name}:N{lo.shape[0]}")
+    torch.cuda.synchronize()
+
+    # config 12's fleet tick: the map of 5 ticks of the room scene, the
+    # scan of the next tick, the state's pose
+    n, b = MAPPING["streams"], MAPPING["beams"]
+    ticks, _truth = room_fleet_ticks(n, b, 6)
+    mapper = FleetMapper(_map_params("cuda"), n, beams=b)
+    masks, live = np.ones((n, b), bool), np.ones((n,), np.int32)
+    for pts in ticks[:5]:
+        mapper.submit_points(pts, masks, live)
+    cfg = mapper.cfg
+    snap = mapper.snapshot()
+    pq, okm = tsm.quantize_points(torch.from_numpy(ticks[5]).to(device),
+                                  torch.from_numpy(masks).to(device), cfg)
+    lo_t, _, _, posec, trig, pose_t = _map_kernel_args(
+        cfg, snap["log_odds"], snap["pose"], pq.cpu().numpy(), okm.cpu().numpy(), device)
+    cos_q, sin_q = tsm._theta_trig(pose_t, cfg)
+    mq, sc = smk.coarse_scores_kernel(lo_t, pq, okm, posec, trig, cfg)
+    uv = torch.zeros((n, 2), dtype=torch.int32, device=device)
+    calls = {
+        "coarse_scores": (lambda: smk.coarse_scores_kernel(lo_t, pq, okm, posec, trig, cfg),
+                          lambda: smk.coarse_scores_plain(lo_t, pq, okm, posec, trig, cfg)),
+        "fine_scores": (lambda: smk.fine_scores_kernel(mq, pq, okm, posec, cos_q, sin_q, uv, cfg),
+                        lambda: smk.fine_scores_plain(mq, pq, okm, posec, cos_q, sin_q, uv, cfg)),
+        "log_odds_update": (lambda: smk.log_odds_update_kernel(lo_t, pq, okm, posec, trig, cfg),
+                            lambda: smk.log_odds_update_plain(lo_t, pq, okm, posec, trig, cfg)),
+    }
+    for name, (kern, plain) in calls.items():
+        got, want = kern(), plain()
+        if name != "coarse_scores":
+            got, want = (got,), (want,)
+        for a, c in zip(got, want):
+            same(name, a, c, "the config-12 tick")
+    times = {}
+    for name, (kern, plain) in calls.items():
+        times[name] = {
+            "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=20, warmup=3),
+            # no single PyTorch call computes a bilinear correlation volume
+            # or the hit/free-space log-odds update
+            "library_ms": None,
+            "device_ms": device_ms(kern), "plain_device_ms": device_ms(plain, iters=10),
+        }
+    nvalid = int(okm.sum())
+    g, u = cfg.grid, 2 * cfg.window_cells + 1
+    t, f = 2 * cfg.theta_window + 1, 2 * cfg.fine_radius + 1
+    scan_bytes = n * b * 9 + n * 16                    # pq, ok, posec, trig
+    bounds = {
+        # read the map and the scan once, write mq and the (U, V) plane;
+        # clip/shift/pool each cell, 8 int32 ops per corner per candidate
+        "coarse_scores": bound(2 * n * g * g * 4 + scan_bytes + n * u * u * 4,
+                               3 * n * g * g + 8 * u * u * nvalid),
+        "fine_scores": bound(n * g * g * 4 + scan_bytes + 8 * n * t + n * t * f * f * 4,
+                             8 * t * f * f * nvalid),
+        # read and write the map once; mark 1 + S cells per valid beam,
+        # 3 ops per cell for delta and clamp
+        "log_odds_update": bound(2 * n * g * g * 4 + scan_bytes,
+                                 4 * (1 + cfg.free_samples) * nvalid + 3 * n * g * g),
+    }
+    row = {"phase": "mapkernels", "fixtures": checked, "max_abs_err": max_err,
+           "times_ms": times, "shape": {"N": n, "G": g, "B": b, "U": u, "T": t, "F": f,
+                                        "valid_beams": nvalid},
+           "bounds_ms": {k: {"ms": v[0], "by": v[1]} for k, v in bounds.items()}}
+    emit(row)
+    return {"max_abs_err": max_err, "times": times, "bounds": bounds}
+
+
+def phase_mapping(device) -> dict:
+    """Config 12 on the card: FleetMapper fused with B6/B7/B8, 4 streams,
+    one warm tick, then 20 ticks of the room scene; held equal to the host
+    reference and the CPU torch arm; the drift must be tracked."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+    from rplidar_ros2_driver_tpu_torch.ops.scan_match import SUB
+
+    n, b, k_ticks = MAPPING["streams"], MAPPING["beams"], MAPPING["ticks"]
+    ticks, truth_pose = room_fleet_ticks(n, b, k_ticks)
+    masks, live = np.ones((n, b), bool), np.ones((n,), np.int32)
+
+    def run(mapper, timed=False):
+        traj = np.zeros((k_ticks, n, 3), np.int32)
+        scores = np.zeros((k_ticks, n), np.int32)
+        lat = []
+        for k, pts in enumerate(ticks):
+            t0 = time.perf_counter()
+            ests = mapper.submit_points(pts, masks, live)
+            lat.append(time.perf_counter() - t0)
+            for s, est in enumerate(ests):
+                traj[k, s], scores[k, s] = est.pose_q, est.score
+        return traj, scores, mapper.snapshot(), lat
+
+    card = FleetMapper(_map_params("cuda"), n, beams=b)
+    check(card.backend == "fused" and card.device == device and card.cfg.match_backend == "pallas",
+          "config 12 did not resolve to the fused mapper with the matcher kernels on the card")
+    card.precompile()                                   # the warm tick
+    torch.cuda.synchronize()
+    smk.reset_launch_counts()
+    t0 = time.perf_counter()
+    traj, scores, snap, lat = run(card)
+    wall = time.perf_counter() - t0
+    launched = dict(smk.launch_counts)
+    for name, count in launched.items():
+        check(count == k_ticks, f"{name} launched {count} times for {k_ticks} fleet ticks")
+
+    refs = {}
+    for name, params in (("host", _map_params("cpu", "host")),
+                         ("cpu_torch", _map_params("cpu", "fused", match_backend="pallas"))):
+        t0 = time.perf_counter()
+        r_traj, r_scores, r_snap, _ = run(FleetMapper(params, n, beams=b))
+        refs[name] = time.perf_counter() - t0
+        check(np.array_equal(traj, r_traj) and np.array_equal(scores, r_scores),
+              f"config-12 trajectory on the card differs from the {name} arm")
+        for key in r_snap:
+            check(r_snap[key].dtype == snap[key].dtype
+                  and r_snap[key].tobytes() == snap[key].tobytes(),
+                  f"config-12 snapshot key {key!r} differs from the {name} arm")
+
+    # the plain arm on the card, end to end (same poses)
+    plain = FleetMapper(_map_params("cuda", match_backend="xla"), n, beams=b)
+    plain.precompile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_traj, _, _, p_lat = run(plain)
+    plain_wall = time.perf_counter() - t0
+    check(np.array_equal(p_traj, traj), "the plain arm on the card tracks other poses")
+
+    cell = MAPPING["cell_m"]
+    errs = []
+    for s in range(n):
+        x0, y0, _ = truth_pose(s, k_ticks - 1)
+        got = traj[-1, s].astype(np.float64)
+        errs += [abs(got[0] / SUB - x0 / cell), abs(got[1] / SUB - y0 / cell)]
+    err_cells = float(np.mean(errs))
+    check(err_cells < 2.0 * card.cfg.coarse,
+          f"matcher lost the drift: mean |pose error| {err_cells:.2f} cells")
+    check(int(scores[1:].min()) > 0, "a config-12 match was rejected after the first tick")
+
+    # device busy per tick: a fresh warmed mapper, 20 ticks under the profiler
+    prof_mapper = FleetMapper(_map_params("cuda"), n, beams=b)
+    prof_mapper.precompile()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(prof_mapper)
+        prof_wall = time.perf_counter() - t0
+    dev_events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    busy_us = sum(ev.time_range.elapsed_us() for ev in dev_events)
+    by_kernel = {}
+    for ev in dev_events:
+        by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    lat_ms = np.asarray(lat) * 1e3
+    row = {
+        "phase": "mapping", "streams": n, "grid": MAPPING["grid"], "beams": b, "ticks": k_ticks,
+        "fleet_ticks_per_s": k_ticks / wall, "scans_per_s": k_ticks * n / wall,
+        "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
+        "max_ms": float(lat_ms.max()), "launches": launched,
+        "launches_per_tick": {k: v / k_ticks for k, v in launched.items()},
+        "plain_arm_ticks_per_s": k_ticks / plain_wall,
+        "plain_arm_p50_ms": float(np.percentile(np.asarray(p_lat) * 1e3, 50)),
+        "host_reference_ticks_per_s": k_ticks / refs["host"],
+        "cpu_torch_ticks_per_s": k_ticks / refs["cpu_torch"],
+        "pose_error_cells": err_cells, "matched": int((scores > 0).sum()),
+        "profiled_wall_ms_per_tick": prof_wall / k_ticks * 1e3,
+        "device_busy_ms_per_tick": busy_us / k_ticks / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
+        "device_ops_per_tick": len(dev_events) / k_ticks,
+        "top_device_ms_per_tick": [[k[:80], v / k_ticks / 1e3]
+                                   for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]],
+    }
+    emit(row)
+    return row
+
+
+def phase_replay_map(device, revs) -> dict:
+    """The config-7 capture's revolutions through replay_with_map on the
+    card (chain with B3, fused mapper with B6/B7/B8), held equal to the CPU
+    replay with the host reference mapper."""
+    import numpy as np
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+    from rplidar_ros2_driver_tpu_torch.replay import replay_through_chain, replay_with_map
+
+    kw = dict(beams=REPLAY["beams"], capacity=REPLAY["capacity"], chunk=REPLAY["chunk"])
+
+    def params(backend):
+        # replay --map's mapper: the defaults (256x256 at 0.05 m), auto backend
+        return _replay_params(backend, map_enable=True, map_backend="auto")
+
+    replay_with_map(revs[:8], params("cuda"), **kw)     # warm-up: builds, allocator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replay_through_chain(revs, params("cuda"), **kw)
+    chain_wall = time.perf_counter() - t0
+    mk.reset_launch_counts()
+    smk.reset_launch_counts()
+    t0 = time.perf_counter()
+    traj, scores, mapper = replay_with_map(revs, params("cuda"), **kw)
+    wall = time.perf_counter() - t0
+    launched = {**mk.launch_counts, **smk.launch_counts}
+    k = len(revs)
+    check(mapper.backend == "fused" and mapper.cfg.match_backend == "pallas",
+          "replay --map did not run the fused mapper with the matcher kernels")
+    for name in ("coarse_scores", "fine_scores", "log_odds_update"):
+        check(launched[name] == k, f"{name} launched {launched[name]} times for {k} scans")
+    check(launched["sliding_median"] == -(-k // REPLAY["chunk"]), "B3 launches on the map replay")
+
+    t0 = time.perf_counter()
+    c_traj, c_scores, c_mapper = replay_with_map(revs, params("cpu"), **kw)
+    cpu_wall = time.perf_counter() - t0
+    check(c_mapper.backend == "host", "the CPU replay did not use the host reference")
+    check(traj.tobytes() == c_traj.tobytes(), "card map replay trajectory differs from the CPU's")
+    check(np.array_equal(scores, c_scores), "card map replay scores differ from the CPU's")
+    snap, c_snap = mapper.snapshot(), c_mapper.snapshot()
+    for key in c_snap:
+        check(snap[key].tobytes() == c_snap[key].tobytes(),
+              f"card map replay snapshot key {key!r} differs from the CPU's")
+    check(int((scores > 0).sum()) > k // 2, "most map replay scans were not matched")
+    check(int((snap["log_odds"][0] > 0).sum()) > 0, "empty map after the replay")
+    row = {
+        "phase": "replay_map", "scans": k, "map_grid": mapper.cfg.grid, "beams": REPLAY["beams"],
+        "wall_s": wall, "scans_per_s": k / wall, "chain_scans_per_s": k / chain_wall,
+        # derived: the whole replay's wall less a chain-only replay's
+        "mapper_scans_per_s": k / max(wall - chain_wall, 1e-9),
+        "cpu_host_replay_scans_per_s": k / cpu_wall, "launches": launched,
+        "matched": int((scores > 0).sum()), "occupied_cells": int((snap["log_odds"][0] > 0).sum()),
+        "final_pose_m": [float(v) for v in traj[-1]],
+    }
+    emit(row)
+    return row
 
 
 def main(argv=None) -> int:
@@ -734,7 +1182,10 @@ def main(argv=None) -> int:
     phase_profile(device, revs, args.trace_dir)
     phase_ab(device, revs)
     phase_node(device)
-    replay = phase_replay(device, args.seed)
+    replay, replay_revs = phase_replay(device, args.seed)
+    mapk = phase_mapkernels(device, np.random.default_rng(args.seed + 1))
+    mapping = phase_mapping(device)
+    replay_map = phase_replay_map(device, replay_revs)
 
     w, b = GEOMETRY["window"], GEOMETRY["beams"]
     w3, k3, b3 = REPLAY["window"], REPLAY["chunk"], REPLAY["beams"]
@@ -757,6 +1208,23 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bnd, "bound_by": by,
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "plain_device_ms": t["plain_device_ms"],
+        })
+    # B6/B7/B8: launches on the config-12 fleet path (one per tick each);
+    # the map replay's launches are checked in its phase
+    for name, replaces in (
+        ("coarse_scores", "rplidar_ros2_driver_tpu/ops/pallas_scan_match.py:154"),
+        ("fine_scores", "rplidar_ros2_driver_tpu/ops/pallas_scan_match.py:248"),
+        ("log_odds_update", "rplidar_ros2_driver_tpu/ops/pallas_scan_match.py:369"),
+    ):
+        t = mapk["times"][name]
+        bnd, by = mapk["bounds"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + "scan_match.cu", "replaces": replaces,
+            "launches": mapping["launches"][name], "max_abs_err": mapk["max_abs_err"][name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "device_ms": t["device_ms"],
+            "plain_device_ms": t["plain_device_ms"],
+            "replay_map_launches": replay_map["launches"][name],
         })
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on the main path")

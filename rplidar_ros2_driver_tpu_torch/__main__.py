@@ -4,10 +4,14 @@ The reference's main is rclcpp::init -> RPlidarNode -> executor spin
 (src/standalone_main.cpp:6-17).  Here:
 
     python -m rplidar_ros2_driver_tpu_torch run [--params FILE] [--dummy] [--duration S] [--cpu]
-    python -m rplidar_ros2_driver_tpu_torch replay CAP.rplr [--chain] [--cpu]
+    python -m rplidar_ros2_driver_tpu_torch replay CAP.rplr [--chain] [--map]
+        [--map-backend auto|host|fused] [--map-pgm PATH] [--cpu]
 
-The filter chain and the replay's decode run on the CUDA card unless
-``filter_backend: cpu`` (or ``--cpu``) keeps them on the host.
+The filter chain, the replay's decode and the SLAM front-end mapper
+(``--map``; with ``map_enable`` in the node) run on the CUDA card unless
+``filter_backend: cpu`` (or ``--cpu``) keeps them on the host.  Still
+raising NotImplementedError, each naming its ROADMAP item: ``--chain`` of
+several captures (A.7) and ``--loop-close`` (A.9).
 """
 
 from __future__ import annotations
@@ -67,6 +71,10 @@ def _cmd_replay(args) -> int:
     from rplidar_ros2_driver_tpu_torch.replay import decode_recording
 
     backend = "cpu" if args.cpu else "cuda"
+    if args.loop_close:
+        raise NotImplementedError(
+            "replay --loop-close (the SLAM back-end) is not ported yet (ROADMAP A.9)"
+        )
     if args.chain and len(args.recordings) > 1:
         raise NotImplementedError(
             "replay --chain of several recordings is the sharded fleet replay, "
@@ -107,7 +115,57 @@ def _cmd_replay(args) -> int:
             f"median range {np.median(ranges[finite]):.2f} m, "
             f"voxel occupancy {occupancy}"
         )
+    if args.map:
+        _replay_map_report(args, per_stream, backend)
     return 0
+
+
+def _replay_map_report(args, per_stream, backend: str) -> None:
+    """The ``replay --map`` arm: each capture's revolutions through the
+    chain and the SLAM front-end (replay.replay_with_map), reported with
+    the JAX CLI's lines: a summary, then an ASCII preview or a PGM."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+    from rplidar_ros2_driver_tpu_torch.replay import replay_with_map
+    from rplidar_ros2_driver_tpu_torch.tools.viz import (
+        ascii_preview,
+        draw_trajectory,
+        map_to_image,
+        save_pgm,
+    )
+
+    params = DriverParams(
+        filter_backend=backend,
+        filter_chain=("clip", "median", "voxel"),
+        map_enable=True,
+        map_backend=args.map_backend,
+    )
+    for i, (path, revs) in enumerate(zip(args.recordings, per_stream)):
+        if not revs:
+            print(f"{path}: --map skipped (no complete revolutions)")
+            continue
+        traj, scores, mapper = replay_with_map(revs, params)
+        snap = mapper.snapshot()
+        occupied = int(np.sum(snap["log_odds"][0] > 0))
+        matched = int(np.sum(scores > 0))
+        x, y, th = traj[-1]
+        print(
+            f"{path}: mapped {len(revs)} revolutions "
+            f"({mapper.backend} backend): {matched} matched, "
+            f"{occupied} occupied cells, final pose "
+            f"({x:+.3f} m, {y:+.3f} m, {np.degrees(th):+.2f} deg)"
+        )
+        img = draw_trajectory(
+            map_to_image(snap["log_odds"][0], mapper.cfg.clamp_q), traj[:, :2], mapper.cfg.cell_m
+        )
+        if args.map_pgm:
+            out = args.map_pgm if len(per_stream) == 1 else f"{args.map_pgm}.{i}"
+            save_pgm(img, out)
+            print(f"  wrote {out}")
+        else:
+            # occupied evidence past half clamp (or the trajectory) as '#'
+            print(ascii_preview((img >= 192).astype(np.uint8), width=64))
 
 
 def main(argv=None) -> int:
@@ -132,6 +190,33 @@ def main(argv=None) -> int:
         action="store_true",
         help="also run the decoded revolutions through the filter chain "
         "(fused multi-scan step)",
+    )
+    replay.add_argument(
+        "--map",
+        action="store_true",
+        help="also run the decoded revolutions through the SLAM front-end "
+        "(correlative scan-to-map matching + log-odds map, "
+        "replay.replay_with_map): prints trajectory + map summary and an "
+        "ASCII map preview",
+    )
+    replay.add_argument(
+        "--loop-close",
+        action="store_true",
+        help="the SLAM back-end (not ported yet: raises)",
+    )
+    replay.add_argument(
+        "--map-pgm",
+        default=None,
+        metavar="PATH",
+        help="write the --map log-odds map (trajectory overlaid) as a PGM "
+        "instead of the ASCII preview",
+    )
+    replay.add_argument(
+        "--map-backend",
+        choices=("auto", "host", "fused"),
+        default="auto",
+        help="mapper backend for --map (auto: fused on the card, host with "
+        "--cpu; host is the NumPy golden reference)",
     )
 
     args = ap.parse_args(argv)

@@ -19,9 +19,17 @@ ranges and a PointCloud + voxel grid are published alongside.  With an
 empty chain the raw path converts the revolution with ``to_laserscan`` on
 the same device.
 
+With ``map_enable`` the SLAM front-end mapper (mapping/mapper.FleetMapper,
+one stream) takes every chain output: each revolution is matched against
+the log-odds map and absorbed into it, and a ``PoseHost`` is published
+beside the scan.  On the card the mapper is the fused device path with
+the matcher kernels B6/B7/B8; with ``filter_backend: cpu`` it is the host
+reference.  The map survives deactivate/activate and rides the combined
+checkpoint under ``mapper.*`` keys.
+
 Not yet in this package, each raising NotImplementedError naming the
-ROADMAP item that brings it: the real (wire-protocol) driver, fused
-device ingest, and the SLAM mapper / loop closure.
+ROADMAP item that brings it: the real (wire-protocol) driver (A.4), fused
+device ingest (A.6) and loop closure, ``loop_enable`` (A.9).
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from rplidar_ros2_driver_tpu_torch.node.lifecycle import LifecycleNode, Lifecycl
 from rplidar_ros2_driver_tpu_torch.node.messages import (
     LaserScanHost,
     PointCloudHost,
+    PoseHost,
     StaticTransform,
 )
 from rplidar_ros2_driver_tpu_torch.node.publisher import CollectingPublisher, PublisherBase
@@ -56,9 +65,11 @@ from rplidar_ros2_driver_tpu_torch.utils.tracing import StageTimer
 
 log = logging.getLogger("rplidar_tpu.node")
 
-# combined-checkpoint key prefixes of the JAX package's mapper / loop-closure
-# state; this package has no SLAM yet, so such keys are dropped on load
-_SLAM_KEY_PREFIXES = ("mapper.", "loop.")
+# combined-checkpoint key prefixes: the mapper's MapState (schema-versioned
+# by its own "version" entry) and the JAX package's loop-closure state,
+# which this package does not have yet and drops on load
+_MAPPER_KEY_PREFIX = "mapper."
+_LOOP_KEY_PREFIX = "loop."
 
 
 class RPlidarNode(LifecycleNode):
@@ -85,6 +96,10 @@ class RPlidarNode(LifecycleNode):
         self.tracer = StageTimer()
         self._param_lock = threading.Lock()
         self._chain_snapshot = None
+        # SLAM front-end (map_enable): one-stream mapper fed every chain
+        # output; its snapshot survives deactivate/activate and cleanup
+        self.mapper = None
+        self._mapper_snapshot = None
         # (stamp, duration, max_range) of the revolution whose chain
         # output is still in flight when pipelined_publish is on
         self._pipeline_meta: Optional[tuple[float, float, float]] = None
@@ -126,10 +141,10 @@ class RPlidarNode(LifecycleNode):
 
     def on_configure(self) -> bool:
         log.info("%s: configuring (port=%s)", self.name, self.params.serial_port)
-        if self.params.map_enable:
+        if self.params.loop_enable:
             raise NotImplementedError(
-                "map_enable (SLAM mapper and loop closure) is not ported to "
-                "the PyTorch package yet (ROADMAP A.8/A.9)"
+                "loop_enable (loop closure and the pose graph) is not ported "
+                "to the PyTorch package yet (ROADMAP A.9)"
             )
         if self._driver_factory is None and not self.params.dummy_mode:
             raise NotImplementedError(
@@ -155,6 +170,15 @@ class RPlidarNode(LifecycleNode):
                     self._chain_snapshot = None
         else:
             self.raw_device = pick_device(self.params.filter_backend)
+        if self.params.map_enable and self.params.filter_chain:
+            from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
+
+            self.mapper = FleetMapper(self.params, 1)
+            self.mapper.precompile()
+            if self._mapper_snapshot is not None:
+                if not self.mapper.restore(self._mapper_snapshot):
+                    # geometry/schema changed since the snapshot: drop it
+                    self._mapper_snapshot = None
         self.diagnostics = DiagnosticsUpdater(
             hardware_id=f"rplidar-{self.params.serial_port}",
             publisher=self.publisher,
@@ -209,36 +233,49 @@ class RPlidarNode(LifecycleNode):
         # preserve the rolling window across deactivate/activate
         if self.chain is not None:
             self._chain_snapshot = self.chain.snapshot()
+        if self.mapper is not None:
+            self._mapper_snapshot = self.mapper.snapshot()
         self._update_diagnostics()
         return True
 
     def on_cleanup(self) -> bool:
         self.fsm = None
         self.chain = None
+        self.mapper = None
         self.raw_device = None
-        # _chain_snapshot intentionally survives cleanup: it is the
-        # checkpoint/resume surface — a later configure restores the
-        # rolling window.  discard_checkpoint() drops it.
+        # _chain_snapshot / _mapper_snapshot intentionally survive cleanup:
+        # they are the checkpoint/resume surface — a later configure
+        # restores the rolling window and the map.  discard_checkpoint()
+        # drops them.
         return True
 
     def discard_checkpoint(self) -> None:
-        """Forget the saved filter-window snapshot (next configure starts
-        cold)."""
+        """Forget the saved filter-window and map snapshots (next configure
+        starts cold)."""
         self._chain_snapshot = None
+        self._mapper_snapshot = None
 
     def save_checkpoint(self, path: str) -> bool:
-        """Persist the filter-chain state to one atomic file
+        """Persist the filter-chain state — and, with the mapper, its
+        MapState under versioned ``mapper.*`` keys — to one atomic file
         (utils/checkpoint.py; the JAX package's format).
 
         Uses the live state when active/inactive, else the last
-        deactivate-time snapshot.  Returns False when there is nothing to
+        deactivate-time snapshots.  Returns False when there is nothing to
         save (no chain configured and no snapshot held)."""
         from rplidar_ros2_driver_tpu_torch.utils.checkpoint import save_checkpoint
 
         snap = self.chain.snapshot() if self.chain is not None else self._chain_snapshot
         if snap is None:
             return False
-        save_checkpoint(path, dict(snap), extra={"node": self.name})
+        snap = dict(snap)
+        mapper_snap = (
+            self.mapper.snapshot() if self.mapper is not None else self._mapper_snapshot
+        )
+        if mapper_snap is not None:
+            for k, v in mapper_snap.items():
+                snap[_MAPPER_KEY_PREFIX + k] = v
+        save_checkpoint(path, snap, extra={"node": self.name})
         return True
 
     def load_checkpoint(self, path: str) -> bool:
@@ -247,9 +284,11 @@ class RPlidarNode(LifecycleNode):
 
         Returns False — touching nothing — when the file is absent/torn
         or its geometry doesn't match the current chain parameters.  A
-        checkpoint written by the JAX package loads here; its mapper /
-        loop-closure keys, if any, are dropped with a warning (no SLAM in
-        this package yet)."""
+        checkpoint written by the JAX package loads here, its ``mapper.*``
+        keys included (restored when compatible; an incompatible map is
+        dropped with the chain still restored — the map is derived state);
+        its loop-closure keys are dropped with a warning (ROADMAP A.9)."""
+        from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
         from rplidar_ros2_driver_tpu_torch.utils.checkpoint import load_checkpoint
 
         if not self.params.filter_chain:
@@ -258,20 +297,34 @@ class RPlidarNode(LifecycleNode):
         if loaded is None:
             return False
         snap, _meta = loaded
-        slam = [k for k in snap if k.startswith(_SLAM_KEY_PREFIXES)]
-        if slam:
-            log.warning("dropping %d SLAM checkpoint entries (not ported)", len(slam))
-            snap = {k: v for k, v in snap.items() if k not in slam}
+        loop = [k for k in snap if k.startswith(_LOOP_KEY_PREFIX)]
+        if loop:
+            log.warning("dropping %d loop-closure checkpoint entries (not ported)", len(loop))
+        mp = _MAPPER_KEY_PREFIX
+        mapper_snap = {k[len(mp):]: v for k, v in snap.items() if k.startswith(mp)} or None
+        snap = {k: v for k, v in snap.items() if not k.startswith((mp, _LOOP_KEY_PREFIX))}
+
+        def stage_mapper() -> None:
+            if mapper_snap is None:
+                return
+            if self.mapper is not None:
+                if self.mapper.restore(mapper_snap):
+                    self._mapper_snapshot = mapper_snap
+            elif FleetMapper.snapshot_compatible(self.params, mapper_snap):
+                self._mapper_snapshot = mapper_snap
+
         if self.chain is not None:
             if not self.chain.restore(snap):  # rejects mismatch untouched
                 return False
             self._chain_snapshot = snap
+            stage_mapper()
             return True
         # no live chain yet: validate host-side against the geometry the
         # next configure will build (no device transfers)
         if not ScanFilterChain.snapshot_compatible(self.params, snap):
             return False
         self._chain_snapshot = snap
+        stage_mapper()
         return True
 
     def on_shutdown(self) -> bool:
@@ -395,6 +448,21 @@ class RPlidarNode(LifecycleNode):
                     voxel=np.asarray(out.voxel),
                 )
             )
+        if self.mapper is not None:
+            with self.tracer.stage("map"):
+                est = self.mapper.submit([out])[0]
+            if est is not None:
+                self.publisher.publish_pose(PoseHost(
+                    stamp=stamp,
+                    frame_id="map",
+                    child_frame_id=params.frame_id,
+                    x_m=est.x_m,
+                    y_m=est.y_m,
+                    theta_rad=est.theta_rad,
+                    score=est.score,
+                    matched_points=est.matched_points,
+                    map_revision=est.revision,
+                ))
 
     # ------------------------------------------------------------------
     # diagnostics (src/rplidar_node.cpp:490-545)
@@ -404,7 +472,7 @@ class RPlidarNode(LifecycleNode):
         if self.diagnostics is None:
             return
         lat = {}
-        for stage in ("filter", "convert", "publish"):
+        for stage in ("filter", "convert", "publish", "map"):
             p = self.tracer.percentile(stage, 99.0)
             if p > 0:
                 lat[stage] = 1e3 * p
@@ -420,6 +488,16 @@ class RPlidarNode(LifecycleNode):
             drv_failures = getattr(driver, "connect_failures", None)
             if drv_failures:
                 reconnect["driver_failures"] = drv_failures
+        map_status = None
+        if self.mapper is not None:
+            est = self.mapper.last_estimates[0]
+            map_status = {"backend": self.mapper.backend}
+            if est is not None:
+                map_status.update(
+                    pose=(est.x_m, est.y_m, est.theta_rad),
+                    score=est.score,
+                    revision=est.revision,
+                )
         self.diagnostics.update(
             lifecycle=self.lifecycle_state,
             fsm_state=self.fsm.state if self.fsm else None,
@@ -428,6 +506,7 @@ class RPlidarNode(LifecycleNode):
             device_info=self.fsm.cached_device_info if self.fsm else "",
             latency_p99_ms=lat or None,
             rx_scheduling=driver.rx_scheduling_class() if driver is not None else None,
+            map_status=map_status,
             reconnect=reconnect,
         )
 

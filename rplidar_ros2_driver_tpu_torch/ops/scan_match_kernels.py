@@ -1,0 +1,276 @@
+"""Wrappers of the correlative-matcher CUDA kernels (csrc/scan_match.cu).
+
+Three kernels replace the JAX package's Pallas TPU kernels of
+``ops/pallas_scan_match.py`` (``match_backend="pallas"``); each launches
+once per fleet tick for all N streams:
+
+  * B6 :func:`coarse_scores_kernel` — ``coarse_scores_pallas``: the
+    quantized match map ``mq = clip(log_odds, 0, clamp_q) >> quant_shift``
+    (emitted for B7) and the (U, V) coarse translation scores of the scan
+    rotated to the predicted heading, bilinear-gathered on the
+    ``coarse``-max-pooled map.
+  * B7 :func:`fine_scores_kernel` — ``fine_scores_pallas``: the
+    (T, F, F) joint (dθ, dx, dy) scores around the coarse winner on ``mq``.
+  * B8 :func:`log_odds_update_kernel` — ``log_odds_update_pallas``: the
+    endpoint-hit and sampled free-space passes, Q10 increments and clamp.
+
+Each wrapper checks dtype, shape, contiguity and device.  A tensor on the
+CPU runs the kernel's plain PyTorch version (:func:`coarse_scores_plain`,
+:func:`fine_scores_plain`, :func:`log_odds_update_plain` — also the
+``match_backend="xla"`` arm); a CUDA tensor launches the kernel (built
+from the source at first use, utils/cuda_build.py) or raises — there is
+no fallback.  ``launch_counts`` counts the launches of each kernel; only a
+launch adds to it.  The design of each kernel is in the source's header
+note.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from rplidar_ros2_driver_tpu_torch.ops.scan_match import (
+    SUB,
+    SUB_BITS,
+    MapConfig,
+    _bilinear_gather,
+    rotate_rows,
+    select_cell_hits,
+)
+from rplidar_ros2_driver_tpu_torch.utils.cuda_build import load_library
+
+# kernel name -> launches since the last reset_launch_counts()
+launch_counts = {"coarse_scores": 0, "fine_scores": 0, "log_odds_update": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+# exported entry -> its argument types (each returns the launch's
+# cudaError_t as an int)
+_SIGNATURES = {
+    "coarse_scores_i32": [_VP] * 7 + [_I] * 8 + [_VP],
+    "fine_scores_i32": [_VP] * 8 + [_I] * 6 + [_VP],
+    "log_odds_update_i32": [_VP] * 6 + [_I] * 7 + [_VP],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load_library("scan_match")
+    if not getattr(lib, "_signatures_set", False):
+        for entry, argtypes in _SIGNATURES.items():
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = _I
+        lib._signatures_set = True
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape: tuple, device: torch.device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _check_scan(log_odds, pq, ok, posec, cfg: MapConfig):
+    """Shared checks of the map and scan arguments; returns (N, B, device)."""
+    if log_odds.ndim != 3 or pq.ndim != 3:
+        raise ValueError(
+            f"expected (N, G, G) map and (N, B, 2) points, got "
+            f"{tuple(log_odds.shape)} and {tuple(pq.shape)}"
+        )
+    n, b, dev = log_odds.shape[0], pq.shape[1], log_odds.device
+    g = cfg.grid
+    _check("log_odds", log_odds, torch.int32, (n, g, g), dev)
+    _check("pq", pq, torch.int32, (n, b, 2), dev)
+    _check("ok", ok, torch.bool, (n, b), dev)
+    _check("posec", posec, torch.int32, (n, 2), dev)
+    return n, b, dev
+
+
+def _launch_device(dev: torch.device, what: str) -> None:
+    if dev.type != "cuda":
+        raise RuntimeError(f"no {what} kernel for device {dev}")
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
+
+
+# ---------------------------------------------------------------------------
+# B6: coarse translation sweep
+# ---------------------------------------------------------------------------
+
+
+def coarse_scores_plain(log_odds, pq, ok, posec, trig, cfg: MapConfig):
+    """Plain version of B6 for N streams: ``(mq (N, G, G), score_c (N, U,
+    V))``.  ``posec`` is pose[:2] + the grid centre in subcells, ``trig``
+    (N, 2) the [cos, sin] table row of the predicted heading."""
+    n, g, c = log_odds.shape[0], cfg.grid, cfg.coarse
+    gc, clog, w = g // c, int(math.log2(c)), cfg.window_cells
+    mq = log_odds.clamp(0, cfg.clamp_q) >> cfg.quant_shift
+    mc = mq.reshape(n, gc, c, gc, c).amax(dim=(2, 4))
+    rx, ry = rotate_rows(pq[..., 0], pq[..., 1], trig[:, 0:1], trig[:, 1:2])
+    # coarse-scale subcell coords: SUB subcells per COARSE cell, so only
+    # the cell index shifts per candidate and the fraction is shared
+    scx, scy = (rx + posec[:, 0:1]) >> clog, (ry + posec[:, 1:2]) >> clog
+    ccx, ccy = scx >> SUB_BITS, scy >> SUB_BITS
+    cfx, cfy = scx & (SUB - 1), scy & (SUB - 1)
+    shifts = torch.arange(-w, w + 1, dtype=torch.int32, device=log_odds.device)
+    ix = ccx[:, :, None, None] + shifts[:, None]                # (N, B, U, 1)
+    iy = ccy[:, :, None, None] + shifts[None, :]                # (N, B, 1, V)
+    vals = _bilinear_gather(
+        mc.reshape(n, -1), gc, ix, iy, cfx[:, :, None, None], cfy[:, :, None, None]
+    )                                                           # (N, B, U, V)
+    score = torch.where(ok[:, :, None, None], vals, 0).sum(dim=1, dtype=torch.int32)
+    return mq, score
+
+
+def coarse_scores_kernel(log_odds, pq, ok, posec, trig, cfg: MapConfig):
+    """B6: (N, G, G) int32 log-odds, (N, B, 2) int32 subcell points,
+    (N, B) bool validity, (N, 2) int32 ``posec``, (N, 2) int32 [cos, sin]
+    -> ``(mq (N, G, G), score_c (N, U, V))`` int32."""
+    n, b, dev = _check_scan(log_odds, pq, ok, posec, cfg)
+    _check("trig", trig, torch.int32, (n, 2), dev)
+    if dev.type == "cpu":
+        return coarse_scores_plain(log_odds, pq, ok, posec, trig, cfg)
+    _launch_device(dev, "coarse-scores")
+    u = 2 * cfg.window_cells + 1
+    mq = torch.empty_like(log_odds)
+    score = torch.empty((n, u, u), dtype=torch.int32, device=dev)
+    if n == 0:
+        return mq, score
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().coarse_scores_i32(
+            log_odds.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
+            trig.data_ptr(), mq.data_ptr(), score.data_ptr(),
+            n, cfg.grid, b, cfg.coarse, int(math.log2(cfg.coarse)), cfg.clamp_q,
+            cfg.quant_shift, cfg.window_cells, stream,
+        )
+    _raise_on(rc, "coarse_scores")
+    launch_counts["coarse_scores"] += 1
+    return mq, score
+
+
+# ---------------------------------------------------------------------------
+# B7: joint (dθ, dx, dy) refinement
+# ---------------------------------------------------------------------------
+
+
+def fine_scores_plain(mq, pq, ok, posec, cos_q, sin_q, uv, cfg: MapConfig):
+    """Plain version of B7 for N streams: the (N, T, F, F) int32 volume in
+    C order (θ, du, dv).  ``cos_q``/``sin_q`` are the (N, T) table rows of
+    the θ candidates, ``uv`` the (N, 2) coarse winner in coarse cells."""
+    n, g, r = mq.shape[0], cfg.grid, cfg.fine_radius
+    csub = cfg.coarse * SUB
+    rx, ry = rotate_rows(pq[:, None, :, 0], pq[:, None, :, 1], cos_q[..., None], sin_q[..., None])
+    fbx = rx + (posec[:, 0] + uv[:, 0] * csub)[:, None, None]  # (N, T, B)
+    fby = ry + (posec[:, 1] + uv[:, 1] * csub)[:, None, None]
+    fcx, fcy = fbx >> SUB_BITS, fby >> SUB_BITS
+    ffx, ffy = fbx & (SUB - 1), fby & (SUB - 1)
+    fsh = torch.arange(-r, r + 1, dtype=torch.int32, device=mq.device)
+    fix = fcx[..., None, None] + fsh[:, None]                   # (N, T, B, F, 1)
+    fiy = fcy[..., None, None] + fsh[None, :]                   # (N, T, B, 1, F)
+    fvals = _bilinear_gather(
+        mq.reshape(n, -1), g, fix, fiy, ffx[..., None, None], ffy[..., None, None]
+    )                                                           # (N, T, B, F, F)
+    return torch.where(ok[:, None, :, None, None], fvals, 0).sum(dim=2, dtype=torch.int32)
+
+
+def fine_scores_kernel(mq, pq, ok, posec, cos_q, sin_q, uv, cfg: MapConfig):
+    """B7: (N, G, G) int32 ``mq`` (B6's output), the scan as for B6, (N, T)
+    int32 cos/sin of the θ candidates, (N, 2) int32 coarse winner ->
+    (N, T, F, F) int32."""
+    n, b, dev = _check_scan(mq, pq, ok, posec, cfg)
+    t = 2 * cfg.theta_window + 1
+    f = 2 * cfg.fine_radius + 1
+    _check("cos_q", cos_q, torch.int32, (n, t), dev)
+    _check("sin_q", sin_q, torch.int32, (n, t), dev)
+    _check("uv", uv, torch.int32, (n, 2), dev)
+    if dev.type == "cpu":
+        return fine_scores_plain(mq, pq, ok, posec, cos_q, sin_q, uv, cfg)
+    _launch_device(dev, "fine-scores")
+    out = torch.empty((n, t, f, f), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().fine_scores_i32(
+            mq.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
+            cos_q.data_ptr(), sin_q.data_ptr(), uv.data_ptr(), out.data_ptr(),
+            n, cfg.grid, b, t, cfg.coarse * SUB, cfg.fine_radius, stream,
+        )
+    _raise_on(rc, "fine_scores")
+    launch_counts["fine_scores"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B8: log-odds update
+# ---------------------------------------------------------------------------
+
+
+def log_odds_update_plain(log_odds, pq, ok, posec, trig, cfg: MapConfig):
+    """Plain version of B8 for N streams (``cfg.voxel_backend``'s
+    histogram): endpoint hits and the ``free_samples`` ray samples
+    ``o + (w - o)·k // S`` (floor division), ``+hit_q`` on hit cells,
+    ``+miss_q`` on free cells not hit, clamp ±``clamp_q``."""
+    g = cfg.grid
+    rx, ry = rotate_rows(pq[..., 0], pq[..., 1], trig[:, 0:1], trig[:, 1:2])
+    ox, oy = posec[:, 0:1], posec[:, 1:2]                       # the sensor
+    wx, wy = rx + ox, ry + oy                                   # (N, B)
+    hits_fn = select_cell_hits(cfg.voxel_backend)
+
+    def hist(sx, sy):
+        cx, cy = sx >> SUB_BITS, sy >> SUB_BITS
+        inb = ok & (cx >= 0) & (cx < g) & (cy >= 0) & (cy < g)
+        return hits_fn(cx, cy, inb, g)
+
+    hit = hist(wx, wy) > 0
+    delta = hit.to(torch.int32) * cfg.hit_q
+    if cfg.free_samples > 0:
+        s = cfg.free_samples
+        free = None
+        for k in range(s):
+            counts = hist(
+                ox + torch.div((wx - ox) * k, s, rounding_mode="floor"),
+                oy + torch.div((wy - oy) * k, s, rounding_mode="floor"),
+            )
+            free = counts if free is None else free + counts
+        delta = delta + ((free > 0) & ~hit).to(torch.int32) * cfg.miss_q
+    return (log_odds + delta).clamp(-cfg.clamp_q, cfg.clamp_q)
+
+
+def log_odds_update_kernel(log_odds, pq, ok, posec, trig, cfg: MapConfig):
+    """B8: (N, G, G) int32 log-odds, the scan as for B6, (N, 2) int32
+    ``posec`` and [cos, sin] of the composed pose -> the updated (N, G, G)
+    int32 map (a new tensor)."""
+    n, b, dev = _check_scan(log_odds, pq, ok, posec, cfg)
+    _check("trig", trig, torch.int32, (n, 2), dev)
+    if dev.type == "cpu":
+        return log_odds_update_plain(log_odds, pq, ok, posec, trig, cfg)
+    _launch_device(dev, "log-odds-update")
+    out = torch.empty_like(log_odds)
+    if n == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().log_odds_update_i32(
+            log_odds.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
+            trig.data_ptr(), out.data_ptr(),
+            n, cfg.grid, b, cfg.hit_q, cfg.miss_q, cfg.clamp_q, cfg.free_samples, stream,
+        )
+    _raise_on(rc, "log_odds_update")
+    launch_counts["log_odds_update"] += 1
+    return out

@@ -1,8 +1,10 @@
 """Record / replay: capture raw wire frames, batch-decode them on the card,
-run the revolutions through the fused K-scan filter chain.
+run the revolutions through the fused K-scan filter chain and, with
+:func:`replay_with_map`, through the SLAM front-end mapper.
 
 The PyTorch counterpart of the JAX package's ``replay.py`` (its recorder,
-reader, batched decode and ``replay_through_chain``): a capture decodes as
+reader, batched decode, ``replay_through_chain`` and ``replay_with_map``;
+the fleet, raw-fused and loop-closure replays are not ported): a capture decodes as
 a handful of ``(M, frame_bytes)`` batch decodes (ops/unpack.py) on the
 chosen device instead of a per-byte loop; the revolution split stays numpy
 on the host; then the revolutions advance the rolling window ``chunk``
@@ -226,3 +228,71 @@ def replay_through_chain(
         torch.cat(outs).cpu().numpy() if outs else np.zeros((0, cfg.beams), np.float32)
     )
     return ranges, state.to(torch.device("cpu"))
+
+
+def _replay_map_core(
+    revolutions: list[dict],
+    params,
+    *,
+    beams: int | None,
+    capacity: int,
+    chunk: int,
+):
+    """The offline SLAM replay loop: chain replay, then the numpy beam-grid
+    projection of each median range image on the host (float32 θ, numpy
+    cos/sin, float32 products — the JAX package's lines verbatim, so both
+    packages feed the mapper the same float32 points bit for bit), then one
+    mapper tick per scan."""
+    from rplidar_ros2_driver_tpu_torch.filters.chain import DEFAULT_BEAMS
+    from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
+
+    b = beams or DEFAULT_BEAMS
+    ranges, _state = replay_through_chain(
+        revolutions, params, beams=b, capacity=capacity, chunk=chunk
+    )
+    theta = ((np.arange(b) + 0.5) * (2.0 * np.pi / b)).astype(np.float32)
+    cos_t, sin_t = np.cos(theta), np.sin(theta)
+    mapper = FleetMapper(params, 1, beams=b)
+    k_total = ranges.shape[0]
+    traj = np.zeros((k_total, 3), np.float64)
+    scores = np.zeros((k_total,), np.int32)
+    for k in range(k_total):
+        finite = np.isfinite(ranges[k])
+        r = np.where(finite, ranges[k], 0.0).astype(np.float32)
+        pts = np.stack([r * cos_t, r * sin_t], axis=1).astype(np.float32)
+        est = mapper.submit_points(pts[None], finite[None], np.ones((1,), np.int32))[0]
+        traj[k] = (est.x_m, est.y_m, est.theta_rad)
+        scores[k] = est.score
+    return traj, scores, mapper
+
+
+def replay_with_map(
+    revolutions: list[dict],
+    params,
+    *,
+    beams: int | None = None,
+    capacity: int = 4096,
+    chunk: int = 256,
+):
+    """Offline SLAM replay: a capture's revolutions through the fused filter
+    chain (:func:`replay_through_chain`), then every median range image
+    through the mapper (mapping/mapper.FleetMapper: correlative scan-to-map
+    matching + log-odds occupancy).  The chain and the mapper run on the
+    card unless ``params.filter_backend`` is ``cpu``; ``params.map_backend``
+    ``auto`` is the fused device mapper on the card, the host reference on
+    the CPU.
+
+    Returns ``(trajectory, scores, mapper)``: (K, 3) float64 [x_m, y_m,
+    theta_rad] per-scan poses, (K,) int32 match scores, and the mapper
+    (whose ``snapshot()`` is the final map; render it with
+    tools/viz.map_to_image)."""
+    return _replay_map_core(revolutions, params, beams=beams, capacity=capacity, chunk=chunk)
+
+
+def replay_with_loop_closure(revolutions: list[dict], params, **kwargs):
+    """The replay through the SLAM back-end (loop closure, pose graph):
+    not ported to this package yet."""
+    raise NotImplementedError(
+        "replay with loop closure (the SLAM back-end) is not ported to the "
+        "PyTorch package yet (ROADMAP A.9)"
+    )

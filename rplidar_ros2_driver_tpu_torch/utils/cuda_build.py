@@ -28,7 +28,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 # the kernels of this package, by library name -> source file in csrc/
-SOURCES = {"median": "median.cu", "sliding_median": "sliding_median.cu"}
+SOURCES = {
+    "median": "median.cu",
+    "sliding_median": "sliding_median.cu",
+    "scan_match": "scan_match.cu",
+}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -58,10 +58,11 @@ def test_scan_sees_the_whole_port():
         "core/config.py", "core/types.py", "ops/filters.py", "ops/median_kernels.py",
         "filters/chain.py", "driver/dummy.py", "node/node.py", "launch/lifecycle_launch.py",
         "__main__.py", "protocol/constants.py", "protocol/crc.py", "ops/unpack.py",
-        "ops/wire.py", "replay.py",
+        "ops/wire.py", "replay.py", "ops/scan_match.py", "ops/scan_match_kernels.py",
+        "ops/scan_match_ref.py", "mapping/mapper.py", "tools/viz.py",
     ):
         assert module in rel
-    for source in ("median.cu", "sliding_median.cu"):
+    for source in ("median.cu", "sliding_median.cu", "scan_match.cu"):
         assert os.path.exists(os.path.join(PORT, "csrc", source))
 
 

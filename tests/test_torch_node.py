@@ -136,8 +136,8 @@ def test_jax_node_checkpoint_loads_into_port_node(tmp_path):
 def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="A.4"):
         RPlidarNode(DriverParams(filter_backend="cpu")).configure()
-    with pytest.raises(NotImplementedError, match="A.8"):
-        make_node(filter_chain=CHAIN, map_enable=True).configure()
+    with pytest.raises(NotImplementedError, match="A.9"):
+        make_node(filter_chain=CHAIN, map_enable=True, loop_enable=True).configure()
     fused = RPlidarNode(
         DriverParams(filter_backend="cpu", filter_chain=CHAIN, ingest_backend="fused"),
         driver_factory=lambda: DummyLidarDriver(scan_rate_hz=200.0),
