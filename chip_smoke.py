@@ -42,7 +42,20 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
  11. replay_map — the config-7 capture through replay_with_map on the card
                 (the chain with B3, then the fused mapper with B6/B7/B8), held
                 equal to the CPU replay with the host reference mapper;
- 12. kernels  — one line listing every kernel with its launches and times.
+ 12. deskew_kernels — the de-skew kernels B4, B5 against their plain
+                PyTorch versions on the card (exact) over the JAX suite's
+                four geometries, degenerate inputs, the featureless tie and
+                the fused ingest's shapes, then timed there (B4 beside one
+                scatter_reduce_ "amin" call);
+ 13. replay_fused — the config-7 capture through replay_raw_fused (the
+                fused device ingest: 64 frames per tick, T=8, max_revs 8):
+                de-skew off held equal to the card's host-path replay and
+                the CPU fused replay; de-skew on (B4/B5) held equal to the
+                CPU fused replay and to DeskewHostTwin + the CPU chain,
+                with a nonzero motion estimate; B1/B4/B5 launches counted
+                around the card's runs; host syncs per tick and one
+                profiled super-step per arm; the CLI's replay --fused line;
+ 14. kernels  — one line listing every kernel with its launches and times.
 
 Then the card's name and power limit, then {"ok": true, "device": ...}.
 Any mismatch or error exits non-zero.  Without a CUDA device it exits 1
@@ -70,6 +83,9 @@ REPLAY = dict(window=64, beams=2048, grid=256, cell_m=0.25, chunk=512, capacity=
               points=3200, revs=520)
 # bench.py GRADED[12] (bench_mapping): the SLAM front-end fleet tick
 MAPPING = dict(streams=4, grid=256, cell_m=0.05, beams=2048, window_m=0.4, ticks=20)
+# replay_raw_fused's defaults: the config-7 capture through the fused
+# device ingest, 64 frames per tick, T=8 ticks per super-step
+FUSED = dict(frames_per_tick=64, super_ticks=8, max_revs=8)
 
 
 def emit(obj) -> None:
@@ -640,7 +656,7 @@ def phase_replay(device, seed: int) -> dict:
                           for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]],
     }
     emit(row)
-    return row, revs
+    return row, revs, frames
 
 
 def phase_node(device) -> dict:
@@ -1149,6 +1165,366 @@ def phase_replay_map(device, revs) -> dict:
     emit(row)
     return row
 
+# ---------------------------------------------------------------------------
+# the fused device ingest with de-skew (B4, B5)
+# ---------------------------------------------------------------------------
+
+
+def _deskew_rows(rng, rows: int, n: int):
+    """Seeded node rows (the JAX kernel suite's distribution): angles,
+    18-bit distances with 10% no-returns, qualities, 90% valid."""
+    import numpy as np
+
+    angle = rng.integers(0, 65536, (rows, n)).astype(np.int32)
+    dist = rng.integers(0, 0x3FFFF, (rows, n)).astype(np.int32)
+    dist[rng.random((rows, n)) < 0.1] = 0
+    quality = rng.integers(0, 256, (rows, n)).astype(np.int32)
+    valid = rng.random((rows, n)) < 0.9
+    return angle, dist, quality, valid
+
+
+def phase_deskew_kernels(device, rng) -> dict:
+    """B4 and B5 against their plain versions on the card (exact) over the
+    JAX kernel suite's geometries, degenerate inputs, the featureless tie
+    and the fused ingest's own shapes; then timed at those shapes."""
+    import numpy as np
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops import deskew as tdsk
+    from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
+
+    empty = tdsk.RECON_EMPTY
+    max_err = {"beam_min": 0.0, "shift_sad": 0.0}
+    checked = {"beam_min": 0, "shift_sad": 0}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def b4(beam, vals, nb, what):
+        b, v = t(beam), t(vals)
+        ok, err = exact(dk.beam_min_kernel(b, v, nb), dk.beam_min_plain(b, v, nb))
+        max_err["beam_min"] = max(max_err["beam_min"], err)
+        check(ok, f"B4 differs from its plain version ({what}): {err}")
+        checked["beam_min"] += 1
+
+    def b5(prev, cur, shifts, what, min_valid=16, max_trans=2048):
+        p, c, sh = t(prev), t(cur), t(shifts)
+        ok, err = exact(dk.shift_sad_kernel(p, c, sh, min_valid, max_trans),
+                        dk.shift_sad_plain(p, c, sh, min_valid, max_trans))
+        max_err["shift_sad"] = max(max_err["shift_sad"], err)
+        check(ok, f"B5 differs from its plain version ({what}): {err}")
+        checked["shift_sad"] += 1
+
+    def beams_of(angle, nb):
+        return np.clip((angle.astype(np.int64) * nb) // 65536, 0, nb - 1).astype(np.int32)
+
+    def packed(dist, quality, valid):
+        return np.where(valid & (dist > 0), (dist << 8) | quality, empty).astype(np.int32)
+
+    def profiles(angle, dist, valid, d):
+        return dk.beam_min_plain(t(beams_of(angle, d)),
+                                 t(np.where(valid & (dist > 0), dist, empty).astype(np.int32)),
+                                 d).cpu().numpy()
+
+    # the four (recon_beams, profile_beams) geometries of the JAX suite
+    for beams, prof in [(256, 64), (2048, 256), (100, 128), (8, 1024)]:
+        cfg = tdsk.DeskewConfig(recon_beams=beams, profile_beams=prof,
+                                shift_window=min(8, prof // 8))
+        a, d, q, v = _deskew_rows(rng, 3, 600)
+        b4(beams_of(a, beams), packed(d, q, v), beams, f"rasterizer {beams}")
+        b4(beams_of(a, prof), np.where(v & (d > 0), d, empty).astype(np.int32), prof,
+           f"profile {prof}")
+        a2, d2, _q2, v2 = _deskew_rows(rng, 3, 600)
+        b5(profiles(a, d, v, prof), profiles(a2, d2, v2, prof), tdsk.shift_candidates(cfg),
+           f"D={prof}")
+    # degenerate inputs: all EMPTY, one node, every node in one beam, node
+    # counts off any block size, an empty row set
+    b4(rng.integers(0, 256, (2, 77)).astype(np.int32), np.full((2, 77), empty, np.int32), 256,
+       "all EMPTY")
+    b4(np.asarray([[5]], np.int32), np.asarray([[1234]], np.int32), 256, "single node")
+    b4(np.full((1, 513), 9, np.int32), rng.integers(0, 1 << 26, (1, 513)).astype(np.int32),
+       256, "one beam")
+    for n in (1, 255, 257, 1000, 4097):
+        b4(rng.integers(0, 2048, (2, n)).astype(np.int32),
+           rng.integers(0, 1 << 26, (2, n)).astype(np.int32), 2048, f"n={n}")
+    b4(np.zeros((0, 16), np.int32), np.zeros((0, 16), np.int32), 16, "no rows")
+    cands = tdsk.shift_candidates(tdsk.DeskewConfig(recon_beams=256))
+    flat = np.full((2, 256), 3000, np.int32)
+    b5(flat, flat, cands, "featureless tie")
+    b5(np.full((1, 64), empty, np.int32), np.full((1, 64), empty, np.int32), cands[:9],
+       "all EMPTY")
+    # the fused ingest's shapes at config 7: the rasterizer (1 stream x 64
+    # frames x 40 samples -> 2048 beams), the profiles (8 revolution slots
+    # x 4096 nodes -> 256 beams), the shift search (8 slots, C=17, D=256)
+    a, d, q, v = _deskew_rows(rng, 1, 2560)
+    r_beam, r_val = t(beams_of(a, 2048)), t(packed(d, q, v))
+    b4(r_beam.cpu().numpy(), r_val.cpu().numpy(), 2048, "rasterizer 1x2560x2048")
+    a, d, _q, v = _deskew_rows(rng, 8, 4096)
+    p_beam = t(beams_of(a, 256))
+    p_val = t(np.where(v & (d > 0), d, empty).astype(np.int32))
+    b4(p_beam.cpu().numpy(), p_val.cpu().numpy(), 256, "profiles 8x4096x256")
+    prev = profiles(a, d, v, 256)
+    cur = np.roll(prev, 3, axis=1)
+    cur[:, ::7] = empty
+    b5(prev, cur, cands, "8 slots C=17 D=256")
+    s_prev, s_cur, s_sh = t(prev), t(cur), t(cands)
+
+    def lib_b4(beam_l, vals, nb):
+        out = torch.full((vals.shape[0], nb), empty, dtype=torch.int32, device=device)
+        idx = beam_l.long()
+        return lambda: out.scatter_reduce_(1, idx, vals, reduce="amin", include_self=True)
+
+    times = {}
+    for name, (bb, vv, nb) in (("raster", (r_beam, r_val, 2048)),
+                               ("profile", (p_beam, p_val, 256))):
+        times[f"beam_min_{name}"] = {
+            "ms": cuda_ms(lambda: dk.beam_min_kernel(bb, vv, nb)),
+            "plain_ms": cuda_ms(lambda: dk.beam_min_plain(bb, vv, nb), iters=50),
+            # one PyTorch call computing the same per-beam min
+            "library_ms": cuda_ms(lib_b4(bb, vv, nb)),
+            "library_device_ms": device_ms(lib_b4(bb, vv, nb)),
+            "device_ms": device_ms(lambda: dk.beam_min_kernel(bb, vv, nb)),
+            "plain_device_ms": device_ms(lambda: dk.beam_min_plain(bb, vv, nb), iters=20),
+            "bound": bound(bb.numel() * 8 + bb.shape[0] * nb * 4, bb.numel()),
+            "shape": [bb.shape[0], bb.shape[1], nb],
+        }
+    c, dd = len(cands), s_prev.shape[1]
+    times["shift_sad"] = {
+        "ms": cuda_ms(lambda: dk.shift_sad_kernel(s_prev, s_cur, s_sh, 16, 2048)),
+        "plain_ms": cuda_ms(lambda: dk.shift_sad_plain(s_prev, s_cur, s_sh, 16, 2048), iters=50),
+        "library_ms": None,
+        "device_ms": device_ms(lambda: dk.shift_sad_kernel(s_prev, s_cur, s_sh, 16, 2048)),
+        "plain_device_ms": device_ms(lambda: dk.shift_sad_plain(s_prev, s_cur, s_sh, 16, 2048),
+                                     iters=20),
+        # each profile read once, the scores written once; per (row, shift,
+        # beam) two compares, a subtract, a clamp, an abs and two adds
+        "bound": bound(2 * s_prev.numel() * 4 + c * 4 + s_prev.shape[0] * c * 4,
+                       7 * s_prev.shape[0] * c * dd),
+        "shape": [s_prev.shape[0], c, dd],
+    }
+    row = {"phase": "deskew_kernels", "checked": checked, "max_abs_err": max_err,
+           "times_ms": times}
+    emit(row)
+    return row
+
+
+def _tick_items(frames, ans: int, per_tick: int):
+    """replay_raw_fused's tick grouping of a one-format capture recorded at
+    1 ms per frame: ``per_tick`` (payload, ts) pairs per tick."""
+    items = [(fr, i * 1e-3) for i, fr in enumerate(frames)]
+    return [items[i : i + per_tick] for i in range(0, len(items), per_tick)]
+
+
+def phase_replay_fused(device, frames, revs, trace_dir=None) -> dict:
+    """Config 7 through the fused device ingest (replay_raw_fused: 64
+    frames per tick, T=8, max_revs 8, capacity 4096): de-skew off held
+    equal to the card's host-path replay and to the CPU fused replay;
+    de-skew on (auto: B4/B5) held equal to the CPU fused replay and to
+    DeskewHostTwin + the CPU chain; the B1/B4/B5 launches counted; scans/s,
+    dispatches and host syncs per tick for each arm; one profiled
+    super-step window; the CLI's ``replay --fused`` line."""
+    import contextlib
+    import io
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rplidar_ros2_driver_tpu_torch.__main__ import main as cli_main
+    from rplidar_ros2_driver_tpu_torch.driver.ingest import FleetFusedIngest
+    from rplidar_ros2_driver_tpu_torch.filters.chain import ScanFilterChain
+    from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+    from rplidar_ros2_driver_tpu_torch.ops.deskew import deskew_config_from_params
+    from rplidar_ros2_driver_tpu_torch.ops.deskew_ref import DeskewHostTwin
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+    from rplidar_ros2_driver_tpu_torch.replay import (
+        FrameRecorder,
+        replay_raw_fused,
+        replay_through_chain,
+    )
+
+    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
+    kw = dict(beams=REPLAY["beams"], capacity=REPLAY["capacity"], **FUSED)
+    deskew_on = dict(deskew_enable=True, deskew_backend="auto")
+    row = {"phase": "replay_fused", "turns": REPLAY["revs"], "frames": len(frames), **FUSED}
+
+    def counts():
+        return {**mk.launch_counts, **dk.launch_counts}
+
+    def reset_counts():
+        mk.reset_launch_counts()
+        dk.reset_launch_counts()
+
+    def timed(params, path):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = replay_raw_fused(path, params, **kw)
+        if params.filter_backend != "cpu":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counts()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "denseboost.rplr")
+        with FrameRecorder(path) as rec:
+            for i, fr in enumerate(frames):
+                rec.write(ans, fr, i * 1e-3)
+        warm = os.path.join(tmp, "warm.rplr")
+        with FrameRecorder(warm) as rec:
+            for i, fr in enumerate(frames[:1200]):
+                rec.write(ans, fr, i * 1e-3)
+        for over in ({}, deskew_on):  # warm-up: builds, allocator
+            replay_raw_fused(warm, _replay_params("cuda", **over), **kw)
+
+        arms = {}
+        for name, over in (("deskew_off", {}), ("deskew_on", deskew_on)):
+            (ranges, state, stats), wall, launched = timed(_replay_params("cuda", **over), path)
+            (c_ranges, c_state, c_stats), c_wall, _ = timed(_replay_params("cpu", **over), path)
+            k = stats["scans"]
+            check(k == len(revs), f"{name}: fused replay gave {k} scans for {len(revs)} revolutions")
+            ok, err = exact(torch.from_numpy(ranges), torch.from_numpy(c_ranges))
+            check(ok, f"{name}: card fused replay ranges differ from the CPU fused replay: {err}")
+            check(_same_state(state, c_state), f"{name}: card fused state differs from the CPU's")
+            check(launched["temporal_median"] == k,
+                  f"{name}: B1 launched {launched['temporal_median']} times for {k} revolutions")
+            arms[name] = dict(
+                ranges=ranges, state=state, stats=stats, launches=launched,
+                row={"scans": k, "ticks": stats["ticks"], "dispatches": stats["dispatches"],
+                     "super_dispatches": stats["super_dispatches"], "wall_s": wall,
+                     "scans_per_s": k / wall, "cpu_wall_s": c_wall, "cpu_scans_per_s": k / c_wall,
+                     "launches": launched},
+            )
+            if name == "deskew_on":
+                hist, c_hist = stats["recon_history"], c_stats["recon_history"]
+                check(len(hist) == len(c_hist) == stats["ticks"],
+                      f"recon sweeps {len(hist)} / {len(c_hist)} for {stats['ticks']} ticks")
+                for i, ((p, pts), (cp, cpts)) in enumerate(zip(hist, c_hist)):
+                    check(np.array_equal(p, cp), f"recon plane {i} differs from the CPU's")
+                    check(np.array_equal(pts[:, 2], cpts[:, 2]), f"recon mask {i} differs")
+                    check(np.array_equal(pts, cpts), f"recon points {i} differ from the CPU's")
+
+        # de-skew off: the card's host-path replay over the decoded revolutions
+        off = arms["deskew_off"]
+        h_ranges, h_state = replay_through_chain(
+            revs, _replay_params("cuda"), beams=REPLAY["beams"], capacity=REPLAY["capacity"],
+            chunk=REPLAY["chunk"])
+        ok, err = exact(torch.from_numpy(off["ranges"]), torch.from_numpy(h_ranges))
+        check(ok, f"fused replay ranges differ from the host-path replay: {err}")
+        check(_same_state(off["state"], h_state), "fused final state differs from the host path's")
+        check(off["launches"]["beam_min"] == 0 and off["launches"]["shift_sad"] == 0,
+              "de-skew kernels launched with de-skew off")
+
+        # de-skew on: DeskewHostTwin + the CPU chain over the same ticks
+        on = arms["deskew_on"]
+        cpu_params = _replay_params("cpu", **deskew_on)
+        twin = DeskewHostTwin(deskew_config_from_params(cpu_params, REPLAY["beams"], "cpu"),
+                              max_nodes=REPLAY["capacity"])
+        chain = ScanFilterChain(cpu_params, beams=REPLAY["beams"], warmup=False,
+                                capacity=REPLAY["capacity"])
+        t0 = time.perf_counter()
+        twin_recons, twin_ranges, moved = [], [], 0
+        for items in _tick_items(frames, ans, FUSED["frames_per_tick"]):
+            combined, pushed, tw_revs = twin.tick(ans, items)
+            if pushed:
+                twin_recons.append(combined)
+            for a2, d2, scan in tw_revs:
+                twin_ranges.append(chain.process_raw(a2, d2, scan["quality"], scan["flag"]).ranges)
+                moved += int((twin.stream.motion != 0).any())
+        twin_wall = time.perf_counter() - t0
+        hist = on["stats"]["recon_history"]
+        check(len(twin_recons) == len(hist), f"{len(twin_recons)} twin sweeps vs {len(hist)}")
+        for i, ((p, _pts), tp) in enumerate(zip(hist, twin_recons)):
+            check(np.array_equal(p, tp), f"recon plane {i} differs from DeskewHostTwin's")
+        check(len(twin_ranges) == len(on["ranges"]), "twin revolution count differs")
+        ok, err = exact(torch.from_numpy(on["ranges"]), torch.from_numpy(np.stack(twin_ranges)))
+        check(ok, f"de-skewed ranges differ from DeskewHostTwin + chain: {err}")
+        check(moved > 0, "no revolution had a nonzero motion estimate")
+        # B5 once per tick that completed a revolution; B4 that once more
+        # (the profiles) plus the rasterizer once per tick slot, the idle
+        # pad ticks of the last super-step included
+        st = on["stats"]
+        slots = st["super_dispatches"] * FUSED["super_ticks"] + st["dispatches"] - st[
+            "super_dispatches"]
+        ticks_done = on["launches"]["shift_sad"]
+        check(0 < ticks_done <= st["ticks"], f"B5 launched {ticks_done} times")
+        check(on["launches"]["beam_min"] == slots + ticks_done,
+              f"B4 launched {on['launches']['beam_min']} times for {slots} tick slots "
+              f"and {ticks_done} ticks that completed a revolution")
+
+        # host syncs per tick and one profiled super-step window, per arm
+        tick_items = _tick_items(frames, ans, FUSED["frames_per_tick"])
+        t_depth = FUSED["super_ticks"]
+        for name, over in (("deskew_off", {}), ("deskew_on", deskew_on)):
+            params = _replay_params("cuda", **over)
+
+            def engine():
+                eng = FleetFusedIngest(params, 1, beams=REPLAY["beams"],
+                                       capacity=REPLAY["capacity"], max_revs=FUSED["max_revs"],
+                                       max_queue=1 << 30, buckets=(FUSED["frames_per_tick"],),
+                                       super_tick_max=t_depth)
+                eng.submit_backlog([[(ans, it)] for it in tick_items[: 4 * t_depth]])
+                return eng
+
+            window = [[(ans, it)] for it in tick_items[4 * t_depth : 5 * t_depth]]
+            eng = engine()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                eng.submit_backlog(window)
+            torch.cuda.set_sync_debug_mode("default")
+            sites = {}
+            for w in caught:
+                if "synchroniz" in str(w.message):
+                    site = f"{os.path.relpath(w.filename)}:{w.lineno}"
+                    sites[site] = sites.get(site, 0) + 1
+            syncs = sum(sites.values())
+            eng = engine()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.submit_backlog(window)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            if trace_dir:
+                os.makedirs(trace_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(trace_dir, f"replay_fused_{name}.json"))
+            dev_events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+            busy_us = sum(ev.time_range.elapsed_us() for ev in dev_events)
+            by_kernel = {}
+            for ev in dev_events:
+                by_kernel[ev.name] = by_kernel.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            arm = arms[name]["row"]
+            arm.update({
+                "host_syncs_per_tick": syncs / t_depth, "sync_sites": sites,
+                "window_ticks": t_depth, "window_wall_ms": prof_wall * 1e3,
+                "window_device_busy_ms": busy_us / 1e3,
+                "window_device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
+                "window_device_ops": len(dev_events),
+                "window_top_device_ms": [[k[:60], v / 1e3] for k, v in
+                                         sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]],
+            })
+
+        # the CLI line, on the capture's first 15 turns
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(["replay", warm, "--fused"])
+        line = [ln for ln in out.getvalue().splitlines() if "fused raw replay" in ln]
+        check(rc == 0 and len(line) == 1 and line[0].endswith("parity OK"),
+              f"replay --fused: {out.getvalue()[-400:]}")
+
+    row.update({
+        "deskew_off": arms["deskew_off"]["row"], "deskew_on": arms["deskew_on"]["row"],
+        "twin_wall_s": twin_wall, "revolutions_with_motion": moved,
+        "cli": line[0].split(": ", 1)[1],
+    })
+    emit(row)
+    return row
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1182,10 +1558,12 @@ def main(argv=None) -> int:
     phase_profile(device, revs, args.trace_dir)
     phase_ab(device, revs)
     phase_node(device)
-    replay, replay_revs = phase_replay(device, args.seed)
+    replay, replay_revs, replay_frames = phase_replay(device, args.seed)
     mapk = phase_mapkernels(device, np.random.default_rng(args.seed + 1))
     mapping = phase_mapping(device)
     replay_map = phase_replay_map(device, replay_revs)
+    dskk = phase_deskew_kernels(device, np.random.default_rng(args.seed + 2))
+    fused = phase_replay_fused(device, replay_frames, replay_revs, args.trace_dir)
 
     w, b = GEOMETRY["window"], GEOMETRY["beams"]
     w3, k3, b3 = REPLAY["window"], REPLAY["chunk"], REPLAY["beams"]
@@ -1226,6 +1604,29 @@ def main(argv=None) -> int:
             "plain_device_ms": t["plain_device_ms"],
             "replay_map_launches": replay_map["launches"][name],
         })
+    # B4/B5: launches on the de-skew-on fused replay; B4 is timed at both
+    # of its shapes there (the rasterizer's in the row, the profiles' beside)
+    for name, key, replaces in (
+        ("beam_min", "beam_min_raster", "rplidar_ros2_driver_tpu/ops/pallas_deskew.py:104"),
+        ("shift_sad", "shift_sad", "rplidar_ros2_driver_tpu/ops/pallas_deskew.py:198"),
+    ):
+        t = dskk["times_ms"][key]
+        bnd, by = t["bound"]
+        entry = {
+            "name": name, "route": "cuda", "source": src + "deskew.cu", "replaces": replaces,
+            "launches": fused["deskew_on"]["launches"][name],
+            "max_abs_err": dskk["max_abs_err"][name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bnd, "bound_by": by,
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "plain_device_ms": t["plain_device_ms"], "shape": t["shape"],
+        }
+        if name == "beam_min":
+            p = dskk["times_ms"]["beam_min_profile"]
+            entry["library_device_ms"] = t["library_device_ms"]
+            entry["profile_shape"] = {k: p[k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                                                         "library_ms", "library_device_ms",
+                                                         "bound")}
+        kernels.append(entry)
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on the main path")
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})

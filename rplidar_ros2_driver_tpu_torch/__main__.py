@@ -4,12 +4,14 @@ The reference's main is rclcpp::init -> RPlidarNode -> executor spin
 (src/standalone_main.cpp:6-17).  Here:
 
     python -m rplidar_ros2_driver_tpu_torch run [--params FILE] [--dummy] [--duration S] [--cpu]
-    python -m rplidar_ros2_driver_tpu_torch replay CAP.rplr [--chain] [--map]
+    python -m rplidar_ros2_driver_tpu_torch replay CAP.rplr [--chain] [--fused] [--map]
         [--map-backend auto|host|fused] [--map-pgm PATH] [--cpu]
 
-The filter chain, the replay's decode and the SLAM front-end mapper
-(``--map``; with ``map_enable`` in the node) run on the CUDA card unless
-``filter_backend: cpu`` (or ``--cpu``) keeps them on the host.  Still
+The filter chain, the replay's decode, the fused device ingest
+(``--fused``: the raw capture bytes through replay.replay_raw_fused, held
+to the host chain) and the SLAM front-end mapper (``--map``; with
+``map_enable`` in the node) run on the CUDA card unless ``filter_backend:
+cpu`` (or ``--cpu``) keeps them on the host.  Still
 raising NotImplementedError, each naming its ROADMAP item: ``--chain`` of
 several captures (A.7) and ``--loop-close`` (A.9).
 """
@@ -82,10 +84,12 @@ def _cmd_replay(args) -> int:
         )
     device = pick_device(backend)
     per_stream = []
+    runs_per_path = []
     for path in args.recordings:
         dec = decode_recording(path, device=device)
         revs = dec.revolutions()
         per_stream.append(revs)
+        runs_per_path.append(len(dec.runs))
         print(f"{path}: {dec.num_nodes} nodes, {len(revs)} complete revolutions")
         for ans_type, n_frames, n_nodes in dec.runs:
             try:
@@ -115,9 +119,55 @@ def _cmd_replay(args) -> int:
             f"median range {np.median(ranges[finite]):.2f} m, "
             f"voxel occupancy {occupancy}"
         )
+    if args.fused:
+        _replay_fused_report(args, per_stream, runs_per_path, backend)
     if args.map:
         _replay_map_report(args, per_stream, backend)
     return 0
+
+
+def _replay_fused_report(args, per_stream, runs_per_path, backend: str) -> None:
+    """The ``replay --fused`` arm: each capture's raw bytes through the
+    fused device ingest (replay.replay_raw_fused) against the host chain
+    over the revolutions already decoded, with the JAX CLI's report line.
+    A capture that switches scan modes legitimately diverges (the fused
+    replay uses the live engine's reset semantics), so its parity is
+    reported as skipped; any other mismatch fails the command."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+    from rplidar_ros2_driver_tpu_torch.replay import replay_raw_fused, replay_through_chain
+
+    params = DriverParams(filter_backend=backend, filter_chain=("clip", "median", "voxel"))
+    for path, revs, n_runs in zip(args.recordings, per_stream, runs_per_path):
+        t0 = time.perf_counter()
+        ranges_h, state_h = replay_through_chain(revs, params)
+        dt_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranges_f, state_f, stats = replay_raw_fused(path, params)
+        dt_fused = time.perf_counter() - t0
+        n = ranges_f.shape[0]
+        host_sps = n / dt_host if dt_host > 0 else float("inf")
+        fused_sps = n / dt_fused if dt_fused > 0 else float("inf")
+        if n_runs > 1:
+            verdict = f"parity skipped (capture switches modes: {n_runs} runs)"
+            parity = True
+        else:
+            parity = (
+                ranges_f.shape == ranges_h.shape
+                and np.array_equal(ranges_f, ranges_h)
+                and np.array_equal(state_f.voxel_acc.numpy(), state_h.voxel_acc.numpy())
+            )
+            verdict = f"parity {'OK' if parity else 'MISMATCH'}"
+        print(
+            f"{path}: fused raw replay {n} scans in {dt_fused:.2f} s "
+            f"({fused_sps:.0f} scans/s, {stats['dispatches']} dispatches "
+            f"for {stats['ticks']} ticks at T={stats['super_tick']}); "
+            f"host chain {dt_host:.2f} s ({host_sps:.0f} scans/s); "
+            f"{verdict}"
+        )
+        if not parity:
+            raise SystemExit(f"{path}: fused raw replay diverged from the host path")
 
 
 def _replay_map_report(args, per_stream, backend: str) -> None:
@@ -190,6 +240,13 @@ def main(argv=None) -> int:
         action="store_true",
         help="also run the decoded revolutions through the filter chain "
         "(fused multi-scan step)",
+    )
+    replay.add_argument(
+        "--fused",
+        action="store_true",
+        help="also replay the RAW capture bytes through the fused device ingest "
+        "(replay_raw_fused: T-tick super-steps) and report scans/s against the "
+        "host chain, parity-checked",
     )
     replay.add_argument(
         "--map",

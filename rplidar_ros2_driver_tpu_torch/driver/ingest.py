@@ -1,0 +1,755 @@
+"""FusedIngest / FleetFusedIngest — the device ingest engines
+(``ingest_backend=fused`` / ``fleet_ingest_backend=fused``).
+
+The PyTorch counterpart of the JAX package's ``driver/ingest.py``.
+:class:`FusedIngest` is the producer twin of driver/decode.BatchScanDecoder
+(same ``on_measurement_batch`` interface): each frame run is staged into a
+reused host buffer (pinned when the engine runs on the card), uploaded
+without blocking, and run through ops/ingest.fused_ingest_step — unpack,
+revolution segmentation, de-skew and the filter step on the device.  The
+consumer side (:meth:`FusedIngest.wait_and_grab_outputs`) parses a
+dispatched batch's results into the completed revolutions' FilterOutputs
+with their back-dated timestamps.  :class:`FleetFusedIngest` does the same
+for N streams per tick (ops/ingest.fleet_fused_ingest_step), and drains a
+backlog of ticks T at a time through the super-step.
+
+The host path (decoder + assembler + chain) stays the golden reference;
+the engines are held to it bit for bit (tests/test_torch_fused_ingest.py).
+
+What these engines do NOT do: feed a RawNodeHolder (interval grabs need
+host-side nodes), expose the chain's snapshot surface, or — the fleet
+engine — the per-stream snapshot/restore and row operations and the map
+carried in the ingest state, which serve ShardedFilterService and the
+serving pod (ROADMAP A.7 / A.10) and raise NotImplementedError here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from rplidar_ros2_driver_tpu_torch.core.types import MAX_SCAN_NODES
+from rplidar_ros2_driver_tpu_torch.filters.chain import (
+    DEFAULT_BEAMS,
+    config_from_params,
+    pick_device,
+)
+from rplidar_ros2_driver_tpu_torch.mapping.mapper import resolve_fused_mapping_backend
+from rplidar_ros2_driver_tpu_torch.ops.deskew import deskew_config_from_params
+from rplidar_ros2_driver_tpu_torch.ops.filters import FilterState
+from rplidar_ros2_driver_tpu_torch.ops.ingest import (
+    create_fleet_ingest_state,
+    create_ingest_state,
+    fleet_aux_len,
+    fleet_fused_ingest_step,
+    fleet_ingest_config_for,
+    fused_ingest_step,
+    ingest_config_for,
+    super_fleet_ingest_step,
+    unpack_fleet_ingest_result,
+    unpack_ingest_result,
+    unpack_super_fleet_ingest_result,
+)
+from rplidar_ros2_driver_tpu_torch.protocol import crc as crcmod
+from rplidar_ros2_driver_tpu_torch.protocol import timing as timingmod
+from rplidar_ros2_driver_tpu_torch.protocol.constants import ANS_PAYLOAD_BYTES, Ans
+from rplidar_ros2_driver_tpu_torch.utils import cuda_build
+
+# frame-run bucket sizes (runs are padded up to one; the engine caps a
+# run at the largest)
+_FUSED_BUCKETS = (4, 64)
+
+
+class StagingPool:
+    """Recycled host-side (frames, aux) staging pairs, keyed by staging key:
+    uint8 and float32 CPU tensors, page-locked when ``pin`` (so the frame
+    upload is asynchronous and the aux plane is read in place).
+
+    Reuse safety is the caller's completion barrier: a pair is ``give``-n
+    back only after its dispatch's results were fetched, which proves the
+    device consumed the staged inputs.  Thread-safe."""
+
+    def __init__(self, pin: bool = False) -> None:
+        self.pin = pin
+        self._free: dict = {}
+        self._lock = threading.Lock()
+
+    def take(self, key: tuple, shape_b: tuple, shape_a: tuple) -> tuple:
+        """A zeroed (frames, aux) pair for ``key``: recycled when a pooled
+        pair matches the shapes (stale shapes are dropped), else new."""
+        entry = None
+        with self._lock:
+            free = self._free.setdefault(key, [])
+            while free:
+                cand = free.pop()
+                if tuple(cand[0].shape) == shape_b and tuple(cand[1].shape) == shape_a:
+                    entry = cand
+                    break
+        if entry is not None:
+            entry[0].zero_()
+            entry[1].zero_()
+            return entry
+        return (
+            torch.zeros(shape_b, dtype=torch.uint8, pin_memory=self.pin),
+            torch.zeros(shape_a, dtype=torch.float32, pin_memory=self.pin),
+        )
+
+    def give(self, key: tuple, pair: tuple) -> None:
+        """Return a pair whose dispatch results were fetched."""
+        with self._lock:
+            self._free.setdefault(key, []).append(pair)
+
+
+def _build_kernels(device: torch.device, deskew) -> None:
+    """Build the kernels the ingest path launches on the card (nothing to
+    build on the CPU): the median kernels and, with de-skew, B4/B5."""
+    if device.type != "cuda":
+        return
+    cuda_build.build_libraries(["median"] + (["deskew"] if deskew is not None else []))
+
+
+def _fill_frames(buf: torch.Tensor, frames: list, expect: int) -> None:
+    """Copy ``frames`` (payloads of ``expect`` bytes) into ``buf``'s leading
+    rows and columns."""
+    m = len(frames)
+    buf.numpy()[:m, :expect] = np.frombuffer(b"".join(frames), np.uint8).reshape(m, expect)
+
+
+class FusedIngest:
+    """Producer/consumer engine around ops/ingest.fused_ingest_step."""
+
+    def __init__(
+        self,
+        params,
+        beams: Optional[int] = None,
+        *,
+        capacity: Optional[int] = None,
+        max_revs: int = 2,
+        max_queue: int = 32,
+        emit_nodes: bool = False,
+        buckets: tuple = _FUSED_BUCKETS,
+    ) -> None:
+
+        self.device = pick_device(params.filter_backend)
+        self.cfg = config_from_params(params, beams or DEFAULT_BEAMS, platform=self.device.type)
+        self._deskew = deskew_config_from_params(params, self.cfg.beams, platform=self.device.type)
+        # newest reconstructed sweep (recon_plane (B,) i32, recon_pts (B, 3)
+        # f32) of a dispatch that pushed a sub-sweep; ``recon_log=True``
+        # also appends each to ``recon_history`` (offline parity only)
+        self.last_recon = None
+        self.recon_log = False
+        self.recon_history: list = []
+        self.max_nodes = capacity or MAX_SCAN_NODES
+        self.max_revs = max_revs
+        self.emit_nodes = emit_nodes
+        self._buckets = tuple(sorted(buckets))
+        self.timing = timingmod.TimingDesc()
+        self.recorder = None
+        self._active_ans: Optional[int] = None
+        self._icfg = None
+        self._state = None
+        self._filter_state = None  # survives answer-type switches
+        self._lock = threading.Lock()
+        # timestamp base of the most recent dispatch (f64, host-side)
+        self._base: Optional[float] = None
+        self.staging = StagingPool(pin=self.device.type == "cuda")
+        self._pending: deque = deque()
+        self._max_queue = max_queue
+        self._event = threading.Event()
+        self.frames_decoded = 0
+        self.nodes_decoded = 0
+        self.scans_completed = 0
+        self.revs_dropped = 0
+        self.wires_dropped = 0
+
+    # -- stream state ------------------------------------------------------
+
+    def _fresh_filter_state(self):
+        return FilterState.for_config(self.cfg, device=self.device)
+
+    def _config_for(self, ans_type: int):
+        return ingest_config_for(
+            ans_type, self.timing, self.cfg,
+            max_nodes=self.max_nodes, max_revs=self.max_revs,
+            emit_nodes=self.emit_nodes, deskew=self._deskew,
+        )
+
+    def _activate(self, ans_type: int) -> None:
+        """Answer type changed: new scan mode — reset decode/assembly
+        state, carry the filter window."""
+        self._active_ans = ans_type
+        self._icfg = self._config_for(ans_type)
+        filt = (
+            self._state.filter if self._state is not None
+            else self._filter_state if self._filter_state is not None
+            else self._fresh_filter_state()
+        )
+        self._state = create_ingest_state(self._icfg, filter_state=filt, device=self.device)
+
+    def reset(self) -> None:
+        """Stream-state reset (scan stop/start): clears the partial
+        revolution, carries and pending results; the filter window
+        survives, like the host chain across a restart."""
+        with self._lock:
+            if self._state is not None:
+                self._filter_state = self._state.filter
+            self._state = None
+            self._active_ans = None
+            self._icfg = None
+            self._base = None
+            self._pending.clear()
+            self._event.clear()
+            self.last_recon = None
+
+    # -- producer side -------------------------------------------------------
+
+    def on_measurement_batch(self, ans_type: int, items: list) -> None:
+        """Stage one run of ``(payload, rx_monotonic_ts)`` frames and run
+        the fused step on it."""
+        rec = self.recorder
+        if rec is not None:
+            for data, ts in items:
+                rec.write(ans_type, data, ts)
+        expect = ANS_PAYLOAD_BYTES.get(ans_type)
+        if expect is None:
+            return
+        items = [it for it in items if len(it[0]) == expect]
+        if not items:
+            return
+        with self._lock:
+            if ans_type != self._active_ans:
+                self._activate(ans_type)
+            self.frames_decoded += len(items)
+            cap = self._buckets[-1]
+            for i in range(0, len(items), cap):
+                self._dispatch(ans_type, expect, items[i : i + cap])
+        self._event.set()
+
+    def _bucket(self, n: int) -> int:
+        for b in self._buckets:
+            if n <= b:
+                return b
+        return self._buckets[-1]
+
+    def _dispatch(self, ans_type: int, expect: int, chunk: list) -> None:
+        m = len(chunk)
+        mb = self._bucket(m)
+        base = chunk[0][1]
+        pair = self.staging.take((mb, expect), (mb, expect), (2 * mb + 2,))
+        buf, aux = pair
+        _fill_frames(buf, [d for d, _ in chunk], expect)
+        a = aux.numpy()
+        a[:m] = [ts - base for _, ts in chunk]
+        if ans_type == Ans.MEASUREMENT_HQ:
+            a[mb : mb + m] = [float(crcmod.frame_crc_ok(d)) for d, _ in chunk]
+        a[-2] = 0.0 if self._base is None else self._base - base
+        a[-1] = m
+        self._base = base
+        self._state, *res = fused_ingest_step(
+            self._state, buf.to(self.device, non_blocking=True), aux, self._icfg
+        )
+        self._pending.append((tuple(res), self._icfg, base, (mb, expect), pair))
+        while len(self._pending) > self._max_queue:
+            # consumer lagging: oldest result dropped (newest wins)
+            self._pending.popleft()
+            self.wires_dropped += 1
+
+    def precompile(self, ans_type: int) -> None:
+        """Build the path's kernels and warm the step for this format's
+        buckets on a throwaway state (there is nothing to compile)."""
+        expect = ANS_PAYLOAD_BYTES.get(ans_type)
+        if expect is None:
+            return
+        _build_kernels(self.device, self._deskew)
+        icfg = self._config_for(ans_type)
+        for b in self._buckets:
+            st = create_ingest_state(icfg, device=self.device)
+            aux = np.zeros((2 * b + 2,), np.float32)
+            aux[-1] = 1.0
+            frames = torch.zeros((b, expect), dtype=torch.uint8, device=self.device)
+            fused_ingest_step(st, frames, aux, icfg)
+
+    # -- consumer side -------------------------------------------------------
+
+    def _parse(self, entry) -> list:
+        arrays, icfg, base, skey, pair = entry
+        res = unpack_ingest_result(arrays, icfg)
+        # the results are host-side, so the staged inputs were consumed
+        self.staging.give(skey, pair)
+        if res.recon_pushed:
+            self.last_recon = (res.recon_plane, res.recon_pts)
+            if self.recon_log:
+                self.recon_history.append(self.last_recon)
+        self.nodes_decoded += res.nodes_appended
+        self.scans_completed += res.n_completed
+        self.revs_dropped += res.revs_dropped
+        out = []
+        for k in range(res.n_completed):
+            ts0 = base + float(res.ts0[k])
+            duration = max(float(res.end_ts[k]) - float(res.ts0[k]), 0.0)
+            out.append((res.outputs[k], ts0, duration))
+        return out
+
+    def _pop(self):
+        with self._lock:
+            if not self._pending:
+                self._event.clear()
+                return None
+            entry = self._pending.popleft()
+            if not self._pending:
+                self._event.clear()
+            return entry
+
+    def wait_and_grab_outputs(self, timeout_s: float = 2.0) -> Optional[list]:
+        """Block for the next dispatched batch; returns its completed
+        revolutions as ``[(FilterOutput, ts0, duration), ...]`` (possibly
+        empty — a mid-revolution batch), or None on timeout."""
+        if not self._event.wait(timeout_s):
+            return None
+        entry = self._pop()
+        return None if entry is None else self._parse(entry)
+
+    def flush(self) -> list:
+        """Parse every pending batch (stream stop): flat list of
+        ``(FilterOutput, ts0, duration)`` in dispatch order."""
+        out = []
+        while True:
+            entry = self._pop()
+            if entry is None:
+                return out
+            out.extend(self._parse(entry))
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"FleetFusedIngest {what} is not ported to the PyTorch package yet "
+        f"(ROADMAP {item})"
+    )
+
+
+class FleetFusedIngest:
+    """Fleet-scale producer/consumer engine around
+    ops/ingest.fleet_fused_ingest_step: one staged upload and one step per
+    fleet tick, whatever the fleet size.
+
+    Each tick the caller hands every stream's newest raw frame bytes
+    (``items[i] = (ans_type, [(payload, rx_monotonic_ts), ...])``, None for
+    an idle stream); the engine stacks them into one zero-padded
+    ``(streams, M, frame_bytes)`` buffer and threads per-stream format
+    branches, decode-state resets and timestamp re-bases through ``aux``.
+    Per stream the semantics are the single-stream engine's: a stream
+    advances its filter window only on its own completed revolutions.
+
+    ``super_tick_max`` (default ``params.super_tick_max``) enables the
+    T-tick super-step: when more than one tick slice is queued (a backlog
+    handed to :meth:`submit_backlog`, or one oversized tick split across
+    bucket slices), up to T slices are staged as one (T, N, M,
+    frame_bytes) plane, uploaded once and run as one super-step; a short
+    group is padded with all-idle ticks."""
+
+    def __init__(
+        self,
+        params,
+        streams: int,
+        *,
+        mesh=None,
+        beams: Optional[int] = None,
+        capacity: Optional[int] = None,
+        max_revs: int = 2,
+        max_queue: int = 32,
+        emit_nodes: bool = False,
+        buckets: tuple = _FUSED_BUCKETS,
+        super_tick_max: Optional[int] = None,
+    ) -> None:
+        from rplidar_ros2_driver_tpu_torch.ops.deskew import deskew_config_from_params
+
+        if streams < 1:
+            raise ValueError("fleet ingest needs at least one stream")
+        if mesh is not None:
+            _not_ported("over a device mesh", "A.7")
+        if (getattr(params, "map_enable", False) and resolve_fused_mapping_backend(
+                getattr(params, "fused_mapping_backend", "auto")) == "fused"):
+            _not_ported("with the map carried in the ingest state", "A.7")
+        self.streams = streams
+        self.device = pick_device(params.filter_backend)
+        self.cfg = config_from_params(params, beams or DEFAULT_BEAMS, platform=self.device.type)
+        self._deskew = deskew_config_from_params(params, self.cfg.beams, platform=self.device.type)
+        # per-stream reconstructed sweeps: ``last_recon[i]`` stream i's
+        # newest (plane, pts), ``take_recon()`` drains the fresh ones,
+        # ``recon_log=True`` appends every one to ``recon_history[i]``
+        self.last_recon: list = [None] * streams
+        self._recon_fresh: list = [False] * streams
+        self.recon_log = False
+        self.recon_history: list = [[] for _ in range(streams)]
+        self.max_nodes = capacity or MAX_SCAN_NODES
+        self.max_revs = max_revs
+        self.emit_nodes = emit_nodes
+        if super_tick_max is None:
+            super_tick_max = getattr(params, "super_tick_max", 1)
+        if super_tick_max < 1:
+            raise ValueError("super_tick_max must be >= 1")
+        self.super_tick_max = int(super_tick_max)
+        self._buckets = tuple(sorted(buckets))
+        self.timing = timingmod.TimingDesc()
+        self.recorder = None
+        self._lock = threading.Lock()
+        self.staging = StagingPool(pin=self.device.type == "cuda")
+        # per-stream host trackers (everything else lives on the device)
+        self._stream_fmt: list = [None] * streams   # active ans type
+        self._bases: list = [None] * streams        # f64 timestamp base
+        self._reset_next: list = [False] * streams  # decode-state reset flags
+        self._icfg = None                           # active FleetIngestConfig
+        self._state = self._fresh_fleet_state()
+        self._pending: deque = deque()
+        self._max_queue = max_queue
+        self.ticks = 0
+        self.dispatch_count = 0
+        self.super_dispatches = 0
+        self.frames_decoded = 0
+        self.nodes_decoded = 0
+        self.scans_completed = 0
+        self.revs_dropped = 0
+        self.wires_dropped = 0
+
+    def _fresh_fleet_state(self):
+        """A fresh fleet state (its shape is format-independent, so the
+        baseline single-format config describes every lane)."""
+        cfg = fleet_ingest_config_for(
+            (Ans.MEASUREMENT,), self.timing, self.cfg,
+            max_nodes=self.max_nodes, max_revs=self.max_revs, deskew=self._deskew,
+        )
+        return create_fleet_ingest_state(cfg, self.streams, device=self.device)
+
+    # -- configuration -------------------------------------------------------
+
+    def _ensure_cfg(self, formats) -> None:
+        """(Re)build the static config when the needed format set is not
+        covered by the active one; the state is untouched."""
+        need = tuple(sorted({int(f) for f in formats if f is not None}))
+        if not need:
+            return
+        if self._icfg is not None and set(need) <= set(self._icfg.formats):
+            return
+        have = set(self._icfg.formats) if self._icfg is not None else set()
+        self._icfg = fleet_ingest_config_for(
+            tuple(sorted(have | set(need))), self.timing, self.cfg,
+            max_nodes=self.max_nodes, max_revs=self.max_revs,
+            emit_nodes=self.emit_nodes, deskew=self._deskew,
+        )
+
+    def precompile(self, formats, buckets: Optional[tuple] = None) -> None:
+        """Build the path's kernels and warm the per-tick step and the
+        super-step for each padding bucket on a throwaway state."""
+        with self._lock:
+            self._ensure_cfg(formats)
+            icfg = self._icfg
+        if icfg is None:
+            return
+        _build_kernels(self.device, self._deskew)
+        for b in buckets or self._buckets:
+            for t in sorted({1, self.super_tick_max}):
+                st = create_fleet_ingest_state(icfg, self.streams, device=self.device)
+                lead = (t,) if t > 1 else ()
+                aux = np.zeros(lead + (self.streams, fleet_aux_len(b)), np.float32)
+                aux[..., 2 * b + 1] = 1.0  # m=1: the live-lane path
+                frames = torch.zeros(lead + (self.streams, b, icfg.frame_bytes),
+                                     dtype=torch.uint8, device=self.device)
+                step = super_fleet_ingest_step if t > 1 else fleet_fused_ingest_step
+                step(st, frames, aux, icfg)
+
+    # -- producer side -------------------------------------------------------
+
+    def _bucket(self, n: int) -> int:
+        for b in self._buckets:
+            if n <= b:
+                return b
+        return self._buckets[-1]
+
+    def _normalize_tick(self, items) -> list:
+        """Validate one tick's per-stream byte runs: payload-size filter,
+        recorder tee, format bookkeeping (a per-stream answer-type change
+        resets THAT stream's decode state, filter window carried)."""
+        if len(items) != self.streams:
+            raise ValueError(f"expected {self.streams} per-stream byte runs, got {len(items)}")
+        rec = self.recorder
+        runs: list = [None] * self.streams
+        for i, item in enumerate(items):
+            if not item:
+                continue
+            ans, frames = item
+            expect = ANS_PAYLOAD_BYTES.get(ans)
+            if expect is None:
+                continue
+            if rec is not None:
+                for data, ts in frames:
+                    rec.write(ans, data, ts)
+            frames = [it for it in frames if len(it[0]) == expect]
+            if not frames:
+                continue
+            if self._stream_fmt[i] != ans:
+                self._stream_fmt[i] = ans
+                # the timestamp base is cleared when the reset lands, in
+                # slice order (_stage_slice), not here: a backlog
+                # normalizes every tick before any is staged
+                self._reset_next[i] = True
+            runs[i] = (int(ans), frames)
+            self.frames_decoded += len(frames)
+        return runs
+
+    def _tick_slices(self, items) -> list:
+        """One tick's bucket-capped lockstep slices (several when a stream
+        delivered more frames than the largest bucket); [] for a pure idle
+        tick with no pending reset.  Each slice is ``(chunk, fmts,
+        resets)`` with the format and reset snapshots baked in."""
+        runs = self._normalize_tick(items)
+        self._ensure_cfg(list(self._stream_fmt))
+        if self._icfg is None:
+            return []  # nothing ever streamed
+        longest = max((len(r[1]) for r in runs if r), default=0)
+        if longest == 0 and not any(self._reset_next):
+            return []
+        self.ticks += 1
+        fmts = list(self._stream_fmt)
+        resets = self._reset_next
+        self._reset_next = [False] * self.streams
+        no_reset = [False] * self.streams
+        cap = self._buckets[-1]
+        slices = []
+        off = 0
+        while True:
+            chunk = [(r[0], r[1][off : off + cap]) if r else None for r in runs]
+            if off and not any(c and c[1] for c in chunk):
+                break
+            slices.append((chunk, fmts, resets if off == 0 else no_reset))
+            off += cap
+            if off >= longest:
+                break
+        return slices
+
+    def _dispatch_slices(self, slices) -> None:
+        """One per-tick step per slice when ``super_tick_max`` is 1 (or for
+        a single slice), else groups of up to ``super_tick_max`` slices per
+        super-step."""
+        depth = self.super_tick_max
+        if depth <= 1:
+            groups = [[sl] for sl in slices]
+        else:
+            groups = [slices[off : off + depth] for off in range(0, len(slices), depth)]
+        for group in groups:
+            if len(group) == 1:
+                self._launch(self._stage_tick(group[0]))
+            else:
+                self._launch(self._stage_super(group, depth))
+
+    def _stage_slice(self, sl, mb: int, buf: torch.Tensor, aux: np.ndarray) -> None:
+        """Fill one tick slice's staging planes (``buf`` (streams, mb,
+        frame_bytes) uint8, ``aux`` (streams, 2mb+4) f32, pre-zeroed),
+        advancing the per-stream timestamp bases."""
+        icfg = self._icfg
+        chunk, fmts, resets = sl
+        for i, c in enumerate(chunk):
+            fmt = fmts[i]
+            if fmt is not None:
+                aux[i, 2 * mb + 2] = icfg.formats.index(int(fmt))
+            if resets[i]:
+                aux[i, 2 * mb + 3] = 1.0
+                self._bases[i] = None  # decode reset => fresh timestamp base
+            if not c or not c[1]:
+                continue  # idle this slice: m=0, carries pass through
+            ans, frames = c
+            m = len(frames)
+            base = frames[0][1]
+            _fill_frames(buf[i], [d for d, _ in frames], ANS_PAYLOAD_BYTES[Ans(ans)])
+            aux[i, :m] = [ts - base for _, ts in frames]
+            if ans == Ans.MEASUREMENT_HQ:
+                aux[i, mb : mb + m] = [float(crcmod.frame_crc_ok(d)) for d, _ in frames]
+            aux[i, 2 * mb] = 0.0 if self._bases[i] is None else self._bases[i] - base
+            aux[i, 2 * mb + 1] = m
+            self._bases[i] = base
+
+    def _staging_buffers(self, skey: tuple) -> tuple:
+        fb = self._icfg.frame_bytes
+        mb = skey[-1]
+        lead = (skey[1],) if skey[0] == "super" else ()
+        return self.staging.take(
+            skey, lead + (self.streams, mb, fb), lead + (self.streams, fleet_aux_len(mb))
+        )
+
+    def _slice_bucket(self, slices) -> int:
+        return self._bucket(max((len(c[1]) for sl in slices for c in sl[0] if c), default=1))
+
+    def _stage_tick(self, sl) -> tuple:
+        """Fill and upload ONE per-tick step's frames (the aux plane stays
+        in pinned host memory; the step uploads it)."""
+        mb = self._slice_bucket([sl])
+        skey = ("tick", mb)
+        pair = self._staging_buffers(skey)
+        buf, aux = pair
+        self._stage_slice(sl, mb, buf, aux.numpy())
+        return ("tick", 1, 1, self._icfg, list(self._bases), skey, pair,
+                buf.to(self.device, non_blocking=True))
+
+    def _stage_super(self, group, t_depth: int) -> tuple:
+        """Fill and upload one super-step's (T, streams, M, frame_bytes)
+        planes; ticks beyond the group stay all-idle (zeroed)."""
+        mb = self._slice_bucket(group)
+        skey = ("super", t_depth, mb)
+        pair = self._staging_buffers(skey)
+        buf, aux = pair
+        a = aux.numpy()
+        bases_per_tick = []
+        for t, sl in enumerate(group):
+            self._stage_slice(sl, mb, buf[t], a[t])
+            bases_per_tick.append(list(self._bases))
+        return ("super", t_depth, len(group), self._icfg, bases_per_tick, skey, pair,
+                buf.to(self.device, non_blocking=True))
+
+    def _launch(self, staged) -> None:
+        """Run the step of one staged descriptor and queue its results."""
+        kind, t_depth, n, icfg, bases, skey, pair, dbuf = staged
+        step = super_fleet_ingest_step if kind == "super" else fleet_fused_ingest_step
+        self._state, *res = step(self._state, dbuf, pair[1], icfg)
+        if kind == "super":
+            self.super_dispatches += 1
+        self.dispatch_count += 1
+        self._pending.append((kind, tuple(res), icfg, bases, skey, pair))
+        while len(self._pending) > self._max_queue:
+            self._pending.popleft()
+            self.wires_dropped += 1
+
+    # -- consumer side -------------------------------------------------------
+
+    def _parse_entries(self, entries) -> list:
+        """Per-stream ``(FilterOutput, ts0, duration)`` lists across the
+        given dispatch entries, in dispatch order (a super entry's idle pad
+        ticks parse to empty rows)."""
+        out: list = [[] for _ in range(self.streams)]
+
+        def absorb(results, bases):
+            for i, res in enumerate(results):
+                if res.recon_pushed:
+                    self.last_recon[i] = (res.recon_plane, res.recon_pts)
+                    self._recon_fresh[i] = True
+                    if self.recon_log:
+                        self.recon_history[i].append(self.last_recon[i])
+                self.nodes_decoded += res.nodes_appended
+                self.scans_completed += res.n_completed
+                self.revs_dropped += res.revs_dropped
+                base = bases[i]
+                for k in range(res.n_completed):
+                    ts0 = (base or 0.0) + float(res.ts0[k])
+                    dur = max(float(res.end_ts[k]) - float(res.ts0[k]), 0.0)
+                    out[i].append((res.outputs[k], ts0, dur))
+
+        for kind, arrays, icfg, bases, skey, pair in entries:
+            if kind == "super":
+                for t, results in enumerate(unpack_super_fleet_ingest_result(arrays, icfg)):
+                    # pad ticks complete nothing; the last snapshot covers them
+                    absorb(results, bases[min(t, len(bases) - 1)])
+            else:
+                absorb(unpack_fleet_ingest_result(arrays, icfg), bases)
+            self.staging.give(skey, pair)
+        return out
+
+    def take_recon(self) -> list:
+        """Drain the FRESH reconstructed sweeps since the last call: one
+        ``(recon_plane, recon_pts)`` or None per stream."""
+        out = []
+        with self._lock:
+            for i in range(self.streams):
+                out.append(self.last_recon[i] if self._recon_fresh[i] else None)
+                self._recon_fresh[i] = False
+        return out
+
+    def submit(self, items) -> list:
+        """One blocking fleet tick: run this tick's bytes and return every
+        pending revolution as per-stream lists of ``(FilterOutput, ts0,
+        duration)``, in dispatch order."""
+        with self._lock:
+            self._dispatch_slices(self._tick_slices(items))
+            entries = list(self._pending)
+            self._pending.clear()
+            return self._parse_entries(entries)
+
+    def submit_backlog(self, ticks) -> list:
+        """Drain a BACKLOG of queued fleet ticks in ``ceil(len/T)``
+        super-steps (T = ``super_tick_max``); ticks are normalized in order
+        and the result is exact against submitting them one by one."""
+        with self._lock:
+            slices = []
+            for items in ticks:
+                slices.extend(self._tick_slices(items))
+            self._dispatch_slices(slices)
+            entries = list(self._pending)
+            self._pending.clear()
+            return self._parse_entries(entries)
+
+    def submit_pipelined(self, items) -> list:
+        """Parse the PREVIOUS ticks' results, then run THIS tick's bytes
+        and return the previous outputs (one tick of declared staleness;
+        :meth:`flush` drains the last tick)."""
+        with self._lock:
+            entries = list(self._pending)
+            self._pending.clear()
+            out = self._parse_entries(entries)
+            self._dispatch_slices(self._tick_slices(items))
+            return out
+
+    def flush(self) -> list:
+        """Parse every pending result (fleet stop)."""
+        with self._lock:
+            entries = list(self._pending)
+            self._pending.clear()
+            return self._parse_entries(entries)
+
+    def reset(self) -> None:
+        """Fleet stream-state reset (scan stop/start): every stream's
+        decode carries reset at the next step, pending results dropped;
+        the rolling filter windows survive."""
+        with self._lock:
+            self._pending.clear()
+            self._stream_fmt = [None] * self.streams
+            self._bases = [None] * self.streams
+            self._reset_next = [True] * self.streams
+            self.last_recon = [None] * self.streams
+            self._recon_fresh = [False] * self.streams
+
+    def filter_state_of(self, i: int):
+        """Stream ``i``'s FilterState, copied to the host."""
+        fs = self._state.filter
+
+        return FilterState(**{
+            f.name: None if getattr(fs, f.name) is None else getattr(fs, f.name)[i].cpu()
+            for f in dataclasses.fields(fs)
+        })
+
+    # -- the serving surface (ShardedFilterService, the serving pod) ---------
+
+    def snapshot(self) -> dict:
+        _not_ported("snapshot", "A.7")
+
+    def restore(self, snap: dict) -> bool:
+        _not_ported("restore", "A.7")
+
+    def snapshot_stream(self, i: int) -> dict:
+        _not_ported("per-stream snapshot", "A.10")
+
+    def restore_stream(self, i: int, snap: dict, **kwargs) -> bool:
+        _not_ported("per-stream restore", "A.10")
+
+    def cold_reset(self) -> None:
+        _not_ported("cold reset", "A.10")
+
+    def take_map_wires(self) -> list:
+        _not_ported("map wires (the map carried in the ingest state)", "A.7")
+
+    def map_snapshot(self) -> dict:
+        _not_ported("map snapshot (the map carried in the ingest state)", "A.7")
+
+    def map_restore(self, core: dict) -> None:
+        _not_ported("map restore (the map carried in the ingest state)", "A.7")

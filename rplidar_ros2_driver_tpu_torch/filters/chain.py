@@ -81,9 +81,13 @@ def resolve_median_backend(
 
 
 def resolve_ingest_backend(requested: str, platform: Optional[str] = None) -> str:
-    """Resolve the ``auto`` ingest backend: ``host`` (the golden path of
-    host revolution assembly + the chain's one-upload step).  The fused
-    device ingest is not part of this package yet."""
+    """Resolve the ``auto`` ingest backend; explicit requests (``host`` or
+    ``fused``) pass through.  ``host`` is the golden path (host decode and
+    revolution assembly + the chain's one-upload step); ``fused`` is the
+    device ingest engine driver/ingest.FusedIngest (ops/ingest.py: decode,
+    segmentation, de-skew and the filter step on the device), held to
+    the host path bit for bit.  ``auto`` stays ``host``, as in the JAX
+    package."""
     if requested != "auto":
         return requested
     del platform
@@ -92,7 +96,9 @@ def resolve_ingest_backend(requested: str, platform: Optional[str] = None) -> st
 
 def resolve_fleet_ingest_backend(requested: str, platform: Optional[str] = None) -> str:
     """Resolve the ``auto`` fleet ingest backend (``host``), mirroring
-    :func:`resolve_ingest_backend`."""
+    :func:`resolve_ingest_backend`; ``fused`` is
+    driver/ingest.FleetFusedIngest, every stream's bytes to filter outputs
+    in one step per tick."""
     if requested != "auto":
         return requested
     del platform

@@ -28,8 +28,10 @@ reference.  The map survives deactivate/activate and rides the combined
 checkpoint under ``mapper.*`` keys.
 
 Not yet in this package, each raising NotImplementedError naming the
-ROADMAP item that brings it: the real (wire-protocol) driver (A.4), fused
-device ingest (A.6) and loop closure, ``loop_enable`` (A.9).
+ROADMAP item that brings it: the real (wire-protocol) driver (A.4) — and
+with it the node's ``ingest_backend: fused`` seam, whose engine
+(driver/ingest.FusedIngest) exists but needs a wire-streaming driver to
+feed it — and loop closure, ``loop_enable`` (A.9).
 """
 
 from __future__ import annotations
@@ -112,10 +114,11 @@ class RPlidarNode(LifecycleNode):
         return DummyLidarDriver()
 
     def _resolve_fused_ingest(self) -> bool:
-        """Whether this configure would build the fused ingest seam (not
-        in this package yet).  The dummy driver synthesizes host scans
-        above the protocol layer, so dummy mode falls back to the host
-        path with a notice, as the JAX package does."""
+        """Whether this configure would build the fused ingest seam.  The
+        engine (driver/ingest.FusedIngest) is ported; the wire-streaming
+        driver that feeds it is not.  The dummy driver synthesizes host
+        scans above the protocol layer, so dummy mode falls back to the
+        host path with a notice, as the JAX package does."""
         backend = resolve_ingest_backend(self.params.ingest_backend)
         if backend != "fused" or not self.params.filter_chain:
             if getattr(self.params, "deskew_enable", False):
@@ -135,8 +138,9 @@ class RPlidarNode(LifecycleNode):
             )
             return False
         raise NotImplementedError(
-            "ingest_backend='fused' is not ported to the PyTorch package "
-            "yet (ROADMAP A.6, fused device ingest)"
+            "ingest_backend='fused' needs a wire-streaming driver to feed "
+            "driver/ingest.FusedIngest: driver/real.py and the simulator are "
+            "not ported to the PyTorch package yet (ROADMAP A.4)"
         )
 
     def on_configure(self) -> bool:

@@ -1,0 +1,181 @@
+"""Wrappers of the de-skew CUDA kernels (csrc/deskew.cu).
+
+Two kernels replace the JAX package's Pallas TPU kernels of
+``ops/pallas_deskew.py`` (``deskew_backend="pallas"``):
+
+  * B4 :func:`beam_min_kernel` — ``beam_min_pallas``: per-row, per-beam
+    int32 min of node values grouped by beam index (RECON_EMPTY where no
+    node landed).  The fused ingest launches it once per tick for the
+    sub-sweep rasterizer (all streams' rows) and once per tick that
+    completes a revolution for the profiles (all streams' revolution
+    slots).
+  * B5 :func:`shift_sad_kernel` — ``shift_sad_pallas``: per-row scores of
+    the circular-shift candidates of the motion search.  The candidate
+    order and the first-min argmin stay in shared code
+    (ops/deskew.estimate_motion).
+
+Each wrapper checks dtype, shape, contiguity and device.  A tensor on the
+CPU runs the kernel's plain PyTorch version (:func:`beam_min_plain`,
+:func:`shift_sad_plain` — also the ``deskew_backend="xla"`` arm); a CUDA
+tensor launches the kernel (built from the source at first use,
+utils/cuda_build.py) or raises — there is no fallback.  ``launch_counts``
+counts the launches of each kernel; only a launch adds to it.  The
+kernels' design is in the source's header note.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rplidar_ros2_driver_tpu_torch.ops.filters import _INT_INF
+from rplidar_ros2_driver_tpu_torch.utils.cuda_build import load_library
+
+_EMPTY = _INT_INF
+
+# kernel name -> launches since the last reset_launch_counts()
+launch_counts = {"beam_min": 0, "shift_sad": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+# exported entry -> its argument types (each returns the launch's
+# cudaError_t as an int)
+_SIGNATURES = {
+    "beam_min_i32": [_VP] * 3 + [_I] * 3 + [_VP],
+    "shift_sad_i32": [_VP] * 4 + [_I] * 5 + [_VP],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load_library("deskew")
+    if not getattr(lib, "_signatures_set", False):
+        for entry, argtypes in _SIGNATURES.items():
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = _I
+        lib._signatures_set = True
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
+
+
+# ---------------------------------------------------------------------------
+# B4: per-beam min
+# ---------------------------------------------------------------------------
+
+
+def beam_min_plain(beam: torch.Tensor, values: torch.Tensor, nbeams: int,
+                   block: int = 256) -> torch.Tensor:
+    """Plain version of B4: (R, n) int32 beams and values -> (R, nbeams),
+    the JAX ``xla`` arm's dense masked min tiled over beam blocks
+    (out[r, b] = min over j of where(beam[r, j] == b, values[r, j], EMPTY))."""
+    empty = torch.full((), _EMPTY, dtype=torch.int32, device=values.device)
+    outs = []
+    for t0 in range(0, nbeams, block):
+        bt = torch.arange(t0, min(t0 + block, nbeams), dtype=torch.int32, device=beam.device)
+        m = torch.where(beam[:, None, :] == bt[None, :, None], values[:, None, :], empty)
+        outs.append(m.amin(dim=2) if m.shape[2] else empty.expand(m.shape[:2]))
+    return torch.cat(outs, dim=1)
+
+
+def beam_min_kernel(beam: torch.Tensor, values: torch.Tensor, nbeams: int) -> torch.Tensor:
+    """B4: (R, n) int32 beam indices in [0, nbeams) and int32 values
+    (RECON_EMPTY marking dropped nodes) -> (R, nbeams) int32 per-beam
+    minima, RECON_EMPTY where no node landed."""
+    if beam.ndim != 2:
+        raise ValueError(f"beam must be (rows, nodes), got {tuple(beam.shape)}")
+    if not 1 <= nbeams <= 8192:
+        raise ValueError(f"nbeams must be in [1, 8192], got {nbeams}")
+    rows, n = beam.shape
+    dev = beam.device
+    _check("beam", beam, (rows, n), dev)
+    _check("values", values, (rows, n), dev)
+    if dev.type == "cpu":
+        return beam_min_plain(beam, values, nbeams)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no beam-min kernel for device {dev}")
+    out = torch.empty((rows, nbeams), dtype=torch.int32, device=dev)
+    if rows == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().beam_min_i32(beam.data_ptr(), values.data_ptr(), out.data_ptr(),
+                                 rows, n, nbeams, stream)
+    _raise_on(rc, "beam_min")
+    launch_counts["beam_min"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B5: shift-search scores
+# ---------------------------------------------------------------------------
+
+
+def shift_sad_plain(prev: torch.Tensor, cur: torch.Tensor, shifts: torch.Tensor,
+                    min_valid: int, max_trans: int) -> torch.Tensor:
+    """Plain version of B5: (R, D) int32 profiles, (C,) int32 shifts ->
+    (R, C) scores.  The rolled plane ``roll(cur, s)`` is a gather at
+    ``(d - s) mod D`` (no roll by a device value)."""
+    d = cur.shape[-1]
+    idx = torch.remainder(
+        torch.arange(d, dtype=torch.int64, device=cur.device)[None, :] - shifts[:, None].long(), d
+    )                                                            # (C, D)
+    rolled = cur[:, idx]                                         # (R, C, D)
+    p = prev[:, None, :]
+    both = (p != _EMPTY) & (rolled != _EMPTY)
+    diff = torch.where(both, rolled - p, 0).clamp(-max_trans, max_trans)
+    sad = diff.abs().sum(-1, dtype=torch.int32)
+    cnt = both.sum(-1, dtype=torch.int32)
+    score = torch.div(sad, cnt.clamp(min=1), rounding_mode="floor")
+    return torch.where(cnt >= min_valid, score, _EMPTY)
+
+
+def shift_sad_kernel(prev: torch.Tensor, cur: torch.Tensor, shifts: torch.Tensor,
+                     min_valid: int, max_trans: int) -> torch.Tensor:
+    """B5: (R, D) int32 previous and current profiles (RECON_EMPTY = no
+    return), (C,) int32 circular shifts -> (R, C) int32 clamped mean-|Δ|
+    scores, RECON_EMPTY where fewer than ``min_valid`` beams overlap."""
+    if prev.ndim != 2 or shifts.ndim != 1:
+        raise ValueError(
+            f"expected (rows, D) profiles and (C,) shifts, got {tuple(prev.shape)} "
+            f"and {tuple(shifts.shape)}"
+        )
+    rows, d = prev.shape
+    dev = prev.device
+    _check("prev", prev, (rows, d), dev)
+    _check("cur", cur, (rows, d), dev)
+    _check("shifts", shifts, (shifts.shape[0],), dev)
+    if dev.type == "cpu":
+        return shift_sad_plain(prev, cur, shifts, min_valid, max_trans)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no shift-search kernel for device {dev}")
+    c = shifts.shape[0]
+    out = torch.empty((rows, c), dtype=torch.int32, device=dev)
+    if rows == 0 or c == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _lib().shift_sad_i32(prev.data_ptr(), cur.data_ptr(), shifts.data_ptr(),
+                                  out.data_ptr(), rows, c, d, min_valid, max_trans, stream)
+    _raise_on(rc, "shift_sad")
+    launch_counts["shift_sad"] += 1
+    return out

@@ -264,8 +264,17 @@ _VBS_TARGET = np.array(
      1 << VARBITSCALE_X8_SRC_BIT, 1 << VARBITSCALE_X16_SRC_BIT], np.int32)
 
 
+_TABLES: dict = {}
+
+
 def _table(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(values).to(like.device)
+    """One of this module's constant tables on ``like``'s device, uploaded
+    once per device: an upload per call would synchronise the stream."""
+    key = (id(values), like.device)
+    table = _TABLES.get(key)
+    if table is None:
+        table = _TABLES[key] = torch.from_numpy(values).to(like.device)
+    return table
 
 
 def _varbitscale_decode(scaled: torch.Tensor):

@@ -41,3 +41,10 @@ def crc32_padded(data: bytes | np.ndarray) -> int:
     for b in buf:
         crc = _TABLE[(crc ^ b) & 0xFF] ^ (crc >> np.uint32(8))
     return int(crc ^ np.uint32(0xFFFFFFFF))
+
+
+def frame_crc_ok(payload: bytes) -> bool:
+    """Whole-frame HQ-capsule CRC verdict: the trailing little-endian u32
+    against :func:`crc32_padded` over everything before it — the one wire
+    CRC check of the host decoder and both fused ingest engines."""
+    return crc32_padded(payload[:-4]) == int.from_bytes(payload[-4:], "little")

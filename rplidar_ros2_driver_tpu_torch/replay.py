@@ -1,10 +1,11 @@
 """Record / replay: capture raw wire frames, batch-decode them on the card,
 run the revolutions through the fused K-scan filter chain and, with
-:func:`replay_with_map`, through the SLAM front-end mapper.
+:func:`replay_with_map`, through the SLAM front-end mapper; or, with
+:func:`replay_raw_fused`, run the raw bytes through the fused device ingest.
 
 The PyTorch counterpart of the JAX package's ``replay.py`` (its recorder,
-reader, batched decode, ``replay_through_chain`` and ``replay_with_map``;
-the fleet, raw-fused and loop-closure replays are not ported): a capture decodes as
+reader, batched decode, ``replay_through_chain``, ``replay_with_map`` and
+``replay_raw_fused``; the fleet and loop-closure replays are not ported): a capture decodes as
 a handful of ``(M, frame_bytes)`` batch decodes (ops/unpack.py) on the
 chosen device instead of a per-byte loop; the revolution split stays numpy
 on the host; then the revolutions advance the rolling window ``chunk``
@@ -287,6 +288,92 @@ def replay_with_map(
     (whose ``snapshot()`` is the final map; render it with
     tools/viz.map_to_image)."""
     return _replay_map_core(revolutions, params, beams=beams, capacity=capacity, chunk=chunk)
+
+
+def replay_raw_fused(
+    path: str,
+    params,
+    *,
+    beams: int | None = None,
+    capacity: int = 4096,
+    frames_per_tick: int = 64,
+    super_ticks: int = 8,
+    max_revs: int = 8,
+):
+    """Offline replay of a RAW capture through the fused device ingest:
+    frame bytes -> filtered range images on the device of
+    ``params.filter_backend`` (the card unless it says ``cpu``).
+
+    The capture's frames go ``frames_per_tick`` per tick (a run of one
+    format closes a tick) through driver/ingest.FleetFusedIngest with one
+    stream, drained as one backlog ``super_ticks`` ticks per super-step:
+    decode, revolution segmentation and the filter steps on the device.
+    For a single-scan-mode capture the ranges and the final FilterState
+    equal :func:`replay_through_chain`'s over the decoded revolutions; a
+    capture that switches scan modes replays with the live engine's reset
+    semantics instead.  Raises if a revolution was dropped to the
+    ``max_revs`` per-step cap.
+
+    With ``params.deskew_enable`` the revolutions are de-skewed before the
+    filter (the host twin is then ops/deskew_ref.DeskewHostTwin + chain)
+    and every reconstructed sweep lands in ``stats["recon_history"]``.
+
+    Returns ``(ranges, state, stats)``: (K, beams) float32 median range
+    images, the final FilterState on the host, and a stats dict with
+    ``ticks`` / ``dispatches`` / ``super_dispatches`` / ``super_tick`` /
+    ``frames`` / ``scans`` (+ ``recon_sweeps`` / ``recon_history``)."""
+    from rplidar_ros2_driver_tpu_torch.driver.ingest import FleetFusedIngest
+
+    ticks: list = []
+    cur_ans: int | None = None
+    cur: list = []
+
+    def close_run() -> None:
+        for i in range(0, len(cur), frames_per_tick):
+            ticks.append([(cur_ans, cur[i : i + frames_per_tick])])
+        cur.clear()
+
+    n_frames = 0
+    for ans_type, ts, payload in read_frames(path):
+        expect = ANS_PAYLOAD_BYTES.get(ans_type)
+        if expect is None or len(payload) != expect:
+            continue  # non-measurement or malformed record
+        if cur_ans != ans_type:
+            close_run()
+            cur_ans = ans_type
+        cur.append((payload, ts))
+        n_frames += 1
+    close_run()
+
+    eng = FleetFusedIngest(
+        params, 1, beams=beams, capacity=capacity, max_revs=max_revs,
+        max_queue=1 << 30,  # offline: every result must survive to the drain
+        buckets=(frames_per_tick,), super_tick_max=super_ticks,
+    )
+    eng.recon_log = eng._deskew is not None
+    outs = eng.submit_backlog(ticks)[0] if ticks else []
+    if eng.revs_dropped:
+        raise ValueError(
+            f"{eng.revs_dropped} revolutions dropped to the max_revs={max_revs} "
+            "per-step cap — raise max_revs or lower frames_per_tick to keep "
+            "the host-path parity contract"
+        )
+    ranges = (
+        np.stack([np.asarray(o.ranges) for o, _, _ in outs])
+        if outs else np.zeros((0, eng.cfg.beams), np.float32)
+    )
+    stats = {
+        "ticks": eng.ticks,
+        "dispatches": eng.dispatch_count,
+        "super_dispatches": eng.super_dispatches,
+        "super_tick": super_ticks,
+        "frames": n_frames,
+        "scans": len(outs),
+    }
+    if eng._deskew is not None:
+        stats["recon_sweeps"] = len(eng.recon_history[0])
+        stats["recon_history"] = eng.recon_history[0]
+    return ranges, eng.filter_state_of(0), stats
 
 
 def replay_with_loop_closure(revolutions: list[dict], params, **kwargs):

@@ -32,6 +32,7 @@ SOURCES = {
     "median": "median.cu",
     "sliding_median": "sliding_median.cu",
     "scan_match": "scan_match.cu",
+    "deskew": "deskew.cu",
 }
 
 _lock = threading.Lock()

@@ -60,9 +60,11 @@ def test_scan_sees_the_whole_port():
         "__main__.py", "protocol/constants.py", "protocol/crc.py", "ops/unpack.py",
         "ops/wire.py", "replay.py", "ops/scan_match.py", "ops/scan_match_kernels.py",
         "ops/scan_match_ref.py", "mapping/mapper.py", "tools/viz.py",
+        "protocol/timing.py", "driver/assembly.py", "driver/decode.py", "driver/ingest.py",
+        "ops/deskew.py", "ops/deskew_kernels.py", "ops/deskew_ref.py", "ops/ingest.py",
     ):
         assert module in rel
-    for source in ("median.cu", "sliding_median.cu", "scan_match.cu"):
+    for source in ("median.cu", "sliding_median.cu", "scan_match.cu", "deskew.cu"):
         assert os.path.exists(os.path.join(PORT, "csrc", source))
 
 

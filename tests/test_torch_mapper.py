@@ -312,7 +312,7 @@ def test_no_card_means_no_mapper(monkeypatch):
 
 
 def test_unported_mapper_faces_raise():
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.7"):
         tmapper.CarriedFleetMapper(port_params(), None)
     m = tmapper.FleetMapper(port_params(map_backend="fused"), 1, beams=BEAMS)
     with pytest.raises(NotImplementedError, match="A.11"):

@@ -422,5 +422,5 @@ def test_cli_replay_refuses_unported_and_cardless_runs(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["replay", p])
-    with pytest.raises(SystemExit):
-        main(["replay", p, "--fused"])  # unported arms are not flags
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["replay", p, "--fused"])  # the fused replay runs on the card too
