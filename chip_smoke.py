@@ -8,46 +8,56 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
   1. device   — the card (nvidia-smi name and power limit), torch version,
                 compute capability (must be 9.0);
   2. build    — nvcc builds every CUDA kernel of the package from csrc/;
-  3. kernels  — each kernel (B1, B2, B3) against its plain PyTorch version
-                on the card (exact equality; +inf equals +inf), then timed
-                beside the plain version and a library yardstick;
-  4. chain    — the main path: ScanFilterChain at the headline geometry
+  3. launch   — the slim launch path's cost per call (B1, B4 at their
+                path's shapes beside their library calls, in alternating
+                rounds: events ms and host µs), before any profiler
+                session in the process;
+  4. kernels  — each kernel (B1, B2, B3) against its plain PyTorch version
+                on the card (exact equality; +inf equals +inf; B1 also at
+                W = 1, 31, 32, 33, 96, 1536 and 1537 — the last past its
+                shared-memory staging —, B off the block's 8 columns, all
+                +inf, all equal, heavy ties and an offset view), then
+                timed beside the plain version and a library yardstick
+                (B1: events ms, device ms and host µs per call);
+  5. chain    — the main path: ScanFilterChain at the headline geometry
                 (W=64, 2048 beams, 256x256 grid at 0.25 m and 0.1 m, wire
                 capacity 4096) over seeded 3200-point revolutions, through
                 process_raw and process_raw_pipelined with each kernel
                 backend, every output held equal to the package's own CPU
                 chain; the launch counts are read around this phase;
-  5. profile  — where a revolution's time goes (torch.profiler);
-  6. ab       — B1 against B2 end to end, in alternating order;
-  7. node     — launch_lifecycle in dummy mode on the card (filter chain,
+  6. profile  — where a revolution's time goes (torch.profiler);
+  7. ab       — B1 against B2 end to end, in alternating order;
+  8. node     — launch_lifecycle in dummy mode on the card (filter chain,
                 raw and map_enable paths), deactivate/activate, shutdown;
-  8. replay   — the offline replay path at config 7's geometry (W=64, 2048
+  9. replay   — the offline replay path at config 7's geometry (W=64, 2048
                 beams, 256x256 grid at 0.25 m, chunk 512, capacity 4096): a
                 seeded 3200-point DenseBoost capture written with the
                 package's FrameRecorder, decoded on the card, run through the
                 fused K-scan chain (kernel B3), held equal to the package's
                 CPU replay and to K streaming steps on the card; its launch
                 counts are read around the card's replay;
-  9. mapkernels — the matcher kernels B6, B7, B8 against their plain
+ 10. mapkernels — the matcher kernels B6, B7, B8 against their plain
                 PyTorch versions on the card (exact) over edge fixtures,
                 grids 8/64/256/1024 and fleets of 1, 3 and 4 streams, then
                 timed at config 12's fleet tick (N=4, G=256, B=2048);
- 10. mapping  — config 12 (bench.py bench_mapping): 4 streams, 256x256 map
+ 11. mapping  — config 12 (bench.py bench_mapping): 4 streams, 256x256 map
                 at 0.05 m, 2048 beams, map_match_window 0.4; one warm tick,
                 then 20 ticks of the drifting-room scene through FleetMapper
                 fused on the card (B6/B7/B8), every pose and snapshot key held
                 equal to the package's host reference and its CPU torch arm,
                 the drift tracked; its launch counts are read around the 20
                 ticks; then a profiled pass;
- 11. replay_map — the config-7 capture through replay_with_map on the card
+ 12. replay_map — the config-7 capture through replay_with_map on the card
                 (the chain with B3, then the fused mapper with B6/B7/B8), held
                 equal to the CPU replay with the host reference mapper;
- 12. deskew_kernels — the de-skew kernels B4, B5 against their plain
+ 13. deskew_kernels — the de-skew kernels B4, B5 against their plain
                 PyTorch versions on the card (exact) over the JAX suite's
                 four geometries, degenerate inputs, the featureless tie and
-                the fused ingest's shapes, then timed there (B4 beside one
-                scatter_reduce_ "amin" call);
- 13. replay_fused — the config-7 capture through replay_raw_fused (the
+                the fused ingest's shapes (B4 also at nbeams 1 and 8192,
+                beams out of range, rows off the 16-byte loads, offset
+                views, no nodes, 16 x 4096 rows), then timed there (B4
+                beside one scatter_reduce_ "amin" call, host µs too);
+ 14. replay_fused — the config-7 capture through replay_raw_fused (the
                 fused device ingest: 64 frames per tick, T=8, max_revs 8):
                 de-skew off held equal to the card's host-path replay and
                 the CPU fused replay; de-skew on (B4/B5) held equal to the
@@ -55,9 +65,15 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 with a nonzero motion estimate; B1/B4/B5 launches counted
                 around the card's runs; host syncs per tick and one
                 profiled super-step per arm; the CLI's replay --fused line;
- 14. kernels  — one line listing every kernel with its launches and times.
+ 15. before   — B1's and B4's figures before their redesign, constants
+                copied from PERF.md (not measured in this run);
+ 16. kernels  — one line listing every kernel with its launches and the
+                times measured in this run; B1 and B4 also carry host_us
+                and whether each redesign goal was met.
 
-Then the card's name and power limit, then {"ok": true, "device": ...}.
+The wrapper's host time split piece by piece is
+rplidar_ros2_driver_tpu_torch/tools/launch_cost.py.  Then the card's name
+and power limit, then {"ok": true, "device": ...}.
 Any mismatch or error exits non-zero.  Without a CUDA device it exits 1
 and prints no result.
 """
@@ -86,6 +102,23 @@ MAPPING = dict(streams=4, grid=256, cell_m=0.05, beams=2048, window_m=0.4, ticks
 # replay_raw_fused's defaults: the config-7 capture through the fused
 # device ingest, 64 frames per tick, T=8 ticks per super-step
 FUSED = dict(frames_per_tick=64, super_ticks=8, max_revs=8)
+# B1's and B4's figures before their redesign, constants copied from
+# PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W) and printed on a
+# line of their own, never in the kernels line: B1 as first written (commit
+# f6c749c), B4 as first written (commit aeedd51); the B4 profile_* figures
+# are at the profiles' shape
+BEFORE = {
+    "temporal_median": {"commit": "f6c749c", "run": "chip run 4 of that commit",
+                        "ms": 0.0254, "device_ms": 0.0121, "library_ms": 0.0180},
+    "beam_min": {"commit": "aeedd51", "run": "chip run 3 of that commit",
+                 "ms": 0.0244, "device_ms": 0.00412, "library_ms": 0.0121,
+                 "library_device_ms": 0.00654, "profile_ms": 0.0190,
+                 "profile_device_ms": 0.00568},
+}
+# the redesign's goals: device ms at the path's shapes, and events ms at or
+# below the library call's in the same run
+GOAL_DEVICE_MS = {"temporal_median": 0.005, "beam_min": 0.003}
+GOAL_HOST_US = 8.0  # host time per call of the slim launch path
 
 
 def emit(obj) -> None:
@@ -130,6 +163,23 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 200, warmup: int = 20) -> float:
+    """Host microseconds per call: ``iters`` calls timed with perf_counter
+    and no synchronisation between them (the synchronise after them is
+    outside the timing) — what a caller's thread spends issuing one."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def device_ms(fn, iters: int = 50):
@@ -192,6 +242,56 @@ def phase_build() -> None:
           "nvcc": cuda_build.find_nvcc()})
 
 
+def phase_launch(device, rng, rounds: int = 9, iters: int = 200) -> dict:
+    """The slim launch path's cost per call, before any torch.profiler
+    session in this process (once the profiler has run, CUPTI's callbacks
+    stay attached and every CUDA call's host cost grows): B1 at the main
+    path's shape and B4 at both of its path's shapes, each beside its
+    library call.  The host's clock moves by tens of percent within a run
+    (a one-card machine shares its host's cores), so kernel and library
+    alternate over ``rounds`` rounds, the first arm alternating too, and
+    each figure is the median over the rounds, with the rounds the kernel
+    won.  ``iters`` stays well under the depth of the card's launch queue
+    (a library call slower on the device than on the host would otherwise
+    fill it and time the device).  The kernels are held to their plain
+    versions in the kernels and deskew_kernels phases."""
+    import statistics
+
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+
+    w, b = GEOMETRY["window"], GEOMETRY["beams"]
+    win = torch.from_numpy(_median_fixtures(rng, w, b)["random_inf"]).to(device)
+    nan_win = torch.where(torch.isinf(win), torch.full_like(win, math.nan), win)
+    cases = {"temporal_median": (
+        lambda: mk.temporal_median_kernel(win), lambda: torch.nanmedian(nan_win, dim=0), [w, b])}
+    for name, (bb, vv, nb) in _b4_path_inputs(rng, device).items():
+        cases[f"beam_min_{name}"] = (lambda bb=bb, vv=vv, nb=nb: dk.beam_min_kernel(bb, vv, nb),
+                                     _scatter_min(bb, vv, nb), [*bb.shape, nb])
+    rows = {}
+    for name, (kern, lib, shape) in cases.items():
+        got = {"kernel": [], "library": []}
+        for r in range(rounds):
+            for arm in (("kernel", "library") if r % 2 == 0 else ("library", "kernel")):
+                fn = kern if arm == "kernel" else lib
+                got[arm].append((cuda_ms(fn, iters), host_us(fn, iters)))
+        k, lb = got["kernel"], got["library"]
+        rows[name] = {
+            "ms": statistics.median(x[0] for x in k),
+            "library_ms": statistics.median(x[0] for x in lb),
+            "host_us": statistics.median(x[1] for x in k),
+            "library_host_us": statistics.median(x[1] for x in lb),
+            "rounds": rounds,
+            "kernel_won_events": sum(a[0] < c[0] for a, c in zip(k, lb)),
+            "kernel_won_host": sum(a[1] < c[1] for a, c in zip(k, lb)),
+            "shape": shape,
+        }
+    emit({"phase": "launch", "times": rows})
+    return rows
+
+
 def _median_fixtures(rng, w: int, b: int):
     import numpy as np
 
@@ -213,15 +313,29 @@ def phase_kernels(device, rng) -> dict:
 
     max_err = {"temporal_median": 0.0, "sorted_replace": 0.0}
     checked = 0
-    # (400, 300) takes B1's unstaged path (the column does not fit the
-    # block's shared memory); the odd shapes exercise the ragged beam edge
-    for w, b in [(64, 2048), (16, 2048), (7, 1000), (33, 2050), (400, 300)]:
-        for name, win in _median_fixtures(rng, w, b).items():
-            x = torch.from_numpy(win).to(device)
-            ok, err = exact(mk.temporal_median_kernel(x), mk.temporal_median_plain(x))
-            max_err["temporal_median"] = max(max_err["temporal_median"], err)
-            check(ok, f"B1 differs from its plain version at (W, B)=({w}, {b}) {name}: {err}")
-            checked += 1
+
+    def b1(x, what):
+        nonlocal checked
+        ok, err = exact(mk.temporal_median_kernel(x), mk.temporal_median_plain(x))
+        max_err["temporal_median"] = max(max_err["temporal_median"], err)
+        check(ok, f"B1 differs from its plain version ({what}): {err}")
+        checked += 1
+
+    # W around the warp's 32 rows and its two-candidate pass (1, 31, 32,
+    # 33, 64, 96), B off the block's 8 columns and off 16-byte rows; W up
+    # to 1536 is staged in shared memory, 1537 reads device memory directly
+    for w, b in [(64, 2048), (16, 2048), (7, 1000), (33, 2050), (400, 300), (1, 2048),
+                 (31, 1001), (32, 2047), (96, 2048), (1536, 100), (1537, 100)]:
+        fixtures = _median_fixtures(rng, w, b)
+        fixtures["all_inf"] = np.full((w, b), np.inf, np.float32)
+        fixtures["all_equal"] = np.full((w, b), 7.25, np.float32)
+        for name, win in fixtures.items():
+            b1(torch.from_numpy(win).to(device), f"(W, B)=({w}, {b}) {name}")
+    # a contiguous view 4 bytes off a 16-byte boundary: the staging's
+    # scalar path at the main path's shape
+    w, b = GEOMETRY["window"], GEOMETRY["beams"]
+    flat = torch.from_numpy(_median_fixtures(rng, w, b + 1)["random_inf"]).to(device).view(-1)
+    b1(flat[1 : 1 + w * b].view(w, b), f"(W, B)=({w}, {b}) offset view")
 
     # B2 over successive ring steps: the sorted window evolves by the
     # kernel's own output and must stay equal to the plain evolution
@@ -267,6 +381,10 @@ def phase_kernels(device, rng) -> dict:
             "library_ms": cuda_ms(lambda: torch.nanmedian(nan_win, dim=0)),
             "device_ms": device_ms(lambda: mk.temporal_median_kernel(win)),
             "plain_device_ms": device_ms(lambda: mk.temporal_median_plain(win)),
+            "library_device_ms": device_ms(lambda: torch.nanmedian(nan_win, dim=0)),
+            # after the profiler has run (the launch phase has the cost before)
+            "host_us": host_us(lambda: mk.temporal_median_kernel(win)),
+            "library_host_us": host_us(lambda: torch.nanmedian(nan_win, dim=0)),
         },
         "sorted_replace": {
             "ms": cuda_ms(lambda: mk.sorted_replace_kernel(sor, old, new_t)),
@@ -1183,6 +1301,47 @@ def _deskew_rows(rng, rows: int, n: int):
     return angle, dist, quality, valid
 
 
+def _beams_of(angle, nb: int):
+    """The beam of each node angle (Q16 turn) among ``nb`` beams."""
+    import numpy as np
+
+    return np.clip((angle.astype(np.int64) * nb) // 65536, 0, nb - 1).astype(np.int32)
+
+
+def _b4_path_inputs(rng, device):
+    """B4's two shapes on the fused ingest path at config 7: the rasterizer
+    (1 stream x 64 frames x 40 samples -> 2048 beams, packed range and
+    quality) and the profiles (8 revolution slots x 4096 nodes -> 256
+    beams, ranges); {name: (beam, values, nbeams)} on ``device``."""
+    import numpy as np
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops.deskew import RECON_EMPTY as empty
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    a, d, q, v = _deskew_rows(rng, 1, 2560)
+    raster = np.where(v & (d > 0), (d << 8) | q, empty).astype(np.int32)
+    a2, d2, _q2, v2 = _deskew_rows(rng, 8, 4096)
+    profile = np.where(v2 & (d2 > 0), d2, empty).astype(np.int32)
+    return {"raster": (t(_beams_of(a, 2048)), t(raster), 2048),
+            "profile": (t(_beams_of(a2, 256)), t(profile), 256)}
+
+
+def _scatter_min(beam, vals, nb: int):
+    """One PyTorch call computing B4's per-beam min (scatter_reduce_ "amin"
+    into a RECON_EMPTY-filled row), as a closure over its own buffers."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops.deskew import RECON_EMPTY
+
+    shape = (vals.shape[0], nb)
+    out = torch.full(shape, RECON_EMPTY, dtype=torch.int32, device=vals.device)
+    idx = beam.long()
+    return lambda: out.scatter_reduce_(1, idx, vals, reduce="amin", include_self=True)
+
+
 def phase_deskew_kernels(device, rng) -> dict:
     """B4 and B5 against their plain versions on the card (exact) over the
     JAX kernel suite's geometries, degenerate inputs, the featureless tie
@@ -1201,7 +1360,9 @@ def phase_deskew_kernels(device, rng) -> dict:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     def b4(beam, vals, nb, what):
-        b, v = t(beam), t(vals)
+        b4t(t(beam), t(vals), nb, what)
+
+    def b4t(b, v, nb, what):
         ok, err = exact(dk.beam_min_kernel(b, v, nb), dk.beam_min_plain(b, v, nb))
         max_err["beam_min"] = max(max_err["beam_min"], err)
         check(ok, f"B4 differs from its plain version ({what}): {err}")
@@ -1215,14 +1376,11 @@ def phase_deskew_kernels(device, rng) -> dict:
         check(ok, f"B5 differs from its plain version ({what}): {err}")
         checked["shift_sad"] += 1
 
-    def beams_of(angle, nb):
-        return np.clip((angle.astype(np.int64) * nb) // 65536, 0, nb - 1).astype(np.int32)
-
     def packed(dist, quality, valid):
         return np.where(valid & (dist > 0), (dist << 8) | quality, empty).astype(np.int32)
 
     def profiles(angle, dist, valid, d):
-        return dk.beam_min_plain(t(beams_of(angle, d)),
+        return dk.beam_min_plain(t(_beams_of(angle, d)),
                                  t(np.where(valid & (dist > 0), dist, empty).astype(np.int32)),
                                  d).cpu().numpy()
 
@@ -1231,8 +1389,8 @@ def phase_deskew_kernels(device, rng) -> dict:
         cfg = tdsk.DeskewConfig(recon_beams=beams, profile_beams=prof,
                                 shift_window=min(8, prof // 8))
         a, d, q, v = _deskew_rows(rng, 3, 600)
-        b4(beams_of(a, beams), packed(d, q, v), beams, f"rasterizer {beams}")
-        b4(beams_of(a, prof), np.where(v & (d > 0), d, empty).astype(np.int32), prof,
+        b4(_beams_of(a, beams), packed(d, q, v), beams, f"rasterizer {beams}")
+        b4(_beams_of(a, prof), np.where(v & (d > 0), d, empty).astype(np.int32), prof,
            f"profile {prof}")
         a2, d2, _q2, v2 = _deskew_rows(rng, 3, 600)
         b5(profiles(a, d, v, prof), profiles(a2, d2, v2, prof), tdsk.shift_candidates(cfg),
@@ -1248,6 +1406,29 @@ def phase_deskew_kernels(device, rng) -> dict:
         b4(rng.integers(0, 2048, (2, n)).astype(np.int32),
            rng.integers(0, 1 << 26, (2, n)).astype(np.int32), 2048, f"n={n}")
     b4(np.zeros((0, 16), np.int32), np.zeros((0, 16), np.int32), 16, "no rows")
+    # the redesigned B4's edges: one beam and the most beams the wrapper
+    # takes, beams out of range on both sides, rows whose length is off the
+    # 16-byte loads (each row after the first starts off a boundary), views
+    # that start off a boundary (beam and values at the same phase, and at
+    # different phases), no node at all, and 16 rows
+    b4(rng.integers(-2, 3, (3, 1000)).astype(np.int32),
+       rng.integers(-(1 << 30), 1 << 30, (3, 1000)).astype(np.int32), 1, "nbeams=1")
+    b4(rng.integers(0, 8192, (2, 9000)).astype(np.int32),
+       rng.integers(0, 1 << 26, (2, 9000)).astype(np.int32), 8192, "nbeams=8192")
+    b4(rng.integers(-300, 2348, (4, 2560)).astype(np.int32),
+       rng.integers(0, 1 << 26, (4, 2560)).astype(np.int32), 2048, "beams out of range")
+    for n in (2, 3, 5, 6, 7, 2561):
+        b4(rng.integers(0, 256, (3, n)).astype(np.int32),
+           rng.integers(0, 1 << 26, (3, n)).astype(np.int32), 256, f"3 rows of n={n}")
+    for ob, ov in ((1, 1), (2, 2), (3, 3), (1, 2), (0, 3)):
+        fb = t(rng.integers(0, 2048, 2 * 2560 + 4).astype(np.int32))
+        fv = t(rng.integers(0, 1 << 26, 2 * 2560 + 4).astype(np.int32))
+        b4t(fb[ob : ob + 2 * 2560].view(2, 2560), fv[ov : ov + 2 * 2560].view(2, 2560), 2048,
+            f"views at element offsets beam {ob}, values {ov}")
+    b4(np.zeros((2, 0), np.int32), np.zeros((2, 0), np.int32), 256, "no nodes")
+    for nb in (256, 2048):
+        b4(rng.integers(0, nb, (16, 4096)).astype(np.int32),
+           rng.integers(0, 1 << 26, (16, 4096)).astype(np.int32), nb, f"16x4096 -> {nb}")
     cands = tdsk.shift_candidates(tdsk.DeskewConfig(recon_beams=256))
     flat = np.full((2, 256), 3000, np.int32)
     b5(flat, flat, cands, "featureless tie")
@@ -1257,10 +1438,10 @@ def phase_deskew_kernels(device, rng) -> dict:
     # frames x 40 samples -> 2048 beams), the profiles (8 revolution slots
     # x 4096 nodes -> 256 beams), the shift search (8 slots, C=17, D=256)
     a, d, q, v = _deskew_rows(rng, 1, 2560)
-    r_beam, r_val = t(beams_of(a, 2048)), t(packed(d, q, v))
+    r_beam, r_val = t(_beams_of(a, 2048)), t(packed(d, q, v))
     b4(r_beam.cpu().numpy(), r_val.cpu().numpy(), 2048, "rasterizer 1x2560x2048")
     a, d, _q, v = _deskew_rows(rng, 8, 4096)
-    p_beam = t(beams_of(a, 256))
+    p_beam = t(_beams_of(a, 256))
     p_val = t(np.where(v & (d > 0), d, empty).astype(np.int32))
     b4(p_beam.cpu().numpy(), p_val.cpu().numpy(), 256, "profiles 8x4096x256")
     prev = profiles(a, d, v, 256)
@@ -1269,11 +1450,6 @@ def phase_deskew_kernels(device, rng) -> dict:
     b5(prev, cur, cands, "8 slots C=17 D=256")
     s_prev, s_cur, s_sh = t(prev), t(cur), t(cands)
 
-    def lib_b4(beam_l, vals, nb):
-        out = torch.full((vals.shape[0], nb), empty, dtype=torch.int32, device=device)
-        idx = beam_l.long()
-        return lambda: out.scatter_reduce_(1, idx, vals, reduce="amin", include_self=True)
-
     times = {}
     for name, (bb, vv, nb) in (("raster", (r_beam, r_val, 2048)),
                                ("profile", (p_beam, p_val, 256))):
@@ -1281,10 +1457,12 @@ def phase_deskew_kernels(device, rng) -> dict:
             "ms": cuda_ms(lambda: dk.beam_min_kernel(bb, vv, nb)),
             "plain_ms": cuda_ms(lambda: dk.beam_min_plain(bb, vv, nb), iters=50),
             # one PyTorch call computing the same per-beam min
-            "library_ms": cuda_ms(lib_b4(bb, vv, nb)),
-            "library_device_ms": device_ms(lib_b4(bb, vv, nb)),
+            "library_ms": cuda_ms(_scatter_min(bb, vv, nb)),
+            "library_device_ms": device_ms(_scatter_min(bb, vv, nb)),
             "device_ms": device_ms(lambda: dk.beam_min_kernel(bb, vv, nb)),
             "plain_device_ms": device_ms(lambda: dk.beam_min_plain(bb, vv, nb), iters=20),
+            "host_us": host_us(lambda: dk.beam_min_kernel(bb, vv, nb)),
+            "library_host_us": host_us(_scatter_min(bb, vv, nb)),
             "bound": bound(bb.numel() * 8 + bb.shape[0] * nb * 4, bb.numel()),
             "shape": [bb.shape[0], bb.shape[1], nb],
         }
@@ -1526,6 +1704,28 @@ def phase_replay_fused(device, frames, revs, trace_dir=None) -> dict:
 
 
 
+def redesign_report(name: str, timed: list, launched: list) -> dict:
+    """B1's and B4's extra keys in the kernels line.  ``timed``: the kernel
+    and deskew_kernels phases' rows at each of the path's shapes (device
+    ms; events ms and host µs after the profiler has run); ``launched``:
+    the launch phase's rows at the same shapes (events ms and host µs
+    before it).  Adds host µs per call beside the library call's and
+    whether each goal was met: only figures measured in this run."""
+    return {
+        "host_us": launched[0]["host_us"], "library_host_us": launched[0]["library_host_us"],
+        "host_us_after_profiler": timed[0]["host_us"],
+        "library_device_ms": timed[0]["library_device_ms"],
+        "launch_phase": launched,
+        "goals": {
+            "device_met": all(x["device_ms"] is not None and x["device_ms"] <= GOAL_DEVICE_MS[name]
+                              for x in timed),
+            "events_met": all(x["ms"] <= x["library_ms"] for x in launched),
+            "events_met_in_timing_phase": all(x["ms"] <= x["library_ms"] for x in timed),
+            "host_met": all(x["host_us"] < GOAL_HOST_US for x in launched),
+        },
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1552,6 +1752,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     info = phase_device()
     phase_build()
+    launch = phase_launch(device, np.random.default_rng(args.seed + 3))
     kern = phase_kernels(device, np.random.default_rng(args.seed))
     revs = make_revolutions(args.seed, args.revs, GEOMETRY["points"])
     chain = phase_chain(device, revs)
@@ -1587,6 +1788,8 @@ def main(argv=None) -> int:
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "plain_device_ms": t["plain_device_ms"],
         })
+        if name == "temporal_median":
+            kernels[-1].update(redesign_report(name, [t], [launch["temporal_median"]]))
     # B6/B7/B8: launches on the config-12 fleet path (one per tick each);
     # the map replay's launches are checked in its phase
     for name, replaces in (
@@ -1625,10 +1828,14 @@ def main(argv=None) -> int:
             entry["library_device_ms"] = t["library_device_ms"]
             entry["profile_shape"] = {k: p[k] for k in ("shape", "ms", "device_ms", "plain_ms",
                                                          "library_ms", "library_device_ms",
-                                                         "bound")}
+                                                         "bound", "host_us", "library_host_us")}
+            entry.update(redesign_report(
+                name, [t, p], [launch["beam_min_raster"], launch["beam_min_profile"]]))
         kernels.append(entry)
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on the main path")
+    emit({"phase": "before", "constants_from": "PERF.md (not measured in this run)",
+          "figures": BEFORE, "goal_device_ms": GOAL_DEVICE_MS, "goal_host_us": GOAL_HOST_US})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,93 +14,142 @@
 // What bounds them on an H100: not the memory.  At the main path's size
 // (W=64, B=2048) B1 reads 512 KiB and writes 8 KiB, B2 reads 528 KiB and
 // writes 520 KiB: about 0.16 us and 0.32 us of HBM time at 3.35 TB/s, less
-// than a kernel launch.  What they spend is compare work in few threads: B1
-// does (W / kSplit) x W compares per thread, B2 walks its column twice in
-// one thread per beam (chip_smoke.py measures their device time on the card;
-// PERF.md keeps the numbers).  The design keeps each to one launch with no
-// scratch allocation and no host synchronisation, puts several threads on
-// each B1 column so more warps are in flight, and leaves the compare loops
-// as the lever for a faster version:
-//   * the TPU kernels ran a bitonic network because VMEM wants static
-//     vector shapes; here one beam maps to one thread (B2) or to a few
-//     threads of one column (B1), threads of a warp take neighbouring beams
-//     of the same row, so every load of the row-major (W, B) plane is a
-//     coalesced 128-byte line;
-//   * B1 selects by counting rank (v is the k-th smallest iff
-//     #{< v} <= k < #{< v} + #{== v}); any exact selection gives the bits of
-//     the sort, so no sort is needed.  kSplit threads share one column's
-//     candidates, the column staged once in shared memory;
-//   * B2 finds the delete slot d and insert slot p in one pass and writes
-//     the shifted column in a second, each output element a 3-way select.
-// W is arbitrary (never padded), the ragged beam edge is masked, +inf takes
-// part like any value.  Both launch on the caller's stream, allocate
-// nothing and return cudaGetLastError().
+// than a kernel launch.  What they spend is the launch, the latency of one
+// round trip to device memory, and compare work: an exact selection of the
+// k-th of W values costs O(W) compares per candidate.
+//
+// B1's design.  The TPU kernel ran a bitonic network because VMEM wants
+// static vector shapes; here selection is by rank (v is the k-th smallest
+// iff #{u < v} <= k < #{u < v} + #{u == v}), and any exact selection gives
+// the sort's bits, so nothing is sorted.  One warp owns one beam column,
+// kCols = 8 columns to a 256-thread block, so W=64, B=2048 runs 256 blocks,
+// all resident at once on 132 SMs:
+//   * the block stages its (W, 8) tile in shared memory with 16-byte
+//     cp.async copies (two per row: every 32-byte sector fetched is used),
+//     plain loads with +inf on the ragged beam edge or a row that is not
+//     16-byte aligned (B % 4 != 0);
+//   * the warp counts its column's finite values once, __popc of a
+//     __ballot_sync per 32 rows, and sets k = (nvalid - 1) >> 1;
+//   * each lane ranks its own candidates (rows lane, lane + 32, ...; kCand
+//     of them at a time in registers) against the whole column; every lane
+//     reads the same shared word at each step, a broadcast, so there are no
+//     bank conflicts: W=64 is one pass of 64 steps;
+//   * the lane that holds the k-th value is found by a ballot and the value
+//     taken with __shfl_sync; the warp stops at the first pass that finds
+//     it.  A column with no finite value stays +inf;
+//   * W is arbitrary: a column too tall for kStageBytes of shared memory
+//     (W > 1536) is read from device memory directly, the same broadcast
+//     loads through L1.
+// B2 walks its column twice in one thread per beam (one pass finds the
+// delete slot d and the insert slot p, the second writes the shifted
+// column, each element a 3-way select); threads of a warp take
+// neighbouring beams, so every load of the row-major (W, B) plane is a
+// coalesced 128-byte line.
+//
+// +inf takes part like any value.  Both launch on the caller's stream,
+// allocate nothing and return cudaGetLastError(); each entry takes the
+// card's index and makes that card current itself (device_guard.cuh).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "device_guard.cuh"
 
 namespace {
 
-constexpr int kBeams = 32;  // beams per B1 block (threadIdx.x, one warp)
-constexpr int kSplit = 8;   // threads sharing one beam's candidates (threadIdx.y)
-constexpr size_t kStaticSmemLimit = 48 * 1024;  // no opt-in attribute needed below it
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kCols = 8;                    // B1: beam columns (warps) per block
+constexpr int kCand = 2;                    // B1: candidates per lane per pass
+constexpr size_t kStageBytes = 48 * 1024;   // B1: shared memory without opt-in
 
-__global__ void temporal_median_kernel(const float* __restrict__ win,
-                                       float* __restrict__ out, int W, int B,
-                                       int staged) {
-  extern __shared__ float stage[];  // (W, kBeams) when staged
-  __shared__ float found[kSplit][kBeams];
-  const int x = threadIdx.x;
-  const int y = threadIdx.y;
-  const int b = blockIdx.x * kBeams + x;
-  const bool live = b < B;
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
 
-  const float* col;
-  size_t stride;
-  if (staged) {
-    for (int j = y; j < W; j += kSplit) {
-      stage[j * kBeams + x] = live ? win[(size_t)j * B + b] : INFINITY;
-    }
-    __syncthreads();
-    col = stage + x;
-    stride = kBeams;
-  } else {
-    col = win + (live ? b : 0);
-    stride = (size_t)B;
+// The lower median of one column (stride `stride` between rows), for the
+// whole warp; every lane returns it.
+__device__ __forceinline__ float column_median(const float* col, size_t stride, int W,
+                                               int lane) {
+  int nvalid = 0;
+  for (int j0 = 0; j0 < W; j0 += 32) {
+    const int j = j0 + lane;
+    nvalid += __popc(__ballot_sync(kFull, j < W && isfinite(col[j * stride])));
   }
-
-  float res = INFINITY;
-  if (live) {
-    int nvalid = 0;
-    for (int j = 0; j < W; ++j) nvalid += isfinite(col[j * stride]) ? 1 : 0;
-    if (nvalid > 0) {
-      const int k = (nvalid - 1) >> 1;  // < nvalid: the answer is finite
-      for (int i = y; i < W; i += kSplit) {
-        const float v = col[i * stride];
-        if (!isfinite(v)) continue;
-        int less = 0, equal = 0;
-        for (int j = 0; j < W; ++j) {
-          const float u = col[j * stride];
-          less += u < v ? 1 : 0;
-          equal += u == v ? 1 : 0;
-        }
-        if (less <= k && k < less + equal) {
-          res = v;
-          break;
-        }
+  if (nvalid == 0) return INFINITY;  // warp-uniform
+  const int k = (nvalid - 1) >> 1;   // < nvalid: the answer is finite
+  for (int s0 = 0; s0 < W; s0 += 32 * kCand) {
+    float v[kCand];
+    int less[kCand], equal[kCand];
+#pragma unroll
+    for (int c = 0; c < kCand; ++c) {
+      const int j = s0 + 32 * c + lane;
+      v[c] = j < W ? col[j * stride] : NAN;  // NaN ranks nowhere
+      less[c] = 0;
+      equal[c] = 0;
+    }
+#pragma unroll 8
+    for (int j = 0; j < W; ++j) {
+      const float u = col[j * stride];  // the same word in every lane
+#pragma unroll
+      for (int c = 0; c < kCand; ++c) {
+        less[c] += u < v[c] ? 1 : 0;
+        equal[c] += u == v[c] ? 1 : 0;
       }
     }
+    bool hit = false;
+    float mine = INFINITY;
+#pragma unroll
+    for (int c = 0; c < kCand; ++c) {
+      if (!hit && less[c] <= k && k < less[c] + equal[c]) {
+        hit = true;
+        mine = v[c];
+      }
+    }
+    // every lane that hit holds the same value: take the first one's
+    const unsigned found = __ballot_sync(kFull, hit);
+    if (found) return __shfl_sync(kFull, mine, __ffs(found) - 1);
   }
-  // every thread that found a candidate found the same value; the others
-  // hold +inf, so the minimum over the column's threads is the median
-  found[y][x] = res;
-  __syncthreads();
-  if (y == 0 && live) {
-    float m = found[0][x];
-    for (int r = 1; r < kSplit; ++r) m = fminf(m, found[r][x]);
-    out[b] = m;
+  return INFINITY;  // unreachable for a column with a finite value
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kCols * 32)
+    temporal_median_kernel(const float* __restrict__ win, float* __restrict__ out, int W,
+                           int B) {
+  extern __shared__ __align__(16) float tile[];  // (W, kCols) when staged
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b0 = blockIdx.x * kCols;
+  const int b = b0 + warp;
+  if constexpr (kStaged) {
+    const bool vec = b0 + kCols <= B && (B & 3) == 0 &&
+                     (reinterpret_cast<uintptr_t>(win) & 15) == 0;
+    if (vec) {
+      for (int i = threadIdx.x; i < 2 * W; i += blockDim.x) {
+        const int j = i >> 1, h = (i & 1) * 4;
+        cp_async16(tile + j * kCols + h, win + (size_t)j * B + b0 + h);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    } else {
+      for (int i = threadIdx.x; i < kCols * W; i += blockDim.x) {
+        const int j = i / kCols, c = i % kCols;
+        tile[i] = b0 + c < B ? win[(size_t)j * B + b0 + c] : INFINITY;
+      }
+    }
+    __syncthreads();
   }
+  if (b >= B) return;  // whole warps leave together
+  float m;
+  if constexpr (kStaged) {
+    m = column_median(tile + warp, kCols, W, lane);
+  } else {
+    m = column_median(win + b, (size_t)B, W, lane);
+  }
+  if (lane == 0) out[b] = m;
 }
 
 struct Replace {
@@ -150,21 +199,26 @@ __global__ void sorted_replace_kernel(const float* __restrict__ s,
 
 }  // namespace
 
-extern "C" int temporal_median_f32(const float* win, float* out, int W, int B,
+extern "C" int temporal_median_f32(const float* win, float* out, int W, int B, int device,
                                    void* stream) {
-  const size_t smem = (size_t)W * kBeams * sizeof(float);
-  const int staged = smem <= kStaticSmemLimit - sizeof(float) * kSplit * kBeams;
-  const dim3 block(kBeams, kSplit);
-  const dim3 grid((B + kBeams - 1) / kBeams);
-  temporal_median_kernel<<<grid, block, staged ? smem : 0,
-                           static_cast<cudaStream_t>(stream)>>>(win, out, W, B,
-                                                                staged);
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
+  const size_t smem = (size_t)W * kCols * sizeof(float);
+  const dim3 grid((B + kCols - 1) / kCols);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (smem <= kStageBytes) {
+    temporal_median_kernel<true><<<grid, kCols * 32, smem, s>>>(win, out, W, B);
+  } else {
+    temporal_median_kernel<false><<<grid, kCols * 32, 0, s>>>(win, out, W, B);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int sorted_replace_f32(const float* s, const float* old_v,
                                   const float* new_v, float* out, float* med,
-                                  int W, int B, void* stream) {
+                                  int W, int B, int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   constexpr int kThreads = 64;
   sorted_replace_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(

@@ -46,11 +46,15 @@
 //     stripe.  Only the > 0 predicate of each count matters, so flags
 //     replace the TPU kernel's one-hot matmul.
 // No kernel needs its output zeroed, allocates, or synchronises; each
-// launches on the caller's stream and the entry returns cudaGetLastError().
+// launches on the caller's stream and the entry returns cudaGetLastError();
+// each entry takes the card's index and makes that card current itself
+// (device_guard.cuh).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -282,7 +286,9 @@ __global__ void log_odds_update_kernel(const int* __restrict__ log_odds,
 extern "C" int coarse_scores_i32(const int* log_odds, const int* pq, const uint8_t* ok,
                                  const int* posec, const int* trig, int* mq, int* score, int N,
                                  int G, int B, int c, int clog, int clamp_q, int qshift, int w,
-                                 void* stream) {
+                                 int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   const int U = 2 * w + 1;
   coarse_scores_kernel<<<dim3(U, N), kThreads, U * sizeof(int),
                          static_cast<cudaStream_t>(stream)>>>(
@@ -292,7 +298,10 @@ extern "C" int coarse_scores_i32(const int* log_odds, const int* pq, const uint8
 
 extern "C" int fine_scores_i32(const int* mq, const int* pq, const uint8_t* ok, const int* posec,
                                const int* cos_q, const int* sin_q, const int* uv, int* score,
-                               int N, int G, int B, int T, int csub, int r, void* stream) {
+                               int N, int G, int B, int T, int csub, int r, int device,
+                               void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   const int F = 2 * r + 1;
   fine_scores_kernel<<<dim3(T, N), kThreads, F * F * sizeof(int),
                        static_cast<cudaStream_t>(stream)>>>(
@@ -303,7 +312,9 @@ extern "C" int fine_scores_i32(const int* mq, const int* pq, const uint8_t* ok, 
 extern "C" int log_odds_update_i32(const int* log_odds, const int* pq, const uint8_t* ok,
                                    const int* posec, const int* trig, int* out, int N, int G,
                                    int B, int hit_q, int miss_q, int clamp_q, int samples,
-                                   void* stream) {
+                                   int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   const int rows = G < kStripeCells / G ? G : kStripeCells / G;  // >= 8 for G <= 1024
   const int stripes = (G + rows - 1) / rows;
   log_odds_update_kernel<<<dim3(stripes, N), kThreads, 2 * rows * G,

@@ -33,11 +33,14 @@
 // 50 MB L2.  No shared memory: W is arbitrary and never padded, K needs no
 // multiple of 8 (the Pallas padding was a Mosaic constraint), the ragged
 // beam edge is masked.  It launches on the caller's stream, allocates
-// nothing and returns cudaGetLastError().
+// nothing and returns cudaGetLastError(); the entry takes the card's index
+// and makes that card current itself (device_guard.cuh).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -85,7 +88,9 @@ __global__ void sliding_median_kernel(const float* __restrict__ ext,
 }  // namespace
 
 extern "C" int sliding_median_f32(const float* ext, float* out, int W, int K,
-                                  int B, void* stream) {
+                                  int B, int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error()) return guard.error();
   const dim3 block(kBeams, kRows);
   const dim3 grid((W + K - 1 + kRows - 1) / kRows, (B + kBeams - 1) / kBeams);
   sliding_median_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(

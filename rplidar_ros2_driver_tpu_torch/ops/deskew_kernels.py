@@ -20,19 +20,19 @@ CPU runs the kernel's plain PyTorch version (:func:`beam_min_plain`,
 tensor launches the kernel (built from the source at first use,
 utils/cuda_build.py) or raises — there is no fallback.  ``launch_counts``
 counts the launches of each kernel; only a launch adds to it.  The
-kernels' design is in the source's header note.
+kernels' design is in the source's header note.  Both launch through the
+slim launch path (utils/launch.py).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from rplidar_ros2_driver_tpu_torch.ops.filters import _INT_INF
-from rplidar_ros2_driver_tpu_torch.utils.cuda_build import load_library
+from rplidar_ros2_driver_tpu_torch.utils.launch import I, VP, KernelEntry, current_stream
 
 _EMPTY = _INT_INF
+_INT32 = torch.int32
 
 # kernel name -> launches since the last reset_launch_counts()
 launch_counts = {"beam_min": 0, "shift_sad": 0}
@@ -43,23 +43,9 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
-# exported entry -> its argument types (each returns the launch's
-# cudaError_t as an int)
-_SIGNATURES = {
-    "beam_min_i32": [_VP] * 3 + [_I] * 3 + [_VP],
-    "shift_sad_i32": [_VP] * 4 + [_I] * 5 + [_VP],
-}
-
-
-def _lib() -> ctypes.CDLL:
-    lib = load_library("deskew")
-    if not getattr(lib, "_signatures_set", False):
-        for entry, argtypes in _SIGNATURES.items():
-            getattr(lib, entry).argtypes = argtypes
-            getattr(lib, entry).restype = _I
-        lib._signatures_set = True
-    return lib
+# the C entries: pointers, sizes, the card's index, the stream
+_B4 = KernelEntry("deskew", "beam_min_i32", [VP] * 3 + [I] * 4 + [VP])
+_B5 = KernelEntry("deskew", "shift_sad_i32", [VP] * 4 + [I] * 6 + [VP])
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -71,11 +57,6 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> No
         raise ValueError(f"{name} must be contiguous")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
 # ---------------------------------------------------------------------------
@@ -105,22 +86,32 @@ def beam_min_kernel(beam: torch.Tensor, values: torch.Tensor, nbeams: int) -> to
         raise ValueError(f"beam must be (rows, nodes), got {tuple(beam.shape)}")
     if not 1 <= nbeams <= 8192:
         raise ValueError(f"nbeams must be in [1, 8192], got {nbeams}")
+    if beam.dtype != _INT32:
+        raise TypeError(f"beam must be int32, got {beam.dtype}")
+    if values.dtype != _INT32:
+        raise TypeError(f"values must be int32, got {values.dtype}")
+    if values.shape != beam.shape:
+        raise ValueError(f"values must have shape {tuple(beam.shape)}, got {tuple(values.shape)}")
+    if not beam.is_contiguous():
+        raise ValueError("beam must be contiguous")
+    if not values.is_contiguous():
+        raise ValueError("values must be contiguous")
+    if not beam.is_cuda:
+        if values.device != beam.device:
+            raise ValueError(f"values is on {values.device}, expected {beam.device}")
+        if beam.device.type == "cpu":
+            return beam_min_plain(beam, values, nbeams)
+        raise RuntimeError(f"no beam-min kernel for device {beam.device}")
+    dev = beam.get_device()
+    if values.get_device() != dev:  # -1 off the card
+        raise ValueError(f"values is on {values.device}, expected {beam.device}")
     rows, n = beam.shape
-    dev = beam.device
-    _check("beam", beam, (rows, n), dev)
-    _check("values", values, (rows, n), dev)
-    if dev.type == "cpu":
-        return beam_min_plain(beam, values, nbeams)
-    if dev.type != "cuda":
-        raise RuntimeError(f"no beam-min kernel for device {dev}")
-    out = torch.empty((rows, nbeams), dtype=torch.int32, device=dev)
+    # new_empty: torch.empty with beam's dtype (int32) and device
+    out = beam.new_empty((rows, nbeams))
     if rows == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _lib().beam_min_i32(beam.data_ptr(), values.data_ptr(), out.data_ptr(),
-                                 rows, n, nbeams, stream)
-    _raise_on(rc, "beam_min")
+    _B4(beam.data_ptr(), values.data_ptr(), out.data_ptr(), rows, n, nbeams, dev,
+        current_stream(dev))
     launch_counts["beam_min"] += 1
     return out
 
@@ -172,10 +163,7 @@ def shift_sad_kernel(prev: torch.Tensor, cur: torch.Tensor, shifts: torch.Tensor
     out = torch.empty((rows, c), dtype=torch.int32, device=dev)
     if rows == 0 or c == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _lib().shift_sad_i32(prev.data_ptr(), cur.data_ptr(), shifts.data_ptr(),
-                                  out.data_ptr(), rows, c, d, min_valid, max_trans, stream)
-    _raise_on(rc, "shift_sad")
+    _B5(prev.data_ptr(), cur.data_ptr(), shifts.data_ptr(), out.data_ptr(), rows, c, d,
+        min_valid, max_trans, dev.index, current_stream(dev.index))
     launch_counts["shift_sad"] += 1
     return out

@@ -20,11 +20,11 @@ launches the kernel (built from the source at first use,
 utils/cuda_build.py) or raises — there is no fallback.  ``launch_counts``
 counts the launches of each kernel; only a launch adds to it.  What bounds
 the kernels and how they are built is in each source's header note.
+Each launches through the slim launch path (utils/launch.py: its C entry
+resolved once, the raw current stream, the device index handed to C).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -34,7 +34,7 @@ from rplidar_ros2_driver_tpu_torch.ops.filters import (
     sorted_replace,
     temporal_median,
 )
-from rplidar_ros2_driver_tpu_torch.utils.cuda_build import load_library
+from rplidar_ros2_driver_tpu_torch.utils.launch import I, VP, KernelEntry, current_stream
 
 # kernel name -> launches since the last reset_launch_counts()
 launch_counts = {"temporal_median": 0, "sorted_replace": 0, "sliding_median": 0}
@@ -45,26 +45,11 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
-# library name -> exported kernel entry -> its argument types (each returns
-# the launch's cudaError_t as an int)
-_SIGNATURES = {
-    "median": {
-        "temporal_median_f32": [_VP, _VP, _I, _I, _VP],
-        "sorted_replace_f32": [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP],
-    },
-    "sliding_median": {"sliding_median_f32": [_VP, _VP, _I, _I, _I, _VP]},
-}
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    lib = load_library(name)
-    if not getattr(lib, "_signatures_set", False):
-        for entry, argtypes in _SIGNATURES[name].items():
-            getattr(lib, entry).argtypes = argtypes
-            getattr(lib, entry).restype = _I
-        lib._signatures_set = True
-    return lib
+_FLOAT32 = torch.float32
+# the C entries: pointers, sizes, the card's index, the stream
+_B1 = KernelEntry("median", "temporal_median_f32", [VP] * 2 + [I] * 3 + [VP])
+_B2 = KernelEntry("median", "sorted_replace_f32", [VP] * 5 + [I] * 3 + [VP])
+_B3 = KernelEntry("sliding_median", "sliding_median_f32", [VP] * 2 + [I] * 4 + [VP])
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -76,11 +61,6 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> No
         raise ValueError(f"{name} must be contiguous")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
 def temporal_median_plain(window: torch.Tensor) -> torch.Tensor:
@@ -101,21 +81,20 @@ def temporal_median_kernel(window: torch.Tensor) -> torch.Tensor:
     """(W, B) float32 ring (+inf = missing) -> (B,) lower medians."""
     if window.ndim != 2 or window.shape[0] < 1:
         raise ValueError(f"window must be (W>=1, B), got {tuple(window.shape)}")
-    w, b = window.shape
-    _check("window", window, (w, b), window.device)
-    if window.device.type == "cpu":
-        return temporal_median_plain(window)
-    if window.device.type != "cuda":
+    if window.dtype != _FLOAT32:
+        raise TypeError(f"window must be float32, got {window.dtype}")
+    if not window.is_contiguous():
+        raise ValueError("window must be contiguous")
+    if not window.is_cuda:
+        if window.device.type == "cpu":
+            return temporal_median_plain(window)
         raise RuntimeError(f"no temporal-median kernel for device {window.device}")
-    out = torch.empty((b,), dtype=torch.float32, device=window.device)
+    w, b = window.shape
+    out = window.new_empty((b,))  # torch.empty with window's dtype and device
     if b == 0:
         return out
-    stream = torch.cuda.current_stream(window.device).cuda_stream
-    with torch.cuda.device(window.device):
-        rc = _lib("median").temporal_median_f32(
-            window.data_ptr(), out.data_ptr(), w, b, stream
-        )
-    _raise_on(rc, "temporal_median")
+    dev = window.get_device()
+    _B1(window.data_ptr(), out.data_ptr(), w, b, dev, current_stream(dev))
     launch_counts["temporal_median"] += 1
     return out
 
@@ -141,13 +120,8 @@ def sorted_replace_kernel(
     med = torch.empty((b,), dtype=torch.float32, device=dev)
     if b == 0:
         return out, med
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _lib("median").sorted_replace_f32(
-            sorted_w.data_ptr(), old_v.data_ptr(), new_v.data_ptr(),
-            out.data_ptr(), med.data_ptr(), w, b, stream,
-        )
-    _raise_on(rc, "sorted_replace")
+    _B2(sorted_w.data_ptr(), old_v.data_ptr(), new_v.data_ptr(), out.data_ptr(),
+        med.data_ptr(), w, b, dev.index, current_stream(dev.index))
     launch_counts["sorted_replace"] += 1
     return out, med
 
@@ -175,11 +149,7 @@ def sliding_median_kernel(ext: torch.Tensor, window: int) -> torch.Tensor:
     out = torch.empty((k, b), dtype=torch.float32, device=ext.device)
     if k == 0 or b == 0:
         return out
-    stream = torch.cuda.current_stream(ext.device).cuda_stream
-    with torch.cuda.device(ext.device):
-        rc = _lib("sliding_median").sliding_median_f32(
-            ext.data_ptr(), out.data_ptr(), window, k, b, stream
-        )
-    _raise_on(rc, "sliding_median")
+    dev = ext.device.index
+    _B3(ext.data_ptr(), out.data_ptr(), window, k, b, dev, current_stream(dev))
     launch_counts["sliding_median"] += 1
     return out

@@ -20,13 +20,13 @@ CPU runs the kernel's plain PyTorch version (:func:`coarse_scores_plain`,
 ``match_backend="xla"`` arm); a CUDA tensor launches the kernel (built
 from the source at first use, utils/cuda_build.py) or raises — there is
 no fallback.  ``launch_counts`` counts the launches of each kernel; only a
-launch adds to it.  The design of each kernel is in the source's header
+launch adds to it.  Each launches through the slim launch path
+(utils/launch.py).  The design of each kernel is in the source's header
 note.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -39,7 +39,7 @@ from rplidar_ros2_driver_tpu_torch.ops.scan_match import (
     rotate_rows,
     select_cell_hits,
 )
-from rplidar_ros2_driver_tpu_torch.utils.cuda_build import load_library
+from rplidar_ros2_driver_tpu_torch.utils.launch import I, VP, KernelEntry, current_stream
 
 # kernel name -> launches since the last reset_launch_counts()
 launch_counts = {"coarse_scores": 0, "fine_scores": 0, "log_odds_update": 0}
@@ -50,24 +50,10 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
-# exported entry -> its argument types (each returns the launch's
-# cudaError_t as an int)
-_SIGNATURES = {
-    "coarse_scores_i32": [_VP] * 7 + [_I] * 8 + [_VP],
-    "fine_scores_i32": [_VP] * 8 + [_I] * 6 + [_VP],
-    "log_odds_update_i32": [_VP] * 6 + [_I] * 7 + [_VP],
-}
-
-
-def _lib() -> ctypes.CDLL:
-    lib = load_library("scan_match")
-    if not getattr(lib, "_signatures_set", False):
-        for entry, argtypes in _SIGNATURES.items():
-            getattr(lib, entry).argtypes = argtypes
-            getattr(lib, entry).restype = _I
-        lib._signatures_set = True
-    return lib
+# the C entries: pointers, sizes, the card's index, the stream
+_B6 = KernelEntry("scan_match", "coarse_scores_i32", [VP] * 7 + [I] * 9 + [VP])
+_B7 = KernelEntry("scan_match", "fine_scores_i32", [VP] * 8 + [I] * 7 + [VP])
+_B8 = KernelEntry("scan_match", "log_odds_update_i32", [VP] * 6 + [I] * 8 + [VP])
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape: tuple, device: torch.device) -> None:
@@ -100,11 +86,6 @@ def _check_scan(log_odds, pq, ok, posec, cfg: MapConfig):
 def _launch_device(dev: torch.device, what: str) -> None:
     if dev.type != "cuda":
         raise RuntimeError(f"no {what} kernel for device {dev}")
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
 # ---------------------------------------------------------------------------
@@ -150,15 +131,12 @@ def coarse_scores_kernel(log_odds, pq, ok, posec, trig, cfg: MapConfig):
     score = torch.empty((n, u, u), dtype=torch.int32, device=dev)
     if n == 0:
         return mq, score
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _lib().coarse_scores_i32(
-            log_odds.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
-            trig.data_ptr(), mq.data_ptr(), score.data_ptr(),
-            n, cfg.grid, b, cfg.coarse, int(math.log2(cfg.coarse)), cfg.clamp_q,
-            cfg.quant_shift, cfg.window_cells, stream,
-        )
-    _raise_on(rc, "coarse_scores")
+    _B6(
+        log_odds.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
+        trig.data_ptr(), mq.data_ptr(), score.data_ptr(),
+        n, cfg.grid, b, cfg.coarse, int(math.log2(cfg.coarse)), cfg.clamp_q,
+        cfg.quant_shift, cfg.window_cells, dev.index, current_stream(dev.index),
+    )
     launch_counts["coarse_scores"] += 1
     return mq, score
 
@@ -204,14 +182,12 @@ def fine_scores_kernel(mq, pq, ok, posec, cos_q, sin_q, uv, cfg: MapConfig):
     out = torch.empty((n, t, f, f), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _lib().fine_scores_i32(
-            mq.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
-            cos_q.data_ptr(), sin_q.data_ptr(), uv.data_ptr(), out.data_ptr(),
-            n, cfg.grid, b, t, cfg.coarse * SUB, cfg.fine_radius, stream,
-        )
-    _raise_on(rc, "fine_scores")
+    _B7(
+        mq.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
+        cos_q.data_ptr(), sin_q.data_ptr(), uv.data_ptr(), out.data_ptr(),
+        n, cfg.grid, b, t, cfg.coarse * SUB, cfg.fine_radius, dev.index,
+        current_stream(dev.index),
+    )
     launch_counts["fine_scores"] += 1
     return out
 
@@ -264,13 +240,11 @@ def log_odds_update_kernel(log_odds, pq, ok, posec, trig, cfg: MapConfig):
     out = torch.empty_like(log_odds)
     if n == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _lib().log_odds_update_i32(
-            log_odds.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
-            trig.data_ptr(), out.data_ptr(),
-            n, cfg.grid, b, cfg.hit_q, cfg.miss_q, cfg.clamp_q, cfg.free_samples, stream,
-        )
-    _raise_on(rc, "log_odds_update")
+    _B8(
+        log_odds.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
+        trig.data_ptr(), out.data_ptr(),
+        n, cfg.grid, b, cfg.hit_q, cfg.miss_q, cfg.clamp_q, cfg.free_samples, dev.index,
+        current_stream(dev.index),
+    )
     launch_counts["log_odds_update"] += 1
     return out

@@ -1,0 +1,106 @@
+"""Host time per call of the slim launch path, split piece by piece.
+
+    python3 -m rplidar_ros2_driver_tpu_torch.tools.launch_cost [--iters N]
+
+Needs one CUDA card; prints one JSON line.  For B1 (temporal median, W=64,
+B=2048) and B4 (beam min, 1 x 2560 -> 2048 beams and 8 x 4096 -> 256) it
+times, each alone and with ``perf_counter`` around ``iters`` calls and no
+synchronisation between them: the whole wrapper; the output's
+``torch.empty``; the raw current-stream read; the ctypes entry with its
+launch (arguments made beforehand).  What is left is the wrapper's own
+Python.  Beside B4 it times the library call with a fresh output per call,
+as the kernel hands one back (``torch.full`` then ``scatter_reduce_``
+"amin"), by host µs and CUDA events.  The data are seeded random values
+at the path's shapes: host times do not depend on them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
+from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+from rplidar_ros2_driver_tpu_torch.utils.launch import current_stream
+
+
+def host_us(fn, iters: int) -> float:
+    """Host µs per call over ``iters`` unsynchronised calls, after a warm-up."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def events_ms(fn, iters: int) -> float:
+    """Milliseconds per call from CUDA events around ``iters`` calls."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def split(wrapper, alloc, entry, idx: int, iters: int) -> dict:
+    parts = {"wrapper": host_us(wrapper, iters), "alloc": host_us(alloc, iters),
+             "stream": host_us(lambda: current_stream(idx), iters),
+             "entry": host_us(entry, iters)}
+    parts["python_rest"] = parts["wrapper"] - parts["alloc"] - parts["stream"] - parts["entry"]
+    return parts
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=200)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("launch_cost: no CUDA device")
+    dev, idx, it = torch.device("cuda", 0), 0, args.iters
+    rng = np.random.default_rng(args.seed)
+    stream = current_stream(idx)
+    rows = {}
+
+    w, b = 64, 2048
+    win = torch.from_numpy(rng.uniform(0.1, 40.0, (w, b)).astype(np.float32)).to(dev)
+    med = torch.empty(b, device=dev)
+    rows["temporal_median"] = split(
+        lambda: mk.temporal_median_kernel(win), lambda: win.new_empty((b,)),
+        lambda: mk._B1(win.data_ptr(), med.data_ptr(), w, b, idx, stream), idx, it)
+
+    for name, rows_n, n, nb in (("beam_min_raster", 1, 2560, 2048),
+                                ("beam_min_profile", 8, 4096, 256)):
+        beam = torch.from_numpy(rng.integers(0, nb, (rows_n, n), dtype=np.int32)).to(dev)
+        vals = torch.from_numpy(rng.integers(0, 1 << 26, (rows_n, n), dtype=np.int32)).to(dev)
+        out = torch.empty(rows_n, nb, dtype=torch.int32, device=dev)
+        rows[name] = split(
+            lambda: dk.beam_min_kernel(beam, vals, nb), lambda: beam.new_empty((rows_n, nb)),
+            lambda: dk._B4(beam.data_ptr(), vals.data_ptr(), out.data_ptr(), rows_n, n, nb,
+                           idx, stream), idx, it)
+        index = beam.long()
+
+        def fresh():
+            return torch.full((rows_n, nb), dk._EMPTY, dtype=torch.int32, device=dev
+                              ).scatter_reduce_(1, index, vals, reduce="amin", include_self=True)
+
+        rows[name]["fresh_library_host_us"] = host_us(fresh, it)
+        rows[name]["fresh_library_ms"] = events_ms(fresh, it)
+    print(json.dumps({"tool": "launch_cost", "device": torch.cuda.get_device_name(0),
+                      "iters": it, "host_us": rows}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

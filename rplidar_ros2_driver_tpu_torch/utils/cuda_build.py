@@ -4,9 +4,10 @@ Each source under ``csrc/`` compiles with ``nvcc`` into a shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds).  Builds happen at first use, never at import, into
 ``build/torch_kernels/`` beside the package (git-ignored), keyed on a hash
-of the source text and the compiler flags: an edited source rebuilds, an
-unchanged one loads the library already there.  :func:`build_libraries`
-starts one ``nvcc`` per source, all at once.
+of the source text, the shared headers (``csrc/*.cuh``) and the compiler
+flags: an edited source or header rebuilds, an unchanged one loads the
+library already there.  :func:`build_libraries` starts one ``nvcc`` per
+source, all at once; utils/launch.py is the per-call path.
 """
 
 from __future__ import annotations
@@ -60,8 +61,10 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``name`` lands for the current source text."""
-    src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = (CSRC_DIR / SOURCES[name]).read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # what a source may include
+        text += header.read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 

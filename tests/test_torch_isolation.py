@@ -62,9 +62,11 @@ def test_scan_sees_the_whole_port():
         "ops/scan_match_ref.py", "mapping/mapper.py", "tools/viz.py",
         "protocol/timing.py", "driver/assembly.py", "driver/decode.py", "driver/ingest.py",
         "ops/deskew.py", "ops/deskew_kernels.py", "ops/deskew_ref.py", "ops/ingest.py",
+        "utils/cuda_build.py", "utils/launch.py",
     ):
         assert module in rel
-    for source in ("median.cu", "sliding_median.cu", "scan_match.cu", "deskew.cu"):
+    for source in ("median.cu", "sliding_median.cu", "scan_match.cu", "deskew.cu",
+                   "device_guard.cuh"):
         assert os.path.exists(os.path.join(PORT, "csrc", source))
 
 
