@@ -38,8 +38,13 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 counts are read around the card's replay;
  10. mapkernels — the matcher kernels B6, B7, B8 against their plain
                 PyTorch versions on the card (exact) over edge fixtures,
-                grids 8/64/256/1024 and fleets of 1, 3 and 4 streams, then
-                timed at config 12's fleet tick (N=4, G=256, B=2048);
+                grids 8/44/64/92/256/1024 and fleets of 1, 3 and 4 streams,
+                B6/B7's routes (cluster splits with B off the per-block
+                share and B below the cluster, r and w off the register
+                path, the int16 pooled map at its edge, the direct
+                route) and offset views, then timed at config 12's fleet
+                tick (N=4, G=256, B=2048) and B6/B7 also at the map
+                replay's one-stream tick (N=1);
  11. mapping  — config 12 (bench.py bench_mapping): 4 streams, 256x256 map
                 at 0.05 m, 2048 beams, map_match_window 0.4; one warm tick,
                 then 20 ticks of the drifting-room scene through FleetMapper
@@ -65,11 +70,13 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 with a nonzero motion estimate; B1/B4/B5 launches counted
                 around the card's runs; host syncs per tick and one
                 profiled super-step per arm; the CLI's replay --fused line;
- 15. before   — B1's and B4's figures before their redesign, constants
-                copied from PERF.md (not measured in this run);
+ 15. before   — B1's, B4's, B6's and B7's figures before their
+                redesign, constants copied from PERF.md (not measured in
+                this run);
  16. kernels  — one line listing every kernel with its launches and the
-                times measured in this run; B1 and B4 also carry host_us
-                and whether each redesign goal was met.
+                times measured in this run; B1 and B4 also carry host_us,
+                B6 and B7 their times at the map replay's shape, and each
+                redesigned kernel whether each of its goals was met.
 
 The wrapper's host time split piece by piece is
 rplidar_ros2_driver_tpu_torch/tools/launch_cost.py.  Then the card's name
@@ -91,6 +98,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+# H100 SXM int32: 64 INT32 lanes per SM against 128 FP32 lanes (Hopper
+# white paper), so half the float32 rate, a multiply-add counted as two
+INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 GEOMETRY = dict(window=64, beams=2048, grid=256, capacity=4096, points=3200)
 # bench.py GRADED[7]: the offline replay of a DenseBoost capture through
 # the fused K-scan chain; 520 turns give a full 512-scan chunk and a
@@ -115,9 +125,26 @@ BEFORE = {
                  "library_device_ms": 0.00654, "profile_ms": 0.0190,
                  "profile_device_ms": 0.00568},
 }
+# B6's and B7's figures before their redesign (the kernels as first written
+# in commit 8b4efb4, on the slim launch path of 3b32873 and 5200b70): at
+# config 12's tick from PERF.md's kernel table (chip run 8 of 3b32873), at
+# the map replay's one-stream tick from tools/fleet_ab.py with 5200b70 as
+# its baseline (NVIDIA H100 80GB HBM3, 700.00 W)
+BEFORE.update({
+    "coarse_scores": {"commit": "5200b70", "run": "chip run 8 of 3b32873",
+                      "ms": 0.0923, "device_ms": 0.0896,
+                      "replay_map_run": "tools/fleet_ab.py, baseline 5200b70",
+                      "replay_map_ms": 0.09240, "replay_map_device_ms": 0.09103},
+    "fine_scores": {"commit": "5200b70", "run": "chip run 8 of 3b32873",
+                    "ms": 0.1455, "device_ms": 0.1418,
+                    "replay_map_run": "tools/fleet_ab.py, baseline 5200b70",
+                    "replay_map_ms": 0.14497, "replay_map_device_ms": 0.14386},
+})
 # the redesign's goals: device ms at the path's shapes, and events ms at or
-# below the library call's in the same run
-GOAL_DEVICE_MS = {"temporal_median": 0.005, "beam_min": 0.003}
+# below the library call's in the same run (B1, B4); B6 and B7 at config
+# 12's tick, and at the map replay's at most a third of the old kernel's
+GOAL_DEVICE_MS = {"temporal_median": 0.005, "beam_min": 0.003,
+                  "coarse_scores": 0.020, "fine_scores": 0.030}
 GOAL_HOST_US = 8.0  # host time per call of the slim launch path
 
 
@@ -182,11 +209,12 @@ def host_us(fn, iters: int = 200, warmup: int = 20) -> float:
     return (t1 - t0) / iters * 1e6
 
 
-def device_ms(fn, iters: int = 50):
+def device_ms(fn, iters: int = 50, tries: int = 3):
     """Device (kernel) milliseconds per call from torch.profiler, summed
     over every CUDA kernel the call launches; None when the profiler
-    records no device time.  Host activity is traced too: without it the
-    profiler has been seen to keep only some of a run's kernels."""
+    records no device time in ``tries`` sessions.  Host activity is traced
+    too: without it the profiler has been seen to keep only some of a
+    run's kernels, and a session has been seen to keep none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -194,19 +222,24 @@ def device_ms(fn, iters: int = 50):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        ev.time_range.elapsed_us() for ev in prof.events() if ev.device_type == DeviceType.CUDA
-    )
-    return total_us / iters / 1e3 if total_us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                       if ev.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / iters / 1e3
+    return None
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int, int32: bool = False) -> tuple[float, str]:
+    """The least time (ms) of a kernel that moves ``nbytes`` and does
+    ``ops`` float32 operations (int32 ones with ``int32``), and which of the
+    two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / (INT32_OPS_PER_S if int32 else FP32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -994,6 +1027,30 @@ def _map_fixtures(rng):
                                                  theta_window=3))):
         c2 = dataclasses.replace(cfg, **over)
         out.append((name, c2, *rand(c2, 3, 192)))
+    # B6/B7's cluster splits: B off the per-block share, B below the cluster
+    for name, grid, n, beams in (("share_ragged_n4", 256, 4, 2047),
+                                 ("share_ragged_n1", 256, 1, 1001),
+                                 ("beams_below_cluster", 64, 1, 5)):
+        c2 = cfg_of(grid, beams)
+        out.append((name, c2, *rand(c2, n, beams)))
+    # r and w off the register path's instantiations (the shared-memory
+    # accumulators; 12 and 20 walk their candidate rows in chunks)
+    for name, over in (("radius_1_window_1", dict(window_cells=1, fine_radius=1)),
+                       ("radius_3_window_5", dict(window_cells=5, fine_radius=3)),
+                       ("radius_0_window_0", dict(window_cells=0, fine_radius=0)),
+                       ("radius_20_window_12", dict(window_cells=12, fine_radius=20))):
+        c2 = dataclasses.replace(cfg, **over)
+        out.append((name, c2, *rand(c2, 3, 192)))
+    # the pooled map's routes: staged as int16 up to mq = 32767, the direct
+    # route above and where the pooled map does not fit in shared memory
+    for name, grid, coarse, clamp_q, beams in (("int16_edge", 256, 4, 32767, 63),
+                                               ("direct_edge", 256, 4, 32768, 63),
+                                               ("direct_g1024", 1024, 4, 65536, 31),
+                                               ("direct_coarse_2_g1024", 1024, 2, 8192, 2048)):
+        c2 = cfg_of(grid, beams, clamp_q=clamp_q, coarse=coarse)
+        lo, pose, pq, ok = rand(c2, 2, beams)
+        lo[0, : grid // 2] = clamp_q                    # a saturated half
+        out.append((name, c2, lo, pose, pq, ok))
     return out
 
 
@@ -1011,13 +1068,67 @@ def _map_kernel_args(cfg, lo, pose, pq, ok, device):
     return t(lo), t(pq), t(ok), t(posec), t(trig), t(pose)
 
 
-def phase_mapkernels(device, rng) -> dict:
-    """B6, B7 and B8 against their plain versions on the card (exact) over
-    the fixtures, then timed at config 12's fleet tick."""
+def match_tick(device, n: int):
+    """The matcher's inputs at a fleet tick of ``n`` streams (config 12's
+    mapper: 256x256 at 0.05 m, 2048 beams, window 0.4 m): the map of 5
+    ticks of the room scene, the scan of the next tick, the state's pose.
+    n=4 is config 12's tick, n=1 the map replay's (replay --map runs the
+    same mapper geometry, one stream).  Returns (cfg, args of B6, args of
+    B7 but ``mq``, ``mq``) on the card."""
     import numpy as np
     import torch
 
-    from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper, map_config_from_params
+    from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+
+    b = MAPPING["beams"]
+    ticks, _truth = room_fleet_ticks(n, b, 6)
+    mapper = FleetMapper(_map_params("cuda"), n, beams=b)
+    masks, live = np.ones((n, b), bool), np.ones((n,), np.int32)
+    for pts in ticks[:5]:
+        mapper.submit_points(pts, masks, live)
+    cfg = mapper.cfg
+    snap = mapper.snapshot()
+    pq, okm = tsm.quantize_points(torch.from_numpy(ticks[5]).to(device),
+                                  torch.from_numpy(masks).to(device), cfg)
+    lo_t, _, _, posec, trig, pose_t = _map_kernel_args(
+        cfg, snap["log_odds"], snap["pose"], pq.cpu().numpy(), okm.cpu().numpy(), device)
+    cos_q, sin_q = tsm._theta_trig(pose_t, cfg)
+    coarse = (lo_t, pq, okm, posec, trig)
+    mq, _sc = smk.coarse_scores_plain(*coarse, cfg)
+    uv = torch.zeros((n, 2), dtype=torch.int32, device=device)
+    return cfg, coarse, (pq, okm, posec, cos_q, sin_q, uv), mq
+
+
+def match_bounds(cfg, n: int, nvalid: int) -> dict:
+    """(ms, by) of B6, B7, B8 at a tick of ``n`` streams with ``nvalid``
+    valid beams: bytes over HBM, int32 operations over the int32 rate."""
+    b, g, u = cfg.beams, cfg.grid, 2 * cfg.window_cells + 1
+    t, f = 2 * cfg.theta_window + 1, 2 * cfg.fine_radius + 1
+    scan_bytes = n * b * 9 + n * 16                    # pq, ok, posec, trig
+    return {
+        # read the map and the scan once, write mq and the (U, V) plane;
+        # clip/shift/pool each cell, 8 int32 ops per corner per candidate
+        "coarse_scores": bound(2 * n * g * g * 4 + scan_bytes + n * u * u * 4,
+                               3 * n * g * g + 8 * u * u * nvalid, int32=True),
+        "fine_scores": bound(n * g * g * 4 + scan_bytes + 8 * n * t + n * t * f * f * 4,
+                             8 * t * f * f * nvalid, int32=True),
+        # read and write the map once; mark 1 + S cells per valid beam,
+        # 3 ops per cell for delta and clamp
+        "log_odds_update": bound(2 * n * g * g * 4 + scan_bytes,
+                                 4 * (1 + cfg.free_samples) * nvalid + 3 * n * g * g,
+                                 int32=True),
+    }
+
+
+def phase_mapkernels(device, rng) -> dict:
+    """B6, B7 and B8 against their plain versions on the card (exact) over
+    the fixtures and an offset view, then timed at config 12's fleet tick
+    (N=4) and B6/B7 also at the map replay's one-stream tick (N=1)."""
+    import numpy as np
+    import torch
+
     from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
     from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
 
@@ -1029,7 +1140,8 @@ def phase_mapkernels(device, rng) -> dict:
         max_err[name] = max(max_err[name], err)
         check(ok, f"{name} differs from its plain version on {what}: {err}")
 
-    checked = []
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    checked, plans = [], {}
     for name, cfg, lo, pose, pq, okm in _map_fixtures(rng):
         lo_t, pq_t, ok_t, posec, trig, pose_t = _map_kernel_args(cfg, lo, pose, pq, okm, device)
         mq_k, sc_k = smk.coarse_scores_kernel(lo_t, pq_t, ok_t, posec, trig, cfg)
@@ -1046,69 +1158,82 @@ def phase_mapkernels(device, rng) -> dict:
                  smk.fine_scores_plain(mq_p, pq_t, ok_t, posec, cos_q, sin_q, uv, cfg), name)
         same("log_odds_update", smk.log_odds_update_kernel(lo_t, pq_t, ok_t, posec, trig, cfg),
              smk.log_odds_update_plain(lo_t, pq_t, ok_t, posec, trig, cfg), name)
-        checked.append(f"{name}:N{lo.shape[0]}")
+        n = lo.shape[0]
+        t = 2 * cfg.theta_window + 1
+        plans[name] = {
+            "coarse": smk.coarse_plan(n, cfg.grid, cfg.coarse, w, cfg.clamp_q, cfg.quant_shift,
+                                      sms),
+            "fine": smk.fine_plan(n, t, cfg.fine_radius, sms)}
+        checked.append(f"{name}:N{n}")
     torch.cuda.synchronize()
 
-    # config 12's fleet tick: the map of 5 ticks of the room scene, the
-    # scan of the next tick, the state's pose
-    n, b = MAPPING["streams"], MAPPING["beams"]
-    ticks, _truth = room_fleet_ticks(n, b, 6)
-    mapper = FleetMapper(_map_params("cuda"), n, beams=b)
-    masks, live = np.ones((n, b), bool), np.ones((n,), np.int32)
-    for pts in ticks[:5]:
-        mapper.submit_points(pts, masks, live)
-    cfg = mapper.cfg
-    snap = mapper.snapshot()
-    pq, okm = tsm.quantize_points(torch.from_numpy(ticks[5]).to(device),
-                                  torch.from_numpy(masks).to(device), cfg)
-    lo_t, _, _, posec, trig, pose_t = _map_kernel_args(
-        cfg, snap["log_odds"], snap["pose"], pq.cpu().numpy(), okm.cpu().numpy(), device)
-    cos_q, sin_q = tsm._theta_trig(pose_t, cfg)
-    mq, sc = smk.coarse_scores_kernel(lo_t, pq, okm, posec, trig, cfg)
-    uv = torch.zeros((n, 2), dtype=torch.int32, device=device)
-    calls = {
-        "coarse_scores": (lambda: smk.coarse_scores_kernel(lo_t, pq, okm, posec, trig, cfg),
-                          lambda: smk.coarse_scores_plain(lo_t, pq, okm, posec, trig, cfg)),
-        "fine_scores": (lambda: smk.fine_scores_kernel(mq, pq, okm, posec, cos_q, sin_q, uv, cfg),
-                        lambda: smk.fine_scores_plain(mq, pq, okm, posec, cos_q, sin_q, uv, cfg)),
-        "log_odds_update": (lambda: smk.log_odds_update_kernel(lo_t, pq, okm, posec, trig, cfg),
-                            lambda: smk.log_odds_update_plain(lo_t, pq, okm, posec, trig, cfg)),
-    }
-    for name, (kern, plain) in calls.items():
-        got, want = kern(), plain()
-        if name != "coarse_scores":
-            got, want = (got,), (want,)
-        for a, c in zip(got, want):
-            same(name, a, c, "the config-12 tick")
-    times = {}
-    for name, (kern, plain) in calls.items():
-        times[name] = {
-            "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=20, warmup=3),
-            # no single PyTorch call computes a bilinear correlation volume
-            # or the hit/free-space log-odds update
-            "library_ms": None,
-            "device_ms": device_ms(kern), "plain_device_ms": device_ms(plain, iters=10),
+    shapes = {}
+    for n in (MAPPING["streams"], 1):
+        cfg, coarse, fine, mq = match_tick(device, n)
+        shapes[n] = (cfg, coarse, fine, mq)
+    # config 12's tick, and the same map read through offset views: B6's
+    # 16-byte loads give way to plain ones, B7 reads mq at any address
+    cfg, coarse, fine, mq = shapes[MAPPING["streams"]]
+    lo_t = coarse[0]
+    buf = torch.empty(lo_t.numel() + 1, dtype=torch.int32, device=device)
+    buf[1:].copy_(lo_t.reshape(-1))
+    lo_off = buf[1:].view(lo_t.shape)
+    check(lo_off.data_ptr() % 16 != 0 and lo_off.is_contiguous(), "offset view is aligned")
+    for what, lo_in in (("the config-12 tick", lo_t), ("an offset view", lo_off)):
+        mq_k, sc_k = smk.coarse_scores_kernel(lo_in, *coarse[1:], cfg)
+        mq_p, sc_p = smk.coarse_scores_plain(lo_t, *coarse[1:], cfg)
+        same("coarse_scores", mq_k, mq_p, f"{what} (mq)")
+        same("coarse_scores", sc_k, sc_p, f"{what} (scores)")
+        mq_in = mq_k
+        if lo_in is lo_off:
+            mq_in = torch.empty_like(buf)[1:].view(mq_k.shape)
+            mq_in.copy_(mq_k)
+        same("fine_scores", smk.fine_scores_kernel(mq_in, *fine, cfg),
+             smk.fine_scores_plain(mq_p, *fine, cfg), what)
+        same("log_odds_update", smk.log_odds_update_kernel(lo_in, *coarse[1:], cfg),
+             smk.log_odds_update_plain(lo_t, *coarse[1:], cfg), what)
+
+    times, bounds, shape_of = {}, {}, {}
+    for n, (cfg, coarse, fine, mq) in shapes.items():
+        calls = {
+            "coarse_scores": (lambda c=coarse, g=cfg: smk.coarse_scores_kernel(*c, g),
+                              lambda c=coarse, g=cfg: smk.coarse_scores_plain(*c, g)),
+            "fine_scores": (lambda m=mq, f=fine, g=cfg: smk.fine_scores_kernel(m, *f, g),
+                            lambda m=mq, f=fine, g=cfg: smk.fine_scores_plain(m, *f, g)),
         }
-    nvalid = int(okm.sum())
-    g, u = cfg.grid, 2 * cfg.window_cells + 1
-    t, f = 2 * cfg.theta_window + 1, 2 * cfg.fine_radius + 1
-    scan_bytes = n * b * 9 + n * 16                    # pq, ok, posec, trig
-    bounds = {
-        # read the map and the scan once, write mq and the (U, V) plane;
-        # clip/shift/pool each cell, 8 int32 ops per corner per candidate
-        "coarse_scores": bound(2 * n * g * g * 4 + scan_bytes + n * u * u * 4,
-                               3 * n * g * g + 8 * u * u * nvalid),
-        "fine_scores": bound(n * g * g * 4 + scan_bytes + 8 * n * t + n * t * f * f * 4,
-                             8 * t * f * f * nvalid),
-        # read and write the map once; mark 1 + S cells per valid beam,
-        # 3 ops per cell for delta and clamp
-        "log_odds_update": bound(2 * n * g * g * 4 + scan_bytes,
-                                 4 * (1 + cfg.free_samples) * nvalid + 3 * n * g * g),
-    }
-    row = {"phase": "mapkernels", "fixtures": checked, "max_abs_err": max_err,
-           "times_ms": times, "shape": {"N": n, "G": g, "B": b, "U": u, "T": t, "F": f,
-                                        "valid_beams": nvalid},
-           "bounds_ms": {k: {"ms": v[0], "by": v[1]} for k, v in bounds.items()}}
+        if n == MAPPING["streams"]:
+            calls["log_odds_update"] = (
+                lambda c=coarse, g=cfg: smk.log_odds_update_kernel(*c, g),
+                lambda c=coarse, g=cfg: smk.log_odds_update_plain(*c, g))
+        for name, (kern, plain) in calls.items():
+            got, want = kern(), plain()
+            for a, c in zip(got if name == "coarse_scores" else (got,),
+                            want if name == "coarse_scores" else (want,)):
+                same(name, a, c, f"the N={n} tick")
+        nvalid = int(coarse[2].sum())
+        key = "config12" if n == MAPPING["streams"] else "replay_map"
+        times[key] = {
+            name: {
+                "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=20, warmup=3),
+                # no single PyTorch call computes a bilinear correlation
+                # volume or the hit/free-space log-odds update
+                "library_ms": None,
+                "device_ms": device_ms(kern), "plain_device_ms": device_ms(plain, iters=10),
+            }
+            for name, (kern, plain) in calls.items()
+        }
+        bounds[key] = {k: v for k, v in match_bounds(cfg, n, nvalid).items() if k in calls}
+        shape_of[key] = {"N": n, "G": cfg.grid, "B": cfg.beams, "U": 2 * cfg.window_cells + 1,
+                         "T": 2 * cfg.theta_window + 1, "F": 2 * cfg.fine_radius + 1,
+                         "valid_beams": nvalid,
+                         "coarse_plan": smk.coarse_plan(n, cfg.grid, cfg.coarse, cfg.window_cells,
+                                                        cfg.clamp_q, cfg.quant_shift, sms),
+                         "fine_plan": smk.fine_plan(n, 2 * cfg.theta_window + 1,
+                                                    cfg.fine_radius, sms)}
+    row = {"phase": "mapkernels", "fixtures": checked, "plans": plans, "max_abs_err": max_err,
+           "times_ms": times, "shapes": shape_of,
+           "bounds_ms": {s: {k: {"ms": v[0], "by": v[1]} for k, v in b.items()}
+                         for s, b in bounds.items()}}
     emit(row)
     return {"max_abs_err": max_err, "times": times, "bounds": bounds}
 
@@ -1463,7 +1588,7 @@ def phase_deskew_kernels(device, rng) -> dict:
             "plain_device_ms": device_ms(lambda: dk.beam_min_plain(bb, vv, nb), iters=20),
             "host_us": host_us(lambda: dk.beam_min_kernel(bb, vv, nb)),
             "library_host_us": host_us(_scatter_min(bb, vv, nb)),
-            "bound": bound(bb.numel() * 8 + bb.shape[0] * nb * 4, bb.numel()),
+            "bound": bound(bb.numel() * 8 + bb.shape[0] * nb * 4, bb.numel(), int32=True),
             "shape": [bb.shape[0], bb.shape[1], nb],
         }
     c, dd = len(cands), s_prev.shape[1]
@@ -1477,7 +1602,7 @@ def phase_deskew_kernels(device, rng) -> dict:
         # each profile read once, the scores written once; per (row, shift,
         # beam) two compares, a subtract, a clamp, an abs and two adds
         "bound": bound(2 * s_prev.numel() * 4 + c * 4 + s_prev.shape[0] * c * 4,
-                       7 * s_prev.shape[0] * c * dd),
+                       7 * s_prev.shape[0] * c * dd, int32=True),
         "shape": [s_prev.shape[0], c, dd],
     }
     row = {"phase": "deskew_kernels", "checked": checked, "max_abs_err": max_err,
@@ -1726,6 +1851,23 @@ def redesign_report(name: str, timed: list, launched: list) -> dict:
     }
 
 
+def match_goals(name: str, t: dict, replay_map: dict, replay_bound) -> dict:
+    """B6's and B7's extra keys in the kernels line: their times at the map
+    replay's one-stream tick and whether each redesign goal was met — only
+    figures measured in this run."""
+    before = BEFORE[name]["replay_map_device_ms"]
+    return {
+        "replay_map_shape": {**replay_map, "bound_ms": replay_bound[0],
+                             "bound_by": replay_bound[1]},
+        "goals": {
+            "device_met": t["device_ms"] is not None
+            and t["device_ms"] <= GOAL_DEVICE_MS[name],
+            "replay_map_device_met": replay_map["device_ms"] is not None
+            and before is not None and replay_map["device_ms"] <= before / 3,
+        },
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1797,8 +1939,8 @@ def main(argv=None) -> int:
         ("fine_scores", "rplidar_ros2_driver_tpu/ops/pallas_scan_match.py:248"),
         ("log_odds_update", "rplidar_ros2_driver_tpu/ops/pallas_scan_match.py:369"),
     ):
-        t = mapk["times"][name]
-        bnd, by = mapk["bounds"][name]
+        t = mapk["times"]["config12"][name]
+        bnd, by = mapk["bounds"]["config12"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": src + "scan_match.cu", "replaces": replaces,
             "launches": mapping["launches"][name], "max_abs_err": mapk["max_abs_err"][name],
@@ -1807,6 +1949,9 @@ def main(argv=None) -> int:
             "plain_device_ms": t["plain_device_ms"],
             "replay_map_launches": replay_map["launches"][name],
         })
+        if name in GOAL_DEVICE_MS:
+            kernels[-1].update(match_goals(name, t, mapk["times"]["replay_map"][name],
+                                           mapk["bounds"]["replay_map"][name]))
     # B4/B5: launches on the de-skew-on fused replay; B4 is timed at both
     # of its shapes there (the rasterizer's in the row, the profiles' beside)
     for name, key, replaces in (

@@ -2,7 +2,8 @@
 // Hopper (sm_90a).  Each entry takes N streams and launches once for all of
 // them (one fleet tick).  All arithmetic is int32 and wraps like the JAX
 // package's int32 (two's complement, arithmetic right shifts), so any order
-// of summation gives the same bits as the plain versions.
+// of summation — and any regrouping of a sum of products — gives the same
+// bits as the plain versions.
 //
 // B6  coarse_scores_i32 — replaces the JAX package's TPU kernel
 //     ops/pallas_scan_match.py coarse_scores_pallas (_coarse_kernel):
@@ -18,51 +19,96 @@
 //     the free-space samples o + (w−o)·k // S (k < S, floor division)
 //     lands in get +miss_q unless hit, clamp ±clamp_q -> (N, G, G).
 //
-// What bounds them on an H100, at the config-12 fleet tick (N=4, G=256,
-// B=2048, U=V=5, T=13, F=9): the bytes are small (log-odds 1 MiB in, mq
-// and the updated map 1 MiB out each), about 0.3–0.6 us of HBM time per
-// kernel; the work is gathers: B6 25 candidates × 4 corners × c² = 16
-// pooled cells per valid beam (3.3 M int32 loads a tick), B7 13 × 81 × 4
-// (8.6 M loads), B8 5 cell marks per beam.  All of it is L2-resident
-// (256 KiB per stream map), so the kernels are bound by load latency and
-// the number of blocks in flight, not by HBM.
+// What bounds B6 and B7 on an H100, at the config-12 fleet tick (N=4,
+// G=256, B=2048, c=4, U=V=5, T=13, F=9) and the map replay's (N=1): the
+// bytes are small (B6 reads 1 MiB of log-odds and writes 1 MiB of mq, about
+// 0.6 us of HBM time; B7 reads mq from L2); the work is the gathers and
+// their int32 arithmetic, 52 × 2048 (θ, beam) pairs × 81 candidates for B7.
+// Their first design (one block per (θ, stream) or (u, stream), 52 and 20
+// blocks at config 12, 13 and 5 at N=1) was bound by latency: at most 52 of
+// the 132 SMs busy, a 5-step shuffle reduction and a shared atomic per
+// candidate per 32 beams, 180 L2 loads per (θ, beam) of which 100 were
+// distinct, and B6 pooling 16 log-odds cells for each of 36 corners per
+// beam.  The design now:
 //
-// Design (simple first; see PERF.md for the measured gap to the bound):
-//   * B6: one block per (u, stream).  The U blocks of a stream share the
-//     elementwise mq write.  A thread takes one beam at a time, rotates it
-//     and walks the V + 1 coarse columns of its two corner rows, pooling
-//     each coarse cell straight from log_odds (max commutes with the
-//     monotone clip and shift, so no block waits for another's mq); each
-//     candidate's value is summed over the warp with shuffles and added to
-//     a shared accumulator.  Off-map corners contribute 0; invalid beams
-//     contribute 0 and still take part in the shuffles.
-//   * B7: one block per (θ, stream), the same walk over F rows of F + 1
-//     columns on mq (global memory, L2-resident: 256 KiB a stream at
-//     G=256, 4 MiB at G=1024, too large for shared memory).
-//   * B8: one block per (stripe of rows, stream).  The block rotates every
-//     beam, marks the hit and free cells that fall in its rows in shared
-//     byte flags (off-map cells and cells of other stripes mark nothing —
-//     never clipped onto an edge), then applies delta and clamp to its
-//     stripe.  Only the > 0 predicate of each count matters, so flags
-//     replace the TPU kernel's one-hot matmul.
-// No kernel needs its output zeroed, allocates, or synchronises; each
-// launches on the caller's stream and the entry returns cudaGetLastError();
-// each entry takes the card's index and makes that card current itself
-// (device_guard.cuh).
+//   * Fill the card with thread block clusters.  Each (θ, stream) of B7 and
+//     each stream of B6 is one cluster of K blocks; block k takes beams
+//     [k·⌈B/K⌉, (k+1)·⌈B/K⌉), so a block may have none (B < K).  The
+//     wrapper's plan picks K and the block size: B7 256 threads and the
+//     largest power of two K ≤ 8 whose blocks fit one wave with room for
+//     whole clusters (4 × 52 = 208 blocks at config 12, 8 × 13 = 104 at
+//     N=1: a beam or two per thread); B6 8 blocks of 128 threads.  Launched
+//     with cudaLaunchKernelEx and a cluster-dimension attribute.
+//   * Reduce once.  A thread keeps its candidates' sums across all its
+//     beams — in registers for the r and w the repo's configurations use
+//     (templated: B7 r = 4, B6 w = 2), in its own slot of shared memory for
+//     any other (the runtime path, which walks the candidate rows in chunks
+//     that fit).  Then the per-thread sums go through shared memory once
+//     (one thread per candidate adds the block's slots), and rank 0 of the
+//     cluster adds the blocks' sums through distributed shared memory and
+//     writes the output: no zeroed output, no global atomics, no second
+//     launch.
+//   * Load each cell once per beam.  A beam's (F+1)×(F+1) patch is walked
+//     row by row: each row's horizontal interpolation gy·v(y) + fy·v(y+1)
+//     is kept for the next row, and candidate row du takes gx·h(du) +
+//     fx·h(du+1) — the four-corner sum regrouped (equal modulo 2^32).  B7:
+//     100 loads per (θ, beam) where there were 180.  Splitting a beam's
+//     candidate rows over 2 or 3 lanes (the shared row passed by shuffle)
+//     was tried and measured no faster than more threads with one lane
+//     per beam.
+//   * B6 pools once.  Block k of a stream's cluster takes a stripe of
+//     coarse rows (a multiple of 8, so every stripe starts on 16 bytes),
+//     reads each log-odds cell of it once, writes the same stripe of mq and
+//     pools it into shared memory; after a cluster barrier each block
+//     copies the other stripes from its peers (distributed shared memory,
+//     16-byte words) and gathers its beams' corners from its own copy.  The
+//     pooled map is int16 (8 KiB at G=256, 128 KiB at G=1024).  When
+//     clamp_q >> quant_shift, the largest mq, does not fit int16 (the
+//     wrapper checks) or the map does not fit in shared memory beside the
+//     sums (past ~330 coarse cells a side at w = 2), the direct route pools each
+//     corner from log_odds.
+//   * B7 reads mq through L1 and does not stage it.  Staging costs each
+//     block G²·4 bytes of L2 reads (256 KiB at G=256: 208 blocks would read
+//     52 MiB, ~2 µs a block at ~128 B/clk of L2 bandwidth per SM) to save
+//     gathers that mostly hit L1 anyway: 32 neighbouring beams of a scan
+//     land on a few map lines.  At G=1024 mq (4 MiB) stays in L2 too.
+//
+// What is left is latency, an order of magnitude above the bounds
+// (PERF.md): the dependent row loads of each beam, the reduction and the
+// cluster barriers.
+//
+// B8: one block per (stripe of rows, stream).  The block rotates every
+// beam, marks the hit and free cells that fall in its rows in shared byte
+// flags (off-map cells and cells of other stripes mark nothing — never
+// clipped onto an edge), then applies delta and clamp to its stripe.  Only
+// the > 0 predicate of each count matters, so flags replace the TPU
+// kernel's one-hot matmul.
+//
+// No kernel needs its output zeroed, allocates, or synchronises the host;
+// each launches on the caller's stream and the entry returns the launch's
+// error; each entry takes the card's index and makes that card current
+// itself (device_guard.cuh).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
 #include "device_guard.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kSubBits = 5;
 constexpr int kSub = 1 << kSubBits;
 constexpr int kAngBits = 14;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // B8
+// B6/B7: the plan picks 32 to 256 threads a block; two blocks of 256 a
+// SM cap a thread at 128 registers
+constexpr int kMaxThreads = 256;
 constexpr int kStripeCells = 8192;  // B8: rows per block = kStripeCells / G
+constexpr int kMaxDevices = 64;
 
 // int32 arithmetic that wraps as JAX's and PyTorch's int32 does
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -88,154 +134,328 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = wadd(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ __forceinline__ int quantize(int v, int clamp_q, int qshift) {
+  return min(max(v, 0), clamp_q) >> qshift;
 }
 
-// the bilinear combination of the four corners (x, y), (x+1, y), (x, y+1),
-// (x+1, y+1) with 5-bit fractions fx, fy (Σ weights = SUB²)
-__device__ __forceinline__ int bilinear(int fx, int fy, int v00, int v10, int v01, int v11) {
-  const int gx = kSub - fx, gy = kSub - fy;
-  int t = wmul(wmul(gx, gy), v00);
-  t = wadd(t, wmul(wmul(fx, gy), v10));
-  t = wadd(t, wmul(wmul(gx, fy), v01));
-  return wadd(t, wmul(wmul(fx, fy), v11));
+__device__ __forceinline__ bool on_map(int x, int y, int g) {
+  return static_cast<unsigned>(x) < static_cast<unsigned>(g) &&
+         static_cast<unsigned>(y) < static_cast<unsigned>(g);
 }
 
-// mq value of one fine cell, 0 off the map
-__device__ __forceinline__ int mq_at(const int* __restrict__ mq, int G, int x, int y) {
-  return (x >= 0 && x < G && y >= 0 && y < G) ? mq[static_cast<size_t>(x) * G + y] : 0;
-}
+// ---------------------------------------------------------------------------
+// map readers: the value of cell (x, y), 0 off the map
+// ---------------------------------------------------------------------------
 
-// pooled mq of coarse cell (cx, cy): max over its c×c fine cells of
-// clip(lo, 0, clamp_q) >> qshift, taken as clip-and-shift of the max
-// (both are monotone); 0 off the pooled map
-__device__ __forceinline__ int pooled_at(const int* __restrict__ lo, int G, int gc, int c,
-                                         int clamp_q, int qshift, int cx, int cy) {
-  if (cx < 0 || cx >= gc || cy < 0 || cy >= gc) return 0;
-  const int* base = lo + static_cast<size_t>(cx) * c * G + static_cast<size_t>(cy) * c;
-  int m = base[0];
-  for (int a = 0; a < c; ++a) {
-    const int* row = base + static_cast<size_t>(a) * G;
-    for (int b = 0; b < c; ++b) m = max(m, row[b]);
+// B7: mq in global memory (L2-resident), read through L1
+struct GlobalMap {
+  const int* __restrict__ m;
+  int g;
+  __device__ __forceinline__ int operator()(int x, int y) const {
+    return on_map(x, y, g) ? __ldg(m + x * g + y) : 0;
   }
-  return min(max(m, 0), clamp_q) >> qshift;
+};
+
+// B6: the pooled map staged in shared memory
+template <class E>
+struct SharedMap {
+  const E* m;
+  int g;
+  __device__ __forceinline__ int operator()(int x, int y) const {
+    return on_map(x, y, g) ? static_cast<int>(m[x * g + y]) : 0;
+  }
+};
+
+// B6's direct route: coarse cell (x, y) pooled from log_odds — the max of
+// its c×c cells, clipped and shifted (max commutes with the monotone clip
+// and shift)
+struct PoolingMap {
+  const int* __restrict__ lo;
+  int G, gc, c, clamp_q, qshift;
+  __device__ __forceinline__ int operator()(int x, int y) const {
+    if (!on_map(x, y, gc)) return 0;
+    const int* base = lo + static_cast<size_t>(x) * c * G + static_cast<size_t>(y) * c;
+    int m = __ldg(base);
+    for (int a = 0; a < c; ++a) {
+      const int* row = base + static_cast<size_t>(a) * G;
+      for (int b = 0; b < c; ++b) m = max(m, __ldg(row + b));
+    }
+    return quantize(m, clamp_q, qshift);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// one beam's F×F bilinear scores: candidate (du, dv) reads the corners
+// (x0+du+{0,1}, y0+dv+{0,1}) with 5-bit fractions fx, fy.  The (F+1)² patch
+// is walked row by row, each cell loaded once: h(row, dv) = gy·v(dv) +
+// fy·v(dv+1) is kept for the next row, and candidate row du adds gx·h(du) +
+// fx·h(du+1).
+// ---------------------------------------------------------------------------
+
+// compile-time F: the sums in registers.  A lane that is not `live` loads
+// nothing and adds zeros (the warp walks in step: predicated loads keep
+// ptxas at 128 registers without spills, where skipping the lane took 255).
+template <int F, class Map>
+__device__ __forceinline__ void walk_registers(const Map& map, bool live, int x0, int y0, int fx,
+                                               int fy, int (&acc)[F * F]) {
+  const int gx = kSub - fx, gy = kSub - fy;
+  int hp[F];
+#pragma unroll
+  for (int i = 0; i <= F; ++i) {
+    int v[F + 1];
+#pragma unroll
+    for (int j = 0; j <= F; ++j) v[j] = live ? map(x0 + i, y0 + j) : 0;
+#pragma unroll
+    for (int j = 0; j < F; ++j) {
+      const int h = wadd(wmul(gy, v[j]), wmul(fy, v[j + 1]));
+      if (i > 0) {
+        acc[(i - 1) * F + j] = wadd(acc[(i - 1) * F + j], wadd(wmul(gx, hp[j]), wmul(fx, h)));
+      }
+      hp[j] = h;
+    }
+  }
 }
 
-__global__ void coarse_scores_kernel(const int* __restrict__ log_odds, const int* __restrict__ pq,
-                                     const uint8_t* __restrict__ ok,
-                                     const int* __restrict__ posec, const int* __restrict__ trig,
-                                     int* __restrict__ mq, int* __restrict__ score, int G, int B,
-                                     int c, int clog, int clamp_q, int qshift, int w) {
-  extern __shared__ int acc[];  // the V sums of this block's row u
-  const int U = 2 * w + 1;
-  const int u = blockIdx.x, n = blockIdx.y;
+// runtime F, candidate rows [d0, d0 + rows) only: the sums (acc) and the
+// kept row (hrow) in this thread's slots of shared memory
+template <class Map>
+__device__ __forceinline__ void walk_shared(const Map& map, int x0, int y0, int fx, int fy, int F,
+                                            int d0, int rows, int* acc, int* hrow) {
+  const int gx = kSub - fx, gy = kSub - fy;
+  for (int i = d0; i <= d0 + rows; ++i) {
+    int v0 = map(x0 + i, y0);
+    for (int j = 0; j < F; ++j) {
+      const int v1 = map(x0 + i, y0 + j + 1);
+      const int h = wadd(wmul(gy, v0), wmul(fy, v1));
+      if (i > d0) {
+        int& a = acc[(i - 1 - d0) * F + j];
+        a = wadd(a, wadd(wmul(gx, hrow[j]), wmul(fx, h)));
+      }
+      hrow[j] = h;
+      v0 = v1;
+    }
+  }
+}
+
+// part[k] = Σ over the block's threads t of red[t·slot + k], k < count
+// (slot odd: a warp's slots fall in distinct banks)
+__device__ __forceinline__ void block_sum(const int* red, int slot, int count, int* part) {
+  for (int k = threadIdx.x; k < count; k += blockDim.x) {
+    int s = 0;
+    for (int t = 0; t < static_cast<int>(blockDim.x); ++t) s = wadd(s, red[t * slot + k]);
+    part[k] = s;
+  }
+}
+
+// The block's sums over its beams [b0, b1) (thread i takes b0 + i, b0 + i +
+// nt, ...) of the F×F candidates -> part[0, F²).  place(b, x0, y0, fx, fy)
+// gives beam b's corner origin and fractions; invalid beams add nothing.
+// red holds nt slots of (rows·F) | 1 ints (rows = F on the register path),
+// hrow nt·F (the runtime path's kept rows, which walks the candidate rows
+// in chunks of `rows`).
+template <int FT, class Map, class Place>
+__device__ __forceinline__ void block_scores(const Map& map, const Place& place,
+                                             const uint8_t* __restrict__ okn, int b0, int b1,
+                                             int F, int rows, int* part, int* red, int* hrow) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int slot = (rows * F) | 1;
+  if constexpr (FT > 0) {
+    int acc[FT * FT];
+#pragma unroll
+    for (int k = 0; k < FT * FT; ++k) acc[k] = 0;
+    for (int base = b0; base < b1; base += nt) {
+      const int b = base + tid;
+      const bool live = b < b1 && okn[b];
+      int x0 = 0, y0 = 0, fx = 0, fy = 0;
+      if (live) place(b, x0, y0, fx, fy);
+      walk_registers<FT>(map, live, x0, y0, fx, fy, acc);
+    }
+#pragma unroll
+    for (int k = 0; k < FT * FT; ++k) red[tid * slot + k] = acc[k];
+    __syncthreads();
+    block_sum(red, slot, FT * FT, part);
+  } else {
+    int* acc = red + tid * slot;
+    int* hr = hrow + tid * F;
+    for (int d0 = 0; d0 < F; d0 += rows) {
+      const int nr = min(rows, F - d0);
+      for (int k = 0; k < nr * F; ++k) acc[k] = 0;
+      for (int b = b0 + tid; b < b1; b += nt) {
+        if (!okn[b]) continue;
+        int x0, y0, fx, fy;
+        place(b, x0, y0, fx, fy);
+        walk_shared(map, x0, y0, fx, fy, F, d0, nr, acc, hr);
+      }
+      __syncthreads();
+      block_sum(red, slot, nr * F, part + d0 * F);
+      __syncthreads();  // red is zeroed again by the next chunk
+    }
+  }
+}
+
+// Rank 0 of the cluster adds every block's part[0, count) (distributed
+// shared memory) and writes the sums to out; the second barrier keeps each
+// block's shared memory alive until rank 0 has read it.
+__device__ __forceinline__ void cluster_sum_store(cg::cluster_group& cluster, int* part,
+                                                  int count, int* __restrict__ out) {
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    const int kb = static_cast<int>(cluster.num_blocks());
+    for (int k = threadIdx.x; k < count; k += blockDim.x) {
+      int s = part[k];
+      for (int q = 1; q < kb; ++q) s = wadd(s, cluster.map_shared_rank(part, q)[k]);
+      out[k] = s;
+    }
+  }
+  cluster.sync();
+}
+
+// ---------------------------------------------------------------------------
+// B6: coarse translation sweep; one cluster per stream
+// ---------------------------------------------------------------------------
+
+// W: window at compile time (0: the runtime path, w); STAGED: the pooled
+// map staged in shared memory as int16 (false: the direct route)
+template <int W, bool STAGED>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    coarse_scores_kernel(const int* __restrict__ log_odds, const int* __restrict__ pq,
+                         const uint8_t* __restrict__ ok, const int* __restrict__ posec,
+                         const int* __restrict__ trig, int* __restrict__ mq,
+                         int* __restrict__ score, int G, int B, int c, int clog, int clamp_q,
+                         int qshift, int w, int rows) {
+  extern __shared__ __align__(16) unsigned char coarse_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int U = W > 0 ? 2 * W + 1 : 2 * w + 1;
+  const int gc = G / c;
+  const int nt = blockDim.x, tid = threadIdx.x, n = blockIdx.y;
+  const int kb = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  // [pooled map, padded to 16 bytes][part U²][red nt·((rows·U) | 1)][hrow nt·U]
+  const int pooled_bytes = STAGED ? (gc * gc * 2 + 15) & ~15 : 0;
+  int16_t* pooled = reinterpret_cast<int16_t*>(coarse_smem);
+  int* part = reinterpret_cast<int*>(coarse_smem + pooled_bytes);
+  int* red = part + U * U;
+  int* hrow = red + ((rows * U) | 1) * nt;
+
+  // this block's stripe of coarse rows: mq written, pooled into shared memory
   const size_t plane = static_cast<size_t>(G) * G;
   const int* lo = log_odds + n * plane;
-
-  // the stream's quantized match map, split over its U blocks
-  for (size_t i = static_cast<size_t>(u) * blockDim.x + threadIdx.x; i < plane;
-       i += static_cast<size_t>(U) * blockDim.x) {
-    mq[n * plane + i] = min(max(lo[i], 0), clamp_q) >> qshift;
+  int* mqn = mq + n * plane;
+  const int crows = ((gc + kb - 1) / kb + 7) & ~7;
+  const int cr0 = min(gc, rank * crows), cr1 = min(gc, cr0 + crows);
+  const bool vec4 = c == 4 && ((reinterpret_cast<uintptr_t>(lo) |
+                                reinterpret_cast<uintptr_t>(mqn)) & 15) == 0;
+  for (int i = tid; i < (cr1 - cr0) * gc; i += nt) {
+    const int cx = cr0 + i / gc, cy = i % gc;
+    int m = 0;  // quantized values are >= 0
+    if (vec4) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const size_t off = static_cast<size_t>(cx * 4 + a) * G + cy * 4;
+        int4 v = __ldg(reinterpret_cast<const int4*>(lo + off));
+        v.x = quantize(v.x, clamp_q, qshift);
+        v.y = quantize(v.y, clamp_q, qshift);
+        v.z = quantize(v.z, clamp_q, qshift);
+        v.w = quantize(v.w, clamp_q, qshift);
+        *reinterpret_cast<int4*>(mqn + off) = v;
+        m = max(m, max(max(v.x, v.y), max(v.z, v.w)));
+      }
+    } else {
+      for (int a = 0; a < c; ++a) {
+        const size_t row = static_cast<size_t>(cx * c + a) * G + static_cast<size_t>(cy) * c;
+        for (int b = 0; b < c; ++b) {
+          const int v = quantize(__ldg(lo + row + b), clamp_q, qshift);
+          mqn[row + b] = v;
+          m = max(m, v);
+        }
+      }
+    }
+    if constexpr (STAGED) pooled[cx * gc + cy] = static_cast<int16_t>(m);
   }
-  for (int v = threadIdx.x; v < U; v += blockDim.x) acc[v] = 0;
-  __syncthreads();
+  if constexpr (STAGED) {
+    // every stripe pooled: copy the peers' stripes into this block's map
+    cluster.sync();
+    for (int q = 0; q < kb; ++q) {
+      const int q0 = min(gc, q * crows), q1 = min(gc, q0 + crows);
+      if (q == rank || q0 >= q1) continue;
+      const int4* src = reinterpret_cast<const int4*>(cluster.map_shared_rank(pooled, q) + q0 * gc);
+      int4* dst = reinterpret_cast<int4*>(pooled + q0 * gc);
+      const int words = ((q1 - q0) * gc * 2 + 15) >> 4;  // the last stripe takes the padding
+      for (int i = tid; i < words; i += nt) dst[i] = src[i];
+    }
+    __syncthreads();
+  }
 
-  const int gc = G / c;
+  // this block's share of the beams, scored on the pooled map
+  const int share = (B + kb - 1) / kb;
+  const int b0 = min(B, rank * share), b1 = min(B, b0 + share);
   const int cq = trig[2 * n], sq = trig[2 * n + 1];
   const int ox = posec[2 * n], oy = posec[2 * n + 1];
-  const int lane = threadIdx.x & 31;
-  for (int b0 = 0; b0 < B; b0 += blockDim.x) {
-    const int b = b0 + threadIdx.x;
-    const bool live = b < B && ok[static_cast<size_t>(n) * B + b];
-    int ix = 0, ccy = 0, fx = 0, fy = 0;
-    if (live) {
-      const int* p = pq + 2 * (static_cast<size_t>(n) * B + b);
-      int rx, ry;
-      rotate(p[0], p[1], cq, sq, rx, ry);
-      const int scx = wadd(rx, ox) >> clog, scy = wadd(ry, oy) >> clog;
-      ix = (scx >> kSubBits) + (u - w);
-      ccy = scy >> kSubBits;
-      fx = scx & (kSub - 1);
-      fy = scy & (kSub - 1);
-    }
-    // candidate v reads columns iy = ccy − w + v and iy + 1: walk the
-    // V + 1 columns once, keeping the previous column's two corners
-    int p0 = 0, p1 = 0;
-    for (int j = 0; j <= U; ++j) {
-      int q0 = 0, q1 = 0;
-      if (live) {
-        const int iy = ccy - w + j;
-        q0 = pooled_at(lo, G, gc, c, clamp_q, qshift, ix, iy);
-        q1 = pooled_at(lo, G, gc, c, clamp_q, qshift, ix + 1, iy);
-      }
-      if (j > 0) {
-        const int s = warp_sum(bilinear(fx, fy, p0, p1, q0, q1));
-        if (lane == 0) atomicAdd(&acc[j - 1], s);
-      }
-      p0 = q0;
-      p1 = q1;
-    }
+  const int ww = (U - 1) / 2;
+  const int* pqn = pq + 2 * static_cast<size_t>(n) * B;
+  auto place = [&](int b, int& x0, int& y0, int& fx, int& fy) {
+    int rx, ry;
+    rotate(pqn[2 * b], pqn[2 * b + 1], cq, sq, rx, ry);
+    const int scx = wadd(rx, ox) >> clog, scy = wadd(ry, oy) >> clog;
+    x0 = (scx >> kSubBits) - ww;
+    y0 = (scy >> kSubBits) - ww;
+    fx = scx & (kSub - 1);
+    fy = scy & (kSub - 1);
+  };
+  const uint8_t* okn = ok + static_cast<size_t>(n) * B;
+  constexpr int kU = W > 0 ? 2 * W + 1 : 0;
+  if constexpr (STAGED) {
+    block_scores<kU>(SharedMap<int16_t>{pooled, gc}, place, okn, b0, b1, U, rows, part, red, hrow);
+  } else {
+    block_scores<kU>(PoolingMap{lo, G, gc, c, clamp_q, qshift}, place, okn, b0, b1, U, rows,
+                     part, red, hrow);
   }
-  __syncthreads();
-  for (int v = threadIdx.x; v < U; v += blockDim.x) {
-    score[(static_cast<size_t>(n) * U + u) * U + v] = acc[v];
-  }
+  cluster_sum_store(cluster, part, U * U, score + static_cast<size_t>(n) * U * U);
 }
 
-__global__ void fine_scores_kernel(const int* __restrict__ mq, const int* __restrict__ pq,
-                                   const uint8_t* __restrict__ ok, const int* __restrict__ posec,
-                                   const int* __restrict__ cos_q, const int* __restrict__ sin_q,
-                                   const int* __restrict__ uv, int* __restrict__ score, int G,
-                                   int B, int T, int csub, int r) {
-  extern __shared__ int acc[];  // the F·F sums of this block's θ
-  const int F = 2 * r + 1;
-  const int t = blockIdx.x, n = blockIdx.y;
-  for (int i = threadIdx.x; i < F * F; i += blockDim.x) acc[i] = 0;
-  __syncthreads();
+// ---------------------------------------------------------------------------
+// B7: joint (dθ, dx, dy) refinement; one cluster per (θ, stream)
+// ---------------------------------------------------------------------------
 
-  const int* m = mq + static_cast<size_t>(n) * G * G;
+// R: fine radius at compile time (0: the runtime path, r)
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    fine_scores_kernel(const int* __restrict__ mq, const int* __restrict__ pq,
+                       const uint8_t* __restrict__ ok, const int* __restrict__ posec,
+                       const int* __restrict__ cos_q, const int* __restrict__ sin_q,
+                       const int* __restrict__ uv, int* __restrict__ score, int G, int B, int T,
+                       int csub, int r, int rows) {
+  extern __shared__ __align__(16) int fine_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int F = R > 0 ? 2 * R + 1 : 2 * r + 1;
+  const int nt = blockDim.x, t = blockIdx.y, n = blockIdx.z;
+  const int kb = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  // [part F²][red nt·((rows·F) | 1)][hrow nt·F]
+  int* part = fine_smem;
+  int* red = part + F * F;
+  int* hrow = red + ((rows * F) | 1) * nt;
+
+  const int share = (B + kb - 1) / kb;
+  const int b0 = min(B, rank * share), b1 = min(B, b0 + share);
   const int cq = cos_q[n * T + t], sq = sin_q[n * T + t];
   const int ox = wadd(posec[2 * n], wmul(uv[2 * n], csub));
   const int oy = wadd(posec[2 * n + 1], wmul(uv[2 * n + 1], csub));
-  const int lane = threadIdx.x & 31;
-  for (int b0 = 0; b0 < B; b0 += blockDim.x) {
-    const int b = b0 + threadIdx.x;
-    const bool live = b < B && ok[static_cast<size_t>(n) * B + b];
-    int fcx = 0, fcy = 0, fx = 0, fy = 0;
-    if (live) {
-      const int* p = pq + 2 * (static_cast<size_t>(n) * B + b);
-      int rx, ry;
-      rotate(p[0], p[1], cq, sq, rx, ry);
-      const int fbx = wadd(rx, ox), fby = wadd(ry, oy);
-      fcx = fbx >> kSubBits;
-      fcy = fby >> kSubBits;
-      fx = fbx & (kSub - 1);
-      fy = fby & (kSub - 1);
-    }
-    for (int du = 0; du < F; ++du) {
-      const int ix = fcx - r + du;
-      int p0 = 0, p1 = 0;
-      for (int j = 0; j <= F; ++j) {
-        int q0 = 0, q1 = 0;
-        if (live) {
-          const int iy = fcy - r + j;
-          q0 = mq_at(m, G, ix, iy);
-          q1 = mq_at(m, G, ix + 1, iy);
-        }
-        if (j > 0) {
-          const int s = warp_sum(bilinear(fx, fy, p0, p1, q0, q1));
-          if (lane == 0) atomicAdd(&acc[du * F + j - 1], s);
-        }
-        p0 = q0;
-        p1 = q1;
-      }
-    }
-  }
-  __syncthreads();
-  int* out = score + (static_cast<size_t>(n) * T + t) * F * F;
-  for (int i = threadIdx.x; i < F * F; i += blockDim.x) out[i] = acc[i];
+  const int rr = (F - 1) / 2;
+  const int* pqn = pq + 2 * static_cast<size_t>(n) * B;
+  auto place = [&](int b, int& x0, int& y0, int& fx, int& fy) {
+    int rx, ry;
+    rotate(pqn[2 * b], pqn[2 * b + 1], cq, sq, rx, ry);
+    const int fbx = wadd(rx, ox), fby = wadd(ry, oy);
+    x0 = (fbx >> kSubBits) - rr;
+    y0 = (fby >> kSubBits) - rr;
+    fx = fbx & (kSub - 1);
+    fy = fby & (kSub - 1);
+  };
+  constexpr int kF = R > 0 ? 2 * R + 1 : 0;
+  block_scores<kF>(GlobalMap{mq + static_cast<size_t>(n) * G * G, G}, place,
+                   ok + static_cast<size_t>(n) * B, b0, b1, F, rows, part, red, hrow);
+  cluster_sum_store(cluster, part, F * F, score + (static_cast<size_t>(n) * T + t) * F * F);
 }
 
 __global__ void log_odds_update_kernel(const int* __restrict__ log_odds,
@@ -281,32 +501,151 @@ __global__ void log_odds_update_kernel(const int* __restrict__ log_odds,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// cluster launches
+// ---------------------------------------------------------------------------
+
+// one slot per kernel instantiation: B7 r = 4, runtime; B6 (w = 2, runtime)
+// × (int16 staged, direct)
+constexpr int kFineSlot = 0;
+constexpr int kCoarseSlot = 2;
+constexpr int kSlots = kCoarseSlot + 4;
+bool g_prepared[kSlots][kMaxDevices];  // set once per device and slot
+
+// Launch `kernel` on `grid` in clusters of `cluster` blocks along x.  The
+// first launch of a slot on a device lets its kernel take the card's
+// largest dynamic shared memory and clusters past 8.
+template <class... Params, class... Args>
+int launch_clusters(void (*kernel)(Params...), int slot, dim3 grid, int cluster, int threads,
+                    int smem, int device, void* stream, Args... args) {
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!g_prepared[slot][device]) {
+    int optin = 0;
+    cudaError_t e =
+        cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    }
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    g_prepared[slot][device] = true;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(threads, 1, 1);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&config, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// The wrapper's plan for one launch (ops/scan_match_kernels.py): blocks per
+// cluster, threads per block, candidate rows a thread holds (F on the
+// register path, a chunk on the runtime path) and dynamic shared memory in
+// bytes.
+struct Plan {
+  int cluster, threads, rows, smem;
+  // false when the plan is malformed or gives a block less shared memory
+  // than its layout [pooled][part F²][red threads·((rows·F) | 1)][hrow
+  // threads·F, runtime path only] takes
+  bool fits(int pooled, int F, bool registers) const {
+    const int need = pooled + 4 * (F * F + threads * ((rows * F) | 1) +
+                                   (registers ? 0 : threads * F));
+    return cluster >= 1 && threads >= 32 && threads <= kMaxThreads && threads % 32 == 0 &&
+           rows >= 1 && rows <= F && (!registers || rows == F) && smem >= need;
+  }
+};
+
+struct CoarseArgs {
+  const int* log_odds;
+  const int* pq;
+  const uint8_t* ok;
+  const int* posec;
+  const int* trig;
+  int* mq;
+  int* score;
+  int N, G, B, c, clog, clamp_q, qshift, w;
+};
+
+template <int W, bool STAGED>
+int launch_coarse(int slot, const CoarseArgs& a, const Plan& p, int device, void* stream) {
+  const int gc = a.G / a.c;
+  const int pooled = STAGED ? (gc * gc * 2 + 15) & ~15 : 0;
+  if (!p.fits(pooled, 2 * a.w + 1, W > 0)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_clusters(coarse_scores_kernel<W, STAGED>, slot, dim3(p.cluster, a.N, 1), p.cluster,
+                         p.threads, p.smem, device, stream, a.log_odds, a.pq, a.ok, a.posec,
+                         a.trig, a.mq, a.score, a.G, a.B, a.c, a.clog, a.clamp_q, a.qshift, a.w,
+                         p.rows);
+}
+
+template <bool STAGED>
+int coarse_by_window(int slot, const CoarseArgs& a, const Plan& p, int device, void* stream) {
+  return a.w == 2 ? launch_coarse<2, STAGED>(slot, a, p, device, stream)
+                  : launch_coarse<0, STAGED>(slot + 1, a, p, device, stream);
+}
+
+struct FineArgs {
+  const int* mq;
+  const int* pq;
+  const uint8_t* ok;
+  const int* posec;
+  const int* cos_q;
+  const int* sin_q;
+  const int* uv;
+  int* score;
+  int N, G, B, T, csub, r;
+};
+
+template <int R>
+int launch_fine(int slot, const FineArgs& a, const Plan& p, int device, void* stream) {
+  if (!p.fits(0, 2 * a.r + 1, R > 0)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_clusters(fine_scores_kernel<R>, slot, dim3(p.cluster, a.T, a.N), p.cluster,
+                         p.threads, p.smem, device, stream, a.mq, a.pq, a.ok, a.posec, a.cos_q,
+                         a.sin_q, a.uv, a.score, a.G, a.B, a.T, a.csub, a.r, p.rows);
+}
+
 }  // namespace
 
+// B6.  elem: the pooled map's cell bytes (2: int16, staged; 0: the direct
+// route); cluster, threads, rows, smem: the wrapper's plan.
 extern "C" int coarse_scores_i32(const int* log_odds, const int* pq, const uint8_t* ok,
                                  const int* posec, const int* trig, int* mq, int* score, int N,
                                  int G, int B, int c, int clog, int clamp_q, int qshift, int w,
+                                 int elem, int cluster, int threads, int rows, int smem,
                                  int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.error()) return guard.error();
-  const int U = 2 * w + 1;
-  coarse_scores_kernel<<<dim3(U, N), kThreads, U * sizeof(int),
-                         static_cast<cudaStream_t>(stream)>>>(
-      log_odds, pq, ok, posec, trig, mq, score, G, B, c, clog, clamp_q, qshift, w);
-  return static_cast<int>(cudaGetLastError());
+  const CoarseArgs a{log_odds, pq, ok, posec, trig, mq, score, N, G, B, c, clog, clamp_q, qshift, w};
+  const Plan p{cluster, threads, rows, smem};
+  switch (elem) {
+    case 2: return coarse_by_window<true>(kCoarseSlot, a, p, device, stream);
+    case 0: return coarse_by_window<false>(kCoarseSlot + 2, a, p, device, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
+// B7.  cluster, threads, rows, smem: the wrapper's plan.
 extern "C" int fine_scores_i32(const int* mq, const int* pq, const uint8_t* ok, const int* posec,
                                const int* cos_q, const int* sin_q, const int* uv, int* score,
-                               int N, int G, int B, int T, int csub, int r, int device,
-                               void* stream) {
+                               int N, int G, int B, int T, int csub, int r, int cluster,
+                               int threads, int rows, int smem, int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.error()) return guard.error();
-  const int F = 2 * r + 1;
-  fine_scores_kernel<<<dim3(T, N), kThreads, F * F * sizeof(int),
-                       static_cast<cudaStream_t>(stream)>>>(
-      mq, pq, ok, posec, cos_q, sin_q, uv, score, G, B, T, csub, r);
-  return static_cast<int>(cudaGetLastError());
+  const FineArgs a{mq, pq, ok, posec, cos_q, sin_q, uv, score, N, G, B, T, csub, r};
+  const Plan p{cluster, threads, rows, smem};
+  return r == 4 ? launch_fine<4>(kFineSlot, a, p, device, stream)
+                : launch_fine<0>(kFineSlot + 1, a, p, device, stream);
 }
 
 extern "C" int log_odds_update_i32(const int* log_odds, const int* pq, const uint8_t* ok,

@@ -22,11 +22,14 @@ from the source at first use, utils/cuda_build.py) or raises — there is
 no fallback.  ``launch_counts`` counts the launches of each kernel; only a
 launch adds to it.  Each launches through the slim launch path
 (utils/launch.py).  The design of each kernel is in the source's header
-note.
+note; B6 and B7 launch in thread block clusters on the shapes
+:func:`coarse_plan` and :func:`fine_plan` choose (pure functions of the
+shape and the card's SM count).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -50,9 +53,10 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-# the C entries: pointers, sizes, the card's index, the stream
-_B6 = KernelEntry("scan_match", "coarse_scores_i32", [VP] * 7 + [I] * 9 + [VP])
-_B7 = KernelEntry("scan_match", "fine_scores_i32", [VP] * 8 + [I] * 7 + [VP])
+# the C entries: pointers, sizes (B6/B7 with their plan), the card's index,
+# the stream
+_B6 = KernelEntry("scan_match", "coarse_scores_i32", [VP] * 7 + [I] * 14 + [VP])
+_B7 = KernelEntry("scan_match", "fine_scores_i32", [VP] * 8 + [I] * 11 + [VP])
 _B8 = KernelEntry("scan_match", "log_odds_update_i32", [VP] * 6 + [I] * 8 + [VP])
 
 
@@ -86,6 +90,94 @@ def _check_scan(log_odds, pq, ok, posec, cfg: MapConfig):
 def _launch_device(dev: torch.device, what: str) -> None:
     if dev.type != "cuda":
         raise RuntimeError(f"no {what} kernel for device {dev}")
+
+
+# ---------------------------------------------------------------------------
+# B6/B7 launch plans
+# ---------------------------------------------------------------------------
+
+# dynamic shared memory one block may opt into on sm_90 (227 KiB)
+SMEM_LIMIT = 232_448
+# the fine_radius (B7) and window_cells (B6) values whose candidate sums a
+# thread holds in registers: csrc/scan_match.cu instantiates these, the
+# values of the repo's configurations (map_config_from_params fixes the
+# fine radius at 4; param/rplidar.yaml and config 12 give a window of 2);
+# any other value takes the shared-memory accumulator path
+FINE_RADII = (4,)
+COARSE_WINDOWS = (2,)
+MAX_CLUSTER = 8       # the portable cluster size
+MAX_THREADS = 256     # the kernels' launch bound
+INT16_MAX = 0x7FFF
+# threads an SM keeps resident of B7: the kernel's launch bound (256
+# threads, two blocks a SM) caps a thread at 128 registers
+FINE_THREADS_PER_SM = 512
+
+
+def _slot(rows: int, f: int) -> int:
+    """Ints of one thread's sums in shared memory: rows·F, made odd so a
+    warp's slots fall in distinct banks."""
+    return (rows * f) | 1
+
+
+def _accumulators(f: int, registers: bool, pooled: int, threads=(128, 64, 32)):
+    """(threads, rows, shared bytes) of a block scoring F×F candidates
+    beside ``pooled`` bytes of staged map, or None when nothing fits.  The
+    layout is the kernel's: [pooled][part F²][red threads·slot][hrow
+    F·threads, shared-memory path only]; on the register path a thread
+    holds all F candidate rows, on the shared-memory path as many as fit
+    (the kernel walks the rows in chunks)."""
+    for nt in threads:
+        for rows in ((f,) if registers else range(f, 0, -1)):
+            smem = pooled + 4 * (f * f + nt * _slot(rows, f) + (0 if registers else nt * f))
+            if smem <= SMEM_LIMIT:
+                return nt, rows, smem
+    return None
+
+
+@functools.lru_cache(maxsize=64)
+def fine_plan(n: int, t: int, r: int, sms: int):
+    """B7's launch: ``(cluster, threads, rows, shared bytes)`` for N streams,
+    T θ candidates and fine radius r on a card of ``sms`` SMs — one
+    cluster per (θ, stream), its blocks splitting the beams.  256 threads a
+    block on the register path, and the largest power-of-two cluster (up
+    to MAX_CLUSTER) whose blocks take at most 80% of the card's resident
+    threads, so that whole clusters fit each GPC in one wave."""
+    f = 2 * r + 1
+    registers = r in FINE_RADII
+    acc = _accumulators(f, registers, 0, (256, 128, 64, 32) if registers else (128, 64, 32))
+    if acc is None:
+        raise ValueError(f"fine_radius {r}: the fine-scores kernel's sums do not fit a block")
+    threads, rows, smem = acc
+    room = int(0.8 * sms * FINE_THREADS_PER_SM) // (max(n * t, 1) * threads)
+    cluster = 1
+    while 2 * cluster <= min(room, MAX_CLUSTER):
+        cluster *= 2
+    return cluster, threads, rows, smem
+
+
+@functools.lru_cache(maxsize=64)
+def coarse_plan(n: int, g: int, c: int, w: int, clamp_q: int, quant_shift: int, sms: int):
+    """B6's launch: ``(elem, cluster, threads, rows, shared bytes)`` — one
+    cluster per stream, of up to MAX_CLUSTER blocks (about two per SM).
+    ``elem`` is 2 when the pooled map is staged in shared memory as int16:
+    ``clamp_q >> quant_shift``, the largest value of mq, fits int16 and the
+    map fits beside the sums; else 0, the direct route (each corner pooled
+    from the log-odds)."""
+    u, gc = 2 * w + 1, g // c
+    registers = w in COARSE_WINDOWS
+    elem, acc = 0, None
+    if (clamp_q >> quant_shift) <= INT16_MAX:
+        elem, acc = 2, _accumulators(u, registers, -(-gc * gc * 2 // 16) * 16)
+    if acc is None:
+        elem, acc = 0, _accumulators(u, registers, 0)
+    if acc is None:
+        raise ValueError(f"window_cells {w}: the coarse-scores kernel's sums do not fit a block")
+    return (elem, max(1, min(MAX_CLUSTER, 2 * sms // max(n, 1))), *acc)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -131,11 +223,13 @@ def coarse_scores_kernel(log_odds, pq, ok, posec, trig, cfg: MapConfig):
     score = torch.empty((n, u, u), dtype=torch.int32, device=dev)
     if n == 0:
         return mq, score
+    plan = coarse_plan(n, cfg.grid, cfg.coarse, cfg.window_cells, cfg.clamp_q,
+                       cfg.quant_shift, _sm_count(dev.index))
     _B6(
         log_odds.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
         trig.data_ptr(), mq.data_ptr(), score.data_ptr(),
         n, cfg.grid, b, cfg.coarse, int(math.log2(cfg.coarse)), cfg.clamp_q,
-        cfg.quant_shift, cfg.window_cells, dev.index, current_stream(dev.index),
+        cfg.quant_shift, cfg.window_cells, *plan, dev.index, current_stream(dev.index),
     )
     launch_counts["coarse_scores"] += 1
     return mq, score
@@ -182,10 +276,11 @@ def fine_scores_kernel(mq, pq, ok, posec, cos_q, sin_q, uv, cfg: MapConfig):
     out = torch.empty((n, t, f, f), dtype=torch.int32, device=dev)
     if n == 0:
         return out
+    plan = fine_plan(n, t, cfg.fine_radius, _sm_count(dev.index))
     _B7(
         mq.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
         cos_q.data_ptr(), sin_q.data_ptr(), uv.data_ptr(), out.data_ptr(),
-        n, cfg.grid, b, t, cfg.coarse * SUB, cfg.fine_radius, dev.index,
+        n, cfg.grid, b, t, cfg.coarse * SUB, cfg.fine_radius, *plan, dev.index,
         current_stream(dev.index),
     )
     launch_counts["fine_scores"] += 1

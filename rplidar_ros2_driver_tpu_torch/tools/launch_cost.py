@@ -10,8 +10,12 @@ synchronisation between them: the whole wrapper; the output's
 launch (arguments made beforehand).  What is left is the wrapper's own
 Python.  Beside B4 it times the library call with a fresh output per call,
 as the kernel hands one back (``torch.full`` then ``scatter_reduce_``
-"amin"), by host µs and CUDA events.  The data are seeded random values
-at the path's shapes: host times do not depend on them.
+"amin"), by host µs and CUDA events.  The matcher kernels B6, B7 (launched
+in clusters through ``cudaLaunchKernelEx``, with a launch plan looked up
+per call) and B8 (a plain launch) are split the same way at config 12's
+fleet tick (N=4, 256x256, 2048 beams), B6/B7 with their plan lookup apart.
+The data are seeded random values at the path's shapes: host times do not
+depend on them.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 
 from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
 from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+from rplidar_ros2_driver_tpu_torch.ops.scan_match import SUB, MapConfig
 from rplidar_ros2_driver_tpu_torch.utils.launch import current_stream
 
 
@@ -53,12 +59,62 @@ def events_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def split(wrapper, alloc, entry, idx: int, iters: int) -> dict:
+def split(wrapper, alloc, entry, idx: int, iters: int, plan=None) -> dict:
     parts = {"wrapper": host_us(wrapper, iters), "alloc": host_us(alloc, iters),
              "stream": host_us(lambda: current_stream(idx), iters),
              "entry": host_us(entry, iters)}
-    parts["python_rest"] = parts["wrapper"] - parts["alloc"] - parts["stream"] - parts["entry"]
+    if plan is not None:
+        parts["plan"] = host_us(plan, iters)
+    parts["python_rest"] = parts["wrapper"] - sum(v for k, v in parts.items() if k != "wrapper")
     return parts
+
+
+def matcher_split(rng, dev, idx: int, stream: int, it: int) -> dict:
+    """B6, B7, B8 at config 12's fleet tick."""
+    cfg = MapConfig(match_backend="pallas")
+    n, g, b = 4, cfg.grid, cfg.beams
+    t, u, f = 2 * cfg.theta_window + 1, 2 * cfg.window_cells + 1, 2 * cfg.fine_radius + 1
+
+    def i32(*shape, hi=1 << 12):
+        return torch.from_numpy(rng.integers(-hi, hi, shape, dtype=np.int32)).to(dev)
+
+    lo, pq, posec, trig, cos_q, sin_q = i32(n, g, g), i32(n, b, 2), i32(n, 2), i32(n, 2), \
+        i32(n, t), i32(n, t)
+    ok = torch.ones((n, b), dtype=torch.bool, device=dev)
+    uv = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+    mq, score_c = torch.empty_like(lo), torch.empty((n, u, u), dtype=torch.int32, device=dev)
+    score_f = torch.empty((n, t, f, f), dtype=torch.int32, device=dev)
+    sms = smk._sm_count(idx)
+    p6 = smk.coarse_plan(n, g, cfg.coarse, cfg.window_cells, cfg.clamp_q, cfg.quant_shift, sms)
+    p7 = smk.fine_plan(n, t, cfg.fine_radius, sms)
+    clog = cfg.coarse.bit_length() - 1
+    return {
+        "coarse_scores": split(
+            lambda: smk.coarse_scores_kernel(lo, pq, ok, posec, trig, cfg),
+            lambda: (torch.empty_like(lo), torch.empty((n, u, u), dtype=torch.int32, device=dev)),
+            lambda: smk._B6(lo.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
+                            trig.data_ptr(), mq.data_ptr(), score_c.data_ptr(), n, g, b,
+                            cfg.coarse, clog, cfg.clamp_q, cfg.quant_shift, cfg.window_cells,
+                            *p6, idx, stream),
+            idx, it,
+            plan=lambda: smk.coarse_plan(n, g, cfg.coarse, cfg.window_cells, cfg.clamp_q,
+                                         cfg.quant_shift, smk._sm_count(idx))),
+        "fine_scores": split(
+            lambda: smk.fine_scores_kernel(mq, pq, ok, posec, cos_q, sin_q, uv, cfg),
+            lambda: torch.empty((n, t, f, f), dtype=torch.int32, device=dev),
+            lambda: smk._B7(mq.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
+                            cos_q.data_ptr(), sin_q.data_ptr(), uv.data_ptr(),
+                            score_f.data_ptr(), n, g, b, t, cfg.coarse * SUB, cfg.fine_radius,
+                            *p7, idx, stream),
+            idx, it, plan=lambda: smk.fine_plan(n, t, cfg.fine_radius, smk._sm_count(idx))),
+        "log_odds_update": split(
+            lambda: smk.log_odds_update_kernel(lo, pq, ok, posec, trig, cfg),
+            lambda: torch.empty_like(lo),
+            lambda: smk._B8(lo.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
+                            trig.data_ptr(), mq.data_ptr(), n, g, b, cfg.hit_q, cfg.miss_q,
+                            cfg.clamp_q, cfg.free_samples, idx, stream),
+            idx, it),
+    }
 
 
 def main(argv=None) -> int:
@@ -97,6 +153,7 @@ def main(argv=None) -> int:
 
         rows[name]["fresh_library_host_us"] = host_us(fresh, it)
         rows[name]["fresh_library_ms"] = events_ms(fresh, it)
+    rows.update(matcher_split(rng, dev, idx, stream, it))
     print(json.dumps({"tool": "launch_cost", "device": torch.cuda.get_device_name(0),
                       "iters": it, "host_us": rows}), flush=True)
     return 0

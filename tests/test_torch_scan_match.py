@@ -500,3 +500,115 @@ def test_batched_step_equals_single_stream_steps(backend):
     np.testing.assert_array_equal(wire.numpy(), np.asarray(jwire))
     np.testing.assert_array_equal(state.log_odds.numpy(), np.asarray(jstates.log_odds))
     np.testing.assert_array_equal(state.revision.numpy(), np.asarray(jstates.revision))
+
+
+# ---------------------------------------------------------------------------
+# B6/B7's shapes off the register path, and their launch plans
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("window,radius", [(1, 1), (5, 3), (0, 0), (3, 2)])
+def test_match_scan_bit_exact_off_the_register_windows(window, radius):
+    """Windows and radii the kernels serve from shared-memory accumulators
+    (not instantiated with register-held sums): the plain versions, which
+    the card holds the kernels to, against the JAX package."""
+    assert window not in smk.COARSE_WINDOWS and radius not in smk.FINE_RADII
+    cfg = _cfg(window_cells=window, fine_radius=radius)
+    rng = np.random.default_rng(31 + window)
+    for _ in range(2):
+        assert_match_parity(*_rand_inputs(rng, cfg, BEAMS), cfg)
+
+
+@pytest.mark.parametrize("clamp_q", [32767, 32768])
+def test_pooled_map_int16_edge_matches_jax(clamp_q):
+    """mq up to clamp_q >> quant_shift: 32767 takes B6's int16 pooled map,
+    32768 the direct route; a saturated half reaches the edge."""
+    cfg = _cfg(beams=63, clamp_q=clamp_q)
+    assert cfg.quant_shift == 0
+    lo, pose, pq, ok = _rand_inputs(np.random.default_rng(clamp_q), cfg, 63)
+    lo[: cfg.grid // 2] = clamp_q
+    assert_match_parity(lo, pose, pq, ok, cfg)
+    elem = smk.coarse_plan(1, cfg.grid, cfg.coarse, cfg.window_cells, clamp_q, 0, 132)[0]
+    assert elem == (2 if clamp_q <= smk.INT16_MAX else 0)
+
+
+def _layout_bytes(pooled: int, f: int, rows: int, threads: int, registers: bool) -> int:
+    """csrc/scan_match.cu's block layout: [pooled][part F²][red threads·slot]
+    [hrow F·threads on the shared-memory path], slot = rows·F made odd."""
+    slot = (rows * f) | 1
+    return pooled + 4 * (f * f + threads * slot + (0 if registers else f * threads))
+
+
+@pytest.mark.parametrize("beams", [1, 192, 2048])
+@pytest.mark.parametrize("streams", [1, 3, 4])
+@pytest.mark.parametrize("grid", [8, 44, 64, 92, 256, 1024])
+def test_launch_plans_over_the_fixture_shapes(grid, streams, beams):
+    """The plans are pure, fill the card with clusters of at most 8 blocks
+    in one wave and give each block the shared memory its layout takes,
+    within the card's limit; the cluster does not depend on B (a block may
+    get no beams)."""
+    cfg = _cfg(grid=grid, beams=beams)
+    t, f, u = 2 * cfg.theta_window + 1, 2 * cfg.fine_radius + 1, 2 * cfg.window_cells + 1
+    for sms in (132, 114):
+        fine = smk.fine_plan(streams, t, cfg.fine_radius, sms)
+        coarse = smk.coarse_plan(streams, grid, cfg.coarse, cfg.window_cells, cfg.clamp_q,
+                                 cfg.quant_shift, sms)
+        smk.fine_plan.cache_clear()
+        smk.coarse_plan.cache_clear()
+        assert fine == smk.fine_plan(streams, t, cfg.fine_radius, sms)
+        assert coarse == smk.coarse_plan(streams, grid, cfg.coarse, cfg.window_cells,
+                                         cfg.clamp_q, cfg.quant_shift, sms)
+        cluster, threads, rows, smem = fine
+        resident = 0.8 * sms * smk.FINE_THREADS_PER_SM
+        assert cluster in (1, 2, 4, 8) and threads == smk.MAX_THREADS == 256
+        assert streams * t * cluster * threads <= resident or cluster == 1
+        assert cluster == smk.MAX_CLUSTER or streams * t * 2 * cluster * threads > resident
+        assert rows == f and smem == _layout_bytes(0, f, rows, threads, True) <= smk.SMEM_LIMIT
+        elem, cluster, threads, rows, smem = coarse
+        gc = grid // cfg.coarse
+        assert elem == 2 and cluster == min(smk.MAX_CLUSTER, 2 * sms // streams)
+        pooled = -(-gc * gc * elem // 16) * 16
+        assert rows == u and smem == _layout_bytes(pooled, u, rows, threads, True)
+        assert smem <= smk.SMEM_LIMIT
+
+
+def test_launch_plan_routes():
+    # the pooled map: int16, or the direct route when mq does not fit int16
+    # or the map does not fit in shared memory
+    assert smk.coarse_plan(1, 256, 4, 2, 8192, 0, 132)[0] == 2
+    assert smk.coarse_plan(1, 256, 4, 2, 1 << 16, 0, 132)[0] == 0
+    assert smk.coarse_plan(1, 1024, 4, 2, 8192, 0, 132)[0] == 2      # 128 KiB of int16
+    assert smk.coarse_plan(1, 1024, 4, 2, 1 << 16, 0, 132)[0] == 0
+    assert smk.coarse_plan(1, 1024, 2, 2, 8192, 0, 132)[0] == 0      # 512 KiB of int16
+    assert smk.coarse_plan(1, 1024, 4, 2, 65535, 1, 132)[0] == 2     # mq <= 65535 >> 1 = 32767
+    # the two path shapes: config 12's tick and the map replay's
+    assert smk.fine_plan(4, 13, 4, 132)[:2] == (4, 256)
+    assert smk.fine_plan(1, 13, 4, 132)[:2] == (8, 256)
+    assert smk.coarse_plan(4, 256, 4, 2, 8192, 0, 132)[1:3] == (8, 128)
+    # off the register path: the candidate rows in chunks that fit
+    for r in (1, 3, 7, 20):
+        cluster, threads, rows, smem = smk.fine_plan(1, 13, r, 132)
+        f = 2 * r + 1
+        assert 1 <= rows <= f
+        assert smem == _layout_bytes(0, f, rows, threads, False) <= smk.SMEM_LIMIT
+    assert smk.fine_plan(1, 13, 20, 132)[2] < 41
+    elem, _c, threads, rows, smem = smk.coarse_plan(3, 64, 4, 12, 8192, 0, 132)
+    assert rows < 25 and smem == _layout_bytes(16 * 16 * 2, 25, rows, threads, False)
+    with pytest.raises(ValueError, match="fine_radius 200"):
+        smk.fine_plan(1, 13, 200, 132)
+    with pytest.raises(ValueError, match="window_cells 200"):
+        smk.coarse_plan(1, 64, 4, 200, 8192, 0, 132)
+
+
+def test_register_instantiations_match_the_source():
+    """The r and w values the wrappers plan on the register path are the
+    ones csrc/scan_match.cu instantiates."""
+    import re
+
+    from rplidar_ros2_driver_tpu_torch.utils.cuda_build import CSRC_DIR
+
+    text = (CSRC_DIR / "scan_match.cu").read_text()
+    fine = {int(r) for r in re.findall(r"launch_fine<(\d+)>\(", text)}
+    coarse = {int(w) for w in re.findall(r"launch_coarse<(\d+), STAGED>\(", text)}
+    assert tuple(sorted(fine - {0})) == smk.FINE_RADII and 0 in fine
+    assert tuple(sorted(coarse - {0})) == smk.COARSE_WINDOWS and 0 in coarse
