@@ -16,9 +16,13 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 on the card (exact equality; +inf equals +inf; B1 also at
                 W = 1, 31, 32, 33, 96, 1536 and 1537 — the last past its
                 shared-memory staging —, B off the block's 8 columns, all
-                +inf, all equal, heavy ties and an offset view), then
-                timed beside the plain version and a library yardstick
-                (B1: events ms, device ms and host µs per call);
+                +inf, all equal, heavy ties and an offset view; B2 over
+                successive ring steps and one-step edge fixtures at W = 1,
+                31, 32, 33, 64, 96 and 1533 to 1537 (the last staged W
+                and the four past it), ragged B, old or new +inf,
+                all-+inf and all-equal columns, old absent and an offset
+                view), then timed beside the plain version and a library
+                yardstick (B1: events ms, device ms and host µs per call);
   5. chain    — the main path: ScanFilterChain at the headline geometry
                 (W=64, 2048 beams, 256x256 grid at 0.25 m and 0.1 m, wire
                 capacity 4096) over seeded 3200-point revolutions, through
@@ -38,13 +42,18 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 counts are read around the card's replay;
  10. mapkernels — the matcher kernels B6, B7, B8 against their plain
                 PyTorch versions on the card (exact) over edge fixtures,
-                grids 8/44/64/92/256/1024 and fleets of 1, 3 and 4 streams,
+                grids 8/24/44/64/92/256/1024 and fleets of 1, 3 and 4 streams,
                 B6/B7's routes (cluster splits with B off the per-block
                 share and B below the cluster, r and w off the register
                 path, the int16 pooled map at its edge, the direct
-                route) and offset views, then timed at config 12's fleet
-                tick (N=4, G=256, B=2048) and B6/B7 also at the map
-                replay's one-stream tick (N=1);
+                route), B8's stripe edges (endpoints and samples on the
+                first and last rows of its blocks' stripes, off the map on
+                each side, hit and free in one cell, free_samples 0, 1, 3,
+                4, a map saturated at ±clamp_q) on both of its routes
+                and every cluster size up to 16 (G = 9 and 18 put stripe
+                ends off the 16-byte words), and offset views, then timed
+                at config 12's fleet tick (N=4, G=256, B=2048) and at the
+                map replay's one-stream tick (N=1);
  11. mapping  — config 12 (bench.py bench_mapping): 4 streams, 256x256 map
                 at 0.05 m, 2048 beams, map_match_window 0.4; one warm tick,
                 then 20 ticks of the drifting-room scene through FleetMapper
@@ -70,13 +79,13 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 with a nonzero motion estimate; B1/B4/B5 launches counted
                 around the card's runs; host syncs per tick and one
                 profiled super-step per arm; the CLI's replay --fused line;
- 15. before   — B1's, B4's, B6's and B7's figures before their
-                redesign, constants copied from PERF.md (not measured in
-                this run);
+ 15. before   — B1's, B2's, B4's, B6's, B7's and B8's figures before
+                their redesign, constants copied from PERF.md (not measured
+                in this run);
  16. kernels  — one line listing every kernel with its launches and the
                 times measured in this run; B1 and B4 also carry host_us,
-                B6 and B7 their times at the map replay's shape, and each
-                redesigned kernel whether each of its goals was met.
+                B6, B7 and B8 their times at the map replay's shape, and
+                each redesigned kernel whether each of its goals was met.
 
 The wrapper's host time split piece by piece is
 rplidar_ros2_driver_tpu_torch/tools/launch_cost.py.  Then the card's name
@@ -140,11 +149,27 @@ BEFORE.update({
                     "replay_map_run": "tools/fleet_ab.py, baseline 5200b70",
                     "replay_map_ms": 0.14497, "replay_map_device_ms": 0.14386},
 })
+# B2's and B8's figures before their redesign (the kernels as first written
+# in commit 8b4efb4 for B8 and f6c749c for B2, on the slim launch path of
+# 3b32873, unchanged through 165d17b): at their path's shapes from PERF.md's
+# kernel table (chip run 8 of 3b32873); B8 at the map replay's one-stream
+# tick, never measured before, from tools/fleet_ab.py with 165d17b as its
+# baseline (NVIDIA H100 80GB HBM3, 700.00 W)
+BEFORE.update({
+    "sorted_replace": {"commit": "165d17b", "run": "chip run 8 of 3b32873",
+                       "ms": 0.0196, "device_ms": 0.0182},
+    "log_odds_update": {"commit": "165d17b", "run": "chip run 8 of 3b32873",
+                        "ms": 0.0164, "device_ms": 0.0151,
+                        "replay_map_run": "tools/fleet_ab.py, baseline 165d17b",
+                        "replay_map_ms": 0.02732, "replay_map_device_ms": 0.01499},
+})
 # the redesign's goals: device ms at the path's shapes, and events ms at or
-# below the library call's in the same run (B1, B4); B6 and B7 at config
-# 12's tick, and at the map replay's at most a third of the old kernel's
+# below the library call's in the same run (B1, B4); B2 at W=64, B=2048; B6,
+# B7 and B8 at config 12's tick, and at the map replay's at most a third of
+# the old kernel's
 GOAL_DEVICE_MS = {"temporal_median": 0.005, "beam_min": 0.003,
-                  "coarse_scores": 0.020, "fine_scores": 0.030}
+                  "coarse_scores": 0.020, "fine_scores": 0.030,
+                  "sorted_replace": 0.005, "log_odds_update": 0.006}
 GOAL_HOST_US = 8.0  # host time per call of the slim launch path
 
 
@@ -337,6 +362,39 @@ def _median_fixtures(rng, w: int, b: int):
     return {"random_inf": holes, "ties_1mm": ties, "heavy_ties": coarse, "all_finite": base}
 
 
+def _b2_fixtures(rng, w: int, b: int):
+    """B2's one-step edge cases at (W, B): name -> (ascending (W, B)
+    window, old (B,), new (B,)) as float32 numpy arrays."""
+    import numpy as np
+
+    def sort(x):
+        return np.sort(x, axis=0).astype(np.float32)  # +inf sorts last
+
+    base = sort(_median_fixtures(rng, w, b)["random_inf"])
+    rows = rng.integers(0, w, b)
+    cols = np.arange(b)
+    old = base[rows, cols]                          # present: a row of the column
+    new = rng.uniform(0.1, 40.0, b).astype(np.float32)
+    new[rng.random(b) < 0.3] = np.inf
+    inf = np.full(b, np.inf, np.float32)
+    equal = np.full((w, b), 7.25, np.float32)
+    between = np.where(np.arange(b) % 3 == 0, 7.0, np.where(np.arange(b) % 3 == 1, 7.25, 7.5))
+    return {
+        "random": (base, old, new),
+        # +inf evicted (absent from all-finite columns) and +inf inserted
+        "old_inf": (base, inf, new),
+        "new_inf": (base, old, inf),
+        "all_inf": (np.full((w, b), np.inf, np.float32), inf, new),
+        "all_inf_new_inf": (np.full((w, b), np.inf, np.float32), inf, inf),
+        # every row holds `old`: the first is deleted; new below, equal, above
+        "all_equal": (equal, equal[0].copy(), between.astype(np.float32)),
+        # `old` in no row: d = 0, as the plain version's argmax gives
+        "old_absent": (base, np.full(b, -1.0, np.float32), new),
+        "old_absent_above": (sort(rng.uniform(0.1, 40.0, (w, b)).astype(np.float32)),
+                             np.full(b, 50.0, np.float32), new),
+    }
+
+
 def phase_kernels(device, rng) -> dict:
     """Each kernel against its plain version on the card, then timed."""
     import numpy as np
@@ -353,6 +411,13 @@ def phase_kernels(device, rng) -> dict:
         max_err["temporal_median"] = max(max_err["temporal_median"], err)
         check(ok, f"B1 differs from its plain version ({what}): {err}")
         checked += 1
+
+    def b2(sor, old, new, what):
+        for got, want, part in zip(mk.sorted_replace_kernel(sor, old, new),
+                                   mk.sorted_replace_plain(sor, old, new), ("window", "median")):
+            ok, err = exact(got, want)
+            max_err["sorted_replace"] = max(max_err["sorted_replace"], err)
+            check(ok, f"B2 {part} differs from its plain version ({what}): {err}")
 
     # W around the warp's 32 rows and its two-candidate pass (1, 31, 32,
     # 33, 64, 96), B off the block's 8 columns and off 16-byte rows; W up
@@ -399,6 +464,25 @@ def phase_kernels(device, rng) -> dict:
         ok, _ = exact(sor_k, torch.sort(ring, dim=0).values)
         check(ok, f"B2's carried window is not the sorted ring after {steps} steps")
         b2_steps += steps
+
+    # B2's edge fixtures, one step each: W around the warp's 32 rows, the
+    # staging's edge (its slab and slots fit 48 KiB up to W = 1533; 1534 to
+    # 1537 read device memory), ragged B, +inf old/new/columns, all-equal
+    # columns, `old` absent (the plain version's d = 0) and an offset view
+    b2_fixtures = 0
+    for w, b in [(1, 2048), (31, 1001), (32, 2047), (33, 2050), (96, 2048), (1533, 100),
+                 (1534, 100), (1535, 100), (1536, 100), (1537, 100),
+                 (GEOMETRY["window"], GEOMETRY["beams"])]:
+        for name, (sor, old, new) in _b2_fixtures(rng, w, b).items():
+            b2(*(torch.from_numpy(x).to(device) for x in (sor, old, new)),
+               f"(W, B)=({w}, {b}) {name}")
+            b2_fixtures += 1
+    w, b = GEOMETRY["window"], GEOMETRY["beams"]
+    sor, old, new = (torch.from_numpy(x).to(device) for x in _b2_fixtures(rng, w, b)["random"])
+    buf = torch.empty(w * b + 1, device=device)
+    buf[1:].copy_(sor.view(-1))
+    b2(buf[1:].view(w, b), old, new, f"(W, B)=({w}, {b}) offset view")
+    b2_fixtures += 1
 
     # timing at the main path's shape, on a filled ring
     w, b = GEOMETRY["window"], GEOMETRY["beams"]
@@ -458,6 +542,7 @@ def phase_kernels(device, rng) -> dict:
         "plain_device_ms": device_ms(lambda: mk.sliding_median_plain(ext, w3), iters=5),
     }
     emit({"phase": "kernels", "checked_b1_fixtures": checked, "b2_steps": b2_steps,
+          "checked_b2_fixtures": b2_fixtures,
           "checked_b3_fixtures": b3_checked, "max_abs_err": max_err, "times_ms": times,
           "shape": [w, b], "b3_shape": [w3, k3, b3]})
     return {"max_abs_err": max_err, "times": times}
@@ -990,7 +1075,7 @@ def _map_fixtures(rng):
 
     out = []
     for grid, n, beams in ((8, 1, 192), (64, 3, 192), (256, 4, 2048), (1024, 1, 2048), (92, 3, 192),
-                           (44, 4, 192)):
+                           (44, 4, 192), (24, 3, 192), (1024, 4, 2048)):
         cfg = cfg_of(grid, beams)
         out.append((f"random_g{grid}_n{n}", cfg, *rand(cfg, n, beams)))
     cfg = cfg_of(64, 192)
@@ -1124,13 +1209,15 @@ def match_bounds(cfg, n: int, nvalid: int) -> dict:
 
 def phase_mapkernels(device, rng) -> dict:
     """B6, B7 and B8 against their plain versions on the card (exact) over
-    the fixtures and an offset view, then timed at config 12's fleet tick
-    (N=4) and B6/B7 also at the map replay's one-stream tick (N=1)."""
+    the fixtures (B8 also over its stripe edges, on both routes and every
+    cluster size) and an offset view, then timed at config 12's fleet tick
+    (N=4) and at the map replay's one-stream tick (N=1)."""
     import numpy as np
     import torch
 
     from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
     from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+    from rplidar_ros2_driver_tpu_torch.tools import update_plans as up
 
     names = ("coarse_scores", "fine_scores", "log_odds_update")
     max_err = {k: 0.0 for k in names}
@@ -1142,7 +1229,11 @@ def phase_mapkernels(device, rng) -> dict:
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     checked, plans = [], {}
-    for name, cfg, lo, pose, pq, okm in _map_fixtures(rng):
+    # B8's stripe edges on the card's own plans, free_samples 0, 1, 3 and 4
+    edge_fixtures = [
+        up.stripe_edge_fixture(rng, g, n, smk.update_plan(n, g, sms)[3], samples, samples == 4)
+        for g, n in ((24, 3), (256, 4), (1024, 1)) for samples in (0, 1, 3, 4)]
+    for name, cfg, lo, pose, pq, okm in _map_fixtures(rng) + edge_fixtures:
         lo_t, pq_t, ok_t, posec, trig, pose_t = _map_kernel_args(cfg, lo, pose, pq, okm, device)
         mq_k, sc_k = smk.coarse_scores_kernel(lo_t, pq_t, ok_t, posec, trig, cfg)
         mq_p, sc_p = smk.coarse_scores_plain(lo_t, pq_t, ok_t, posec, trig, cfg)
@@ -1163,8 +1254,29 @@ def phase_mapkernels(device, rng) -> dict:
         plans[name] = {
             "coarse": smk.coarse_plan(n, cfg.grid, cfg.coarse, w, cfg.clamp_q, cfg.quant_shift,
                                       sms),
-            "fine": smk.fine_plan(n, t, cfg.fine_radius, sms)}
+            "fine": smk.fine_plan(n, t, cfg.fine_radius, sms),
+            "update": smk.update_plan(n, cfg.grid, sms)}
         checked.append(f"{name}:N{n}")
+    # B8 on both routes and every cluster size it is prepared for, stripes
+    # of ceil(G / K) rows: grids that are not a multiple of 4 give stripes
+    # whose ends are off the 16-byte words and off the bitmap's words (G=9,
+    # coarse 1; G=18, coarse 2)
+    swept = []
+    for g, n, coarse in ((9, 2, 1), (18, 3, 2), (24, 1, 4), (256, 4, 4)):
+        for local in (1, 0):
+            k = 1
+            while k <= smk.UPDATE_MAX_CLUSTER:
+                plan = up.plan_for(local, k, g)
+                name, cfg, lo, pose, pq, okm = up.stripe_edge_fixture(rng, g, n, plan[3], 4,
+                                                                      k == 2, coarse)
+                lo_t, pq_t, ok_t, posec, trig, _ = _map_kernel_args(cfg, lo, pose, pq, okm, device)
+                out = torch.empty_like(lo_t)
+                up.launch_update(lo_t, pq_t, ok_t, posec, trig, out, cfg, plan)
+                same("log_odds_update", out,
+                     smk.log_odds_update_plain(lo_t, pq_t, ok_t, posec, trig, cfg),
+                     f"{name} route {local} cluster {k}")
+                swept.append(f"{name}:route{local}:K{k}")
+                k *= 2
     torch.cuda.synchronize()
 
     shapes = {}
@@ -1201,10 +1313,9 @@ def phase_mapkernels(device, rng) -> dict:
             "fine_scores": (lambda m=mq, f=fine, g=cfg: smk.fine_scores_kernel(m, *f, g),
                             lambda m=mq, f=fine, g=cfg: smk.fine_scores_plain(m, *f, g)),
         }
-        if n == MAPPING["streams"]:
-            calls["log_odds_update"] = (
-                lambda c=coarse, g=cfg: smk.log_odds_update_kernel(*c, g),
-                lambda c=coarse, g=cfg: smk.log_odds_update_plain(*c, g))
+        calls["log_odds_update"] = (
+            lambda c=coarse, g=cfg: smk.log_odds_update_kernel(*c, g),
+            lambda c=coarse, g=cfg: smk.log_odds_update_plain(*c, g))
         for name, (kern, plain) in calls.items():
             got, want = kern(), plain()
             for a, c in zip(got if name == "coarse_scores" else (got,),
@@ -1222,15 +1333,17 @@ def phase_mapkernels(device, rng) -> dict:
             }
             for name, (kern, plain) in calls.items()
         }
-        bounds[key] = {k: v for k, v in match_bounds(cfg, n, nvalid).items() if k in calls}
+        bounds[key] = match_bounds(cfg, n, nvalid)
         shape_of[key] = {"N": n, "G": cfg.grid, "B": cfg.beams, "U": 2 * cfg.window_cells + 1,
                          "T": 2 * cfg.theta_window + 1, "F": 2 * cfg.fine_radius + 1,
                          "valid_beams": nvalid,
                          "coarse_plan": smk.coarse_plan(n, cfg.grid, cfg.coarse, cfg.window_cells,
                                                         cfg.clamp_q, cfg.quant_shift, sms),
                          "fine_plan": smk.fine_plan(n, 2 * cfg.theta_window + 1,
-                                                    cfg.fine_radius, sms)}
-    row = {"phase": "mapkernels", "fixtures": checked, "plans": plans, "max_abs_err": max_err,
+                                                    cfg.fine_radius, sms),
+                         "update_plan": smk.update_plan(n, cfg.grid, sms)}
+    row = {"phase": "mapkernels", "fixtures": checked, "update_plan_sweep": swept,
+           "plans": plans, "max_abs_err": max_err,
            "times_ms": times, "shapes": shape_of,
            "bounds_ms": {s: {k: {"ms": v[0], "by": v[1]} for k, v in b.items()}
                          for s, b in bounds.items()}}
@@ -1852,9 +1965,9 @@ def redesign_report(name: str, timed: list, launched: list) -> dict:
 
 
 def match_goals(name: str, t: dict, replay_map: dict, replay_bound) -> dict:
-    """B6's and B7's extra keys in the kernels line: their times at the map
-    replay's one-stream tick and whether each redesign goal was met — only
-    figures measured in this run."""
+    """B6's, B7's and B8's extra keys in the kernels line: their times at
+    the map replay's one-stream tick and whether each redesign goal was met
+    — only figures measured in this run."""
     before = BEFORE[name]["replay_map_device_ms"]
     return {
         "replay_map_shape": {**replay_map, "bound_ms": replay_bound[0],
@@ -1932,6 +2045,9 @@ def main(argv=None) -> int:
         })
         if name == "temporal_median":
             kernels[-1].update(redesign_report(name, [t], [launch["temporal_median"]]))
+        if name == "sorted_replace":
+            kernels[-1]["goals"] = {"device_met": t["device_ms"] is not None
+                                    and t["device_ms"] <= GOAL_DEVICE_MS[name]}
     # B6/B7/B8: launches on the config-12 fleet path (one per tick each);
     # the map replay's launches are checked in its phase
     for name, replaces in (

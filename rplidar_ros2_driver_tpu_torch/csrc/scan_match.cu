@@ -77,11 +77,54 @@
 // (PERF.md): the dependent row loads of each beam, the reduction and the
 // cluster barriers.
 //
-// B8: one block per (stripe of rows, stream).  The block rotates every
-// beam, marks the hit and free cells that fall in its rows in shared byte
-// flags (off-map cells and cells of other stripes mark nothing — never
-// clipped onto an edge), then applies delta and clamp to its stripe.  Only
-// the > 0 predicate of each count matters, so flags replace the TPU
+// B8's first design ran one block per (stripe of 8192 / G rows, stream):
+// 32 blocks at config 12's tick and 8 at the map replay's, and every block
+// rotated every beam and walked all its samples to keep the cells of its
+// own rows, the rotation done G² / 8192 times over (0.0151 ms device at
+// config 12 on an NVIDIA H100 80GB HBM3 at 700 W, 23x its bound; PERF.md).
+// Now each stream is one cluster of K blocks (the wrapper's plan,
+// update_plan: up to 16, past the portable 8), block k takes beams
+// [k·⌈B/K⌉, (k+1)·⌈B/K⌉) and rotates each once, and owns the stripe of rows
+// [k·rows, (k+1)·rows), which it updates.  Flags are two bits a cell, hit
+// and free, in 32-bit words of shared memory: hit and free of one cell
+// share a word, so they are set with OR reductions (plain stores of two
+// writers would lose one of them).  A cell off the map marks nothing.
+//
+//   * The local route, wherever a bitmap of the whole map fits a block
+//     (G up to 935; 16 KiB at G=256): each block clears its own bitmap
+//     (one __syncthreads, no cluster barrier), marks its beams' cells in it
+//     with shared atomics, arrives at the one cluster barrier that
+//     publishes the bitmaps, gathers its stripe's words from every block's
+//     bitmap (distributed shared memory, a thread's K loads in flight at
+//     once) and applies them; a relaxed arrive after the gather and a wait
+//     at the end keep each bitmap alive while peers read it.
+//   * The remote route, for larger maps: block k keeps only its stripe's
+//     flags, clears them, and a first cluster barrier (release) orders
+//     that before any peer marks; each cell is then marked in the owner's
+//     stripe with a reduction into distributed shared memory (mapa, then
+//     red.shared::cluster.or), and a second barrier waits for them all.
+//     At config 12's tick it takes 0.0052 ms against the local route's
+//     0.0042 (NVIDIA H100 80GB HBM3, 700 W; PERF.md): two barriers that
+//     release, the second waiting for the reductions in flight.
+//   * Either way the loads of the pose, the block's first beam and the
+//     first kUpdatePrefetch 16-byte words a thread of its stripe of the
+//     map are issued before the first wait, so that their latency hides
+//     it; the stripe is updated with 16-byte loads and stores (scalar ones
+//     at its unaligned ends, or throughout when the map and the output are
+//     not 16-byte aligned alike).
+//   * Sample 0 of every beam is the sensor's own cell: it is marked once a
+//     warp, not once a beam, or 2048 reductions would queue on one word.
+//     (Combining all of a warp's marks of one word with __match_any_sync
+//     cost more than the queueing it saved.)  free_samples = 4, the
+//     repo's, is instantiated, so that the floor divisions by S are
+//     shifts; any other S takes the runtime path (0.00442 ms against
+//     the instantiation's 0.00410 at config 12's tick).
+//   * K = 16 against the portable 8: 0.00410 against 0.00445 ms, and no
+//     host cost per launch that the measurement could tell apart.
+//     (Both: NVIDIA H100 80GB HBM3, 700 W; tools/update_plans.py,
+//     PERF.md.)
+//
+// Only the > 0 predicate of each count matters, so flags replace the TPU
 // kernel's one-hot matmul.
 //
 // No kernel needs its output zeroed, allocates, or synchronises the host;
@@ -103,11 +146,14 @@ namespace {
 constexpr int kSubBits = 5;
 constexpr int kSub = 1 << kSubBits;
 constexpr int kAngBits = 14;
-constexpr int kThreads = 256;       // B8
 // B6/B7: the plan picks 32 to 256 threads a block; two blocks of 256 a
 // SM cap a thread at 128 registers
 constexpr int kMaxThreads = 256;
-constexpr int kStripeCells = 8192;  // B8: rows per block = kStripeCells / G
+// B8: threads a block (the launch bound), the largest cluster it is
+// prepared for, and the 16-byte words of its stripe a thread loads early
+constexpr int kUpdateThreads = 512;
+constexpr int kUpdateMaxCluster = 16;
+constexpr int kUpdatePrefetch = 4;
 constexpr int kMaxDevices = 64;
 
 // int32 arithmetic that wraps as JAX's and PyTorch's int32 does
@@ -458,59 +504,228 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   cluster_sum_store(cluster, part, F * F, score + (static_cast<size_t>(n) * T + t) * F * F);
 }
 
-__global__ void log_odds_update_kernel(const int* __restrict__ log_odds,
-                                       const int* __restrict__ pq,
-                                       const uint8_t* __restrict__ ok,
-                                       const int* __restrict__ posec,
-                                       const int* __restrict__ trig, int* __restrict__ out,
-                                       int G, int B, int rows, int hit_q, int miss_q,
-                                       int clamp_q, int samples) {
-  extern __shared__ uint8_t flags[];  // [rows][G] hit, then [rows][G] free
-  const int n = blockIdx.y;
-  const int r0 = blockIdx.x * rows;
-  const int nr = min(rows, G - r0);
-  uint8_t* hit = flags;
-  uint8_t* fre = flags + static_cast<size_t>(rows) * G;
-  for (int i = threadIdx.x; i < 2 * rows * G; i += blockDim.x) flags[i] = 0;
-  __syncthreads();
+// ---------------------------------------------------------------------------
+// B8: log-odds update; one cluster per stream
+// ---------------------------------------------------------------------------
 
-  const int cq = trig[2 * n], sq = trig[2 * n + 1];
-  const int ox = posec[2 * n], oy = posec[2 * n + 1];
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    if (!ok[static_cast<size_t>(n) * B + b]) continue;
-    const int* p = pq + 2 * (static_cast<size_t>(n) * B + b);
-    int rx, ry;
-    rotate(p[0], p[1], cq, sq, rx, ry);
-    const int wx = wadd(rx, ox), wy = wadd(ry, oy);
-    int hx = (wx >> kSubBits) - r0, hy = wy >> kSubBits;
-    if (hx >= 0 && hx < nr && hy >= 0 && hy < G) hit[hx * G + hy] = 1;
-    for (int k = 0; k < samples; ++k) {
-      const int sx = wadd(ox, floor_div(wmul(wsub(wx, ox), k), samples));
-      const int sy = wadd(oy, floor_div(wmul(wsub(wy, oy), k), samples));
-      hx = (sx >> kSubBits) - r0;
-      hy = sy >> kSubBits;
-      if (hx >= 0 && hx < nr && hy >= 0 && hy < G) fre[hx * G + hy] = 1;
-    }
-  }
-  __syncthreads();
-
-  const size_t base = static_cast<size_t>(n) * G * G + static_cast<size_t>(r0) * G;
-  for (int i = threadIdx.x; i < nr * G; i += blockDim.x) {
-    const int delta = hit[i] ? hit_q : (fre[i] ? miss_q : 0);
-    out[base + i] = min(max(wadd(log_odds[base + i], delta), -clamp_q), clamp_q);
-  }
+// log-odds v of cell j of this block's stripe, updated by its flags
+__device__ __forceinline__ int update_cell(const unsigned* flags, int j, int v, int hit_q,
+                                           int miss_q, int clamp_q) {
+  const unsigned f = flags[j >> 4] >> ((j & 15) * 2);
+  const int delta = (f & 1u) ? hit_q : ((f & 2u) ? miss_q : 0);
+  return min(max(wadd(v, delta), -clamp_q), clamp_q);
 }
 
+// the 16-byte word v of cells [j, j + 4), updated
+__device__ __forceinline__ int4 update_word(const unsigned* flags, int j, int4 v, int hit_q,
+                                            int miss_q, int clamp_q) {
+  v.x = update_cell(flags, j, v.x, hit_q, miss_q, clamp_q);
+  v.y = update_cell(flags, j + 1, v.y, hit_q, miss_q, clamp_q);
+  v.z = update_cell(flags, j + 2, v.z, hit_q, miss_q, clamp_q);
+  v.w = update_cell(flags, j + 3, v.w, hit_q, miss_q, clamp_q);
+  return v;
+}
+
+// the two halves of a cluster barrier, so that a block works between them:
+// arrive (releasing this thread's writes) and wait (acquiring the peers')
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// an arrive that publishes nothing: this block is done reading its peers'
+// shared memory (the values read are consumed before it)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+// the address of `p` (this block's shared memory) in block `rank`'s
+__device__ __forceinline__ unsigned cluster_addr(const unsigned* p, int rank) {
+  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+
+// B8's two routes (the wrapper's plan picks one).  Local: each block marks
+// its beams' cells in its own bitmap of the whole map, and after one
+// cluster barrier gathers its stripe's words from every block's bitmap.
+// Remote: each block marks each cell in the stripe flags of the block that
+// owns its row, by a reduction into distributed shared memory.  Either way
+// two bits a cell: hit (bit 0) and free (bit 1) of cell c in bit 2·(c % 16)
+// of word c / 16.
+template <bool kLocal>
+struct Marker {
+  unsigned* flags;  // local: the whole map's bitmap; remote: this stripe's
+  int G, rows;
+  float inv_rows;   // 1 / rows: the owner by a multiply, corrected below
+  // mark cell (sx, sy) >> kSubBits; off the map, nothing (never clipped
+  // onto an edge)
+  __device__ __forceinline__ void operator()(int sx, int sy, unsigned bit) const {
+    const int cx = sx >> kSubBits, cy = sy >> kSubBits;
+    if (!on_map(cx, cy, G)) return;
+    if constexpr (kLocal) {
+      const int c = cx * G + cy;
+      atomicOr(flags + (c >> 4), bit << ((c & 15) * 2));
+    } else {
+      int owner = __float2int_rz(static_cast<float>(cx) * inv_rows);
+      owner += (owner + 1) * rows <= cx ? 1 : 0;
+      owner -= owner * rows > cx ? 1 : 0;
+      const int j = (cx - owner * rows) * G + cy;
+      const unsigned addr = cluster_addr(flags + (j >> 4), owner);
+      const unsigned bits = bit << ((j & 15) * 2);
+      asm volatile("red.shared::cluster.or.b32 [%0], %1;\n" ::"r"(addr), "r"(bits) : "memory");
+    }
+  }
+};
+
+// S: free_samples at compile time (0: the runtime path, `samples`)
+template <int S, bool kLocal>
+__global__ void __launch_bounds__(kUpdateThreads)
+    log_odds_update_kernel(const int* __restrict__ log_odds, const int* __restrict__ pq,
+                           const uint8_t* __restrict__ ok, const int* __restrict__ posec,
+                           const int* __restrict__ trig, int* __restrict__ out, int G, int B,
+                           int rows, int hit_q, int miss_q, int clamp_q, int samples) {
+  // local: [the map's bitmap, (G²/16 words, padded to 16 bytes)][this
+  // stripe's words]; remote: [this stripe's words]
+  extern __shared__ __align__(16) unsigned flags[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int kb = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n = blockIdx.y, nt = blockDim.x, tid = threadIdx.x;
+  const int r0 = min(G, rank * rows), r1 = min(G, r0 + rows);
+  const int ncell = (r1 - r0) * G;
+  const int ns = S > 0 ? S : samples;
+  const int map_words = (((G * G + 15) >> 4) + 3) & ~3;
+  if constexpr (kLocal) {
+    for (int i = tid; i < map_words >> 2; i += nt) reinterpret_cast<uint4*>(flags)[i] = uint4{};
+  } else {
+    for (int i = tid; i < (rows * G + 15) >> 4; i += nt) flags[i] = 0u;
+    cluster_arrive();  // this block's flags are clear
+  }
+
+  // meanwhile: the stripe's first 16-byte words (the cells [0, head) and
+  // [tail, ncell) go one by one, the words between when the map and the
+  // output share their alignment), the pose, and this thread's first beam
+  const size_t base = static_cast<size_t>(n) * G * G + static_cast<size_t>(r0) * G;
+  const int* lo = log_odds + base;
+  int* dst = out + base;
+  const uintptr_t la = reinterpret_cast<uintptr_t>(lo), da = reinterpret_cast<uintptr_t>(dst);
+  const int head =
+      ((la ^ da) & 15) == 0 ? min(ncell, static_cast<int>(((16 - (la & 15)) & 15) >> 2)) : ncell;
+  const int words = (ncell - head) >> 2, tail = head + 4 * words;
+  const int4* lo4 = reinterpret_cast<const int4*>(lo + head);
+  int4* dst4 = reinterpret_cast<int4*>(dst + head);
+  int4 early[kUpdatePrefetch];
+#pragma unroll
+  for (int q = 0; q < kUpdatePrefetch; ++q) {
+    const int i = tid + q * nt;
+    early[q] = i < words ? __ldg(lo4 + i) : make_int4(0, 0, 0, 0);
+  }
+  const int cq = trig[2 * n], sq = trig[2 * n + 1];
+  const int ox = posec[2 * n], oy = posec[2 * n + 1];
+  const int share = (B + kb - 1) / kb;
+  const int b0 = min(B, rank * share), b1 = min(B, b0 + share);
+  const uint8_t* okn = ok + static_cast<size_t>(n) * B;
+  const int* pqn = pq + 2 * static_cast<size_t>(n) * B;
+  int b = b0 + tid;
+  bool live = false;
+  int px = 0, py = 0;
+  if (b < b1) {
+    live = okn[b];
+    px = pqn[2 * b];
+    py = pqn[2 * b + 1];
+  }
+  const Marker<kLocal> mark{flags, G, rows, 1.0f / static_cast<float>(rows)};
+  if constexpr (kLocal) {
+    __syncthreads();  // the bitmap is clear
+  } else {
+    cluster_wait();  // every block's flags are clear
+  }
+
+  // this block's beams, each rotated once.  Sample 0 of every beam is the
+  // sensor's own cell: it is marked once a warp, below, not once a beam
+  bool any = false;
+  while (b < b1) {
+    if (live) {
+      any = true;
+      int rx, ry;
+      rotate(px, py, cq, sq, rx, ry);
+      const int wx = wadd(rx, ox), wy = wadd(ry, oy);
+      mark(wx, wy, 1u);
+      for (int k = 1; k < ns; ++k) {
+        mark(wadd(ox, floor_div(wmul(wsub(wx, ox), k), ns)),
+             wadd(oy, floor_div(wmul(wsub(wy, oy), k), ns)), 2u);
+      }
+    }
+    b += nt;  // a block with more beams than threads
+    if (b < b1) {
+      live = okn[b];
+      px = pqn[2 * b];
+      py = pqn[2 * b + 1];
+    }
+  }
+  const unsigned warp_any = __ballot_sync(0xFFFFFFFFu, any);
+  if (ns > 0 && warp_any && (tid & 31) == __ffs(warp_any) - 1) mark(ox, oy, 2u);
+
+  // the stripe's flags, word (skew + j) / 16 for its cell j
+  const unsigned* stripe = flags;
+  int skew = 0;
+  if constexpr (kLocal) {
+    cluster_arrive();  // this block's bitmap is complete
+    cluster_wait();    // every block's is
+    const int c0 = r0 * G, w0 = c0 >> 4, w1 = (c0 + ncell + 15) >> 4;
+    unsigned* gathered = flags + map_words;
+    for (int w = w0 + tid; w < w1; w += nt) {
+      unsigned v[kUpdateMaxCluster];  // every block's word in flight at once
+#pragma unroll
+      for (int q = 0; q < kUpdateMaxCluster; ++q) {
+        v[q] = q < kb ? *cluster.map_shared_rank(flags + w, q) : 0u;
+      }
+      unsigned f = 0;
+#pragma unroll
+      for (int q = 0; q < kUpdateMaxCluster; ++q) f |= v[q];
+      gathered[w - w0] = f;
+    }
+    cluster_arrive_relaxed();  // done reading the peers' bitmaps
+    __syncthreads();
+    stripe = gathered;
+    skew = c0 & 15;
+  } else {
+    cluster.sync();  // every mark is in place; no peer touches these flags again
+  }
+
+  // delta and clamp over the stripe: the early words, then the rest
+#pragma unroll
+  for (int q = 0; q < kUpdatePrefetch; ++q) {
+    const int i = tid + q * nt;
+    if (i < words) {
+      dst4[i] = update_word(stripe, skew + head + 4 * i, early[q], hit_q, miss_q, clamp_q);
+    }
+  }
+  for (int i = tid + kUpdatePrefetch * nt; i < words; i += nt) {
+    dst4[i] = update_word(stripe, skew + head + 4 * i, __ldg(lo4 + i), hit_q, miss_q, clamp_q);
+  }
+  for (int j = tid; j < head; j += nt) {
+    dst[j] = update_cell(stripe, skew + j, __ldg(lo + j), hit_q, miss_q, clamp_q);
+  }
+  for (int j = tail + tid; j < ncell; j += nt) {
+    dst[j] = update_cell(stripe, skew + j, __ldg(lo + j), hit_q, miss_q, clamp_q);
+  }
+  if constexpr (kLocal) cluster_wait();  // no peer still reads this block's bitmap
+}
 
 // ---------------------------------------------------------------------------
 // cluster launches
 // ---------------------------------------------------------------------------
 
 // one slot per kernel instantiation: B7 r = 4, runtime; B6 (w = 2, runtime)
-// × (int16 staged, direct)
+// × (int16 staged, direct); B8 (S = 4, runtime) × (local, remote)
 constexpr int kFineSlot = 0;
 constexpr int kCoarseSlot = 2;
-constexpr int kSlots = kCoarseSlot + 4;
+constexpr int kUpdateSlot = kCoarseSlot + 4;
+constexpr int kSlots = kUpdateSlot + 4;
 bool g_prepared[kSlots][kMaxDevices];  // set once per device and slot
 
 // Launch `kernel` on `grid` in clusters of `cluster` blocks along x.  The
@@ -615,6 +830,30 @@ int launch_fine(int slot, const FineArgs& a, const Plan& p, int device, void* st
                          a.sin_q, a.uv, a.score, a.G, a.B, a.T, a.csub, a.r, p.rows);
 }
 
+struct UpdateArgs {
+  const int* log_odds;
+  const int* pq;
+  const uint8_t* ok;
+  const int* posec;
+  const int* trig;
+  int* out;
+  int N, G, B, hit_q, miss_q, clamp_q, samples;
+};
+
+template <int S, bool kLocal>
+int launch_update(int slot, const UpdateArgs& a, const Plan& p, int device, void* stream) {
+  return launch_clusters(log_odds_update_kernel<S, kLocal>, slot, dim3(p.cluster, a.N, 1),
+                         p.cluster, p.threads, p.smem, device, stream, a.log_odds, a.pq, a.ok,
+                         a.posec, a.trig, a.out, a.G, a.B, p.rows, a.hit_q, a.miss_q, a.clamp_q,
+                         a.samples);
+}
+
+template <bool kLocal>
+int update_by_samples(int slot, const UpdateArgs& a, const Plan& p, int device, void* stream) {
+  return a.samples == 4 ? launch_update<4, kLocal>(slot, a, p, device, stream)
+                        : launch_update<0, kLocal>(slot + 1, a, p, device, stream);
+}
+
 }  // namespace
 
 // B6.  elem: the pooled map's cell bytes (2: int16, staged; 0: the direct
@@ -648,16 +887,27 @@ extern "C" int fine_scores_i32(const int* mq, const int* pq, const uint8_t* ok, 
                 : launch_fine<0>(kFineSlot + 1, a, p, device, stream);
 }
 
+// B8.  local: the route (1: each block's own bitmap of the map, 0: marks
+// into the owners' stripes); cluster, threads, rows, smem: the wrapper's
+// plan (update_plan).
 extern "C" int log_odds_update_i32(const int* log_odds, const int* pq, const uint8_t* ok,
                                    const int* posec, const int* trig, int* out, int N, int G,
                                    int B, int hit_q, int miss_q, int clamp_q, int samples,
+                                   int local, int cluster, int threads, int rows, int smem,
                                    int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.error()) return guard.error();
-  const int rows = G < kStripeCells / G ? G : kStripeCells / G;  // >= 8 for G <= 1024
-  const int stripes = (G + rows - 1) / rows;
-  log_odds_update_kernel<<<dim3(stripes, N), kThreads, 2 * rows * G,
-                           static_cast<cudaStream_t>(stream)>>>(
-      log_odds, pq, ok, posec, trig, out, G, B, rows, hit_q, miss_q, clamp_q, samples);
-  return static_cast<int>(cudaGetLastError());
+  // the plan must cover every row and give each block its layout's words:
+  // [bitmap, padded to 16 bytes][the stripe's words, one more when it
+  // starts inside a word] (local) or [the stripe's words] (remote)
+  const int stripe = (rows * G + 15) / 16 + (local ? 1 : 0);
+  const int bitmap = local ? (((G * G + 15) / 16 + 3) & ~3) : 0;
+  const bool fits = cluster >= 1 && cluster <= kUpdateMaxCluster && threads >= 32 &&
+                    threads <= kUpdateThreads && threads % 32 == 0 && rows >= 1 &&
+                    rows * cluster >= G && smem >= 4 * (bitmap + stripe);
+  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
+  const UpdateArgs a{log_odds, pq, ok, posec, trig, out, N, G, B, hit_q, miss_q, clamp_q, samples};
+  const Plan p{cluster, threads, rows, smem};
+  return local ? update_by_samples<true>(kUpdateSlot, a, p, device, stream)
+               : update_by_samples<false>(kUpdateSlot + 2, a, p, device, stream);
 }

@@ -22,9 +22,9 @@ from the source at first use, utils/cuda_build.py) or raises — there is
 no fallback.  ``launch_counts`` counts the launches of each kernel; only a
 launch adds to it.  Each launches through the slim launch path
 (utils/launch.py).  The design of each kernel is in the source's header
-note; B6 and B7 launch in thread block clusters on the shapes
-:func:`coarse_plan` and :func:`fine_plan` choose (pure functions of the
-shape and the card's SM count).
+note; all three launch in thread block clusters on the shapes
+:func:`coarse_plan`, :func:`fine_plan` and :func:`update_plan` choose (pure
+functions of the shape and the card's SM count).
 """
 
 from __future__ import annotations
@@ -53,11 +53,10 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-# the C entries: pointers, sizes (B6/B7 with their plan), the card's index,
-# the stream
+# the C entries: pointers, sizes and the plan, the card's index, the stream
 _B6 = KernelEntry("scan_match", "coarse_scores_i32", [VP] * 7 + [I] * 14 + [VP])
 _B7 = KernelEntry("scan_match", "fine_scores_i32", [VP] * 8 + [I] * 11 + [VP])
-_B8 = KernelEntry("scan_match", "log_odds_update_i32", [VP] * 6 + [I] * 8 + [VP])
+_B8 = KernelEntry("scan_match", "log_odds_update_i32", [VP] * 6 + [I] * 13 + [VP])
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape: tuple, device: torch.device) -> None:
@@ -173,6 +172,48 @@ def coarse_plan(n: int, g: int, c: int, w: int, clamp_q: int, quant_shift: int, 
     if acc is None:
         raise ValueError(f"window_cells {w}: the coarse-scores kernel's sums do not fit a block")
     return (elem, max(1, min(MAX_CLUSTER, 2 * sms // max(n, 1))), *acc)
+
+
+# B8: threads a block (csrc/scan_match.cu kUpdateThreads, its launch bound)
+# and the largest cluster the kernel is prepared for (kUpdateMaxCluster;
+# past 8 a cluster size is not portable, and launch_clusters allows it)
+UPDATE_THREADS = 512
+UPDATE_MAX_CLUSTER = 16
+
+
+def update_bytes(local: bool, rows: int, g: int) -> int:
+    """Shared bytes of one B8 block, two bits a cell in 32-bit words: the
+    local route's bitmap of the whole map (padded to 16 bytes) and its
+    stripe's gathered words (one more, for a stripe that starts inside a
+    word); the remote route's stripe of rows·G cells."""
+    words = -(-g * g // 16)
+    bitmap = -(-words // 4) * 4 if local else 0
+    stripe = -(-rows * g // 16) + (1 if local else 0)
+    return -(-(bitmap + stripe) // 4) * 16
+
+
+@functools.lru_cache(maxsize=64)
+def update_plan(n: int, g: int, sms: int):
+    """B8's launch: ``(local, cluster, threads, rows, shared bytes)`` — one
+    cluster of K blocks per stream, block k owning the rows [k·rows,
+    (k+1)·rows) of the map (those past G are empty).  K is the largest
+    power of two up to UPDATE_MAX_CLUSTER and G whose N clusters take at most
+    one block a SM.  ``local`` is 1 when a block's shared memory holds a
+    bitmap of the whole map (G up to 935 at K = 16), where each block marks
+    its own beams; else 0, the remote route, each block's flags holding its
+    stripe only (K raised, if need be, until they fit)."""
+    k = 1
+    while 2 * k <= min(UPDATE_MAX_CLUSTER, g) and 2 * k * n <= sms:
+        k *= 2
+    local = update_bytes(True, -(-g // k), g) <= SMEM_LIMIT
+    while (not local and update_bytes(False, -(-g // k), g) > SMEM_LIMIT
+           and k < UPDATE_MAX_CLUSTER):
+        k *= 2
+    rows = -(-g // k)
+    smem = update_bytes(local, rows, g)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"grid {g}: the log-odds update's flags do not fit a cluster")
+    return int(local), k, UPDATE_THREADS, rows, smem
 
 
 @functools.lru_cache(maxsize=8)
@@ -338,8 +379,8 @@ def log_odds_update_kernel(log_odds, pq, ok, posec, trig, cfg: MapConfig):
     _B8(
         log_odds.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
         trig.data_ptr(), out.data_ptr(),
-        n, cfg.grid, b, cfg.hit_q, cfg.miss_q, cfg.clamp_q, cfg.free_samples, dev.index,
-        current_stream(dev.index),
+        n, cfg.grid, b, cfg.hit_q, cfg.miss_q, cfg.clamp_q, cfg.free_samples,
+        *update_plan(n, cfg.grid, _sm_count(dev.index)), dev.index, current_stream(dev.index),
     )
     launch_counts["log_odds_update"] += 1
     return out

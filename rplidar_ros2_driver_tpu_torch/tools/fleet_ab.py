@@ -17,9 +17,11 @@ the step, the closing device-to-host copy), timed on the host.  A pair is
 one turn of each checkout back to back, the first alternating from pair
 to pair.  After the pairs (a profiler session would slow the host for the
 rest of the process) each worker times its matcher kernels B6
-(``coarse_scores_kernel``) and B7 (``fine_scores_kernel``) at both shapes
-on ``chip_smoke.match_tick``'s inputs, held equal to their plain versions:
-CUDA events ms per call, then device ms from torch.profiler.  Prints one
+(``coarse_scores_kernel``), B7 (``fine_scores_kernel``) and B8
+(``log_odds_update_kernel``) at both shapes on ``chip_smoke.match_tick``'s
+inputs, and its B2 (``sorted_replace_kernel``) at the chain's W=64, B=2048
+on a seeded window, each held equal to its plain version: CUDA events ms
+per call, then device ms from torch.profiler.  Prints one
 JSON line per pair and shape, then one line with, per shape, the pairs
 each checkout won, the medians of ticks/s and of ms per tick and the
 distance between the quartiles of the baseline's ticks/s (its own
@@ -80,20 +82,33 @@ def worker(tree: str, ticks: int) -> None:
         return {"ticks_per_s": len(lat) / sum(lat), "p50_ms": statistics.median(lat) * 1e3}
 
     def kernels() -> dict:
+        from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
         from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
 
+        dev = torch.device("cuda", 0)
         out = {}
         for n in SHAPES:
-            cfg, coarse, fine, mq = cs.match_tick(torch.device("cuda", 0), n)
+            cfg, coarse, fine, mq = cs.match_tick(dev, n)
             b6 = (lambda c=coarse, g=cfg: smk.coarse_scores_kernel(*c, g))
             b7 = (lambda m=mq, f=fine, g=cfg: smk.fine_scores_kernel(m, *f, g))
+            b8 = (lambda c=coarse, g=cfg: smk.log_odds_update_kernel(*c, g))
             mq_k, sc_k = b6()
             mq_p, sc_p = smk.coarse_scores_plain(*coarse, cfg)
             if not (torch.equal(mq_k, mq_p) and torch.equal(sc_k, sc_p)
-                    and torch.equal(b7(), smk.fine_scores_plain(mq, *fine, cfg))):
+                    and torch.equal(b7(), smk.fine_scores_plain(mq, *fine, cfg))
+                    and torch.equal(b8(), smk.log_odds_update_plain(*coarse, cfg))):
                 raise SystemExit(f"fleet_ab: a kernel differs from its plain version, N={n}")
             out[f"N{n}"] = {k: {"ms": cs.cuda_ms(fn), "device_ms": cs.device_ms(fn)}
-                            for k, fn in (("coarse_scores", b6), ("fine_scores", b7))}
+                            for k, fn in (("coarse_scores", b6), ("fine_scores", b7),
+                                          ("log_odds_update", b8))}
+        w, b = cs.GEOMETRY["window"], cs.GEOMETRY["beams"]
+        win = torch.from_numpy(cs._median_fixtures(np.random.default_rng(0), w, b)["random_inf"])
+        win = win.to(dev)
+        sor, old, new = torch.sort(win, dim=0).values, win[5].clone(), win[9].clone()
+        b2 = (lambda: mk.sorted_replace_kernel(sor, old, new))
+        if not all(torch.equal(x, y) for x, y in zip(b2(), mk.sorted_replace_plain(sor, old, new))):
+            raise SystemExit("fleet_ab: B2 differs from its plain version")
+        out["chain"] = {"sorted_replace": {"ms": cs.cuda_ms(b2), "device_ms": cs.device_ms(b2)}}
         return out
 
     for n in SHAPES:

@@ -10,10 +10,11 @@ synchronisation between them: the whole wrapper; the output's
 launch (arguments made beforehand).  What is left is the wrapper's own
 Python.  Beside B4 it times the library call with a fresh output per call,
 as the kernel hands one back (``torch.full`` then ``scatter_reduce_``
-"amin"), by host µs and CUDA events.  The matcher kernels B6, B7 (launched
-in clusters through ``cudaLaunchKernelEx``, with a launch plan looked up
-per call) and B8 (a plain launch) are split the same way at config 12's
-fleet tick (N=4, 256x256, 2048 beams), B6/B7 with their plan lookup apart.
+"amin"), by host µs and CUDA events.  The matcher kernels B6, B7 and B8
+(launched in clusters through ``cudaLaunchKernelEx``, with a launch plan
+looked up per call) are split the same way at config 12's fleet tick (N=4,
+256x256, 2048 beams), with their plan lookup apart, and their entries
+also timed by CUDA events.
 The data are seeded random values at the path's shapes: host times do not
 depend on them.
 """
@@ -66,6 +67,9 @@ def split(wrapper, alloc, entry, idx: int, iters: int, plan=None) -> dict:
     if plan is not None:
         parts["plan"] = host_us(plan, iters)
     parts["python_rest"] = parts["wrapper"] - sum(v for k, v in parts.items() if k != "wrapper")
+    if plan is not None:
+        # whether the card, not the host, sets the entry's rate here
+        parts["entry_events_ms"] = events_ms(entry, iters)
     return parts
 
 
@@ -87,6 +91,7 @@ def matcher_split(rng, dev, idx: int, stream: int, it: int) -> dict:
     sms = smk._sm_count(idx)
     p6 = smk.coarse_plan(n, g, cfg.coarse, cfg.window_cells, cfg.clamp_q, cfg.quant_shift, sms)
     p7 = smk.fine_plan(n, t, cfg.fine_radius, sms)
+    p8 = smk.update_plan(n, g, sms)
     clog = cfg.coarse.bit_length() - 1
     return {
         "coarse_scores": split(
@@ -112,8 +117,8 @@ def matcher_split(rng, dev, idx: int, stream: int, it: int) -> dict:
             lambda: torch.empty_like(lo),
             lambda: smk._B8(lo.data_ptr(), pq.data_ptr(), ok.data_ptr(), posec.data_ptr(),
                             trig.data_ptr(), mq.data_ptr(), n, g, b, cfg.hit_q, cfg.miss_q,
-                            cfg.clamp_q, cfg.free_samples, idx, stream),
-            idx, it),
+                            cfg.clamp_q, cfg.free_samples, *p8, idx, stream),
+            idx, it, plan=lambda: smk.update_plan(n, g, smk._sm_count(idx))),
     }
 
 

@@ -64,10 +64,15 @@ def test_b1_all_finite_is_exact_lower_median():
     np.testing.assert_array_equal(got, np.sort(win, axis=0)[(8 - 1) // 2])
 
 
-@pytest.mark.parametrize("w,b", [(4, 16), (8, 64), (16, 640), (7, 100), (33, 257), (64, 130)])
+@pytest.mark.parametrize(
+    "w,b",
+    [(4, 16), (8, 64), (16, 640), (7, 100), (33, 257), (64, 130),
+     (1, 5), (31, 40), (32, 33), (96, 20)],
+)
 def test_b2_plain_matches_pallas_and_jnp_over_ring_steps(w, b):
     """Successive ring steps (unfilled window, then wraparound) with +inf
-    and ties, odd W and a ragged beam count."""
+    and ties, odd W and a ragged beam count; W around the CUDA kernel's
+    32-row ballots (1, 31, 32, 33, 96)."""
     rng = np.random.default_rng(w * 77 + b)
     ring = np.full((w, b), np.inf, np.float32)
     sor = ring.copy()
@@ -94,6 +99,56 @@ def test_b2_plain_matches_pallas_and_jnp_over_ring_steps(w, b):
         ring[cursor] = new
         cursor = (cursor + 1) % w
     np.testing.assert_array_equal(sor, np.sort(ring, axis=0))
+
+
+def b2_edge_fixtures(rng, w, b):
+    """B2's one-step edge cases (chip_smoke.py holds the CUDA kernel to the
+    plain version on the same kinds): name -> (ascending (W, B) window,
+    old (B,), new (B,))."""
+    base = np.sort(fixture(rng, w, b, "random_inf"), axis=0)
+    old = base[rng.integers(0, w, b), np.arange(b)]
+    new = rand_window(rng, 1, b)[0]
+    inf = np.full(b, np.inf, np.float32)
+    all_inf = np.full((w, b), np.inf, np.float32)
+    equal = np.full((w, b), 7.25, np.float32)
+    between = np.asarray([7.0, 7.25, 7.5], np.float32)[np.arange(b) % 3]
+    finite = np.sort(rand_window(rng, w, b, inf_frac=0.0), axis=0)
+    return {
+        "random": (base, old, new),
+        "old_inf": (base, inf, new),
+        "new_inf": (base, old, inf),
+        "all_inf": (all_inf, inf, new),
+        "all_inf_new_inf": (all_inf, inf, inf),
+        "all_equal": (equal, equal[0].copy(), between),
+        "old_absent": (base, np.full(b, -1.0, np.float32), new),
+        "old_absent_above": (finite, np.full(b, 50.0, np.float32), new),
+    }
+
+
+B2_EDGE_KINDS = ["random", "old_inf", "new_inf", "all_inf", "all_inf_new_inf", "all_equal",
+                 "old_absent", "old_absent_above"]
+
+
+@pytest.mark.parametrize("kind", B2_EDGE_KINDS)
+@pytest.mark.parametrize("w,b", [(1, 20), (31, 40), (32, 33), (33, 17), (64, 130), (96, 20),
+                                 (1533, 3), (1536, 3), (1537, 3)])
+def test_b2_plain_matches_pallas_and_jnp_on_edge_fixtures(w, b, kind):
+    """One step on B2's edge fixtures: the plain version equals JAX's
+    sorted_replace + median_from_sorted on every column (old absent too:
+    d = 0, as argmax gives), and sorted_replace_pallas in interpret mode on
+    the columns that hold ``old`` (the contract the Pallas kernel keeps;
+    off it, its delete slot points past the rows)."""
+    sor, old, new = b2_edge_fixtures(np.random.default_rng(w * 31 + b), w, b)[kind]
+    got, got_med = mk.sorted_replace_kernel(*map(torch.from_numpy, (sor, old, new)))
+    ref = np.asarray(sorted_replace(jnp.asarray(sor), jnp.asarray(old), jnp.asarray(new)))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got_med.numpy(), np.asarray(median_from_sorted(jnp.asarray(ref))))
+    held = (sor == old[None, :]).any(axis=0)
+    if kind.startswith("old_absent"):
+        assert not held.any()
+    p_out, p_med = sorted_replace_pallas(jnp.asarray(sor), jnp.asarray(old), jnp.asarray(new))
+    np.testing.assert_array_equal(got.numpy()[:, held], np.asarray(p_out)[:, held])
+    np.testing.assert_array_equal(got_med.numpy()[held], np.asarray(p_med)[held])
 
 
 def test_plain_versions_are_the_filter_functions():

@@ -23,6 +23,7 @@ from rplidar_ros2_driver_tpu.ops import scan_match as jsm
 from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
 from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
 from rplidar_ros2_driver_tpu_torch.ops import scan_match_ref as ref
+from rplidar_ros2_driver_tpu_torch.tools.update_plans import plan_for, stripe_edge_fixture
 
 SUB, PQ_LIMIT = tsm.SUB, tsm.PQ_LIMIT
 BEAMS = 192
@@ -401,6 +402,36 @@ def test_plain_kernels_match_pallas_interpret(grid, beams):
         np.testing.assert_array_equal(updated[s].numpy(), np.asarray(jup))
 
 
+@pytest.mark.parametrize("samples", [0, 1, 3, 4])
+@pytest.mark.parametrize("grid,streams,rows", [(24, 3, 2), (64, 1, 4), (64, 4, 8), (18, 2, 3),
+                                                (9, 1, 2)])
+def test_b8_plain_matches_pallas_interpret_on_stripe_edges(grid, streams, rows, samples):
+    """The log-odds update's plain version against log_odds_update_pallas
+    in interpret mode on the CUDA kernel's stripe edges: hits and samples
+    on the first and last row of each block's stripe, off the map on each
+    side, hit and free in one cell, free_samples 0, 1, 3, 4, a saturated
+    map at free_samples 4."""
+    coarse = 4 if grid % 4 == 0 else (2 if grid % 2 == 0 else 1)  # the grid must divide by it
+    _name, cfg, lo, pose, pq, ok = stripe_edge_fixture(
+        np.random.default_rng(grid + streams + samples), grid, streams, rows, samples,
+        samples == 4, coarse)
+    jcfg = _jcfg(cfg, match_backend="pallas")
+    posec = (pose[:, :2] + (grid // 2) * SUB).astype(np.int32)
+    trig = tsm.rotation_table(cfg.theta_divisions)[pose[:, 2]]
+    got = smk.log_odds_update_kernel(*map(torch.from_numpy, (lo, pq, ok, posec, trig)), cfg)
+    touched = np.zeros(grid, bool)
+    for st in range(streams):
+        jup = jps.log_odds_update_pallas(
+            jnp.asarray(lo[st]), jnp.asarray(pq[st]), jnp.asarray(ok[st]), jnp.asarray(posec[st]),
+            jnp.int32(trig[st, 0]), jnp.int32(trig[st, 1]), jcfg, interpret=True,
+        )
+        np.testing.assert_array_equal(got[st].numpy(), np.asarray(jup))
+        touched |= (got[st].numpy() != np.clip(lo[st], -cfg.clamp_q, cfg.clamp_q)).any(axis=1)
+    # marks landed on both edge rows of the stripes
+    r = np.flatnonzero(touched)
+    assert (r % rows == 0).any() and (r % rows == rows - 1).any()
+
+
 def test_wrappers_take_the_plain_version_only_on_the_cpu(monkeypatch):
     """A CPU tensor runs the plain version and launches nothing; a tensor
     on another device never reaches the plain version — it launches the
@@ -612,3 +643,73 @@ def test_register_instantiations_match_the_source():
     coarse = {int(w) for w in re.findall(r"launch_coarse<(\d+), STAGED>\(", text)}
     assert tuple(sorted(fine - {0})) == smk.FINE_RADII and 0 in fine
     assert tuple(sorted(coarse - {0})) == smk.COARSE_WINDOWS and 0 in coarse
+
+
+def _update_layout_bytes(local: bool, rows: int, g: int) -> int:
+    """csrc/scan_match.cu's B8 block layout, two bits a cell in 32-bit
+    words: [the map's bitmap, padded to 16 bytes][the stripe's words and
+    one more] (local) or [the stripe's words] (remote), in 16-byte units."""
+    words = ((((g * g + 15) // 16 + 3) // 4) * 4 if local else 0) \
+        + (rows * g + 15) // 16 + (1 if local else 0)
+    return (words + 3) // 4 * 16
+
+
+@pytest.mark.parametrize("streams", [1, 3, 4])
+@pytest.mark.parametrize("grid", [8, 9, 18, 24, 44, 64, 92, 256, 935, 936, 1000, 1024])
+def test_update_plan_over_the_grid_range(grid, streams):
+    """B8's plan is pure, its stripes cover every row once, its layout fits
+    a block's shared memory (the local route wherever the map's bitmap
+    does), and its cluster is a power of two the kernel is prepared for,
+    filling at most one block a SM."""
+    for sms in (132, 114):
+        plan = smk.update_plan(streams, grid, sms)
+        smk.update_plan.cache_clear()
+        assert plan == smk.update_plan(streams, grid, sms)
+        local, cluster, threads, rows, smem = plan
+        assert cluster & (cluster - 1) == 0 and 1 <= cluster <= smk.UPDATE_MAX_CLUSTER
+        assert cluster <= grid and streams * cluster <= sms
+        assert cluster == smk.UPDATE_MAX_CLUSTER or 2 * cluster > grid or \
+            streams * 2 * cluster > sms
+        assert threads == smk.UPDATE_THREADS
+        owner = np.concatenate([np.full(max(0, min(grid, (k + 1) * rows) - min(grid, k * rows)), k)
+                                for k in range(cluster)])
+        assert owner.shape == (grid,)                     # every row once, in order
+        np.testing.assert_array_equal(owner, np.arange(grid) // rows)
+        assert smem == smk.update_bytes(local, rows, grid)
+        assert smem == _update_layout_bytes(local, rows, grid)
+        assert smem <= smk.SMEM_LIMIT
+        assert local == (_update_layout_bytes(True, rows, grid) <= smk.SMEM_LIMIT)
+    # half the cluster, as tools/update_plans.py times it beside the plan
+    assert plan_for(1, 8, 256) == (1, 8, smk.UPDATE_THREADS, 32, 18448)
+
+
+def test_update_plan_routes():
+    assert smk.update_plan(4, 256, 132) == (1, 16, 512, 16, 17424)  # config 12's tick
+    assert smk.update_plan(1, 256, 132) == (1, 16, 512, 16, 17424)  # the map replay's
+    assert smk.update_plan(9, 256, 132)[:2] == (1, 8)               # 9 x 16 blocks > 132 SMs
+    assert smk.update_plan(3, 8, 132)[:4] == (1, 8, 512, 1)         # no wider than G
+    # the map's bitmap fits a block up to G = 935: past it, the remote route
+    assert smk.update_plan(1, 935, 132)[0] == 1
+    assert smk.update_plan(1, 936, 132)[0] == 0
+    assert smk.update_plan(1, 1024, 132) == (0, 16, 512, 64, 16384)
+    # many streams: one block a stream, until a stripe of the whole map
+    # does not fit a block (G=1024: 256 KiB of flags), then two
+    assert smk.update_plan(200, 256, 132) == (1, 1, 512, 256, 32784)
+    assert smk.update_plan(200, 1024, 132) == (0, 2, 512, 512, 131072)
+
+
+def test_update_instantiations_match_the_source():
+    """The wrapper's constants are csrc/scan_match.cu's (the launch bound,
+    the largest cluster the entry accepts), and B8 is instantiated, on both
+    routes, for the repo's free_samples and the runtime path (0)."""
+    import re
+
+    from rplidar_ros2_driver_tpu_torch.utils.cuda_build import CSRC_DIR
+
+    text = (CSRC_DIR / "scan_match.cu").read_text()
+    assert int(re.search(r"kUpdateThreads = (\d+);", text)[1]) == smk.UPDATE_THREADS
+    assert int(re.search(r"kUpdateMaxCluster = (\d+);", text)[1]) == smk.UPDATE_MAX_CLUSTER
+    samples = {int(v) for v in re.findall(r"launch_update<(\d+), kLocal>\(", text)}
+    assert samples == {0, tsm.MapConfig().free_samples}
+    assert "update_by_samples<true>(" in text and "update_by_samples<false>(" in text
+    assert "__launch_bounds__(kUpdateThreads)" in text
