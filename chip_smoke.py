@@ -9,9 +9,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 compute capability (must be 9.0);
   2. build    — nvcc builds every CUDA kernel of the package from csrc/;
   3. launch   — the slim launch path's cost per call (B1, B4 at their
-                path's shapes beside their library calls, in alternating
-                rounds: events ms and host µs), before any profiler
-                session in the process;
+                path's shapes beside their library calls, and B5 beside
+                B4, in alternating rounds: events ms and host µs), before
+                any profiler session in the process;
   4. kernels  — each kernel (B1, B2, B3) against its plain PyTorch version
                 on the card (exact equality; +inf equals +inf; B1 also at
                 W = 1, 31, 32, 33, 96, 1536 and 1537 — the last past its
@@ -21,8 +21,13 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 31, 32, 33, 64, 96 and 1533 to 1537 (the last staged W
                 and the four past it), ragged B, old or new +inf,
                 all-+inf and all-equal columns, old absent and an offset
-                view), then timed beside the plain version and a library
-                yardstick (B1: events ms, device ms and host µs per call);
+                view; B3 over the test grid, the replay's stripe and its
+                launch plans' edges: K = 1, W far above a block's rows,
+                W = 1, B = 257 and 2050, the largest W staged with 4, 2
+                and 1 warps, W = 191 and 1536 unstaged, all-+inf and
+                all-equal stripes, an offset view), then timed beside the
+                plain version and a library yardstick (B1: events ms,
+                device ms and host µs per call; B3 also its K=7 tail);
   5. chain    — the main path: ScanFilterChain at the headline geometry
                 (W=64, 2048 beams, 256x256 grid at 0.25 m and 0.1 m, wire
                 capacity 4096) over seeded 3200-point revolutions, through
@@ -69,8 +74,12 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 four geometries, degenerate inputs, the featureless tie and
                 the fused ingest's shapes (B4 also at nbeams 1 and 8192,
                 beams out of range, rows off the 16-byte loads, offset
-                views, no nodes, 16 x 4096 rows), then timed there (B4
-                beside one scatter_reduce_ "amin" call, host µs too);
+                views, no nodes, 16 x 4096 rows; B5 also at D = 1, 3, 37,
+                100, 250 and 6144, shifts of 0, ±(D-1), ±D, beyond and the
+                int32 extremes, C = 40 and 100, one row, an all-EMPTY row,
+                offset views, counts at min_valid and one short), then
+                timed there (B4 beside one scatter_reduce_ "amin" call,
+                host µs too);
  14. replay_fused — the config-7 capture through replay_raw_fused (the
                 fused device ingest: 64 frames per tick, T=8, max_revs 8):
                 de-skew off held equal to the card's host-path replay and
@@ -79,13 +88,13 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 with a nonzero motion estimate; B1/B4/B5 launches counted
                 around the card's runs; host syncs per tick and one
                 profiled super-step per arm; the CLI's replay --fused line;
- 15. before   — B1's, B2's, B4's, B6's, B7's and B8's figures before
-                their redesign, constants copied from PERF.md (not measured
-                in this run);
+ 15. before   — every kernel's figures before its redesign, constants
+                copied from PERF.md (not measured in this run);
  16. kernels  — one line listing every kernel with its launches and the
-                times measured in this run; B1 and B4 also carry host_us,
-                B6, B7 and B8 their times at the map replay's shape, and
-                each redesigned kernel whether each of its goals was met.
+                times measured in this run; B1, B4 and B5 also carry
+                host_us, B3 its plan and K=7 tail, B6, B7 and B8 their
+                times at the map replay's shape, and each redesigned kernel
+                whether each of its goals was met.
 
 The wrapper's host time split piece by piece is
 rplidar_ros2_driver_tpu_torch/tools/launch_cost.py.  Then the card's name
@@ -163,14 +172,28 @@ BEFORE.update({
                         "replay_map_run": "tools/fleet_ab.py, baseline 165d17b",
                         "replay_map_ms": 0.02732, "replay_map_device_ms": 0.01499},
 })
+# B3's and B5's figures before their redesign (B3 as first written in
+# commit 88dad5c, B5 in aeedd51, both on the slim launch path of
+# 3b32873, unchanged through c836eb8): at their path's shapes from PERF.md's
+# kernel table, events ms from chip run 8 of 3b32873, device ms from chip
+# run 11 of c836eb8 (NVIDIA H100 80GB HBM3, 700.00 W)
+BEFORE.update({
+    "sliding_median": {"commit": "c836eb8", "run": "chip run 8 of 3b32873 (ms), "
+                       "chip run 11 of c836eb8 (device_ms)", "ms": 0.1789, "device_ms": 0.17800},
+    "shift_sad": {"commit": "c836eb8", "run": "chip run 8 of 3b32873 (ms), "
+                  "chip run 11 of c836eb8 (device_ms)", "ms": 0.0141, "device_ms": 0.00178},
+})
 # the redesign's goals: device ms at the path's shapes, and events ms at or
 # below the library call's in the same run (B1, B4); B2 at W=64, B=2048; B6,
 # B7 and B8 at config 12's tick, and at the map replay's at most a third of
-# the old kernel's
+# the old kernel's; B3 at W=64, K=512, B=2048; B5 at 8 x 17 x 256, its
+# events ms and host µs within GOAL_B5_GAP_US of B4's in the same rounds
 GOAL_DEVICE_MS = {"temporal_median": 0.005, "beam_min": 0.003,
                   "coarse_scores": 0.020, "fine_scores": 0.030,
-                  "sorted_replace": 0.005, "log_odds_update": 0.006}
+                  "sorted_replace": 0.005, "log_odds_update": 0.006,
+                  "sliding_median": 0.060, "shift_sad": 0.0015}
 GOAL_HOST_US = 8.0  # host time per call of the slim launch path
+GOAL_B5_GAP_US = 1.0
 
 
 def emit(obj) -> None:
@@ -346,6 +369,28 @@ def phase_launch(device, rng, rounds: int = 9, iters: int = 200) -> dict:
             "kernel_won_host": sum(a[1] < c[1] for a, c in zip(k, lb)),
             "shape": shape,
         }
+    # B5 beside B4 at the de-skew path's shapes (the shift search, 8 slots x
+    # 17 shifts x 256 beams; the rasterizer), the pair alternating likewise
+    prev, cur, cands = _b5_path_inputs(rng, device)
+    rb, rv, nb = _b4_path_inputs(rng, device)["raster"]
+    pair = {"shift_sad": lambda: dk.shift_sad_kernel(prev, cur, cands, 16, 2048),
+            "beam_min_raster": lambda: dk.beam_min_kernel(rb, rv, nb)}
+    got = {name: [] for name in pair}
+    for r in range(rounds):
+        for name in (pair if r % 2 == 0 else reversed(list(pair))):
+            got[name].append((cuda_ms(pair[name], iters), host_us(pair[name], iters)))
+    b5, b4 = got["shift_sad"], got["beam_min_raster"]
+    rows["shift_sad"] = {
+        "ms": statistics.median(x[0] for x in b5),
+        "host_us": statistics.median(x[1] for x in b5),
+        "beside": "beam_min_raster",
+        "beside_ms": statistics.median(x[0] for x in b4),
+        "beside_host_us": statistics.median(x[1] for x in b4),
+        "rounds": rounds,
+        "rounds_within_1us_events": sum(abs(a[0] - c[0]) * 1e3 <= 1.0 for a, c in zip(b5, b4)),
+        "rounds_within_1us_host": sum(abs(a[1] - c[1]) <= 1.0 for a, c in zip(b5, b4)),
+        "shape": [*prev.shape[:1], len(cands), prev.shape[1]],
+    }
     emit({"phase": "launch", "times": rows})
     return rows
 
@@ -515,22 +560,48 @@ def phase_kernels(device, rng) -> dict:
         },
     }
     # B3 over the test grid (odd W, K not a multiple of 8, W=1, ragged
-    # beams) and the replay path's stripe (W=64, K=512, B=2048)
+    # beams) and the replay path's stripe (W=64, K=512, B=2048), then its
+    # launch plans' edges (mk.sliding_plan): K = 1; W > K with W far above a
+    # block's R candidate rows; W = 1 down to one step; B = 257 and 2050
+    # (rows off the 16-byte copies); W = 181, 187 and 190, the largest W
+    # staged with 4, 2 and 1 warps a block; W = 191 and 1536, unstaged;
+    # each with all-+inf and all-equal stripes too; then an offset view
     max_err["sliding_median"] = 0.0
     b3_checked = 0
+    b3_plans = {}
+
+    def b3(x, w3, what):
+        nonlocal b3_checked
+        ok, err = exact(mk.sliding_median_kernel(x, w3), mk.sliding_median_plain(x, w3))
+        max_err["sliding_median"] = max(max_err["sliding_median"], err)
+        check(ok, f"B3 differs from its plain version ({what}): {err}")
+        b3_checked += 1
+
     b3_shapes = [(4, 8, 64), (6, 8, 100), (7, 16, 257), (8, 3, 128), (16, 24, 640), (1, 8, 32),
                  (REPLAY["window"], REPLAY["chunk"], REPLAY["beams"])]
-    for w3, k3, b3 in b3_shapes:
-        for name, ext in _median_fixtures(rng, w3 + k3, b3).items():
-            x = torch.from_numpy(ext).to(device)
-            ok, err = exact(mk.sliding_median_kernel(x, w3), mk.sliding_median_plain(x, w3))
-            max_err["sliding_median"] = max(max_err["sliding_median"], err)
-            check(ok, f"B3 differs from its plain version at (W, K, B)=({w3}, {k3}, {b3}) "
-                      f"{name}: {err}")
-            b3_checked += 1
-    w3, k3, b3 = b3_shapes[-1]
-    ext = torch.from_numpy(_median_fixtures(rng, w3 + k3, b3)["ties_1mm"]).to(device)
+    b3_edges = [(REPLAY["window"], 1, REPLAY["beams"]), (9, 1, 100), (150, 40, 100),
+                (300, 2, 70), (1, 1, 64), (1, 600, 300), (REPLAY["window"], 100, 257),
+                (33, 50, 2050), (181, 300, 64), (187, 300, 64), (190, 300, 64),
+                (191, 300, 64), (1536, 7, 100), (REPLAY["window"], 7, REPLAY["beams"])]
+    for w3, k3, bb in b3_shapes + b3_edges:
+        b3_plans[f"{w3},{k3},{bb}"] = list(mk.sliding_plan(w3, k3))
+        fixtures = _median_fixtures(rng, w3 + k3, bb)
+        if (w3, k3, bb) in b3_edges:
+            fixtures["all_inf"] = np.full((w3 + k3, bb), np.inf, np.float32)
+            fixtures["all_equal"] = np.full((w3 + k3, bb), 7.25, np.float32)
+        for name, ext in fixtures.items():
+            b3(torch.from_numpy(ext).to(device), w3, f"(W, K, B)=({w3}, {k3}, {bb}) {name}")
+    # a contiguous view 4 bytes off a 16-byte boundary: the 4-byte copies
+    # at the replay path's shape
+    w3, k3, b3w = REPLAY["window"], REPLAY["chunk"], REPLAY["beams"]
+    flat = torch.from_numpy(_median_fixtures(rng, w3 + k3, b3w + 1)["ties_1mm"]).to(device)
+    flat = flat.view(-1)
+    b3(flat[1 : 1 + (w3 + k3) * b3w].view(w3 + k3, b3w), w3,
+       f"(W, K, B)=({w3}, {k3}, {b3w}) offset view")
+    ext = torch.from_numpy(_median_fixtures(rng, w3 + k3, b3w)["ties_1mm"]).to(device)
     nan_ext = torch.where(torch.isinf(ext), torch.full_like(ext, math.nan), ext)
+    # the replay's tail chunk: 520 turns give 519 revolutions, 512 + 7
+    tail = torch.from_numpy(_median_fixtures(rng, w3 + 7, b3w)["ties_1mm"]).to(device)
     times["sliding_median"] = {
         "ms": cuda_ms(lambda: mk.sliding_median_kernel(ext, w3), iters=50),
         "plain_ms": cuda_ms(lambda: mk.sliding_median_plain(ext, w3), iters=10, warmup=2),
@@ -540,11 +611,15 @@ def phase_kernels(device, rng) -> dict:
             warmup=2),
         "device_ms": device_ms(lambda: mk.sliding_median_kernel(ext, w3), iters=20),
         "plain_device_ms": device_ms(lambda: mk.sliding_median_plain(ext, w3), iters=5),
+        "plan": list(mk.sliding_plan(w3, k3)),
+        "tail_k7": {"ms": cuda_ms(lambda: mk.sliding_median_kernel(tail, w3), iters=50),
+                    "device_ms": device_ms(lambda: mk.sliding_median_kernel(tail, w3), iters=20),
+                    "plan": list(mk.sliding_plan(w3, 7))},
     }
     emit({"phase": "kernels", "checked_b1_fixtures": checked, "b2_steps": b2_steps,
           "checked_b2_fixtures": b2_fixtures,
-          "checked_b3_fixtures": b3_checked, "max_abs_err": max_err, "times_ms": times,
-          "shape": [w, b], "b3_shape": [w3, k3, b3]})
+          "checked_b3_fixtures": b3_checked, "b3_plans": b3_plans, "max_abs_err": max_err,
+          "times_ms": times, "shape": [w, b], "b3_shape": [w3, k3, b3w]})
     return {"max_abs_err": max_err, "times": times}
 
 
@@ -1567,6 +1642,28 @@ def _b4_path_inputs(rng, device):
             "profile": (t(_beams_of(a2, 256)), t(profile), 256)}
 
 
+def _b5_path_inputs(rng, device):
+    """B5's shape on the fused ingest path at config 7: 8 revolution slots'
+    256-beam range profiles (B4's plain version over seeded nodes), the
+    current ones the previous rolled by 3 beams with every 7th beam
+    EMPTY, and the 17 shift candidates of shift window 8; (prev, cur,
+    shifts) on ``device``."""
+    import numpy as np
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops import deskew as tdsk
+    from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
+
+    a, d, _q, v = _deskew_rows(rng, 8, 4096)
+    beam = torch.from_numpy(_beams_of(a, 256)).to(device)
+    vals = torch.from_numpy(np.where(v & (d > 0), d, tdsk.RECON_EMPTY).astype(np.int32)).to(device)
+    prev = dk.beam_min_plain(beam, vals, 256)
+    cur = torch.roll(prev, 3, dims=1)
+    cur[:, ::7] = tdsk.RECON_EMPTY
+    cands = tdsk.shift_candidates(tdsk.DeskewConfig(recon_beams=256))
+    return prev, cur.contiguous(), torch.from_numpy(cands).to(device)
+
+
 def _scatter_min(beam, vals, nb: int):
     """One PyTorch call computing B4's per-beam min (scatter_reduce_ "amin"
     into a RECON_EMPTY-filled row), as a closure over its own buffers."""
@@ -1686,6 +1783,46 @@ def phase_deskew_kernels(device, rng) -> dict:
     cur = np.roll(prev, 3, axis=1)
     cur[:, ::7] = empty
     b5(prev, cur, cands, "8 slots C=17 D=256")
+    # the redesigned B5's edges: D off the 16-byte copies and off a warp's
+    # 32 lanes (1, 3, 37, 100, 250) and the most the wrapper takes (6144);
+    # shifts of 0, ±1, ±(D-1), ±D, ±(D+1), far beyond and the int32
+    # extremes; C = 40 and 100, above a block's warps; one row; an
+    # all-EMPTY row among others; views off a 16-byte boundary, prev and
+    # cur at different phases; counts exactly at min_valid (and one short)
+    b5_edges = 0
+    for rows, d in ((1, 1), (3, 3), (2, 37), (5, 100), (1, 250), (8, 256), (2, 6144)):
+        ep = rng.integers(0, 6000, (rows, d)).astype(np.int32)
+        ec = rng.integers(0, 6000, (rows, d)).astype(np.int32)
+        ep[rng.random((rows, d)) < 0.2] = empty
+        ec[rng.random((rows, d)) < 0.2] = empty
+        if rows > 2:
+            ep[1] = empty
+        far = [0, 1, -1, d - 1, -(d - 1), d, -d, d + 1, -(d + 1), 3 * d + 5, -7 * d - 3,
+               2**31 - 1, -(2**31)]
+        for name, sh in (("far shifts", np.asarray(far, np.int32)),
+                         ("C=40", rng.integers(-3 * d, 3 * d + 1, 40).astype(np.int32)),
+                         ("C=100", np.arange(-50, 50, dtype=np.int32))):
+            b5(ep, ec, sh, f"rows={rows} D={d} {name}", min_valid=min(16, d), max_trans=1500)
+            b5_edges += 1
+    for op, oc in ((1, 1), (1, 2), (3, 0), (2, 3)):
+        fp = t(rng.integers(0, 6000, 3 * 256 + 4).astype(np.int32))
+        fc = t(rng.integers(0, 6000, 3 * 256 + 4).astype(np.int32))
+        pv, cv = fp[op : op + 3 * 256].view(3, 256), fc[oc : oc + 3 * 256].view(3, 256)
+        sh = t(cands)
+        ok, err = exact(dk.shift_sad_kernel(pv, cv, sh, 16, 2048),
+                        dk.shift_sad_plain(pv, cv, sh, 16, 2048))
+        check(ok, f"B5 differs from its plain version (views at offsets {op}, {oc}): {err}")
+        checked["shift_sad"] += 1
+        b5_edges += 1
+    for n_valid in (16, 37):
+        ep = np.full((2, 256), empty, np.int32)
+        ec = np.full((2, 256), empty, np.int32)
+        ep[:, :n_valid] = rng.integers(0, 6000, (2, n_valid))
+        ec[:, :n_valid] = rng.integers(0, 6000, (2, n_valid))
+        for mv in (n_valid, n_valid + 1):
+            b5(ep, ec, np.asarray([0, 1, -1, 256], np.int32), f"{n_valid} valid, min_valid {mv}",
+               min_valid=mv)
+            b5_edges += 1
     s_prev, s_cur, s_sh = t(prev), t(cur), t(cands)
 
     times = {}
@@ -1712,14 +1849,16 @@ def phase_deskew_kernels(device, rng) -> dict:
         "device_ms": device_ms(lambda: dk.shift_sad_kernel(s_prev, s_cur, s_sh, 16, 2048)),
         "plain_device_ms": device_ms(lambda: dk.shift_sad_plain(s_prev, s_cur, s_sh, 16, 2048),
                                      iters=20),
+        # after the profiler has run (the launch phase has the cost before)
+        "host_us": host_us(lambda: dk.shift_sad_kernel(s_prev, s_cur, s_sh, 16, 2048)),
         # each profile read once, the scores written once; per (row, shift,
         # beam) two compares, a subtract, a clamp, an abs and two adds
         "bound": bound(2 * s_prev.numel() * 4 + c * 4 + s_prev.shape[0] * c * 4,
                        7 * s_prev.shape[0] * c * dd, int32=True),
         "shape": [s_prev.shape[0], c, dd],
     }
-    row = {"phase": "deskew_kernels", "checked": checked, "max_abs_err": max_err,
-           "times_ms": times}
+    row = {"phase": "deskew_kernels", "checked": checked, "b5_edge_fixtures": b5_edges,
+           "max_abs_err": max_err, "times_ms": times}
     emit(row)
     return row
 
@@ -2045,9 +2184,12 @@ def main(argv=None) -> int:
         })
         if name == "temporal_median":
             kernels[-1].update(redesign_report(name, [t], [launch["temporal_median"]]))
-        if name == "sorted_replace":
+        if name in ("sorted_replace", "sliding_median"):
             kernels[-1]["goals"] = {"device_met": t["device_ms"] is not None
                                     and t["device_ms"] <= GOAL_DEVICE_MS[name]}
+        if name == "sliding_median":
+            kernels[-1]["plan"] = t["plan"]
+            kernels[-1]["tail_k7"] = t["tail_k7"]
     # B6/B7/B8: launches on the config-12 fleet path (one per tick each);
     # the map replay's launches are checked in its phase
     for name, replaces in (
@@ -2092,6 +2234,20 @@ def main(argv=None) -> int:
                                                          "bound", "host_us", "library_host_us")}
             entry.update(redesign_report(
                 name, [t, p], [launch["beam_min_raster"], launch["beam_min_profile"]]))
+        if name == "shift_sad":
+            lp = launch["shift_sad"]
+            entry.update({
+                "host_us": lp["host_us"], "host_us_after_profiler": t["host_us"],
+                "launch_phase": lp,
+                "goals": {
+                    "device_met": t["device_ms"] is not None
+                    and t["device_ms"] <= GOAL_DEVICE_MS[name],
+                    "events_within_1us_of_b4": abs(lp["ms"] - lp["beside_ms"]) * 1e3
+                    <= GOAL_B5_GAP_US,
+                    "host_within_1us_of_b4": abs(lp["host_us"] - lp["beside_host_us"])
+                    <= GOAL_B5_GAP_US,
+                },
+            })
         kernels.append(entry)
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on the main path")

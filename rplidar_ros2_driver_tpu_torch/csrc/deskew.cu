@@ -48,11 +48,30 @@
 // that row over a thread-block cluster, reduced through distributed shared
 // memory, would pay only while the block's device time stays above ~3 us;
 // chip_smoke.py measures it below that (PERF.md), so there is no cluster.
-// B5 gives one warp to each (row, candidate): lanes stride the D beams,
-// read prev[d] and cur[(d - s) mod D] directly (no rolled plane in
-// memory), and reduce the clamped |Δ| sum and the valid-pair count with
-// warp shuffles; both are non-negative, so C's truncating division is the
-// floor division.
+// B5's first design gave one warp to each (row, candidate): 136 warps in
+// 17 blocks at 8 rows x 17 shifts x 256 beams, on 17 of 132 SMs, each lane
+// reading prev and cur from device memory (all 17 warps of a row read the
+// same 2 KB again) and paying a signed % per element (0.00178 ms device on
+// an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).  Now:
+//   * a block of kSadWarps = 4 warps takes one row and four of its
+//     candidates, a warp each (8 rows x 5 blocks at the path's shape, on
+//     40 SMs); it stages prev[r] and cur[r] in shared memory (2 KB at
+//     D=256) with B4's copies — 16-byte loads from the first 16-byte
+//     boundary, scalar loads for the head and the tail — issued first,
+//     with the warp's shift, so that one round trip to memory brings all
+//     of them; nothing is read from device memory again.  A whole row's
+//     candidates in one block (the 17 warps of one SM) issue the beam loop
+//     17 times over on one SM, and one warp a block stages the row per
+//     candidate: both are slower (PERF.md, tools/kernel_variants.py);
+//   * each warp reduces its shift to s' in [0, D) once (s % D, plus D when
+//     negative), while its copies are in flight; the source of beam d is
+//     then d - s', plus D when negative: a select, not a modulo per
+//     element.  Any int32 shift is taken;
+//   * lanes stride the D beams; the clamped |Δ| sum and the valid-pair
+//     count are reduced with one __reduce_add_sync each; both are
+//     non-negative, so C's truncating division is the floor division.
+// The wrapper takes D <= kSadMaxBeams, the two profiles' 48 KB of shared
+// memory (the ingest path's profile_beams are at most 1024).
 //
 // Both launch on the caller's stream, allocate nothing and return
 // cudaGetLastError(); each entry takes the card's index and makes that
@@ -61,13 +80,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "device_guard.cuh"
 
 namespace {
 
 constexpr int kEmpty = 0x7FFFFFFF;
 constexpr int kThreads = 1024;  // threads per B4 block (one block per row)
-constexpr int kWarps = 8;       // warps (candidates) per B5 block
+constexpr int kSadWarps = 4;           // warps (one candidate each) per B5 block
+constexpr int kSadMaxBeams = 6 * 1024;  // B5: two staged profiles in 48 KB of shared memory
 
 // Elements before the first 16-byte boundary of a 4-byte-aligned pointer.
 __device__ __forceinline__ int phase(const void* p) {
@@ -128,39 +150,68 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = ohead + 4 * obody + t; j < nbeams; j += kThreads) o[j] = acc[j];
 }
 
-__global__ void shift_sad_kernel(const int* __restrict__ prev,
-                                 const int* __restrict__ cur,
-                                 const int* __restrict__ shifts,
-                                 int* __restrict__ out, int rows, int C, int D,
-                                 int min_valid, int max_trans) {
-  const int warp = blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (warp >= rows * C) return;  // whole warps exit together
-  const int row = warp / C;
-  const int c = warp % C;
-  const int s = shifts[c];
-  const int* p = prev + static_cast<size_t>(row) * D;
-  const int* q = cur + static_cast<size_t>(row) * D;
+__device__ __forceinline__ void store4(int* o, int4 x) {
+  o[0] = x.x;
+  o[1] = x.y;
+  o[2] = x.z;
+  o[3] = x.w;
+}
+
+// Copy the n ints of rows p and q into shared memory at sp and sq: int4
+// loads from each row's first 16-byte boundary, both rows' loads in flight
+// before either is stored, then scalar loads for the heads and tails.
+__device__ __forceinline__ void stage_pair(int* sp, const int* __restrict__ p, int* sq,
+                                           const int* __restrict__ q, int n, int t,
+                                           int nthreads) {
+  const int hp = min(phase(p), n), hq = min(phase(q), n);
+  const int bp = (n - hp) >> 2, bq = (n - hq) >> 2;
+  const int4* p4 = reinterpret_cast<const int4*>(p + hp);
+  const int4* q4 = reinterpret_cast<const int4*>(q + hq);
+  for (int i = t; i < max(bp, bq); i += nthreads) {
+    int4 x, y;
+    if (i < bp) x = __ldg(p4 + i);
+    if (i < bq) y = __ldg(q4 + i);
+    if (i < bp) store4(sp + hp + 4 * i, x);
+    if (i < bq) store4(sq + hq + 4 * i, y);
+  }
+  if (t < hp) sp[t] = __ldg(p + t);
+  if (t < hq) sq[t] = __ldg(q + t);
+  for (int j = hp + 4 * bp + t; j < n; j += nthreads) sp[j] = __ldg(p + j);
+  for (int j = hq + 4 * bq + t; j < n; j += nthreads) sq[j] = __ldg(q + j);
+}
+
+__global__ void __launch_bounds__(kSadWarps * 32)
+    shift_sad_kernel(const int* __restrict__ prev, const int* __restrict__ cur,
+                     const int* __restrict__ shifts, int* __restrict__ out, int C, int D,
+                     int min_valid, int max_trans) {
+  extern __shared__ int prof[];  // prev[row] (D), then cur[row] (D)
+  int* sp = prof;
+  int* sc = prof + D;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const size_t row = blockIdx.x;
+  const int c = blockIdx.y * (blockDim.x >> 5) + (t >> 5);  // this warp's candidate
+  const int s = c < C ? __ldg(shifts + c) : 0;  // in flight with the profiles
+  stage_pair(sp, prev + row * D, sc, cur + row * D, D, t, blockDim.x);
+  int sh = s % D;  // roll(cur, s)[d] = cur[(d - s) mod D] = cur[d - sh (+ D)]
+  if (sh < 0) sh += D;
+  __syncthreads();
+  if (c >= C) return;
   int sad = 0, cnt = 0;
   for (int d = lane; d < D; d += 32) {
-    int src = (d - s) % D;  // roll(cur, s)[d] = cur[(d - s) mod D]
-    if (src < 0) src += D;
-    const int a = p[d];
-    const int b = q[src];
+    int src = d - sh;
+    src += src < 0 ? D : 0;
+    const int a = sp[d];
+    const int b = sc[src];
     if (a != kEmpty && b != kEmpty) {
       const int diff = min(max(b - a, -max_trans), max_trans);
       sad += diff < 0 ? -diff : diff;
       cnt += 1;
     }
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    sad += __shfl_down_sync(0xFFFFFFFFu, sad, off);
-    cnt += __shfl_down_sync(0xFFFFFFFFu, cnt, off);
-  }
-  if (lane == 0) {
-    out[static_cast<size_t>(row) * C + c] =
-        cnt >= min_valid ? sad / max(cnt, 1) : kEmpty;
-  }
+  sad = __reduce_add_sync(0xFFFFFFFFu, sad);
+  cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
+  if (lane == 0) out[row * C + c] = cnt >= min_valid ? sad / max(cnt, 1) : kEmpty;
 }
 
 }  // namespace
@@ -179,10 +230,12 @@ extern "C" int shift_sad_i32(const int* prev, const int* cur, const int* shifts,
                              int max_trans, int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.error()) return guard.error();
-  const int warps = rows * C;
-  const int blocks = (warps + kWarps - 1) / kWarps;
-  shift_sad_kernel<<<blocks, kWarps * 32, 0,
+  if (D < 1 || D > kSadMaxBeams) return static_cast<int>(cudaErrorInvalidValue);
+  const int warps = std::min(C, kSadWarps);
+  const dim3 grid(rows, (C + warps - 1) / warps);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  shift_sad_kernel<<<grid, warps * 32, 2 * D * sizeof(int),
                      static_cast<cudaStream_t>(stream)>>>(
-      prev, cur, shifts, out, rows, C, D, min_valid, max_trans);
+      prev, cur, shifts, out, C, D, min_valid, max_trans);
   return static_cast<int>(cudaGetLastError());
 }

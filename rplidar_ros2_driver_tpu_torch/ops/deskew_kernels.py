@@ -14,7 +14,8 @@ Two kernels replace the JAX package's Pallas TPU kernels of
     order and the first-min argmin stay in shared code
     (ops/deskew.estimate_motion).
 
-Each wrapper checks dtype, shape, contiguity and device.  A tensor on the
+Each wrapper checks dtype, shape, contiguity and device in the same few
+steps (``is_cuda``, the card's index as an int, ``new_empty``).  A tensor on the
 CPU runs the kernel's plain PyTorch version (:func:`beam_min_plain`,
 :func:`shift_sad_plain` — also the ``deskew_backend="xla"`` arm); a CUDA
 tensor launches the kernel (built from the source at first use,
@@ -46,17 +47,9 @@ def reset_launch_counts() -> None:
 # the C entries: pointers, sizes, the card's index, the stream
 _B4 = KernelEntry("deskew", "beam_min_i32", [VP] * 3 + [I] * 4 + [VP])
 _B5 = KernelEntry("deskew", "shift_sad_i32", [VP] * 4 + [I] * 6 + [VP])
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+# B5 stages a row's two profiles in 48 KB of shared memory
+# (csrc/deskew.cu kSadMaxBeams)
+SHIFT_SAD_MAX_BEAMS = 6 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -151,19 +144,35 @@ def shift_sad_kernel(prev: torch.Tensor, cur: torch.Tensor, shifts: torch.Tensor
             f"and {tuple(shifts.shape)}"
         )
     rows, d = prev.shape
-    dev = prev.device
-    _check("prev", prev, (rows, d), dev)
-    _check("cur", cur, (rows, d), dev)
-    _check("shifts", shifts, (shifts.shape[0],), dev)
-    if dev.type == "cpu":
-        return shift_sad_plain(prev, cur, shifts, min_valid, max_trans)
-    if dev.type != "cuda":
-        raise RuntimeError(f"no shift-search kernel for device {dev}")
+    if not 1 <= d <= SHIFT_SAD_MAX_BEAMS:
+        raise ValueError(f"profiles must have 1 to {SHIFT_SAD_MAX_BEAMS} beams, got {d}")
+    if prev.dtype != _INT32:
+        raise TypeError(f"prev must be int32, got {prev.dtype}")
+    if cur.dtype != _INT32:
+        raise TypeError(f"cur must be int32, got {cur.dtype}")
+    if shifts.dtype != _INT32:
+        raise TypeError(f"shifts must be int32, got {shifts.dtype}")
+    if cur.shape != prev.shape:
+        raise ValueError(f"cur must have shape {(rows, d)}, got {tuple(cur.shape)}")
+    if not (prev.is_contiguous() and cur.is_contiguous() and shifts.is_contiguous()):
+        raise ValueError("prev, cur and shifts must be contiguous")
+    if not prev.is_cuda:
+        if cur.device != prev.device or shifts.device != prev.device:
+            raise ValueError(f"cur and shifts must be on {prev.device}, got {cur.device} and "
+                             f"{shifts.device}")
+        if prev.device.type == "cpu":
+            return shift_sad_plain(prev, cur, shifts, min_valid, max_trans)
+        raise RuntimeError(f"no shift-search kernel for device {prev.device}")
+    dev = prev.get_device()
+    if cur.get_device() != dev or shifts.get_device() != dev:  # -1 off the card
+        raise ValueError(f"cur and shifts must be on {prev.device}, got {cur.device} and "
+                         f"{shifts.device}")
     c = shifts.shape[0]
-    out = torch.empty((rows, c), dtype=torch.int32, device=dev)
+    # new_empty: torch.empty with prev's dtype (int32) and device
+    out = prev.new_empty((rows, c))
     if rows == 0 or c == 0:
         return out
     _B5(prev.data_ptr(), cur.data_ptr(), shifts.data_ptr(), out.data_ptr(), rows, c, d,
-        min_valid, max_trans, dev.index, current_stream(dev.index))
+        min_valid, max_trans, dev, current_stream(dev))
     launch_counts["shift_sad"] += 1
     return out

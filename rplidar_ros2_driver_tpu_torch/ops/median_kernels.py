@@ -26,6 +26,8 @@ resolved once, the raw current stream, the device index handed to C).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from rplidar_ros2_driver_tpu_torch.ops.filters import (
@@ -49,7 +51,16 @@ _FLOAT32 = torch.float32
 # the C entries: pointers, sizes, the card's index, the stream
 _B1 = KernelEntry("median", "temporal_median_f32", [VP] * 2 + [I] * 3 + [VP])
 _B2 = KernelEntry("median", "sorted_replace_f32", [VP] * 5 + [I] * 3 + [VP])
-_B3 = KernelEntry("sliding_median", "sliding_median_f32", [VP] * 2 + [I] * 4 + [VP])
+_B3 = KernelEntry("sliding_median", "sliding_median_f32", [VP] * 2 + [I] * 6 + [VP])
+
+# B3's launch geometry (csrc/sliding_median.cu kBeams, kQ, kMaxWarps,
+# kStageBytes): a block takes SLIDING_BEAMS beams and SLIDING_Q candidate
+# rows per thread, up to SLIDING_MAX_WARPS warps, and stages its rows in at
+# most SLIDING_STAGE_BYTES of shared memory
+SLIDING_BEAMS = 32
+SLIDING_Q = 6
+SLIDING_MAX_WARPS = 8
+SLIDING_STAGE_BYTES = 48 * 1024
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -132,6 +143,24 @@ def sliding_median_plain(ext: torch.Tensor, window: int) -> torch.Tensor:
     return sliding_median(ext, window)
 
 
+@functools.lru_cache(maxsize=64)
+def sliding_plan(w: int, k: int) -> tuple[int, int]:
+    """B3's launch plan for a (w + k, B) stripe: (warps per block, rows a
+    block stages), rows 0 for the route that reads device memory directly.
+    A block of ``warps`` warps owns R = SLIDING_Q x warps candidate rows
+    and reads at most min(R + 2w - 2, w + k - 1) rows; the most warps whose
+    rows fit SLIDING_STAGE_BYTES are staged, else the unstaged route runs
+    with the most warps."""
+    row_bytes = SLIDING_BEAMS * 4
+    warps = SLIDING_MAX_WARPS
+    while warps >= 1:
+        rows = min(SLIDING_Q * warps + 2 * w - 2, w + k - 1)
+        if rows * row_bytes <= SLIDING_STAGE_BYTES:
+            return warps, rows
+        warps //= 2
+    return SLIDING_MAX_WARPS, 0
+
+
 def sliding_median_kernel(ext: torch.Tensor, window: int) -> torch.Tensor:
     """(W + K, B) float32 history stripe (+inf = missing) -> (K, B): row i
     is the per-beam lower median of ``ext[i+1 : i+1+W]``."""
@@ -150,6 +179,7 @@ def sliding_median_kernel(ext: torch.Tensor, window: int) -> torch.Tensor:
     if k == 0 or b == 0:
         return out
     dev = ext.device.index
-    _B3(ext.data_ptr(), out.data_ptr(), window, k, b, dev, current_stream(dev))
+    warps, rows = sliding_plan(window, k)
+    _B3(ext.data_ptr(), out.data_ptr(), window, k, b, warps, rows, dev, current_stream(dev))
     launch_counts["sliding_median"] += 1
     return out

@@ -19,9 +19,14 @@ to pair.  After the pairs (a profiler session would slow the host for the
 rest of the process) each worker times its matcher kernels B6
 (``coarse_scores_kernel``), B7 (``fine_scores_kernel``) and B8
 (``log_odds_update_kernel``) at both shapes on ``chip_smoke.match_tick``'s
-inputs, and its B2 (``sorted_replace_kernel``) at the chain's W=64, B=2048
-on a seeded window, each held equal to its plain version: CUDA events ms
-per call, then device ms from torch.profiler.  Prints one
+inputs, its B2 (``sorted_replace_kernel``) at the chain's W=64, B=2048 on
+a seeded window, its B3 (``sliding_median_kernel``) at the replay's W=64,
+K=512, B=2048 stripe and its K=7 tail chunk, and its B5
+(``shift_sad_kernel``) at the de-skew path's 8 slots x 17 shifts x 256
+beams (``chip_smoke._b5_path_inputs``) with its host µs beside B4's (the
+rasterizer, ``beam_min_kernel``) over 5 alternating rounds, each held
+equal to its plain version: CUDA events ms per call, then device ms from
+torch.profiler.  Prints one
 JSON line per pair and shape, then one line with, per shape, the pairs
 each checkout won, the medians of ticks/s and of ms per tick and the
 distance between the quartiles of the baseline's ticks/s (its own
@@ -82,6 +87,7 @@ def worker(tree: str, ticks: int) -> None:
         return {"ticks_per_s": len(lat) / sum(lat), "p50_ms": statistics.median(lat) * 1e3}
 
     def kernels() -> dict:
+        from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
         from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
         from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
 
@@ -109,6 +115,32 @@ def worker(tree: str, ticks: int) -> None:
         if not all(torch.equal(x, y) for x, y in zip(b2(), mk.sorted_replace_plain(sor, old, new))):
             raise SystemExit("fleet_ab: B2 differs from its plain version")
         out["chain"] = {"sorted_replace": {"ms": cs.cuda_ms(b2), "device_ms": cs.device_ms(b2)}}
+        # B3 at the replay's stripe and its K=7 tail chunk
+        w3, k3, b3 = cs.REPLAY["window"], cs.REPLAY["chunk"], cs.REPLAY["beams"]
+        rng = np.random.default_rng(1)
+        for name, k in (("sliding_median", k3), ("sliding_median_tail_k7", 7)):
+            ext = torch.from_numpy(cs._median_fixtures(rng, w3 + k, b3)["ties_1mm"]).to(dev)
+            fn = (lambda e=ext: mk.sliding_median_kernel(e, w3))
+            if not torch.equal(fn(), mk.sliding_median_plain(ext, w3)):
+                raise SystemExit(f"fleet_ab: B3 differs from its plain version, K={k}")
+            out["chain"][name] = {"ms": cs.cuda_ms(fn, iters=50),
+                                  "device_ms": cs.device_ms(fn, iters=20)}
+        # B5 at the de-skew path's shift search, its host µs beside B4's
+        # (the rasterizer) in alternating rounds
+        prev, cur, cands = cs._b5_path_inputs(rng, dev)
+        rb, rv, nb = cs._b4_path_inputs(rng, dev)["raster"]
+        b5 = (lambda: dk.shift_sad_kernel(prev, cur, cands, 16, 2048))
+        b4 = (lambda: dk.beam_min_kernel(rb, rv, nb))
+        if not torch.equal(b5(), dk.shift_sad_plain(prev, cur, cands, 16, 2048)):
+            raise SystemExit("fleet_ab: B5 differs from its plain version")
+        host = {"shift_sad": [], "beam_min_raster": []}
+        for r in range(5):
+            for name, fn in (("shift_sad", b5), ("beam_min_raster", b4))[:: 1 if r % 2 == 0 else -1]:
+                host[name].append(cs.host_us(fn))
+        out["deskew"] = {name: {"ms": cs.cuda_ms(fn), "host_us": statistics.median(host[name])}
+                         for name, fn in (("shift_sad", b5), ("beam_min_raster", b4))}
+        for name, fn in (("shift_sad", b5), ("beam_min_raster", b4)):
+            out["deskew"][name]["device_ms"] = cs.device_ms(fn)
         return out
 
     for n in SHAPES:

@@ -10,7 +10,8 @@ synchronisation between them: the whole wrapper; the output's
 launch (arguments made beforehand).  What is left is the wrapper's own
 Python.  Beside B4 it times the library call with a fresh output per call,
 as the kernel hands one back (``torch.full`` then ``scatter_reduce_``
-"amin"), by host µs and CUDA events.  The matcher kernels B6, B7 and B8
+"amin"), by host µs and CUDA events.  B5 (shift-search scores, 8 x 17
+shifts x 256 beams) is split as B1 and B4 are.  The matcher kernels B6, B7 and B8
 (launched in clusters through ``cudaLaunchKernelEx``, with a launch plan
 looked up per call) are split the same way at config 12's fleet tick (N=4,
 256x256, 2048 beams), with their plan lookup apart, and their entries
@@ -158,6 +159,17 @@ def main(argv=None) -> int:
 
         rows[name]["fresh_library_host_us"] = host_us(fresh, it)
         rows[name]["fresh_library_ms"] = events_ms(fresh, it)
+    # B5 at the shift search: 8 revolution slots x 17 shifts x 256 beams
+    rows_n, c, d = 8, 17, 256
+    prev = torch.from_numpy(rng.integers(0, 6000, (rows_n, d), dtype=np.int32)).to(dev)
+    cur = torch.from_numpy(rng.integers(0, 6000, (rows_n, d), dtype=np.int32)).to(dev)
+    shifts = torch.from_numpy(rng.integers(-8, 9, c, dtype=np.int32)).to(dev)
+    scores = torch.empty(rows_n, c, dtype=torch.int32, device=dev)
+    rows["shift_sad"] = split(
+        lambda: dk.shift_sad_kernel(prev, cur, shifts, 16, 2048),
+        lambda: prev.new_empty((rows_n, c)),
+        lambda: dk._B5(prev.data_ptr(), cur.data_ptr(), shifts.data_ptr(), scores.data_ptr(),
+                       rows_n, c, d, 16, 2048, idx, stream), idx, it)
     rows.update(matcher_split(rng, dev, idx, stream, it))
     print(json.dumps({"tool": "launch_cost", "device": torch.cuda.get_device_name(0),
                       "iters": it, "host_us": rows}), flush=True)

@@ -331,3 +331,92 @@ def test_numpy_twin_matches_jax_twin():
     a, d, q, v = _rand_nodes(rng)
     np.testing.assert_array_equal(tref.rasterize_subsweep_np(a, d, q, v, tc),
                                   td.rasterize_subsweep(*_t(a, d, q, v), tc).numpy())
+
+
+# ---------------------------------------------------------------------------
+# B5's redesign: far and negative shifts, the kernel's index arithmetic,
+# the slimmed entry's checks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [8, 37, 64, 256])
+def test_b5_plain_matches_pallas_on_far_and_negative_shifts(d):
+    """Shifts beyond ±D/2, at ±(D-1), ±D and beyond, on profiles with
+    EMPTY beams: the plain version (the CPU arm of the wrapper) against the
+    Pallas kernel in interpret mode, fed the rolls as its caller builds
+    them."""
+    rng = np.random.default_rng(d)
+    prev = rng.integers(0, 6000, (2, d)).astype(np.int32)
+    cur = rng.integers(0, 6000, (2, d)).astype(np.int32)
+    prev[rng.random((2, d)) < 0.2] = EMPTY
+    cur[rng.random((2, d)) < 0.2] = EMPTY
+    shifts = np.asarray([0, 1, -1, d // 2 + 1, -(d // 2 + 1), d - 1, -(d - 1), d, -d, d + 1,
+                         -(d + 1), 3 * d + 5, -7 * d - 3], np.int32)
+    min_valid = min(4, d)
+    got = dk.shift_sad_kernel(*_t(prev, cur, shifts), min_valid, 1500).numpy()
+    for r in range(2):
+        rolled = np.stack([np.roll(cur[r], int(s)) for s in shifts])
+        want = np.asarray(jpd.shift_sad_pallas(prev[r], rolled, min_valid, 1500, interpret=True))
+        np.testing.assert_array_equal(got[r], want)
+
+
+def test_b5_kernel_index_arithmetic_is_the_roll():
+    """csrc/deskew.cu reduces a shift once, s' = s % D (C's truncating
+    remainder) plus D when negative, and reads cur[d - s'] plus D when
+    negative: the roll's (d - s) mod D for every int32 shift."""
+    big = np.iinfo(np.int32)
+    for d in (1, 3, 37, 256, 6144):
+        shifts = np.asarray([0, 1, -1, d - 1, -(d - 1), d, -d, d + 1, -(d + 1), 5 * d + 2,
+                             -9 * d - 7, big.max, big.min, big.min + 1], np.int64)
+        beams = np.arange(d, dtype=np.int64)
+        for s in shifts:
+            sh = int(np.fmod(s, d))
+            sh += d if sh < 0 else 0
+            assert 0 <= sh < d
+            src = beams - sh
+            src = np.where(src < 0, src + d, src)
+            np.testing.assert_array_equal(src, np.mod(beams - s, d))
+
+
+def test_b5_slim_entry_checks_as_before():
+    """dtype, shape, layout, beam count and device: each wrong input raises
+    on the CPU, before any plain version runs."""
+    i32 = torch.int32
+    p = torch.zeros((2, 64), dtype=i32)
+    sh = torch.zeros(5, dtype=i32)
+    for bad in ((p.to(torch.int64), p, sh), (p, p.float(), sh), (p, p, sh.to(torch.int16))):
+        with pytest.raises(TypeError):
+            dk.shift_sad_kernel(*bad, 1, 1)
+    for bad in ((p, p[:1], sh), (p, torch.zeros((2, 65), dtype=i32), sh), (p[0], p[0], sh),
+                (p, p, sh[None]), (p, torch.zeros((64, 2), dtype=i32).t(), sh),
+                (p, p, torch.zeros(10, dtype=i32)[::2]),
+                (torch.zeros((2, 128), dtype=i32)[:, ::2], p, sh),
+                (torch.zeros((2, 0), dtype=i32),) * 2 + (sh,),
+                (torch.zeros((1, dk.SHIFT_SAD_MAX_BEAMS + 1), dtype=i32),) * 2 + (sh,)):
+        with pytest.raises(ValueError):
+            dk.shift_sad_kernel(*bad, 1, 1)
+    meta = p.to("meta")
+    with pytest.raises(ValueError, match="must be on"):
+        dk.shift_sad_kernel(p, meta, sh, 1, 1)
+    with pytest.raises(ValueError, match="must be on"):
+        dk.shift_sad_kernel(p, p, sh.to("meta"), 1, 1)
+    with pytest.raises(RuntimeError, match="no shift-search kernel"):
+        dk.shift_sad_kernel(meta, meta, sh.to("meta"), 1, 1)
+    dk.reset_launch_counts()
+    full = torch.zeros((1, dk.SHIFT_SAD_MAX_BEAMS), dtype=i32)
+    assert dk.shift_sad_kernel(full, full, sh, 1, 1).shape == (1, 5)
+    assert dk.shift_sad_kernel(p, p, sh[:0], 1, 1).shape == (2, 0)
+    assert dk.launch_counts == {"beam_min": 0, "shift_sad": 0}
+
+
+def test_b5_limits_are_the_sources():
+    import re
+
+    from rplidar_ros2_driver_tpu_torch.utils.cuda_build import CSRC_DIR
+
+    src = (CSRC_DIR / "deskew.cu").read_text()
+    assert int(re.search(r"kSadMaxBeams = (\d+) \* 1024;", src)[1]) * 1024 == \
+        dk.SHIFT_SAD_MAX_BEAMS
+    # the two staged profiles fit the 48 KB a block takes without opt-in
+    assert 2 * dk.SHIFT_SAD_MAX_BEAMS * 4 <= 48 * 1024
+    assert int(re.search(r"kSadWarps = (\d+);", src)[1]) >= 1

@@ -281,3 +281,143 @@ def test_cuda_source_exports_the_sliding_median_kernel():
     assert "sliding_median_pallas" in src  # the note names the TPU kernel it replaces
     path = cuda_build.library_path("sliding_median")
     assert path.name.startswith("libsliding_median_") and path != cuda_build.library_path("median")
+
+
+# ---------------------------------------------------------------------------
+# B3's redesign: edge shapes, the launch plan, the selection rule
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", FIXTURES)
+@pytest.mark.parametrize("w,k,b", [(9, 1, 40), (5, 1, 7), (20, 3, 33), (40, 5, 17), (64, 1, 130)])
+def test_b3_plain_matches_pallas_with_one_step_and_windows_taller_than_k(w, k, b, kind):
+    """K = 1 and W > K: the windows start in the previous ring."""
+    rng = np.random.default_rng(w * 1000 + k * 10 + b)
+    ext = fixture(rng, w + k, b, kind)
+    got = mk.sliding_median_kernel(torch.from_numpy(ext), w).numpy()
+    np.testing.assert_array_equal(got, np.asarray(sliding_median_pallas(jnp.asarray(ext), w)))
+    want = np.stack([np.asarray(temporal_median(jnp.asarray(ext[i + 1 : i + 1 + w])))
+                     for i in range(k)])
+    np.testing.assert_array_equal(got, want)
+
+
+def _block_rows(w, k, warps, j0):
+    """The rows a B3 block whose first candidate row is j0 stages (the
+    kernel's lo .. hi)."""
+    r = mk.SLIDING_Q * warps
+    lo = max(j0 - w, 0) + 1
+    hi = min(j0 + r - 2, k - 1) + w
+    return hi - lo + 1
+
+
+def test_b3_plan_at_the_replay_path():
+    # W=64: 8 warps, R = 48 candidate rows and 174 rows (22 KB) a block; the
+    # tail chunk's K=7 stripe has 70 rows in all
+    assert mk.sliding_plan(64, 512) == (8, 174)
+    assert mk.sliding_plan(64, 7) == (8, 70)
+
+
+@pytest.mark.parametrize("w,k,plan", [
+    (169, 300, (8, 384)), (170, 300, (4, 362)), (181, 300, (4, 384)), (182, 300, (2, 374)),
+    (187, 300, (2, 384)), (188, 300, (1, 380)), (190, 300, (1, 384)), (191, 300, (8, 0)),
+    (1536, 7, (8, 0)), (300, 2, (8, 301)), (1, 1, (8, 1)), (1, 600, (8, 48)),
+])
+def test_b3_plan_takes_fewer_warps_then_the_unstaged_route(w, k, plan):
+    assert mk.sliding_plan(w, k) == plan
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 7, 33, 64, 100, 150, 169, 170, 181, 182, 187, 188, 190, 191,
+                               400])
+def test_b3_plan_stages_every_block_in_its_budget(w):
+    """Each staged plan fits the shared-memory budget and holds the rows of
+    every block of the grid; the unstaged route only when one warp's
+    block would not fit."""
+    for k in (1, 2, 5, 7, 64, 193, 512):
+        warps, rows = mk.sliding_plan(w, k)
+        r = mk.SLIDING_Q * warps
+        if rows == 0:
+            assert min(mk.SLIDING_Q + 2 * w - 2, w + k - 1) * mk.SLIDING_BEAMS * 4 > \
+                mk.SLIDING_STAGE_BYTES
+            continue
+        assert rows * mk.SLIDING_BEAMS * 4 <= mk.SLIDING_STAGE_BYTES
+        assert 1 <= warps <= mk.SLIDING_MAX_WARPS
+        for j0 in range(1, w + k, r):
+            assert _block_rows(w, k, warps, j0) <= rows
+
+
+def test_b3_plan_constants_are_the_sources():
+    import re
+
+    src = (cuda_build.CSRC_DIR / "sliding_median.cu").read_text()
+    assert int(re.search(r"kBeams = (\d+);", src)[1]) == mk.SLIDING_BEAMS
+    assert int(re.search(r"kQ = (\d+);", src)[1]) == mk.SLIDING_Q
+    assert int(re.search(r"kMaxWarps = (\d+);", src)[1]) == mk.SLIDING_MAX_WARPS
+    assert int(re.search(r"kStageBytes = (\d+) \* 1024;", src)[1]) * 1024 == mk.SLIDING_STAGE_BYTES
+
+
+def _b3_rule(ext, w, q):
+    """csrc/sliding_median.cu's selection replayed in numpy, one thread at
+    a time: each owns q candidate rows of a beam, ranks them with ties
+    broken by row (rows before a candidate count u <= v, rows after it
+    u < v), slides the ranks window by window (the general rule where its
+    own rows move or a candidate is outside the window, the plain slide
+    between) and writes v where its rank is max((nvalid - 1) >> 1, 0).
+    Returns the output and how many times each entry was written."""
+
+    def before(u, r, v, jd):
+        return int(u <= v) if r < jd else int(r > jd and u < v)
+
+    k = ext.shape[0] - w
+    last_row = w + k - 1
+    out = np.full((k, ext.shape[1]), np.nan, np.float32)
+    writes = np.zeros(out.shape, int)
+    for b in range(ext.shape[1]):
+        col = ext[:, b]
+        for j in range(1, last_row + 1, q):
+            v = [col[j + d] if j + d <= last_row else np.inf for d in range(q)]
+            cnt = [0] * q
+            first, last = max(j - w, 0), min(j + q - 2, k - 1)
+            top = first + w
+            nvalid = int(np.isfinite(col[first + 1 : top + 1]).sum())
+            for r in range(first + 1, top + 1):
+                for d in range(q):
+                    cnt[d] += before(col[r], r, v[d], j + d)
+
+            def emit(i, all_in):
+                kk = max((nvalid - 1) >> 1, 0)
+                for d in range(q):
+                    if (all_in or j + d - w <= i <= j + d - 1) and cnt[d] == kk:
+                        out[i, b] = v[d] if nvalid > 0 else np.inf
+                        writes[i, b] += 1
+
+            emit(first, False)
+            for i in range(first + 1, last + 1):
+                gone, came = col[i], col[i + w]
+                nvalid += int(np.isfinite(came)) - int(np.isfinite(gone))
+                plain = j + q - w <= i <= j - 1
+                for d in range(q):
+                    if plain:
+                        cnt[d] += int(came < v[d]) - int(gone <= v[d])
+                    else:
+                        cnt[d] += before(came, i + w, v[d], j + d) - before(gone, i, v[d], j + d)
+                emit(i, plain)
+    return out, writes
+
+
+@pytest.mark.parametrize("w,k,b", [(1, 1, 3), (1, 5, 4), (2, 1, 3), (3, 2, 5), (5, 1, 4), (7, 3, 5),
+                                   (20, 3, 4), (6, 20, 3), (3, 30, 3), (9, 9, 2)])
+def test_b3_kernel_rule_writes_each_median_once(w, k, b):
+    """The kernel's rule (kQ = 6 candidate rows a thread, and 1 and 3)
+    against the plain version, with ties, +inf, all-+inf beams and -inf:
+    every output written exactly once, with the sort's bits."""
+    rng = np.random.default_rng(w * 100 + k)
+    ext = rng.uniform(0.1, 40.0, (w + k, b)).astype(np.float32)
+    ext[rng.random(ext.shape) < 0.4] = np.inf
+    ext = np.round(ext, 0).astype(np.float32)
+    ext[:, 0] = np.inf
+    ext[rng.random(ext.shape) < 0.1] = -np.inf
+    want = mk.sliding_median_plain(torch.from_numpy(ext), w).numpy()
+    for q in (mk.SLIDING_Q, 1, 3):
+        got, writes = _b3_rule(ext, w, q)
+        assert (writes == 1).all(), q
+        np.testing.assert_array_equal(got, want)
