@@ -12,7 +12,23 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 path's shapes beside their library calls, and B5 beside
                 B4, in alternating rounds: events ms and host µs), before
                 any profiler session in the process;
-  4. kernels  — each kernel (B1, B2, B3) against its plain PyTorch version
+  4. e2e      — the live wire path (bench.py config 6 through the node):
+                the package's simulator at 800 DenseBoost frames/s (3200
+                points a turn) over loopback TCP -> the native channel
+                and transceiver -> RealLidarDriver -> RPlidarNode
+                (launch, pipelined publish, W=64, 2048 beams, 256x256 grid
+                at 0.25 m) in three arms of 6 s: the host ingest (the
+                chain, B1), the fused ingest (B1) and the fused ingest
+                with de-skew (B1, B4, B5); each arm records its stream
+                with start_recording and holds every published revolution
+                bit-equal (ranges, intensities, voxel grid, points) to the
+                CPU replay of the recording, and prints scans/s, publish
+                p50/p99 ms from the end of revolution N, the host arm's
+                collect wait and upload/dispatch, the fused arms' frames
+                per dispatch, dispatches/s and drops, the kernels'
+                launches, the FSM states and each thread's CPU share;
+                it runs on the native transceiver or fails;
+  5. kernels  — each kernel (B1, B2, B3) against its plain PyTorch version
                 on the card (exact equality; +inf equals +inf; B1 also at
                 W = 1, 31, 32, 33, 96, 1536 and 1537 — the last past its
                 shared-memory staging —, B off the block's 8 columns, all
@@ -28,24 +44,24 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 all-equal stripes, an offset view), then timed beside the
                 plain version and a library yardstick (B1: events ms,
                 device ms and host µs per call; B3 also its K=7 tail);
-  5. chain    — the main path: ScanFilterChain at the headline geometry
+  6. chain    — the main path: ScanFilterChain at the headline geometry
                 (W=64, 2048 beams, 256x256 grid at 0.25 m and 0.1 m, wire
                 capacity 4096) over seeded 3200-point revolutions, through
                 process_raw and process_raw_pipelined with each kernel
                 backend, every output held equal to the package's own CPU
                 chain; the launch counts are read around this phase;
-  6. profile  — where a revolution's time goes (torch.profiler);
-  7. ab       — B1 against B2 end to end, in alternating order;
-  8. node     — launch_lifecycle in dummy mode on the card (filter chain,
+  7. profile  — where a revolution's time goes (torch.profiler);
+  8. ab       — B1 against B2 end to end, in alternating order;
+  9. node     — launch_lifecycle in dummy mode on the card (filter chain,
                 raw and map_enable paths), deactivate/activate, shutdown;
-  9. replay   — the offline replay path at config 7's geometry (W=64, 2048
+ 10. replay   — the offline replay path at config 7's geometry (W=64, 2048
                 beams, 256x256 grid at 0.25 m, chunk 512, capacity 4096): a
                 seeded 3200-point DenseBoost capture written with the
                 package's FrameRecorder, decoded on the card, run through the
                 fused K-scan chain (kernel B3), held equal to the package's
                 CPU replay and to K streaming steps on the card; its launch
                 counts are read around the card's replay;
- 10. mapkernels — the matcher kernels B6, B7, B8 against their plain
+ 11. mapkernels — the matcher kernels B6, B7, B8 against their plain
                 PyTorch versions on the card (exact) over edge fixtures,
                 grids 8/24/44/64/92/256/1024 and fleets of 1, 3 and 4 streams,
                 B6/B7's routes (cluster splits with B off the per-block
@@ -59,17 +75,17 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 ends off the 16-byte words), and offset views, then timed
                 at config 12's fleet tick (N=4, G=256, B=2048) and at the
                 map replay's one-stream tick (N=1);
- 11. mapping  — config 12 (bench.py bench_mapping): 4 streams, 256x256 map
+ 12. mapping  — config 12 (bench.py bench_mapping): 4 streams, 256x256 map
                 at 0.05 m, 2048 beams, map_match_window 0.4; one warm tick,
                 then 20 ticks of the drifting-room scene through FleetMapper
                 fused on the card (B6/B7/B8), every pose and snapshot key held
                 equal to the package's host reference and its CPU torch arm,
                 the drift tracked; its launch counts are read around the 20
                 ticks; then a profiled pass;
- 12. replay_map — the config-7 capture through replay_with_map on the card
+ 13. replay_map — the config-7 capture through replay_with_map on the card
                 (the chain with B3, then the fused mapper with B6/B7/B8), held
                 equal to the CPU replay with the host reference mapper;
- 13. deskew_kernels — the de-skew kernels B4, B5 against their plain
+ 14. deskew_kernels — the de-skew kernels B4, B5 against their plain
                 PyTorch versions on the card (exact) over the JAX suite's
                 four geometries, degenerate inputs, the featureless tie and
                 the fused ingest's shapes (B4 also at nbeams 1 and 8192,
@@ -80,7 +96,7 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 offset views, counts at min_valid and one short), then
                 timed there (B4 beside one scatter_reduce_ "amin" call,
                 host µs too);
- 14. replay_fused — the config-7 capture through replay_raw_fused (the
+ 15. replay_fused — the config-7 capture through replay_raw_fused (the
                 fused device ingest: 64 frames per tick, T=8, max_revs 8):
                 de-skew off held equal to the card's host-path replay and
                 the CPU fused replay; de-skew on (B4/B5) held equal to the
@@ -88,9 +104,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 with a nonzero motion estimate; B1/B4/B5 launches counted
                 around the card's runs; host syncs per tick and one
                 profiled super-step per arm; the CLI's replay --fused line;
- 15. before   — every kernel's figures before its redesign, constants
+ 16. before   — every kernel's figures before its redesign, constants
                 copied from PERF.md (not measured in this run);
- 16. kernels  — one line listing every kernel with its launches and the
+ 17. kernels  — one line listing every kernel with its launches and the
                 times measured in this run; B1, B4 and B5 also carry
                 host_us, B3 its plan and K=7 tail, B6, B7 and B8 their
                 times at the map replay's shape, and each redesigned kernel
@@ -125,6 +141,12 @@ GEOMETRY = dict(window=64, beams=2048, grid=256, capacity=4096, points=3200)
 # ragged tail chunk shorter than the window
 REPLAY = dict(window=64, beams=2048, grid=256, cell_m=0.25, chunk=512, capacity=4096,
               points=3200, revs=520)
+# bench.py GRADED[6] (bench_e2e) through the node: the simulator at 1x pace
+# (800 DenseBoost frames/s = 3200 points a turn at 10 Hz) streaming over
+# loopback TCP for ``seconds`` an arm after the first publish; the chain at
+# config 6's widths (the node's wire capacity is its own, 8192 nodes)
+E2E = dict(points=3200, frame_rate_hz=800.0, seconds=6.0, window=64, beams=2048, grid=256,
+           cell_m=0.25, min_scans=30)
 # bench.py GRADED[12] (bench_mapping): the SLAM front-end fleet tick
 MAPPING = dict(streams=4, grid=256, cell_m=0.05, beams=2048, window_m=0.4, ticks=20)
 # replay_raw_fused's defaults: the config-7 capture through the fused
@@ -968,6 +990,335 @@ def phase_replay(device, seed: int) -> dict:
     }
     emit(row)
     return row, revs, frames
+
+
+def _stamped_publisher(probe):
+    """A CollectingPublisher that keeps every message, each scan's publish
+    time and, through ``probe``, what the publishing seam recorded for it.
+    (Defined in a function: the package is imported only once the script
+    knows it runs in a checkout.)"""
+    from rplidar_ros2_driver_tpu_torch.node.publisher import CollectingPublisher
+
+    class Stamped(CollectingPublisher):
+        def __init__(self):
+            super().__init__(reliable=True)
+            self.published_at = []
+            self.probes = []
+
+        def publish_scan(self, msg):
+            self.published_at.append(time.monotonic())
+            self.probes.append(probe())
+            super().publish_scan(msg)
+
+    return Stamped()
+
+
+def _e2e_node_class():
+    """RPlidarNode that keeps the FSM states it passes through."""
+    from rplidar_ros2_driver_tpu_torch.node.node import RPlidarNode
+
+    class StateLoggingNode(RPlidarNode):
+        def _on_fsm_state(self, state) -> None:
+            self.states_seen.append(state.name)
+            super()._on_fsm_state(state)
+
+    return StateLoggingNode
+
+
+def _recording_factory(port: int, path: str):
+    """RealLidarDrivers on the simulator's TCP port that start recording the
+    moment they connect (before any measurement frame)."""
+    from rplidar_ros2_driver_tpu_torch.driver.real import RealLidarDriver
+
+    class RecordingDriver(RealLidarDriver):
+        def connect(self, *a, **kw):
+            ok = super().connect(*a, **kw)
+            if ok and self._scan_decoder.recorder is None:
+                self.start_recording(path)
+            return ok
+
+    made = []
+
+    def factory():
+        made.append(RecordingDriver(channel_type="tcp", tcp_host="127.0.0.1", tcp_port=port,
+                                    motor_warmup_s=0.0))
+        return made[-1]
+
+    return factory, made
+
+
+def _e2e_params(backend: str, port: int, ingest: str, deskew: bool):
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+
+    over = dict(deskew_enable=True) if deskew else {}
+    return DriverParams(
+        filter_backend=backend, filter_chain=("clip", "median", "voxel"),
+        filter_window=E2E["window"], voxel_grid_size=E2E["grid"], voxel_cell_m=E2E["cell_m"],
+        pipelined_publish=True, channel_type="tcp", tcp_host="127.0.0.1", tcp_port=port,
+        scan_mode="DenseBoost", ingest_backend=ingest, **over,
+    )
+
+
+def _capture_runs(path: str, run: int = 64) -> list:
+    """The capture's frames as ``(ans_type, [(payload, ts), ...])`` runs of
+    one type, at most ``run`` frames each (the engine's largest run)."""
+    from rplidar_ros2_driver_tpu_torch.replay import read_frames
+
+    runs = []
+    for ans, ts, payload in read_frames(path):
+        if not runs or runs[-1][0] != ans or len(runs[-1][1]) >= run:
+            runs.append((ans, []))
+        runs[-1][1].append((payload, ts))
+    return runs
+
+
+def _e2e_replay(arm: str, path: str, timing, published_stamps: set, deskew: bool) -> tuple:
+    """The capture through the package's CPU arm of the same path:
+    ``([(FilterOutput, ts0), ...] in order, the start stamp of every
+    revolution in the capture)``.  Host: the host decoder and
+    assembler, then the CPU chain over the revolutions the node ran (the
+    pipelined seam publishes every revolution it runs, its last at the
+    deactivate drain; one the FSM never grabbed stays out).  Fused: the
+    CPU FusedIngest over every frame (the fused window advances on every
+    revolution, published or not).  Both with the live stream's timing."""
+    from rplidar_ros2_driver_tpu_torch.driver.assembly import ScanAssembler
+    from rplidar_ros2_driver_tpu_torch.driver.decode import BatchScanDecoder
+    from rplidar_ros2_driver_tpu_torch.driver.ingest import FusedIngest
+    from rplidar_ros2_driver_tpu_torch.filters.chain import ScanFilterChain
+
+    params = _e2e_params("cpu", 0, arm, deskew)
+    runs = _capture_runs(path)
+    if arm == "host":
+        revs = []
+        dec = BatchScanDecoder(ScanAssembler(on_complete=revs.append))
+        dec.timing = timing
+        for ans, items in runs:
+            dec.on_measurement_batch(ans, items)
+        chain = ScanFilterChain(params)
+        outs = [(chain.process_raw(r["angle_q14"], r["dist_q2"], r["quality"], r["flag"]),
+                 r["ts0"]) for r in revs if r["ts0"] in published_stamps]
+        return outs, [r["ts0"] for r in revs]
+    eng = FusedIngest(params, max_queue=1 << 30)
+    eng.timing = timing
+    for ans, items in runs:
+        eng.on_measurement_batch(ans, items)
+    outs = [(o, ts0) for o, ts0, _d in eng.flush()]
+    return outs, [ts0 for _o, ts0 in outs]
+
+
+def _bits_equal(a, b) -> bool:
+    import numpy as np
+
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.view(np.uint8), b.view(np.uint8))
+
+
+def _thread_cpu() -> dict:
+    """CPU seconds each thread of this process has used so far, by name:
+    Python threads by their own names (the simulator's ``sim_stream`` and
+    ``sim_accept``, the engine's ``rpl_pump``, the FSM's ``scan_loop``),
+    every other thread (the native transceiver's, PyTorch's pools) by its
+    kernel name, summed per name."""
+    import threading
+
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    tick = os.sysconf("SC_CLK_TCK")
+    out: dict = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue  # the thread ended meanwhile
+        fields = stat[stat.rindex(")") + 2 :].split()
+        name = names.get(int(tid), stat[stat.index("(") + 1 : stat.rindex(")")])
+        out[name] = out.get(name, 0.0) + (int(fields[11]) + int(fields[12])) / tick
+    return out
+
+
+def _pcts(values) -> dict:
+    import numpy as np
+
+    v = np.asarray(values, np.float64)
+    if v.size == 0:
+        return {"n": 0}
+    return {"n": int(v.size), "p50_ms": float(np.percentile(v, 50) * 1e3),
+            "p99_ms": float(np.percentile(v, 99) * 1e3), "max_ms": float(v.max() * 1e3)}
+
+
+def _e2e_arm(device, arm: str, deskew: bool, tmp: str) -> dict:
+    """One arm: the simulator at 1x pace streams DenseBoost to the node's
+    RealLidarDriver over loopback TCP for E2E["seconds"] after the first
+    publish; the node runs the chain (host) or the fused ingest on
+    ``device``; the live stream is recorded and every published revolution
+    held equal to the CPU replay of the recording."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.driver.sim_device import SimConfig, SimulatedDevice
+    from rplidar_ros2_driver_tpu_torch.node.lifecycle import LifecycleState
+    from rplidar_ros2_driver_tpu_torch.node.node import launch
+    from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+
+    name = arm + ("_deskew" if deskew else "")
+    path = os.path.join(tmp, f"{name}.rplr")
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    sim = SimulatedDevice(SimConfig(points_per_rev=E2E["points"],
+                                    frame_rate_hz=E2E["frame_rate_hz"])).start()
+    node = None
+    try:
+        factory, made = _recording_factory(sim.port, path)
+        holder = {}
+
+        def probe():
+            ch = holder["node"].chain
+            return (ch.last_collect_wait_s, ch.last_upload_dispatch_s) if ch is not None else None
+
+        pub = _stamped_publisher(probe)
+        node = _e2e_node_class()(_e2e_params(backend, sim.port, arm, deskew), pub,
+                                 driver_factory=factory)
+        node.states_seen = []
+        holder["node"] = node
+        mk.reset_launch_counts()
+        dk.reset_launch_counts()
+        t_launch = time.monotonic()
+        launch(node)
+        check(node.lifecycle_state is LifecycleState.ACTIVE, f"e2e {name}: node not ACTIVE")
+        if arm == "fused":
+            eng = node.fused_ingest
+            check(eng is not None and node.chain is None, f"e2e {name}: no fused seam")
+            check(eng.device == device, f"e2e {name}: fused ingest not on {device}")
+        else:
+            eng = None
+            check(node.chain is not None and node.chain.device == device,
+                  f"e2e {name}: chain not on {device}")
+            if device.type == "cuda":
+                check(node.chain.cfg.median_backend == "pallas", "auto did not resolve to B1")
+        deadline = time.monotonic() + 60.0
+        while pub.scan_count == 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(pub.scan_count > 0, f"e2e {name}: nothing published within 60 s")
+        t0 = time.monotonic()
+        n0 = pub.scan_count
+        d0 = (eng.dispatch_count, eng.frames_decoded, eng.dispatch_s) if eng else None
+        cpu0 = _thread_cpu()
+        time.sleep(E2E["seconds"])
+        t1 = time.monotonic()
+        n1 = pub.scan_count
+        d1 = (eng.dispatch_count, eng.frames_decoded, eng.dispatch_s) if eng else None
+        cpu1 = _thread_cpu()
+        drv = made[-1]
+        tx = drv._engine._tx if drv._engine is not None else None
+        rx_priority = drv.rx_scheduling_class()
+        check(type(tx).__name__ == "NativeTransceiver",
+              f"e2e {name}: the driver runs on {type(tx).__name__}, not the native channel")
+        check(rx_priority is not None and rx_priority != -1,
+              f"e2e {name}: rx priority {rx_priority} (not the native transceiver)")
+        check(node.deactivate(), f"e2e {name}: deactivate failed")
+        launches = {"temporal_median": mk.launch_counts["temporal_median"],
+                    "beam_min": dk.launch_counts["beam_min"],
+                    "shift_sad": dk.launch_counts["shift_sad"]}
+        timing = drv._scan_decoder.timing
+        frames_recorded = drv.stop_recording()
+        resets = node.fsm.reset_count
+        stats = {}
+        if eng is not None:
+            stats = {"wires_dropped": eng.wires_dropped, "revs_dropped": eng.revs_dropped,
+                     "dispatches": eng.dispatch_count, "frames": eng.frames_decoded}
+    finally:
+        if node is not None:
+            node.shutdown()
+        sim.stop()
+    check(resets == 0, f"e2e {name}: the FSM reset {resets} times")
+    if device.type == "cuda":  # a CPU tensor takes the plain versions
+        check(launches["temporal_median"] > 0, f"e2e {name}: B1 never launched")
+        if deskew:
+            check(launches["beam_min"] > 0 and launches["shift_sad"] > 0,
+                  f"e2e {name}: B4/B5 never launched ({launches})")
+    scans = n1 - n0
+    check(scans >= E2E["min_scans"], f"e2e {name}: {scans} scans in {t1 - t0:.1f} s")
+
+    # publish latency: from the end of the revolution whose completion
+    # triggered the publish (host: the NEXT revolution, the pipelined
+    # seam's one of declared staleness; fused: the revolution itself) to
+    # the publish call; the deactivate drain's last publish is not one
+    msgs, clouds, at = list(pub.scans), list(pub.clouds), pub.published_at
+    if arm == "host":
+        trigger = msgs[1:]
+    else:
+        trigger = msgs
+    lat = [t - (m.stamp + m.scan_time) for t, m in zip(at, trigger)]
+    window = [x for x, t in zip(lat, at) if t0 <= t <= t1]
+    result = {
+        "scans": scans, "seconds": t1 - t0, "scans_per_s": scans / (t1 - t0),
+        "publish": _pcts(window), "published_total": len(msgs),
+        "launches": launches, "states_seen": node.states_seen,
+        "transceiver": type(tx).__name__, "rx_priority": rx_priority,
+        "frames_recorded": frames_recorded, "launch_to_first_publish_s": t0 - t_launch,
+        # each thread's share of one core over the window
+        "thread_cpu_share": {k: (v - cpu0.get(k, 0.0)) / (t1 - t0) for k, v in cpu1.items()
+                             if v - cpu0.get(k, 0.0) > 0},
+    }
+    if arm == "host":
+        probes = [p for p, t in zip(pub.probes, at) if t0 <= t <= t1 and p is not None]
+        result["collect_wait"] = _pcts([p[0] for p in probes])
+        result["upload_dispatch"] = _pcts([p[1] for p in probes])
+    else:
+        nd, nf, ds = (d1[0] - d0[0]), (d1[1] - d0[1]), (d1[2] - d0[2])
+        result.update(stats)
+        result.update({"frames_per_dispatch": nf / max(nd, 1), "dispatches_per_s": nd / (t1 - t0),
+                       "pump_busy_share": ds / (t1 - t0)})
+
+    # every published revolution against the CPU replay of the recording
+    t_replay = time.perf_counter()
+    stamps = {m.stamp for m in msgs}
+    replay, every_rev = _e2e_replay(arm, path, timing, stamps, deskew)
+    rts = np.array([ts0 for _o, ts0 in replay])
+    check(rts.size > 0, f"e2e {name}: the replay completed no revolution")
+    # host stamps are the same float64 sums live and replayed; fused ones
+    # are float32 offsets from a per-dispatch base, which the dispatches'
+    # different bases move by far less than 1e-5 s (revolutions are 0.1 s)
+    tol = 0.0 if arm == "host" else 1e-5
+    check(len(clouds) == len(msgs), f"e2e {name}: {len(msgs)} scans but {len(clouds)} clouds")
+    for msg, cloud in zip(msgs, clouds):
+        k = int(np.argmin(np.abs(rts - msg.stamp)))
+        check(abs(rts[k] - msg.stamp) <= tol,
+              f"e2e {name}: published revolution at {msg.stamp} is not in the replay")
+        o = replay[k][0]
+        for field, got, want in (
+            ("ranges", msg.ranges, o.ranges), ("intensities", msg.intensities, o.intensities),
+            ("voxel", cloud.voxel, o.voxel),
+            ("points_xy", cloud.points_xy, o.points_xy[o.point_mask]),
+        ):
+            check(_bits_equal(got, want),
+                  f"e2e {name}: revolution at {msg.stamp}: {field} differs from the CPU replay")
+    # revolutions completed between the first and the last publish that
+    # were never published (host: never grabbed by the FSM; fused: a
+    # dropped result), counted and printed
+    pub_stamps = np.array(sorted(stamps))
+    dropped_live = sum(1 for ts0 in every_rev if pub_stamps[0] <= ts0 <= pub_stamps[-1]
+                       and np.abs(pub_stamps - ts0).min() > tol)
+    result.update({"matched_replay": len(msgs), "dropped_live": dropped_live,
+                   "replay_revolutions": len(every_rev),
+                   "replay_s": time.perf_counter() - t_replay})
+    return result
+
+
+def phase_e2e(device) -> dict:
+    """bench.py config 6 through the node, on the live wire path: the
+    package's SimulatedDevice at 1x pace (800 DenseBoost frames/s, 3200
+    points a turn) -> loopback TCP -> the native channel and transceiver ->
+    the protocol engine -> RealLidarDriver -> RPlidarNode (launch,
+    pipelined publish) with the host ingest (the chain, B1), the fused
+    ingest (B1) and the fused ingest with de-skew (B1, B4, B5).  Runs
+    before any profiler session (CUPTI would inflate the host times)."""
+    result = {"phase": "e2e", "geometry": E2E}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arm, deskew in (("host", False), ("fused", False), ("fused", True)):
+            result[arm + ("_deskew" if deskew else "")] = _e2e_arm(device, arm, deskew, tmp)
+    emit(result)
+    return result
 
 
 def phase_node(device) -> dict:
@@ -2147,6 +2498,7 @@ def main(argv=None) -> int:
     info = phase_device()
     phase_build()
     launch = phase_launch(device, np.random.default_rng(args.seed + 3))
+    phase_e2e(device)
     kern = phase_kernels(device, np.random.default_rng(args.seed))
     revs = make_revolutions(args.seed, args.revs, GEOMETRY["points"])
     chain = phase_chain(device, revs)

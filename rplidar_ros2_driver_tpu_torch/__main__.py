@@ -7,9 +7,13 @@ The reference's main is rclcpp::init -> RPlidarNode -> executor spin
     python -m rplidar_ros2_driver_tpu_torch replay CAP.rplr [--chain] [--fused] [--map]
         [--map-backend auto|host|fused] [--map-pgm PATH] [--cpu]
 
-The filter chain, the replay's decode, the fused device ingest
-(``--fused``: the raw capture bytes through replay.replay_raw_fused, held
-to the host chain) and the SLAM front-end mapper (``--map``; with
+``run`` drives the real driver (driver/real.RealLidarDriver over the
+native serial, TCP or UDP channel that ``channel_type`` names) unless
+``--dummy`` or ``dummy_mode`` picks the synthetic backend; with
+``ingest_backend: fused`` the raw frames decode and filter on the device.
+The filter chain, the node's fused ingest, the replay's decode, its fused
+device ingest (``--fused``: the raw capture bytes through
+replay.replay_raw_fused, held to the host chain) and the SLAM front-end mapper (``--map``; with
 ``map_enable`` in the node) run on the CUDA card unless ``filter_backend:
 cpu`` (or ``--cpu``) keeps them on the host.  Still
 raising NotImplementedError, each naming its ROADMAP item: ``--chain`` of
@@ -225,7 +229,9 @@ def main(argv=None) -> int:
 
     run = sub.add_parser("run", help="bring up the lifecycle node and spin")
     run.add_argument("--params", default=None, help="parameter YAML (default: param/rplidar.yaml)")
-    run.add_argument("--dummy", action="store_true", help="force the synthetic backend")
+    run.add_argument("--dummy", action="store_true",
+                     help="force the synthetic backend (default: the real driver on the "
+                     "params' channel)")
     run.add_argument("--duration", type=float, default=0.0, help="seconds to run (0 = forever)")
     run.add_argument("--cpu", action="store_true", help="run the filter chain on the host")
     run.add_argument("--stats", action="store_true",

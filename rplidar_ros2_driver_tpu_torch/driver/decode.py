@@ -115,6 +115,25 @@ class BatchScanDecoder:
             else:
                 self._decode_unpaired(ans_type, expect, chunk)
 
+    def precompile(self, ans_type: int) -> None:
+        """Run this format's decoder once per bucket on zero frames with the
+        active timing desc, before streaming starts (the driver calls it
+        during motor warm-up, where the JAX class warms its jit cache).
+        The decoders run eagerly on CPU tensors, so nothing compiles: this
+        only takes the first call's allocations off the pump thread.  The
+        carries are read, never written."""
+        expect = ANS_PAYLOAD_BYTES.get(ans_type)
+        kern = None if expect is None else self._kernel_for(ans_type)
+        if kern is None:
+            return
+        for b in _BUCKETS:
+            rows = b + 1 if ans_type in _PAIRED_NODES else b
+            arr = torch.zeros((rows, expect), dtype=torch.uint8)
+            if ans_type == Ans.MEASUREMENT_HQ:
+                kern(arr, torch.zeros(rows, dtype=torch.bool))
+            else:
+                kern(arr)
+
     def _kernel_for(self, ans_type: int):
         """Decoder closure with carries/static args bound to current state."""
         from rplidar_ros2_driver_tpu_torch.ops import unpack

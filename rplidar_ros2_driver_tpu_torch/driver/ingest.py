@@ -3,14 +3,18 @@
 
 The PyTorch counterpart of the JAX package's ``driver/ingest.py``.
 :class:`FusedIngest` is the producer twin of driver/decode.BatchScanDecoder
-(same ``on_measurement_batch`` interface): each frame run is staged into a
+(same ``on_measurement_batch`` interface, so driver/real.RealLidarDriver
+streams into it from its pump thread): each frame run is staged into a
 reused host buffer (pinned when the engine runs on the card), uploaded
 without blocking, and run through ops/ingest.fused_ingest_step — unpack,
-revolution segmentation, de-skew and the filter step on the device.  The
-consumer side (:meth:`FusedIngest.wait_and_grab_outputs`) parses a
-dispatched batch's results into the completed revolutions' FilterOutputs
-with their back-dated timestamps.  :class:`FleetFusedIngest` does the same
-for N streams per tick (ops/ingest.fleet_fused_ingest_step), and drains a
+revolution segmentation, de-skew and the filter step on the device — and
+the results start their copy back to pinned host memory at once, with a
+CUDA event marking them landed.  The consumer side
+(:meth:`FusedIngest.wait_and_grab_outputs`,
+:meth:`FusedIngest.collect_pipelined`) parses a dispatched batch's landed
+results into the completed revolutions' FilterOutputs with their
+back-dated timestamps.  :class:`FleetFusedIngest` does the same for N
+streams per tick (ops/ingest.fleet_fused_ingest_step), and drains a
 backlog of ticks T at a time through the super-step.
 
 The host path (decoder + assembler + chain) stays the golden reference;
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections import deque
 from typing import Optional
 
@@ -49,6 +54,7 @@ from rplidar_ros2_driver_tpu_torch.ops.ingest import (
     fleet_fused_ingest_step,
     fleet_ingest_config_for,
     fused_ingest_step,
+    fused_ingest_step_counted,
     ingest_config_for,
     super_fleet_ingest_step,
     unpack_fleet_ingest_result,
@@ -71,8 +77,9 @@ class StagingPool:
     upload is asynchronous and the aux plane is read in place).
 
     Reuse safety is the caller's completion barrier: a pair is ``give``-n
-    back only after its dispatch's results were fetched, which proves the
-    device consumed the staged inputs.  Thread-safe."""
+    back only after its dispatch's results were fetched (or, on the card,
+    its completion event fired), which proves the device consumed the
+    staged inputs.  Thread-safe."""
 
     def __init__(self, pin: bool = False) -> None:
         self.pin = pin
@@ -111,6 +118,54 @@ def _build_kernels(device: torch.device, deskew) -> None:
     if device.type != "cuda":
         return
     cuda_build.build_libraries(["median"] + (["deskew"] if deskew is not None else []))
+
+
+class _Landing:
+    """One dispatch's result tensors on their way to the host.
+
+    On the card each result is copied without blocking into a pinned
+    buffer recycled through ``pool`` (of ``out_wires`` only the rows of
+    the revolutions the step completed), and one CUDA event recorded
+    after the copies marks them — and the staged inputs the step read
+    before them — done.  On the CPU the results already are host tensors
+    and the landing just holds them."""
+
+    def __init__(self, results: tuple, n_completed: int, pool: dict) -> None:
+        self._pool = pool
+        self.event = None
+        if results[0].device.type != "cuda":
+            self.host = results
+            return
+        self.host = []
+        for i, t in enumerate(results):
+            buf = self._take(tuple(t.shape), t.dtype)
+            src, dst = (t[:n_completed], buf[:n_completed]) if i == 1 else (t, buf)
+            if src.numel():
+                dst.copy_(src, non_blocking=True)
+            self.host.append(buf)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def _take(self, shape: tuple, dtype) -> torch.Tensor:
+        free = self._pool.get((shape, dtype))
+        return free.pop() if free else torch.empty(shape, dtype=dtype, pin_memory=True)
+
+    def done(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def wait(self) -> tuple:
+        """The results as host arrays, once landed."""
+        if self.event is not None:
+            self.event.synchronize()
+        return tuple(t.numpy() for t in self.host)
+
+    def release(self) -> None:
+        """Give the pinned buffers back (only after :meth:`wait`, once
+        nothing parsed from them is still a view)."""
+        if self.event is not None:
+            for t in self.host:
+                self._pool.setdefault((tuple(t.shape), t.dtype), []).append(t)
+        self.host = ()
 
 
 def _fill_frames(buf: torch.Tensor, frames: list, expect: int) -> None:
@@ -158,7 +213,12 @@ class FusedIngest:
         # timestamp base of the most recent dispatch (f64, host-side)
         self._base: Optional[float] = None
         self.staging = StagingPool(pin=self.device.type == "cuda")
+        # pinned result buffers by (shape, dtype), recycled once parsed
+        self._landing_pool: dict = {}
         self._pending: deque = deque()
+        # dropped entries whose device work may still be running: their
+        # staging pairs and landing buffers go back once their events fire
+        self._retiring: list = []
         self._max_queue = max_queue
         self._event = threading.Event()
         self.frames_decoded = 0
@@ -166,6 +226,10 @@ class FusedIngest:
         self.scans_completed = 0
         self.revs_dropped = 0
         self.wires_dropped = 0
+        self.dispatch_count = 0
+        # seconds the producer (the transceiver's pump thread, live) spent
+        # in staging + the step, summed over dispatches
+        self.dispatch_s = 0.0
 
     # -- stream state ------------------------------------------------------
 
@@ -202,11 +266,26 @@ class FusedIngest:
             self._active_ans = None
             self._icfg = None
             self._base = None
+            self._retire(self._pending)
             self._pending.clear()
             self._event.clear()
             self.last_recon = None
 
+    def reset_filter(self) -> None:
+        """Cold filter reset (the chain.reset() analog)."""
+        with self._lock:
+            self._filter_state = self._fresh_filter_state()
+            if self._state is not None and self._active_ans is not None:
+                ans = self._active_ans
+                self._active_ans = None
+                self._state = None
+                self._activate(ans)
+
     # -- producer side -------------------------------------------------------
+
+    def on_measurement(self, ans_type: int, payload: bytes) -> None:
+        """Single-frame compatibility shim (tests / non-batching engines)."""
+        self.on_measurement_batch(ans_type, [(payload, time.monotonic())])
 
     def on_measurement_batch(self, ans_type: int, items: list) -> None:
         """Stage one run of ``(payload, rx_monotonic_ts)`` frames and run
@@ -236,7 +315,27 @@ class FusedIngest:
                 return b
         return self._buckets[-1]
 
+    def _retire(self, entries) -> None:
+        """Queue dropped entries for recycling (lock held): their staging
+        pairs and buffers return once their device work is done."""
+        self._retiring.extend(entries)
+        self._recycle_retired()
+
+    def _recycle_retired(self) -> None:
+        """Recycle the retiring entries whose events fired (lock held);
+        never blocks."""
+        keep = []
+        for entry in self._retiring:
+            landing, _icfg, _base, skey, pair = entry
+            if landing.done():
+                self.staging.give(skey, pair)
+                landing.release()
+            else:
+                keep.append(entry)
+        self._retiring = keep
+
     def _dispatch(self, ans_type: int, expect: int, chunk: list) -> None:
+        t0 = time.perf_counter()
         m = len(chunk)
         mb = self._bucket(m)
         base = chunk[0][1]
@@ -250,14 +349,18 @@ class FusedIngest:
         a[-2] = 0.0 if self._base is None else self._base - base
         a[-1] = m
         self._base = base
-        self._state, *res = fused_ingest_step(
+        self._state, res, n_done = fused_ingest_step_counted(
             self._state, buf.to(self.device, non_blocking=True), aux, self._icfg
         )
-        self._pending.append((tuple(res), self._icfg, base, (mb, expect), pair))
+        landing = _Landing(res, n_done, self._landing_pool)
+        self._pending.append((landing, self._icfg, base, (mb, expect), pair))
+        self.dispatch_count += 1
         while len(self._pending) > self._max_queue:
             # consumer lagging: oldest result dropped (newest wins)
-            self._pending.popleft()
+            self._retire([self._pending.popleft()])
             self.wires_dropped += 1
+        self._recycle_retired()
+        self.dispatch_s += time.perf_counter() - t0
 
     def precompile(self, ans_type: int) -> None:
         """Build the path's kernels and warm the step for this format's
@@ -277,10 +380,16 @@ class FusedIngest:
     # -- consumer side -------------------------------------------------------
 
     def _parse(self, entry) -> list:
-        arrays, icfg, base, skey, pair = entry
-        res = unpack_ingest_result(arrays, icfg)
-        # the results are host-side, so the staged inputs were consumed
-        self.staging.give(skey, pair)
+        landing, icfg, base, skey, pair = entry
+        res = unpack_ingest_result(landing.wait(), icfg)
+        # the results landed, so the staged inputs were consumed; what is
+        # kept past this call is copied off the recycled buffers
+        for f in ("recon_plane", "recon_pts", "node_ts"):
+            if getattr(res, f) is not None:
+                setattr(res, f, getattr(res, f).copy())
+        with self._lock:
+            self.staging.give(skey, pair)
+            landing.release()
         if res.recon_pushed:
             self.last_recon = (res.recon_plane, res.recon_pts)
             if self.recon_log:
@@ -308,11 +417,33 @@ class FusedIngest:
     def wait_and_grab_outputs(self, timeout_s: float = 2.0) -> Optional[list]:
         """Block for the next dispatched batch; returns its completed
         revolutions as ``[(FilterOutput, ts0, duration), ...]`` (possibly
-        empty — a mid-revolution batch), or None on timeout."""
+        empty — a mid-revolution batch), or None on timeout.  The batch's
+        copy to the host started at dispatch time, so in steady state this
+        waits on no device compute."""
         if not self._event.wait(timeout_s):
             return None
         entry = self._pop()
         return None if entry is None else self._parse(entry)
+
+    def collect_nowait(self) -> Optional[list]:
+        """Non-blocking variant of :meth:`wait_and_grab_outputs`."""
+        entry = self._pop()
+        return None if entry is None else self._parse(entry)
+
+    def collect_pipelined(self) -> list:
+        """Drain every pending result EXCEPT the newest: the just-
+        dispatched batch keeps computing on the device while its
+        predecessors, whose results landed during earlier dispatch gaps,
+        are parsed on the host (ScanFilterChain.process_raw_pipelined's
+        collect-before-dispatch discipline; :meth:`flush` drains the last
+        batch at stream end)."""
+        out = []
+        while True:
+            with self._lock:
+                if len(self._pending) <= 1:
+                    return out
+                entry = self._pending.popleft()
+            out.extend(self._parse(entry))
 
     def flush(self) -> list:
         """Parse every pending batch (stream stop): flat list of

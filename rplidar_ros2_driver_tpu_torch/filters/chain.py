@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -207,6 +208,12 @@ class ScanFilterChain:
         # pre-restore output
         self._pending: Optional[_Fetch] = None
         self._epoch = 0
+        # seconds the newest pipelined collect spent waiting for the
+        # pending output's device->host copy, and the newest pipelined
+        # tick's upload + step dispatch: the split of the publish latency
+        # an end-to-end run reads
+        self.last_collect_wait_s = 0.0
+        self.last_upload_dispatch_s = 0.0
         self._cuda = self.device.type == "cuda"
         if self._cuda:
             n = (capacity or MAX_SCAN_NODES) + 1
@@ -330,18 +337,26 @@ class ScanFilterChain:
             pending, self._pending = self._pending, None
             epoch = self._epoch
         out = None
+        self.last_collect_wait_s = 0.0
         if pending is not None:
+            t_collect = time.perf_counter()
             try:
                 out = self._collect(pending)
+                self.last_collect_wait_s = time.perf_counter() - t_collect
             except Exception:
                 # the fetch of N-1 itself failed: re-stash it so
                 # flush_pipelined can retry, instead of losing it
                 self._restash_pending(pending, epoch)
                 raise
+        # reset before the attempt: a failed upload/dispatch must not
+        # leave the previous tick's duration attributed to this one
+        self.last_upload_dispatch_s = 0.0
+        t_dispatch = time.perf_counter()
         try:
             fetch = self._step(buf)
             with self._lock:
                 self._pending = fetch
+            self.last_upload_dispatch_s = time.perf_counter() - t_dispatch
         except Exception:
             # upload/dispatch of N failed AFTER N-1 was popped: re-stash
             # N-1 so the caller's drain can still publish it

@@ -19,6 +19,13 @@ ranges and a PointCloud + voxel grid are published alongside.  With an
 empty chain the raw path converts the revolution with ``to_laserscan`` on
 the same device.
 
+Ingest seam (``ingest_backend``): ``host`` grabs assembled revolutions
+from the driver and runs the chain here (the path above); ``fused`` hands
+the driver a FusedIngest sink instead — raw frame bytes decode, segment
+into revolutions and filter on the device (ops/ingest.py, de-skew with
+kernels B4/B5 when ``deskew_enable``), and the FSM publishes the already
+filtered outputs via :meth:`RPlidarNode._on_filtered_output`.
+
 With ``map_enable`` the SLAM front-end mapper (mapping/mapper.FleetMapper,
 one stream) takes every chain output: each revolution is matched against
 the log-odds map and absorbed into it, and a ``PoseHost`` is published
@@ -27,11 +34,10 @@ the matcher kernels B6/B7/B8; with ``filter_backend: cpu`` it is the host
 reference.  The map survives deactivate/activate and rides the combined
 checkpoint under ``mapper.*`` keys.
 
-Not yet in this package, each raising NotImplementedError naming the
-ROADMAP item that brings it: the real (wire-protocol) driver (A.4) — and
-with it the node's ``ingest_backend: fused`` seam, whose engine
-(driver/ingest.FusedIngest) exists but needs a wire-streaming driver to
-feed it — and loop closure, ``loop_enable`` (A.9).
+The driver is driver/real.RealLidarDriver over the native channel
+(serial, TCP or UDP) unless ``dummy_mode`` is set.  Not yet in this
+package: loop closure, ``loop_enable``, which raises NotImplementedError
+naming ROADMAP A.9.
 """
 
 from __future__ import annotations
@@ -94,6 +100,10 @@ class RPlidarNode(LifecycleNode):
         self.chain: Optional[ScanFilterChain] = None
         # device of the raw publish path (filter_chain empty)
         self.raw_device = None
+        # fused ingest engine (ingest_backend="fused"): owns the filter
+        # window in place of self.chain; survives FSM driver recreation
+        # (each recreated driver gets the same sink re-attached)
+        self.fused_ingest = None
         self.diagnostics: Optional[DiagnosticsUpdater] = None
         self.tracer = StageTimer()
         self._param_lock = threading.Lock()
@@ -111,14 +121,23 @@ class RPlidarNode(LifecycleNode):
     # ------------------------------------------------------------------
 
     def _default_factory(self):
-        return DummyLidarDriver()
+        if self.params.dummy_mode:
+            return DummyLidarDriver()
+        from rplidar_ros2_driver_tpu_torch.driver.real import RealLidarDriver
+
+        return RealLidarDriver(
+            channel_type=self.params.channel_type,
+            tcp_host=self.params.tcp_host,
+            tcp_port=self.params.tcp_port,
+            udp_host=self.params.udp_host,
+            udp_port=self.params.udp_port,
+        )
 
     def _resolve_fused_ingest(self) -> bool:
-        """Whether this configure would build the fused ingest seam.  The
-        engine (driver/ingest.FusedIngest) is ported; the wire-streaming
-        driver that feeds it is not.  The dummy driver synthesizes host
-        scans above the protocol layer, so dummy mode falls back to the
-        host path with a notice, as the JAX package does."""
+        """Whether this configure builds the fused ingest seam.  Fused
+        needs the filter chain AND a wire-streaming driver: the dummy
+        driver synthesizes host scans above the protocol layer, so it
+        falls back to the host backend with a notice."""
         backend = resolve_ingest_backend(self.params.ingest_backend)
         if backend != "fused" or not self.params.filter_chain:
             if getattr(self.params, "deskew_enable", False):
@@ -137,11 +156,7 @@ class RPlidarNode(LifecycleNode):
                 "falling back to the host ingest path"
             )
             return False
-        raise NotImplementedError(
-            "ingest_backend='fused' needs a wire-streaming driver to feed "
-            "driver/ingest.FusedIngest: driver/real.py and the simulator are "
-            "not ported to the PyTorch package yet (ROADMAP A.4)"
-        )
+        return True
 
     def on_configure(self) -> bool:
         log.info("%s: configuring (port=%s)", self.name, self.params.serial_port)
@@ -151,29 +166,63 @@ class RPlidarNode(LifecycleNode):
                 "to the PyTorch package yet (ROADMAP A.9)"
             )
         if self._driver_factory is None and not self.params.dummy_mode:
-            raise NotImplementedError(
-                "the real (wire-protocol) driver is not ported to the PyTorch "
-                "package yet (ROADMAP A.4, bytes -> revolution); use "
-                "dummy_mode or pass a driver_factory"
-            )
+            # probe the native I/O library here, not inside the scan thread:
+            # when it cannot be built/loaded the driver falls back to the
+            # pure-Python transport (protocol/pytransport.py), which works
+            # but loses the SCHED_RR rx elevation — worth one loud notice
+            from rplidar_ros2_driver_tpu_torch import native
+
+            if not native.available():
+                log.warning("native I/O library unavailable (g++ over "
+                            "native/src); real driver will use the "
+                            "pure-Python transport fallback")
         factory = self._driver_factory or self._default_factory
-        self._resolve_fused_ingest()
+        fused = self._resolve_fused_ingest()
+        if fused:
+            from rplidar_ros2_driver_tpu_torch.driver.ingest import FusedIngest
+
+            self.fused_ingest = FusedIngest(self.params)
+            base_factory = factory
+
+            def factory():  # noqa: F811 - deliberate seam wrapper
+                drv = base_factory()
+                if not hasattr(drv, "set_ingest_sink"):
+                    # a custom factory handed us a driver without the
+                    # ingest seam: surface ONE clear configuration error
+                    # instead of an AttributeError crash-looping the FSM
+                    # through RESETTING on every driver recreation
+                    raise RuntimeError(
+                        "ingest_backend='fused' requires a driver with "
+                        "set_ingest_sink (wire-streaming RealLidarDriver); "
+                        f"{type(drv).__name__} has none — use "
+                        "ingest_backend='host' with this driver factory"
+                    )
+                # re-attach the one engine (and its rolling filter
+                # window) to every recreated driver, like the chain
+                # survives FSM resets on the host path
+                drv.set_ingest_sink(self.fused_ingest)
+                return drv
+
         self.fsm = ScanLoopFsm(
             factory,
             self._on_scan,
             params=self.params,
             timings=self._fsm_timings,
             on_state_change=self._on_fsm_state,
+            on_filtered=self._on_filtered_output if fused else None,
         )
-        if self.params.filter_chain:
+        if self.params.filter_chain and not fused:
             self.chain = ScanFilterChain(self.params)
             if self._chain_snapshot is not None:
                 if not self.chain.restore(self._chain_snapshot):
                     # geometry changed since the snapshot: drop it rather
                     # than re-trying (and re-warning) every configure
                     self._chain_snapshot = None
-        else:
+        elif not fused:
             self.raw_device = pick_device(self.params.filter_backend)
+            # raw publish path: warm it now, so the first live revolution
+            # does not pay the first call's allocations
+            self.precompile_publish_kernels()
         if self.params.map_enable and self.params.filter_chain:
             from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
 
@@ -193,6 +242,28 @@ class RPlidarNode(LifecycleNode):
             )
         self._update_diagnostics()
         return True
+
+    def precompile_publish_kernels(self) -> None:
+        """Warm the RAW publish path — angle compensation and
+        to_laserscan on ``raw_device`` — on a throwaway all-masked batch,
+        both is_new_type variants.  Chain-path configs never reach it (the
+        chain publishes its own output), so this runs only when the raw
+        path is live.  Nothing compiles (the path is eager); the JAX
+        package's node warms its jit cache here."""
+        z = np.zeros((0,), np.int32)
+        batch = apply_angle_compensation(
+            ScanBatch.from_numpy(z, z, z, device=self.raw_device),
+            self.params.angle_compensate,
+        )
+        for is_new in (False, True):
+            to_laserscan(
+                batch,
+                0.1,
+                40.0,
+                scan_processing=self.params.scan_processing,
+                inverted=self.params.inverted,
+                is_new_type=is_new,
+            )
 
     def on_activate(self) -> bool:
         assert self.fsm is not None
@@ -245,6 +316,7 @@ class RPlidarNode(LifecycleNode):
     def on_cleanup(self) -> bool:
         self.fsm = None
         self.chain = None
+        self.fused_ingest = None
         self.mapper = None
         self.raw_device = None
         # _chain_snapshot / _mapper_snapshot intentionally survive cleanup:
@@ -417,13 +489,21 @@ class RPlidarNode(LifecycleNode):
         with self.tracer.stage("publish"):
             self.publisher.publish_scan(msg)
 
+    def _on_filtered_output(self, out, ts0: float, duration: float) -> None:
+        """Fused-ingest publish hook (FSM RUNNING loop): the revolution
+        arrived decoded, assembled and filtered on the device — straight
+        to the shared chain-output publisher."""
+        with self.tracer.stage("filter"):
+            pass  # device work already done inside the fused dispatch
+        self._publish_chain_output(out, ts0, duration)
+
     def _publish_chain_output(
         self, out, stamp: float, duration: float, max_range: Optional[float] = None
     ) -> None:
         """Convert + publish one chain FilterOutput (shared by the
-        synchronous path, the pipelined path and the deactivate-time
-        pipeline drain).  The output is already on the fixed angular
-        grid."""
+        synchronous path, the pipelined path, the deactivate-time
+        pipeline drain and the fused-ingest hook).  The output is already
+        on the fixed angular grid."""
         params = self.params
         if max_range is None:
             max_range = (self.fsm.cached_max_range if self.fsm else None) or 40.0

@@ -467,6 +467,9 @@ class _CoreResult(NamedTuple):
     deskew_motion: Optional[torch.Tensor] = None
     recon_plane: Optional[torch.Tensor] = None
     recon_pts: Optional[torch.Tensor] = None
+    # per-stream completed counts as host ints (the step's one
+    # synchronisation already fetched them)
+    n_host: Optional[list] = None
 
 
 def _segment_filter_core(cfg, st: IngestState, filters: list, batch4, ts_c, nv,
@@ -633,7 +636,7 @@ def _segment_filter_core(cfg, st: IngestState, filters: list, batch4, ts_c, nv,
         partial=new_partial, partial_ts=new_partial_ts, partial_len=cnt_p,
         seen_sync=keep_p, n_completed=n_completed, drop_head=drop_head,
         meta=meta, out_wires=out_wires, nodes=nodes_arr, node_ts=ts_arr,
-        deskew_prof=new_prof, deskew_motion=new_motion, **recon,
+        deskew_prof=new_prof, deskew_motion=new_motion, n_host=n_host, **recon,
     )
 
 
@@ -690,13 +693,23 @@ def _aux_pair(aux, dev: torch.device) -> tuple:
 
 def fused_ingest_step(state: IngestState, frames, aux, cfg: IngestConfig) -> tuple:
     """One frame batch through unpack -> segment -> de-skew -> filter.
+    Returns ``(state, meta, out_wires[, recon_plane, recon_pts][, nodes,
+    node_ts])`` (see :func:`fused_ingest_step_counted`)."""
+    new, results, _n = fused_ingest_step_counted(state, frames, aux, cfg)
+    return (new,) + results
+
+
+def fused_ingest_step_counted(state: IngestState, frames, aux, cfg: IngestConfig) -> tuple:
+    """One frame batch through unpack -> segment -> de-skew -> filter.
 
     ``frames`` is (M, frame_bytes) uint8, zero-padded past the live count;
     ``aux`` is (2M+2,) float32 in host memory: per-frame rx offsets from
     THIS batch's base stamp, per-frame CRC verdicts (HQ only), the
     previous base minus this base, and the live frame count last.  Returns
-    ``(state, meta, out_wires[, recon_plane, recon_pts][, nodes,
-    node_ts])``; ``state.filter`` is updated in place."""
+    ``(state, (meta, out_wires[, recon_plane, recon_pts][, nodes,
+    node_ts]), n_completed)``, the count as a host int (so a caller copies
+    just the completed rows of ``out_wires`` to the host without another
+    synchronisation); ``state.filter`` is updated in place."""
     dev = state.partial.device
     frames = _to_device(frames, dev)
     aux_h, aux_d = _aux_pair(aux, dev)
@@ -724,7 +737,7 @@ def fused_ingest_step(state: IngestState, frames, aux, cfg: IngestConfig) -> tup
     core = _segment_filter_core(cfg, lanes, filters, batch4, ts_c, nv, aux_d[-2:-1])
     new = _map_planes(_advance(lanes, core, filters[0], sync, dist, prev, have),
                       lambda a: a[0], skip=("sync_carry", "dist_carry", "prev_frame", "have_prev"))
-    return (new,) + _core_outputs(cfg, core, 0)
+    return new, _core_outputs(cfg, core, 0), core.n_host[0]
 
 
 def _map_planes(state: IngestState, fn, skip=()) -> IngestState:

@@ -63,11 +63,32 @@ def test_scan_sees_the_whole_port():
         "protocol/timing.py", "driver/assembly.py", "driver/decode.py", "driver/ingest.py",
         "ops/deskew.py", "ops/deskew_kernels.py", "ops/deskew_ref.py", "ops/ingest.py",
         "utils/cuda_build.py", "utils/launch.py",
+        # the live wire path
+        "protocol/codec.py", "protocol/conf.py", "protocol/engine.py",
+        "protocol/pytransport.py", "native/__init__.py", "native/runtime.py",
+        "ops/unpack_ref.py", "driver/sim_device.py", "driver/chaos.py", "driver/real.py",
     ):
         assert module in rel
     for source in ("median.cu", "sliding_median.cu", "scan_match.cu", "deskew.cu",
                    "device_guard.cuh"):
         assert os.path.exists(os.path.join(PORT, "csrc", source))
+
+
+def test_scan_reads_the_live_paths_nested_imports():
+    """The live path's lazy imports (inside functions) are in the scan and
+    point at this package."""
+    for rel, module in (
+        ("driver/real.py", "rplidar_ros2_driver_tpu_torch.native.runtime"),
+        ("driver/real.py", "rplidar_ros2_driver_tpu_torch.protocol.pytransport"),
+        ("driver/real.py", "rplidar_ros2_driver_tpu_torch.ops.ascend"),
+        ("driver/real.py", "rplidar_ros2_driver_tpu_torch.replay"),
+        ("protocol/engine.py", "rplidar_ros2_driver_tpu_torch.native.runtime"),
+        ("protocol/pytransport.py", "rplidar_ros2_driver_tpu_torch.native.runtime"),
+        ("driver/sim_device.py", "rplidar_ros2_driver_tpu_torch.driver.chaos"),
+        ("driver/chaos.py", "rplidar_ros2_driver_tpu_torch.native.runtime"),
+        ("node/node.py", "rplidar_ros2_driver_tpu_torch.driver.real"),
+    ):
+        assert module in set(imported_modules(os.path.join(PORT, rel))), (rel, module)
 
 
 def test_detector_catches_jax_imports():

@@ -134,16 +134,30 @@ def test_jax_node_checkpoint_loads_into_port_node(tmp_path):
 
 
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="A.4"):
-        RPlidarNode(DriverParams(filter_backend="cpu")).configure()
     with pytest.raises(NotImplementedError, match="A.9"):
         make_node(filter_chain=CHAIN, map_enable=True, loop_enable=True).configure()
+    # the real driver (A.4) is ported: without dummy_mode the default
+    # factory builds it (configure connects nothing)
+    from rplidar_ros2_driver_tpu_torch.driver.real import RealLidarDriver
+
+    real = RPlidarNode(DriverParams(filter_backend="cpu"))
+    try:
+        assert real.configure()
+        assert isinstance(real._default_factory(), RealLidarDriver)
+    finally:
+        real.shutdown()
+    # the fused seam (A.4) is ported too; a driver without it is refused
+    # with one clear error when the FSM builds it
     fused = RPlidarNode(
         DriverParams(filter_backend="cpu", filter_chain=CHAIN, ingest_backend="fused"),
         driver_factory=lambda: DummyLidarDriver(scan_rate_hz=200.0),
     )
-    with pytest.raises(NotImplementedError, match="wire-streaming driver.*A.4"):
-        fused.configure()
+    try:
+        assert fused.configure() and fused.fused_ingest is not None and fused.chain is None
+        with pytest.raises(RuntimeError, match="set_ingest_sink"):
+            fused.fsm._factory()
+    finally:
+        fused.shutdown()
     # dummy mode with fused ingest falls back to the host path, as the
     # JAX package does
     node = RPlidarNode(DriverParams(dummy_mode=True, filter_backend="cpu", filter_chain=CHAIN,
