@@ -72,9 +72,12 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 each side, hit and free in one cell, free_samples 0, 1, 3,
                 4, a map saturated at ±clamp_q) on both of its routes
                 and every cluster size up to 16 (G = 9 and 18 put stripe
-                ends off the 16-byte words), and offset views, then timed
-                at config 12's fleet tick (N=4, G=256, B=2048) and at the
-                map replay's one-stream tick (N=1);
+                ends off the 16-byte words), offset views, and the loop
+                check's shapes (the derived match config: quant_shift 0,
+                w = 4, T = 17; N = 8, G = 128, B = 1024 and N = 2, G = 256,
+                B = 2048), then timed at config 12's fleet tick (N=4,
+                G=256, B=2048) and at the map replay's one-stream tick
+                (N=1);
  12. mapping  — config 12 (bench.py bench_mapping): 4 streams, 256x256 map
                 at 0.05 m, 2048 beams, map_match_window 0.4; one warm tick,
                 then 20 ticks of the drifting-room scene through FleetMapper
@@ -85,7 +88,27 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
  13. replay_map — the config-7 capture through replay_with_map on the card
                 (the chain with B3, then the fused mapper with B6/B7/B8), held
                 equal to the CPU replay with the host reference mapper;
- 14. deskew_kernels — the de-skew kernels B4, B5 against their plain
+ 14. loop     — config 17 (bench.py bench_loop_close) at its full geometry:
+                4 streams, 128x128 map at 0.05 m, 1024 beams, 48
+                revolutions of the return-to-start trace with SUB/4 of
+                drift a revolution (tools/loop_drift.py), submaps every 4,
+                checks every 2, 16 submaps, 2 candidates, weight 8, 32
+                loop constraints, 256 sweeps; three arms on identical
+                inputs: off, host (numpy) and fused on the card. (a) host
+                and fused wires, corrected poses and final LoopState
+                byte-equal; (b) corrected end error <= 2 cells, the
+                baseline's > 4; (c) one check call and one B6 and one B7
+                launch per check tick; (d) a WorldMap on the engine's
+                on_install tap whose accumulation on the card equals
+                fuse_planes_np of its members and whose publication equals
+                publish_tiles of that sum; (e) the node with map_enable +
+                loop_enable at its default widths on the card, a
+                checkpoint with loop.* keys saved and restored; (f)
+                replay_with_loop_closure over 64 revolutions of the
+                config-7 capture on the card, equal to the CPU host
+                replay. Prints the check's wall ms (p50/p99), B6/B7 at the
+                check's shape (N = 8) and the solver's share of a check;
+ 15. deskew_kernels — the de-skew kernels B4, B5 against their plain
                 PyTorch versions on the card (exact) over the JAX suite's
                 four geometries, degenerate inputs, the featureless tie and
                 the fused ingest's shapes (B4 also at nbeams 1 and 8192,
@@ -96,7 +119,7 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 offset views, counts at min_valid and one short), then
                 timed there (B4 beside one scatter_reduce_ "amin" call,
                 host µs too);
- 15. replay_fused — the config-7 capture through replay_raw_fused (the
+ 16. replay_fused — the config-7 capture through replay_raw_fused (the
                 fused device ingest: 64 frames per tick, T=8, max_revs 8):
                 de-skew off held equal to the card's host-path replay and
                 the CPU fused replay; de-skew on (B4/B5) held equal to the
@@ -104,13 +127,14 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 with a nonzero motion estimate; B1/B4/B5 launches counted
                 around the card's runs; host syncs per tick and one
                 profiled super-step per arm; the CLI's replay --fused line;
- 16. before   — every kernel's figures before its redesign, constants
+ 17. before   — every kernel's figures before its redesign, constants
                 copied from PERF.md (not measured in this run);
- 17. kernels  — one line listing every kernel with its launches and the
+ 18. kernels  — one line listing every kernel with its launches and the
                 times measured in this run; B1, B4 and B5 also carry
                 host_us, B3 its plan and K=7 tail, B6, B7 and B8 their
-                times at the map replay's shape, and each redesigned kernel
-                whether each of its goals was met.
+                times at the map replay's shape, B6 and B7 theirs at the
+                loop check's (``loop_close_shape``), and each redesigned
+                kernel whether each of its goals was met.
 
 The wrapper's host time split piece by piece is
 rplidar_ros2_driver_tpu_torch/tools/launch_cost.py.  Then the card's name
@@ -149,6 +173,11 @@ E2E = dict(points=3200, frame_rate_hz=800.0, seconds=6.0, window=64, beams=2048,
            cell_m=0.25, min_scans=30)
 # bench.py GRADED[12] (bench_mapping): the SLAM front-end fleet tick
 MAPPING = dict(streams=4, grid=256, cell_m=0.05, beams=2048, window_m=0.4, ticks=20)
+# bench.py GRADED[17] (bench_loop_close) at its full geometry: the SLAM
+# back-end on the return-to-start drift trace (SUB/4 of drift a revolution),
+# plus the config-7 replay prefix run with loop_enable
+LOOP = dict(grid=128, cell_m=0.05, beams=1024, streams=4, revs=48, submap_revs=4, check_revs=2,
+            max_submaps=16, candidates=2, weight=8, constraints=32, iters=256, replay_revs=64)
 # replay_raw_fused's defaults: the config-7 capture through the fused
 # device ingest, 64 frames per tick, T=8 ticks per super-step
 FUSED = dict(frames_per_tick=64, super_ticks=8, max_revs=8)
@@ -1562,6 +1591,18 @@ def _map_fixtures(rng):
         lo, pose, pq, ok = rand(c2, 2, beams)
         lo[0, : grid // 2] = clamp_q                    # a saturated half
         out.append((name, c2, lo, pose, pq, ok))
+    # the loop closure's candidate scoring: the derived match config
+    # (quant_shift 0, the clamp at the stored plane's ceiling, w = 4 — B6's
+    # shared-memory sums with the int16 pooled map — and T = 17) at config
+    # 17's check (4 streams x 2 candidates, 128² map, 1024 beams; B7's plan
+    # a cluster of 1) and at the node's (1 x 2, 256², 2048 beams); stored
+    # planes hold [0, ceiling], one of them saturated
+    for name, grid, n, beams in (("loop_config17", 128, 8, 1024), ("loop_node", 256, 2, 2048)):
+        c2 = loop_match_config(grid, beams)
+        lo, pose, pq, ok = rand(c2, n, beams)
+        lo = np.clip(lo, 0, c2.clamp_q).astype(np.int32)
+        lo[-1] = c2.clamp_q
+        out.append((name, c2, lo, pose, pq, ok))
     return out
 
 
@@ -1946,6 +1987,447 @@ def phase_replay_map(device, revs) -> dict:
     }
     emit(row)
     return row
+
+# ---------------------------------------------------------------------------
+# the SLAM back-end: loop closure, pose graph, world map
+# ---------------------------------------------------------------------------
+
+
+def _loop_params(backend: str, loop_backend: str, **over):
+    """bench.py bench_loop_close's parameters at its full geometry."""
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+
+    kw = dict(filter_backend=backend, filter_chain=("clip", "median", "voxel"), map_enable=True,
+              map_backend="host", map_grid=LOOP["grid"], map_cell_m=LOOP["cell_m"],
+              loop_enable=True, loop_backend=loop_backend, loop_submap_revs=LOOP["submap_revs"],
+              loop_check_revs=LOOP["check_revs"], loop_max_submaps=LOOP["max_submaps"],
+              loop_candidates=LOOP["candidates"], loop_weight=LOOP["weight"],
+              pose_graph_max_constraints=LOOP["constraints"], pose_graph_iters=LOOP["iters"],
+              world_map_enable=True)
+    kw.update(over)
+    return DriverParams(**kw)
+
+
+def loop_match_config(grid: int, beams: int, cell_m: float = 0.05):
+    """The loop engine's candidate-match MapConfig at a map geometry (the
+    derived config: quant_shift 0, the clamp at the stored plane's ceiling,
+    window 4, θ window 8), as the engine on the card resolves it."""
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+    from rplidar_ros2_driver_tpu_torch.mapping.mapper import map_config_from_params
+    from rplidar_ros2_driver_tpu_torch.slam.loop import loop_config_from_params
+
+    p = DriverParams(filter_backend="cpu", filter_chain=("clip",), map_enable=True,
+                     map_grid=grid, map_cell_m=cell_m, loop_enable=True)
+    return loop_config_from_params(p, map_config_from_params(p, beams), "cuda").match
+
+
+def _loop_arm(device, arm: str, trace, masks, world=None):
+    """One arm of config 17: the scripted drifting front-end alone ("off")
+    or with a LoopClosureEngine ("host", or "fused" on ``device``).  The
+    fused arm times each check call and counts B6/B7 launches around the
+    run (after precompile)."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+    from rplidar_ros2_driver_tpu_torch.slam.loop import LoopClosureEngine
+    from rplidar_ros2_driver_tpu_torch.tools.loop_drift import DriftingFrontEnd
+
+    backend = "cuda" if arm == "fused" else "cpu"
+    p = _loop_params(backend, "host" if arm == "off" else arm)
+    fe = DriftingFrontEnd(p, LOOP["streams"], LOOP["beams"], LOOP["submap_revs"])
+    eng, check_ms = None, []
+    if arm != "off":
+        eng = LoopClosureEngine(p, fe)
+        check(eng.backend == arm, f"loop engine resolved {eng.backend}, not {arm}")
+        eng.precompile()
+        if arm == "fused":
+            check(eng.device == device and eng.cfg.match.match_backend == "pallas",
+                  "the fused loop engine is not on the card with B6/B7")
+            torch.cuda.synchronize()
+            dispatch = eng._dispatch_check
+
+            def timed(*args):
+                t0 = time.perf_counter()
+                out = dispatch(*args)          # ends in its one device->host copy
+                check_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            eng._dispatch_check = timed
+            if world is not None:
+                eng.on_install = world.ingest_submap
+    smk.reset_launch_counts()
+    log, check_ticks = [], 0
+    t0 = time.perf_counter()
+    for pts, drifted in trace:
+        ests = fe.submit(pts, masks, drifted)
+        if eng is None:
+            continue
+        sts = eng.observe(ests)
+        check_ticks += any(s is not None for s in sts)
+        log.append([None if s is None else (s.accepted, s.candidate, s.score, s.matched_points,
+                                            tuple(int(v) for v in s.corrected_q), s.constraints,
+                                            s.dropped) for s in sts])
+    wall = time.perf_counter() - t0
+    return {"engine": eng, "fe": fe, "log": log, "check_ticks": check_ticks, "wall_s": wall,
+            "check_ms": check_ms, "launches": dict(smk.launch_counts),
+            "snap": None if eng is None else eng.snapshot()}
+
+
+def _loop_kernel_inputs(eng, fe, trace, masks, device):
+    """A real check's B6/B7 inputs at config 17's shape: the fused engine's
+    final library, each stream's candidates at its final pose and the last
+    revolution's scan, gathered as the check gathers them (N = streams x
+    candidates).  Returns (cfg, B6's args, B7's args but mq, mq)."""
+    import numpy as np
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.mapping.submap import select_candidates
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+
+    cfg = eng.cfg.match
+    s, kc = eng.streams, eng.cfg.candidates
+    snap = eng.snapshot()
+    cand = np.stack([select_candidates(snap["anchors"][i], snap["valid"][i],
+                                       int(snap["count"][i]), fe.pose[i], eng.cfg)
+                     for i in range(s)])
+    planes = snap["planes"][np.arange(s)[:, None], np.clip(cand, 0, None)].reshape(
+        s * kc, cfg.grid, cfg.grid)
+    pts = np.repeat(trace[-1][0], kc, axis=0)
+    pose = np.repeat(fe.pose, kc, axis=0).astype(np.int32)
+    pq, okm = tsm.quantize_points(torch.from_numpy(pts).to(device),
+                                  torch.from_numpy(np.repeat(masks, kc, axis=0)).to(device), cfg)
+    lo_t, _, _, posec, trig, pose_t = _map_kernel_args(cfg, planes, pose, pq.cpu().numpy(),
+                                                       okm.cpu().numpy(), device)
+    cos_q, sin_q = tsm._theta_trig(pose_t, cfg)
+    coarse = (lo_t, pq, okm, posec, trig)
+    mq, sc = smk.coarse_scores_plain(*coarse, cfg)
+    w = cfg.window_cells
+    kbest = torch.argmax(sc.reshape(s * kc, -1), dim=1).to(torch.int32)
+    uv = torch.stack([kbest // (2 * w + 1) - w, kbest % (2 * w + 1) - w], 1)
+    return cfg, coarse, (pq, okm, posec, cos_q, sin_q, uv), mq
+
+
+def _loop_node(device) -> dict:
+    """(e) The node with map_enable + loop_enable at its default widths on
+    the card (256² map, 2048 beams, W=64), a dummy lidar at 50 revolutions
+    a second: closure checks run through B6/B7, a checkpoint with its
+    ``loop.*`` keys is saved and restored into a fresh node."""
+    from rplidar_ros2_driver_tpu_torch.driver.dummy import DummyLidarDriver
+    from rplidar_ros2_driver_tpu_torch.launch import launch_lifecycle
+    from rplidar_ros2_driver_tpu_torch.node.lifecycle import LifecycleState
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+    from rplidar_ros2_driver_tpu_torch.utils.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "loop.yaml")
+        with open(path, "w") as f:
+            f.write("rplidar_node:\n  ros__parameters:\n    dummy_mode: true\n"
+                    "    filter_chain: [clip, polar, median, voxel]\n    filter_window: 64\n"
+                    "    map_enable: true\n    loop_enable: true\n")
+
+        def factory():
+            return DummyLidarDriver(scan_rate_hz=50.0)
+
+        smk.reset_launch_counts()
+        node = launch_lifecycle(path, driver_factory=factory)
+        try:
+            check(node.lifecycle_state is LifecycleState.ACTIVE, "loop node not ACTIVE")
+            eng = node.loop
+            check(eng is not None and eng.backend == "fused" and eng.device == device
+                  and eng.cfg.match.match_backend == "pallas",
+                  "node loop engine is not the fused engine on the card with B6/B7")
+            t0 = time.perf_counter()
+            while eng.checks < 2 and time.perf_counter() - t0 < 30.0:
+                time.sleep(0.1)
+            check(eng.checks >= 2, f"the loop node ran {eng.checks} closure checks in 30 s")
+            check(node.deactivate(), "loop node deactivate failed")
+            node._update_diagnostics()
+            values = node.diagnostics.last.values
+            check("Loop Closures" in values and "Loop Submaps" in values,
+                  "the loop group is missing from /diagnostics")
+            launched = dict(smk.launch_counts)
+            revs = int(node.mapper.snapshot()["revision"][0])
+            # B6/B7: one each a mapper tick and a check, and one each in
+            # the mapper's and the engine's precompile
+            want_launches = revs + eng.dispatch_count + 2
+            check(launched["coarse_scores"] == want_launches
+                  and launched["fine_scores"] == want_launches,
+                  f"node B6/B7 launches {launched} != {revs} mapper ticks + "
+                  f"{eng.dispatch_count} checks + 2 warm-ups")
+            ckpt = os.path.join(tmp, "node.npz")
+            check(node.save_checkpoint(ckpt), "loop node checkpoint not saved")
+            saved, _meta = load_checkpoint(ckpt)
+            check(any(k.startswith("loop.") for k in saved), "no loop.* keys in the checkpoint")
+            want = eng.snapshot()
+            info = {"checks": eng.checks, "dispatches": eng.dispatch_count,
+                    "installs": eng.installs, "revolutions": revs,
+                    "accepted": int(eng.closures_accepted.sum()),
+                    "rejected": int(eng.closures_rejected.sum()), "launches": launched,
+                    "diagnostics": {k: values[k] for k in ("Loop Closures", "Loop Submaps")},
+                    "map_p99_ms": node.tracer.percentile("map", 99.0) * 1e3}
+        finally:
+            node.shutdown()
+        fresh = launch_lifecycle(path, auto_activate=False, driver_factory=factory)
+        try:
+            check(fresh.load_checkpoint(ckpt), "the loop checkpoint did not load")
+            got = fresh.loop.snapshot()
+            check(all(got[k].tobytes() == want[k].tobytes() for k in want),
+                  "the restored node's loop state differs from the saved one")
+            info["restored_submaps"] = int(got["count"][0])
+        finally:
+            fresh.shutdown()
+    return info
+
+
+def _loop_replay(device, revs) -> dict:
+    """(f) replay_with_loop_closure over a prefix of the config-7 capture on
+    the card (the chain with B3, the fused mapper, the fused loop engine),
+    held equal to the CPU replay with the host references."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+    from rplidar_ros2_driver_tpu_torch.replay import replay_with_loop_closure
+
+    kw = dict(beams=REPLAY["beams"], capacity=REPLAY["capacity"], chunk=REPLAY["chunk"])
+    prefix = revs[:LOOP["replay_revs"]]
+
+    def params(backend):
+        return _replay_params(backend, map_enable=True, loop_enable=True)
+
+    smk.reset_launch_counts()
+    t0 = time.perf_counter()
+    traj, corr, scores, mapper, eng = replay_with_loop_closure(prefix, params("cuda"), **kw)
+    wall = time.perf_counter() - t0
+    launched = dict(smk.launch_counts)
+    check(eng.backend == "fused" and mapper.backend == "fused",
+          "the card's loop replay did not run the fused mapper and engine")
+    k = len(prefix)
+    # one B6/B7 each a scan for the mapper, one each a check tick for the
+    # engine (plus the engine's precompile)
+    for name in ("coarse_scores", "fine_scores"):
+        check(launched[name] == k + eng.dispatch_count + 1,
+              f"{name} launched {launched[name]} times for {k} scans and "
+              f"{eng.dispatch_count} checks")
+    check(eng.checks > 0, "the loop replay ran no closure check")
+    t0 = time.perf_counter()
+    c_traj, c_corr, c_scores, c_mapper, c_eng = replay_with_loop_closure(prefix, params("cpu"),
+                                                                         **kw)
+    cpu_wall = time.perf_counter() - t0
+    check(c_eng.backend == "host" and c_mapper.backend == "host",
+          "the CPU loop replay did not use the host references")
+    check(traj.tobytes() == c_traj.tobytes(), "loop replay trajectory differs from the CPU's")
+    check(corr.tobytes() == c_corr.tobytes(), "loop replay corrected trajectory differs")
+    check(np.array_equal(scores, c_scores), "loop replay scores differ from the CPU's")
+    check({**eng.status(), "backend": "host"} == c_eng.status(),
+          f"loop replay engine status differs: {eng.status()} != {c_eng.status()}")
+    snap, c_snap = eng.snapshot(), c_eng.snapshot()
+    check(all(snap[key].tobytes() == c_snap[key].tobytes() for key in c_snap),
+          "loop replay LoopState differs from the CPU's")
+    return {"scans": k, "wall_s": wall, "scans_per_s": k / wall, "cpu_wall_s": cpu_wall,
+            "checks": eng.checks, "dispatches": eng.dispatch_count, "launches": launched,
+            "status": eng.status(), "corrected_final_pose_m": [float(v) for v in corr[-1]]}
+
+
+def phase_loop(device, replay_revs) -> dict:
+    """Config 17 (bench.py bench_loop_close) at its full geometry on the
+    card — 4 streams, 128² map at 0.05 m, 1024 beams, 48 revolutions of the
+    return-to-start trace with SUB/4 of drift a revolution, submaps every 4,
+    checks every 2, 16 submaps, 2 candidates, weight 8, 32 loop
+    constraints, 256 sweeps — in three arms on identical inputs (off, host,
+    fused on the card), then the node and the config-7 replay with
+    loop_enable.  Checks (a)–(f) of the phase (module docstring)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rplidar_ros2_driver_tpu_torch.mapping.mapper import map_config_from_params
+    from rplidar_ros2_driver_tpu_torch.mapping.tiles import publish_tiles
+    from rplidar_ros2_driver_tpu_torch.mapping.worldmap import WorldMap, world_config_from_params
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+    from rplidar_ros2_driver_tpu_torch.ops.loop_close import LoopState, fleet_loop_close_step
+    from rplidar_ros2_driver_tpu_torch.ops.pose_graph import fleet_solve_pose_graph
+    from rplidar_ros2_driver_tpu_torch.ops.scan_match import SUB
+    from rplidar_ros2_driver_tpu_torch.ops.tile_quant import fuse_planes_np
+    from rplidar_ros2_driver_tpu_torch.tools.loop_drift import end_error_cells, loop_drift_trace
+
+    t_phase = time.perf_counter()
+    s = LOOP["streams"]
+    trace, masks, true_end = loop_drift_trace(s, LOOP["beams"], LOOP["revs"], SUB // 4,
+                                              LOOP["cell_m"])
+    p_world = _loop_params("cuda", "fused")
+    map_cfg = map_config_from_params(p_world, LOOP["beams"])
+    world = WorldMap(world_config_from_params(p_world, map_cfg), device=device)
+    world.precompile()
+    arms = {arm: _loop_arm(device, arm, trace, masks, world if arm == "fused" else None)
+            for arm in ("off", "host", "fused")}
+    off, host, fused = arms["off"], arms["host"], arms["fused"]
+    eng = fused["engine"]
+
+    # (a) host and fused: the same wires, corrected poses and final state
+    check(host["log"] == fused["log"], "host and fused loop wires differ")
+    check(all(host["snap"][k].tobytes() == fused["snap"][k].tobytes() for k in host["snap"]),
+          "host and fused final LoopState differ")
+    cor_h = [host["engine"].corrected_pose_q(i, host["fe"].pose[i]) for i in range(s)]
+    cor_f = [eng.corrected_pose_q(i, fused["fe"].pose[i]) for i in range(s)]
+    check(all(np.array_equal(a, b) for a, b in zip(cor_h, cor_f)),
+          "host and fused corrected end poses differ")
+    # (b) drift bounded: corrected end error <= 2 cells, the baseline > 4
+    base_err = max(end_error_cells(off["fe"].pose[i], true_end[i]) for i in range(s))
+    corr_err = max(end_error_cells(c, true_end[i]) for i, c in enumerate(cor_f))
+    check(corr_err <= 2.0, f"corrected end error {corr_err:.3f} cells > 2")
+    check(base_err > 4.0, f"baseline end error {base_err:.3f} cells is not > 4")
+    check(int(eng.closures_accepted.sum()) > 0, "no closure accepted on the drift trace")
+    # (c) one check call a check tick, one B6 and one B7 launch each
+    ticks = fused["check_ticks"]
+    check(eng.dispatch_count == ticks, f"{eng.dispatch_count} check calls for {ticks} check ticks")
+    check(host["engine"].dispatch_count == 0, "the host arm made device calls")
+    for name in ("coarse_scores", "fine_scores"):
+        check(fused["launches"][name] == ticks,
+              f"{name} launched {fused['launches'][name]} times for {ticks} check ticks")
+    check(fused["launches"]["log_odds_update"] == 0, "the loop arm launched B8")
+    # (d) the world map on the on_install tap: the card's accumulation is
+    # the sum of its members' (aligned) planes; one publication equals
+    # publish_tiles on the host sum
+    members = [m.plane for m in world._members]
+    acc = world.accumulation()
+    host_sum = fuse_planes_np(members)
+    check(world.merges == eng.installs, f"world merged {world.merges} of {eng.installs} installs")
+    check(world._acc.device == device and acc.tobytes() == host_sum.tobytes(),
+          "the card's world accumulation differs from fuse_planes_np of its members")
+    snap_w = world.publish()
+    want_w = publish_tiles(host_sum, world.cfg.tile, snap_w.version)
+    check(all(np.array_equal(getattr(snap_w, f), getattr(want_w, f))
+              for f in ("tile_ids", "values", "runs", "tile_nruns"))
+          and snap_w.payload_bytes == want_w.payload_bytes,
+          "the world publication differs from publish_tiles on the host sum")
+
+    # the cost of a check: scoring (B6 + B7 through match_scan_volumes at
+    # N = S x candidates) against the solver (256 sweeps for all streams)
+    cfg_k, coarse, fine, mq = _loop_kernel_inputs(eng, fused["fe"], trace, masks, device)
+    n_k = coarse[0].shape[0]
+    for name, kern, plain in (
+            ("coarse_scores", lambda: smk.coarse_scores_kernel(*coarse, cfg_k),
+             lambda: smk.coarse_scores_plain(*coarse, cfg_k)),
+            ("fine_scores", lambda: smk.fine_scores_kernel(mq, *fine, cfg_k),
+             lambda: smk.fine_scores_plain(mq, *fine, cfg_k))):
+        got, want = kern(), plain()
+        for a, b in zip(got if name == "coarse_scores" else (got,),
+                        want if name == "coarse_scores" else (want,)):
+            ok, err = exact(a, b)
+            check(ok, f"{name} differs from its plain version at the loop shape: {err}")
+    nvalid = int(coarse[2].sum())
+    bounds = match_bounds(cfg_k, n_k, nvalid)
+    shape = {"N": n_k, "G": cfg_k.grid, "B": cfg_k.beams, "U": 2 * cfg_k.window_cells + 1,
+             "T": 2 * cfg_k.theta_window + 1, "F": 2 * cfg_k.fine_radius + 1,
+             "valid_beams": nvalid, "clamp_q": cfg_k.clamp_q, "quant_shift": cfg_k.quant_shift}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shape["coarse_plan"] = smk.coarse_plan(n_k, cfg_k.grid, cfg_k.coarse, cfg_k.window_cells,
+                                           cfg_k.clamp_q, cfg_k.quant_shift, sms)
+    shape["fine_plan"] = smk.fine_plan(n_k, shape["T"], cfg_k.fine_radius, sms)
+    kernel_times = {}
+    for name, kern, plain in (
+            ("coarse_scores", lambda: smk.coarse_scores_kernel(*coarse, cfg_k),
+             lambda: smk.coarse_scores_plain(*coarse, cfg_k)),
+            ("fine_scores", lambda: smk.fine_scores_kernel(mq, *fine, cfg_k),
+             lambda: smk.fine_scores_plain(mq, *fine, cfg_k))):
+        kernel_times[name] = {
+            **shape, "ms": cuda_ms(kern), "device_ms": device_ms(kern),
+            "plain_ms": cuda_ms(plain, iters=20, warmup=3), "library_ms": None,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "launches": fused["launches"][name]}
+
+    # one check of the final state (a copy) and its solver alone: events ms
+    # (host-bound: eager operations) and device operations counted
+    st = LoopState.from_numpy(fused["snap"], device)
+    pts_t = torch.from_numpy(trace[-1][0]).to(device)
+    masks_t = torch.from_numpy(masks).to(device)
+    poses_t = torch.from_numpy(fused["fe"].pose.astype(np.int32)).to(device)
+    cand_t = torch.zeros((s, LOOP["candidates"]), dtype=torch.int32, device=device)
+    cand_t[:, 1] = 1
+    check_t = torch.ones((s,), dtype=torch.int32, device=device)
+    ks = torch.arange(eng.cfg.max_submaps, dtype=torch.int32, device=device)
+    odom_rows = torch.stack([(ks - 1).clamp_min(0).expand(s, -1), ks.expand(s, -1),
+                             st.odom[..., 0], st.odom[..., 1], st.odom[..., 2],
+                             ((ks >= 1) & (ks < st.count[:, None])).to(torch.int32)], dim=2)
+    all_cons = torch.cat([odom_rows, st.cons], dim=1)
+
+    st_check = LoopState.from_numpy(fused["snap"], device)    # updated in place
+    pose_k = torch.from_numpy(
+        np.repeat(fused["fe"].pose, LOOP["candidates"], 0).astype(np.int32)).to(device)
+
+    def one_check():
+        fleet_loop_close_step(st_check, pts_t, masks_t, poses_t, cand_t, check_t, eng.cfg)
+
+    def one_solve():
+        fleet_solve_pose_graph(st.anchors, all_cons, eng.cfg.graph)
+
+    def one_score():
+        tsm.match_scan_volumes(coarse[0], pose_k, coarse[1], coarse[2], cfg_k)
+
+    # host-bound calls: their times move between calls, so check and solver
+    # alternate over 5 rounds and the split reads the rounds' medians
+    rounds = {"check_ms": [], "solver_ms": [], "scoring_ms": []}
+    for _ in range(5):
+        rounds["check_ms"].append(cuda_ms(one_check, iters=3, warmup=1))
+        rounds["solver_ms"].append(cuda_ms(one_solve, iters=3, warmup=1))
+        rounds["scoring_ms"].append(cuda_ms(one_score, iters=20, warmup=3))
+    split = {k: float(np.median(v)) for k, v in rounds.items()}
+    split["rounds"] = rounds
+    for name, fn in (("check", one_check), ("solver", one_solve), ("scoring", one_score)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # the named ranges (ops/loop_close.py) also appear on the device's
+        # timeline as annotations spanning their kernels: not operations
+        named = ("loop_close.solve", "loop_close.score")
+        evs = [ev for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA and ev.name not in named]
+        split[f"{name}_device_ops"] = len(evs)
+        split[f"{name}_device_ms"] = sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
+        if name == "check":
+            # one check's host time by its named ranges, under the
+            # profiler: the solver's and the scoring's shares
+            ranges = {ev.name: ev.cpu_time_total for ev in prof.events()
+                      if ev.device_type == DeviceType.CPU and ev.name in named}
+            check(set(ranges) == set(named), f"the profiler lost a named range: {ranges}")
+            split["profiled_check_wall_ms"] = wall_us / 1e3
+            split["solver_host_share"] = ranges.get("loop_close.solve", 0.0) / wall_us
+            split["scoring_host_share"] = ranges.get("loop_close.score", 0.0) / wall_us
+    # the events of separate calls (host-bound, noisy), for scale only
+    split["solver_share"] = split["solver_ms"] / split["check_ms"]
+    check(split["check_device_ms"] > 0, "the profiler recorded no device time for a check")
+    busy = max(split["check_device_ms"], 1e-9)
+    split["solver_device_share"] = split["solver_device_ms"] / busy
+    split["device_idle_share"] = 1.0 - busy / split["check_ms"]
+
+    node = _loop_node(device)
+    replay = _loop_replay(device, replay_revs)
+
+    cms = np.asarray(fused["check_ms"])
+    row = {
+        "phase": "loop", "streams": s, "grid": LOOP["grid"], "beams": LOOP["beams"],
+        "revs": LOOP["revs"], "check_ticks": ticks, "dispatches": eng.dispatch_count,
+        "checks": eng.checks, "installs": eng.installs,
+        "accepted": int(eng.closures_accepted.sum()), "rejected": int(eng.closures_rejected.sum()),
+        "baseline_end_err_cells": base_err, "corrected_end_err_cells": corr_err,
+        "launches": fused["launches"],
+        "check_wall_ms": {"p50": float(np.percentile(cms, 50)),
+                          "p99": float(np.percentile(cms, 99)), "max": float(cms.max()),
+                          "n": int(cms.size)},
+        "arm_wall_s": {a: arms[a]["wall_s"] for a in arms},
+        "cost_split": split, "kernels_at_loop_shape": kernel_times,
+        "world": world.status(), "node": node, "replay": replay,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(row)
+    return row
+
 
 # ---------------------------------------------------------------------------
 # the fused device ingest with de-skew (B4, B5)
@@ -2509,6 +2991,7 @@ def main(argv=None) -> int:
     mapk = phase_mapkernels(device, np.random.default_rng(args.seed + 1))
     mapping = phase_mapping(device)
     replay_map = phase_replay_map(device, replay_revs)
+    loop = phase_loop(device, replay_revs)
     dskk = phase_deskew_kernels(device, np.random.default_rng(args.seed + 2))
     fused = phase_replay_fused(device, replay_frames, replay_revs, args.trace_dir)
 
@@ -2562,6 +3045,10 @@ def main(argv=None) -> int:
         if name in GOAL_DEVICE_MS:
             kernels[-1].update(match_goals(name, t, mapk["times"]["replay_map"][name],
                                            mapk["bounds"]["replay_map"][name]))
+        if name in loop["kernels_at_loop_shape"]:
+            # B6/B7 at the loop check's shape (config 17: N = 4 streams x 2
+            # candidates), launches on the phase's fused arm
+            kernels[-1]["loop_close_shape"] = loop["kernels_at_loop_shape"][name]
     # B4/B5: launches on the de-skew-on fused replay; B4 is timed at both
     # of its shapes there (the rasterizer's in the row, the profiles' beside)
     for name, key, replaces in (

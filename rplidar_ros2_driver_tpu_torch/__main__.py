@@ -5,7 +5,7 @@ The reference's main is rclcpp::init -> RPlidarNode -> executor spin
 
     python -m rplidar_ros2_driver_tpu_torch run [--params FILE] [--dummy] [--duration S] [--cpu]
     python -m rplidar_ros2_driver_tpu_torch replay CAP.rplr [--chain] [--fused] [--map]
-        [--map-backend auto|host|fused] [--map-pgm PATH] [--cpu]
+        [--loop-close] [--map-backend auto|host|fused] [--map-pgm PATH] [--cpu]
 
 ``run`` drives the real driver (driver/real.RealLidarDriver over the
 native serial, TCP or UDP channel that ``channel_type`` names) unless
@@ -13,11 +13,13 @@ native serial, TCP or UDP channel that ``channel_type`` names) unless
 ``ingest_backend: fused`` the raw frames decode and filter on the device.
 The filter chain, the node's fused ingest, the replay's decode, its fused
 device ingest (``--fused``: the raw capture bytes through
-replay.replay_raw_fused, held to the host chain) and the SLAM front-end mapper (``--map``; with
-``map_enable`` in the node) run on the CUDA card unless ``filter_backend:
-cpu`` (or ``--cpu``) keeps them on the host.  Still
-raising NotImplementedError, each naming its ROADMAP item: ``--chain`` of
-several captures (A.7) and ``--loop-close`` (A.9).
+replay.replay_raw_fused, held to the host chain), the SLAM front-end mapper (``--map``; with
+``map_enable`` in the node) and the SLAM back-end (``--loop-close``:
+loop closure and the pose graph, replay.replay_with_loop_closure; with
+``loop_enable`` in the node) run on the CUDA card unless ``filter_backend:
+cpu`` (or ``--cpu``) keeps them on the host.  Still raising
+NotImplementedError, naming its ROADMAP item: ``--chain`` of several
+captures (A.7).
 """
 
 from __future__ import annotations
@@ -77,10 +79,6 @@ def _cmd_replay(args) -> int:
     from rplidar_ros2_driver_tpu_torch.replay import decode_recording
 
     backend = "cpu" if args.cpu else "cuda"
-    if args.loop_close:
-        raise NotImplementedError(
-            "replay --loop-close (the SLAM back-end) is not ported yet (ROADMAP A.9)"
-        )
     if args.chain and len(args.recordings) > 1:
         raise NotImplementedError(
             "replay --chain of several recordings is the sharded fleet replay, "
@@ -125,7 +123,9 @@ def _cmd_replay(args) -> int:
         )
     if args.fused:
         _replay_fused_report(args, per_stream, runs_per_path, backend)
-    if args.map:
+    if args.map or args.loop_close:
+        # --loop-close implies the map report (the back-end is the map and
+        # trajectory pipeline plus the correction)
         _replay_map_report(args, per_stream, backend)
     return 0
 
@@ -176,12 +176,14 @@ def _replay_fused_report(args, per_stream, runs_per_path, backend: str) -> None:
 
 def _replay_map_report(args, per_stream, backend: str) -> None:
     """The ``replay --map`` arm: each capture's revolutions through the
-    chain and the SLAM front-end (replay.replay_with_map), reported with
-    the JAX CLI's lines: a summary, then an ASCII preview or a PGM."""
+    chain and the SLAM front-end (replay.replay_with_map; with
+    ``--loop-close`` the back-end too, replay.replay_with_loop_closure),
+    reported with the JAX CLI's lines: a summary, the loop-closure line,
+    then an ASCII preview or a PGM (raw trajectory 200, corrected 255)."""
     import numpy as np
 
     from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
-    from rplidar_ros2_driver_tpu_torch.replay import replay_with_map
+    from rplidar_ros2_driver_tpu_torch.replay import replay_with_loop_closure, replay_with_map
     from rplidar_ros2_driver_tpu_torch.tools.viz import (
         ascii_preview,
         draw_trajectory,
@@ -194,12 +196,17 @@ def _replay_map_report(args, per_stream, backend: str) -> None:
         filter_chain=("clip", "median", "voxel"),
         map_enable=True,
         map_backend=args.map_backend,
+        loop_enable=bool(args.loop_close),
     )
     for i, (path, revs) in enumerate(zip(args.recordings, per_stream)):
         if not revs:
             print(f"{path}: --map skipped (no complete revolutions)")
             continue
-        traj, scores, mapper = replay_with_map(revs, params)
+        corrected = engine = None
+        if args.loop_close:
+            traj, corrected, scores, mapper, engine = replay_with_loop_closure(revs, params)
+        else:
+            traj, scores, mapper = replay_with_map(revs, params)
         snap = mapper.snapshot()
         occupied = int(np.sum(snap["log_odds"][0] > 0))
         matched = int(np.sum(scores > 0))
@@ -211,8 +218,20 @@ def _replay_map_report(args, per_stream, backend: str) -> None:
             f"({x:+.3f} m, {y:+.3f} m, {np.degrees(th):+.2f} deg)"
         )
         img = draw_trajectory(
-            map_to_image(snap["log_odds"][0], mapper.cfg.clamp_q), traj[:, :2], mapper.cfg.cell_m
+            map_to_image(snap["log_odds"][0], mapper.cfg.clamp_q), traj[:, :2], mapper.cfg.cell_m,
+            value=200 if corrected is not None else 255,
         )
+        if corrected is not None:
+            st = engine.status()
+            cx, cy, cth = corrected[-1]
+            print(
+                f"  loop closure ({engine.backend} backend): "
+                f"{st['accepted']} accepted / {st['rejected']} rejected, "
+                f"{st['submaps'][0]} submaps, corrected final pose "
+                f"({cx:+.3f} m, {cy:+.3f} m, {np.degrees(cth):+.2f} deg)"
+            )
+            # the corrected trajectory over the raw one, brighter
+            img = draw_trajectory(img, corrected[:, :2], mapper.cfg.cell_m, value=255)
         if args.map_pgm:
             out = args.map_pgm if len(per_stream) == 1 else f"{args.map_pgm}.{i}"
             save_pgm(img, out)
@@ -265,7 +284,10 @@ def main(argv=None) -> int:
     replay.add_argument(
         "--loop-close",
         action="store_true",
-        help="the SLAM back-end (not ported yet: raises)",
+        help="with --map: run the SLAM back-end too (submap library, loop-closure "
+        "candidate matching, fixed-point pose-graph relaxation, "
+        "replay.replay_with_loop_closure) and draw the corrected trajectory next "
+        "to the raw one (raw 200, corrected 255)",
     )
     replay.add_argument(
         "--map-pgm",

@@ -220,19 +220,18 @@ class DriverParams:
     # a quantized submap (library capped at loop_max_submaps,
     # cap-and-hold); every loop_check_revs revolutions the current scan
     # is matched against the loop_candidates nearest submaps in ONE
-    # dispatch (candidate scoring reuses the correlative matcher's
-    # score-volume engines, so match_backend routes it through the XLA
-    # or Pallas kernels), and accepted closures feed the fixed-point
-    # pose-graph relaxation whose corrected pose is republished.
+    # call for the whole fleet (candidate scoring reuses the correlative
+    # matcher's score-volume core, so match_backend routes it through the
+    # plain arm or the kernels B6/B7), and accepted closures feed the
+    # fixed-point pose-graph relaxation whose corrected pose is
+    # republished.
     # Requires map_enable (the back-end closes the front-end's loop).
     loop_enable: bool = False
     # loop backend seam: "host" = the NumPy golden reference
     # (ops/loop_close_ref.py — the bit-exact oracle); "fused" = the
-    # device path (N streams check N submap libraries in ONE compiled
-    # vmapped dispatch, ops/loop_close.fleet_loop_close_step); "auto"
-    # resolves per the standing decision procedure (slam/loop.
-    # resolve_loop_backend — host until an on-chip config-17 artifact
-    # clears the bar; scripts/decide_backends.py reads `loop_close_ab`).
+    # device path (N streams check N submap libraries in one call,
+    # ops/loop_close.fleet_loop_close_step); "auto" = fused on a CUDA
+    # device, host otherwise (slam/loop.resolve_loop_backend).
     loop_backend: str = "auto"
     loop_submap_revs: int = 8         # revolutions between finalizations
     loop_max_submaps: int = 8         # submap library capacity (= graph nodes)
@@ -256,8 +255,7 @@ class DriverParams:
     # corrected poses are republished either way; re-anchoring
     # additionally mutates the front-end trajectory.
     loop_reanchor: bool = False
-    # fixed relaxation sweeps per solve (compile-time constant: the
-    # solver is a lax.fori_loop, one program per graph bucket)
+    # fixed relaxation sweeps per solve (ops/pose_graph.py)
     pose_graph_iters: int = 96
     # loop-constraint plane capacity (dense padded; the solver plane is
     # loop_max_submaps odometry rows + this many loop rows)

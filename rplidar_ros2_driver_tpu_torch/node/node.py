@@ -34,10 +34,16 @@ the matcher kernels B6/B7/B8; with ``filter_backend: cpu`` it is the host
 reference.  The map survives deactivate/activate and rides the combined
 checkpoint under ``mapper.*`` keys.
 
+With ``loop_enable`` as well, the SLAM back-end (slam/loop.
+LoopClosureEngine) observes every mapper tick: submap finalizations,
+closure checks (on the card, kernels B6/B7 score the candidates) and the
+pose-graph relaxation; the published ``PoseHost`` is then the
+pose-graph-corrected pose.  The submap library survives
+deactivate/activate and rides the combined checkpoint under ``loop.*``
+keys, in the JAX package's format.
+
 The driver is driver/real.RealLidarDriver over the native channel
-(serial, TCP or UDP) unless ``dummy_mode`` is set.  Not yet in this
-package: loop closure, ``loop_enable``, which raises NotImplementedError
-naming ROADMAP A.9.
+(serial, TCP or UDP) unless ``dummy_mode`` is set.
 """
 
 from __future__ import annotations
@@ -69,13 +75,13 @@ from rplidar_ros2_driver_tpu_torch.node.messages import (
 from rplidar_ros2_driver_tpu_torch.node.publisher import CollectingPublisher, PublisherBase
 from rplidar_ros2_driver_tpu_torch.ops.ascend import apply_angle_compensation
 from rplidar_ros2_driver_tpu_torch.ops.laserscan import to_laserscan
+from rplidar_ros2_driver_tpu_torch.ops.scan_match import pose_to_metric
 from rplidar_ros2_driver_tpu_torch.utils.tracing import StageTimer
 
 log = logging.getLogger("rplidar_tpu.node")
 
-# combined-checkpoint key prefixes: the mapper's MapState (schema-versioned
-# by its own "version" entry) and the JAX package's loop-closure state,
-# which this package does not have yet and drops on load
+# combined-checkpoint key prefixes: the mapper's MapState and the loop
+# engine's LoopState, each schema-versioned by its own "version" entry
 _MAPPER_KEY_PREFIX = "mapper."
 _LOOP_KEY_PREFIX = "loop."
 
@@ -112,6 +118,11 @@ class RPlidarNode(LifecycleNode):
         # output; its snapshot survives deactivate/activate and cleanup
         self.mapper = None
         self._mapper_snapshot = None
+        # SLAM back-end (loop_enable): submap library + loop closure +
+        # pose graph beside the mapper; observes every mapper tick and
+        # republishes the corrected pose
+        self.loop = None
+        self._loop_snapshot = None
         # (stamp, duration, max_range) of the revolution whose chain
         # output is still in flight when pipelined_publish is on
         self._pipeline_meta: Optional[tuple[float, float, float]] = None
@@ -160,11 +171,6 @@ class RPlidarNode(LifecycleNode):
 
     def on_configure(self) -> bool:
         log.info("%s: configuring (port=%s)", self.name, self.params.serial_port)
-        if self.params.loop_enable:
-            raise NotImplementedError(
-                "loop_enable (loop closure and the pose graph) is not ported "
-                "to the PyTorch package yet (ROADMAP A.9)"
-            )
         if self._driver_factory is None and not self.params.dummy_mode:
             # probe the native I/O library here, not inside the scan thread:
             # when it cannot be built/loaded the driver falls back to the
@@ -232,6 +238,14 @@ class RPlidarNode(LifecycleNode):
                 if not self.mapper.restore(self._mapper_snapshot):
                     # geometry/schema changed since the snapshot: drop it
                     self._mapper_snapshot = None
+            if self.params.loop_enable:
+                from rplidar_ros2_driver_tpu_torch.slam.loop import LoopClosureEngine
+
+                self.loop = LoopClosureEngine(self.params, self.mapper)
+                self.loop.precompile()
+                if self._loop_snapshot is not None:
+                    if not self.loop.restore(self._loop_snapshot):
+                        self._loop_snapshot = None
         self.diagnostics = DiagnosticsUpdater(
             hardware_id=f"rplidar-{self.params.serial_port}",
             publisher=self.publisher,
@@ -310,6 +324,8 @@ class RPlidarNode(LifecycleNode):
             self._chain_snapshot = self.chain.snapshot()
         if self.mapper is not None:
             self._mapper_snapshot = self.mapper.snapshot()
+        if self.loop is not None:
+            self._loop_snapshot = self.loop.snapshot()
         self._update_diagnostics()
         return True
 
@@ -318,22 +334,25 @@ class RPlidarNode(LifecycleNode):
         self.chain = None
         self.fused_ingest = None
         self.mapper = None
+        self.loop = None
         self.raw_device = None
-        # _chain_snapshot / _mapper_snapshot intentionally survive cleanup:
-        # they are the checkpoint/resume surface — a later configure
-        # restores the rolling window and the map.  discard_checkpoint()
-        # drops them.
+        # _chain_snapshot / _mapper_snapshot / _loop_snapshot intentionally
+        # survive cleanup: they are the checkpoint/resume surface — a later
+        # configure restores the rolling window, the map and the submap
+        # library.  discard_checkpoint() drops them.
         return True
 
     def discard_checkpoint(self) -> None:
-        """Forget the saved filter-window and map snapshots (next configure
-        starts cold)."""
+        """Forget the saved filter-window, map and loop snapshots (next
+        configure starts cold)."""
         self._chain_snapshot = None
         self._mapper_snapshot = None
+        self._loop_snapshot = None
 
     def save_checkpoint(self, path: str) -> bool:
         """Persist the filter-chain state — and, with the mapper, its
-        MapState under versioned ``mapper.*`` keys — to one atomic file
+        MapState under versioned ``mapper.*`` keys, with the loop engine
+        its LoopState under ``loop.*`` keys — to one atomic file
         (utils/checkpoint.py; the JAX package's format).
 
         Uses the live state when active/inactive, else the last
@@ -351,6 +370,10 @@ class RPlidarNode(LifecycleNode):
         if mapper_snap is not None:
             for k, v in mapper_snap.items():
                 snap[_MAPPER_KEY_PREFIX + k] = v
+        loop_snap = self.loop.snapshot() if self.loop is not None else self._loop_snapshot
+        if loop_snap is not None:
+            for k, v in loop_snap.items():
+                snap[_LOOP_KEY_PREFIX + k] = v
         save_checkpoint(path, snap, extra={"node": self.name})
         return True
 
@@ -361,9 +384,9 @@ class RPlidarNode(LifecycleNode):
         Returns False — touching nothing — when the file is absent/torn
         or its geometry doesn't match the current chain parameters.  A
         checkpoint written by the JAX package loads here, its ``mapper.*``
-        keys included (restored when compatible; an incompatible map is
-        dropped with the chain still restored — the map is derived state);
-        its loop-closure keys are dropped with a warning (ROADMAP A.9)."""
+        and ``loop.*`` keys included (restored when compatible; an
+        incompatible map or library is dropped with the chain still
+        restored — both are derived state)."""
         from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
         from rplidar_ros2_driver_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -373,34 +396,39 @@ class RPlidarNode(LifecycleNode):
         if loaded is None:
             return False
         snap, _meta = loaded
-        loop = [k for k in snap if k.startswith(_LOOP_KEY_PREFIX)]
-        if loop:
-            log.warning("dropping %d loop-closure checkpoint entries (not ported)", len(loop))
-        mp = _MAPPER_KEY_PREFIX
+        mp, lp = _MAPPER_KEY_PREFIX, _LOOP_KEY_PREFIX
         mapper_snap = {k[len(mp):]: v for k, v in snap.items() if k.startswith(mp)} or None
-        snap = {k: v for k, v in snap.items() if not k.startswith((mp, _LOOP_KEY_PREFIX))}
+        loop_snap = {k[len(lp):]: v for k, v in snap.items() if k.startswith(lp)} or None
+        snap = {k: v for k, v in snap.items() if not k.startswith((mp, lp))}
 
-        def stage_mapper() -> None:
-            if mapper_snap is None:
-                return
-            if self.mapper is not None:
-                if self.mapper.restore(mapper_snap):
+        def stage_map_and_loop() -> None:
+            if mapper_snap is not None:
+                if self.mapper is not None:
+                    if self.mapper.restore(mapper_snap):
+                        self._mapper_snapshot = mapper_snap
+                elif FleetMapper.snapshot_compatible(self.params, mapper_snap):
                     self._mapper_snapshot = mapper_snap
-            elif FleetMapper.snapshot_compatible(self.params, mapper_snap):
-                self._mapper_snapshot = mapper_snap
+            if loop_snap is not None:
+                if self.loop is not None:
+                    if self.loop.restore(loop_snap):
+                        self._loop_snapshot = loop_snap
+                else:
+                    # staged for the next configure, whose restore()
+                    # validates schema and geometry
+                    self._loop_snapshot = loop_snap
 
         if self.chain is not None:
             if not self.chain.restore(snap):  # rejects mismatch untouched
                 return False
             self._chain_snapshot = snap
-            stage_mapper()
+            stage_map_and_loop()
             return True
         # no live chain yet: validate host-side against the geometry the
         # next configure will build (no device transfers)
         if not ScanFilterChain.snapshot_compatible(self.params, snap):
             return False
         self._chain_snapshot = snap
-        stage_mapper()
+        stage_map_and_loop()
         return True
 
     def on_shutdown(self) -> bool:
@@ -535,14 +563,22 @@ class RPlidarNode(LifecycleNode):
         if self.mapper is not None:
             with self.tracer.stage("map"):
                 est = self.mapper.submit([out])[0]
+                if self.loop is not None:
+                    # submap finalization and, when due, one closure check;
+                    # the pose published below is the corrected one
+                    self.loop.observe([est])
             if est is not None:
+                x_m, y_m, theta_rad = est.x_m, est.y_m, est.theta_rad
+                if self.loop is not None:
+                    x_m, y_m, theta_rad = pose_to_metric(
+                        self.loop.corrected_pose_q(0, est.pose_q), self.mapper.cfg)
                 self.publisher.publish_pose(PoseHost(
                     stamp=stamp,
                     frame_id="map",
                     child_frame_id=params.frame_id,
-                    x_m=est.x_m,
-                    y_m=est.y_m,
-                    theta_rad=est.theta_rad,
+                    x_m=x_m,
+                    y_m=y_m,
+                    theta_rad=theta_rad,
                     score=est.score,
                     matched_points=est.matched_points,
                     map_revision=est.revision,
@@ -591,6 +627,7 @@ class RPlidarNode(LifecycleNode):
             latency_p99_ms=lat or None,
             rx_scheduling=driver.rx_scheduling_class() if driver is not None else None,
             map_status=map_status,
+            loop_status=self.loop.status() if self.loop is not None else None,
             reconnect=reconnect,
         )
 

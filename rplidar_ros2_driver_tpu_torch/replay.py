@@ -1,11 +1,13 @@
 """Record / replay: capture raw wire frames, batch-decode them on the card,
 run the revolutions through the fused K-scan filter chain and, with
-:func:`replay_with_map`, through the SLAM front-end mapper; or, with
+:func:`replay_with_map`, through the SLAM front-end mapper (with
+:func:`replay_with_loop_closure`, the back-end too); or, with
 :func:`replay_raw_fused`, run the raw bytes through the fused device ingest.
 
 The PyTorch counterpart of the JAX package's ``replay.py`` (its recorder,
-reader, batched decode, ``replay_through_chain``, ``replay_with_map`` and
-``replay_raw_fused``; the fleet and loop-closure replays are not ported): a capture decodes as
+reader, batched decode, ``replay_through_chain``, ``replay_with_map``,
+``replay_with_loop_closure`` and ``replay_raw_fused``; the fleet replay is
+not ported): a capture decodes as
 a handful of ``(M, frame_bytes)`` batch decodes (ops/unpack.py) on the
 chosen device instead of a per-byte loop; the revolution split stays numpy
 on the host; then the revolutions advance the rolling window ``chunk``
@@ -238,14 +240,18 @@ def _replay_map_core(
     beams: int | None,
     capacity: int,
     chunk: int,
+    with_loop: bool,
 ):
-    """The offline SLAM replay loop: chain replay, then the numpy beam-grid
-    projection of each median range image on the host (float32 θ, numpy
-    cos/sin, float32 products — the JAX package's lines verbatim, so both
-    packages feed the mapper the same float32 points bit for bit), then one
-    mapper tick per scan."""
+    """The offline SLAM replay loop both map entry points share: chain
+    replay, then the numpy beam-grid projection of each median range image
+    on the host (float32 θ, numpy cos/sin, float32 products — the JAX
+    package's lines verbatim, so both packages feed the mapper the same
+    float32 points bit for bit), then one mapper tick per scan and — with
+    ``with_loop`` — a loop-closure engine observing every tick, the
+    corrected trajectory recorded next to the raw one."""
     from rplidar_ros2_driver_tpu_torch.filters.chain import DEFAULT_BEAMS
     from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
+    from rplidar_ros2_driver_tpu_torch.ops.scan_match import pose_to_metric
 
     b = beams or DEFAULT_BEAMS
     ranges, _state = replay_through_chain(
@@ -254,17 +260,28 @@ def _replay_map_core(
     theta = ((np.arange(b) + 0.5) * (2.0 * np.pi / b)).astype(np.float32)
     cos_t, sin_t = np.cos(theta), np.sin(theta)
     mapper = FleetMapper(params, 1, beams=b)
+    engine = None
+    if with_loop:
+        from rplidar_ros2_driver_tpu_torch.slam.loop import LoopClosureEngine
+
+        engine = LoopClosureEngine(params, mapper)
+        engine.precompile()
     k_total = ranges.shape[0]
     traj = np.zeros((k_total, 3), np.float64)
+    corrected = np.zeros((k_total, 3), np.float64) if with_loop else None
     scores = np.zeros((k_total,), np.int32)
     for k in range(k_total):
         finite = np.isfinite(ranges[k])
         r = np.where(finite, ranges[k], 0.0).astype(np.float32)
         pts = np.stack([r * cos_t, r * sin_t], axis=1).astype(np.float32)
-        est = mapper.submit_points(pts[None], finite[None], np.ones((1,), np.int32))[0]
+        ests = mapper.submit_points(pts[None], finite[None], np.ones((1,), np.int32))
+        est = ests[0]
+        if engine is not None:
+            engine.observe(ests)
+            corrected[k] = pose_to_metric(engine.corrected_pose_q(0, est.pose_q), mapper.cfg)
         traj[k] = (est.x_m, est.y_m, est.theta_rad)
         scores[k] = est.score
-    return traj, scores, mapper
+    return traj, corrected, scores, mapper, engine
 
 
 def replay_with_map(
@@ -287,7 +304,34 @@ def replay_with_map(
     theta_rad] per-scan poses, (K,) int32 match scores, and the mapper
     (whose ``snapshot()`` is the final map; render it with
     tools/viz.map_to_image)."""
-    return _replay_map_core(revolutions, params, beams=beams, capacity=capacity, chunk=chunk)
+    traj, _corrected, scores, mapper, _engine = _replay_map_core(
+        revolutions, params, beams=beams, capacity=capacity, chunk=chunk, with_loop=False)
+    return traj, scores, mapper
+
+
+def replay_with_loop_closure(
+    revolutions: list[dict],
+    params,
+    *,
+    beams: int | None = None,
+    capacity: int = 4096,
+    chunk: int = 256,
+):
+    """Offline SLAM replay through the whole back-end: the capture's
+    revolutions through the chain and the mapper exactly as in
+    :func:`replay_with_map`, with a loop-closure engine
+    (slam/loop.LoopClosureEngine) observing every revolution — submap
+    finalizations, batched candidate matching (B6/B7 on the card), the
+    pose-graph relaxation — so the corrected trajectory comes out next to
+    the raw one.  ``params.loop_backend`` ``auto`` is the fused engine on
+    the card, the host reference on the CPU.
+
+    Returns ``(traj, corrected, scores, mapper, engine)``: the raw (K, 3)
+    float64 trajectory, the corrected (K, 3) trajectory (equal to it until
+    the first accepted closure), (K,) int32 match scores, the mapper and
+    the engine (whose ``status()`` carries the closure counters)."""
+    return _replay_map_core(
+        revolutions, params, beams=beams, capacity=capacity, chunk=chunk, with_loop=True)
 
 
 def replay_raw_fused(
@@ -375,11 +419,3 @@ def replay_raw_fused(
         stats["recon_history"] = eng.recon_history[0]
     return ranges, eng.filter_state_of(0), stats
 
-
-def replay_with_loop_closure(revolutions: list[dict], params, **kwargs):
-    """The replay through the SLAM back-end (loop closure, pose graph):
-    not ported to this package yet."""
-    raise NotImplementedError(
-        "replay with loop closure (the SLAM back-end) is not ported to the "
-        "PyTorch package yet (ROADMAP A.9)"
-    )

@@ -67,6 +67,10 @@ def test_scan_sees_the_whole_port():
         "protocol/codec.py", "protocol/conf.py", "protocol/engine.py",
         "protocol/pytransport.py", "native/__init__.py", "native/runtime.py",
         "ops/unpack_ref.py", "driver/sim_device.py", "driver/chaos.py", "driver/real.py",
+        # the SLAM back-end and the world map
+        "slam/__init__.py", "slam/loop.py", "ops/pose_graph.py", "ops/pose_graph_ref.py",
+        "ops/loop_close.py", "ops/loop_close_ref.py", "ops/tile_quant.py",
+        "mapping/submap.py", "mapping/tiles.py", "mapping/worldmap.py", "tools/loop_drift.py",
     ):
         assert module in rel
     for source in ("median.cu", "sliding_median.cu", "scan_match.cu", "deskew.cu",
@@ -75,8 +79,8 @@ def test_scan_sees_the_whole_port():
 
 
 def test_scan_reads_the_live_paths_nested_imports():
-    """The live path's lazy imports (inside functions) are in the scan and
-    point at this package."""
+    """The live path's and the SLAM back-end's lazy imports (inside
+    functions) are in the scan and point at this package."""
     for rel, module in (
         ("driver/real.py", "rplidar_ros2_driver_tpu_torch.native.runtime"),
         ("driver/real.py", "rplidar_ros2_driver_tpu_torch.protocol.pytransport"),
@@ -87,6 +91,11 @@ def test_scan_reads_the_live_paths_nested_imports():
         ("driver/sim_device.py", "rplidar_ros2_driver_tpu_torch.driver.chaos"),
         ("driver/chaos.py", "rplidar_ros2_driver_tpu_torch.native.runtime"),
         ("node/node.py", "rplidar_ros2_driver_tpu_torch.driver.real"),
+        ("node/node.py", "rplidar_ros2_driver_tpu_torch.slam.loop"),
+        ("replay.py", "rplidar_ros2_driver_tpu_torch.slam.loop"),
+        ("slam/loop.py", "rplidar_ros2_driver_tpu_torch.ops.loop_close_ref"),
+        ("slam/loop.py", "rplidar_ros2_driver_tpu_torch.filters.chain"),
+        ("mapping/worldmap.py", "rplidar_ros2_driver_tpu_torch.filters.chain"),
     ):
         assert module in set(imported_modules(os.path.join(PORT, rel))), (rel, module)
 

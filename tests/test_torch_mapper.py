@@ -349,8 +349,11 @@ def test_replay_with_map_matches_jax(capture):
         assert traj.dtype == np.float64 and traj.tobytes() == np.asarray(jtraj).tobytes()
         assert scores.dtype == np.int32 and np.array_equal(scores, jscores)
         assert_same_snapshot(m.snapshot(), jm.snapshot())
-    with pytest.raises(NotImplementedError, match="A.9"):
-        treplay.replay_with_loop_closure(revs, port_params())
+    # the loop-closure replay (A.9) is ported: its raw trajectory is this one
+    ltraj, _corr, lscores, _m, engine = treplay.replay_with_loop_closure(
+        revs, port_params(map_backend="host", loop_enable=True, **REPLAY_GEOM), **kw)
+    assert ltraj.tobytes() == np.asarray(jtraj).tobytes() and np.array_equal(lscores, jscores)
+    assert engine.backend == "host" and engine.ticks == len(revs)
 
 
 def test_cli_replay_map_on_the_cpu_prints_jax_lines(capture, tmp_path, capsys):
@@ -373,9 +376,10 @@ def test_cli_replay_map_on_the_cpu_prints_jax_lines(capture, tmp_path, capsys):
     assert "(fused backend)" in out and "#" in out
 
 
-def test_cli_replay_loop_close_raises(capture, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A.9"):
-        main(["replay", capture, "--map", "--loop-close", "--cpu"])
+def test_cli_replay_loop_close_raises(capture, monkeypatch, capsys):
+    # --loop-close (A.9) is ported: it runs, and prints the loop-closure line
+    assert main(["replay", capture, "--map", "--loop-close", "--cpu"]) == 0
+    assert "loop closure (host backend)" in capsys.readouterr().out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["replay", capture, "--map"])  # the card by default
@@ -476,8 +480,14 @@ def test_jax_node_checkpoint_with_a_map_loads_into_the_port(tmp_path):
 
 
 def test_loop_enable_raises():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        make_node(loop_enable=True).configure()
+    # loop_enable (A.9) is ported: the node builds its loop engine beside the
+    # mapper (the host reference with filter_backend cpu)
+    node = make_node(loop_enable=True)
+    try:
+        assert node.configure() and node.loop.backend == "host"
+        assert node.loop.mapper is node.mapper
+    finally:
+        node.shutdown()
 
 
 def test_cli_replay_map_skips_a_capture_without_revolutions(capture, capsys):

@@ -134,8 +134,12 @@ def test_jax_node_checkpoint_loads_into_port_node(tmp_path):
 
 
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="A.9"):
-        make_node(filter_chain=CHAIN, map_enable=True, loop_enable=True).configure()
+    # loop closure (A.9) is ported: loop_enable builds the engine
+    looped = make_node(filter_chain=CHAIN, map_enable=True, loop_enable=True)
+    try:
+        assert looped.configure() and looped.loop is not None
+    finally:
+        looped.shutdown()
     # the real driver (A.4) is ported: without dummy_mode the default
     # factory builds it (configure connects nothing)
     from rplidar_ros2_driver_tpu_torch.driver.real import RealLidarDriver
