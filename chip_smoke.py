@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch package on one NVIDIA card (Hopper, sm_90a).
 
     python3 chip_smoke.py [--seed N] [--revs N] [--trace-dir DIR]
+    python3 chip_smoke.py --mesh-check N     # N cards: only the NCCL mesh check
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
@@ -28,40 +29,68 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 per dispatch, dispatches/s and drops, the kernels'
                 launches, the FSM states and each thread's CPU share;
                 it runs on the native transceiver or fails;
-  5. kernels  — each kernel (B1, B2, B3) against its plain PyTorch version
+  5. fleet    — this slice's path (ROADMAP A.7a), the mesh and the sharded
+                fleet service: (a) config 10 (bench.py bench_fleet_ingest)
+                at full geometry — W=64, 2048 beams, 256x256 at 0.25 m,
+                3200-point DenseBoost frames, 20 revolutions — through
+                both ShardedFilterService.submit_bytes arms at N = 2 and 8
+                (the host arm's lockstep tick: one B1 launch a tick for
+                the whole fleet; the fused arm: B1 once per revolution),
+                plus at N = 2 the inc median (B2) and the fused arm with
+                de-skew (B4, B5), every published output equal to the CPU
+                service's same arm; ticks/s, p50/p99 ms and, profiled
+                last, device operations a tick; (b) config 8 (bench.py
+                bench_fleet): replay_fleet of 4 streams x 8192 revolutions
+                cycled from 32 seeded ones, chunk 256 — one B3 launch a
+                chunk over the 4 streams' stripes side by side —, each
+                stream equal to its one-stream replay on the card and the
+                first chunk to the CPU; (c) the service with attach_mapper,
+                attach_loop_closure and attach_world_map on config 12's
+                room (4 streams, 24 ticks; B1, B6, B7, B8): poses, loop
+                statuses, corrected poses and the world accumulation
+                byte-equal to the CPU service; (d) the SLAM service's and
+                the fused engine's snapshots at tick 10 restored into
+                fresh ones and continued, equal to the uninterrupted runs;
+                (e) two gloo processes on cuda:0 (a (1, 2) mesh: step and
+                scan with psum and ring, each equal to one process); then
+                B1 at (64, N*2048) and B3 at (64, 256, 4*2048) timed with
+                their bounds;
+  6. kernels  — each kernel (B1, B2, B3) against its plain PyTorch version
                 on the card (exact equality; +inf equals +inf; B1 also at
                 W = 1, 31, 32, 33, 96, 1536 and 1537 — the last past its
-                shared-memory staging —, B off the block's 8 columns, all
+                shared-memory staging —, B off the block's 8 columns, the
+                fleet's stripes (64, 2*2048) and (64, 8*2048), all
                 +inf, all equal, heavy ties and an offset view; B2 over
                 successive ring steps and one-step edge fixtures at W = 1,
                 31, 32, 33, 64, 96 and 1533 to 1537 (the last staged W
                 and the four past it), ragged B, old or new +inf,
                 all-+inf and all-equal columns, old absent and an offset
-                view; B3 over the test grid, the replay's stripe and its
+                view; B3 over the test grid, the replay's stripe, the
+                fleet replay's (W, K, B) = (64, 256, 4*2048) and its
                 launch plans' edges: K = 1, W far above a block's rows,
                 W = 1, B = 257 and 2050, the largest W staged with 4, 2
                 and 1 warps, W = 191 and 1536 unstaged, all-+inf and
                 all-equal stripes, an offset view), then timed beside the
                 plain version and a library yardstick (B1: events ms,
                 device ms and host µs per call; B3 also its K=7 tail);
-  6. chain    — the main path: ScanFilterChain at the headline geometry
+  7. chain    — the main path: ScanFilterChain at the headline geometry
                 (W=64, 2048 beams, 256x256 grid at 0.25 m and 0.1 m, wire
                 capacity 4096) over seeded 3200-point revolutions, through
                 process_raw and process_raw_pipelined with each kernel
                 backend, every output held equal to the package's own CPU
                 chain; the launch counts are read around this phase;
-  7. profile  — where a revolution's time goes (torch.profiler);
-  8. ab       — B1 against B2 end to end, in alternating order;
-  9. node     — launch_lifecycle in dummy mode on the card (filter chain,
+  8. profile  — where a revolution's time goes (torch.profiler);
+  9. ab       — B1 against B2 end to end, in alternating order;
+ 10. node     — launch_lifecycle in dummy mode on the card (filter chain,
                 raw and map_enable paths), deactivate/activate, shutdown;
- 10. replay   — the offline replay path at config 7's geometry (W=64, 2048
+ 11. replay   — the offline replay path at config 7's geometry (W=64, 2048
                 beams, 256x256 grid at 0.25 m, chunk 512, capacity 4096): a
                 seeded 3200-point DenseBoost capture written with the
                 package's FrameRecorder, decoded on the card, run through the
                 fused K-scan chain (kernel B3), held equal to the package's
                 CPU replay and to K streaming steps on the card; its launch
                 counts are read around the card's replay;
- 11. mapkernels — the matcher kernels B6, B7, B8 against their plain
+ 12. mapkernels — the matcher kernels B6, B7, B8 against their plain
                 PyTorch versions on the card (exact) over edge fixtures,
                 grids 8/24/44/64/92/256/1024 and fleets of 1, 3 and 4 streams,
                 B6/B7's routes (cluster splits with B off the per-block
@@ -78,17 +107,17 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 B = 2048), then timed at config 12's fleet tick (N=4,
                 G=256, B=2048) and at the map replay's one-stream tick
                 (N=1);
- 12. mapping  — config 12 (bench.py bench_mapping): 4 streams, 256x256 map
+ 13. mapping  — config 12 (bench.py bench_mapping): 4 streams, 256x256 map
                 at 0.05 m, 2048 beams, map_match_window 0.4; one warm tick,
                 then 20 ticks of the drifting-room scene through FleetMapper
                 fused on the card (B6/B7/B8), every pose and snapshot key held
                 equal to the package's host reference and its CPU torch arm,
                 the drift tracked; its launch counts are read around the 20
                 ticks; then a profiled pass;
- 13. replay_map — the config-7 capture through replay_with_map on the card
+ 14. replay_map — the config-7 capture through replay_with_map on the card
                 (the chain with B3, then the fused mapper with B6/B7/B8), held
                 equal to the CPU replay with the host reference mapper;
- 14. loop     — config 17 (bench.py bench_loop_close) at its full geometry:
+ 15. loop     — config 17 (bench.py bench_loop_close) at its full geometry:
                 4 streams, 128x128 map at 0.05 m, 1024 beams, 48
                 revolutions of the return-to-start trace with SUB/4 of
                 drift a revolution (tools/loop_drift.py), submaps every 4,
@@ -108,7 +137,7 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 config-7 capture on the card, equal to the CPU host
                 replay. Prints the check's wall ms (p50/p99), B6/B7 at the
                 check's shape (N = 8) and the solver's share of a check;
- 15. deskew_kernels — the de-skew kernels B4, B5 against their plain
+ 16. deskew_kernels — the de-skew kernels B4, B5 against their plain
                 PyTorch versions on the card (exact) over the JAX suite's
                 four geometries, degenerate inputs, the featureless tie and
                 the fused ingest's shapes (B4 also at nbeams 1 and 8192,
@@ -119,7 +148,7 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 offset views, counts at min_valid and one short), then
                 timed there (B4 beside one scatter_reduce_ "amin" call,
                 host µs too);
- 16. replay_fused — the config-7 capture through replay_raw_fused (the
+ 17. replay_fused — the config-7 capture through replay_raw_fused (the
                 fused device ingest: 64 frames per tick, T=8, max_revs 8):
                 de-skew off held equal to the card's host-path replay and
                 the CPU fused replay; de-skew on (B4/B5) held equal to the
@@ -127,14 +156,22 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 with a nonzero motion estimate; B1/B4/B5 launches counted
                 around the card's runs; host syncs per tick and one
                 profiled super-step per arm; the CLI's replay --fused line;
- 17. before   — every kernel's figures before its redesign, constants
+ 18. before   — every kernel's figures before its redesign, constants
                 copied from PERF.md (not measured in this run);
- 18. kernels  — one line listing every kernel with its launches and the
+ 19. kernels  — one line listing every kernel with its launches and the
                 times measured in this run; B1, B4 and B5 also carry
                 host_us, B3 its plan and K=7 tail, B6, B7 and B8 their
                 times at the map replay's shape, B6 and B7 theirs at the
-                loop check's (``loop_close_shape``), and each redesigned
-                kernel whether each of its goals was met.
+                loop check's (``loop_close_shape``), each redesigned
+                kernel whether each of its goals was met, every kernel its
+                launches on the fleet phase's paths (``fleet_launches``),
+                and B1 and B3 their times at the fleet's widths
+                (``fleet_shapes``).
+
+``--mesh-check N`` runs only the fleet's multi-process check on N cards:
+N NCCL processes, rank r on cuda:r, on the (1, N) and (2, N/2) meshes,
+each process's step and scan (psum and ring) held to its own one-process
+run; it prints the card's name and power limit last.
 
 The wrapper's host time split piece by piece is
 rplidar_ros2_driver_tpu_torch/tools/launch_cost.py.  Then the card's name
@@ -181,6 +218,17 @@ LOOP = dict(grid=128, cell_m=0.05, beams=1024, streams=4, revs=48, submap_revs=4
 # replay_raw_fused's defaults: the config-7 capture through the fused
 # device ingest, 64 frames per tick, T=8 ticks per super-step
 FUSED = dict(frames_per_tick=64, super_ticks=8, max_revs=8)
+# the fleet (ROADMAP A.7a): bench.py GRADED[10] (bench_fleet_ingest) at its
+# full geometry — W=64, 2048 beams, 256x256 at 0.25 m, 3200-point
+# DenseBoost frames, 20 revolutions, fleets of 2 and 8 —, GRADED[8]
+# (bench_fleet: 4 streams, chunk 256, 8192 revolutions each cycled from 32
+# seeded ones), config 12's room through the service's SLAM seams (4
+# streams, 24 ticks, filter window 4 so the poses follow the drift), the
+# snapshot tick, and the two-process gloo mesh's streams and ticks
+FLEET = dict(window=64, beams=2048, grid=256, cell_m=0.25, points=3200, revs=20, capacity=4096,
+             fleets=(2, 8), seed=21, replay_streams=4, replay_chunk=256, replay_revs=8192,
+             replay_seed_revs=32, slam_streams=4, slam_ticks=24, slam_window=4,
+             snapshot_tick=10, mp_streams=4, mp_ticks=8, mp_timeout_s=300)
 # B1's and B4's figures before their redesign, constants copied from
 # PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W) and printed on a
 # line of their own, never in the kernels line: B1 as first written (commit
@@ -518,8 +566,10 @@ def phase_kernels(device, rng) -> dict:
     # W around the warp's 32 rows and its two-candidate pass (1, 31, 32,
     # 33, 64, 96), B off the block's 8 columns and off 16-byte rows; W up
     # to 1536 is staged in shared memory, 1537 reads device memory directly
+    # and the fleet's stripes: config 10's host tick at N = 2 and 8 streams
     for w, b in [(64, 2048), (16, 2048), (7, 1000), (33, 2050), (400, 300), (1, 2048),
-                 (31, 1001), (32, 2047), (96, 2048), (1536, 100), (1537, 100)]:
+                 (31, 1001), (32, 2047), (96, 2048), (1536, 100), (1537, 100),
+                 (64, 2 * 2048), (64, 8 * 2048)]:
         fixtures = _median_fixtures(rng, w, b)
         fixtures["all_inf"] = np.full((w, b), np.inf, np.float32)
         fixtures["all_equal"] = np.full((w, b), 7.25, np.float32)
@@ -629,7 +679,9 @@ def phase_kernels(device, rng) -> dict:
         b3_checked += 1
 
     b3_shapes = [(4, 8, 64), (6, 8, 100), (7, 16, 257), (8, 3, 128), (16, 24, 640), (1, 8, 32),
-                 (REPLAY["window"], REPLAY["chunk"], REPLAY["beams"])]
+                 (REPLAY["window"], REPLAY["chunk"], REPLAY["beams"]),
+                 # config 8's fleet chunk: 4 streams' stripes side by side
+                 (FLEET["window"], FLEET["replay_chunk"], FLEET["replay_streams"] * FLEET["beams"])]
     b3_edges = [(REPLAY["window"], 1, REPLAY["beams"]), (9, 1, 100), (150, 40, 100),
                 (300, 2, 70), (1, 1, 64), (1, 600, 300), (REPLAY["window"], 100, 257),
                 (33, 50, 2050), (181, 300, 64), (187, 300, 64), (190, 300, 64),
@@ -2914,6 +2966,614 @@ def phase_replay_fused(device, frames, revs, trace_dir=None) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# the fleet: the mesh and the sharded fleet service (ROADMAP A.7a)
+# ---------------------------------------------------------------------------
+
+
+def fleet_byte_ticks(frames, streams: int, run: int, ans: int) -> list:
+    """bench.py ``bench_fleet_ingest``'s ``make_ticks``: per tick ``run``
+    frames (one revolution) per stream, every stream carrying the same
+    frames on its own timestamp lane (7 s apart, 1.25 ms a frame)."""
+    ticks = []
+    t = [1000.0 + 7.0 * s for s in range(streams)]
+    for i in range(0, len(frames), run):
+        tick = []
+        for s in range(streams):
+            batch = []
+            for f in frames[i : i + run]:
+                t[s] += 1.25e-3
+                batch.append((f, t[s]))
+            tick.append((ans, batch))
+        ticks.append(tick)
+    return ticks
+
+
+def _fleet_params(backend: str, ingest: str = "host", **over):
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+
+    kw = dict(filter_backend=backend, filter_chain=("clip", "median", "voxel"),
+              filter_window=FLEET["window"], voxel_grid_size=FLEET["grid"],
+              voxel_cell_m=FLEET["cell_m"], fleet_ingest_backend=ingest)
+    kw.update(over)
+    return DriverParams(**kw)
+
+
+def _fleet_service(backend: str, ingest: str, n: int, run: int, **over):
+    """A warmed service of config 10 (both kernels built and loaded)."""
+    from rplidar_ros2_driver_tpu_torch.parallel.service import ShardedFilterService
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    svc = ShardedFilterService(
+        _fleet_params(backend, ingest, **over), n, beams=FLEET["beams"],
+        capacity=FLEET["capacity"],
+        fleet_ingest_buckets=(run,) if ingest == "fused" else None,
+    )
+    svc._ensure_byte_ingest()
+    if ingest == "fused":
+        svc.fleet_ingest.precompile([int(Ans.MEASUREMENT_DENSE_CAPSULED)])
+    else:
+        svc.precompile()
+    return svc
+
+
+def _published(per_tick_outs, streams: int) -> list:
+    """Per stream, the published outputs in order."""
+    return [[o[s] for o in per_tick_outs if o[s] is not None] for s in range(streams)]
+
+
+def _same_published(a, b) -> bool:
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(_same_output(u, v) for u, v in zip(x, y)) for x, y in zip(a, b))
+
+
+def _counts() -> dict:
+    from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+
+    return {**mk.launch_counts, **dk.launch_counts, **smk.launch_counts}
+
+
+def _reset_counts() -> None:
+    from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+
+    mk.reset_launch_counts()
+    dk.reset_launch_counts()
+    smk.reset_launch_counts()
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _bytes_arm(device, ingest: str, n: int, ticks, run: int, **over) -> tuple:
+    """One config-10 arm: submit_bytes over every tick (pipelined on the
+    fused arm, as bench.py drives it), the flush last.  Returns (published
+    outputs per stream, stats)."""
+    import numpy as np
+
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    svc = _fleet_service(backend, ingest, n, run, **over)
+    _sync(device)
+    _reset_counts()
+    lat, outs, dispatched = [], [], 0
+    t0 = time.perf_counter()
+    for tick in ticks:
+        tb = time.perf_counter()
+        res = svc.submit_bytes(tick, pipelined=ingest == "fused")
+        _sync(device)
+        lat.append(time.perf_counter() - tb)
+        outs.append(res)
+        dispatched += any(r is not None for r in res)
+    if ingest == "fused":
+        outs.append([o[-1][0] if o else None for o in svc.fleet_ingest.flush()])
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launched = _counts()
+    pub = _published(outs, n)
+    stats = {"ticks": len(ticks), "ticks_per_s": len(ticks) / wall,
+             "published": sum(len(p) for p in pub), **_pcts(lat), "launches": launched}
+    if ingest == "host":
+        stats["dispatched_ticks"] = dispatched
+        stats["b1_launches_per_tick"] = launched["temporal_median"] / max(dispatched, 1)
+        stats["b2_launches_per_tick"] = launched["sorted_replace"] / max(dispatched, 1)
+    else:
+        stats["revolutions"] = svc.fleet_ingest.scans_completed
+        stats["dispatches"] = svc.fleet_ingest.dispatch_count
+        stats["b1_launches_per_tick"] = launched["temporal_median"] / len(ticks)
+    return pub, stats, np.asarray(lat)
+
+
+def _device_ops_per_tick(device, ingest: str, n: int, ticks, run: int, **over) -> dict:
+    """A fresh warmed service's first ``len(ticks)`` ticks under the
+    profiler: device operations (kernels, copies, fills) and busy ms per
+    tick."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    svc = _fleet_service("cuda", ingest, n, run, **over)
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for tick in ticks:
+            svc.submit_bytes(tick, pipelined=ingest == "fused")
+        _sync(device)
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in ev)
+    return {"device_ops_per_tick": len(ev) / len(ticks),
+            "device_busy_ms_per_tick": busy_us / len(ticks) / 1e3,
+            "profiled_wall_ms_per_tick": wall / len(ticks) * 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall}
+
+
+def _fleet_config10(device) -> dict:
+    """(a) config 10 at full geometry: both submit_bytes arms at each
+    fleet size on the card, every published output equal to the CPU
+    service's same arm; B2 (the ``inc`` median) and B4/B5 (the fused arm
+    with de-skew) at the smaller fleet."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
+    run = FLEET["points"] // 40
+    frames = denseboost_frames(FLEET["seed"], FLEET["revs"], FLEET["points"])
+    out, launches = {}, {}
+    for n in FLEET["fleets"]:
+        ticks = fleet_byte_ticks(frames, n, run, ans)
+        arms = [("host", "host", {}), ("fused", "fused", {})]
+        if n == FLEET["fleets"][0]:
+            arms += [("host_inc", "host", {"median_backend": "inc"}),
+                     ("fused_deskew", "fused",
+                      {"deskew_enable": True, "sweep_reconstruct_window": 6})]
+        for arm, ingest, over in arms:
+            name = f"{arm}_n{n}"
+            pub, stats, _ = _bytes_arm(device, ingest, n, ticks, run, **over)
+            ref, ref_stats, _ = _bytes_arm(torch.device("cpu"), ingest, n, ticks, run, **over)
+            check(stats["published"] > 0, f"config 10 {name}: nothing published")
+            check(_same_published(pub, ref), f"config 10 {name}: the card differs from the CPU")
+            if device.type == "cuda" and ingest == "host":
+                key = "b2" if over.get("median_backend") == "inc" else "b1"
+                check(stats[f"{key}_launches_per_tick"] == 1.0,
+                      f"config 10 {name}: {stats[f'{key}_launches_per_tick']} median launches "
+                      "per dispatched tick, not one for the fleet")
+            elif device.type == "cuda":
+                check(stats["launches"]["temporal_median"] == stats["revolutions"],
+                      f"config 10 {name}: B1 launches != completed revolutions")
+            if over.get("deskew_enable") and device.type == "cuda":
+                check(stats["launches"]["beam_min"] > 0 and stats["launches"]["shift_sad"] > 0,
+                      f"config 10 {name}: B4/B5 never launched")
+            stats["cpu_ticks_per_s"] = ref_stats["ticks_per_s"]
+            out[name] = stats
+            for k, v in stats["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    return {"arms": out, "launches": launches}
+
+
+def _fleet_replay(device, seed: int) -> dict:
+    """(b) config 8: replay_fleet of 4 streams, chunk 256, each stream
+    cycled from 32 seeded revolutions as bench.py bench_fleet does; each
+    stream held to the one-stream fused chain on the card, the first chunk
+    to the CPU; B3 launches = chunks."""
+    import numpy as np
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+    from rplidar_ros2_driver_tpu_torch.replay import replay_fleet, replay_through_chain
+
+    s_n, k_n, chunk = FLEET["replay_streams"], FLEET["replay_revs"], FLEET["replay_chunk"]
+    scans = make_revolutions(seed, FLEET["replay_seed_revs"], FLEET["points"])
+    fleet = [[scans[(i + 7 * s) % len(scans)] for i in range(k_n)] for s in range(s_n)]
+    kw = dict(beams=FLEET["beams"], capacity=FLEET["capacity"], chunk=chunk)
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    params = _fleet_params(backend, median_backend="pallas")
+    replay_fleet([f[:chunk] for f in fleet], params, **kw)  # warm
+    _sync(device)
+    mk.reset_launch_counts()
+    t0 = time.perf_counter()
+    ranges, state = replay_fleet(fleet, params, **kw)
+    wall = time.perf_counter() - t0
+    launched = dict(mk.launch_counts)
+    chunks = -(-k_n // chunk)
+    check(device.type != "cuda" or launched["sliding_median"] == chunks,
+          f"replay_fleet launched B3 {launched['sliding_median']} times for {chunks} chunks")
+    check(ranges.shape == (s_n, k_n, FLEET["beams"]), f"replay_fleet ranges {ranges.shape}")
+    for s in range(s_n):
+        r_s, st_s = replay_through_chain(fleet[s], params, **kw)
+        check(np.array_equal(ranges[s], r_s), f"replay_fleet stream {s} != its one-stream replay")
+        for name, v in st_s.to_numpy().items():
+            check(np.array_equal(getattr(state, name)[s].numpy(), v),
+                  f"replay_fleet stream {s} final {name} != its one-stream replay")
+    cpu_r, _ = replay_fleet([f[:chunk] for f in fleet], _fleet_params("cpu", median_backend="pallas"),
+                            **kw)
+    check(np.array_equal(ranges[:, :chunk], cpu_r), "replay_fleet's first chunk != the CPU's")
+    row = {"streams": s_n, "revs_per_stream": k_n, "chunk": chunk, "chunks": chunks,
+           "scans_per_s": s_n * k_n / wall, "wall_s": wall, "launches": launched}
+    if device.type == "cuda":
+        # the device-side rate: the scan over one uploaded chunk, looped
+        from rplidar_ros2_driver_tpu_torch.ops.filters import pack_host_scans_compact
+        from rplidar_ros2_driver_tpu_torch.parallel import sharding as ts
+
+        from rplidar_ros2_driver_tpu_torch.filters.chain import config_from_params
+
+        mesh = ts.make_mesh(device=device)
+
+        cfg = config_from_params(params, FLEET["beams"], platform="cuda")
+        seqs, counts = zip(*[pack_host_scans_compact(f[:chunk], FLEET["capacity"]) for f in fleet])
+        seq = torch.from_numpy(np.stack(seqs).view(np.int16)).to(device)
+        cnt = torch.from_numpy(np.stack(counts).astype(np.int32)).to(device)
+        scan = ts.build_sharded_scan(mesh, cfg)
+        st = ts.create_sharded_state(mesh, cfg, s_n)
+        scan(st, seq, cnt)
+        _sync(device)
+        reps = 8
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            st, _r = scan(st, seq, cnt)
+        _sync(device)
+        row["device_loop_scans_per_s"] = s_n * chunk * reps / (time.perf_counter() - t0)
+    return row
+
+
+def _slam_params(backend: str, **over):
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+
+    kw = dict(filter_backend=backend, filter_chain=("clip", "median", "voxel"),
+              filter_window=FLEET["slam_window"], voxel_grid_size=FLEET["grid"],
+              voxel_cell_m=FLEET["cell_m"], map_enable=True, map_grid=MAPPING["grid"],
+              map_cell_m=MAPPING["cell_m"], map_match_window=MAPPING["window_m"],
+              loop_enable=True, loop_submap_revs=LOOP["submap_revs"],
+              loop_check_revs=LOOP["check_revs"], loop_max_submaps=LOOP["max_submaps"],
+              world_map_enable=True)
+    kw.update(over)
+    return DriverParams(**kw)
+
+
+def room_scan(s: int, k: int, beams: int) -> dict:
+    """One revolution of config 12's room (bench.py _room_fleet_ticks: a
+    5 x 5 m square seen from per-stream drifting poses) as wire nodes at
+    the beam centres."""
+    import numpy as np
+
+    x0, y0, th = 0.03 * k * (1 + 0.1 * s), -0.02 * k * (1 + 0.2 * s), 0.004 * k
+    t = (np.arange(beams) + 0.5) * (2 * np.pi / beams)
+    dx, dy = np.cos(t + th), np.sin(t + th)
+    with np.errstate(divide="ignore"):
+        r = np.minimum(
+            np.where(np.abs(dx) > 1e-12, (2.5 - np.sign(dx) * x0) / np.abs(dx), np.inf),
+            np.where(np.abs(dy) > 1e-12, (2.5 - np.sign(dy) * y0) / np.abs(dy), np.inf))
+    return {"angle_q14": np.floor((np.arange(beams) + 0.5) * 65536 / beams).astype(np.int32),
+            "dist_q2": np.round(r * 4000).astype(np.int32),
+            "quality": np.full(beams, 180, np.int32), "flag": None}
+
+
+def _slam_service(backend: str):
+    from rplidar_ros2_driver_tpu_torch.parallel.service import ShardedFilterService
+
+    svc = ShardedFilterService(_slam_params(backend), FLEET["slam_streams"],
+                               beams=MAPPING["beams"], capacity=FLEET["capacity"])
+    svc.precompile()
+    svc.attach_mapper()
+    svc.attach_loop_closure()
+    svc.attach_world_map()
+    return svc
+
+
+def _slam_tick_record(svc, outs) -> tuple:
+    import numpy as np
+
+    poses = [None if p is None else (p.pose_q.tobytes(), p.score, p.matched_points, p.revision)
+             for p in svc.last_poses]
+    loops = [None if st is None else tuple(
+        np.asarray(getattr(st, f)).tobytes() for f in
+        ("accepted", "candidate", "score", "matched_points", "corrected_q", "correction_q",
+         "constraints", "dropped")) for st in svc.last_loop]
+    corr = [None if c is None else np.asarray(c).tobytes() for c in svc.last_corrected_poses]
+    return outs, poses, loops, corr
+
+
+def _fleet_slam(device) -> dict:
+    """(c) the service with attach_mapper, attach_loop_closure and
+    attach_world_map on config 12's room, 4 streams, 24 ticks (fused
+    mapper B6/B7/B8 and fused loop check B6/B7 on the card, the host
+    references on the CPU): poses, loop statuses, corrected poses and the
+    world accumulation byte-equal.  (d) the card service's snapshot at
+    tick 10 (filter, mapper, loop, world) restored into a fresh service
+    and continued: outputs and front-end poses equal to the uninterrupted
+    run."""
+    import numpy as np
+
+    n, ticks, beams = FLEET["slam_streams"], FLEET["slam_ticks"], MAPPING["beams"]
+    scans = [[room_scan(s, k, beams) for s in range(n)] for k in range(ticks)]
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    card = _slam_service(backend)
+    if device.type == "cuda":
+        check(card.mapper.backend == "fused" and card.loop.backend == "fused",
+              "the card service did not resolve the fused mapper and loop engine")
+    _sync(device)
+    _reset_counts()
+    recs, lat, snaps = [], [], None
+    t0 = time.perf_counter()
+    for k, row in enumerate(scans):
+        if k == FLEET["snapshot_tick"]:
+            snaps = (card.snapshot(), card.mapper.snapshot(), card.loop.snapshot(),
+                     card.world.save_state())
+        tb = time.perf_counter()
+        outs = card.submit(row)
+        lat.append(time.perf_counter() - tb)
+        recs.append(_slam_tick_record(card, outs))
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launched = _counts()
+    acc = card.world.accumulation()
+    host = _slam_service("cpu")
+    checks = 0
+    for k, row in enumerate(scans):
+        outs = host.submit(row)
+        r_outs, r_poses, r_loops, r_corr = _slam_tick_record(host, outs)
+        c_outs, c_poses, c_loops, c_corr = recs[k]
+        check(all(_same_output(a, b) for a, b in zip(c_outs, r_outs)),
+              f"SLAM service tick {k}: filter outputs differ from the CPU")
+        check(c_poses == r_poses, f"SLAM service tick {k}: poses differ from the CPU")
+        check(c_loops == r_loops, f"SLAM service tick {k}: loop statuses differ from the CPU")
+        check(c_corr == r_corr, f"SLAM service tick {k}: corrected poses differ from the CPU")
+        checks += sum(st is not None for st in c_loops)
+    check(checks > 0, "no loop check ran in the SLAM service's 24 ticks")
+    check(_bits_equal(acc, host.world.accumulation()), "world accumulation differs from the CPU")
+    check(card.world.status()["merges"] == host.world.status()["merges"] > 0,
+          "the world merged no submap, or other ones than the CPU")
+    if device.type == "cuda":
+        check(launched["temporal_median"] == ticks, "the SLAM service's ticks launched B1 "
+              f"{launched['temporal_median']} times for {ticks} ticks")
+        for name in ("coarse_scores", "fine_scores", "log_odds_update"):
+            check(launched[name] >= ticks, f"the SLAM service never launched {name} a tick")
+    # (d): restore the tick-10 snapshot into a fresh service and continue
+    fresh = _slam_service(backend)
+    f_snap, m_snap, l_snap, w_state = snaps
+    check(fresh.restore(f_snap) and fresh.mapper.restore(m_snap) and fresh.loop.restore(l_snap),
+          "the tick-10 snapshot was refused")
+    fresh.world.load_state(w_state)
+    for k in range(FLEET["snapshot_tick"], ticks):
+        outs = fresh.submit(scans[k])
+        got_outs, got_poses, _, _ = _slam_tick_record(fresh, outs)
+        want_outs, want_poses, _, _ = recs[k]
+        check(all(_same_output(a, b) for a, b in zip(got_outs, want_outs)),
+              f"restored service tick {k}: outputs differ from the uninterrupted run")
+        check(got_poses == want_poses, f"restored service tick {k}: poses differ")
+    lat_ms = np.asarray(lat) * 1e3
+    slowest = np.argsort(-lat_ms)[:5]
+    return {"streams": n, "ticks": ticks, "beams": beams, "map_grid": MAPPING["grid"],
+            "ticks_per_s": ticks / wall, "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            # (tick, ms): checks run at revolutions 8, 10, ..., finalizations
+            # (each a host world alignment) at 4, 8, ...
+            "slowest_ticks": [[int(k), float(lat_ms[k])] for k in slowest],
+            "check_calls": card.loop.dispatch_count, "loop_checks": checks,
+            "submaps": card.loop_status()["submaps"], "world_merges": card.world.status()["merges"],
+            "launches": launched, "restored_from_tick": FLEET["snapshot_tick"]}
+
+
+def _fleet_engine_snapshot(device) -> dict:
+    """(d) the fused engine's whole-fleet snapshot at tick 10 of config 10
+    (N = the smaller fleet) restored into a fresh service's engine and
+    continued: every output equal to the uninterrupted run."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    n = FLEET["fleets"][0]
+    run = FLEET["points"] // 40
+    frames = denseboost_frames(FLEET["seed"], FLEET["revs"], FLEET["points"])
+    ticks = fleet_byte_ticks(frames, n, run, int(Ans.MEASUREMENT_DENSE_CAPSULED))
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    whole = _fleet_service(backend, "fused", n, run)
+    want = [whole.submit_bytes(t) for t in ticks]
+    first = _fleet_service(backend, "fused", n, run)
+    for t in ticks[: FLEET["snapshot_tick"]]:
+        first.submit_bytes(t)
+    snap = first.fleet_ingest.snapshot()
+    second = _fleet_service(backend, "fused", n, run)
+    check(second.fleet_ingest.restore(snap), "the fleet engine refused its own snapshot")
+    got = [second.submit_bytes(t) for t in ticks[FLEET["snapshot_tick"]:]]
+    same = all((a is None) == (b is None) and (a is None or _same_output(a, b))
+               for g, w in zip(got, want[FLEET["snapshot_tick"]:]) for a, b in zip(g, w))
+    check(same, "the restored fleet engine's outputs differ from the uninterrupted run")
+    return {"streams": n, "restored_from_tick": FLEET["snapshot_tick"],
+            "snapshot_keys": len(snap), "continued_ticks": len(got)}
+
+
+def fleet_mp_worker(rank: int, port: int, world: int = 2, stream: int = 1,
+                    backend: str = "gloo", device_name: str = "cuda:0") -> int:
+    """One process of the fleet's multi-process check: the (stream,
+    world/stream) mesh's step and scan with ``psum`` and ``ring``
+    (B1/B2/B3), each held to this process's one-process (1, 1) run;
+    prints one JSON line.  (e) runs two gloo processes on ``cuda:0``;
+    ``--mesh-check N`` runs N NCCL processes, one card each."""
+    import numpy as np
+    import torch
+
+    os.environ["JAX_COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
+    os.environ["JAX_NUM_PROCESSES"] = str(world)
+    os.environ["JAX_PROCESS_ID"] = str(rank)
+    from rplidar_ros2_driver_tpu_torch.ops import filters as tf
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+    from rplidar_ros2_driver_tpu_torch.parallel import multihost
+    from rplidar_ros2_driver_tpu_torch.parallel import sharding as ts
+
+    device = torch.device(device_name)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)  # before NCCL binds its communicator
+    multihost.initialize(backend=backend)
+    mesh = multihost.make_global_mesh(stream=stream, device=device)
+    check(mesh.shape == {"stream": stream, "beam": world // stream}, f"mesh {mesh.shape}")
+    local = ts.make_mesh(1, device=device)
+    s_n, w, b, g = FLEET["mp_streams"], FLEET["window"], FLEET["beams"], FLEET["grid"]
+    rows, cols = mesh.local_streams(s_n), mesh.local_beams(b)
+    revs = make_revolutions(11, FLEET["mp_ticks"] + 40, FLEET["points"])
+    packed = [tf.pack_host_scans_compact(revs[k : k + s_n], FLEET["capacity"])
+              for k in range(FLEET["mp_ticks"] + 32)]
+    mk.reset_launch_counts()
+    compared = 0
+    for reduce in ("psum", "ring"):
+        for median in ("pallas", "inc"):
+            cfg = tf.FilterConfig(window=w, beams=b, grid=g, cell_m=FLEET["cell_m"],
+                                  median_backend=median, voxel_reduce=reduce)
+            gstep, lstep = ts.build_sharded_step(mesh, cfg), ts.build_sharded_step(local, cfg)
+            gs, ls = ts.create_sharded_state(mesh, cfg, s_n), ts.create_sharded_state(local, cfg, s_n)
+            for seq, counts in packed[: FLEET["mp_ticks"]]:
+                batch = tf._unpack_compact(torch.from_numpy(seq.view(np.int16)).to(device),
+                                           torch.from_numpy(counts).to(device))
+                gs, go = gstep(gs, ts.shard_batch(mesh, batch))
+                ls, lo = lstep(ls, batch)
+                for got, want in ((go.ranges, lo.ranges[rows][:, cols]),
+                                  (go.voxel, lo.voxel[rows])):
+                    check(exact(got, want)[0], f"mp step {reduce}/{median} differs")
+                compared += 1
+            for k0, k1 in ((0, 16), (16, 32)):
+                gscan = ts.build_sharded_scan(mesh, cfg)
+                lscan = ts.build_sharded_scan(local, cfg)
+                seqs = np.stack([np.stack([p[0][s] for p in packed[k0:k1]]) for s in range(s_n)])
+                cnts = np.stack([np.stack([p[1][s] for p in packed[k0:k1]]) for s in range(s_n)])
+                gs, gr = gscan(gs, seqs[rows], cnts[rows])
+                ls, lr = lscan(ls, seqs, cnts)
+                check(exact(gr, lr[rows][..., cols])[0], f"mp scan {reduce}/{median} differs")
+                check(exact(gs.voxel_acc, ls.voxel_acc[rows])[0],
+                      f"mp scan voxel {reduce}/{median} differs")
+                compared += 1
+    _sync(device)
+    print(json.dumps({"rank": rank, "backend": backend, "device": str(device),
+                      "mesh": mesh.shape, "coords": list(mesh.coords),
+                      "compared": compared, "ring_host_hops": ts.ring_host_hops,
+                      "launches": dict(mk.launch_counts)}), flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def _fleet_multiprocess(world: int = 2, stream: int = 1, backend: str = "gloo",
+                        one_card: bool = True) -> dict:
+    """(e) two gloo processes on cuda:0 (NCCL refuses two ranks on one
+    device): beam extent 2, step and scan with psum and ring, each equal
+    to the one-process run.  With ``one_card`` False, rank r on cuda:r."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.abspath(__file__)
+    # each worker writes to files of its own: a worker blocked on a full
+    # pipe while its peer waits for it in a collective would hang the group
+    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")) for _ in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--fleet-mp-worker", str(r), str(port), str(world), str(stream),
+         backend, "cuda:0" if one_card else f"cuda:{r}"],
+        cwd=os.path.dirname(here), stdout=logs[r][0], stderr=logs[r][1], text=True,
+    ) for r in range(world)]
+    deadline = time.monotonic() + FLEET["mp_timeout_s"]
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    outs = []
+    for p, files in zip(procs, logs):
+        texts = []
+        for f in files:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        outs.append((p.returncode, *texts))
+    rows = []
+    for r, (rc, out, err) in enumerate(outs):
+        check(rc == 0, f"fleet worker {r} failed (rc {rc}): {err[-3000:]}")
+        rows.append(json.loads(out.strip().splitlines()[-1]))
+    check(all(r["compared"] > 0 for r in rows), "a fleet worker compared nothing")
+    return {"workers": rows}
+
+
+def _fleet_shapes(device, rng) -> dict:
+    """B1 at config 10's host-arm stripe (W, N*B) and B3 at config 8's
+    chunk stripe (W + K, S*B), held to their plain versions and timed
+    beside them and beside one nanmedian call, with their bounds."""
+    import numpy as np
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+
+    w, b = FLEET["window"], FLEET["beams"]
+    out = {}
+    for n in FLEET["fleets"]:
+        win = torch.from_numpy(_median_fixtures(rng, w, n * b)["random_inf"]).to(device)
+        ok, err = exact(mk.temporal_median_kernel(win), mk.temporal_median_plain(win))
+        check(ok, f"B1 at (W, B)=({w}, {n * b}) differs from its plain version: {err}")
+        nan_win = torch.where(torch.isinf(win), torch.full_like(win, math.nan), win)
+        bnd = bound(w * n * b * 4 + n * b * 4, 2 * w * n * b)
+        out[f"temporal_median_n{n}"] = {
+            "shape": [w, n * b], "ms": cuda_ms(lambda: mk.temporal_median_kernel(win)),
+            "device_ms": device_ms(lambda: mk.temporal_median_kernel(win)),
+            "plain_ms": cuda_ms(lambda: mk.temporal_median_plain(win)),
+            "library_ms": cuda_ms(lambda: torch.nanmedian(nan_win, dim=0)),
+            "bound_ms": bnd[0], "bound_by": bnd[1], "max_abs_err": err}
+    s_n, k = FLEET["replay_streams"], FLEET["replay_chunk"]
+    ext = torch.from_numpy(_median_fixtures(rng, w + k, s_n * b)["ties_1mm"]).to(device)
+    ok, err = exact(mk.sliding_median_kernel(ext, w), mk.sliding_median_plain(ext, w))
+    check(ok, f"B3 at (W, K, B)=({w}, {k}, {s_n * b}) differs from its plain version: {err}")
+    nan_ext = torch.where(torch.isinf(ext), torch.full_like(ext, math.nan), ext)
+    bnd = bound((w + 2 * k) * s_n * b * 4, 2 * w * k * s_n * b)
+    out["sliding_median_config8"] = {
+        "shape": [w, k, s_n * b], "plan": list(mk.sliding_plan(w, k)),
+        "ms": cuda_ms(lambda: mk.sliding_median_kernel(ext, w), iters=50),
+        "device_ms": device_ms(lambda: mk.sliding_median_kernel(ext, w), iters=20),
+        "plain_ms": cuda_ms(lambda: mk.sliding_median_plain(ext, w), iters=5, warmup=1),
+        "library_ms": cuda_ms(
+            lambda: torch.nanmedian(nan_ext.unfold(0, w, 1)[1 : k + 1], dim=-1), iters=5, warmup=1),
+        "bound_ms": bnd[0], "bound_by": bnd[1], "max_abs_err": err}
+    return out
+
+
+def phase_fleet(device, seed: int) -> dict:
+    """The fleet on the card: (a) config 10's byte arms, (b) config 8's
+    fleet replay, (c) the SLAM seams, (d) snapshots restored and continued,
+    (e) the two-process gloo mesh; then B1/B3 at the fleet's widths."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    row = {"phase": "fleet", "config10": _fleet_config10(device)}
+    row["config8"] = _fleet_replay(device, seed)
+    row["slam"] = _fleet_slam(device)
+    row["engine_snapshot"] = _fleet_engine_snapshot(device)
+    if device.type == "cuda":
+        row["multiprocess"] = _fleet_multiprocess()
+        row["shapes"] = _fleet_shapes(device, np.random.default_rng(seed + 5))
+        # last: once torch.profiler has run, every CUDA call's host cost grows
+        from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+        run = FLEET["points"] // 40
+        frames = denseboost_frames(FLEET["seed"], 6, FLEET["points"])
+        for n in FLEET["fleets"]:
+            ticks = fleet_byte_ticks(frames, n, run, int(Ans.MEASUREMENT_DENSE_CAPSULED))
+            for ingest in ("host", "fused"):
+                row["config10"]["arms"][f"{ingest}_n{n}"].update(
+                    _device_ops_per_tick(device, ingest, n, ticks, run))
+    launches = dict(row["config10"]["launches"])
+    for part in ("config8", "slam"):
+        for k, v in row[part]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    row["launches"] = launches
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
 def redesign_report(name: str, timed: list, launched: list) -> dict:
     """B1's and B4's extra keys in the kernels line.  ``timed``: the kernel
     and deskew_kernels phases' rows at each of the path's shapes (device
@@ -2959,6 +3619,10 @@ def main(argv=None) -> int:
     ap.add_argument("--revs", type=int, default=300)
     ap.add_argument("--trace-dir", default=None,
                     help="also write the profiled chain windows as Chrome traces here")
+    ap.add_argument("--fleet-mp-worker", nargs=6, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-check", type=int, default=None, metavar="N",
+                    help="only the fleet's multi-process check: N NCCL processes, one card "
+                         "each, on (1, N) and (2, N/2) meshes (needs N cards)")
     args = ap.parse_args(argv)
 
     try:
@@ -2973,6 +3637,20 @@ def main(argv=None) -> int:
     sys.path.insert(0, here)
     import numpy as np
 
+    if args.fleet_mp_worker:
+        rank, port, world, stream, backend, dev = args.fleet_mp_worker
+        return fleet_mp_worker(int(rank), int(port), int(world), int(stream), backend, dev)
+    if args.mesh_check:
+        n = args.mesh_check
+        check(torch.cuda.device_count() >= n, f"--mesh-check {n} needs {n} cards")
+        info = phase_device()
+        phase_build()
+        rows = {f"{s}x{n // s}": _fleet_multiprocess(n, s, "nccl", one_card=False)
+                for s in (1, 2) if n % s == 0}
+        emit({"phase": "mesh_check", "cards": n, "meshes": rows})
+        print(info["nvidia_smi"], flush=True)
+        return 0
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -2981,6 +3659,7 @@ def main(argv=None) -> int:
     phase_build()
     launch = phase_launch(device, np.random.default_rng(args.seed + 3))
     phase_e2e(device)
+    fleet = phase_fleet(device, args.seed)
     kern = phase_kernels(device, np.random.default_rng(args.seed))
     revs = make_revolutions(args.seed, args.revs, GEOMETRY["points"])
     chain = phase_chain(device, revs)
@@ -3088,6 +3767,15 @@ def main(argv=None) -> int:
                 },
             })
         kernels.append(entry)
+    for k in kernels:
+        # this slice's path: the fleet phase's launches (config 10's byte
+        # arms, config 8's replay, the SLAM seams)
+        k["fleet_launches"] = fleet["launches"].get(k["name"], 0)
+        check(k["fleet_launches"] > 0, f"kernel {k['name']} never launched on the fleet path")
+    for name in ("temporal_median", "sliding_median"):
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["fleet_shapes"] = {key: v for key, v in fleet["shapes"].items()
+                                 if key.startswith(name)}
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on the main path")
     emit({"phase": "before", "constants_from": "PERF.md (not measured in this run)",

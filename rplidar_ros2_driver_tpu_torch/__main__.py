@@ -17,9 +17,8 @@ replay.replay_raw_fused, held to the host chain), the SLAM front-end mapper (``-
 ``map_enable`` in the node) and the SLAM back-end (``--loop-close``:
 loop closure and the pose graph, replay.replay_with_loop_closure; with
 ``loop_enable`` in the node) run on the CUDA card unless ``filter_backend:
-cpu`` (or ``--cpu``) keeps them on the host.  Still raising
-NotImplementedError, naming its ROADMAP item: ``--chain`` of several
-captures (A.7).
+cpu`` (or ``--cpu``) keeps them on the host.  ``--chain`` of several
+captures runs them as a fleet, one stream each (replay.replay_fleet).
 """
 
 from __future__ import annotations
@@ -79,11 +78,6 @@ def _cmd_replay(args) -> int:
     from rplidar_ros2_driver_tpu_torch.replay import decode_recording
 
     backend = "cpu" if args.cpu else "cuda"
-    if args.chain and len(args.recordings) > 1:
-        raise NotImplementedError(
-            "replay --chain of several recordings is the sharded fleet replay, "
-            "not ported yet (ROADMAP A.7)"
-        )
     device = pick_device(backend)
     per_stream = []
     runs_per_path = []
@@ -102,21 +96,37 @@ def _cmd_replay(args) -> int:
         if revs:
             pts = [len(r["angle_q14"]) for r in revs]
             print(f"  points/rev: min={min(pts)} median={sorted(pts)[len(pts)//2]} max={max(pts)}")
-    if args.chain and not per_stream[0]:
-        print(f"  --chain skipped: no complete revolutions in {args.recordings[0]}")
+    if args.chain and not all(per_stream):
+        empty = [p for p, revs in zip(args.recordings, per_stream) if not revs]
+        print(f"  --chain skipped: no complete revolutions in {', '.join(empty)}")
     elif args.chain:
         from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
-        from rplidar_ros2_driver_tpu_torch.replay import replay_through_chain
 
         params = DriverParams(filter_backend=backend, filter_chain=("clip", "median", "voxel"))
         t0 = time.perf_counter()
-        ranges, state = replay_through_chain(per_stream[0], params)
+        if len(per_stream) == 1:
+            from rplidar_ros2_driver_tpu_torch.replay import replay_through_chain
+
+            ranges, state = replay_through_chain(per_stream[0], params)
+            what = "fused multi-scan step"
+        else:
+            # N captures = N streams through the (stream, beam) mesh
+            from rplidar_ros2_driver_tpu_torch.replay import replay_fleet
+
+            k_min = min(len(r) for r in per_stream)
+            if any(len(r) != k_min for r in per_stream):
+                print(
+                    f"  note: recordings differ in length — fleet replay "
+                    f"truncates every stream to {k_min} revolutions"
+                )
+            ranges, state = replay_fleet(per_stream, params)
+            what = f"sharded fleet replay ({len(per_stream)} streams)"
         dt = time.perf_counter() - t0
         occupancy = int(state.voxel_acc.sum())
         n_scans = int(np.prod(ranges.shape[:-1]))
         finite = np.isfinite(ranges)
         print(
-            f"  chain: {n_scans} scans through the fused multi-scan step in "
+            f"  chain: {n_scans} scans through the {what} in "
             f"{dt:.2f} s ({n_scans / dt:.0f} scans/s); "
             f"median range {np.median(ranges[finite]):.2f} m, "
             f"voxel occupancy {occupancy}"

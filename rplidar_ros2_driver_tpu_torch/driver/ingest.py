@@ -20,16 +20,22 @@ backlog of ticks T at a time through the super-step.
 The host path (decoder + assembler + chain) stays the golden reference;
 the engines are held to it bit for bit (tests/test_torch_fused_ingest.py).
 
+The fleet engine runs on the card of ``params.filter_backend``, or on a
+one-process mesh's device (parallel/sharding.Mesh), and has the JAX
+package's whole-fleet checkpoint surface (:meth:`FleetFusedIngest.snapshot`
+/ :meth:`FleetFusedIngest.restore`, the same keys and checks).
+
 What these engines do NOT do: feed a RawNodeHolder (interval grabs need
 host-side nodes), expose the chain's snapshot surface, or — the fleet
-engine — the per-stream snapshot/restore and row operations and the map
-carried in the ingest state, which serve ShardedFilterService and the
-serving pod (ROADMAP A.7 / A.10) and raise NotImplementedError here.
+engine — the per-stream snapshot/restore and row operations of the
+serving pod (ROADMAP A.10) and the map carried in the ingest state
+(A.7b), which raise NotImplementedError here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 from collections import deque
@@ -48,6 +54,7 @@ from rplidar_ros2_driver_tpu_torch.mapping.mapper import resolve_fused_mapping_b
 from rplidar_ros2_driver_tpu_torch.ops.deskew import deskew_config_from_params
 from rplidar_ros2_driver_tpu_torch.ops.filters import FilterState
 from rplidar_ros2_driver_tpu_torch.ops.ingest import (
+    IngestState,
     create_fleet_ingest_state,
     create_ingest_state,
     fleet_aux_len,
@@ -65,6 +72,8 @@ from rplidar_ros2_driver_tpu_torch.protocol import crc as crcmod
 from rplidar_ros2_driver_tpu_torch.protocol import timing as timingmod
 from rplidar_ros2_driver_tpu_torch.protocol.constants import ANS_PAYLOAD_BYTES, Ans
 from rplidar_ros2_driver_tpu_torch.utils import cuda_build
+
+log = logging.getLogger("rplidar_tpu.ingest")
 
 # frame-run bucket sizes (runs are padded up to one; the engine caps a
 # run at the largest)
@@ -501,13 +510,23 @@ class FleetFusedIngest:
 
         if streams < 1:
             raise ValueError("fleet ingest needs at least one stream")
-        if mesh is not None:
-            _not_ported("over a device mesh", "A.7")
         if (getattr(params, "map_enable", False) and resolve_fused_mapping_backend(
                 getattr(params, "fused_mapping_backend", "auto")) == "fused"):
-            _not_ported("with the map carried in the ingest state", "A.7")
+            _not_ported("with the map carried in the ingest state", "A.7b")
         self.streams = streams
-        self.device = pick_device(params.filter_backend)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = pick_device(params.filter_backend)
+        elif mesh.spans_processes:
+            # the engine runs N independent per-stream pipelines on one
+            # device; splitting them across processes is not its layout
+            raise ValueError(
+                "FleetFusedIngest runs on a one-process mesh; a mesh that "
+                "spans processes feeds each process's streams through "
+                "ShardedFilterService.submit_local"
+            )
+        else:
+            self.device = mesh.device
         self.cfg = config_from_params(params, beams or DEFAULT_BEAMS, platform=self.device.type)
         self._deskew = deskew_config_from_params(params, self.cfg.beams, platform=self.device.type)
         # per-stream reconstructed sweeps: ``last_recon[i]`` stream i's
@@ -862,10 +881,96 @@ class FleetFusedIngest:
     # -- the serving surface (ShardedFilterService, the serving pod) ---------
 
     def snapshot(self) -> dict:
-        _not_ported("snapshot", "A.7")
+        """Host snapshot of the WHOLE per-stream ingest state — decode
+        carries, partial revolutions, rolling filter windows — plus the
+        host-side trackers, in the JAX package's format: ``ingest.*`` /
+        ``filter.*`` stream-batched numpy planes, ``formats`` (int32, -1 =
+        never streamed), ``bases`` (f64, nan = none).  ``median_sorted`` is
+        derived and excluded (restore recomputes it).  The device copy is
+        taken under the lock, the host copy after it."""
+        with self._lock:
+            st = self._state
+            ing = {
+                f.name: getattr(st, f.name).clone()
+                for f in dataclasses.fields(st)
+                if f.name != "filter" and getattr(st, f.name) is not None
+            }
+            filt = {
+                f.name: getattr(st.filter, f.name).clone()
+                for f in dataclasses.fields(st.filter)
+                if f.name != "median_sorted" and getattr(st.filter, f.name) is not None
+            }
+            formats = np.asarray([-1 if f is None else int(f) for f in self._stream_fmt],
+                                 np.int32)
+            bases = np.asarray([np.nan if b is None else float(b) for b in self._bases],
+                               np.float64)
+        snap = {f"ingest.{k}": v.cpu().numpy() for k, v in ing.items()}
+        snap.update({f"filter.{k}": v.cpu().numpy() for k, v in filt.items()})
+        snap["formats"] = formats
+        snap["bases"] = bases
+        return snap
 
     def restore(self, snap: dict) -> bool:
-        _not_ported("restore", "A.7")
+        """Restore a :meth:`snapshot` (either package's).  A stream-count,
+        geometry or ingest-key-space mismatch (the de-skew planes
+        included) is rejected with the current state untouched; pending
+        results are dropped on success (pre-restore outputs must never
+        publish).  The upload copies the snapshot's arrays."""
+        from rplidar_ros2_driver_tpu_torch.ops.filters import recompute_median_sorted
+
+        try:
+            formats = np.asarray(snap["formats"])
+            bases = np.asarray(snap["bases"])
+            ing = {k[len("ingest."):]: np.asarray(v)
+                   for k, v in snap.items() if k.startswith("ingest.")}
+            filt = {k[len("filter."):]: np.asarray(v)
+                    for k, v in snap.items() if k.startswith("filter.")}
+        except KeyError:
+            return False
+        if formats.shape != (self.streams,) or ing.get(
+            "partial", np.empty(0)
+        ).shape != (self.streams, self.max_nodes, 4):
+            log.warning("rejecting incompatible fleet ingest snapshot "
+                        "(streams/geometry mismatch)")
+            return False
+        st = self._state
+        expected_ing = {
+            f.name: tuple(getattr(st, f.name).shape)
+            for f in dataclasses.fields(st)
+            if f.name != "filter" and getattr(st, f.name) is not None
+        }
+        got_ing = {k: tuple(v.shape) for k, v in ing.items()}
+        if expected_ing != got_ing:
+            log.warning("rejecting incompatible fleet ingest snapshot "
+                        "(ingest planes %s != %s)", got_ing, expected_ing)
+            return False
+        expected_filter = {
+            k: (self.streams, *v)
+            for k, v in FilterState.shapes(self.cfg.window, self.cfg.beams, self.cfg.grid).items()
+        }
+        got_filter = {k: tuple(v.shape) for k, v in filt.items()}
+        if expected_filter != got_filter:
+            log.warning("rejecting incompatible fleet ingest snapshot "
+                        "(filter geometry %s != %s)", got_filter, expected_filter)
+            return False
+
+        def up(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+            # a host copy: a CPU from_numpy would share the caller's buffer
+            return torch.from_numpy(np.array(arr)).to(device=self.device, dtype=like.dtype)
+
+        fstate = FilterState(
+            **{k: up(v, getattr(st.filter, k)) for k, v in filt.items()}, median_sorted=None,
+        )
+        state = IngestState(filter=fstate, **{k: up(v, getattr(st, k)) for k, v in ing.items()})
+        if self.cfg.median_backend.startswith("inc"):
+            state.filter.median_sorted = recompute_median_sorted(state.filter.range_window)
+        with self._lock:
+            self._state = state
+            self._stream_fmt = [None if f < 0 else int(f) for f in formats]
+            self._bases = [None if np.isnan(b) else float(b) for b in bases]
+            self._reset_next = [False] * self.streams
+            self._pending.clear()
+        return True
 
     def snapshot_stream(self, i: int) -> dict:
         _not_ported("per-stream snapshot", "A.10")
@@ -877,10 +982,10 @@ class FleetFusedIngest:
         _not_ported("cold reset", "A.10")
 
     def take_map_wires(self) -> list:
-        _not_ported("map wires (the map carried in the ingest state)", "A.7")
+        _not_ported("map wires (the map carried in the ingest state)", "A.7b")
 
     def map_snapshot(self) -> dict:
-        _not_ported("map snapshot (the map carried in the ingest state)", "A.7")
+        _not_ported("map snapshot (the map carried in the ingest state)", "A.7b")
 
     def map_restore(self, core: dict) -> None:
-        _not_ported("map restore (the map carried in the ingest state)", "A.7")
+        _not_ported("map restore (the map carried in the ingest state)", "A.7b")

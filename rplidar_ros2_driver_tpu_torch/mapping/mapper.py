@@ -27,8 +27,8 @@ Checkpoint surface: ``snapshot``/``restore`` (and per stream) in the JAX
 package's format (numpy arrays, ``version`` key 1), so a map carries
 across the two packages byte for byte.  Not in this package yet, each
 raising NotImplementedError naming its ROADMAP item: the carried mapper of
-the fused ingest route (A.7, with ShardedFilterService, its only
-constructor) and the Orbax sharded checkpoints (A.11).
+the fused ingest route (A.7b; ShardedFilterService.attach_mapper is its
+only constructor) and the Orbax sharded checkpoints (A.11).
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ def resolve_match_backend(requested: str, platform: Optional[str] = None) -> str
 def resolve_fused_mapping_backend(requested: str, platform: Optional[str] = None) -> str:
     """``auto`` -> ``host``: the map rides its own fleet tick after the
     chain.  The ``fused`` route, the map carried inside the fused ingest
-    program, comes with ShardedFilterService (ROADMAP A.7)."""
+    program, is ROADMAP A.7b."""
     if requested != "auto":
         return requested
     del platform
@@ -430,5 +430,5 @@ class CarriedFleetMapper:
     def __init__(self, *args, **kwargs) -> None:
         raise NotImplementedError(
             "CarriedFleetMapper (the map carried inside the fused ingest "
-            "program) is not ported to the PyTorch package yet (ROADMAP A.7)"
+            "program) is not ported to the PyTorch package yet (ROADMAP A.7b)"
         )

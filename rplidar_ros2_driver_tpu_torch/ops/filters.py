@@ -718,7 +718,7 @@ def pack_host_scans_compact(scans, n: int | None = None):
 #   * the voxel accumulator after the last step is the sum of the final
 #     window's per-scan hit grids (the streaming add-new/retire-old
 #     telescopes).
-# The ring is addressed by device-side index arithmetic on the 0-d cursor
+# The ring is addressed by device-side index arithmetic on each cursor
 # ((arange(W) + cursor) % W and its inverse), never a torch.roll by a
 # Python int, so a chunk costs no host synchronisation.
 #
@@ -739,6 +739,20 @@ def _compact_filter_scan_sequential(
     return state, torch.stack(ranges)
 
 
+def _stripe(x: torch.Tensor) -> torch.Tensor:
+    """A (..., R, B) plane laid out as one contiguous (R, S*B) stripe (S the
+    product of the leading axes), so one median launch covers the fleet
+    (the median kernels are per column and refuse strided inputs).  One
+    stream's (R, B) plane is its own stripe: no copy."""
+    r = x.shape[-2]
+    return x.movedim(-2, 0).reshape(r, -1).contiguous()
+
+
+def _unstripe(x: torch.Tensor, lead: tuple) -> torch.Tensor:
+    """Inverse of :func:`_stripe`: (R, S*B) -> (*lead, R, B)."""
+    return x.reshape((x.shape[0],) + tuple(lead) + (-1,)).movedim(0, -2)
+
+
 def fused_scan_core(
     state: FilterState,
     packed_seq: torch.Tensor,
@@ -749,65 +763,75 @@ def fused_scan_core(
     polar_fn,
     hits_fn,
 ) -> tuple[FilterState, torch.Tensor]:
-    """The one fused K-scan formulation (the JAX package shares it with
-    its sharded path, which injects the three partition-dependent
-    primitives; every piece of boundary arithmetic lives only here):
+    """The one fused K-scan formulation, over one stream's state or a
+    stream-batched one (a leading S axis on every field and an (S,)
+    cursor; ``packed_seq`` (S, K, 3, N), ``counts`` (S, K)).  Every step
+    below is written over the leading axes, so the two are one code path;
+    the sharded path injects the three partition-dependent primitives
+    (every piece of boundary arithmetic lives only here):
 
-    * ``keys_fn(batch) -> (beam, packed)`` — (K, N) resample keys;
-    * ``polar_fn(rows) -> (xy, mask)`` — Cartesian projection of (m, B)
-      range rows;
-    * ``hits_fn(xy, mask) -> (m, G, G)`` — per-scan occupancy grids.
+    * ``keys_fn(batch) -> (beam, packed)`` — (..., K, N) resample keys;
+    * ``polar_fn(rows) -> (xy, mask)`` — Cartesian projection of (..., m,
+      B) range rows;
+    * ``hits_fn(xy, mask) -> (..., m, G, G)`` — per-scan occupancy grids.
+
+    The streams' history stripes are laid side by side, so the whole
+    fleet's medians are ONE (W+K, S*B) sliding-median call.
 
     Updates ``state`` IN PLACE, like the streaming step: the ring, hit
     grids, accumulator, cursor and fill count are written into the
     tensors it holds; only the derived ``median_sorted`` is replaced (one
-    re-sort per chunk).  Returns (state, (K, B) ranges)."""
-    k = packed_seq.shape[0]
-    w, b_local = state.range_window.shape
+    re-sort per chunk).  Returns (state, (..., K, B) ranges)."""
+    k = packed_seq.shape[-3]
+    w, b_local = state.range_window.shape[-2:]
     dev = state.range_window.device
 
     # 1. unpack + clip + resample every scan at once
-    beam_k, packed_k = keys_fn(_unpack_compact(packed_seq, counts))  # (K, N) each
-    new_r, new_i = _scatter_min(beam_k, packed_k, b_local)  # (K, B)
+    beam_k, packed_k = keys_fn(_unpack_compact(packed_seq, counts))  # (..., K, N) each
+    new_r, new_i = _scatter_min(beam_k, packed_k, b_local)  # (..., K, B)
 
     # 2. extended history: previous ring in age order (oldest first), then
-    # the new rows.  After step i the live window is ext[i+1 : i+1+W].
+    # the new rows.  After step i the live window is ext[..., i+1 : i+1+W, :].
+    # Rings are gathered along their window axis by per-stream row indices
+    # (..., W, 1) that broadcast over the beams (and the grid's rows).
     iota_w = torch.arange(w, device=dev)
-    age = torch.remainder(iota_w + state.cursor, w)  # roll(ring, -cursor)
-    ext_r = torch.cat([state.range_window.index_select(0, age), new_r])  # (W+K, B)
+    age = torch.remainder(iota_w + state.cursor[..., None], w)[..., None]  # roll(ring, -cursor)
+    ext_r = torch.cat([state.range_window.take_along_dim(age, dim=-2), new_r], dim=-2)
 
     # 3. every step's median in one pass over the history stripe
     if cfg.enable_median:
         if cfg.median_backend == "pallas":
-            from rplidar_ros2_driver_tpu_torch.ops.median_kernels import sliding_median_kernel
-
-            med = sliding_median_kernel(ext_r, w)
+            from rplidar_ros2_driver_tpu_torch.ops.median_kernels import (
+                sliding_median_kernel as median_fn,
+            )
         else:
-            med = sliding_median(ext_r, w)
+            median_fn = sliding_median
+        med = _unstripe(median_fn(_stripe(ext_r), w), ext_r.shape[:-2])
     else:
         med = new_r
 
     # 4. final window: the W most recent rows, back in ring layout
     # (ring = roll(age-ordered, +cursor'))
     cursor2 = torch.remainder(state.cursor + k, w).to(state.cursor.dtype)
-    ring = torch.remainder(iota_w - cursor2, w)
-    ext_i = torch.cat([state.inten_window.index_select(0, age), new_i])
-    state.range_window.copy_(ext_r[k : k + w].index_select(0, ring))
-    state.inten_window.copy_(ext_i[k : k + w].index_select(0, ring))
+    ring = torch.remainder(iota_w - cursor2[..., None], w)[..., None]
+    ext_i = torch.cat([state.inten_window.take_along_dim(age, dim=-2), new_i], dim=-2)
+    state.range_window.copy_(ext_r[..., k : k + w, :].take_along_dim(ring, dim=-2))
+    state.inten_window.copy_(ext_i[..., k : k + w, :].take_along_dim(ring, dim=-2))
 
     # 5. voxel: the accumulator after the last step is the sum of the
     # final window's hit grids; only the last min(K, W) scans' grids
     # survive, so only those scans are projected
     if cfg.enable_voxel:
         m = min(k, w)
-        new_hits = hits_fn(*polar_fn(med[k - m :]))  # (m, G, G)
+        new_hits = hits_fn(*polar_fn(med[..., k - m :, :]))  # (..., m, G, G)
         if m < w:
-            kept = state.hit_window.index_select(0, age[k:])  # the W-K newest old grids
-            ext_h = torch.cat([kept, new_hits])
+            # the W-K newest old grids
+            kept = state.hit_window.take_along_dim(age[..., k:, :, None], dim=-3)
+            ext_h = torch.cat([kept, new_hits], dim=-3)
         else:
             ext_h = new_hits
-        state.hit_window.copy_(ext_h.index_select(0, ring))
-        state.voxel_acc.copy_(ext_h.sum(dim=0, dtype=torch.int32))
+        state.hit_window.copy_(ext_h.take_along_dim(ring[..., None], dim=-3))
+        state.voxel_acc.copy_(ext_h.sum(dim=-3, dtype=torch.int32))
 
     state.cursor.copy_(cursor2)
     state.filled.add_(k).clamp_(max=w)

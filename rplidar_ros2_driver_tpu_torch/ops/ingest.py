@@ -90,7 +90,7 @@ def _no_mapping(mapping) -> None:
     if mapping is not None:
         raise NotImplementedError(
             "the in-program mapper carried in the ingest state "
-            "(CarriedFleetMapper, _map_update_tick) is not ported yet (ROADMAP A.7)"
+            "(CarriedFleetMapper, _map_update_tick) is not ported yet (ROADMAP A.7b)"
         )
 
 
@@ -110,7 +110,7 @@ class IngestConfig:
     emit_nodes: bool         # debug/parity: assembled node buffers returned
     filter: FilterConfig
     deskew: Optional[DeskewConfig] = None
-    mapping: Optional[object] = None   # A.7: must be None
+    mapping: Optional[object] = None   # A.7b: must be None
 
     def __post_init__(self):
         _no_mapping(self.mapping)
@@ -781,7 +781,7 @@ class FleetIngestConfig:
     emit_nodes: bool
     filter: FilterConfig
     deskew: Optional[DeskewConfig] = None
-    mapping: Optional[object] = None   # A.7: must be None
+    mapping: Optional[object] = None   # A.7b: must be None
 
     def __post_init__(self):
         _no_mapping(self.mapping)

@@ -1,0 +1,964 @@
+"""Multi-stream filter service — the production face of the sharded step.
+
+The PyTorch counterpart of the JAX package's ``ShardedFilterService``
+(its ``parallel/service.py``).  One process, many lidars (a multi-sensor
+rig or a fleet gateway): each stream keeps its own rolling window/voxel
+state, all hosted on one ``(stream, beam)`` mesh (parallel/sharding.py).
+Per tick the service stacks every stream's newest revolution into one
+count-embedded ``(streams, 3, N+1)`` upload, runs the one batched sharded
+step — ONE median launch for the whole fleet (B1, or B2 for ``inc``) —
+and hands back per-stream host outputs from ONE device->host copy of the
+tick's flat output wires.
+
+Where the JAX package donates the state to its compiled step, the state
+here is updated in place under ``self._lock`` (as ``ScanFilterChain``
+does), so :meth:`snapshot` copies under the lock.  Snapshots keep the
+JAX package's format (stream-batched numpy arrays keyed by FilterState
+field, the derived ``median_sorted`` excluded and recomputed), so a fleet
+window carries across the two packages.
+
+The byte seams (:meth:`submit_bytes`, :meth:`submit_bytes_backlog`) run
+the host decode + lockstep tick, or driver/ingest.FleetFusedIngest; the
+SLAM seams feed mapping/mapper.FleetMapper, slam/loop.LoopClosureEngine
+and mapping/worldmap.WorldMap.  Not in this package yet, each raising
+NotImplementedError naming its ROADMAP item: the health supervisor and
+the traffic shaper (A.10), the sharded checkpoints (A.11) and the map
+carried in the fused ingest state (A.7b).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import threading
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+from rplidar_ros2_driver_tpu_torch.core.types import MAX_SCAN_NODES
+from rplidar_ros2_driver_tpu_torch.filters.chain import (
+    DEFAULT_BEAMS,
+    config_from_params,
+    pick_device,
+    resolve_fleet_ingest_backend,
+)
+from rplidar_ros2_driver_tpu_torch.mapping.mapper import resolve_fused_mapping_backend
+from rplidar_ros2_driver_tpu_torch.ops.filters import (
+    FilterOutput,
+    FilterState,
+    _unpack_compact,
+    pack_host_scan_counted,
+    recompute_median_sorted,
+    unpack_output_wire,
+)
+from rplidar_ros2_driver_tpu_torch.parallel import multihost
+from rplidar_ros2_driver_tpu_torch.parallel.sharding import (
+    _filter_step_shard,
+    _shard_of,
+    create_sharded_state,
+    make_mesh,
+    place_state,
+)
+from rplidar_ros2_driver_tpu_torch.utils.fetch import bounded_fetch
+
+logger = logging.getLogger("rplidar_tpu.service")
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"ShardedFilterService {what} is not ported to the PyTorch package yet "
+        f"(ROADMAP {item})"
+    )
+
+
+def _tick_wire(out: FilterOutput) -> torch.Tensor:
+    """One tick's (streams, 5*B + G*G) float32 output wires: per stream
+    the flat layout of ops/filters._pack_output_wire (voxel counts exact
+    to 2^24), so ops/filters.unpack_output_wire reads each row."""
+    s = out.ranges.shape[0]
+    return torch.cat([
+        out.ranges,
+        out.intensities,
+        out.points_xy.reshape(s, -1),
+        out.point_mask.to(torch.float32),
+        out.voxel.reshape(s, -1).to(torch.float32),
+    ], dim=1)
+
+
+class _TickFetch:
+    """One tick's output wires on their way to the host: the host tensor
+    they land in and, on CUDA, the event recorded after the non-blocking
+    copy into a recycled pinned buffer (returned to ``pool`` once read)."""
+
+    def __init__(self, host: torch.Tensor, event, pool: Optional[list]) -> None:
+        self.host = host
+        self.event = event
+        self.pool = pool
+
+    def wait(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+    def release(self) -> None:
+        if self.pool is not None:
+            self.pool.append(self.host)
+            self.pool = None
+
+
+class ShardedFilterService:
+    """Many lidars' filter chains on one ``(stream, beam)`` mesh: one
+    batched tick for the whole fleet (see the module docstring)."""
+
+    def __init__(
+        self,
+        params: DriverParams,
+        streams: int,
+        *,
+        mesh=None,
+        beams: int = DEFAULT_BEAMS,
+        capacity: int = MAX_SCAN_NODES,
+        fleet_ingest_buckets: Optional[tuple] = None,
+    ) -> None:
+        if mesh is None:
+            # a multi-process topology (the coordinator variables) joins
+            # the process group first, so the default mesh spans every
+            # process; single-process this is the (1, 1) mesh
+            multihost.initialize()
+            dev = pick_device(params.filter_backend)
+            mesh = make_mesh(device=dev if dev.type == "cpu" else None)
+        self.mesh = mesh
+        self.device = mesh.device
+        self.params = params
+        self.cfg = config_from_params(params, beams, platform=self.device.type)
+        self.streams = streams
+        self.capacity = capacity
+        # bound on tick collects (see _collect_pending); 0/None = unbounded
+        self.collect_timeout_s = params.collect_timeout_s
+        self._shard = _shard_of(mesh, self.cfg)
+        self._local = mesh.local_streams(streams)
+        self._step = self._step_packed
+        # the step updates the state in place: ticks, snapshots and
+        # restores in THIS process serialize on this lock.  In
+        # multi-process mode collective operations (ticks) must
+        # additionally be issued in the same order by every process — a
+        # local mutex cannot order collectives across processes.
+        self._lock = threading.Lock()
+        self._state = create_sharded_state(mesh, self.cfg, streams)
+        # (fetch, live-mask, collector name) of the newest dispatched tick
+        # not yet collected (submit_pipelined); _epoch advances on every
+        # restore so a failed tick cannot re-stash pre-restore outputs
+        self._pending = None
+        self._epoch = 0
+        self._cuda = self.device.type == "cuda"
+        # pinned staging of the upload (reused once its copy landed) and
+        # a pool of pinned output buffers (returned once read)
+        self._in_host: dict = {}
+        self._in_done = None
+        self._out_pool: list = []
+        # raw-bytes tick seam: resolved once, engines built lazily
+        self.fleet_ingest_backend = resolve_fleet_ingest_backend(
+            getattr(params, "fleet_ingest_backend", "auto"), self.device.type
+        )
+        self.fused_mapping_backend = resolve_fused_mapping_backend(
+            getattr(params, "fused_mapping_backend", "auto"), self.device.type
+        )
+        self.fleet_ingest = None        # FleetFusedIngest (fused backend)
+        self._fleet_ingest_buckets = fleet_ingest_buckets
+        self._host_ingest = None        # per-stream (decoder, latest-slot)
+        self.host_scans_dropped = 0     # newest-wins drops on the host path
+        # SLAM front-end seam: each materialized tick feeds one mapper
+        # tick; per-stream pose estimates land in ``last_poses``
+        self.mapper = None
+        self.last_poses: list = [None] * streams
+        # SLAM back-end seam: every mapper tick is observed by the loop
+        # engine; statuses in ``last_loop``, corrected poses beside them
+        self.loop = None
+        self.last_loop: list = [None] * streams
+        self.last_corrected_poses: list = [None] * streams
+        # shared-world mapping seam: finalized submaps fuse into one
+        # fleet-wide accumulation
+        self.world = None
+        if getattr(params, "health_enable", False):
+            self.attach_health()
+
+    # -- the step -----------------------------------------------------------
+
+    def _step_packed(self, state: FilterState, packed: torch.Tensor):
+        """The counted compact ingest: the (streams, 3, N+1) upload with
+        each stream's node count in its reserved last slot, unpacked on
+        the device, then the batched sharded step (state in place)."""
+        count = packed[:, 0, -1].to(torch.int32) & 0xFFFF
+        return _filter_step_shard(state, _unpack_compact(packed, count), self.cfg, self._shard)
+
+    def _upload(self, packed_np: np.ndarray) -> torch.Tensor:
+        """The packed uint16 block on the device, as int16 (same bytes).
+        On CUDA through a pinned staging buffer, reused once the previous
+        upload has landed.  Called under the lock."""
+        wire = torch.from_numpy(packed_np.view(np.int16))
+        if not self._cuda:
+            return wire
+        if self._in_done is not None:
+            self._in_done.synchronize()
+        buf = self._in_host.get(wire.shape)
+        if buf is None:
+            buf = self._in_host[wire.shape] = torch.empty(
+                wire.shape, dtype=torch.int16, pin_memory=True)
+        buf.copy_(wire)
+        dev = buf.to(self.device, non_blocking=True)
+        self._in_done = torch.cuda.Event()
+        self._in_done.record(torch.cuda.current_stream(self.device))
+        return dev
+
+    def _start_fetch(self, wire: torch.Tensor) -> _TickFetch:
+        """Start the one device->host copy of a tick's output wires."""
+        if not self._cuda:
+            return _TickFetch(wire, None, None)
+        host = None
+        while self._out_pool and host is None:
+            cand = self._out_pool.pop()
+            if cand.shape == wire.shape:
+                host = cand
+        if host is None:
+            host = torch.empty(wire.shape, dtype=torch.float32, pin_memory=True)
+        host.copy_(wire, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return _TickFetch(host, event, self._out_pool)
+
+    def _dispatch(self, packed_np: np.ndarray, stash=None) -> _TickFetch:
+        """Upload, step and start the fetch of one tick under the lock;
+        ``stash`` = (live, collector) makes it the pending tick in the
+        same critical section (a restore cannot slip in between)."""
+        with self._lock:
+            packed = self._upload(packed_np)
+            self._state, out = self._step(self._state, packed)
+            fetch = self._start_fetch(_tick_wire(out))
+            if stash is not None:
+                self._pending = (fetch, *stash)
+            return fetch
+
+    def _single_controller(self, what: str) -> None:
+        if self.mesh.spans_processes:
+            raise RuntimeError(
+                f"{what} needs one controller that addresses every shard; on "
+                "a mesh that spans processes each process feeds its own "
+                "streams with submit_local"
+            )
+
+    def precompile(self) -> None:
+        """Build the tick's kernels and run the batched step once now, so
+        the first live tick doesn't stall on them.  Zero-count step +
+        rollback like the chain: on a FRESH state the all-idle tick writes
+        only values the state already holds and the cursor/filled advance
+        is undone; a state that has absorbed scans skips the warmup."""
+        with self._lock:
+            if bool(self._state.filled.any()):
+                return
+        packed_np = self._stack([None] * (self._local.stop - self._local.start))
+        with self._lock:
+            packed = self._upload(packed_np)
+            self._state, _ = self._step(self._state, packed)
+            self._state.cursor.zero_()
+            self._state.filled.zero_()
+            if self._cuda:
+                torch.cuda.synchronize(self.device)
+
+    # -- SLAM seams ---------------------------------------------------------
+
+    def attach_mapper(self, mapper=None) -> "object":
+        """Attach a FleetMapper (built here from this service's params
+        when not given) so each tick's outputs run the SLAM front-end:
+        per-stream correlative scan-to-map match + log-odds map update,
+        one mapper tick per filter tick.  Idle streams pass through.
+        Returns the attached mapper (its snapshot/restore surface is the
+        caller's to drive, like ``fleet_ingest``'s).
+
+        The FUSED mapping route (``fused_mapping_backend``, the map
+        carried in the ingest state) is ROADMAP A.7b."""
+        if mapper is None and self.fused_mapping_backend == "fused":
+            from rplidar_ros2_driver_tpu_torch.mapping.mapper import CarriedFleetMapper
+
+            self._ensure_byte_ingest()
+            mapper = CarriedFleetMapper(self.params, self.fleet_ingest, beams=self.cfg.beams)
+        elif mapper is None:
+            from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
+
+            mapper = FleetMapper(
+                self.params, self.streams, beams=self.cfg.beams, device=self.device
+            )
+        elif self.fused_mapping_backend == "fused" and not hasattr(mapper, "absorb_wires"):
+            # a dispatching FleetMapper beside the in-carry map would
+            # keep a SECOND diverging map per stream — refuse loudly
+            raise ValueError(
+                "this service resolved fused_mapping_backend='fused' "
+                "(the map rides the ingest carry); attach no mapper, or "
+                "a CarriedFleetMapper over this service's engine"
+            )
+        if mapper.streams != self.streams:
+            raise ValueError(
+                f"mapper has {mapper.streams} streams, service has {self.streams}"
+            )
+        # build and warm the matcher kernels NOW: the first live tick
+        # must never stall on them
+        if mapper.backend == "fused":
+            mapper.precompile()
+        self.mapper = mapper
+        return mapper
+
+    def attach_loop_closure(self, engine=None) -> "object":
+        """Attach a LoopClosureEngine (built here from this service's
+        params when not given) so every mapper tick runs the SLAM
+        back-end: submap lifecycle, batched loop-closure candidate
+        matching and the pose-graph correction (slam/loop.py).  Requires
+        an attached mapper (attached here when there is none).  Returns
+        the attached engine."""
+        if self.mapper is None:
+            self.attach_mapper()
+        if engine is None:
+            from rplidar_ros2_driver_tpu_torch.slam.loop import LoopClosureEngine
+
+            engine = LoopClosureEngine(self.params, self.mapper)
+        if engine.streams != self.streams:
+            raise ValueError(
+                f"loop engine has {engine.streams} streams, service has {self.streams}"
+            )
+        # build and warm the check/install kernels NOW (the mapper's
+        # precompile discipline)
+        engine.precompile()
+        self.loop = engine
+        if self.world is not None:
+            # the world consumes the engine's finalization product from
+            # here on (one quantize path; the cadence pull retires)
+            engine.on_install = self._world_install
+        return engine
+
+    def _loop_tick(self) -> None:
+        """Feed the attached loop engine this mapper tick's estimates
+        (no-op without one); stashes per-stream statuses + corrected
+        poses."""
+        if self.loop is None:
+            return
+        self.last_loop = self.loop.observe(self.last_poses)
+        self.last_corrected_poses = [
+            None if est is None else self.loop.corrected_pose_q(i, est.pose_q)
+            for i, est in enumerate(self.last_poses)
+        ]
+
+    def loop_status(self) -> Optional[dict]:
+        """The /diagnostics loop-closure value group's payload (None
+        when no engine is attached)."""
+        return None if self.loop is None else self.loop.status()
+
+    def attach_world_map(self, world=None) -> "object":
+        """Attach the shared-world mapping plane (built here from this
+        service's params when not given): finalized per-stream submaps
+        are aligned against the world reference and fused into ONE
+        device-resident int32 accumulation.  Requires an attached mapper;
+        with a loop engine attached the world consumes the engine's OWN
+        finalization product through its ``on_install`` tap, otherwise
+        the world pulls row snapshots at its ``world_merge_revs``
+        cadence.  Returns the attached world."""
+        if self.mapper is None:
+            self.attach_mapper()
+        if world is None:
+            from rplidar_ros2_driver_tpu_torch.mapping.worldmap import (
+                WorldMap,
+                world_config_from_params,
+            )
+
+            world = WorldMap(world_config_from_params(self.params, self.mapper.cfg),
+                             device=self.device)
+        world.precompile()
+        self.world = world
+        if self.loop is not None:
+            self.loop.on_install = self._world_install
+        return world
+
+    def _world_install(self, i: int, plane, anchor) -> None:
+        """The loop engine's finalization tap: the exact quantized
+        plane the submap library stored fuses into the world."""
+        if self.world is not None:
+            self.world.ingest_submap(i, plane, anchor)
+
+    def _world_tick(self) -> None:
+        """Feed the attached world map (no-op without one).  With a loop
+        engine the merges already arrived through its ``on_install`` tap;
+        without one, streams whose revolution count crossed the
+        ``world_merge_revs`` cadence contribute a row snapshot quantized
+        through the ONE finalization path (mapping/submap)."""
+        if self.world is None or self.loop is not None:
+            return
+        from rplidar_ros2_driver_tpu_torch.mapping.submap import quantize_submap_plane
+
+        for i, est in enumerate(self.last_poses):
+            if est is None:
+                continue
+            rev = int(est.revision)
+            if self.world.merge_due(i, rev):
+                snap = self.mapper.snapshot_stream(i)
+                plane = quantize_submap_plane(snap["log_odds"], self.mapper.cfg)
+                self.world.ingest_submap(i, plane, snap["pose"])
+                self.world.note_merged(i, rev)
+
+    def world_status(self) -> Optional[dict]:
+        """The /diagnostics "World Map" value group's payload (None
+        when no world is attached)."""
+        return None if self.world is None else self.world.status()
+
+    def _map_tick(self, outs: list) -> list:
+        """Feed one materialized tick to the attached mapper (no-op
+        without one); stashes the per-stream estimates."""
+        if self.mapper is None or outs is None:
+            return outs
+        self.last_poses = self.mapper.submit(outs)
+        self._loop_tick()
+        self._world_tick()
+        return outs
+
+    def _map_tick_recon(self) -> None:
+        """The de-skew/reconstruction mapper seam: feed the attached
+        mapper this tick's FRESH reconstructed sweeps
+        (FleetFusedIngest.take_recon) instead of waiting for completed
+        revolutions — one mapper update per data tick per stream.
+        Streams with no fresh reconstruction pass through idle."""
+        if self.mapper is None or self.fleet_ingest is None:
+            return
+        recons = self.fleet_ingest.take_recon()
+        if not any(r is not None for r in recons):
+            # no fresh reconstruction anywhere: an idle tick must never
+            # republish the previous tick's poses as current
+            self.last_poses = [None] * self.streams
+            return
+        from rplidar_ros2_driver_tpu_torch.mapping.mapper import recon_input_planes
+
+        points, masks, live = recon_input_planes(recons, self.streams, self.cfg.beams)
+        self.last_poses = self.mapper.submit_points(points, masks, live)
+        self._loop_tick()
+        self._world_tick()
+
+    def _map_tick_fused(self) -> None:
+        _not_ported("fused mapping seam (the map carried in the ingest state)", "A.7b")
+
+    # -- health and traffic shaping (the serving pod) -----------------------
+
+    def attach_health(self, health=None, **kwargs) -> "object":
+        _not_ported("health supervisor (attach_health, health_enable)", "A.10")
+
+    def health_status(self) -> Optional[list]:
+        _not_ported("health status", "A.10")
+
+    def attach_scheduler(self, shaper=None) -> "object":
+        _not_ported("traffic shaper (attach_scheduler)", "A.10")
+
+    def offer_bytes(self, items) -> None:
+        _not_ported("scheduled admission (offer_bytes)", "A.10")
+
+    def drain_scheduled(self) -> list:
+        _not_ported("scheduled drain (drain_scheduled)", "A.10")
+
+    def scheduler_status(self) -> Optional[dict]:
+        _not_ported("scheduler status", "A.10")
+
+    # -- raw-bytes ingest seam ----------------------------------------------
+
+    def _ensure_byte_ingest(self):
+        """Build the resolved fleet ingest backend's engine(s) lazily."""
+        if self.fleet_ingest_backend == "fused":
+            if self.fleet_ingest is None:
+                from rplidar_ros2_driver_tpu_torch.driver.ingest import FleetFusedIngest
+
+                kw = {"buckets": self._fleet_ingest_buckets} if self._fleet_ingest_buckets else {}
+                self.fleet_ingest = FleetFusedIngest(
+                    self.params, self.streams, mesh=self.mesh,
+                    beams=self.cfg.beams, capacity=self.capacity, **kw,
+                )
+            return
+        if getattr(self.params, "deskew_enable", False):
+            # the sub-sweep cache lives inside the fused step's device
+            # state; the host decode path cannot run it — refuse loudly
+            raise ValueError(
+                "deskew_enable requires the fused fleet ingest backend; "
+                f"this service resolved fleet_ingest_backend="
+                f"{self.fleet_ingest_backend!r} — pin it to 'fused' "
+                "(the host decode path has no device-resident sub-sweep "
+                "cache to reconstruct from)"
+            )
+        if self._host_ingest is None:
+            from rplidar_ros2_driver_tpu_torch.driver.assembly import ScanAssembler
+            from rplidar_ros2_driver_tpu_torch.driver.decode import BatchScanDecoder
+
+            latest: list = [None] * self.streams
+            decs = []
+            for i in range(self.streams):
+                def keep(scan, i=i):
+                    if latest[i] is not None:
+                        self.host_scans_dropped += 1
+                    latest[i] = dict(scan)
+
+                decs.append(BatchScanDecoder(ScanAssembler(max_nodes=self.capacity,
+                                                           on_complete=keep)))
+            self._host_ingest = (decs, latest)
+
+    def _host_decode_tick(self, items) -> list:
+        """The golden fleet byte path: per-stream host decode + assembly,
+        newest completed revolution per stream (older completions within
+        one tick are counted in ``host_scans_dropped``)."""
+        decs, latest = self._host_ingest
+        for i, item in enumerate(items):
+            if not item:
+                continue
+            ans, frames = item
+            decs[i].on_measurement_batch(int(ans), list(frames))
+        scans = []
+        for i in range(self.streams):
+            scans.append(latest[i])
+            latest[i] = None
+        return scans
+
+    def submit_bytes(self, items, *, pipelined: bool = False) -> list[Optional[FilterOutput]]:
+        """One fleet tick from RAW FRAME BYTES: ``items[i]`` is
+        ``(ans_type, [(payload, rx_monotonic_ts), ...])`` for stream i
+        (None = idle this tick).  Backend per ``fleet_ingest_backend``:
+
+          * host  — per-stream BatchScanDecoder + ScanAssembler here,
+            newest revolution per stream into the one batched
+            :meth:`submit` / :meth:`submit_pipelined` tick (ONE median
+            launch for the fleet).
+          * fused — driver/ingest.FleetFusedIngest: every stream's bytes
+            to filter outputs in one step per tick.
+
+        Returns one Optional[FilterOutput] per stream — the NEWEST
+        completed revolution's output this tick.  The backends' window
+        semantics differ by design: the host path is the lockstep tick
+        (an idle stream's window absorbs an all-masked scan), the fused
+        path is N independent chains (a stream advances only on its own
+        completed revolutions).  The fused path's checkpoint surface is
+        ``self.fleet_ingest.snapshot()/restore()``."""
+        if len(items) != self.streams:
+            raise ValueError(f"expected {self.streams} per-stream byte runs, got {len(items)}")
+        self._ensure_byte_ingest()
+        return self._submit_bytes_tick(items, pipelined)
+
+    def _submit_bytes_tick(self, items, pipelined: bool) -> list[Optional[FilterOutput]]:
+        if self.fleet_ingest_backend == "fused":
+            outs = (self.fleet_ingest.submit_pipelined(items) if pipelined
+                    else self.fleet_ingest.submit(items))
+            result = [o[-1][0] if o else None for o in outs]
+            if self.fleet_ingest._deskew is not None:
+                # reconstruction active: the mapper consumes the
+                # every-tick reconstructed sweeps, not the once-per-
+                # revolution chain outputs (which still publish)
+                self._map_tick_recon()
+                return result
+            return self._map_tick(result)
+        scans = self._host_decode_tick(items)
+        if pipelined:
+            return self.submit_pipelined(scans)
+        if all(s is None for s in scans):
+            # no stream completed a revolution: nothing to advance (the
+            # synchronous byte tick is edge-triggered)
+            return [None] * self.streams
+        return self.submit(scans)
+
+    def submit_bytes_pipelined(self, items) -> list[Optional[FilterOutput]]:
+        """Pipelined :meth:`submit_bytes` (one tick of declared
+        staleness; the publish never waits on this tick's compute)."""
+        return self.submit_bytes(items, pipelined=True)
+
+    def submit_bytes_backlog(
+        self, ticks, *, rung: Optional[int] = None, overlap_work=None,
+    ) -> list[list[FilterOutput]]:
+        """The catch-up seam: drain a BACKLOG of queued fleet byte ticks
+        in one call (``ticks``: a list of :meth:`submit_bytes` item
+        lists).  Backend per ``fleet_ingest_backend``:
+
+          * fused — FleetFusedIngest.submit_backlog: up to
+            ``super_tick_max`` ticks per super-step, exact against
+            submitting the ticks one by one.
+          * host — the golden reference: each tick through the host
+            decode + the one batched lockstep tick.
+
+        Returns one list per stream holding EVERY completed revolution's
+        FilterOutput across the backlog, in tick order.  ``rung`` and
+        ``overlap_work`` (the scheduler's drain controls) are ROADMAP
+        A.10."""
+        self._ensure_byte_ingest()
+        if rung is not None and self.fleet_ingest_backend != "fused":
+            raise ValueError(
+                "a drain rung override needs the fused fleet ingest "
+                "backend (the host path dispatches per tick — there is "
+                "no super-step depth to pick)"
+            )
+        if overlap_work is not None and self.fleet_ingest_backend != "fused":
+            raise ValueError(
+                "overlap_work needs the fused fleet ingest backend "
+                "(the host path has no async dispatch window for the "
+                "work to overlap with)"
+            )
+        if rung is not None or overlap_work is not None:
+            _not_ported("scheduled drain controls (rung, overlap_work)", "A.10")
+        if self.fleet_ingest_backend == "fused":
+            outs = self.fleet_ingest.submit_backlog(ticks)
+            results = [[o for (o, _ts0, _dur) in s] for s in outs]
+            if self.mapper is not None and self.fleet_ingest._deskew is not None:
+                # reconstruction active: a catch-up drain collapses to
+                # ONE mapper update per stream — the newest sweep
+                self._map_tick_recon()
+                return results
+            if self.mapper is not None:
+                # feed the drained revolutions to the mapper in
+                # per-stream order (mapper streams are independent, so
+                # each stream's map sees exactly its own sequence)
+                for k in range(max((len(s) for s in results), default=0)):
+                    self._map_tick([s[k] if len(s) > k else None for s in results])
+            return results
+        results: list[list[FilterOutput]] = [[] for _ in range(self.streams)]
+        for items in ticks:
+            if len(items) != self.streams:
+                raise ValueError(
+                    f"expected {self.streams} per-stream byte runs, got {len(items)}"
+                )
+            scans = self._host_decode_tick(items)
+            if all(s is None for s in scans):
+                continue  # edge-triggered, like submit_bytes
+            for i, out in enumerate(self.submit(scans)):
+                if out is not None:
+                    results[i].append(out)
+        return results
+
+    # -- ingest -------------------------------------------------------------
+
+    def _stack(
+        self, scans: Sequence[Optional[dict]], offset: int = 0, malformed: str = "raise",
+    ) -> np.ndarray:
+        """Pack a block of streams' newest revolutions; ``offset`` is the
+        block's first global stream index (error attribution only).
+
+        ``malformed="idle"`` turns a scan that fails to pack (oversized,
+        mismatched field lengths, ...) into an all-masked idle row plus a
+        warning instead of raising — submit_local uses this because a
+        per-process exception ahead of the collective hangs every peer
+        inside theirs."""
+        n = self.capacity
+        packed = np.zeros((len(scans), 3, n + 1), np.uint16)  # +1: count slot
+        for i, scan in enumerate(scans):
+            if scan is None:
+                continue  # stream idle this tick: all-masked scan (count 0)
+            try:
+                packed[i] = pack_host_scan_counted(
+                    scan["angle_q14"], scan["dist_q2"], scan["quality"],
+                    scan.get("flag"), n,
+                )
+            except (ValueError, KeyError, TypeError) as e:
+                # KeyError/TypeError: missing wire field / None where an
+                # array is required — same per-tick-data class as oversize
+                if malformed == "idle":
+                    # packed[i] is untouched: the row stays the all-zero
+                    # all-masked idle frame
+                    logger.warning(
+                        "stream %d: dropping malformed scan this tick: %s", offset + i, e,
+                    )
+                    continue
+                raise type(e)(f"stream {offset + i}: {e}") from None
+        return packed
+
+    def _clip_to_capacity(self, scan: Optional[dict]) -> Optional[dict]:
+        """Truncate an oversized scan to ``capacity`` nodes, keeping the
+        head — the assembler's overflow policy."""
+        wire_keys = ("angle_q14", "dist_q2", "quality", "flag")
+        try:
+            lens = {len(scan[k]) for k in wire_keys[:3]} | (
+                {len(scan["flag"])} if scan.get("flag") is not None else set())
+            if len(lens) != 1 or lens.pop() <= self.capacity:
+                # mismatched field lengths are the malformed-scan signal:
+                # pass through UNclipped so _stack's malformed="idle"
+                # handler reports and drops it
+                return scan
+        except (KeyError, TypeError):
+            # missing/None wire field: likewise _stack's problem — this
+            # helper must never raise ahead of the collective
+            return scan
+        n = self.capacity
+        return {k: (v[:n] if k in wire_keys and v is not None else v) for k, v in scan.items()}
+
+    def submit(self, scans: Sequence[Optional[dict]]) -> list[Optional[FilterOutput]]:
+        """One tick: newest revolution per stream (None = no new data).
+
+        An idle stream still advances its window cursor with an all-masked
+        scan, keeping every stream's state in lock-step — the property
+        that makes the one stacked tick possible.  Returns per-stream numpy
+        FilterOutputs (None for idle streams)."""
+        if len(scans) != self.streams:
+            raise ValueError(f"expected {self.streams} scans, got {len(scans)}")
+        self._single_controller("submit")
+        fetch = self._dispatch(self._stack(scans))
+        live = [s is not None for s in scans]
+        return self._map_tick(bounded_fetch(
+            lambda: self._materialize(fetch, live),
+            self.collect_timeout_s,
+            "fleet tick materialize (device->host)",
+        ))
+
+    def _materialize(self, fetch: _TickFetch, live: Sequence[bool]) -> list[Optional[FilterOutput]]:
+        """Wait for one tick's output wires (one device->host copy for the
+        whole fleet) and split them into per-stream numpy FilterOutputs
+        (None for idle streams)."""
+        wires = fetch.wait()
+        results: list[Optional[FilterOutput]] = [
+            unpack_output_wire(wires[i], self.cfg) if is_live else None
+            for i, is_live in enumerate(live)
+        ]
+        fetch.release()  # the unpack copied every row out of the buffer
+        return results
+
+    def submit_pipelined(self, scans: Sequence[Optional[dict]]) -> list[Optional[FilterOutput]]:
+        """Fleet analog of ScanFilterChain.process_raw_pipelined: dispatch
+        THIS tick's step, return the PREVIOUS tick's per-stream outputs —
+        one tick of declared staleness in exchange for a publish that
+        never waits on device compute (the previous tick's device->host
+        copy started at its own dispatch).  The previous tick is collected
+        BEFORE this tick's upload.  Returns all-None on the first tick;
+        :meth:`flush_pipelined` drains the last tick when the fleet stops.
+        Single-controller only, like :meth:`submit`."""
+        if len(scans) != self.streams:
+            raise ValueError(f"expected {self.streams} scans, got {len(scans)}")
+        self._single_controller("submit_pipelined")
+        packed_np = self._stack(scans)
+        with self._lock:
+            pending, self._pending = self._pending, None
+            epoch = self._epoch
+        prev = None
+        if pending is not None:
+            try:
+                prev = self._collect_pending(pending)
+            except Exception:
+                # the fetch of the previous tick itself failed: re-stash
+                # it so flush_pipelined can retry instead of losing it
+                self._restash_pending(pending, epoch)
+                raise
+        try:
+            self._dispatch(packed_np, stash=([s is not None for s in scans], "_materialize"))
+        except Exception:
+            # this tick's upload/dispatch failed after the previous tick
+            # was popped: re-stash it so flush_pipelined can still drain it
+            if pending is not None:
+                self._restash_pending(pending, epoch)
+            raise
+        with self._lock:
+            if self._epoch != epoch:
+                # a restore raced in after the pop: the popped tick is
+                # pre-restore and must not be published
+                prev = None
+        if prev is not None:
+            return self._map_tick(prev)
+        return [None] * self.streams
+
+    def _restash_pending(self, pending, epoch: int) -> None:
+        """Put a popped-but-unpublished tick back for the drain — unless a
+        restore moved the epoch meanwhile or a newer dispatch already
+        stashed its own."""
+        with self._lock:
+            if self._pending is None and self._epoch == epoch:
+                self._pending = pending
+
+    def _collect_pending(self, pending) -> list[Optional[FilterOutput]]:
+        """Materialize a stashed tick via the collector it was stashed
+        with (``_materialize`` or ``_collect_local``), resolved by NAME at
+        collect time; bounded by ``collect_timeout_s``."""
+        fetch, live, collect = pending
+        return bounded_fetch(
+            lambda: getattr(self, collect)(fetch, live),
+            self.collect_timeout_s,
+            "fleet tick collect (device->host)",
+        )
+
+    def discard_pipelined(self) -> None:
+        """Drop the pending pipelined tick without fetching it."""
+        with self._lock:
+            self._pending = None
+
+    def flush_pipelined(self) -> Optional[list[Optional[FilterOutput]]]:
+        """Collect the last dispatched tick's outputs (the ones still in
+        flight when the fleet stops), or None.  After pipelined LOCAL
+        ticks this returns only this process's stream block.  On a fetch
+        fault the tick is re-stashed so a later flush can retry, and the
+        error surfaces to the caller."""
+        with self._lock:
+            pending, self._pending = self._pending, None
+            epoch = self._epoch
+        if pending is None:
+            return None
+        try:
+            outs = self._collect_pending(pending)
+        except Exception:
+            self._restash_pending(pending, epoch)
+            raise
+        if pending[2] == "_materialize":
+            # the run's final in-flight tick feeds the mapper like every
+            # steady-state tick did; local ticks skip the (single-
+            # controller) mapper seam
+            return self._map_tick(outs)
+        return outs
+
+    def submit_local(self, local_scans: Sequence[Optional[dict]]) -> list[Optional[FilterOutput]]:
+        """Multi-controller tick: each process feeds ONLY its own stream
+        block (multihost.local_stream_slice) and gets back only its own
+        streams' outputs.  Collective: every process calls it each tick,
+        in the same order relative to other collectives.  Needs the
+        stream-major mesh of ``multihost.make_global_mesh`` with a beam
+        extent of 1 where the mesh spans processes (each process's rows
+        then live on its own device); single-process it behaves like
+        :meth:`submit`.
+
+        Oversized scans are truncated to ``capacity`` (head-keep) and
+        malformed ones become idle rows, rather than raised: a
+        per-process error before the collective would leave every peer
+        blocked inside theirs.  A stream-count mismatch still raises — a
+        deployment bug that fails on every process identically."""
+        local_scans, packed_local = self._pack_local(local_scans)
+        fetch = self._dispatch(packed_local)
+        live = [s is not None for s in local_scans]
+        return bounded_fetch(
+            lambda: self._collect_local(fetch, live),
+            self.collect_timeout_s,
+            "fleet tick collect (device->host)",
+        )
+
+    def _pack_local(self, local_scans: Sequence[Optional[dict]]) -> tuple[list, np.ndarray]:
+        """Shared ingest prologue of the local tick variants: validate
+        the block, clip to capacity, pack (malformed scans degrade to idle
+        rows).  Returns the clipped scans and the packed local block."""
+        slc = multihost.local_stream_slice(self.streams)
+        if self.mesh.spans_processes and self.mesh.shape["beam"] > 1:
+            raise RuntimeError(
+                "submit_local needs each process's stream rows whole on its "
+                "own device; a beam axis that spans processes splits them — "
+                "use the stream-major mesh of multihost.make_global_mesh with "
+                "a beam extent of 1"
+            )
+        if slc != self._local:
+            raise RuntimeError(
+                f"this process feeds streams {slc.start}:{slc.stop} but holds "
+                f"{self._local.start}:{self._local.stop} — use the stream-major "
+                "mesh of multihost.make_global_mesh"
+            )
+        n_local = slc.stop - slc.start
+        if len(local_scans) != n_local:
+            raise ValueError(
+                f"expected {n_local} local scans (streams {slc.start}:{slc.stop} "
+                f"of {self.streams}), got {len(local_scans)}"
+            )
+        local_scans = [self._clip_to_capacity(s) for s in local_scans]
+        return local_scans, self._stack(local_scans, offset=slc.start, malformed="idle")
+
+    def _collect_local(self, fetch: _TickFetch, live: list[bool]) -> list[Optional[FilterOutput]]:
+        """Materialize THIS process's stream block of a tick: its rows are
+        whole on its own device (see submit_local), so this touches no
+        peer — never a collective, processes may collect at different
+        times."""
+        return self._materialize(fetch, live)
+
+    def submit_local_pipelined(
+        self, local_scans: Sequence[Optional[dict]]
+    ) -> list[Optional[FilterOutput]]:
+        """Pipelined multi-controller tick: dispatch THIS tick's
+        collective step, return the PREVIOUS tick's outputs for this
+        process's stream block.  Every process must use the pipelined
+        variant together, in the same order relative to other
+        collectives.
+
+        A previous-tick collect failure is logged and the tick dropped
+        (returning all-None) instead of raised — raising before this
+        tick's dispatch would leave every peer blocked inside the
+        collective.  Dispatch failures still raise (every peer observes
+        the collective die)."""
+        local_scans, packed_local = self._pack_local(local_scans)
+        n_local = len(local_scans)
+        with self._lock:
+            pending, self._pending = self._pending, None
+            epoch = self._epoch
+        prev = None
+        if pending is not None:
+            try:
+                prev = self._collect_pending(pending)
+            except Exception:
+                # dropping beats hanging the fleet: the slot is about to
+                # be taken by this tick's output
+                logger.warning("dropping previous pipelined tick (collect failed)",
+                               exc_info=True)
+                prev = None
+        try:
+            self._dispatch(packed_local,
+                           stash=([s is not None for s in local_scans], "_collect_local"))
+        except Exception:
+            # the collective dispatch died: re-stash so flush_pipelined
+            # can still drain the prior tick (its host copy is intact)
+            if pending is not None:
+                self._restash_pending(pending, epoch)
+            raise
+        with self._lock:
+            if self._epoch != epoch:
+                prev = None
+        return prev if prev is not None else [None] * n_local
+
+    # -- checkpoint surface (mirrors ScanFilterChain's) ---------------------
+
+    def snapshot(self) -> dict[str, np.ndarray]:
+        """Host copy of every stream's window and accumulator, in the JAX
+        package's format (stream-batched numpy arrays; the derived
+        ``median_sorted`` excluded).  The device copy is taken under the
+        lock, the host copy after it."""
+        self._single_controller("snapshot")
+        with self._lock:
+            state = {
+                f.name: getattr(self._state, f.name).clone()
+                for f in dataclasses.fields(FilterState)
+                if f.name != "median_sorted"
+            }
+        return {k: v.cpu().numpy() for k, v in state.items()}
+
+    def save_sharded(self, path: str) -> None:
+        _not_ported("sharded checkpoints (save_sharded)", "A.11")
+
+    def load_sharded(self, path: str) -> bool:
+        _not_ported("sharded checkpoints (load_sharded)", "A.11")
+
+    def restore(self, snap: Optional[dict[str, np.ndarray]]) -> bool:
+        """Restore a :meth:`snapshot` (either package's), or reset when
+        None.  A geometry mismatch is rejected with the current state
+        untouched.  The upload copies the snapshot's arrays (a CPU
+        tensor would otherwise share the caller's buffers)."""
+        if snap is not None:
+            expected = {
+                k: (self.streams, *v)
+                for k, v in FilterState.shapes(
+                    self.cfg.window, self.cfg.beams, self.cfg.grid).items()
+            }
+            got = {
+                k: tuple(np.asarray(v).shape)
+                for k, v in snap.items()
+                if k != "median_sorted"  # derived, never carried
+            }
+            if expected != got:
+                logger.warning("rejecting incompatible sharded snapshot (%s != %s)",
+                               got, expected)
+                return False
+            core = {k: v for k, v in snap.items() if k != "median_sorted"}
+            restored = place_state(self.mesh, {**core, "median_sorted": None},
+                                   beams=self.cfg.beams)
+            if self.cfg.median_backend.startswith("inc"):
+                restored.median_sorted = recompute_median_sorted(restored.range_window)
+            with self._lock:
+                self._state = restored
+                self._pending = None
+                self._epoch += 1
+            return True
+        fresh = create_sharded_state(self.mesh, self.cfg, self.streams)
+        with self._lock:
+            self._state = fresh
+            self._pending = None
+            self._epoch += 1
+        return False

@@ -233,6 +233,67 @@ def replay_through_chain(
     return ranges, state.to(torch.device("cpu"))
 
 
+def replay_fleet(
+    stream_revolutions: list[list[dict]],
+    params,
+    *,
+    mesh=None,
+    beams: int | None = None,
+    capacity: int = 4096,
+    chunk: int = 256,
+):
+    """Fleet-scale :func:`replay_through_chain`: N streams' captures
+    through the fused K-scan chain over a ``(stream, beam)`` mesh
+    (parallel/sharding.build_sharded_scan): per chunk ONE sliding-median
+    launch (B3 on the card) for the whole fleet's history stripes and one
+    voxel all-reduce, instead of one per scan.
+
+    Streams are truncated to the shortest capture (a chunk is one
+    rectangular (S, K, 3, N) sequence).  The default mesh is the
+    one-device ``(1, 1)`` mesh on ``params.filter_backend``'s device (the
+    card unless it says ``cpu``); on a mesh that spans processes the
+    results are this process's block.  Returns ((S, K, beams) float32
+    range images, final FilterState copied to the host); an empty fleet
+    returns ((0, 0, beams), None) without touching a device."""
+    from rplidar_ros2_driver_tpu_torch.filters.chain import (
+        DEFAULT_BEAMS,
+        config_from_params,
+        pick_device,
+    )
+    from rplidar_ros2_driver_tpu_torch.ops.filters import pack_host_scans_compact
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import (
+        build_sharded_scan,
+        create_sharded_state,
+        make_mesh,
+    )
+
+    streams = len(stream_revolutions)
+    if streams == 0:
+        return np.zeros((0, 0, beams or DEFAULT_BEAMS), np.float32), None
+    if mesh is None:
+        mesh = make_mesh(n_devices=1, device=pick_device(params.filter_backend))
+    cfg = config_from_params(params, beams or DEFAULT_BEAMS, platform=mesh.device.type)
+    k_total = min(len(r) for r in stream_revolutions)
+    local = mesh.local_streams(streams)
+    scan_fn = build_sharded_scan(mesh, cfg)
+    state = create_sharded_state(mesh, cfg, streams)
+    outs = []
+    for i in range(0, k_total, chunk):
+        hi = min(i + chunk, k_total)
+        seqs, counts = zip(*[
+            pack_host_scans_compact(revs[i:hi], capacity)
+            for revs in stream_revolutions[local]
+        ])
+        state, ranges = scan_fn(state, np.stack(seqs), np.stack(counts).astype(np.int32))
+        outs.append(ranges)
+    # one device->host copy at the end: no per-chunk synchronisation
+    ranges = (
+        torch.cat(outs, dim=1).cpu().numpy() if outs
+        else np.zeros((local.stop - local.start, 0, cfg.beams), np.float32)
+    )
+    return ranges, state.to(torch.device("cpu"))
+
+
 def _replay_map_core(
     revolutions: list[dict],
     params,

@@ -502,12 +502,13 @@ def test_unported_surfaces_raise_naming_their_roadmap_items():
     _jf, tf = _filters()
     with pytest.raises(NotImplementedError, match="A.7"):
         ti.ingest_config_for(DENSE, ttiming.TimingDesc(), tf, mapping=object())
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tdi.FleetFusedIngest(_params("torch"), 2, mesh=object())
+    with pytest.raises(NotImplementedError, match="A.7b"):
+        tdi.FleetFusedIngest(_params("torch", map_enable=True, deskew_enable=True,
+                                     fused_mapping_backend="fused"), 2)
     eng = tdi.FleetFusedIngest(_params("torch"), 2, beams=BEAMS)
     with pytest.raises(NotImplementedError, match="A.10"):
         eng.snapshot_stream(0)
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(NotImplementedError, match="A.7b"):
         eng.map_snapshot()
 
 

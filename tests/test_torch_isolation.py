@@ -71,6 +71,9 @@ def test_scan_sees_the_whole_port():
         "slam/__init__.py", "slam/loop.py", "ops/pose_graph.py", "ops/pose_graph_ref.py",
         "ops/loop_close.py", "ops/loop_close_ref.py", "ops/tile_quant.py",
         "mapping/submap.py", "mapping/tiles.py", "mapping/worldmap.py", "tools/loop_drift.py",
+        # the mesh and the sharded fleet service
+        "parallel/__init__.py", "parallel/sharding.py", "parallel/multihost.py",
+        "parallel/service.py",
     ):
         assert module in rel
     for source in ("median.cu", "sliding_median.cu", "scan_match.cu", "deskew.cu",
@@ -79,8 +82,9 @@ def test_scan_sees_the_whole_port():
 
 
 def test_scan_reads_the_live_paths_nested_imports():
-    """The live path's and the SLAM back-end's lazy imports (inside
-    functions) are in the scan and point at this package."""
+    """The live path's, the SLAM back-end's and the fleet service's lazy
+    imports (inside functions) are in the scan and point at this
+    package."""
     for rel, module in (
         ("driver/real.py", "rplidar_ros2_driver_tpu_torch.native.runtime"),
         ("driver/real.py", "rplidar_ros2_driver_tpu_torch.protocol.pytransport"),
@@ -96,6 +100,14 @@ def test_scan_reads_the_live_paths_nested_imports():
         ("slam/loop.py", "rplidar_ros2_driver_tpu_torch.ops.loop_close_ref"),
         ("slam/loop.py", "rplidar_ros2_driver_tpu_torch.filters.chain"),
         ("mapping/worldmap.py", "rplidar_ros2_driver_tpu_torch.filters.chain"),
+        ("parallel/service.py", "rplidar_ros2_driver_tpu_torch.driver.ingest"),
+        ("parallel/service.py", "rplidar_ros2_driver_tpu_torch.mapping.mapper"),
+        ("parallel/service.py", "rplidar_ros2_driver_tpu_torch.slam.loop"),
+        ("parallel/service.py", "rplidar_ros2_driver_tpu_torch.mapping.worldmap"),
+        ("parallel/service.py", "rplidar_ros2_driver_tpu_torch.driver.decode"),
+        ("parallel/sharding.py", "torch.distributed.device_mesh"),
+        ("replay.py", "rplidar_ros2_driver_tpu_torch.parallel.sharding"),
+        ("__main__.py", "rplidar_ros2_driver_tpu_torch.replay"),
     ):
         assert module in set(imported_modules(os.path.join(PORT, rel))), (rel, module)
 
