@@ -29,8 +29,32 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 per dispatch, dispatches/s and drops, the kernels'
                 launches, the FSM states and each thread's CPU share;
                 it runs on the native transceiver or fails;
-  5. fleet    — this slice's path (ROADMAP A.7a), the mesh and the sharded
-                fleet service: (a) config 10 (bench.py bench_fleet_ingest)
+  5. fused_mapping — this slice's path (ROADMAP A.7b): bench.py config 18
+                (bench_fused_mapping) at full geometry — 4 streams,
+                DenseBoost 3200 points a revolution, 24 revolutions, 16
+                frames a tick, W=64, 2048 beams, 256x256 at 0.25 m, de-skew
+                over 4 sub-sweeps (B4, B5), a 128x128 map at 0.1 m — in
+                drains of T = 8 ticks (one warm, the arms alternating which
+                goes first): the fused arm (the map carried in the fused
+                ingest state: one step a drain, B6/B7/B8 once a tick for
+                the fleet, no mapper step) against the host route (one
+                ingest step a tick, the fused FleetMapper once a mapping
+                tick), every revolution's ranges, the drain-boundary poses
+                and the final maps equal between the arms and to the CPU
+                run of each arm; B1 = revolutions, B4 = ticks + ticks
+                completing revolutions, B5 = the latter; then the loop
+                engine on both routes over 40 ticks (installs, checks and
+                re-anchored poses equal) and a quarantine cycle (stream 1's
+                frames 160-480 corrupted, seed 3, under the health
+                supervisor: the snapshot carries ingest.map_*, every
+                output, pose, transition and map equal to the CPU service
+                under the same chaos); drains/s and ticks/s of each arm.
+                Its profiled half runs after the fleet phase: B6/B7/B8 at
+                this path's tick (N = 4, G = 128) against their plain
+                versions, and device operations a drain and the idle share
+                of each arm; its line carries the card's name and limit;
+  6. fleet    — the mesh and the sharded fleet service (ROADMAP A.7a):
+                (a) config 10 (bench.py bench_fleet_ingest)
                 at full geometry — W=64, 2048 beams, 256x256 at 0.25 m,
                 3200-point DenseBoost frames, 20 revolutions — through
                 both ShardedFilterService.submit_bytes arms at N = 2 and 8
@@ -55,7 +79,7 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 scan with psum and ring, each equal to one process); then
                 B1 at (64, N*2048) and B3 at (64, 256, 4*2048) timed with
                 their bounds;
-  6. kernels  — each kernel (B1, B2, B3) against its plain PyTorch version
+  7. kernels  — each kernel (B1, B2, B3) against its plain PyTorch version
                 on the card (exact equality; +inf equals +inf; B1 also at
                 W = 1, 31, 32, 33, 96, 1536 and 1537 — the last past its
                 shared-memory staging —, B off the block's 8 columns, the
@@ -73,24 +97,24 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 all-equal stripes, an offset view), then timed beside the
                 plain version and a library yardstick (B1: events ms,
                 device ms and host µs per call; B3 also its K=7 tail);
-  7. chain    — the main path: ScanFilterChain at the headline geometry
+  8. chain    — the main path: ScanFilterChain at the headline geometry
                 (W=64, 2048 beams, 256x256 grid at 0.25 m and 0.1 m, wire
                 capacity 4096) over seeded 3200-point revolutions, through
                 process_raw and process_raw_pipelined with each kernel
                 backend, every output held equal to the package's own CPU
                 chain; the launch counts are read around this phase;
-  8. profile  — where a revolution's time goes (torch.profiler);
-  9. ab       — B1 against B2 end to end, in alternating order;
- 10. node     — launch_lifecycle in dummy mode on the card (filter chain,
+  9. profile  — where a revolution's time goes (torch.profiler);
+ 10. ab       — B1 against B2 end to end, in alternating order;
+ 11. node     — launch_lifecycle in dummy mode on the card (filter chain,
                 raw and map_enable paths), deactivate/activate, shutdown;
- 11. replay   — the offline replay path at config 7's geometry (W=64, 2048
+ 12. replay   — the offline replay path at config 7's geometry (W=64, 2048
                 beams, 256x256 grid at 0.25 m, chunk 512, capacity 4096): a
                 seeded 3200-point DenseBoost capture written with the
                 package's FrameRecorder, decoded on the card, run through the
                 fused K-scan chain (kernel B3), held equal to the package's
                 CPU replay and to K streaming steps on the card; its launch
                 counts are read around the card's replay;
- 12. mapkernels — the matcher kernels B6, B7, B8 against their plain
+ 13. mapkernels — the matcher kernels B6, B7, B8 against their plain
                 PyTorch versions on the card (exact) over edge fixtures,
                 grids 8/24/44/64/92/256/1024 and fleets of 1, 3 and 4 streams,
                 B6/B7's routes (cluster splits with B off the per-block
@@ -107,17 +131,17 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 B = 2048), then timed at config 12's fleet tick (N=4,
                 G=256, B=2048) and at the map replay's one-stream tick
                 (N=1);
- 13. mapping  — config 12 (bench.py bench_mapping): 4 streams, 256x256 map
+ 14. mapping  — config 12 (bench.py bench_mapping): 4 streams, 256x256 map
                 at 0.05 m, 2048 beams, map_match_window 0.4; one warm tick,
                 then 20 ticks of the drifting-room scene through FleetMapper
                 fused on the card (B6/B7/B8), every pose and snapshot key held
                 equal to the package's host reference and its CPU torch arm,
                 the drift tracked; its launch counts are read around the 20
                 ticks; then a profiled pass;
- 14. replay_map — the config-7 capture through replay_with_map on the card
+ 15. replay_map — the config-7 capture through replay_with_map on the card
                 (the chain with B3, then the fused mapper with B6/B7/B8), held
                 equal to the CPU replay with the host reference mapper;
- 15. loop     — config 17 (bench.py bench_loop_close) at its full geometry:
+ 16. loop     — config 17 (bench.py bench_loop_close) at its full geometry:
                 4 streams, 128x128 map at 0.05 m, 1024 beams, 48
                 revolutions of the return-to-start trace with SUB/4 of
                 drift a revolution (tools/loop_drift.py), submaps every 4,
@@ -137,7 +161,7 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 config-7 capture on the card, equal to the CPU host
                 replay. Prints the check's wall ms (p50/p99), B6/B7 at the
                 check's shape (N = 8) and the solver's share of a check;
- 16. deskew_kernels — the de-skew kernels B4, B5 against their plain
+ 17. deskew_kernels — the de-skew kernels B4, B5 against their plain
                 PyTorch versions on the card (exact) over the JAX suite's
                 four geometries, degenerate inputs, the featureless tie and
                 the fused ingest's shapes (B4 also at nbeams 1 and 8192,
@@ -148,7 +172,7 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 offset views, counts at min_valid and one short), then
                 timed there (B4 beside one scatter_reduce_ "amin" call,
                 host µs too);
- 17. replay_fused — the config-7 capture through replay_raw_fused (the
+ 18. replay_fused — the config-7 capture through replay_raw_fused (the
                 fused device ingest: 64 frames per tick, T=8, max_revs 8):
                 de-skew off held equal to the card's host-path replay and
                 the CPU fused replay; de-skew on (B4/B5) held equal to the
@@ -156,17 +180,19 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 with a nonzero motion estimate; B1/B4/B5 launches counted
                 around the card's runs; host syncs per tick and one
                 profiled super-step per arm; the CLI's replay --fused line;
- 18. before   — every kernel's figures before its redesign, constants
+ 19. before   — every kernel's figures before its redesign, constants
                 copied from PERF.md (not measured in this run);
- 19. kernels  — one line listing every kernel with its launches and the
+ 20. kernels  — one line listing every kernel with its launches and the
                 times measured in this run; B1, B4 and B5 also carry
                 host_us, B3 its plan and K=7 tail, B6, B7 and B8 their
                 times at the map replay's shape, B6 and B7 theirs at the
                 loop check's (``loop_close_shape``), each redesigned
                 kernel whether each of its goals was met, every kernel its
-                launches on the fleet phase's paths (``fleet_launches``),
-                and B1 and B3 their times at the fleet's widths
-                (``fleet_shapes``).
+                launches on the fleet phase's paths (``fleet_launches``)
+                and on config 18's (``fused_mapping_launches``), B1 and
+                B3 their times at the fleet's widths (``fleet_shapes``),
+                B6, B7 and B8 theirs at config 18's tick
+                (``fused_mapping_tick``).
 
 ``--mesh-check N`` runs only the fleet's multi-process check on N cards:
 N NCCL processes, rank r on cuda:r, on the (1, N) and (2, N/2) meshes,
@@ -229,6 +255,19 @@ FLEET = dict(window=64, beams=2048, grid=256, cell_m=0.25, points=3200, revs=20,
              fleets=(2, 8), seed=21, replay_streams=4, replay_chunk=256, replay_revs=8192,
              replay_seed_revs=32, slam_streams=4, slam_ticks=24, slam_window=4,
              snapshot_tick=10, mp_streams=4, mp_ticks=8, mp_timeout_s=300)
+# the map carried in the fused ingest state (ROADMAP A.7b): bench.py
+# GRADED[18] (bench_fused_mapping, the non-smoke branch) at its full
+# geometry — 4 streams, DenseBoost 3200 points a revolution, 24
+# revolutions, 16 frames a tick, drains of T = 8 ticks (one warm), W=64,
+# 2048 beams, 256x256 at 0.25 m, capacity 4096, de-skew over 4 sub-sweeps
+# with 128 profile beams and shift window 4, a 128x128 map at 0.1 m —; the
+# loop leg with tests/test_fused_mapping.py's loop settings over its first
+# ticks; the quarantine cycle: stream 1's frames 160-480 corrupted (seed 3)
+# under the health supervisor, 60 ticks
+FUSED_MAPPING = dict(window=64, beams=2048, grid=256, cell_m=0.25, points=3200, revs=24,
+                     capacity=4096, streams=4, run=16, T=8, warm=1, map_grid=128, map_cell_m=0.1,
+                     recon_window=4, profile_beams=128, shift_window=4, loop_ticks=40,
+                     chaos_ticks=60, chaos_frames=(160, 480), profile_groups=3)
 # B1's and B4's figures before their redesign, constants copied from
 # PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W) and printed on a
 # line of their own, never in the kernels line: B1 as first written (commit
@@ -3574,6 +3613,382 @@ def phase_fleet(device, seed: int) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# the map carried in the fused ingest state (config 18)
+# ---------------------------------------------------------------------------
+
+
+def ring_frames(revs: int, points: int) -> list[bytes]:
+    """bench.py ``_denseboost_wire_frames``: the static 2 m +/- 0.5 m ring
+    in dense capsules of 40 samples, ``revs`` revolutions."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.ops import wire
+
+    frames = []
+    for n, idx in enumerate(range(0, revs * points, 40)):
+        pts = (np.arange(40) + idx) % points
+        mm = 2000.0 + 500.0 * np.sin(2 * np.pi * pts / points)
+        start_q6 = int(360.0 * (idx % points) / points * 64) & 0x7FFF
+        frames.append(wire.encode_dense_capsule(start_q6, n == 0, mm.astype(int)))
+    return frames
+
+
+def _fm_service(backend: str, route: str, **over):
+    """One arm of config 18: ``route`` 'fused' (the map carried in the
+    ingest state, T-tick super-steps) or 'host' (the fused FleetMapper fed
+    each tick's reconstructed sweeps, one ingest step a tick), warmed."""
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+    from rplidar_ros2_driver_tpu_torch.parallel.service import ShardedFilterService
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    fm = FUSED_MAPPING
+    params = DriverParams(
+        filter_backend=backend, filter_chain=("clip", "median", "voxel"),
+        filter_window=fm["window"], voxel_grid_size=fm["grid"], voxel_cell_m=fm["cell_m"],
+        fleet_ingest_backend="fused", super_tick_max=fm["T"] if route == "fused" else 1,
+        deskew_enable=True, sweep_reconstruct_window=fm["recon_window"],
+        deskew_profile_beams=fm["profile_beams"], deskew_shift_window=fm["shift_window"],
+        map_enable=True, map_backend="fused" if route == "host" else "host",
+        fused_mapping_backend=route, map_grid=fm["map_grid"], map_cell_m=fm["map_cell_m"],
+        **over,
+    )
+    svc = ShardedFilterService(params, fm["streams"], beams=fm["beams"], capacity=fm["capacity"],
+                               fleet_ingest_buckets=(fm["run"],))
+    svc._ensure_byte_ingest()
+    svc.fleet_ingest.precompile([int(Ans.MEASUREMENT_DENSE_CAPSULED)])
+    svc.attach_mapper()
+    return svc
+
+
+def _fm_pose_row(svc) -> list:
+    return [None if p is None else (tuple(int(v) for v in p.pose_q), p.score, p.revision)
+            for p in svc.last_poses]
+
+
+def _fm_map_equal(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+               for k in ("log_odds", "pose", "origin_xy", "revision"))
+
+
+def _fm_drains(device, groups) -> dict:
+    """Both arms of config 18 over the same drains on ``device``, the
+    first ``warm`` drains untimed, the arms alternating which goes first.
+    Returns each arm's per-stream ranges, drain-boundary poses, final map,
+    drain seconds, dispatch and launch counts, and the fused arm's last
+    carried map and sweep (the kernels' inputs at this path's tick)."""
+    import numpy as np
+
+    fm = FUSED_MAPPING
+    svcs = {"fused": _fm_service(device.type, "fused"), "host": _fm_service(device.type, "host")}
+    out = {name: {"ranges": [[] for _ in range(fm["streams"])], "poses": [], "seconds": [],
+                  "launches": {}} for name in svcs}
+    rev_ticks = 0
+
+    def advance(name, group):
+        nonlocal rev_ticks
+        svc, rec = svcs[name], out[name]
+        if name == "host":
+            for tick in group:
+                res = svc.submit_bytes(tick)
+                rev_ticks += any(r is not None for r in res)
+                for i, r in enumerate(res):
+                    if r is not None:
+                        rec["ranges"][i].append(np.asarray(r.ranges).copy())
+        else:
+            for i, s in enumerate(svc.submit_bytes_backlog(group)):
+                rec["ranges"][i] += [np.asarray(o.ranges).copy() for o in s]
+        rec["poses"].append(_fm_pose_row(svc))
+
+    for group in groups[: fm["warm"]]:
+        for name in svcs:
+            advance(name, group)
+    for rec in out.values():
+        rec.update(ranges=[[] for _ in range(fm["streams"])], poses=[])
+    rev_ticks = 0
+    base = {name: dict(dispatches=svc.fleet_ingest.dispatch_count,
+                       mapper=svc.mapper.dispatch_count, mapper_ticks=svc.mapper.ticks,
+                       revs=svc.fleet_ingest.scans_completed) for name, svc in svcs.items()}
+    _sync(device)
+    _reset_counts()
+    for g, group in enumerate(groups[fm["warm"]:]):
+        for name in (("fused", "host") if g % 2 == 0 else ("host", "fused")):
+            before = _counts()
+            t0 = time.perf_counter()
+            advance(name, group)
+            _sync(device)
+            out[name]["seconds"].append(time.perf_counter() - t0)
+            for k, v in _counts().items():
+                out[name]["launches"][k] = out[name]["launches"].get(k, 0) + v - before.get(k, 0)
+    launches = _counts()
+    for name, svc in svcs.items():
+        rec = out[name]
+        rec["dispatches"] = svc.fleet_ingest.dispatch_count - base[name]["dispatches"]
+        rec["mapper_dispatches"] = svc.mapper.dispatch_count - base[name]["mapper"]
+        rec["mapper_ticks"] = svc.mapper.ticks - base[name]["mapper_ticks"]
+        rec["revolutions"] = svc.fleet_ingest.scans_completed - base[name]["revs"]
+        rec["map"] = svc.mapper.snapshot()
+    eng = svcs["fused"].fleet_ingest
+    out["kernel_inputs"] = (svcs["fused"].mapper.cfg, eng._state.map_log_odds.clone(),
+                            eng._state.map_pose.clone(), np.stack([r[1] for r in eng.last_recon]))
+    out["rev_ticks"] = rev_ticks
+    out["launches"] = launches
+    return out
+
+
+def _fm_same(a: dict, b: dict) -> bool:
+    """Two runs' per-stream ranges (bitwise), drain poses and maps equal."""
+    import numpy as np
+
+    return (a["poses"] == b["poses"] and _fm_map_equal(a["map"], b["map"])
+            and all(len(x) == len(y) and all(np.array_equal(u.view(np.int32), v.view(np.int32))
+                                             for u, v in zip(x, y))
+                    for x, y in zip(a["ranges"], b["ranges"])))
+
+
+def _fm_loop_leg(device, ticks) -> dict:
+    """The loop engine on both routes over the first ticks, tick by tick,
+    with tests/test_fused_mapping.py's loop settings (loop_backend at its
+    default: the card's engine on the card): installs, checks and the
+    re-anchored poses equal."""
+    over = dict(loop_enable=True, loop_submap_revs=2, loop_check_revs=2, loop_max_submaps=4,
+                loop_candidates=1, loop_min_points=4, pose_graph_iters=16)
+    arms = {"fused": _fm_service(device.type, "fused", **over),
+            "host": _fm_service(device.type, "host", **over)}
+    for svc in arms.values():
+        svc.attach_loop_closure()
+    corrected = {name: [] for name in arms}
+    for tick in ticks:
+        for name, svc in arms.items():
+            svc.submit_bytes(tick)
+            corrected[name].append([None if c is None else tuple(int(v) for v in c)
+                                    for c in svc.last_corrected_poses])
+    f, h = arms["fused"].loop, arms["host"].loop
+    check(corrected["fused"] == corrected["host"],
+          "fused_mapping loop leg: corrected poses differ between the routes")
+    check(f.installs == h.installs and f.checks == h.checks,
+          "fused_mapping loop leg: installs or checks differ between the routes")
+    check(f.installs > 0 and f.checks > 0, "fused_mapping loop leg: nothing installed or checked")
+    return {"ticks": len(ticks), "backend": f.backend, "installs": f.installs,
+            "checks": f.checks, "accepted": f.status().get("accepted"),
+            "poses_corrected": sum(c is not None for row in corrected["fused"] for c in row)}
+
+
+def _fm_quarantine(device, ticks) -> dict:
+    """The fused route under the health supervisor with stream 1's frames
+    corrupted (driver/chaos.chaos_ticks, seed 3): its quarantine snapshot
+    carries the ``ingest.map_*`` rows; every output, pose, transition and
+    the final maps are returned for the comparison with the CPU."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.driver.chaos import ChaosConfig, chaos_ticks
+    from rplidar_ros2_driver_tpu_torch.driver.health import FleetHealth, HealthConfig
+
+    fm = FUSED_MAPPING
+    start, stop = fm["chaos_frames"]
+    cticks = chaos_ticks(ticks, {1: ChaosConfig(seed=3, start_frame=start, stop_frame=stop,
+                                                corrupt_rate=0.9, truncate_rate=0.5)})
+    svc = _fm_service(device.type, "fused")
+    fake = {"now": 0.0}
+    # a revolution spans 5 ticks at 16 frames: starvation past 12 ticks
+    health = FleetHealth(
+        fm["streams"], HealthConfig(window_ticks=3, corrupt_ratio=0.5, starvation_ticks=12,
+                                    suspect_ticks=2, probation_ticks=2, backoff_base_s=0.4,
+                                    backoff_jitter=0.0, seed=5),
+        clock=lambda: fake["now"], probes={1: lambda: 0}, record_masks=True)
+    svc.attach_health(health)
+    snaps = []
+    quarantine = svc._quarantine_stream
+
+    def keep(i):
+        quarantine(i)
+        snaps.append(sorted(svc.stream_checkpoints[i]["ingest"]))
+
+    svc._quarantine_stream = keep
+    outs, poses = [], []
+    for tick in cticks:
+        res = svc.submit_bytes(tick)
+        outs.append([None if r is None else np.asarray(r.ranges).copy() for r in res])
+        poses.append(_fm_pose_row(svc))
+        fake["now"] += 0.1
+    return {"outs": outs, "poses": poses, "events": list(health.events),
+            "map": svc.mapper.snapshot(), "quarantines": svc.quarantines,
+            "rejoins": svc.rejoins, "snapshot_keys": snaps}
+
+
+def _fm_quarantine_same(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    def same(x, y):
+        return (x is None) == (y is None) and (x is None or np.array_equal(x.view(np.int32),
+                                                                          y.view(np.int32)))
+
+    return (a["poses"] == b["poses"] and a["events"] == b["events"]
+            and _fm_map_equal(a["map"], b["map"])
+            and all(same(x, y) for ra, rb in zip(a["outs"], b["outs"]) for x, y in zip(ra, rb)))
+
+
+def phase_fused_mapping(device) -> dict:
+    """Config 18 on the card: the carried map (fused arm, one step a drain
+    of T ticks) against the host route (one ingest step a tick plus one
+    mapper step a mapping tick), both equal to each other and to the CPU
+    run of the same arm; the dispatch and launch counts; the loop leg; the
+    quarantine cycle held to the CPU service under the same chaos.  The
+    profiled figures come later (:func:`fused_mapping_profile`), after the
+    other phases' host timings."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    fm = FUSED_MAPPING
+    t0 = time.perf_counter()
+    ticks = fleet_byte_ticks(ring_frames(fm["revs"], fm["points"]), fm["streams"], fm["run"],
+                             int(Ans.MEASUREMENT_DENSE_CAPSULED))
+    n_groups = len(ticks) // fm["T"]
+    check(n_groups > fm["warm"] + 1, "fused_mapping: the scene is too short for a timed drain")
+    groups = [ticks[g * fm["T"] : (g + 1) * fm["T"]] for g in range(n_groups)]
+    card = _fm_drains(device, groups)
+    cpu = _fm_drains(torch.device("cpu"), groups)
+    fused, host = card["fused"], card["host"]
+    timed = n_groups - fm["warm"]
+    n_ticks = timed * fm["T"]
+    check(_fm_same(fused, host), "fused_mapping: the fused and host routes differ on the card")
+    check(_fm_same(fused, cpu["fused"]), "fused_mapping: the fused arm differs from the CPU")
+    check(_fm_same(host, cpu["host"]), "fused_mapping: the host-route arm differs from the CPU")
+    check(fused["dispatches"] == timed, f"fused_mapping: {fused['dispatches']} fused steps for "
+          f"{timed} drains, not one a drain")
+    check(fused["mapper_dispatches"] == 0, "fused_mapping: the carried mapper launched a step")
+    check(host["dispatches"] == n_ticks, "fused_mapping: host route not one ingest step a tick")
+    check(host["mapper_dispatches"] == host["mapper_ticks"] > 0,
+          "fused_mapping: host route not one mapper step a mapping tick")
+    rows = {}
+    for name, rec in (("fused", fused), ("host", host)):
+        sec = sum(rec["seconds"])
+        rows[name] = {"drains": timed, "ticks": n_ticks, "drains_per_s": timed / sec,
+                      "ticks_per_s": n_ticks / sec, **_pcts(rec["seconds"]),
+                      "dispatches": rec["dispatches"], "mapper_dispatches": rec["mapper_dispatches"],
+                      "revolutions": rec["revolutions"], "launches": rec["launches"],
+                      "cpu_drains_per_s": timed / sum(cpu[name]["seconds"])}
+    if device.type == "cuda":
+        fl, hl = fused["launches"], host["launches"]
+        for k in ("coarse_scores", "fine_scores", "log_odds_update"):
+            # every tick of the paced scene stages frames: no skip applies
+            check(fl[k] == n_ticks, f"fused_mapping: {fl[k]} {k} launches for {n_ticks} ticks, "
+                  "not one a tick for the fleet")
+            check(hl[k] == host["mapper_dispatches"],
+                  f"fused_mapping: host route {k} launches != mapper steps")
+        for name, lc in (("fused", fl), ("host", hl)):
+            rec = card[name]
+            check(lc["temporal_median"] == rec["revolutions"],
+                  f"fused_mapping {name}: B1 launches != completed revolutions")
+            check(lc["beam_min"] == n_ticks + card["rev_ticks"],
+                  f"fused_mapping {name}: B4 launches != ticks + ticks completing revolutions")
+            check(lc["shift_sad"] == card["rev_ticks"],
+                  f"fused_mapping {name}: B5 launches != ticks completing revolutions")
+    row = {"phase": "fused_mapping", "config": "bench.py GRADED[18] (bench_fused_mapping)",
+           "streams": fm["streams"], "T": fm["T"], "ticks_completing_revolutions":
+           card["rev_ticks"], "arms": rows, "launches": card["launches"]}
+    row["loop"] = _fm_loop_leg(device, ticks[: fm["loop_ticks"]])
+    q_ticks = ticks[: fm["chaos_ticks"]]
+    qc, qr = _fm_quarantine(device, q_ticks), _fm_quarantine(torch.device("cpu"), q_ticks)
+    check(qc["quarantines"] >= 1 and qc["rejoins"] >= 1,
+          "fused_mapping quarantine: stream 1 was never quarantined and rejoined")
+    check(all(f"ingest.map_{k}" in keys for keys in qc["snapshot_keys"]
+              for k in ("log_odds", "pose", "origin_xy", "revision")),
+          "fused_mapping quarantine: the snapshot lacks the ingest.map_* rows")
+    check(_fm_quarantine_same(qc, qr), "fused_mapping quarantine: the card differs from the CPU")
+    row["quarantine"] = {"ticks": len(q_ticks), "quarantines": qc["quarantines"],
+                         "rejoins": qc["rejoins"],
+                         "walk": [(t, s, a, b) for (t, s, a, b) in qc["events"]]}
+    row["seconds"] = time.perf_counter() - t0
+    row["kernel_inputs"] = card["kernel_inputs"]
+    return row
+
+
+def fused_mapping_profile(device, row: dict, card: str) -> dict:
+    """The profiled half of the phase, run after the other phases' host
+    timings: B6/B7/B8 at this path's tick (N = 4, G = 128, the fused arm's
+    last carried map and sweep) against their plain versions, events and
+    device ms; device operations a drain and the idle share of both arms
+    (a fresh warmed service, ``profile_groups`` drains)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    fm = FUSED_MAPPING
+    t0 = time.perf_counter()
+    cfg, lo, pose, pts = row.pop("kernel_inputs")
+    check(cfg.match_backend == "pallas", "fused_mapping: the card's matcher is not B6/B7/B8")
+    ptd = torch.from_numpy(pts).to(device)
+    pq, okm = tsm.quantize_points(ptd[..., :2].contiguous(), ptd[..., 2] > 0.5, cfg)
+    lo_t, _, _, posec, trig, pose_t = _map_kernel_args(
+        cfg, lo.cpu().numpy(), pose.cpu().numpy(), pq.cpu().numpy(), okm.cpu().numpy(), device)
+    cos_q, sin_q = tsm._theta_trig(pose_t, cfg)
+    coarse = (lo_t, pq, okm, posec, trig)
+    mq, _sc = smk.coarse_scores_plain(*coarse, cfg)
+    n = fm["streams"]
+    uv = torch.zeros((n, 2), dtype=torch.int32, device=device)
+    fine = (pq, okm, posec, cos_q, sin_q, uv)
+    calls = {
+        "coarse_scores": (lambda: smk.coarse_scores_kernel(*coarse, cfg),
+                          lambda: smk.coarse_scores_plain(*coarse, cfg)),
+        "fine_scores": (lambda: smk.fine_scores_kernel(mq, *fine, cfg),
+                        lambda: smk.fine_scores_plain(mq, *fine, cfg)),
+        "log_odds_update": (lambda: smk.log_odds_update_kernel(*coarse, cfg),
+                            lambda: smk.log_odds_update_plain(*coarse, cfg)),
+    }
+    nvalid = int(okm.sum())
+    bounds = match_bounds(cfg, n, nvalid)
+    kernels = {}
+    for name, (kern, plain) in calls.items():
+        got, want = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"fused_mapping: {name} differs from its plain version at the N={n} tick")
+        kernels[name] = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=20, warmup=3),
+                         "device_ms": device_ms(kern),
+                         "plain_device_ms": device_ms(plain, iters=10),
+                         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                         "max_abs_err": 0.0}
+    ticks = fleet_byte_ticks(ring_frames(fm["warm"] + fm["profile_groups"] + 1, fm["points"]),
+                             fm["streams"], fm["run"], int(Ans.MEASUREMENT_DENSE_CAPSULED))
+    groups = [ticks[g * fm["T"] : (g + 1) * fm["T"]]
+              for g in range(fm["warm"] + fm["profile_groups"])]
+    profiled = {}
+    for name in ("fused", "host"):
+        svc = _fm_service("cuda", name)
+        drain = ((lambda g, s=svc: s.submit_bytes_backlog(g)) if name == "fused"
+                 else (lambda g, s=svc: [s.submit_bytes(t) for t in g]))
+        for g in groups[: fm["warm"]]:
+            drain(g)
+        _sync(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            for g in groups[fm["warm"]:]:
+                drain(g)
+            _sync(device)
+            wall = time.perf_counter() - w0
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in ev)
+        k = fm["profile_groups"]
+        profiled[name] = {"device_ops_per_drain": len(ev) / k,
+                          "device_busy_ms_per_drain": busy_us / k / 1e3,
+                          "profiled_wall_ms_per_drain": wall / k * 1e3,
+                          "device_idle_share": 1.0 - busy_us / 1e6 / wall}
+    row.update(kernels_at_path_tick={"shape": {"N": n, "G": cfg.grid, "B": cfg.beams,
+                                               "valid_beams": nvalid}, **kernels},
+               profiled=profiled, profile_seconds=time.perf_counter() - t0, card=card)
+    emit(row)
+    return row
+
+
 def redesign_report(name: str, timed: list, launched: list) -> dict:
     """B1's and B4's extra keys in the kernels line.  ``timed``: the kernel
     and deskew_kernels phases' rows at each of the path's shapes (device
@@ -3659,7 +4074,9 @@ def main(argv=None) -> int:
     phase_build()
     launch = phase_launch(device, np.random.default_rng(args.seed + 3))
     phase_e2e(device)
+    fmap = phase_fused_mapping(device)
     fleet = phase_fleet(device, args.seed)
+    fused_mapping_profile(device, fmap, info["nvidia_smi"])
     kern = phase_kernels(device, np.random.default_rng(args.seed))
     revs = make_revolutions(args.seed, args.revs, GEOMETRY["points"])
     chain = phase_chain(device, revs)
@@ -3768,10 +4185,18 @@ def main(argv=None) -> int:
             })
         kernels.append(entry)
     for k in kernels:
-        # this slice's path: the fleet phase's launches (config 10's byte
-        # arms, config 8's replay, the SLAM seams)
+        # the fleet's path (config 10's byte arms, config 8's replay, the
+        # SLAM seams)
         k["fleet_launches"] = fleet["launches"].get(k["name"], 0)
         check(k["fleet_launches"] > 0, f"kernel {k['name']} never launched on the fleet path")
+        # this slice's path: config 18, the carried map against the host
+        # route (B2 and B3 are not on it)
+        k["fused_mapping_launches"] = fmap["launches"].get(k["name"], 0)
+        if k["name"] not in ("sorted_replace", "sliding_median"):
+            check(k["fused_mapping_launches"] > 0,
+                  f"kernel {k['name']} never launched on the fused mapping path")
+        if k["name"] in fmap["kernels_at_path_tick"]:
+            k["fused_mapping_tick"] = fmap["kernels_at_path_tick"][k["name"]]
     for name in ("temporal_median", "sliding_median"):
         entry = next(k for k in kernels if k["name"] == name)
         entry["fleet_shapes"] = {key: v for key, v in fleet["shapes"].items()

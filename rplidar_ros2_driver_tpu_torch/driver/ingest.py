@@ -22,14 +22,19 @@ the engines are held to it bit for bit (tests/test_torch_fused_ingest.py).
 
 The fleet engine runs on the card of ``params.filter_backend``, or on a
 one-process mesh's device (parallel/sharding.Mesh), and has the JAX
-package's whole-fleet checkpoint surface (:meth:`FleetFusedIngest.snapshot`
-/ :meth:`FleetFusedIngest.restore`, the same keys and checks).
+package's checkpoint surface in its formats: the whole fleet
+(:meth:`FleetFusedIngest.snapshot` / :meth:`FleetFusedIngest.restore`)
+and one stream's rows (``snapshot_stream`` / ``restore_stream``, schema
+version 3, the health supervisor's quarantine transport).  With the fused
+mapping route (``fused_mapping_backend='fused'`` + ``map_enable``, which
+needs ``deskew_enable``) each stream's MapState rides the ingest state and
+is updated inside every tick; ``take_map_wires`` and the ``map_*`` methods
+are its surface (mapping/mapper.CarriedFleetMapper is the mapper face).
 
 What these engines do NOT do: feed a RawNodeHolder (interval grabs need
 host-side nodes), expose the chain's snapshot surface, or — the fleet
-engine — the per-stream snapshot/restore and row operations of the
-serving pod (ROADMAP A.10) and the map carried in the ingest state
-(A.7b), which raise NotImplementedError here.
+engine — the cold reset of the serving pod (ROADMAP A.10), which raises
+NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ from rplidar_ros2_driver_tpu_torch.filters.chain import (
     config_from_params,
     pick_device,
 )
-from rplidar_ros2_driver_tpu_torch.mapping.mapper import resolve_fused_mapping_backend
+from rplidar_ros2_driver_tpu_torch.mapping.mapper import fused_mapping_map_config
 from rplidar_ros2_driver_tpu_torch.ops.deskew import deskew_config_from_params
 from rplidar_ros2_driver_tpu_torch.ops.filters import FilterState
 from rplidar_ros2_driver_tpu_torch.ops.ingest import (
@@ -72,12 +77,22 @@ from rplidar_ros2_driver_tpu_torch.protocol import crc as crcmod
 from rplidar_ros2_driver_tpu_torch.protocol import timing as timingmod
 from rplidar_ros2_driver_tpu_torch.protocol.constants import ANS_PAYLOAD_BYTES, Ans
 from rplidar_ros2_driver_tpu_torch.utils import cuda_build
+from rplidar_ros2_driver_tpu_torch.utils.rowops import gather_row, row_to_numpy, scatter_row
 
 log = logging.getLogger("rplidar_tpu.ingest")
 
 # frame-run bucket sizes (runs are padded up to one; the engine caps a
 # run at the largest)
 _FUSED_BUCKETS = (4, 64)
+
+# schema version of the PER-STREAM fleet snapshot (snapshot_stream /
+# restore_stream), the JAX package's: v2 added the de-skew planes, v3 the
+# carried map planes (``ingest.map_*``, fused mapping route only), so the
+# quarantine transport moves a stream's map rows with its decode and
+# filter rows.  Planes of options that are off are left out.
+INGEST_STREAM_SNAPSHOT_VERSION = 3
+
+_MAP_KEYS = ("log_odds", "pose", "origin_xy", "revision")
 
 
 class StagingPool:
@@ -121,12 +136,14 @@ class StagingPool:
             self._free.setdefault(key, []).append(pair)
 
 
-def _build_kernels(device: torch.device, deskew) -> None:
+def _build_kernels(device: torch.device, deskew, mapping=None) -> None:
     """Build the kernels the ingest path launches on the card (nothing to
-    build on the CPU): the median kernels and, with de-skew, B4/B5."""
+    build on the CPU): the median kernels, with de-skew B4/B5, with the
+    carried map B6/B7/B8."""
     if device.type != "cuda":
         return
-    cuda_build.build_libraries(["median"] + (["deskew"] if deskew is not None else []))
+    cuda_build.build_libraries(["median"] + (["deskew"] if deskew is not None else [])
+                               + (["scan_match"] if mapping is not None else []))
 
 
 class _Landing:
@@ -510,9 +527,6 @@ class FleetFusedIngest:
 
         if streams < 1:
             raise ValueError("fleet ingest needs at least one stream")
-        if (getattr(params, "map_enable", False) and resolve_fused_mapping_backend(
-                getattr(params, "fused_mapping_backend", "auto")) == "fused"):
-            _not_ported("with the map carried in the ingest state", "A.7b")
         self.streams = streams
         self.mesh = mesh
         if mesh is None:
@@ -529,6 +543,20 @@ class FleetFusedIngest:
             self.device = mesh.device
         self.cfg = config_from_params(params, beams or DEFAULT_BEAMS, platform=self.device.type)
         self._deskew = deskew_config_from_params(params, self.cfg.beams, platform=self.device.type)
+        # the carried SLAM front-end (fused mapping route): each stream's
+        # MapState rides the ingest state, updated inside every tick
+        self._mapping = fused_mapping_map_config(params, self.cfg.beams, self.device.type)
+        if self._mapping is not None and self._deskew is None:
+            raise ValueError(
+                "fused_mapping_backend='fused' requires deskew_enable "
+                "(the carried mapper consumes the reconstructed sweep the "
+                "de-skew stage emits every tick)"
+            )
+        # newest per-stream (7,) int32 map wires of parsed ticks ([live,
+        # tx, ty, θidx, score, n_valid, revision]); ``take_map_wires()``
+        # drains the fresh ones, like ``take_recon()``
+        self.last_map_wires: list = [None] * streams
+        self._map_fresh: list = [False] * streams
         # per-stream reconstructed sweeps: ``last_recon[i]`` stream i's
         # newest (plane, pts), ``take_recon()`` drains the fresh ones,
         # ``recon_log=True`` appends every one to ``recon_history[i]``
@@ -572,6 +600,7 @@ class FleetFusedIngest:
         cfg = fleet_ingest_config_for(
             (Ans.MEASUREMENT,), self.timing, self.cfg,
             max_nodes=self.max_nodes, max_revs=self.max_revs, deskew=self._deskew,
+            mapping=self._mapping,
         )
         return create_fleet_ingest_state(cfg, self.streams, device=self.device)
 
@@ -589,7 +618,7 @@ class FleetFusedIngest:
         self._icfg = fleet_ingest_config_for(
             tuple(sorted(have | set(need))), self.timing, self.cfg,
             max_nodes=self.max_nodes, max_revs=self.max_revs,
-            emit_nodes=self.emit_nodes, deskew=self._deskew,
+            emit_nodes=self.emit_nodes, deskew=self._deskew, mapping=self._mapping,
         )
 
     def precompile(self, formats, buckets: Optional[tuple] = None) -> None:
@@ -600,7 +629,7 @@ class FleetFusedIngest:
             icfg = self._icfg
         if icfg is None:
             return
-        _build_kernels(self.device, self._deskew)
+        _build_kernels(self.device, self._deskew, self._mapping)
         for b in buckets or self._buckets:
             for t in sorted({1, self.super_tick_max}):
                 st = create_fleet_ingest_state(icfg, self.streams, device=self.device)
@@ -787,6 +816,11 @@ class FleetFusedIngest:
                     self._recon_fresh[i] = True
                     if self.recon_log:
                         self.recon_history[i].append(self.last_recon[i])
+                if res.map_wire is not None:
+                    # every mapping tick emits a wire (an idle one with
+                    # live = 0): newest wins, take_map_wires drains it
+                    self.last_map_wires[i] = res.map_wire
+                    self._map_fresh[i] = True
                 self.nodes_decoded += res.nodes_appended
                 self.scans_completed += res.n_completed
                 self.revs_dropped += res.revs_dropped
@@ -814,6 +848,18 @@ class FleetFusedIngest:
             for i in range(self.streams):
                 out.append(self.last_recon[i] if self._recon_fresh[i] else None)
                 self._recon_fresh[i] = False
+        return out
+
+    def take_map_wires(self) -> list:
+        """Drain the fresh carried-map wires since the last call: one (7,)
+        int32 ``[live, tx_sub, ty_sub, theta_idx, score, n_valid,
+        revision]`` or None per stream (None = no mapping tick parsed
+        since, unlike a parsed tick whose ``live`` is 0)."""
+        out = []
+        with self._lock:
+            for i in range(self.streams):
+                out.append(self.last_map_wires[i] if self._map_fresh[i] else None)
+                self._map_fresh[i] = False
         return out
 
     def submit(self, items) -> list:
@@ -868,6 +914,10 @@ class FleetFusedIngest:
             self._reset_next = [True] * self.streams
             self.last_recon = [None] * self.streams
             self._recon_fresh = [False] * self.streams
+            # the carried maps survive a stream reset (scan stop/start
+            # resets decode, not the map); only stale wires go
+            self.last_map_wires = [None] * self.streams
+            self._map_fresh = [False] * self.streams
 
     def filter_state_of(self, i: int):
         """Stream ``i``'s FilterState, copied to the host."""
@@ -882,8 +932,9 @@ class FleetFusedIngest:
 
     def snapshot(self) -> dict:
         """Host snapshot of the WHOLE per-stream ingest state — decode
-        carries, partial revolutions, rolling filter windows — plus the
-        host-side trackers, in the JAX package's format: ``ingest.*`` /
+        carries, partial revolutions, rolling filter windows, carried maps
+        (cloned: the step updates them in place) — plus the host-side
+        trackers, in the JAX package's format: ``ingest.*`` /
         ``filter.*`` stream-batched numpy planes, ``formats`` (int32, -1 =
         never streamed), ``bases`` (f64, nan = none).  ``median_sorted`` is
         derived and excluded (restore recomputes it).  The device copy is
@@ -972,20 +1023,150 @@ class FleetFusedIngest:
             self._pending.clear()
         return True
 
-    def snapshot_stream(self, i: int) -> dict:
-        _not_ported("per-stream snapshot", "A.10")
+    # -- per-stream checkpoint surface (quarantine/rejoin, migration) -------
 
-    def restore_stream(self, i: int, snap: dict, **kwargs) -> bool:
-        _not_ported("per-stream restore", "A.10")
+    def _check_stream(self, i: int) -> None:
+        if not (0 <= i < self.streams):
+            raise IndexError(f"stream {i} out of range [0, {self.streams})")
+
+    def snapshot_stream(self, i: int) -> dict:
+        """One stream's rows of the fleet state in the JAX package's
+        schema-versioned format: ``ingest.*`` (the carried map's
+        ``ingest.map_*`` on the fused mapping route) and ``filter.*`` rows,
+        ``format``, ``base``, ``version`` — the health supervisor's
+        quarantine checkpoint.  Row-sized traffic: one row gather on the
+        device under the lock, its copy to the host after it."""
+        self._check_stream(i)
+        with self._lock:
+            row = gather_row(self._state, i)
+            fmt = self._stream_fmt[i]
+            base = self._bases[i]
+        host = row_to_numpy(row)
+        filt = host.pop("filter")
+        filt.pop("median_sorted", None)  # derived; restore recomputes it
+        snap = {f"ingest.{k}": v for k, v in host.items()}
+        snap.update({f"filter.{k}": v for k, v in filt.items()})
+        snap["format"] = np.asarray(-1 if fmt is None else int(fmt), np.int32)
+        snap["base"] = np.asarray(np.nan if base is None else float(base), np.float64)
+        snap["version"] = np.asarray(INGEST_STREAM_SNAPSHOT_VERSION, np.int32)
+        return snap
+
+    def restore_stream(self, i: int, snap: dict, *, restore_decode: bool = False) -> bool:
+        """Install a :meth:`snapshot_stream` into lane ``i`` with every
+        other stream's rows and the pending results untouched.
+
+        By default the rolling filter window is restored and the decode
+        carries are RESET at the lane's next tick (a rejoin after
+        quarantine re-enters the byte stream mid-capsule: the host path's
+        decoder + assembler reset with the chain carried through); the
+        carried map row stays the lane's own.  ``restore_decode=True``
+        also restores every ``ingest.*`` row, the map's included (a live
+        stream moved between engines), and needs the snapshot's ingest key
+        space to match this engine's exactly.  A version or geometry
+        mismatch is rejected with the state untouched."""
+        from rplidar_ros2_driver_tpu_torch.ops.filters import recompute_median_sorted
+
+        self._check_stream(i)
+        ver = int(np.asarray(snap.get("version", -1)))
+        if ver != INGEST_STREAM_SNAPSHOT_VERSION:
+            log.warning("rejecting stream snapshot with schema version %s (want %d)",
+                        snap.get("version"), INGEST_STREAM_SNAPSHOT_VERSION)
+            return False
+        expected_filter = FilterState.shapes(self.cfg.window, self.cfg.beams, self.cfg.grid)
+        got_filter = {k[len("filter."):]: tuple(np.asarray(v).shape)
+                      for k, v in snap.items() if k.startswith("filter.")}
+        if expected_filter != got_filter:
+            log.warning("rejecting incompatible stream snapshot (filter geometry %s != %s)",
+                        got_filter, expected_filter)
+            return False
+        with self._lock:
+            st = self._state
+            ing_rows = {}
+            if restore_decode:
+                # the key space must cover THIS engine's state exactly: a
+                # snapshot without the de-skew or map planes would leave
+                # the lane's previous occupant's rows in place
+                cur = {f.name: tuple(getattr(st, f.name).shape[1:])
+                       for f in dataclasses.fields(st)
+                       if f.name != "filter" and getattr(st, f.name) is not None}
+                got_keys = {k for k in snap if k.startswith("ingest.")}
+                if got_keys != {f"ingest.{k}" for k in cur}:
+                    log.warning("rejecting incompatible stream snapshot (ingest keys %s != %s)",
+                                sorted(got_keys), sorted(f"ingest.{k}" for k in cur))
+                    return False
+                for k, shape in cur.items():
+                    row = np.asarray(snap[f"ingest.{k}"])
+                    if row.shape != shape:
+                        log.warning("rejecting incompatible stream snapshot "
+                                    "(ingest %s row %s != %s)", k, row.shape, shape)
+                        return False
+                    ing_rows[k] = row
+            scatter_row(st.filter, {k: snap[f"filter.{k}"] for k in expected_filter}, i)
+            if st.filter.median_sorted is not None:
+                st.filter.median_sorted[i].copy_(
+                    recompute_median_sorted(st.filter.range_window[i]))
+            scatter_row(st, ing_rows, i)
+            fmt = int(np.asarray(snap.get("format", -1)))
+            self._stream_fmt[i] = None if fmt < 0 else fmt
+            if restore_decode:
+                base = float(np.asarray(snap.get("base", np.nan)))
+                self._bases[i] = None if np.isnan(base) else base
+                self._reset_next[i] = False
+            else:
+                self._bases[i] = None
+                self._reset_next[i] = True
+        return True
 
     def cold_reset(self) -> None:
         _not_ported("cold reset", "A.10")
 
-    def take_map_wires(self) -> list:
-        _not_ported("map wires (the map carried in the ingest state)", "A.7b")
+    # -- the carried map surface (mapping/mapper.CarriedFleetMapper) ---------
+
+    def _require_mapping(self) -> None:
+        if self._mapping is None:
+            raise RuntimeError(
+                "this engine carries no map (the fused mapping route is off — "
+                "fused_mapping_backend)"
+            )
 
     def map_snapshot(self) -> dict:
-        _not_ported("map snapshot (the map carried in the ingest state)", "A.7b")
+        """Host copy of every stream's carried MapState in FleetMapper's
+        snapshot keys (stream-batched ``log_odds``/``pose``/``origin_xy``/
+        ``revision``), so the two routes' map checkpoints interoperate."""
+        self._require_mapping()
+        with self._lock:
+            planes = {k: getattr(self._state, f"map_{k}").clone() for k in _MAP_KEYS}
+        return {k: v.cpu().numpy() for k, v in planes.items()}
 
     def map_restore(self, core: dict) -> None:
-        _not_ported("map restore (the map carried in the ingest state)", "A.7b")
+        """Install stream-batched MapState planes into the carry (shapes
+        checked by the caller, CarriedFleetMapper)."""
+        self._require_mapping()
+        with self._lock:
+            for k in _MAP_KEYS:
+                cur = getattr(self._state, f"map_{k}")
+                cur.copy_(torch.from_numpy(np.array(core[k])).reshape(cur.shape))
+
+    def map_snapshot_stream(self, i: int) -> dict:
+        """One stream's carried MapState row (FleetMapper's keys)."""
+        self._require_mapping()
+        self._check_stream(i)
+        with self._lock:
+            rows = {k: getattr(self._state, f"map_{k}")[i].clone() for k in _MAP_KEYS}
+        return {k: v.cpu().numpy() for k, v in rows.items()}
+
+    def map_restore_stream(self, i: int, core: dict) -> None:
+        """Install one stream's MapState row into the carry, every other
+        stream and this stream's decode and filter rows untouched."""
+        self._require_mapping()
+        self._check_stream(i)
+        with self._lock:
+            scatter_row(self._state, {f"map_{k}": core[k] for k in _MAP_KEYS}, i)
+
+    def map_reanchor_stream(self, i: int, pose: np.ndarray) -> None:
+        """Rewrite one stream's carried front-end pose (the loop-closure
+        re-anchor, FleetMapper.reanchor_stream's carried twin)."""
+        self._require_mapping()
+        self._check_stream(i)
+        with self._lock:
+            scatter_row(self._state, {"map_pose": np.asarray(pose, np.int32)}, i)

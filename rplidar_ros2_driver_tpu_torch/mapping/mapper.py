@@ -25,10 +25,13 @@ against the JAX package, so the choice changes speed only.
 
 Checkpoint surface: ``snapshot``/``restore`` (and per stream) in the JAX
 package's format (numpy arrays, ``version`` key 1), so a map carries
-across the two packages byte for byte.  Not in this package yet, each
-raising NotImplementedError naming its ROADMAP item: the carried mapper of
-the fused ingest route (A.7b; ShardedFilterService.attach_mapper is its
-only constructor) and the Orbax sharded checkpoints (A.11).
+across the two packages byte for byte.
+
+:class:`CarriedFleetMapper` is the mapper face of the fused mapping route
+(``fused_mapping_backend='fused'``): the map rides the fused ingest state
+and is updated inside its tick, so that face dispatches nothing and reads
+and writes the engine's carried planes.  Not in this package yet: the
+Orbax sharded checkpoints (A.11), which raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -75,13 +78,25 @@ def resolve_match_backend(requested: str, platform: Optional[str] = None) -> str
 
 
 def resolve_fused_mapping_backend(requested: str, platform: Optional[str] = None) -> str:
-    """``auto`` -> ``host``: the map rides its own fleet tick after the
-    chain.  The ``fused`` route, the map carried inside the fused ingest
-    program, is ROADMAP A.7b."""
+    """``auto`` -> ``host`` (the JAX package's choice): the map rides its
+    own fleet tick after the ingest step.  ``fused`` carries the map in
+    the fused ingest state and updates it inside the tick."""
     if requested != "auto":
         return requested
     del platform
     return "host"
+
+
+def fused_mapping_map_config(params, beams: int, platform: Optional[str] = None
+                             ) -> Optional[MapConfig]:
+    """The carried mapper's MapConfig, or None when the fused mapping
+    route is off — the one place where the route's resolution meets the
+    params -> MapConfig mapping, so the engine and the service agree."""
+    backend = resolve_fused_mapping_backend(
+        getattr(params, "fused_mapping_backend", "auto"), platform)
+    if backend != "fused" or not getattr(params, "map_enable", False):
+        return None
+    return map_config_from_params(params, beams, platform=platform)
 
 
 def map_config_from_params(params, beams: int = 2048, platform: Optional[str] = None) -> MapConfig:
@@ -137,6 +152,21 @@ def clamp_pose_q(pose_q, cfg: MapConfig) -> np.ndarray:
         np.clip(pose[1], -lim, lim),
         np.mod(pose[2], cfg.theta_divisions),
     ], np.int32)
+
+
+def is_carried(mapper) -> bool:
+    """Is this mapper face the carried one (its map rows live inside the
+    ingest state)?  Every checkpoint site that must not pull the same map
+    rows a second time asks here."""
+    return getattr(mapper, "backend", None) == "carried"
+
+
+def carried_map_row(ingest_snap: dict) -> dict:
+    """One per-stream ingest snapshot's carried map planes
+    (``ingest.map_*``, snapshot v3) in FleetMapper's stream-row format."""
+    row = {k: np.asarray(ingest_snap[f"ingest.map_{k}"]) for k in STATE_KEYS}
+    row["version"] = np.asarray(MAP_STATE_VERSION, np.int32)
+    return row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -317,6 +347,19 @@ class FleetMapper:
         got = {k: tuple(np.asarray(v).shape) for k, v in snap.items() if k != "version"}
         return None if expected == got else (got, expected)
 
+    @staticmethod
+    def _row_ok(snap: dict, grid: int) -> bool:
+        """Version and shapes of one stream's row snapshot (logged when
+        rejected)."""
+        if not FleetMapper._version_ok(snap, "stream map snapshot"):
+            return False
+        expected = MapState.shapes(grid)
+        got = {k: tuple(np.asarray(v).shape) for k, v in snap.items() if k != "version"}
+        if expected != got:
+            log.warning("rejecting incompatible stream map snapshot (%s != %s)", got, expected)
+            return False
+        return True
+
     @classmethod
     def snapshot_compatible(cls, params, snap: dict, streams: int = 1) -> bool:
         """Would a mapper built from ``params`` accept this snapshot?
@@ -379,12 +422,7 @@ class FleetMapper:
         other stream untouched; a version or geometry mismatch is rejected
         with the live state untouched."""
         self._check_stream(i)
-        if not self._version_ok(snap, "stream map snapshot"):
-            return False
-        expected = MapState.shapes(self.cfg.grid)
-        got = {k: tuple(np.asarray(v).shape) for k, v in snap.items() if k != "version"}
-        if expected != got:
-            log.warning("rejecting incompatible stream map snapshot (%s != %s)", got, expected)
+        if not self._row_ok(snap, self.cfg.grid):
             return False
         with self._lock:
             for k in STATE_KEYS:
@@ -422,13 +460,135 @@ class FleetMapper:
 
 
 class CarriedFleetMapper:
-    """The mapper face of the fused mapping route, whose map lives inside
-    the fused ingest program.  Not ported yet."""
+    """The mapper face of the fused mapping route: the per-stream MapState
+    lives in the fleet ingest state (FleetFusedIngest's ``map_*`` planes)
+    and the match + update run inside its tick, so this class dispatches
+    nothing (``dispatch_count`` stays 0).  Every consumer that speaks
+    FleetMapper — the loop-closure engine's tap, the quarantine
+    checkpoints, /diagnostics — works unchanged against the carried map:
+
+      * :meth:`absorb_wires` turns the engine's per-tick map wires
+        (``take_map_wires``) into the PoseEstimates the host route's
+        ``submit_points`` would have returned, and keeps the reconstructed
+        sweeps as ``last_inputs`` for the loop tap;
+      * the checkpoint surface (full and per stream) reads and writes the
+        carry in FleetMapper's keys and schema version, so the two routes'
+        map checkpoints interoperate byte for byte;
+      * :meth:`reanchor_stream` rewrites the carried pose row.
+
+    ``submit``/``submit_points`` raise: the route has no mapper step."""
 
     backend = "carried"
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "CarriedFleetMapper (the map carried inside the fused ingest "
-            "program) is not ported to the PyTorch package yet (ROADMAP A.7b)"
+    def __init__(self, params, engine, *, beams: Optional[int] = None) -> None:
+        if engine._mapping is None:
+            raise ValueError(
+                "CarriedFleetMapper needs an engine built with the fused "
+                "mapping route active (fused_mapping_backend='fused' + map_enable)"
+            )
+        self.engine = engine
+        self.streams = engine.streams
+        self.cfg: MapConfig = engine._mapping
+        self.device = engine.device
+        if beams is not None and beams != self.cfg.beams:
+            raise ValueError(f"carried mapper beams {self.cfg.beams} != service beams {beams}")
+        self.ticks = 0
+        self.dispatch_count = 0  # mapping rides the ingest steps
+        self.matches = 0
+        self.last_estimates: list[Optional[PoseEstimate]] = [None] * self.streams
+        self.last_inputs: Optional[tuple] = None
+
+    def precompile(self) -> None:
+        """No-op: the map update is part of the ingest step, warmed by
+        FleetFusedIngest.precompile."""
+
+    # -- hot path (fed by the service from the engine's wires) -------------
+
+    def submit(self, outputs) -> list:
+        raise RuntimeError(
+            "the carried mapper has no submit path: mapping runs inside the "
+            "fused ingest step (absorb_wires consumes its wires)"
         )
+
+    def submit_points(self, points, masks, live) -> list:
+        raise RuntimeError(
+            "the carried mapper has no submit path: mapping runs inside the "
+            "fused ingest step (absorb_wires consumes its wires)"
+        )
+
+    def absorb_wires(self, wires: list, recons: list) -> list[Optional[PoseEstimate]]:
+        """One service tick of the fused route: ``wires`` is the engine's
+        ``take_map_wires()`` drain, ``recons`` its ``take_recon()``.  One
+        Optional[PoseEstimate] per stream — None where no mapping tick was
+        parsed or the parsed tick's ``live`` flag is 0 (an idle tick never
+        republishes the previous pose) — and the reconstructed endpoints
+        kept as ``last_inputs``, the scan window the carried matcher saw."""
+        if len(wires) != self.streams or len(recons) != self.streams:
+            raise ValueError(
+                f"expected {self.streams} wires + recons, got {len(wires)}/{len(recons)}"
+            )
+        self.last_inputs = recon_input_planes(recons, self.streams, self.cfg.beams)
+        self.ticks += 1
+        estimates: list[Optional[PoseEstimate]] = []
+        for i, w in enumerate(wires):
+            if w is None or int(w[0]) == 0:
+                estimates.append(None)
+                continue
+            pose_q = np.asarray(w[1:4], np.int32)
+            x, y, th = pose_to_metric(pose_q, self.cfg)
+            est = PoseEstimate(
+                x_m=x, y_m=y, theta_rad=th, score=int(w[4]), matched_points=int(w[5]),
+                revision=int(w[6]), pose_q=pose_q,
+            )
+            estimates.append(est)
+            self.last_estimates[i] = est
+            if est.score > 0:
+                self.matches += 1
+        return estimates
+
+    # -- checkpoint surface (FleetMapper's formats over the carry) ---------
+
+    def reset(self) -> None:
+        """Cold reset of every stream's carried map and pose."""
+        g = self.cfg.grid
+        self.engine.map_restore({
+            "log_odds": np.zeros((self.streams, g, g), np.int32),
+            "pose": np.zeros((self.streams, 3), np.int32),
+            "origin_xy": np.zeros((self.streams, 2), np.float32),
+            "revision": np.zeros((self.streams,), np.int32),
+        })
+        self.last_estimates = [None] * self.streams
+
+    def snapshot(self) -> dict[str, np.ndarray]:
+        snap = self.engine.map_snapshot()
+        snap["version"] = np.asarray(MAP_STATE_VERSION, np.int32)
+        return snap
+
+    def restore(self, snap: Optional[dict]) -> bool:
+        """Restore a FleetMapper-format snapshot into the carry, or
+        cold-reset when None; a version or geometry mismatch is rejected
+        with the carry untouched."""
+        if snap is None:
+            self.reset()
+            return False
+        if not FleetMapper._version_ok(snap, "map snapshot"):
+            return False
+        if FleetMapper._shape_mismatch(snap, self.streams, self.cfg.grid) is not None:
+            log.warning("rejecting incompatible carried-map snapshot")
+            return False
+        self.engine.map_restore({k: np.asarray(snap[k]) for k in STATE_KEYS})
+        return True
+
+    def snapshot_stream(self, i: int) -> dict:
+        snap = self.engine.map_snapshot_stream(i)
+        snap["version"] = np.asarray(MAP_STATE_VERSION, np.int32)
+        return snap
+
+    def restore_stream(self, i: int, snap: dict) -> bool:
+        if not FleetMapper._row_ok(snap, self.cfg.grid):
+            return False
+        self.engine.map_restore_stream(i, {k: np.asarray(snap[k]) for k in STATE_KEYS})
+        return True
+
+    def reanchor_stream(self, i: int, pose_q) -> None:
+        self.engine.map_reanchor_stream(i, clamp_pose_q(pose_q, self.cfg))

@@ -16,7 +16,12 @@ runs, on the device of its state,
      ``max_revs`` per step dropped oldest-first into ``revs_dropped``);
   3. **de-skew + sweep reconstruction** (``cfg.deskew``, ops/deskew.py);
   4. **the filter step** — ops/filters._filter_step_impl once per
-     completed revolution.
+     completed revolution;
+  5. **the SLAM front-end** (``cfg.mapping``) — each tick's reconstructed
+     sweep matched against the stream's log-odds map and absorbed into it
+     (ops/scan_match.fleet_map_match_step, once per tick for the whole
+     fleet: one launch of each matcher kernel B6/B7/B8).  The MapState
+     rides the ingest state (``map_*`` planes, updated in place).
 
 Every function is written over a leading stream axis: the JAX package
 ``vmap``s a one-stream step, the port puts the streams on a batch axis, so
@@ -39,7 +44,11 @@ Where the JAX program branches on device values, the port reads the host:
     stream and every slot are computed at once, one launch each per step
     that completes a revolution; the carried profile and motion come from
     each stream's last live slot.
-  * ``lax.scan`` over T ticks: a loop of the same tick function.
+  * ``lax.scan`` over T ticks: a loop of the same tick function, so the
+    carried map is updated in tick order.
+  * the map update of a tick on which no stream has a live frame (the host
+    staged the frames, so it knows) runs no launch: its wire reports the
+    held pose, score 0, as the gated update would.
 
 Node values are clamped like the host wire pack (dist 18 bits, quality 8,
 flag 6), so the filter sees the host path's values.  Timestamps ride as
@@ -74,6 +83,11 @@ from rplidar_ros2_driver_tpu_torch.ops.filters import (
     unpack_output_wire,
     wire_output_len,
 )
+from rplidar_ros2_driver_tpu_torch.ops.scan_match import (
+    MapConfig,
+    MapState,
+    fleet_map_match_step,
+)
 from rplidar_ros2_driver_tpu_torch.protocol import timing as timingmod
 from rplidar_ros2_driver_tpu_torch.protocol.constants import ANS_PAYLOAD_BYTES, Ans
 
@@ -86,11 +100,20 @@ _I32, _F32 = torch.int32, torch.float32
 _FLEET_PREV_BYTES = max(int(v) for v in ANS_PAYLOAD_BYTES.values())
 
 
-def _no_mapping(mapping) -> None:
-    if mapping is not None:
-        raise NotImplementedError(
-            "the in-program mapper carried in the ingest state "
-            "(CarriedFleetMapper, _map_update_tick) is not ported yet (ROADMAP A.7b)"
+def _check_mapping_geometry(mapping, deskew) -> None:
+    """The carried mapper consumes the reconstructed sweep: it needs the
+    de-skew/reconstruction stage and that stage's beam grid."""
+    if mapping is None:
+        return
+    if deskew is None:
+        raise ValueError(
+            "ingest mapping requires the de-skew/reconstruction stage "
+            "(cfg.deskew): the reconstructed sweep is the mapper feed"
+        )
+    if mapping.beams != deskew.recon_beams:
+        raise ValueError(
+            f"ingest mapping beam grid ({mapping.beams}) must equal the "
+            f"reconstruction beam grid ({deskew.recon_beams})"
         )
 
 
@@ -110,10 +133,12 @@ class IngestConfig:
     emit_nodes: bool         # debug/parity: assembled node buffers returned
     filter: FilterConfig
     deskew: Optional[DeskewConfig] = None
-    mapping: Optional[object] = None   # A.7b: must be None
+    # the SLAM front-end inside the step (needs ``deskew``: the
+    # reconstructed sweep is its feed)
+    mapping: Optional[MapConfig] = None
 
     def __post_init__(self):
-        _no_mapping(self.mapping)
+        _check_mapping_geometry(self.mapping, self.deskew)
 
 
 def ingest_config_for(
@@ -169,6 +194,25 @@ class IngestState:
     recon_pos: Optional[torch.Tensor] = None     # int32 cumulative push count
     deskew_prof: Optional[torch.Tensor] = None   # (D,) int32 prev-rev profile
     deskew_motion: Optional[torch.Tensor] = None  # (3,) int32 [dx,dy,dθ_q16]
+    # the carried MapState (cfg.mapping; None otherwise), updated in place
+    map_log_odds: Optional[torch.Tensor] = None   # (G, G) int32 Q10
+    map_pose: Optional[torch.Tensor] = None       # (3,) int32 [tx, ty, θidx]
+    map_origin_xy: Optional[torch.Tensor] = None  # (2,) float32
+    map_revision: Optional[torch.Tensor] = None   # int32
+
+
+def _fresh_map_leaves(mcfg: Optional[MapConfig], lead: tuple, device) -> dict:
+    """Fresh carried-map planes (MapState.create's values) with leading
+    shape ``lead``; all None when mapping is off."""
+    if mcfg is None:
+        return dict(map_log_odds=None, map_pose=None, map_origin_xy=None, map_revision=None)
+    z = dict(dtype=_I32, device=device)
+    return dict(
+        map_log_odds=torch.zeros(lead + (mcfg.grid, mcfg.grid), **z),
+        map_pose=torch.zeros(lead + (3,), **z),
+        map_origin_xy=torch.zeros(lead + (2,), dtype=_F32, device=device),
+        map_revision=torch.zeros(lead, **z),
+    )
 
 
 def _carry_planes(lead: tuple, max_nodes: int, prev_bytes: int, dsk, device) -> dict:
@@ -212,6 +256,7 @@ def create_ingest_state(
     return IngestState(
         filter=filter_state,
         **_carry_planes((), cfg.max_nodes, cfg.frame_bytes, cfg.deskew, device),
+        **_fresh_map_leaves(cfg.mapping, (), device),
     )
 
 
@@ -228,6 +273,8 @@ def create_ingest_state(
 #       motion_dy_q2, motion_dθ_q16]
 #   out_wires: (R, wire_output_len(filter)) float32
 #   (cfg.deskew only) recon_plane (B,) int32 + recon_pts (B, 3) f32
+#   (cfg.mapping only) map_wire (7,) int32:
+#     [live, tx_sub, ty_sub, theta_idx, score, n_valid, revision]
 #   (emit_nodes only) nodes (R, max_nodes, 4) f32 + node_ts (R, max_nodes)
 # ---------------------------------------------------------------------------
 
@@ -258,6 +305,8 @@ class IngestBatchResult:
     recon_pushed: bool = False
     recon_valid: int = 0
     deskew_motion: Optional[np.ndarray] = None  # (3,) int32 estimate
+    # the tick's map wire (cfg.mapping only)
+    map_wire: Optional[np.ndarray] = None  # (7,) int32
 
 
 def _np(a) -> np.ndarray:
@@ -282,7 +331,8 @@ def _live_wires(wires, n_completed: np.ndarray) -> Optional[np.ndarray]:
     return out.reshape(tuple(wires.shape))
 
 
-def _parse_row(mrow, wires, nodes, node_ts, cfg, recon_plane=None, recon_pts=None):
+def _parse_row(mrow, wires, nodes, node_ts, cfg, recon_plane=None, recon_pts=None,
+               map_wire=None):
     """One stream's IngestBatchResult from its meta row and result planes
     (``wires`` only touched when the row completed revolutions)."""
     r = cfg.max_revs
@@ -298,6 +348,8 @@ def _parse_row(mrow, wires, nodes, node_ts, cfg, recon_plane=None, recon_pts=Non
             recon_plane=recon_plane,
             recon_pts=recon_pts,
         )
+    if cfg.mapping is not None:
+        kw["map_wire"] = np.asarray(map_wire, np.int32)
     return IngestBatchResult(
         n_completed=n,
         revs_dropped=int(mrow[1]),
@@ -314,24 +366,28 @@ def _parse_row(mrow, wires, nodes, node_ts, cfg, recon_plane=None, recon_pts=Non
 
 
 def _split_result(res, cfg) -> tuple:
-    """(meta, wires, recon_plane, recon_pts, nodes, node_ts) of a result
-    tuple — the one result-arity rule (:func:`_core_outputs`)."""
+    """(meta, wires, recon_plane, recon_pts, map_wire, nodes, node_ts) of a
+    result tuple — the one result-arity rule (:func:`_core_outputs`)."""
     meta, wires = res[0], res[1]
     idx = 2
-    rp = rpts = nodes = nts = None
+    rp = rpts = mw = nodes = nts = None
     if cfg.deskew is not None:
         rp, rpts = res[idx], res[idx + 1]
         idx += 2
+    if cfg.mapping is not None:
+        mw = res[idx]
+        idx += 1
     if cfg.emit_nodes:
         nodes, nts = res[idx], res[idx + 1]
-    return meta, wires, rp, rpts, nodes, nts
+    return meta, wires, rp, rpts, mw, nodes, nts
 
 
 def unpack_ingest_result(res, cfg: IngestConfig) -> IngestBatchResult:
     """Host-side parse of the single-stream step's result tensors
-    ``(meta, out_wires[, recon_plane, recon_pts][, nodes, node_ts])``.
-    Only the wire rows of completed revolutions are fetched."""
-    meta, wires, rp, rpts, nodes, nts = _split_result(res, cfg)
+    ``(meta, out_wires[, recon_plane, recon_pts][, map_wire][, nodes,
+    node_ts])``.  Only the wire rows of completed revolutions are
+    fetched."""
+    meta, wires, rp, rpts, mw, nodes, nts = _split_result(res, cfg)
     meta = _np(meta)
     if meta.size != ingest_meta_len(cfg):
         raise ValueError(
@@ -346,6 +402,7 @@ def unpack_ingest_result(res, cfg: IngestConfig) -> IngestBatchResult:
         cfg,
         _np(rp) if rp is not None else None,
         _np(rpts) if rpts is not None else None,
+        _np(mw) if mw is not None else None,
     )
 
 
@@ -640,16 +697,44 @@ def _segment_filter_core(cfg, st: IngestState, filters: list, batch4, ts_c, nv,
     )
 
 
-def _core_outputs(cfg, core: _CoreResult, lane=slice(None)) -> tuple:
+def _core_outputs(cfg, core: _CoreResult, map_wire=None, lane=slice(None)) -> tuple:
     """The one result-arity rule: ``(meta, out_wires[, recon_plane,
-    recon_pts][, nodes, node_ts])``; ``lane`` selects the stream axis
-    (index 0 for the single-stream step)."""
+    recon_pts][, map_wire][, nodes, node_ts])``; ``lane`` selects the
+    stream axis (index 0 for the single-stream step)."""
     out = [core.meta[lane], core.out_wires[lane]]
     if cfg.deskew is not None:
         out += [core.recon_plane[lane], core.recon_pts[lane]]
+    if cfg.mapping is not None:
+        out += [map_wire[lane]]
     if cfg.emit_nodes:
         out += [core.nodes[lane], core.node_ts[lane]]
     return tuple(out)
+
+
+def _map_update_tick(cfg, st: IngestState, core: _CoreResult, nv, any_live: bool):
+    """The carried SLAM front-end tick (cfg.mapping) for every stream at
+    once: match each stream's reconstructed sweep against its carried map
+    and absorb it (ops/scan_match.fleet_map_match_step — the step the
+    host-route FleetMapper runs separately), gated on the tick pushing a
+    sub-sweep (``live = nv > 0``, take_recon's freshness rule), so an idle
+    stream's map and pose pass through untouched.  The MapState is a view
+    of the carry's planes, so its in-place update is the carry's.
+
+    ``any_live`` is the host's knowledge that some stream staged a frame
+    this tick; without one nothing can push, and the launches are skipped.
+    Returns the (N, 7) int32 map wire ``[live, tx_sub, ty_sub, theta_idx,
+    score, n_valid, revision]``."""
+    mstate = MapState(log_odds=st.map_log_odds, pose=st.map_pose,
+                      origin_xy=st.map_origin_xy, revision=st.map_revision)
+    live = (nv > 0).to(_I32)
+    if any_live:
+        pts = core.recon_pts
+        _, wire5 = fleet_map_match_step(mstate, pts[..., :2], pts[..., 2] > 0.5, live,
+                                        cfg.mapping)
+    else:
+        zero = torch.zeros_like(live)[:, None]
+        wire5 = torch.cat([mstate.pose, zero, zero], dim=1)
+    return torch.cat([live[:, None], wire5, mstate.revision[:, None]], dim=1)
 
 
 def _advance(st: IngestState, core: _CoreResult, filt, sync, dist, prev, have) -> IngestState:
@@ -670,6 +755,10 @@ def _advance(st: IngestState, core: _CoreResult, filt, sync, dist, prev, have) -
         recon_pos=core.recon_pos,
         deskew_prof=core.deskew_prof,
         deskew_motion=core.deskew_motion,
+        map_log_odds=st.map_log_odds,
+        map_pose=st.map_pose,
+        map_origin_xy=st.map_origin_xy,
+        map_revision=st.map_revision,
     )
 
 
@@ -692,9 +781,10 @@ def _aux_pair(aux, dev: torch.device) -> tuple:
 
 
 def fused_ingest_step(state: IngestState, frames, aux, cfg: IngestConfig) -> tuple:
-    """One frame batch through unpack -> segment -> de-skew -> filter.
-    Returns ``(state, meta, out_wires[, recon_plane, recon_pts][, nodes,
-    node_ts])`` (see :func:`fused_ingest_step_counted`)."""
+    """One frame batch through unpack -> segment -> de-skew -> filter (->
+    the carried map).  Returns ``(state, meta, out_wires[, recon_plane,
+    recon_pts][, map_wire][, nodes, node_ts])`` (see
+    :func:`fused_ingest_step_counted`)."""
     new, results, _n = fused_ingest_step_counted(state, frames, aux, cfg)
     return (new,) + results
 
@@ -706,10 +796,11 @@ def fused_ingest_step_counted(state: IngestState, frames, aux, cfg: IngestConfig
     ``aux`` is (2M+2,) float32 in host memory: per-frame rx offsets from
     THIS batch's base stamp, per-frame CRC verdicts (HQ only), the
     previous base minus this base, and the live frame count last.  Returns
-    ``(state, (meta, out_wires[, recon_plane, recon_pts][, nodes,
-    node_ts]), n_completed)``, the count as a host int (so a caller copies
-    just the completed rows of ``out_wires`` to the host without another
-    synchronisation); ``state.filter`` is updated in place."""
+    ``(state, (meta, out_wires[, recon_plane, recon_pts][, map_wire][,
+    nodes, node_ts]), n_completed)``, the count as a host int (so a caller
+    copies just the completed rows of ``out_wires`` to the host without
+    another synchronisation); ``state.filter`` and the carried map are
+    updated in place."""
     dev = state.partial.device
     frames = _to_device(frames, dev)
     aux_h, aux_d = _aux_pair(aux, dev)
@@ -735,9 +826,12 @@ def fused_ingest_step_counted(state: IngestState, frames, aux, cfg: IngestConfig
     lanes = _map_planes(state, lambda a: a[None])
     filters = [state.filter]
     core = _segment_filter_core(cfg, lanes, filters, batch4, ts_c, nv, aux_d[-2:-1])
+    map_wire = None
+    if cfg.mapping is not None:
+        map_wire = _map_update_tick(cfg, lanes, core, nv, m > 0)
     new = _map_planes(_advance(lanes, core, filters[0], sync, dist, prev, have),
                       lambda a: a[0], skip=("sync_carry", "dist_carry", "prev_frame", "have_prev"))
-    return new, _core_outputs(cfg, core, 0), core.n_host[0]
+    return new, _core_outputs(cfg, core, map_wire, 0), core.n_host[0]
 
 
 def _map_planes(state: IngestState, fn, skip=()) -> IngestState:
@@ -781,10 +875,12 @@ class FleetIngestConfig:
     emit_nodes: bool
     filter: FilterConfig
     deskew: Optional[DeskewConfig] = None
-    mapping: Optional[object] = None   # A.7b: must be None
+    # the SLAM front-end inside the step (needs ``deskew``: the
+    # reconstructed sweep is its feed)
+    mapping: Optional[MapConfig] = None
 
     def __post_init__(self):
-        _no_mapping(self.mapping)
+        _check_mapping_geometry(self.mapping, self.deskew)
 
 
 def fleet_ingest_config_for(
@@ -836,6 +932,7 @@ def create_fleet_ingest_state(
     return IngestState(
         filter=filter_state,
         **_carry_planes((streams,), cfg.max_nodes, _FLEET_PREV_BYTES, cfg.deskew, device),
+        **_fresh_map_leaves(cfg.mapping, (streams,), device),
     )
 
 
@@ -848,9 +945,9 @@ def fleet_aux_len(max_frames: int) -> int:
 def _reset_stream_decode(state: IngestState, reset) -> IngestState:
     """Zero the decode/assembly carries of the streams flagged in the (N,)
     bool ``reset`` (scan-mode change, engine-level reset); the rolling
-    filter windows and the cumulative stats survive.  The sub-sweep ring
-    and profile restart EMPTY: a format switch never stitches
-    reconstructed sweeps across the discontinuity."""
+    filter windows, the carried maps and the cumulative stats survive.
+    The sub-sweep ring and profile restart EMPTY: a format switch never
+    stitches reconstructed sweeps across the discontinuity."""
     def rz(a):
         return torch.where(reset.reshape((-1,) + (1,) * (a.ndim - 1)), torch.zeros_like(a), a)
 
@@ -925,7 +1022,11 @@ def _fleet_tick(cfg: FleetIngestConfig, state: IngestState, frames, aux_h, aux_d
         # the incremental median replaces (not updates) the sorted window
         for s, f in enumerate(filters):
             state.filter.median_sorted[s].copy_(f.median_sorted)
-    return (_advance(state, core, state.filter, sync, dist, prev, have),) + _core_outputs(cfg, core)
+    map_wire = None
+    if cfg.mapping is not None:
+        map_wire = _map_update_tick(cfg, state, core, nv, bool((m > 0).any()))
+    new = _advance(state, core, state.filter, sync, dist, prev, have)
+    return (new,) + _core_outputs(cfg, core, map_wire)
 
 
 def fleet_fused_ingest_step(state: IngestState, frames, aux, cfg: FleetIngestConfig) -> tuple:
@@ -936,8 +1037,9 @@ def fleet_fused_ingest_step(state: IngestState, frames, aux, cfg: FleetIngestCon
     (streams, 2M+4) float32 in host memory per :func:`fleet_aux_len`: rx
     offsets from the stream's own base, CRC verdicts (HQ only), then
     [re-base shift, live frame count, format branch, decode-reset flag].
-    Returns ``(state, meta, out_wires[, recon_plane, recon_pts][, nodes,
-    node_ts])`` with a leading stream axis on every result."""
+    Returns ``(state, meta, out_wires[, recon_plane, recon_pts][,
+    map_wire][, nodes, node_ts])`` with a leading stream axis on every
+    result; the FilterStates and carried maps are updated in place."""
     dev = state.partial.device
     frames = _to_device(frames, dev)
     aux_h, aux_d = _aux_pair(aux, dev)
@@ -965,7 +1067,7 @@ def unpack_fleet_ingest_result(res, cfg: FleetIngestConfig) -> list:
     """Host-side parse of one fleet step's result tensors: one
     :class:`IngestBatchResult` per stream.  Only the wire rows of completed
     revolutions are fetched."""
-    meta, wires, rp, rpts, nodes, nts = (
+    meta, wires, rp, rpts, mw, nodes, nts = (
         None if a is None else _np(a) if i != 1 else a
         for i, a in enumerate(_split_result(res, cfg))
     )
@@ -975,10 +1077,11 @@ def unpack_fleet_ingest_result(res, cfg: FleetIngestConfig) -> list:
             f"(expected (streams, {ingest_meta_len(cfg)}))"
         )
     wires = _live_wires(wires, meta[:, 0])
-    return _parse_fleet_rows(meta, wires, nodes, nts, cfg, rp, rpts)
+    return _parse_fleet_rows(meta, wires, nodes, nts, cfg, rp, rpts, mw)
 
 
-def _parse_fleet_rows(meta, wires, nodes_all, ts_all, cfg, recon_all=None, rpts_all=None):
+def _parse_fleet_rows(meta, wires, nodes_all, ts_all, cfg, recon_all=None, rpts_all=None,
+                      map_all=None):
     return [
         _parse_row(
             meta[i],
@@ -988,6 +1091,7 @@ def _parse_fleet_rows(meta, wires, nodes_all, ts_all, cfg, recon_all=None, rpts_
             cfg,
             recon_all[i] if recon_all is not None else None,
             rpts_all[i] if rpts_all is not None else None,
+            map_all[i] if map_all is not None else None,
         )
         for i in range(meta.shape[0])
     ]
@@ -996,7 +1100,7 @@ def _parse_fleet_rows(meta, wires, nodes_all, ts_all, cfg, recon_all=None, rpts_
 def unpack_super_fleet_ingest_result(res, cfg: FleetIngestConfig) -> list:
     """Host-side parse of one super-step's result tensors: a list over the
     T ticks of per-stream :class:`IngestBatchResult` lists."""
-    meta, wires, rp, rpts, nodes, nts = (
+    meta, wires, rp, rpts, mw, nodes, nts = (
         None if a is None else _np(a) if i != 1 else a
         for i, a in enumerate(_split_result(res, cfg))
     )
@@ -1015,6 +1119,7 @@ def unpack_super_fleet_ingest_result(res, cfg: FleetIngestConfig) -> list:
             cfg,
             rp[t] if rp is not None else None,
             rpts[t] if rpts is not None else None,
+            mw[t] if mw is not None else None,
         )
         for t in range(meta.shape[0])
     ]

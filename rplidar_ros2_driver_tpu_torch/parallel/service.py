@@ -19,11 +19,14 @@ window carries across the two packages.
 
 The byte seams (:meth:`submit_bytes`, :meth:`submit_bytes_backlog`) run
 the host decode + lockstep tick, or driver/ingest.FleetFusedIngest; the
-SLAM seams feed mapping/mapper.FleetMapper, slam/loop.LoopClosureEngine
-and mapping/worldmap.WorldMap.  Not in this package yet, each raising
-NotImplementedError naming its ROADMAP item: the health supervisor and
-the traffic shaper (A.10), the sharded checkpoints (A.11) and the map
-carried in the fused ingest state (A.7b).
+SLAM seams feed mapping/mapper.FleetMapper (or, on the fused mapping
+route, read the map carried in the fused ingest state through
+CarriedFleetMapper), slam/loop.LoopClosureEngine and
+mapping/worldmap.WorldMap.  The health supervisor (driver/health.py,
+:meth:`attach_health`) masks sick streams onto idle lanes and moves their
+rows to a checkpoint and back.  Not in this package yet, each raising
+NotImplementedError naming its ROADMAP item: the traffic shaper (A.10)
+and the sharded checkpoints (A.11).
 """
 
 from __future__ import annotations
@@ -181,6 +184,13 @@ class ShardedFilterService:
         # shared-world mapping seam: finalized submaps fuse into one
         # fleet-wide accumulation
         self.world = None
+        # fault-tolerance seam (driver/health.FleetHealth): quarantined
+        # streams are masked onto idle lanes, their rows checkpointed at
+        # quarantine and restored at rejoin (see attach_health)
+        self.health = None
+        self.stream_checkpoints: dict = {}
+        self.quarantines = 0
+        self.rejoins = 0
         if getattr(params, "health_enable", False):
             self.attach_health()
 
@@ -276,8 +286,12 @@ class ShardedFilterService:
         Returns the attached mapper (its snapshot/restore surface is the
         caller's to drive, like ``fleet_ingest``'s).
 
-        The FUSED mapping route (``fused_mapping_backend``, the map
-        carried in the ingest state) is ROADMAP A.7b."""
+        With the fused mapping route (``fused_mapping_backend='fused'``)
+        the attached face is a CarriedFleetMapper: the MapState rides the
+        fleet ingest state, the match + update run inside its tick, and
+        this service feeds the face from the engine's wires
+        (:meth:`_map_tick_fused`) — the same checkpoint formats and loop
+        tap, no mapper step."""
         if mapper is None and self.fused_mapping_backend == "fused":
             from rplidar_ros2_driver_tpu_torch.mapping.mapper import CarriedFleetMapper
 
@@ -306,6 +320,10 @@ class ShardedFilterService:
         if mapper.backend == "fused":
             mapper.precompile()
         self.mapper = mapper
+        if self.health is not None:
+            # health came first (health_enable): warm the mapper's row
+            # checkpoint too, before live traffic
+            self._warm_quarantine_path()
         return mapper
 
     def attach_loop_closure(self, engine=None) -> "object":
@@ -440,15 +458,138 @@ class ShardedFilterService:
         self._world_tick()
 
     def _map_tick_fused(self) -> None:
-        _not_ported("fused mapping seam (the map carried in the ingest state)", "A.7b")
+        """The fused mapping seam: the map update already ran inside this
+        tick's ingest step, so nothing is launched here.  The engine's
+        fresh map wires and reconstructed sweeps become per-stream
+        PoseEstimates (CarriedFleetMapper.absorb_wires) and the loop tap
+        sees the scan window the carried matcher saw.  A tick with no
+        live wire anywhere lands ``last_poses = [None] * streams``."""
+        if self.mapper is None or self.fleet_ingest is None:
+            return
+        wires = self.fleet_ingest.take_map_wires()
+        recons = self.fleet_ingest.take_recon()
+        self.last_poses = self.mapper.absorb_wires(wires, recons)
+        if any(p is not None for p in self.last_poses):
+            self._loop_tick()
+            self._world_tick()
 
-    # -- health and traffic shaping (the serving pod) -----------------------
+    # -- fault tolerance ----------------------------------------------------
 
-    def attach_health(self, health=None, **kwargs) -> "object":
-        _not_ported("health supervisor (attach_health, health_enable)", "A.10")
+    def attach_health(self, health=None, *, clock=None, probes=None,
+                      record_masks: bool = False, warm: bool = True) -> "object":
+        """Attach a FleetHealth supervisor (built from this service's
+        ``health_*`` params when not given) over the byte seams: each
+        ``submit_bytes`` tick is observed per stream, quarantined streams
+        are masked onto the idle lanes (the same fleet step, unchanged
+        shapes), and the quarantine/rejoin transitions drive this
+        service's per-stream checkpoints (filter, map and loop rows
+        snapshotted at quarantine, restored at rejoin).
+
+        ``probes`` maps stream index -> device-health callable polled at
+        quarantine release; ``clock`` injects a time source for tests.
+        ``warm`` runs one snapshot/restore round trip of stream 0 on the
+        fresh engines before live traffic (skipped once traffic flowed)."""
+        from rplidar_ros2_driver_tpu_torch.driver.health import FleetHealth, HealthConfig
+
+        self._ensure_byte_ingest()
+        if health is None:
+            import time as _time
+
+            health = FleetHealth(
+                self.streams, HealthConfig.from_params(self.params),
+                clock=clock or _time.monotonic, probes=probes, record_masks=record_masks,
+            )
+        elif clock is not None or probes or record_masks:
+            # construction-only kwargs ignored on an explicit instance
+            # would drop the caller's probes — refuse instead
+            raise ValueError(
+                "clock/probes/record_masks only apply when attach_health "
+                "builds the supervisor; configure the passed FleetHealth "
+                "directly (set_probe, record_masks at construction)"
+            )
+        if health.streams != self.streams:
+            raise ValueError(
+                f"health supervisor has {health.streams} streams, service has {self.streams}"
+            )
+        # the checkpoint machinery binds to the transition hooks; hooks the
+        # caller installed on an explicit instance are chained after
+        user_quarantine = health.on_quarantine
+        user_recover = health.on_recover
+
+        def on_quarantine(i: int) -> None:
+            self._quarantine_stream(i)
+            if user_quarantine is not None:
+                user_quarantine(i)
+
+        def on_recover(i: int) -> None:
+            self._rejoin_stream(i)
+            if user_recover is not None:
+                user_recover(i)
+
+        health.on_quarantine = on_quarantine
+        health.on_recover = on_recover
+        self.health = health
+        if warm:
+            self._warm_quarantine_path()
+        return health
+
+    def _warm_quarantine_path(self) -> None:
+        """One snapshot/restore round trip of stream 0 per engine, before
+        live traffic only (the restore resets stream 0's decode carries):
+        the rejoin path's first run happens here, not mid-stream."""
+        eng = self.fleet_ingest
+        if eng is not None and eng.ticks == 0:
+            eng.restore_stream(0, eng.snapshot_stream(0))
+            # a fresh engine's carries are zero: clearing the flag gives
+            # back the exact pre-warmup state
+            eng._reset_next[0] = False
+        if self.mapper is not None and self.mapper.ticks == 0:
+            self.mapper.restore_stream(0, self.mapper.snapshot_stream(0))
+        if self.loop is not None and self.loop.ticks == 0:
+            self.loop.restore_stream(0, self.loop.snapshot_stream(0))
+
+    def _quarantine_stream(self, i: int) -> None:
+        """Health hook: stream i just entered QUARANTINED — freeze its rows
+        (fused ingest decode + filter rows, map row, loop row) in the
+        schema-versioned per-stream formats.  Host-backend fleets have no
+        per-stream device rows to freeze; masking alone degrades them."""
+        from rplidar_ros2_driver_tpu_torch.mapping.mapper import is_carried
+
+        snap: dict = {}
+        if self.fleet_ingest is not None:
+            snap["ingest"] = self.fleet_ingest.snapshot_stream(i)
+        if self.mapper is not None and not is_carried(self.mapper):
+            # on the carried route the map rows already ride
+            # snap["ingest"] (v3 keys): no second pull of the same planes
+            snap["map"] = self.mapper.snapshot_stream(i)
+        if self.loop is not None:
+            snap["loop"] = self.loop.snapshot_stream(i)
+        self.stream_checkpoints[i] = snap
+        self.quarantines += 1
+        logger.warning("stream %d quarantined (state checkpointed)", i)
+
+    def _rejoin_stream(self, i: int) -> None:
+        """Health hook: stream i's backoff + probe gate released it —
+        restore its quarantine checkpoint (filter window and map intact,
+        decode carries reset for the mid-capsule re-entry) before this
+        tick's bytes flow again."""
+        snap = self.stream_checkpoints.pop(i, None)
+        if snap:
+            if "ingest" in snap and self.fleet_ingest is not None:
+                self.fleet_ingest.restore_stream(i, snap["ingest"])
+            if "map" in snap and self.mapper is not None:
+                self.mapper.restore_stream(i, snap["map"])
+            if "loop" in snap and self.loop is not None:
+                self.loop.restore_stream(i, snap["loop"])
+        self.rejoins += 1
+        logger.info("stream %d rejoining (state restored from checkpoint)", i)
 
     def health_status(self) -> Optional[list]:
-        _not_ported("health status", "A.10")
+        """Per-stream health dicts for /diagnostics-style reporting (None
+        when no supervisor is attached)."""
+        return None if self.health is None else self.health.status()
+
+    # -- traffic shaping (the serving pod) ----------------------------------
 
     def attach_scheduler(self, shaper=None) -> "object":
         _not_ported("traffic shaper (attach_scheduler)", "A.10")
@@ -540,13 +681,27 @@ class ShardedFilterService:
         if len(items) != self.streams:
             raise ValueError(f"expected {self.streams} per-stream byte runs, got {len(items)}")
         self._ensure_byte_ingest()
-        return self._submit_bytes_tick(items, pipelined)
+        if self.health is not None:
+            # release polls first (a rejoining stream's checkpoint restores
+            # before its bytes flow), then quarantined streams mask to None
+            items = self.health.begin_tick(items)
+        result = self._submit_bytes_tick(items, pipelined)
+        if self.health is not None:
+            # the observations close the loop (pipelined: the previous
+            # tick's completions, one tick of staleness in the view too)
+            self.health.end_tick(result)
+        return result
 
     def _submit_bytes_tick(self, items, pipelined: bool) -> list[Optional[FilterOutput]]:
         if self.fleet_ingest_backend == "fused":
             outs = (self.fleet_ingest.submit_pipelined(items) if pipelined
                     else self.fleet_ingest.submit(items))
             result = [o[-1][0] if o else None for o in outs]
+            if self.fleet_ingest._mapping is not None:
+                # fused mapping route: the map update already ran inside
+                # the ingest step — surface its wires
+                self._map_tick_fused()
+                return result
             if self.fleet_ingest._deskew is not None:
                 # reconstruction active: the mapper consumes the
                 # every-tick reconstructed sweeps, not the once-per-
@@ -600,9 +755,19 @@ class ShardedFilterService:
             )
         if rung is not None or overlap_work is not None:
             _not_ported("scheduled drain controls (rung, overlap_work)", "A.10")
+        if self.health is not None:
+            # masking only: a catch-up drain is one event, not len(ticks)
+            # ticks of evidence — the FSMs advance on live ticks
+            ticks = [self.health.mask(t) for t in ticks]
         if self.fleet_ingest_backend == "fused":
             outs = self.fleet_ingest.submit_backlog(ticks)
             results = [[o for (o, _ts0, _dur) in s] for s in outs]
+            if self.fleet_ingest._mapping is not None:
+                # fused mapping route: every drained tick's map update ran
+                # inside the steps, in tick order; the wires drained here
+                # are the newest tick's, the poses current at drain end
+                self._map_tick_fused()
+                return results
             if self.mapper is not None and self.fleet_ingest._deskew is not None:
                 # reconstruction active: a catch-up drain collapses to
                 # ONE mapper update per stream — the newest sweep

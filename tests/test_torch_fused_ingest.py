@@ -499,17 +499,16 @@ def test_fleet_engine_backlog_matches_jax():
 
 
 def test_unported_surfaces_raise_naming_their_roadmap_items():
+    # the carried map (A.7b) is ported: it needs the de-skew stage, and an
+    # engine without the fused mapping route carries no map
     _jf, tf = _filters()
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(ValueError, match="de-skew"):
         ti.ingest_config_for(DENSE, ttiming.TimingDesc(), tf, mapping=object())
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        tdi.FleetFusedIngest(_params("torch", map_enable=True, deskew_enable=True,
-                                     fused_mapping_backend="fused"), 2)
     eng = tdi.FleetFusedIngest(_params("torch"), 2, beams=BEAMS)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        eng.snapshot_stream(0)
-    with pytest.raises(NotImplementedError, match="A.7b"):
+    with pytest.raises(RuntimeError, match="carries no map"):
         eng.map_snapshot()
+    with pytest.raises(NotImplementedError, match="A.10"):
+        eng.cold_reset()
 
 
 # ---------------------------------------------------------------------------

@@ -302,6 +302,25 @@ def _fused_replay(pkg: str, path: str, timing: dict, beams: int = BEAMS, capacit
         eng.on_measurement_batch(DENSE, run)
     return eng.flush()
 
+def _fused_replay_as_fed(path: str, timing: dict, fed: list, beams: int):
+    """The port's CPU fused replay of a node's recording, fed in the runs
+    the node's engine was handed (``fed``: (answer type, frame count) per
+    call) and at its engine's geometry, so every dispatch — and every
+    revolution dropped beyond ``max_revs`` inside one — is the node's."""
+    eng = tdi.FusedIngest(_params("torch", ingest_backend="fused"), beams=beams,
+                          max_queue=1 << 30)
+    eng.timing = ttiming.TimingDesc(**timing)
+    frames = [(ans, (payload, ts)) for ans, ts, payload in read_frames(path)]
+    off = 0
+    for ans, n in fed:
+        run = frames[off : off + n]
+        if len(run) < n:
+            break  # handed over after the recording stopped
+        assert all(a == ans for a, _f in run)
+        eng.on_measurement_batch(ans, [f for _a, f in run])
+        off += n
+    return eng.flush()
+
 def test_live_capture_host_path_matches_jax(live_capture):
     path, timing = live_capture
     got = _host_replay("torch", path, timing)
@@ -443,10 +462,21 @@ def _recording_driver(port: int, path: str):
     return factory, made
 
 @pytest.mark.parametrize("ingest", ["host", "fused"])
-def test_node_publishes_over_the_live_path(ingest, tmp_path):
+def test_node_publishes_over_the_live_path(ingest, tmp_path, monkeypatch):
     """ingest_backend host and fused end to end on the CPU: sim wire frames
     -> RealLidarDriver -> the seam -> FSM -> publisher; every published
-    revolution equals the port's CPU replay of the node's own recording."""
+    revolution equals the port's CPU replay of the node's own recording
+    (fused: replayed in the runs the node's engine was handed — under load
+    the pump hands over longer runs, and a run completing more than
+    ``max_revs`` revolutions keeps the newest, as the replay then does)."""
+    fed = []
+    handed = tdi.FusedIngest.on_measurement_batch
+
+    def record_run(self, ans_type, items):
+        fed.append((ans_type, len(items)))
+        return handed(self, ans_type, items)
+
+    monkeypatch.setattr(tdi.FusedIngest, "on_measurement_batch", record_run)
     path = str(tmp_path / "node.rplr")
     sim = tsim.SimulatedDevice(tsim.SimConfig(points_per_rev=PPR, frame_rate_hz=800.0)).start()
     factory, made = _recording_driver(sim.port, path)
@@ -475,7 +505,7 @@ def test_node_publishes_over_the_live_path(ingest, tmp_path):
         replay = _host_replay("torch", path, timing, beams=DEFAULT_BEAMS,
                               skip=lambda ts0: ts0 not in published)
     else:
-        replay = _fused_replay("torch", path, timing, beams=DEFAULT_BEAMS, capacity=None)
+        replay = _fused_replay_as_fed(path, timing, fed, beams=DEFAULT_BEAMS)
     stamps = np.array([ts0 for _o, ts0, _d in replay])
     for msg, cloud in zip(pub.scans, pub.clouds):
         k = int(np.argmin(np.abs(stamps - msg.stamp)))

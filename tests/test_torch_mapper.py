@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import types
 
 import numpy as np
 import pytest
@@ -312,8 +313,9 @@ def test_no_card_means_no_mapper(monkeypatch):
 
 
 def test_unported_mapper_faces_raise():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tmapper.CarriedFleetMapper(port_params(), None)
+    # the carried face is ported: it refuses an engine without the route
+    with pytest.raises(ValueError, match="fused mapping route"):
+        tmapper.CarriedFleetMapper(port_params(), types.SimpleNamespace(_mapping=None))
     m = tmapper.FleetMapper(port_params(map_backend="fused"), 1, beams=BEAMS)
     with pytest.raises(NotImplementedError, match="A.11"):
         m.save_sharded("/nonexistent")

@@ -651,25 +651,16 @@ def test_cli_replay_chain_of_several_captures_prints_the_jax_lines(tmp_path, cap
 def test_unported_surfaces_raise_naming_their_roadmap_items(mesh):
     svc = ShardedFilterService(_params(), streams=2, mesh=mesh, beams=128)
     for call, item in (
-        (svc.attach_health, "A.10"), (svc.health_status, "A.10"),
         (svc.attach_scheduler, "A.10"), (lambda: svc.offer_bytes([None, None]), "A.10"),
         (svc.drain_scheduled, "A.10"), (svc.scheduler_status, "A.10"),
         (lambda: svc.save_sharded("x"), "A.11"), (lambda: svc.load_sharded("x"), "A.11"),
-        (svc._map_tick_fused, "A.7b"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             call()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        ShardedFilterService(_params(health_enable=True), streams=2, mesh=mesh, beams=128)
     fused = ShardedFilterService(_params(fleet_ingest_backend="fused"), streams=2, mesh=mesh,
                                  beams=128)
     with pytest.raises(NotImplementedError, match="A.10"):
         fused.submit_bytes_backlog([], rung=2)
-    carried = ShardedFilterService(
-        _params(fleet_ingest_backend="fused", deskew_enable=True, map_enable=True,
-                fused_mapping_backend="fused"), streams=2, mesh=mesh, beams=128)
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        carried.attach_mapper()
     with pytest.raises(ValueError, match="deskew_enable requires the fused"):
         ShardedFilterService(_params(deskew_enable=True), streams=2, mesh=mesh,
                              beams=128).submit_bytes([None, None])
