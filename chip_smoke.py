@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch package on one NVIDIA card (Hopper, sm_90a).
 
     python3 chip_smoke.py [--seed N] [--revs N] [--trace-dir DIR]
+    python3 chip_smoke.py --phase NAME       # build, then one phase alone
     python3 chip_smoke.py --mesh-check N     # N cards: only the NCCL mesh check
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
@@ -53,6 +54,31 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 this path's tick (N = 4, G = 128) against their plain
                 versions, and device operations a drain and the idle share
                 of each arm; its line carries the card's name and limit;
+ 5b. failover — the failover pod (ROADMAP A.10a): bench.py config 15
+                (bench_failover) at full geometry — 8 streams over 4
+                shards of 3 lanes (ElasticFleetService, every shard on
+                cuda:0), W=64, 2048 beams, 256x256 at 0.25 m, one
+                3200-point revolution a stream a tick, the fused
+                FleetMapper on a 256x256 map at 0.05 m, snapshots every 4
+                ticks, shard 1 killed over ticks 10-12 on a fake clock of
+                0.1 s a tick — as a baseline pod and a chaos pod advancing
+                tick-paired in alternating order, the 30 post-warm ticks
+                under utils/guards.steady_state (nothing built, no new
+                device segment, no undeclared synchronisation); the chaos
+                pod's outputs, events, replay plan and final map rows
+                equal to its CPU run, the survivors' outputs to the
+                baseline pod's, 1 evacuation, 1 re-admission, 4
+                migrations, every shard UP, one dispatch a tick on every
+                surviving shard, every loss a chaos one; then the carried
+                map arm (config 18's route over 2 shards, killed after its
+                second snapshot: the map rows ride the v3 ingest snapshot,
+                the victims' revisions advance after migrating, equal to
+                the CPU run; B4/B5 launched); then the sentinels' negative
+                controls on the card; ticks/s of both pods, the paired-
+                median and total tick ratios, the evacuation's snapshot
+                pull, restore scatter and first tick ms.  Its profiled
+                half (device operations and busy ms a pod tick, idle
+                share) runs after the fleet phase;
   6. fleet    — the mesh and the sharded fleet service (ROADMAP A.7a):
                 (a) config 10 (bench.py bench_fleet_ingest)
                 at full geometry — W=64, 2048 beams, 256x256 at 0.25 m,
@@ -189,10 +215,15 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 loop check's (``loop_close_shape``), each redesigned
                 kernel whether each of its goals was met, every kernel its
                 launches on the fleet phase's paths (``fleet_launches``)
-                and on config 18's (``fused_mapping_launches``), B1 and
+                and on config 18's (``fused_mapping_launches``) and the
+                failover phase's (``failover_launches``), B1 and
                 B3 their times at the fleet's widths (``fleet_shapes``),
                 B6, B7 and B8 theirs at config 18's tick
                 (``fused_mapping_tick``).
+
+``--phase NAME`` (e2e, fused_mapping, failover, fleet) builds the kernels
+and runs that phase alone, its profiled half included, then the same last
+two lines: a long phase's line then fits the end of the output.
 
 ``--mesh-check N`` runs only the fleet's multi-process check on N cards:
 N NCCL processes, rank r on cuda:r, on the (1, N) and (2, N/2) meshes,
@@ -268,6 +299,20 @@ FUSED_MAPPING = dict(window=64, beams=2048, grid=256, cell_m=0.25, points=3200, 
                      capacity=4096, streams=4, run=16, T=8, warm=1, map_grid=128, map_cell_m=0.1,
                      recon_window=4, profile_beams=128, shift_window=4, loop_ticks=40,
                      chaos_ticks=60, chaos_frames=(160, 480), profile_groups=3)
+# the failover pod (ROADMAP A.10a): bench.py GRADED[15] (bench_failover, the
+# non-smoke branch) at its full geometry — 8 streams over 4 shards, lanes
+# auto (3), W=64, 2048 beams, 256x256 at 0.25 m, capacity 4096, DenseBoost
+# 3200 points, 32 revolutions at one revolution (80 frames) a stream a tick,
+# buckets (80,), the map on (the fused FleetMapper, 256x256 at 0.05 m, match
+# window 0.4 m), snapshots every 4 ticks, backoff 0.45 s without jitter,
+# probation 2, a fake clock of 0.1 s a tick, shard 1 killed over ticks
+# 10-12, 2 warm ticks; the carried-map arm: config 18's geometry
+# (FUSED_MAPPING, one tick a dispatch) over 2 shards, shard 1 killed over
+# ticks 9-11 (after the snapshots at ticks 3 and 7)
+FAILOVER = dict(streams=8, shards=4, window=64, beams=2048, grid=256, cell_m=0.25, points=3200,
+                revs=32, capacity=4096, map_grid=256, map_cell_m=0.05, match_window_m=0.4,
+                snapshot_ticks=4, backoff_s=0.45, probation=2, kill=(1, 10, 12), warm=2, dt=0.1,
+                carried_shards=2, carried_revs=6, carried_kill=(1, 9, 11), profile_ticks=6)
 # B1's and B4's figures before their redesign, constants copied from
 # PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W) and printed on a
 # line of their own, never in the kernels line: B1 as first written (commit
@@ -3989,6 +4034,372 @@ def fused_mapping_profile(device, row: dict, card: str) -> dict:
     return row
 
 
+def _pod_keys(shards: int) -> dict:
+    """Config 15's pod settings: lanes auto, snapshots every 4 ticks,
+    backoff 0.45 s (cap 2 s) without jitter, probation 2."""
+    fo = FAILOVER
+    return dict(fleet_ingest_backend="fused", map_enable=True, shard_count=shards, shard_lanes=0,
+                failover_snapshot_ticks=fo["snapshot_ticks"], shard_backoff_base_s=fo["backoff_s"],
+                shard_backoff_max_s=2.0, shard_backoff_jitter=0.0,
+                shard_probation_ticks=fo["probation"])
+
+
+def _fo_params(backend: str):
+    """Config 15: the fused FleetMapper on the map (no de-skew)."""
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+
+    fo = FAILOVER
+    return DriverParams(filter_backend=backend, filter_chain=("clip", "median", "voxel"),
+                        filter_window=fo["window"], voxel_grid_size=fo["grid"],
+                        voxel_cell_m=fo["cell_m"], map_backend="fused", map_grid=fo["map_grid"],
+                        map_cell_m=fo["map_cell_m"], map_match_window=fo["match_window_m"],
+                        **_pod_keys(fo["shards"]))
+
+
+def _carried_params(backend: str):
+    """Config 18's carried route (the fused_mapping phase's params, one
+    tick a dispatch) as a 2-shard pod."""
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+
+    fm = FUSED_MAPPING
+    return DriverParams(
+        filter_backend=backend, filter_chain=("clip", "median", "voxel"),
+        filter_window=fm["window"], voxel_grid_size=fm["grid"], voxel_cell_m=fm["cell_m"],
+        deskew_enable=True, sweep_reconstruct_window=fm["recon_window"],
+        deskew_profile_beams=fm["profile_beams"], deskew_shift_window=fm["shift_window"],
+        map_backend="host", fused_mapping_backend="fused", map_grid=fm["map_grid"],
+        map_cell_m=fm["map_cell_m"], **_pod_keys(FAILOVER["carried_shards"]))
+
+
+def _fo_pod(backend: str, kill, params, streams: int, beams: int, capacity: int, run: int):
+    """A warmed pod on ``backend`` with a fake clock; ``kill`` a (shard,
+    start, stop) chaos kill or None."""
+    from rplidar_ros2_driver_tpu_torch.driver.chaos import ShardChaosConfig, ShardChaosSchedule
+    from rplidar_ros2_driver_tpu_torch.parallel.service import ElasticFleetService
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    fake = {"now": 0.0}
+    pod = ElasticFleetService(params, streams, beams=beams, capacity=capacity,
+                              fleet_ingest_buckets=(run,), clock=lambda: fake["now"])
+    if kill is not None:
+        pod.attach_shard_chaos(ShardChaosSchedule(ShardChaosConfig(kills=(kill,))))
+    pod.precompile([int(Ans.MEASUREMENT_DENSE_CAPSULED)])
+    return pod, fake
+
+
+def _out_digest(out):
+    """A published output's bytes (ranges, intensities, points, mask,
+    voxel grid) as one short hash; None stays None."""
+    import hashlib
+
+    import numpy as np
+
+    if out is None:
+        return None
+    h = hashlib.sha1()
+    for f in ("ranges", "intensities", "points_xy", "point_mask", "voxel"):
+        h.update(np.ascontiguousarray(np.asarray(getattr(out, f))).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _fo_record(pod) -> dict:
+    """What the CPU comparison holds: events, replay plan, counters and
+    each stream's final map row (hashed), after a run."""
+    import hashlib
+
+    import numpy as np
+
+    rows = []
+    for i in range(pod.streams):
+        got = pod.topology.placement(i)
+        if got is None:
+            rows.append(None)
+            continue
+        row = pod.shards[got[0]].mapper.snapshot_stream(got[1])
+        rows.append(hashlib.sha1(b"".join(np.ascontiguousarray(row[k]).tobytes()
+                                          for k in ("log_odds", "pose", "origin_xy",
+                                                    "revision"))).hexdigest()[:16])
+    return {"events": [list(e) for e in pod.events], "plan": pod.replay_plan(),
+            "evacuations": pod.evacuations, "readmits": pod.readmits,
+            "migrations": pod.migrations, "map_rows": rows}
+
+
+def _fo_cpu(kill, params, ticks, streams: int, beams: int, capacity: int, run: int,
+            warm: int) -> dict:
+    """The same pod on the CPU over the same ticks and fake clock."""
+    pod, fake = _fo_pod("cpu", kill, params, streams, beams, capacity, run)
+    outs = []
+    for tick in ticks:
+        outs.append([_out_digest(r) for r in pod.submit_bytes(tick)])
+        fake["now"] += FAILOVER["dt"]
+    return {"outs": outs[warm:], **_fo_record(pod)}
+
+
+def _fo_timed(device, ticks) -> dict:
+    """Config 15's tick-paired pass on the card: the baseline pod and the
+    chaos pod alternate which goes first each tick, the whole post-warm
+    loop under guards.steady_state (nothing built, no new device memory,
+    no undeclared synchronisation)."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.utils import guards
+
+    fo = FAILOVER
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    pods = {}
+    for name, kill in (("base", None), ("chaos", fo["kill"])):
+        pods[name] = _fo_pod(backend, kill, _fo_params(backend), fo["streams"], fo["beams"],
+                             fo["capacity"], fo["points"] // 40)
+    for tick in ticks[: fo["warm"]]:
+        for pod, fake in pods.values():
+            pod.submit_bytes(tick)
+            fake["now"] += fo["dt"]
+    chaos = pods["chaos"][0]
+    d0 = [sh.fleet_ingest.dispatch_count for sh in chaos.shards]
+    secs = {"base": [], "chaos": []}
+    outs = {"base": [], "chaos": []}
+    _sync(device)
+    _reset_counts()
+    with guards.steady_state(tag="failover pair"):
+        for t, tick in enumerate(ticks[fo["warm"]:]):
+            for name in (("base", "chaos") if t % 2 == 0 else ("chaos", "base")):
+                pod, fake = pods[name]
+                t0 = time.perf_counter()
+                res = pod.submit_bytes(tick)
+                secs[name].append(time.perf_counter() - t0)
+                outs[name].append([_out_digest(r) for r in res])
+                fake["now"] += fo["dt"]
+    launches = _counts()
+    n = len(ticks) - fo["warm"]
+    dispatches = [sh.fleet_ingest.dispatch_count - d for sh, d in zip(chaos.shards, d0)]
+    base_s, deg_s = np.asarray(secs["base"]), np.asarray(secs["chaos"])
+    # which ticks are slow: the snapshot refreshes ((t + 1) % 4 == 0) apart
+    # from the rest, and each pod's three slowest ticks
+    tick_no = np.arange(fo["warm"], fo["warm"] + n)
+    snap = (tick_no + 1) % fo["snapshot_ticks"] == 0
+    split = {name: {"snapshot_tick_p50_ms": float(np.median(v[snap])) * 1e3,
+                    "other_tick_p50_ms": float(np.median(v[~snap])) * 1e3,
+                    "slowest": [[int(tick_no[i]), float(v[i]) * 1e3]
+                                for i in np.argsort(v)[::-1][:3]]}
+             for name, v in (("base", base_s), ("chaos", deg_s))}
+    return {"tick_split": split,"pods": {k: v[0] for k, v in pods.items()}, "outs": outs, "launches": launches,
+            "ticks": n, "dispatches": dispatches,
+            "base_ticks_per_s": n / float(base_s.sum()),
+            "chaos_ticks_per_s": n / float(deg_s.sum()),
+            "paired_median_tick_ratio": float(np.median(base_s / np.maximum(deg_s, 1e-9))),
+            "total_ratio": float(base_s.sum() / max(float(deg_s.sum()), 1e-9)),
+            "base_tick_ms": _pcts(base_s), "chaos_tick_ms": _pcts(deg_s),
+            "chaos_tick_max_ms": float(deg_s.max()) * 1e3}
+
+
+def _fo_carried(device) -> dict:
+    """The carried-map arm on ``device``: config 18's route as a 2-shard
+    pod, killed after its second snapshot.  Returns the record, the
+    per-tick output hashes, the victim's map revision each tick and
+    whether the store ever held a "map" key or lacked the ingest.map_*
+    rows."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    fm, fo = FUSED_MAPPING, FAILOVER
+    ticks = fleet_byte_ticks(ring_frames(fo["carried_revs"], fm["points"]), fm["streams"],
+                             fm["run"], int(Ans.MEASUREMENT_DENSE_CAPSULED))
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    pod, fake = _fo_pod(backend, fo["carried_kill"], _carried_params(backend), fm["streams"],
+                        fm["beams"], fm["capacity"], fm["run"])
+    _sync(device)
+    before = _counts()
+    outs, revs, store_ok = [], [], True
+    victims = set(pod.topology.streams_on(fo["carried_kill"][0]))
+    for tick in ticks:
+        outs.append([_out_digest(r) for r in pod.submit_bytes(tick)])
+        fake["now"] += fo["dt"]
+        revs.append({i: int(pod.shards[pod.topology.placement(i)[0]].mapper.snapshot_stream(
+            pod.topology.placement(i)[1])["revision"]) for i in sorted(victims)})
+        store_ok &= all("map" not in snap and all(f"ingest.map_{k}" in snap["ingest"]
+                                                  for k in ("log_odds", "pose", "origin_xy",
+                                                            "revision"))
+                        for _t, snap in pod._snap.values())
+    launches = {k: v - before.get(k, 0) for k, v in _counts().items()}
+    return {"outs": outs, "revs": revs, "store_ok": store_ok, "launches": launches,
+            "backend": pod.shards[0].mapper.backend, "victims": sorted(victims),
+            **_fo_record(pod)}
+
+
+def _guard_controls(device) -> dict:
+    """The sentinels fire on the card (so a clean guarded loop means
+    something): an undeclared ``.item()`` and device->host copy raise
+    under no_implicit_transfers, the same copy inside declared_sync
+    passes, and a fresh 64 MiB segment raises under
+    no_new_device_memory."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.utils import guards
+
+    x = torch.ones(4, device=device)
+    fired = {}
+    for name, op in (("item", lambda: x.sum().item()), ("d2h_copy", lambda: x.cpu())):
+        try:
+            with guards.no_implicit_transfers():
+                op()
+            fired[name] = False
+        except RuntimeError:
+            fired[name] = True
+    with guards.no_implicit_transfers(), guards.declared_sync():
+        x.cpu()
+    torch.cuda.empty_cache()
+    try:
+        with guards.no_new_device_memory():
+            y = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+            del y
+        fired["new_segment"] = False
+    except AssertionError:
+        fired["new_segment"] = True
+    check(all(fired.values()), f"failover: a sentinel did not fire on the card: {fired}")
+    return fired
+
+
+def phase_failover(device) -> dict:
+    """Config 15 on the card (the failover pod's per-tick seam, ROADMAP
+    A.10a): the tick-paired baseline and chaos pods under the steady-state
+    guard, the chaos pod byte-equal to its CPU run and the survivors to the
+    baseline pod, the kill -> evacuate -> re-admit cycle's counts, one
+    dispatch a tick on every surviving shard, only chaos losses; then the
+    carried-map arm held to its CPU run.  Runs before any profiler session
+    (its host times); the profiled half is :func:`failover_profile`."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.driver.health import ShardState
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    fo = FAILOVER
+    t0 = time.perf_counter()
+    run = fo["points"] // 40
+    ticks = fleet_byte_ticks(ring_frames(fo["revs"], fo["points"]), fo["streams"], run,
+                             int(Ans.MEASUREMENT_DENSE_CAPSULED))
+    timed = _fo_timed(device, ticks)
+    chaos = timed["pods"]["chaos"]
+    card = _fo_record(chaos)
+    t_cpu = time.perf_counter()
+    cpu = _fo_cpu(fo["kill"], _fo_params("cpu"), ticks, fo["streams"], fo["beams"],
+                  fo["capacity"], run, fo["warm"])
+    cpu_s = time.perf_counter() - t_cpu
+    check(all(e[3].startswith("chaos:") for e in chaos.events if e[1] == "lost"),
+          f"failover: a loss that the chaos schedule did not cause: {chaos.events}")
+    check(chaos.evacuations == 1 and chaos.readmits == 1 and chaos.migrations == 4,
+          f"failover: {chaos.evacuations} evacuations, {chaos.readmits} re-admissions, "
+          f"{chaos.migrations} migrations (want 1, 1, 4)")
+    check(all(hs.state is ShardState.UP for hs in chaos.shard_health),
+          f"failover: shards not all UP: {[hs.state.name for hs in chaos.shard_health]}")
+    check(chaos.topology.unhosted() == [], f"failover: unhosted {chaos.topology.unhosted()}")
+    for s, got in enumerate(timed["dispatches"]):
+        check(s == fo["kill"][0] or got == timed["ticks"],
+              f"failover: surviving shard {s} made {got} dispatches in {timed['ticks']} ticks")
+    check(timed["outs"]["chaos"] == cpu["outs"], "failover: the chaos pod's outputs differ "
+          "from its CPU run")
+    for key in ("events", "plan", "evacuations", "readmits", "migrations", "map_rows"):
+        check(card[key] == cpu[key], f"failover: the chaos pod's {key} differ from its CPU run")
+    migrated = sorted({e[2] for e in chaos.events if e[1] in ("evacuated", "migrated")})
+    survivors = [i for i in range(fo["streams"]) if i not in migrated]
+    check(all(b[i] == c[i] for b, c in zip(timed["outs"]["base"], timed["outs"]["chaos"])
+              for i in survivors), "failover: a survivor's output differs from the baseline pod")
+    published = sum(o is not None for row in timed["outs"]["chaos"] for o in row)
+    lc = timed["launches"]
+    if device.type == "cuda":
+        for k in ("temporal_median", "coarse_scores", "fine_scores", "log_odds_update"):
+            check(lc[k] > 0, f"failover: {k} never launched on config 15's path")
+    c_card = _fo_carried(device)
+    c_cpu = _fo_carried(torch.device("cpu"))
+    check(c_card["backend"] == "carried", "failover carried arm: the mapper is not the carried one")
+    check(c_card["store_ok"], "failover carried arm: a stored snapshot held a map key or lacked "
+          "the ingest.map_* rows")
+    kill_t = fo["carried_kill"][1]
+    check(c_card["evacuations"] == 1 and c_card["readmits"] == 1
+          and c_card["events"][0][0] == kill_t >= 2 * fo["snapshot_ticks"],
+          "failover carried arm: not one evacuation after the second snapshot and one "
+          "re-admission")
+    check(all(r[i] > c_card["revs"][kill_t][i] > 0 for r in c_card["revs"][-1:]
+              for i in c_card["victims"]),
+          "failover carried arm: a victim's map revision stopped after migrating")
+    for key in ("outs", "revs", "events", "plan", "map_rows"):
+        check(c_card[key] == c_cpu[key], f"failover carried arm: {key} differ from the CPU run")
+    if device.type == "cuda":
+        for k in ("temporal_median", "beam_min", "shift_sad", "coarse_scores", "fine_scores",
+                  "log_odds_update"):
+            check(c_card["launches"][k] > 0, f"failover carried arm: {k} never launched")
+    launches = {k: lc.get(k, 0) + c_card["launches"].get(k, 0)
+                for k in set(lc) | set(c_card["launches"])}
+    ev = dict(chaos.last_evacuation)
+    row = {
+        "phase": "failover", "config": "bench.py GRADED[15] (bench_failover)",
+        "streams": fo["streams"], "shards": fo["shards"], "lanes": chaos.topology.lanes,
+        "ticks": timed["ticks"], "warm": fo["warm"], "published": published,
+        "base_ticks_per_s": timed["base_ticks_per_s"],
+        "chaos_ticks_per_s": timed["chaos_ticks_per_s"],
+        "paired_median_tick_ratio": timed["paired_median_tick_ratio"],
+        "total_ratio": timed["total_ratio"], "survivor_ratio_claim": 0.95,
+        "base_tick_ms": timed["base_tick_ms"], "chaos_tick_ms": timed["chaos_tick_ms"],
+        "chaos_tick_max_ms": timed["chaos_tick_max_ms"], "tick_split": timed["tick_split"],
+        "evacuation": {k: ev[k] for k in ("tick", "shard", "streams", "snapshot_pull_ms",
+                                          "restore_scatter_ms", "first_tick_ms")},
+        "events": [list(e) for e in chaos.events], "migrated": migrated,
+        "dispatches": timed["dispatches"], "steady_state": "clean",
+        "cpu": {"ticks": len(ticks), "seconds": cpu_s, "equal": True},
+        "carried": {"streams": FUSED_MAPPING["streams"], "shards": fo["carried_shards"],
+                    "ticks": len(c_card["outs"]), "victims": c_card["victims"],
+                    "events": c_card["events"], "victim_revisions":
+                    [c_card["revs"][kill_t], c_card["revs"][-1]], "launches": c_card["launches"],
+                    "cpu_equal": True},
+        "launches": lc,
+    }
+    if device.type == "cuda":
+        row["guard_controls"] = _guard_controls(device)
+    row["seconds"] = time.perf_counter() - t0
+    row["failover_launches"] = launches
+    return row
+
+
+def failover_profile(device, row: dict, card: str) -> dict:
+    """The profiled half of the failover phase, after the other phases'
+    host timings: a fresh warmed config-15 pod without chaos over
+    ``profile_ticks`` ticks — device operations and busy ms a pod tick and
+    the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    fo = FAILOVER
+    t0 = time.perf_counter()
+    run = fo["points"] // 40
+    k = fo["profile_ticks"]
+    ticks = fleet_byte_ticks(ring_frames(fo["warm"] + k, fo["points"]), fo["streams"], run,
+                             int(Ans.MEASUREMENT_DENSE_CAPSULED))
+    pod, fake = _fo_pod("cuda", None, _fo_params("cuda"), fo["streams"], fo["beams"],
+                        fo["capacity"], run)
+    for tick in ticks[: fo["warm"]]:
+        pod.submit_bytes(tick)
+        fake["now"] += fo["dt"]
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        for tick in ticks[fo["warm"]:]:
+            pod.submit_bytes(tick)
+            fake["now"] += fo["dt"]
+        _sync(device)
+        wall = time.perf_counter() - w0
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in ev)
+    row.update(profiled={"ticks": k, "device_ops_per_pod_tick": len(ev) / k,
+                         "device_busy_ms_per_pod_tick": busy_us / k / 1e3,
+                         "profiled_wall_ms_per_pod_tick": wall / k * 1e3,
+                         "device_idle_share": 1.0 - busy_us / 1e6 / wall},
+               profile_seconds=time.perf_counter() - t0, card=card)
+    launches = row.pop("failover_launches")
+    emit(row)
+    row["failover_launches"] = launches
+    return row
+
+
 def redesign_report(name: str, timed: list, launched: list) -> dict:
     """B1's and B4's extra keys in the kernels line.  ``timed``: the kernel
     and deskew_kernels phases' rows at each of the path's shapes (device
@@ -4028,6 +4439,16 @@ def match_goals(name: str, t: dict, replay_map: dict, replay_bound) -> dict:
     }
 
 
+# the phases ``--phase NAME`` runs alone: (device, seed, card) -> None
+ONE_PHASE = {
+    "e2e": lambda device, seed, card: phase_e2e(device),
+    "fused_mapping": lambda device, seed, card: fused_mapping_profile(
+        device, phase_fused_mapping(device), card),
+    "failover": lambda device, seed, card: failover_profile(device, phase_failover(device), card),
+    "fleet": lambda device, seed, card: phase_fleet(device, seed),
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4038,6 +4459,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-check", type=int, default=None, metavar="N",
                     help="only the fleet's multi-process check: N NCCL processes, one card "
                          "each, on (1, N) and (2, N/2) meshes (needs N cards)")
+    ap.add_argument("--phase", choices=sorted(ONE_PHASE), default=None,
+                    help="build the kernels and run this one phase alone (its profiled half "
+                         "included), with the same last lines")
     args = ap.parse_args(argv)
 
     try:
@@ -4072,11 +4496,20 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     info = phase_device()
     phase_build()
+    if args.phase:
+        ONE_PHASE[args.phase](device, args.seed, info["nvidia_smi"])
+        print(info["nvidia_smi"], flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     launch = phase_launch(device, np.random.default_rng(args.seed + 3))
     phase_e2e(device)
     fmap = phase_fused_mapping(device)
+    # the failover pod's timed pass, before any profiler session
+    failover = phase_failover(device)
     fleet = phase_fleet(device, args.seed)
     fused_mapping_profile(device, fmap, info["nvidia_smi"])
+    failover_profile(device, failover, info["nvidia_smi"])
     kern = phase_kernels(device, np.random.default_rng(args.seed))
     revs = make_revolutions(args.seed, args.revs, GEOMETRY["points"])
     chain = phase_chain(device, revs)
@@ -4197,6 +4630,12 @@ def main(argv=None) -> int:
                   f"kernel {k['name']} never launched on the fused mapping path")
         if k["name"] in fmap["kernels_at_path_tick"]:
             k["fused_mapping_tick"] = fmap["kernels_at_path_tick"][k["name"]]
+        # the failover pod's path: config 15 (B1, B6-B8) and the carried
+        # arm (B4, B5 too); B2 and B3 are not on it
+        k["failover_launches"] = failover["failover_launches"].get(k["name"], 0)
+        if k["name"] not in ("sorted_replace", "sliding_median"):
+            check(k["failover_launches"] > 0,
+                  f"kernel {k['name']} never launched on the failover path")
     for name in ("temporal_median", "sliding_median"):
         entry = next(k for k in kernels if k["name"] == name)
         entry["fleet_shapes"] = {key: v for key, v in fleet["shapes"].items()

@@ -31,10 +31,17 @@ needs ``deskew_enable``) each stream's MapState rides the ingest state and
 is updated inside every tick; ``take_map_wires`` and the ``map_*`` methods
 are its surface (mapping/mapper.CarriedFleetMapper is the mapper face).
 
+The fleet engine's serving-pod surface (parallel/service.ElasticFleetService)
+is a staging pool shared by the engines of one host (``staging_pool=``) and
+the cold reset of a lost shard (:meth:`FleetFusedIngest.capture_cold_template`
+once before traffic, :meth:`FleetFusedIngest.cold_reset` in place after).
+Every synchronising fetch of these engines — the result copies, the row
+snapshot pulls and restores — runs inside ``utils/guards.declared_sync``, so
+a steady-state loop under ``utils/guards.steady_state`` lets exactly those
+through.
+
 What these engines do NOT do: feed a RawNodeHolder (interval grabs need
-host-side nodes), expose the chain's snapshot surface, or — the fleet
-engine — the cold reset of the serving pod (ROADMAP A.10), which raises
-NotImplementedError here.
+host-side nodes) or expose the chain's snapshot surface.
 """
 
 from __future__ import annotations
@@ -76,7 +83,7 @@ from rplidar_ros2_driver_tpu_torch.ops.ingest import (
 from rplidar_ros2_driver_tpu_torch.protocol import crc as crcmod
 from rplidar_ros2_driver_tpu_torch.protocol import timing as timingmod
 from rplidar_ros2_driver_tpu_torch.protocol.constants import ANS_PAYLOAD_BYTES, Ans
-from rplidar_ros2_driver_tpu_torch.utils import cuda_build
+from rplidar_ros2_driver_tpu_torch.utils import cuda_build, guards
 from rplidar_ros2_driver_tpu_torch.utils.rowops import gather_row, row_to_numpy, scatter_row
 
 log = logging.getLogger("rplidar_tpu.ingest")
@@ -182,7 +189,8 @@ class _Landing:
     def wait(self) -> tuple:
         """The results as host arrays, once landed."""
         if self.event is not None:
-            self.event.synchronize()
+            with guards.declared_sync():
+                self.event.synchronize()
         return tuple(t.numpy() for t in self.host)
 
     def release(self) -> None:
@@ -482,13 +490,6 @@ class FusedIngest:
             out.extend(self._parse(entry))
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"FleetFusedIngest {what} is not ported to the PyTorch package yet "
-        f"(ROADMAP {item})"
-    )
-
-
 class FleetFusedIngest:
     """Fleet-scale producer/consumer engine around
     ops/ingest.fleet_fused_ingest_step: one staged upload and one step per
@@ -507,7 +508,12 @@ class FleetFusedIngest:
     handed to :meth:`submit_backlog`, or one oversized tick split across
     bucket slices), up to T slices are staged as one (T, N, M,
     frame_bytes) plane, uploaded once and run as one super-step; a short
-    group is padded with all-idle ticks."""
+    group is padded with all-idle ticks.
+
+    ``staging_pool`` injects the :class:`StagingPool` the engine stages its
+    uploads through; the serving pod shares one among the engines of a
+    host, so an engine carries only device state.  By default the engine
+    owns a private pool (pinned on the card)."""
 
     def __init__(
         self,
@@ -522,6 +528,7 @@ class FleetFusedIngest:
         emit_nodes: bool = False,
         buckets: tuple = _FUSED_BUCKETS,
         super_tick_max: Optional[int] = None,
+        staging_pool: Optional[StagingPool] = None,
     ) -> None:
         from rplidar_ros2_driver_tpu_torch.ops.deskew import deskew_config_from_params
 
@@ -576,12 +583,18 @@ class FleetFusedIngest:
         self.timing = timingmod.TimingDesc()
         self.recorder = None
         self._lock = threading.Lock()
-        self.staging = StagingPool(pin=self.device.type == "cuda")
+        # a staging pair rides its pending entry until the entry's results
+        # were fetched (or its event fired), then goes back to the pool
+        self.staging = (staging_pool if staging_pool is not None
+                        else StagingPool(pin=self.device.type == "cuda"))
         # per-stream host trackers (everything else lives on the device)
         self._stream_fmt: list = [None] * streams   # active ans type
         self._bases: list = [None] * streams        # f64 timestamp base
         self._reset_next: list = [False] * streams  # decode-state reset flags
         self._icfg = None                           # active FleetIngestConfig
+        # the cold_reset template: a fresh fleet state on the device,
+        # captured only by capture_cold_template (the serving pod's)
+        self._fresh = None
         self._state = self._fresh_fleet_state()
         self._pending: deque = deque()
         self._max_queue = max_queue
@@ -789,17 +802,31 @@ class FleetFusedIngest:
                 buf.to(self.device, non_blocking=True))
 
     def _launch(self, staged) -> None:
-        """Run the step of one staged descriptor and queue its results."""
+        """Run the step of one staged descriptor and queue its results
+        (with, on the card, the event that marks the staged inputs read)."""
         kind, t_depth, n, icfg, bases, skey, pair, dbuf = staged
         step = super_fleet_ingest_step if kind == "super" else fleet_fused_ingest_step
         self._state, *res = step(self._state, dbuf, pair[1], icfg)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
         if kind == "super":
             self.super_dispatches += 1
         self.dispatch_count += 1
-        self._pending.append((kind, tuple(res), icfg, bases, skey, pair))
+        self._pending.append((kind, tuple(res), icfg, bases, skey, pair, event))
         while len(self._pending) > self._max_queue:
-            self._pending.popleft()
+            self._release_entry(self._pending.popleft())
             self.wires_dropped += 1
+
+    def _release_entry(self, entry) -> None:
+        """Give an unparsed entry's staging pair back to the pool once the
+        device has read it (its event; on the CPU the step already has)."""
+        event = entry[6]
+        if event is not None:
+            with guards.declared_sync():
+                event.synchronize()
+        self.staging.give(entry[4], entry[5])
 
     # -- consumer side -------------------------------------------------------
 
@@ -830,13 +857,16 @@ class FleetFusedIngest:
                     dur = max(float(res.end_ts[k]) - float(res.ts0[k]), 0.0)
                     out[i].append((res.outputs[k], ts0, dur))
 
-        for kind, arrays, icfg, bases, skey, pair in entries:
-            if kind == "super":
-                for t, results in enumerate(unpack_super_fleet_ingest_result(arrays, icfg)):
-                    # pad ticks complete nothing; the last snapshot covers them
-                    absorb(results, bases[min(t, len(bases) - 1)])
-            else:
-                absorb(unpack_fleet_ingest_result(arrays, icfg), bases)
+        for kind, arrays, icfg, bases, skey, pair, _event in entries:
+            # the declared fetch: the results' copy to the host waits on
+            # the step, which also proves the staged inputs were read
+            with guards.declared_sync():
+                parsed = (unpack_super_fleet_ingest_result(arrays, icfg) if kind == "super"
+                          else [unpack_fleet_ingest_result(arrays, icfg)])
+            for t, results in enumerate(parsed):
+                # a super entry's pad ticks complete nothing; the last
+                # tick's bases cover them
+                absorb(results, bases[min(t, len(bases) - 1)] if kind == "super" else bases)
             self.staging.give(skey, pair)
         return out
 
@@ -908,7 +938,7 @@ class FleetFusedIngest:
         decode carries reset at the next step, pending results dropped;
         the rolling filter windows survive."""
         with self._lock:
-            self._pending.clear()
+            self._drop_pending()
             self._stream_fmt = [None] * self.streams
             self._bases = [None] * self.streams
             self._reset_next = [True] * self.streams
@@ -1020,8 +1050,14 @@ class FleetFusedIngest:
             self._stream_fmt = [None if f < 0 else int(f) for f in formats]
             self._bases = [None if np.isnan(b) else float(b) for b in bases]
             self._reset_next = [False] * self.streams
-            self._pending.clear()
+            self._drop_pending()
         return True
+
+    def _drop_pending(self) -> None:
+        """Drop every unparsed result (lock held), their staging pairs
+        back to the pool once the device has read them."""
+        while self._pending:
+            self._release_entry(self._pending.popleft())
 
     # -- per-stream checkpoint surface (quarantine/rejoin, migration) -------
 
@@ -1041,7 +1077,8 @@ class FleetFusedIngest:
             row = gather_row(self._state, i)
             fmt = self._stream_fmt[i]
             base = self._bases[i]
-        host = row_to_numpy(row)
+        with guards.declared_sync():  # the row's copy to the host
+            host = row_to_numpy(row)
         filt = host.pop("filter")
         filt.pop("median_sorted", None)  # derived; restore recomputes it
         snap = {f"ingest.{k}": v for k, v in host.items()}
@@ -1101,11 +1138,12 @@ class FleetFusedIngest:
                                     "(ingest %s row %s != %s)", k, row.shape, shape)
                         return False
                     ing_rows[k] = row
-            scatter_row(st.filter, {k: snap[f"filter.{k}"] for k in expected_filter}, i)
-            if st.filter.median_sorted is not None:
-                st.filter.median_sorted[i].copy_(
-                    recompute_median_sorted(st.filter.range_window[i]))
-            scatter_row(st, ing_rows, i)
+            with guards.declared_sync():  # the rows' upload
+                scatter_row(st.filter, {k: snap[f"filter.{k}"] for k in expected_filter}, i)
+                if st.filter.median_sorted is not None:
+                    st.filter.median_sorted[i].copy_(
+                        recompute_median_sorted(st.filter.range_window[i]))
+                scatter_row(st, ing_rows, i)
             fmt = int(np.asarray(snap.get("format", -1)))
             self._stream_fmt[i] = None if fmt < 0 else fmt
             if restore_decode:
@@ -1117,8 +1155,45 @@ class FleetFusedIngest:
                 self._reset_next[i] = True
         return True
 
+    def capture_cold_template(self) -> None:
+        """Capture the :meth:`cold_reset` template: a fresh fleet state on
+        the engine's device, kept for the engine's lifetime.  The serving
+        pod calls this at precompile, before traffic, so the allocation
+        never lands inside a guarded loop; engines that are never
+        cold-reset skip the memory."""
+        if self._fresh is None:
+            self._fresh = self._fresh_fleet_state()
+
     def cold_reset(self) -> None:
-        _not_ported("cold reset", "A.10")
+        """Device-loss reinitialisation — the serving pod's shard-kill and
+        re-admission entry point (parallel/service.ElasticFleetService):
+        every lane's state becomes the fresh template and every host
+        tracker is cleared, as if the engine had just been built on a
+        rebooted card.  Unlike :meth:`reset` (scan stop/start, filter
+        windows survive) nothing survives.
+
+        The template is copied INTO the existing state tensors: no new
+        device memory inside a guarded loop, and a view of the carry (the
+        carried MapState's planes) stays valid.  Unparsed results are
+        dropped, their staging pairs given back to the (shared) pool once
+        the device has read them."""
+        if self._fresh is None:
+            raise RuntimeError(
+                "capture_cold_template() must run before cold_reset() "
+                "(the serving pod captures it at precompile, before traffic)"
+            )
+        with self._lock:
+            self._drop_pending()
+            _copy_state(self._state, self._fresh)
+            self._stream_fmt = [None] * self.streams
+            self._bases = [None] * self.streams
+            self._reset_next = [False] * self.streams
+            # host mirrors of the wiped device state restart with it: the
+            # sub-sweep cache and the carried map's wires
+            self.last_recon = [None] * self.streams
+            self._recon_fresh = [False] * self.streams
+            self.last_map_wires = [None] * self.streams
+            self._map_fresh = [False] * self.streams
 
     # -- the carried map surface (mapping/mapper.CarriedFleetMapper) ---------
 
@@ -1136,13 +1211,14 @@ class FleetFusedIngest:
         self._require_mapping()
         with self._lock:
             planes = {k: getattr(self._state, f"map_{k}").clone() for k in _MAP_KEYS}
-        return {k: v.cpu().numpy() for k, v in planes.items()}
+        with guards.declared_sync():
+            return {k: v.cpu().numpy() for k, v in planes.items()}
 
     def map_restore(self, core: dict) -> None:
         """Install stream-batched MapState planes into the carry (shapes
         checked by the caller, CarriedFleetMapper)."""
         self._require_mapping()
-        with self._lock:
+        with self._lock, guards.declared_sync():
             for k in _MAP_KEYS:
                 cur = getattr(self._state, f"map_{k}")
                 cur.copy_(torch.from_numpy(np.array(core[k])).reshape(cur.shape))
@@ -1153,14 +1229,15 @@ class FleetFusedIngest:
         self._check_stream(i)
         with self._lock:
             rows = {k: getattr(self._state, f"map_{k}")[i].clone() for k in _MAP_KEYS}
-        return {k: v.cpu().numpy() for k, v in rows.items()}
+        with guards.declared_sync():
+            return {k: v.cpu().numpy() for k, v in rows.items()}
 
     def map_restore_stream(self, i: int, core: dict) -> None:
         """Install one stream's MapState row into the carry, every other
         stream and this stream's decode and filter rows untouched."""
         self._require_mapping()
         self._check_stream(i)
-        with self._lock:
+        with self._lock, guards.declared_sync():
             scatter_row(self._state, {f"map_{k}": core[k] for k in _MAP_KEYS}, i)
 
     def map_reanchor_stream(self, i: int, pose: np.ndarray) -> None:
@@ -1168,5 +1245,17 @@ class FleetFusedIngest:
         re-anchor, FleetMapper.reanchor_stream's carried twin)."""
         self._require_mapping()
         self._check_stream(i)
-        with self._lock:
+        with self._lock, guards.declared_sync():
             scatter_row(self._state, {"map_pose": np.asarray(pose, np.int32)}, i)
+
+
+def _copy_state(dst, src) -> None:
+    """Copy every tensor of ``src`` into the matching tensor of ``dst`` in
+    place (dataclasses of tensors, nested ones included; None planes on
+    both sides)."""
+    for f in dataclasses.fields(dst):
+        d, v = getattr(dst, f.name), getattr(src, f.name)
+        if dataclasses.is_dataclass(d):
+            _copy_state(d, v)
+        elif d is not None:
+            d.copy_(v)

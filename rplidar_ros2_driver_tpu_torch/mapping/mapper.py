@@ -45,6 +45,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from rplidar_ros2_driver_tpu_torch.utils import guards
 from rplidar_ros2_driver_tpu_torch.ops.scan_match import (
     LO_SCALE,
     MAP_STATE_VERSION,
@@ -231,9 +232,13 @@ class FleetMapper:
         }
 
     def reset(self) -> None:
-        """Cold reset of every stream's map and pose."""
+        """Cold reset of every stream's map and pose (on the device in
+        place once the state exists: no new memory in a guarded loop)."""
         with self._lock:
-            if self.backend == "fused":
+            if self.backend == "fused" and self._states is not None:
+                for k in STATE_KEYS:
+                    getattr(self._states, k).zero_()  # MapState.create's zeros
+            elif self.backend == "fused":
                 self._states = MapState.create(self.cfg, self.streams, self.device)
             else:
                 self._states_np = self._fresh_np()
@@ -289,13 +294,15 @@ class FleetMapper:
             self.ticks += 1
             if self.backend == "fused":
                 dev = self.device
-                _, wires = fleet_map_match_step(
-                    self._states, torch.from_numpy(points).to(dev),
-                    torch.from_numpy(masks).to(dev), torch.from_numpy(live).to(dev), self.cfg,
-                )
+                with guards.declared_sync():  # the tick's three uploads
+                    inputs = (torch.from_numpy(points).to(dev), torch.from_numpy(masks).to(dev),
+                              torch.from_numpy(live).to(dev))
+                _, wires = fleet_map_match_step(self._states, *inputs, self.cfg)
                 self.dispatch_count += 1
                 # one device->host copy per tick: the wires and the revisions
-                host = torch.cat([wires, self._states.revision[:, None]], dim=1).cpu().numpy()
+                with guards.declared_sync():
+                    host = torch.cat([wires, self._states.revision[:, None]],
+                                     dim=1).cpu().numpy()
                 wires, revs = host[:, :5], host[:, 5]
             else:
                 from rplidar_ros2_driver_tpu_torch.ops.scan_match_ref import map_match_step_np
@@ -410,8 +417,9 @@ class FleetMapper:
         self._check_stream(i)
         with self._lock:
             if self.backend == "fused":
-                snap = {k: getattr(self._states, k)[i].cpu().numpy().copy()
-                        for k in STATE_KEYS}
+                with guards.declared_sync():  # the row's copy to the host
+                    snap = {k: getattr(self._states, k)[i].cpu().numpy().copy()
+                            for k in STATE_KEYS}
             else:
                 snap = {k: self._states_np[k][i].copy() for k in STATE_KEYS}
         snap["version"] = np.asarray(MAP_STATE_VERSION, np.int32)
@@ -428,7 +436,8 @@ class FleetMapper:
             for k in STATE_KEYS:
                 row = np.asarray(snap[k], STATE_DTYPES[k])
                 if self.backend == "fused":
-                    getattr(self._states, k)[i].copy_(torch.from_numpy(row.copy()))
+                    with guards.declared_sync():  # the row's upload
+                        getattr(self._states, k)[i].copy_(torch.from_numpy(row.copy()))
                 else:
                     self._states_np[k][i] = row
         return True
@@ -440,7 +449,8 @@ class FleetMapper:
         pose = clamp_pose_q(pose_q, self.cfg)
         with self._lock:
             if self.backend == "fused":
-                self._states.pose[i].copy_(torch.from_numpy(pose))
+                with guards.declared_sync():
+                    self._states.pose[i].copy_(torch.from_numpy(pose))
             else:
                 self._states_np["pose"][i] = pose
 

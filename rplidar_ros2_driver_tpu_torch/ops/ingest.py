@@ -90,6 +90,7 @@ from rplidar_ros2_driver_tpu_torch.ops.scan_match import (
 )
 from rplidar_ros2_driver_tpu_torch.protocol import timing as timingmod
 from rplidar_ros2_driver_tpu_torch.protocol.constants import ANS_PAYLOAD_BYTES, Ans
+from rplidar_ros2_driver_tpu_torch.utils import guards
 
 _NPTS = timingmod.SAMPLES_PER_FRAME
 _PAIRED = frozenset(_PAIRED_NODES)
@@ -636,7 +637,8 @@ def _segment_filter_core(cfg, st: IngestState, filters: list, batch4, ts_c, nv,
     fcfg = cfg.filter
     wire_len = wire_output_len(fcfg)
     out_wires = torch.zeros((n_streams, big_r, wire_len), dtype=_F32, device=dev)
-    n_host = n_completed.cpu().tolist()
+    with guards.declared_sync():
+        n_host = n_completed.cpu().tolist()
     new_prof, new_motion = st.deskew_prof, st.deskew_motion
     nodes_arr = ts_arr = None
     if sum(n_host) or cfg.emit_nodes:

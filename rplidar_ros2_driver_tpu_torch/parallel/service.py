@@ -24,8 +24,14 @@ route, read the map carried in the fused ingest state through
 CarriedFleetMapper), slam/loop.LoopClosureEngine and
 mapping/worldmap.WorldMap.  The health supervisor (driver/health.py,
 :meth:`attach_health`) masks sick streams onto idle lanes and moves their
-rows to a checkpoint and back.  Not in this package yet, each raising
-NotImplementedError naming its ROADMAP item: the traffic shaper (A.10)
+rows to a checkpoint and back.
+
+:class:`ElasticFleetService` is the failover pod over several such services
+(shards): placement, shard supervision, per-stream snapshots, evacuation on
+shard loss and re-admission, one dispatch a tick per shard.
+
+Not in this package yet, each raising NotImplementedError naming its
+ROADMAP item: the traffic shaper and the pod's scheduled serving (A.10b)
 and the sharded checkpoints (A.11).
 """
 
@@ -34,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import threading
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -124,6 +131,7 @@ class ShardedFilterService:
         beams: int = DEFAULT_BEAMS,
         capacity: int = MAX_SCAN_NODES,
         fleet_ingest_buckets: Optional[tuple] = None,
+        staging_pool=None,
     ) -> None:
         if mesh is None:
             # a multi-process topology (the coordinator variables) joins
@@ -170,6 +178,9 @@ class ShardedFilterService:
         )
         self.fleet_ingest = None        # FleetFusedIngest (fused backend)
         self._fleet_ingest_buckets = fleet_ingest_buckets
+        # the host's shared StagingPool (the serving pod injects one per
+        # host); None: the engine owns a private pool
+        self._staging_pool = staging_pool
         self._host_ingest = None        # per-stream (decoder, latest-slot)
         self.host_scans_dropped = 0     # newest-wins drops on the host path
         # SLAM front-end seam: each materialized tick feeds one mapper
@@ -592,16 +603,16 @@ class ShardedFilterService:
     # -- traffic shaping (the serving pod) ----------------------------------
 
     def attach_scheduler(self, shaper=None) -> "object":
-        _not_ported("traffic shaper (attach_scheduler)", "A.10")
+        _not_ported("traffic shaper (attach_scheduler)", "A.10b")
 
     def offer_bytes(self, items) -> None:
-        _not_ported("scheduled admission (offer_bytes)", "A.10")
+        _not_ported("scheduled admission (offer_bytes)", "A.10b")
 
     def drain_scheduled(self) -> list:
-        _not_ported("scheduled drain (drain_scheduled)", "A.10")
+        _not_ported("scheduled drain (drain_scheduled)", "A.10b")
 
     def scheduler_status(self) -> Optional[dict]:
-        _not_ported("scheduler status", "A.10")
+        _not_ported("scheduler status", "A.10b")
 
     # -- raw-bytes ingest seam ----------------------------------------------
 
@@ -614,7 +625,8 @@ class ShardedFilterService:
                 kw = {"buckets": self._fleet_ingest_buckets} if self._fleet_ingest_buckets else {}
                 self.fleet_ingest = FleetFusedIngest(
                     self.params, self.streams, mesh=self.mesh,
-                    beams=self.cfg.beams, capacity=self.capacity, **kw,
+                    beams=self.cfg.beams, capacity=self.capacity,
+                    staging_pool=self._staging_pool, **kw,
                 )
             return
         if getattr(self.params, "deskew_enable", False):
@@ -739,7 +751,7 @@ class ShardedFilterService:
         Returns one list per stream holding EVERY completed revolution's
         FilterOutput across the backlog, in tick order.  ``rung`` and
         ``overlap_work`` (the scheduler's drain controls) are ROADMAP
-        A.10."""
+        A.10b."""
         self._ensure_byte_ingest()
         if rung is not None and self.fleet_ingest_backend != "fused":
             raise ValueError(
@@ -754,7 +766,7 @@ class ShardedFilterService:
                 "work to overlap with)"
             )
         if rung is not None or overlap_work is not None:
-            _not_ported("scheduled drain controls (rung, overlap_work)", "A.10")
+            _not_ported("scheduled drain controls (rung, overlap_work)", "A.10b")
         if self.health is not None:
             # masking only: a catch-up drain is one event, not len(ticks)
             # ticks of evidence — the FSMs advance on live ticks
@@ -1127,3 +1139,548 @@ class ShardedFilterService:
             self._pending = None
             self._epoch += 1
         return False
+
+
+# ---------------------------------------------------------------------------
+# the failover pod (elastic fleet of fleets)
+# ---------------------------------------------------------------------------
+
+
+def _pod_not_ported(what: str):
+    raise NotImplementedError(
+        f"ElasticFleetService {what} is not ported to the PyTorch package yet "
+        "(ROADMAP A.10b)"
+    )
+
+
+class ElasticFleetService:
+    """Fleet of fleets: ``streams`` lidars spread over S *shards*, each shard
+    one fused engine pair (FleetFusedIngest + mapper behind a
+    :class:`ShardedFilterService`) built for a fixed lane count — and the pod
+    survives losing a whole shard, not just a noisy stream.  The JAX
+    package's ``ElasticFleetService``, its per-tick seam:
+
+      * **placement** — parallel/sharding.FleetTopology maps streams onto
+        shard lanes.  Lanes beyond the hosted streams are idle padding lanes
+        of the same fleet state, so every membership change (evacuate,
+        rebalance) relabels live lanes: nothing is rebuilt and no shape
+        changes, which utils/guards.steady_state pins across the whole kill
+        -> evacuate -> re-admit cycle;
+      * **shard supervision** — driver/health.ShardHealth per shard, above
+        the per-stream FSM: a raised dispatch or a chaos kill is LOST at
+        once; fleet-wide tick starvation walks UP -> SUSPECT -> LOST;
+        re-admission is gated on capped backoff plus a probe;
+      * **evacuation** — the per-stream schema-versioned snapshots
+        (``snapshot_stream`` of the ingest engine and the mapper) are pulled
+        every ``failover_snapshot_ticks`` into a host store; on shard loss
+        every victim's filter and map rows are restored from its last
+        snapshot into a surviving shard's idle lane BEFORE bytes flow, decode
+        carries reset.  Ticks the dead shard absorbed after the last
+        snapshot are lost and recorded per stream in :meth:`replay_plan`.
+
+    A lost shard's engines are wiped (``cold_reset``, in place) the moment it
+    dies, so a re-admission rebuilds from snapshots, never from stale device
+    state; on re-admission streams migrate back through fresh live
+    snapshots.
+
+    Placement: with ``mesh=None`` shard ``s`` runs on
+    ``cuda:(s % device_count)`` (one card: every shard shares ``cuda:0``), or
+    on the host with ``filter_backend: cpu``; a given ``mesh`` serves every
+    shard.  Each host of ``hosts`` owns one StagingPool that its shards'
+    engines share.  Single controller, per-tick byte seam only; the
+    scheduled seam (``attach_scheduler``, ``offer_bytes``,
+    ``drain_scheduled``) and the pod world map are ROADMAP A.10b."""
+
+    def __init__(
+        self,
+        params: DriverParams,
+        streams: int,
+        *,
+        shards: Optional[int] = None,
+        lanes: Optional[int] = None,
+        hosts: Optional[int] = None,
+        mesh=None,
+        beams: int = DEFAULT_BEAMS,
+        capacity: int = MAX_SCAN_NODES,
+        fleet_ingest_buckets: Optional[tuple] = None,
+        clock=None,
+        probes: Optional[dict] = None,
+    ) -> None:
+        from rplidar_ros2_driver_tpu_torch.driver.health import ShardHealth, ShardHealthConfig
+        from rplidar_ros2_driver_tpu_torch.driver.ingest import StagingPool
+        from rplidar_ros2_driver_tpu_torch.parallel.sharding import FleetTopology
+
+        if shards is None:
+            shards = int(getattr(params, "shard_count", 1))
+        if lanes is None:
+            lanes = int(getattr(params, "shard_lanes", 0))
+        if hosts is None:
+            hosts = int(getattr(params, "pod_hosts", 1))
+        if lanes == 0:
+            # the smallest lane count that survives one whole shard loss
+            # ((shards-1)*lanes >= streams); a single-shard pod gets no
+            # failover headroom (there is nowhere to evacuate to)
+            lanes = streams if shards == 1 else -(-streams // (shards - 1))
+        self.params = params
+        self.streams = streams
+        self.topology = FleetTopology(streams, shards, lanes, hosts=hosts)
+        self.clock = clock or time.monotonic
+        if mesh is None:
+            # one shard = one card, round-robin over the cards there are
+            # (one card: every shard shares it); the host on filter_backend cpu
+            dev = pick_device(params.filter_backend)
+            meshes = [
+                make_mesh(1, device=dev if dev.type == "cpu"
+                          else torch.device("cuda", s % torch.cuda.device_count()))
+                for s in range(shards)
+            ]
+        else:
+            meshes = [mesh] * shards
+        self.meshes = meshes
+        # one staging pool per HOST, owned by the pod and shared by the
+        # engines of its shards (pinned when they run on a card)
+        pin = meshes[0].device.type == "cuda"
+        self.staging_pools = [StagingPool(pin=pin) for _ in range(hosts)]
+        self.shards = [
+            ShardedFilterService(
+                params, lanes, mesh=meshes[s], beams=beams, capacity=capacity,
+                fleet_ingest_buckets=fleet_ingest_buckets,
+                staging_pool=self.staging_pools[self.topology.host_of(s)],
+            )
+            for s in range(shards)
+        ]
+        for sh in self.shards:
+            if sh.fleet_ingest_backend != "fused":
+                raise ValueError(
+                    "ElasticFleetService needs fleet_ingest_backend='fused' "
+                    "(the per-stream device rows are the snapshot/migration "
+                    "unit; the host backend has none)"
+                )
+        probes = probes or {}
+        cfg = ShardHealthConfig.from_params(params)
+        self.shard_health = [
+            ShardHealth(cfg, s, clock=self.clock, probe=probes.get(s)) for s in range(shards)
+        ]
+        self.snapshot_ticks = int(getattr(params, "failover_snapshot_ticks", 8))
+        self.tick_no = 0
+        self.chaos = None                   # driver/chaos.ShardChaosSchedule
+        self._chaos_probe_wired = False
+        # per-stream snapshot store: stream -> (tick, {"ingest"[, "map"]})
+        self._snap: dict = {}
+        self._fresh_snap = None             # the fresh-lane rows
+        # replay-plan bookkeeping: ticks absorbed since each stream's last
+        # snapshot (lost if its shard dies), decode-reset ticks, lost ticks
+        self._since_snap: list[list[int]] = [[] for _ in range(streams)]
+        self._resets: list[set] = [set() for _ in range(streams)]
+        self._excluded: list[set] = [set() for _ in range(streams)]
+        # counters and the event/evacuation logs (the diagnostics surface)
+        self.evacuations = 0
+        self.migrations = 0
+        self.readmits = 0
+        self.shard_evacuations = [0] * shards
+        self.shard_migrations_in = [0] * shards
+        self.shard_last_migration_tick: list = [None] * shards
+        self.last_migration_tick: Optional[int] = None
+        self.streams_lost_unhosted = 0
+        self.events: list[tuple] = []
+        self.evacuation_log: list[dict] = []
+        self.last_evacuation: Optional[dict] = None
+        self._first_tick_pending = False
+        self.last_poses: list = [None] * streams
+
+    # -- warm-up ------------------------------------------------------------
+
+    def precompile(self, formats) -> None:
+        """Warm every shard's engines (the fleet tick for every padding
+        bucket, the mapper's tick when ``map_enable``, the loop engine when
+        ``loop_enable``, the row snapshot and restore), capture each
+        engine's cold-reset template, and capture the fresh-lane rows that
+        scrub a lane whose new tenant has no snapshot yet.  After this a
+        whole kill -> evacuate -> re-admit cycle builds nothing."""
+        from rplidar_ros2_driver_tpu_torch.mapping.mapper import is_carried
+
+        for sh in self.shards:
+            sh._ensure_byte_ingest()
+            sh.fleet_ingest.precompile(formats)
+            # the shard-kill wipe template, captured before traffic
+            sh.fleet_ingest.capture_cold_template()
+            if getattr(self.params, "map_enable", False) and sh.mapper is None:
+                sh.attach_mapper()
+            if getattr(self.params, "loop_enable", False) and sh.loop is None:
+                # the back-end rides each shard's mapper
+                sh.attach_loop_closure()
+            sh._warm_quarantine_path()
+        if self._fresh_snap is None:
+            # the engines are fresh here (precompile before traffic), so
+            # lane 0's rows ARE the fresh-lane template
+            sh0 = self.shards[0]
+            self._fresh_snap = {"ingest": sh0.fleet_ingest.snapshot_stream(0)}
+            if sh0.mapper is not None and not is_carried(sh0.mapper):
+                # carried maps ride the ingest snapshot (v3)
+                self._fresh_snap["map"] = sh0.mapper.snapshot_stream(0)
+            if sh0.loop is not None:
+                self._fresh_snap["loop"] = sh0.loop.snapshot_stream(0)
+
+    # -- chaos seam ---------------------------------------------------------
+
+    def attach_shard_chaos(self, schedule) -> None:
+        """Attach a deterministic shard-loss schedule
+        (driver/chaos.ShardChaosSchedule): shards it marks down are forced
+        LOST at the tick boundary, and — unless a caller probe is wired —
+        re-admission probes answer from the same schedule, so the whole
+        kill -> evacuate -> re-admit cycle is a pure function of (seed,
+        tick)."""
+        self.chaos = schedule
+        if not self._chaos_probe_wired:
+            for s, hs in enumerate(self.shard_health):
+                if hs.probe is None:
+                    hs.probe = lambda s=s: not self.chaos.down(s, self.tick_no)
+            self._chaos_probe_wired = True
+
+    # -- the pod tick -------------------------------------------------------
+
+    def submit_bytes(self, items) -> list:
+        """One pod tick from raw frame bytes (``items[i]`` is stream i's
+        ``(ans_type, [(payload, ts), ...])`` or None).  Routes each stream's
+        bytes to its hosting shard, runs every hosting shard's one-dispatch
+        tick and returns one Optional[FilterOutput] per GLOBAL stream (None:
+        idle, no completed revolution, or unhosted).
+
+        The tick boundary handles faults in order: chaos kills (LOST +
+        evacuation), re-admission polls (backoff + probe -> rebalance), then
+        the routed dispatches (a raised dispatch is a heartbeat failure: the
+        shard is LOST and evacuated, its victims lose this tick).  Periodic
+        snapshots refresh after the dispatches, so a snapshot never holds a
+        half-applied tick."""
+        from rplidar_ros2_driver_tpu_torch.driver.health import ShardState
+
+        if len(items) != self.streams:
+            raise ValueError(f"expected {self.streams} per-stream items, got {len(items)}")
+        t = self.tick_no
+        t0 = time.perf_counter()
+        self._tick_faults()
+        # routing is FROZEN before the loop: a heartbeat failure mid-loop
+        # evacuates its victims, but their bytes for THIS tick died with
+        # the dispatch that consumed them — delivering them again to the
+        # new shard would apply the tick twice
+        outs: list = [None] * self.streams
+        routing = []
+        for s, hs in enumerate(self.shard_health):
+            if hs.hosting:
+                routing.append((s, hs, self.topology.lane_streams(s),
+                                self.topology.lane_items(s, items)))
+        for s, hs, lane_streams, lane_items in routing:
+            if not hs.hosting:
+                continue  # lost mid-loop (cascading failure)
+            if not any(st is not None for st in lane_streams):
+                tr = hs.observe(False, 0)
+                if tr is not None and tr[1] is ShardState.LOST:
+                    self._on_lost(s, hs.last_reason)
+                continue  # empty shard: nothing to dispatch
+            offered = any(it for it in lane_items)
+            try:
+                shard_outs = self.shards[s].submit_bytes(lane_items)
+            except Exception as e:  # noqa: BLE001 - the heartbeat boundary
+                logger.exception("shard %d dispatch failed", s)
+                self._lose_shard(s, f"heartbeat: {type(e).__name__}: {e}")
+                # the victims lose THIS tick's bytes too (consumed by the
+                # dead dispatch): excluded from the replay plan
+                for stream in lane_streams:
+                    if stream is not None and items[stream]:
+                        self._excluded[stream].add(t)
+                continue
+            completed = 0
+            for lane, stream in enumerate(lane_streams):
+                if stream is None:
+                    continue
+                outs[stream] = shard_outs[lane]
+                self.last_poses[stream] = self.shards[s].last_poses[lane]
+                if shard_outs[lane] is not None:
+                    completed += 1
+                if items[stream]:
+                    self._since_snap[stream].append(t)
+            tr = hs.observe(offered, completed)
+            if tr is not None and tr[1] is ShardState.LOST:
+                # FSM-driven loss (starvation walked the ladder, or a
+                # READMITTING relapse): the same wipe + evacuate as a hard
+                # kill — the device answered but completed nothing, so its
+                # state is not trusted
+                self._on_lost(s, hs.last_reason)
+        # unhosted streams (double loss without capacity): their bytes never
+        # reach a device — excluded, output masked
+        for stream in self.topology.unhosted():
+            if items[stream]:
+                self._excluded[stream].add(t)
+        if self.snapshot_ticks > 0 and (t + 1) % self.snapshot_ticks == 0:
+            self._refresh_snapshots(t)  # the state now includes tick t
+        if self._first_tick_pending and self.last_evacuation is not None:
+            self.last_evacuation["first_tick_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+            self._first_tick_pending = False
+        self.tick_no += 1
+        return outs
+
+    def _tick_faults(self) -> None:
+        """The tick-boundary fault handling, in order: chaos kills — the
+        tick's WHOLE down set is forced LOST before any evacuation runs, so
+        no victim lands on a shard the schedule also kills this tick — then
+        re-admission polls (engines wiped at loss, rebalance before this
+        tick's bytes flow)."""
+        from rplidar_ros2_driver_tpu_torch.driver.health import ShardState
+
+        t = self.tick_no
+        if self.chaos is not None:
+            downed = [s for s, hs in enumerate(self.shard_health)
+                      if hs.state is not ShardState.LOST and self.chaos.down(s, t)]
+            for s in downed:
+                self.shard_health[s].force_lost("chaos: shard killed")
+            for s in downed:
+                self._on_lost(s, "chaos: shard killed")
+        for s, hs in enumerate(self.shard_health):
+            if hs.poll_readmit() is not None:
+                self._readmit_shard(s)
+
+    # -- the scheduled seam (ROADMAP A.10b) ----------------------------------
+
+    def attach_scheduler(self, shaper=None) -> "object":
+        _pod_not_ported("traffic shaper (attach_scheduler)")
+
+    def offer_bytes(self, items) -> None:
+        _pod_not_ported("scheduled admission (offer_bytes)")
+
+    def drain_scheduled(self) -> list:
+        _pod_not_ported("scheduled drain (drain_scheduled)")
+
+    def attach_world_map(self, world=None) -> "object":
+        _pod_not_ported("pod world map (attach_world_map)")
+
+    def scheduler_status(self) -> Optional[dict]:
+        """The /diagnostics scheduler payload: None, no shaper is attached
+        (the scheduled seam is ROADMAP A.10b)."""
+        return None
+
+    # -- snapshots ----------------------------------------------------------
+
+    def _live_snapshot(self, s: int, lane: int) -> dict:
+        """One lane's row snapshot from shard ``s``'s live engines (row
+        gather + declared row fetch — O(1/lanes) of the shard state).  On
+        the carried route the map rows ride the ingest snapshot (v3), so no
+        second pull of the same planes."""
+        from rplidar_ros2_driver_tpu_torch.mapping.mapper import is_carried
+
+        sh = self.shards[s]
+        snap = {"ingest": sh.fleet_ingest.snapshot_stream(lane)}
+        if sh.mapper is not None and not is_carried(sh.mapper):
+            snap["map"] = sh.mapper.snapshot_stream(lane)
+        return snap
+
+    def _refresh_snapshots(self, t: int) -> None:
+        """Refresh the snapshot store for every hosted stream on an UP
+        shard; the stored tick says how much history the snapshot holds
+        (ticks <= t).  SUSPECT and READMITTING shards are skipped: their
+        state is what the FSM stopped trusting, and restoring from it later
+        would break the replay plan (which excludes every tick since the
+        last TRUSTED snapshot)."""
+        from rplidar_ros2_driver_tpu_torch.driver.health import ShardState
+
+        for stream in range(self.streams):
+            got = self.topology.placement(stream)
+            if got is None or self.shard_health[got[0]].state is not ShardState.UP:
+                continue
+            self._snap[stream] = (t, self._live_snapshot(*got))
+            self._since_snap[stream] = []
+
+    def _restore_into(self, stream: int, dst: int, lane: int, snap: Optional[dict]) -> None:
+        """Install ``snap`` (or the fresh-lane rows) into the destination
+        lane BEFORE bytes flow: filter window and map restored, decode
+        carries reset (the stream re-enters the byte stream at an arbitrary
+        capsule boundary).  Always restores — a reused lane may hold a
+        previous tenant's rows."""
+        use = snap if snap is not None else self._fresh_snap
+        if use is None:
+            raise RuntimeError(
+                "ElasticFleetService.precompile() must run before migrations "
+                "(no fresh-lane template captured)"
+            )
+        sh = self.shards[dst]
+        if not sh.fleet_ingest.restore_stream(lane, use["ingest"]):
+            raise RuntimeError(
+                f"stream {stream}: ingest snapshot rejected by shard {dst} lane {lane} "
+                "(schema/geometry drift)"
+            )
+        if sh.mapper is None:
+            return
+        from rplidar_ros2_driver_tpu_torch.mapping.mapper import carried_map_row, is_carried
+
+        if is_carried(sh.mapper):
+            # the map row travels INSIDE the ingest snapshot (v3
+            # ingest.map_* keys); the rejoin-style restore above touches
+            # only the filter rows, so the carried row is installed here
+            ok = sh.mapper.restore_stream(lane, carried_map_row(use["ingest"]))
+        else:
+            ok = "map" in use and sh.mapper.restore_stream(lane, use["map"])
+        if not ok:
+            raise RuntimeError(
+                f"stream {stream}: map snapshot rejected by shard {dst} lane {lane} "
+                "(schema/geometry drift)"
+            )
+
+    # -- failure handling ---------------------------------------------------
+
+    def _lose_shard(self, s: int, reason: str) -> None:
+        """Shard ``s`` died hard (a raised dispatch): force its FSM LOST,
+        then wipe and evacuate."""
+        self.shard_health[s].force_lost(reason)
+        self._on_lost(s, reason)
+
+    def _on_lost(self, s: int, reason: str) -> None:
+        """The loss handler of every path to LOST (hard kills and FSM
+        walks): wipe the shard's engines in place (stale state never
+        survives into a re-admission) and evacuate every victim from its
+        LAST snapshot into surviving shards' idle lanes."""
+        self.events.append((self.tick_no, "lost", s, reason))
+        sh = self.shards[s]
+        if sh.fleet_ingest is not None:
+            sh.fleet_ingest.cold_reset()
+        if sh.mapper is not None:
+            sh.mapper.reset()
+        self._evacuate_shard(s)
+
+    def _evacuate_shard(self, s: int) -> None:
+        t = self.tick_no
+        t0 = time.perf_counter()
+        # victims land only on shards that can host them, never on an
+        # earlier casualty's wiped lanes
+        dead = [x for x, hs in enumerate(self.shard_health) if not hs.hosting and x != s]
+        victims = self.topology.streams_on(s)
+        plan = self.topology.evacuate(s, avoid=dead)
+        # the ticks the dead shard absorbed after the last snapshot are
+        # lost for EVERY victim, one left unhosted included (its later
+        # re-admission restores from that same snapshot)
+        for stream in victims:
+            self._excluded[stream].update(self._since_snap[stream])
+            self._since_snap[stream] = []
+        # the dead shard's device state is gone: the store is the source
+        snaps = {stream: self._snap.get(stream) for stream, _d, _l in plan}
+        t1 = time.perf_counter()
+        for stream, dst, lane in plan:
+            entry = snaps[stream]
+            self._restore_into(stream, dst, lane, entry[1] if entry else None)
+            self._resets[stream].add(t)
+            self.migrations += 1
+            self.shard_migrations_in[dst] += 1
+            self.shard_last_migration_tick[dst] = t
+            self.events.append((t, "evacuated", stream, s, dst, lane))
+        t2 = time.perf_counter()
+        unhosted = self.topology.unhosted()
+        if unhosted:
+            self.streams_lost_unhosted = len(unhosted)
+            logger.error("shard %d loss left streams %s unhosted (no idle lanes — double "
+                         "loss?); they stay masked until a shard re-admits", s, unhosted)
+        self.evacuations += 1
+        self.shard_evacuations[s] += 1
+        self.last_migration_tick = t
+        self.last_evacuation = {
+            "tick": t,
+            "shard": s,
+            "streams": [stream for stream, _d, _l in plan],
+            "snapshot_pull_ms": round((t1 - t0) * 1e3, 3),
+            "restore_scatter_ms": round((t2 - t1) * 1e3, 3),
+            "first_tick_ms": None,
+        }
+        self.evacuation_log.append(self.last_evacuation)
+        self._first_tick_pending = True
+        logger.warning("shard %d evacuated: %d streams restored onto survivors "
+                       "(pull %.1f ms, restore %.1f ms)",
+                       s, len(plan), (t1 - t0) * 1e3, (t2 - t1) * 1e3)
+
+    def _readmit_shard(self, s: int) -> None:
+        """Shard ``s`` passed its backoff + probe gate: its engines were
+        wiped at loss, so streams rebalance back onto it — each mover's
+        state travels as a FRESH live snapshot from its current shard (no
+        lost ticks; the partial revolution in flight is dropped by the
+        decode reset, recorded in the replay plan)."""
+        t = self.tick_no
+        self.readmits += 1
+        self.events.append((t, "readmitting", s))
+        for stream, src, src_lane, dst, lane in self.topology.rebalance_into(s):
+            if src < 0:
+                # was unhosted: its last stored snapshot (the ticks after
+                # it were excluded when it went unhosted)
+                entry = self._snap.get(stream)
+                snap = entry[1] if entry else None
+            else:
+                snap = self._live_snapshot(src, src_lane)
+                # the live snapshot holds everything up to tick t-1
+                self._snap[stream] = (t - 1, snap)
+                self._since_snap[stream] = []
+            self._restore_into(stream, dst, lane, snap)
+            self._resets[stream].add(t)
+            self.migrations += 1
+            self.shard_migrations_in[dst] += 1
+            self.shard_last_migration_tick[dst] = t
+            self.last_migration_tick = t
+            self.events.append((t, "migrated", stream, src, dst, lane))
+        self.streams_lost_unhosted = len(self.topology.unhosted())
+
+    # -- observability ------------------------------------------------------
+
+    def replay_plan(self) -> list[dict]:
+        """Per-stream host-golden replay plan: feed every tick's bytes
+        EXCEPT the ``excluded`` ones to an independent decoder + assembler +
+        chain (+ host mapper), resetting decoder and assembler at each
+        ``resets`` tick — the filter window and map carry through, like the
+        restored rows.  That replay equals this pod's outputs for the
+        stream, final map included."""
+        return [{"resets": sorted(self._resets[i]), "excluded": sorted(self._excluded[i])}
+                for i in range(self.streams)]
+
+    def shard_status(self) -> list[dict]:
+        """Per-shard dicts for /diagnostics (node/diagnostics.py renders
+        them under the ``shard_topology`` surface)."""
+        out = []
+        for s, hs in enumerate(self.shard_health):
+            d = hs.status()
+            d["host"] = self.topology.host_of(s)
+            d["parked"] = False  # parking is the autoscaler's (A.10b)
+            d["streams"] = self.topology.streams_on(s)
+            d["evacuations"] = self.shard_evacuations[s]
+            d["migrations_in"] = self.shard_migrations_in[s]
+            d["last_migration_tick"] = self.shard_last_migration_tick[s]
+            out.append(d)
+        return out
+
+    def failover_status(self) -> dict:
+        """Pod-level failover counters + per-shard states — the
+        /diagnostics topology payload."""
+        return {
+            "shards": self.shard_status(),
+            "evacuations": self.evacuations,
+            "migrations": self.migrations,
+            "readmits": self.readmits,
+            "last_migration_tick": self.last_migration_tick,
+            "unhosted": self.topology.unhosted(),
+        }
+
+    def pod_status(self) -> dict:
+        """The /diagnostics "Pod" payload: per-host shard states and the
+        steal and scale counters (no scheduler here: all zero, nothing
+        parked)."""
+        per_host = [
+            {"host": h, "shards": [
+                {"shard": s, "state": self.shard_health[s].state.name,
+                 "streams": len(self.topology.streams_on(s))}
+                for s in self.topology.shards_on_host(h)]}
+            for h in range(self.topology.hosts)
+        ]
+        return {
+            "hosts": self.topology.hosts,
+            "per_host": per_host,
+            "parked": [],
+            "steals": 0,
+            "steal_ticks": 0,
+            "steal_drops": 0,
+            "park_sheds": 0,
+            "scale_downs": 0,
+            "scale_ups": 0,
+            "autoscaler": None,
+        }

@@ -38,6 +38,10 @@ SOURCES = {
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# cumulative nvcc runs and library loads by name (utils/guards.py reads
+# them: neither may happen in a warmed loop)
+compiles: dict[str, int] = {}
+loads: dict[str, int] = {}
 
 
 def find_nvcc() -> str:
@@ -85,6 +89,7 @@ def build_libraries(names=None) -> dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        compiles[name] = compiles.get(name, 0) + 1
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -111,4 +116,5 @@ def load_library(name: str) -> ctypes.CDLL:
             build_libraries([name])
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
+            loads[name] = loads.get(name, 0) + 1
         return lib

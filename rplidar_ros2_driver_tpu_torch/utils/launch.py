@@ -30,6 +30,9 @@ import torch
 from rplidar_ros2_driver_tpu_torch.utils.cuda_build import load_library
 
 VP, I = ctypes.c_void_p, ctypes.c_int
+# cumulative entry resolutions by exported name (utils/guards.py reads
+# them: a warmed loop resolves nothing)
+resolves: dict[str, int] = {}
 
 
 class KernelEntry:
@@ -52,6 +55,7 @@ class KernelEntry:
         fn.argtypes = self.argtypes
         fn.restype = I
         self.fn = fn
+        resolves[self.name] = resolves.get(self.name, 0) + 1
         return fn
 
     def __call__(self, *args) -> None:

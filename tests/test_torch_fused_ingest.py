@@ -507,7 +507,9 @@ def test_unported_surfaces_raise_naming_their_roadmap_items():
     eng = tdi.FleetFusedIngest(_params("torch"), 2, beams=BEAMS)
     with pytest.raises(RuntimeError, match="carries no map"):
         eng.map_snapshot()
-    with pytest.raises(NotImplementedError, match="A.10"):
+    # the serving pod's cold reset is ported (ROADMAP A.10a): it needs the
+    # template captured before traffic
+    with pytest.raises(RuntimeError, match="capture_cold_template"):
         eng.cold_reset()
 
 

@@ -651,15 +651,15 @@ def test_cli_replay_chain_of_several_captures_prints_the_jax_lines(tmp_path, cap
 def test_unported_surfaces_raise_naming_their_roadmap_items(mesh):
     svc = ShardedFilterService(_params(), streams=2, mesh=mesh, beams=128)
     for call, item in (
-        (svc.attach_scheduler, "A.10"), (lambda: svc.offer_bytes([None, None]), "A.10"),
-        (svc.drain_scheduled, "A.10"), (svc.scheduler_status, "A.10"),
+        (svc.attach_scheduler, "A.10b"), (lambda: svc.offer_bytes([None, None]), "A.10b"),
+        (svc.drain_scheduled, "A.10b"), (svc.scheduler_status, "A.10b"),
         (lambda: svc.save_sharded("x"), "A.11"), (lambda: svc.load_sharded("x"), "A.11"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             call()
     fused = ShardedFilterService(_params(fleet_ingest_backend="fused"), streams=2, mesh=mesh,
                                  beams=128)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(NotImplementedError, match="A.10b"):
         fused.submit_bytes_backlog([], rung=2)
     with pytest.raises(ValueError, match="deskew_enable requires the fused"):
         ShardedFilterService(_params(deskew_enable=True), streams=2, mesh=mesh,
