@@ -79,6 +79,35 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 pull, restore scatter and first tick ms.  Its profiled
                 half (device operations and busy ms a pod tick, idle
                 share) runs after the fleet phase;
+ 5c. scheduled — scheduled serving (ROADMAP A.10b): bench.py configs 19-22
+                at full geometry (W=64, 2048 beams, 256x256 at 0.25 m,
+                3200-point DenseBoost revolutions), two ElasticFleetService
+                pods a config (every shard on cuda:0) offered the same wall
+                ticks and drained tick-paired in alternating order, every
+                wall tick after the warm ones under
+                utils/guards.steady_state: config 19 (8 streams over 4
+                shards, the reconnect-storm trace, admission cap 8, shard 1
+                killed near the end) rung 1 only against the ladder (1, 2,
+                4, 8); config 20 (the storm, an occupancy collapse,
+                recovery) the single-buffered static bucket against the
+                double buffer with the bucket ladder (4, 16); config 21 (8
+                streams over 4 shards on 2 hosts: skewed bursts, idle,
+                resume) the static pod against work stealing and the
+                autoscaler; config 22 (6 streams over 3 shards, the fused
+                FleetMapper on 256x256 at 0.05 m) per-stream map pulls
+                against the pod world map.  Each config's arms byte-equal
+                to each other and each arm to its CPU run over the first 12
+                wall ticks, and the bench's identities: per-rung counters
+                sum to the dispatch count, the static arm at rung 1 only,
+                the ladder reaching its top rung with fewer dispatches,
+                sheds equal to a shadow admission, staging overlap with
+                the double buffer only, bucket switches both ways, a seeded
+                latency model, steals and a whole scale cycle, the world's
+                merges, evictions and tiles with no added dispatch.  Pod
+                ticks/s, drain p50/p99 and dispatches a pod drain of each
+                arm, reads of config 22; one profiled drain of each config
+                (device operations, busy ms, idle share) after the fleet
+                phase;
   6. fleet    — the mesh and the sharded fleet service (ROADMAP A.7a):
                 (a) config 10 (bench.py bench_fleet_ingest)
                 at full geometry — W=64, 2048 beams, 256x256 at 0.25 m,
@@ -215,13 +244,14 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 loop check's (``loop_close_shape``), each redesigned
                 kernel whether each of its goals was met, every kernel its
                 launches on the fleet phase's paths (``fleet_launches``)
-                and on config 18's (``fused_mapping_launches``) and the
-                failover phase's (``failover_launches``), B1 and
+                and on config 18's (``fused_mapping_launches``), the
+                failover phase's (``failover_launches``) and the
+                scheduled phase's (``scheduled_launches``), B1 and
                 B3 their times at the fleet's widths (``fleet_shapes``),
                 B6, B7 and B8 theirs at config 18's tick
                 (``fused_mapping_tick``).
 
-``--phase NAME`` (e2e, fused_mapping, failover, fleet) builds the kernels
+``--phase NAME`` (e2e, fused_mapping, failover, scheduled, fleet) builds the kernels
 and runs that phase alone, its profiled half included, then the same last
 two lines: a long phase's line then fits the end of the output.
 
@@ -313,6 +343,21 @@ FAILOVER = dict(streams=8, shards=4, window=64, beams=2048, grid=256, cell_m=0.2
                 revs=32, capacity=4096, map_grid=256, map_cell_m=0.05, match_window_m=0.4,
                 snapshot_ticks=4, backoff_s=0.45, probation=2, kill=(1, 10, 12), warm=2, dt=0.1,
                 carried_shards=2, carried_revs=6, carried_kill=(1, 9, 11), profile_ticks=6)
+# bench.py configs 19-22 (the scheduled phase) at full geometry; the CPU
+# runs they are held to are cut in length only, to cpu_wall_ticks
+SCHEDULED = {
+    "window": 64, "beams": 2048, "grid": 256, "cell_m": 0.25, "points": 3200, "capacity": 4096,
+    "snapshot_ticks": 4, "dt": 0.1, "cpu_wall_ticks": {19: 12, 20: 12, 21: 12, 22: 24},
+    19: dict(streams=8, shards=4, run=16, revs=16, rungs=(1, 2, 4, 8), cap=8, stall_period=9,
+             stall_frames=6, storm_len=10, warm=2),
+    20: dict(streams=8, shards=4, run=16, rungs=(1, 2, 4, 8), cap=8, stall_period=9,
+             stall_frames=6, storm_len=10, ticks_a=20, collapse_len=10, recovery_len=12,
+             warm=2),
+    21: dict(streams=8, shards=4, hosts=2, run=16, rungs=(1, 2, 4), cap=10, burst=4,
+             skew_len=10, idle_len=12, resume_len=18, warm=2),
+    22: dict(streams=6, shards=3, run=8, map_grid=256, map_cell_m=0.05, world_cap=8,
+             merge_revs=1, publish_ticks=4, tile_cells=8, wall_len=40, warm=4),
+}
 # B1's and B4's figures before their redesign, constants copied from
 # PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W) and printed on a
 # line of their own, never in the kernels line: B1 as first written (commit
@@ -4285,6 +4330,9 @@ def phase_failover(device) -> dict:
     cpu_s = time.perf_counter() - t_cpu
     check(all(e[3].startswith("chaos:") for e in chaos.events if e[1] == "lost"),
           f"failover: a loss that the chaos schedule did not cause: {chaos.events}")
+    base = timed["pods"]["base"]
+    check(base.evacuations == 0 and not any(e[1] == "lost" for e in base.events),
+          f"failover: the baseline pod lost a shard (a drain raised): {base.events}")
     check(chaos.evacuations == 1 and chaos.readmits == 1 and chaos.migrations == 4,
           f"failover: {chaos.evacuations} evacuations, {chaos.readmits} re-admissions, "
           f"{chaos.migrations} migrations (want 1, 1, 4)")
@@ -4400,6 +4448,644 @@ def failover_profile(device, row: dict, card: str) -> dict:
     return row
 
 
+def stream_data_ticks(frames, run: int, ans: int, t0: float) -> list:
+    """bench.py ``_stream_data_ticks``: one stream's data ticks of ``run``
+    wire frames, 1.25 ms a frame from ``t0``."""
+    ticks, t = [], t0
+    for i in range(0, len(frames), run):
+        batch = []
+        for f in frames[i : i + run]:
+            t += 1.25e-3
+            batch.append((f, t))
+        ticks.append((ans, batch))
+    return ticks
+
+
+def storm_wall_schedule(per_stream_ticks, rates, *, stall_period, stall_frames, phase, storm_at,
+                        storm_len) -> list:
+    """bench.py ``_storm_wall_schedule`` (config 19's arrivals): stream s's
+    source makes ``rates[s]`` data ticks a wall tick; a wall tick the chaos
+    stall schedule stalls (per-stream phase) buffers at the source and the
+    next open one delivers the whole buffer — a reconnect storm — plus one
+    fleet-wide outage of ``storm_len`` wall ticks from ``storm_at``.  Wall
+    ticks in the ``offer_bytes`` layout, with a tail that flushes every
+    buffer."""
+    from rplidar_ros2_driver_tpu_torch.driver.chaos import (
+        FAULT_STALL,
+        ChaosConfig,
+        ChaosSchedule,
+    )
+
+    streams = len(per_stream_ticks)
+    sched = ChaosSchedule(ChaosConfig(stall_period=stall_period, stall_frames=stall_frames))
+    pos = [0] * streams
+    buf: list = [[] for _ in range(streams)]
+    wall = []
+    t = 0
+    while True:
+        producing = any(pos[s] < len(per_stream_ticks[s]) for s in range(streams))
+        if not producing and not any(buf):
+            break
+        items: list = []
+        for s in range(streams):
+            take = per_stream_ticks[s][pos[s] : pos[s] + rates[s]]
+            pos[s] += rates[s]
+            buf[s].extend(take)
+            stalled = (storm_at <= t < storm_at + storm_len
+                       or sched.plan(t + phase * s) == FAULT_STALL)
+            if stalled and producing:
+                items.append(None)
+            elif buf[s]:
+                items.append(buf[s])
+                buf[s] = []
+            else:
+                items.append(None)
+        wall.append(items)
+        t += 1
+    return wall
+
+
+def _sched_params(backend: str, c: dict, **over):
+    """The scheduled pods' DriverParams: config 5's filter widths, the
+    fused fleet ingest, snapshots every 4 ticks."""
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+
+    sc = SCHEDULED
+    return DriverParams(filter_backend=backend, filter_chain=("clip", "median", "voxel"),
+                        filter_window=sc["window"], voxel_grid_size=sc["grid"],
+                        voxel_cell_m=sc["cell_m"], fleet_ingest_backend="fused",
+                        shard_count=c["shards"], failover_snapshot_ticks=sc["snapshot_ticks"],
+                        **over)
+
+
+def _sched_pod(params, c: dict, buckets: tuple, fake: dict, kill=None, world: bool = False):
+    """A warmed scheduled pod: the shaper attached before precompile (the
+    rung ladder is warmed there), the chaos kill after it, as the bench
+    builds them; every shard on the one card, a fake clock."""
+    from rplidar_ros2_driver_tpu_torch.driver.chaos import ShardChaosConfig, ShardChaosSchedule
+    from rplidar_ros2_driver_tpu_torch.parallel.service import ElasticFleetService
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    sc = SCHEDULED
+    pod = ElasticFleetService(params, c["streams"], shards=c["shards"], beams=sc["beams"],
+                              capacity=sc["capacity"], fleet_ingest_buckets=buckets,
+                              clock=lambda: fake["now"])
+    pod.attach_scheduler()
+    pod.precompile([int(Ans.MEASUREMENT_DENSE_CAPSULED)])
+    if kill is not None:
+        pod.attach_shard_chaos(ShardChaosSchedule(ShardChaosConfig(kills=(kill,))))
+    if world:
+        pod.attach_world_map()
+    return pod
+
+
+def _engine_totals(pod) -> tuple:
+    """(dispatches, per-rung dispatches) summed over the pod's engines."""
+    table: dict = {}
+    total = 0
+    for sh in pod.shards:
+        eng = sh.fleet_ingest
+        for r, n in eng.rung_dispatches.items():
+            table[r] = table.get(r, 0) + n
+        total += eng.dispatch_count
+    return total, table
+
+
+def _losses(pod, mark: int, what: str) -> int:
+    """Fail on a shard loss in ``pod.events[mark:]`` that the run did not
+    plan.  A drain that raises (guard (c)'s undeclared sync, a failed
+    launch) is caught at the pod's heartbeat boundary and shows only as a
+    lost shard; a planned kill's reason starts ``chaos:``.  Returns the
+    new mark."""
+    for ev in pod.events[mark:]:
+        if ev[1] == "lost":
+            check(ev[3].startswith("chaos:"),
+                  f"{what}: shard {ev[2]} lost at pod tick {ev[0]} to an unplanned fault: {ev[3]}")
+    return len(pod.events)
+
+
+def _check_accounting(pod, what: str, kills: int = 0) -> None:
+    """Per engine: the rung and (rung, bucket) counters sum to the
+    dispatch count, nothing overflowed max_revs.  Per pod: exactly
+    ``kills`` shard losses, each a planned chaos kill, and as many
+    evacuations."""
+    lost = [(e[0], e[2], e[3]) for e in pod.events if e[1] == "lost"]
+    check(pod.evacuations == kills == len(lost) and all(r.startswith("chaos:") for *_x, r in lost),
+          f"{what}: {pod.evacuations} evacuations, losses {lost}; want {kills} planned chaos "
+          "kill(s)")
+    for s, sh in enumerate(pod.shards):
+        eng = sh.fleet_ingest
+        check(sum(eng.rung_dispatches.values()) == eng.dispatch_count,
+              f"{what}: shard {s}'s per-rung dispatches do not sum to its dispatch count")
+        check(sum(eng.rung_bucket_dispatches.values()) == eng.dispatch_count,
+              f"{what}: shard {s}'s per-(rung, bucket) dispatches do not sum to its dispatch "
+              "count")
+        check(eng.revs_dropped == 0, f"{what}: shard {s} dropped {eng.revs_dropped} revolutions")
+
+
+def _serve(device, pods: dict, wall, warm: int, tag: str, cap=None, on_tick=None) -> dict:
+    """Drive ``pods`` (arm name -> (pod, fake clock)) over ``wall`` tick-
+    paired, alternating which arm drains first; every wall tick from
+    ``warm`` on runs under guards.steady_state on the card.  Per arm: the
+    digests of every wall tick's outputs, each drain's wall seconds and
+    its slowest shard drain; the deepest admission queue seen, the shadow
+    admission's sheds and the launches of the guarded window."""
+    import contextlib
+
+    from rplidar_ros2_driver_tpu_torch.utils import guards
+
+    names = list(pods)
+    outs = {n: [] for n in names}
+    secs = {n: [] for n in names}
+    shard_max = {n: [] for n in names}
+    shadow = [[] for _ in range(len(wall[0]))]
+    shadow_drops = [0] * len(wall[0])
+    max_depth = 0
+    stack = contextlib.ExitStack()
+    d0 = {}
+    marks = {n: len(pods[n][0].events) for n in names}
+    try:
+        for t, items in enumerate(wall):
+            if t == warm:
+                _sync(device)
+                _reset_counts()
+                d0 = {n: _engine_totals(pods[n][0])[0] for n in names}
+                stack.enter_context(guards.steady_state(tag=tag))
+            for name in (names if t % 2 == 0 else names[::-1]):
+                pod, fake = pods[name]
+                pod.offer_bytes(items)
+                max_depth = max(max_depth, max(len(q) for q in pod.scheduler.queues))
+                mark = len(pod.drain_log)
+                t0 = time.perf_counter()
+                got = pod.drain_scheduled()
+                dt = time.perf_counter() - t0
+                marks[name] = _losses(pod, marks[name], f"{tag} {name}")
+                fake["now"] += SCHEDULED["dt"]
+                outs[name].append([[_out_digest(o) for o in g] for g in got])
+                if t >= warm:
+                    secs[name].append(dt)
+                    shard_max[name].append(max((e[4] for e in pod.drain_log[mark:]),
+                                               default=0.0))
+            if cap is not None:
+                for s, item in enumerate(items):
+                    for tick in item or ():
+                        shadow[s].append(tick)
+                        if len(shadow[s]) > cap:
+                            shadow[s].pop(0)
+                            shadow_drops[s] += 1
+                    shadow[s].clear()
+            if on_tick is not None:
+                on_tick(t)
+        _sync(device)
+        launches = _counts()
+    finally:
+        stack.close()
+    timed = len(wall) - warm
+    arms = {}
+    for n in names:
+        total = _engine_totals(pods[n][0])[0]
+        arms[n] = {"pod_ticks_per_s": timed / max(sum(secs[n]), 1e-9), "drain_ms": _pcts(secs[n]),
+                   "losses": [(e[0], e[2], e[3]) for e in pods[n][0].events if e[1] == "lost"],
+                   "slowest_shard_drain_ms": _pcts(shard_max[n]),
+                   "dispatches_per_pod_drain": (total - d0[n]) / max(timed, 1),
+                   "dispatches": total}
+    return {"outs": outs, "arms": arms, "max_depth": max_depth, "shadow_drops": shadow_drops,
+            "launches": launches, "timed_ticks": timed}
+
+
+def _last_data_tick(wall: list) -> list:
+    """The last wall tick that offers any data (the profiled drain's)."""
+    return next(items for items in reversed(wall) if any(items))
+
+
+def _per_stream(per_tick: list) -> list:
+    """Per stream, every output digest in order."""
+    return [[d for tick in per_tick for d in tick[s]] for s in range(len(per_tick[0]))]
+
+
+def _cpu_prefix(build, wall, k: int) -> tuple:
+    """One arm rebuilt on the CPU over the first ``k`` wall ticks: its
+    per-wall-tick output digests, and the pod."""
+    pod, fake = build("cpu")
+    got = []
+    mark = len(pod.events)
+    for items in wall[:k]:
+        pod.offer_bytes(items)
+        got.append([[_out_digest(o) for o in g] for g in pod.drain_scheduled()])
+        mark = _losses(pod, mark, "the CPU run")
+        fake["now"] += SCHEDULED["dt"]
+    return got, pod
+
+
+def _cfg19(device) -> dict:
+    """Config 19 (bench_elastic_serving): the static arm pinned to rung 1
+    against the adaptive ladder (1, 2, 4, 8) over the reconnect-storm
+    trace, admission cap 8, shard 1 killed near the end."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    sc, c = SCHEDULED, SCHEDULED[19]
+    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
+    hot = max(1, c["streams"] // 4)
+    rates = [2 if s < hot else 1 for s in range(c["streams"])]
+    per_stream = [stream_data_ticks(ring_frames(c["revs"] * rates[s], sc["points"]), c["run"],
+                                    ans, 1000.0 + 7.0 * s) for s in range(c["streams"])]
+    wall = storm_wall_schedule(per_stream, rates, stall_period=c["stall_period"],
+                               stall_frames=c["stall_frames"], phase=3,
+                               storm_at=len(per_stream[hot]) // (2 * rates[hot]),
+                               storm_len=c["storm_len"])
+    kill_tick = len(wall) - max(4, len(wall) // 5)
+    kill = (1, kill_tick, 0)
+
+    def build(backend, arm_rungs):
+        fake = {"now": 0.0}
+        params = _sched_params(backend, c, sched_rungs=arm_rungs,
+                               admission_max_backlog_ticks=c["cap"],
+                               shard_starvation_ticks=2 * (c["storm_len"] + c["stall_frames"]))
+        return _sched_pod(params, c, (c["run"],), fake, kill=kill), fake
+
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    pods = {"static": build(backend, (1,)), "adaptive": build(backend, c["rungs"])}
+    weights = {}
+
+    def on_tick(t):
+        if t == kill_tick:
+            weights["at_kill"] = [pods["adaptive"][0].topology.weight_of(s)
+                                  for s in range(c["streams"])]
+
+    run = _serve(device, pods, wall, c["warm"], "config 19 pair", cap=c["cap"], on_tick=on_tick)
+    st, ad = pods["static"][0], pods["adaptive"][0]
+    for name, (pod, _f) in pods.items():
+        _check_accounting(pod, f"config 19 {name}", kills=1)
+        check(list(pod.scheduler.admission_drops) == run["shadow_drops"],
+              f"config 19 {name}: sheds {pod.scheduler.admission_drops} != the shadow "
+              f"admission's {run['shadow_drops']}")
+    _, st_table = _engine_totals(st)
+    _, ad_table = _engine_totals(ad)
+    check(not any(n for r, n in st_table.items() if r != 1),
+          f"config 19: the static arm dispatched above rung 1: {st_table}")
+    check(ad_table.get(max(c["rungs"]), 0) > 0,
+          f"config 19: the adaptive arm never reached rung {max(c['rungs'])}: {ad_table}")
+    check(run["arms"]["adaptive"]["dispatches"] < run["arms"]["static"]["dispatches"],
+          "config 19: the adaptive arm did not dispatch fewer times than the static arm")
+    check(run["max_depth"] <= c["cap"], f"config 19: backlog {run['max_depth']} over the bound")
+    check(sum(run["shadow_drops"]) > 0, "config 19: the outage never forced a shed")
+    check(_per_stream(run["outs"]["static"]) == _per_stream(run["outs"]["adaptive"]),
+          "config 19: the static and adaptive arms' outputs differ")
+    groups: dict = {}
+    for et, ev, stream, *rest in ad.events:
+        if ev == "evacuated":
+            groups.setdefault((et, rest[0]), []).append(stream)
+    for key, group in groups.items():
+        w = [weights["at_kill"][s] for s in group]
+        check(w == sorted(w, reverse=True), f"config 19: evacuation {key} not heaviest first")
+    k = sc["cpu_wall_ticks"][19]
+    cpu = {name: _cpu_prefix(lambda b, r=r: build(b, r), wall, k)[0]
+           for name, r in (("static", (1,)), ("adaptive", c["rungs"]))}
+    for name in pods:
+        check(run["outs"][name][:k] == cpu[name],
+              f"config 19 {name}: the card's outputs differ from the CPU run")
+    return {"wall_ticks": len(wall), "kill_tick": kill_tick, "arms": run["arms"],
+            "rung_dispatches": {"static": st_table, "adaptive": ad_table},
+            "sheds": run["shadow_drops"], "max_depth": run["max_depth"],
+            "evacuated": [g for g in groups.values()], "cpu_wall_ticks": k,
+            "launches": run["launches"], "timed_ticks": run["timed_ticks"],
+            "pods": {n: p for n, (p, _f) in pods.items()}, "profile_items": _last_data_tick(wall)}
+
+
+def _cfg20(device) -> dict:
+    """Config 20 (bench_async_serving): the double buffer and the bucket
+    ladder (4, 16) against the single-buffered static bucket, both on the
+    rung ladder (1, 2, 4, 8): the storm trace, then an occupancy collapse,
+    then recovery."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    sc, c = SCHEDULED, SCHEDULED[20]
+    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
+    buckets = (4, c["run"])
+    live = max(1, c["streams"] // 4)
+    need = [c["ticks_a"] + (c["collapse_len"] if s < live else 0) + c["recovery_len"]
+            for s in range(c["streams"])]
+    frames = ring_frames(max(need) + 4, sc["points"])
+    data = [stream_data_ticks(frames, c["run"], ans, 1000.0 + 7.0 * s)
+            for s in range(c["streams"])]
+    wall = storm_wall_schedule([d[: c["ticks_a"]] for d in data], [1] * c["streams"],
+                               stall_period=c["stall_period"], stall_frames=c["stall_frames"],
+                               phase=3, storm_at=c["ticks_a"] // 3, storm_len=c["storm_len"])
+    rem = [list(d[c["ticks_a"]: need[s]]) for s, d in enumerate(data)]
+    for _ in range(c["collapse_len"]):
+        wall.append([[rem[s].pop(0)] if s < live else None for s in range(c["streams"])])
+    for _ in range(c["recovery_len"]):
+        wall.append([[rem[s].pop(0)] for s in range(c["streams"])])
+
+    def build(backend, async_arm):
+        fake = {"now": 0.0}
+        params = _sched_params(
+            backend, c, sched_rungs=c["rungs"], admission_max_backlog_ticks=c["cap"],
+            staging_double_buffer=async_arm, bucket_rungs=buckets if async_arm else (),
+            shard_starvation_ticks=2 * (c["storm_len"] + c["stall_frames"]
+                                        + c["collapse_len"]))
+        return _sched_pod(params, c, buckets, fake), fake
+
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    pods = {"pr14": build(backend, False), "async": build(backend, True)}
+    seeded = {}
+
+    def on_tick(t):
+        if t == 0:
+            model = pods["async"][0].scheduler.model.table_ms()
+            seeded["keys"] = sorted(model)
+
+    run = _serve(device, pods, wall, c["warm"], "config 20 pair", cap=c["cap"], on_tick=on_tick)
+    sync_pod, async_pod = pods["pr14"][0], pods["async"][0]
+    for name, (pod, _f) in pods.items():
+        _check_accounting(pod, f"config 20 {name}")
+        check(list(pod.scheduler.admission_drops) == run["shadow_drops"],
+              f"config 20 {name}: sheds differ from the shadow admission")
+    hits = {n: sum(sh.fleet_ingest.staging_overlap_hits for sh in p.shards)
+            for n, (p, _f) in pods.items()}
+    switches = {n: sum(sh.fleet_ingest.bucket_switches for sh in p.shards)
+                for n, (p, _f) in pods.items()}
+    check(hits["async"] > 0 and hits["pr14"] == 0,
+          f"config 20: staging overlap hits {hits} (want > 0 with the double buffer, 0 off)")
+    check(switches["async"] >= 2 and switches["pr14"] == 0,
+          f"config 20: bucket switches {switches} (want >= 2 on the ladder, 0 off)")
+    want_keys = sorted(f"T{r}xM{b}" for r in c["rungs"] for b in buckets)
+    check(seeded.get("keys") == want_keys,
+          f"config 20: the latency model after the first drain {seeded.get('keys')} does not "
+          f"price every warmed (rung, bucket) {want_keys}")
+    check(run["max_depth"] <= c["cap"], "config 20: backlog over the bound")
+    check(_per_stream(run["outs"]["pr14"]) == _per_stream(run["outs"]["async"]),
+          "config 20: the double-buffered arm's outputs differ from the single-buffered arm's")
+    k = sc["cpu_wall_ticks"][20]
+    for name, flag in (("pr14", False), ("async", True)):
+        check(run["outs"][name][:k] == _cpu_prefix(lambda b, f=flag: build(b, f), wall, k)[0],
+              f"config 20 {name}: the card's outputs differ from the CPU run")
+    rb = {}
+    for sh in async_pod.shards:
+        for (r, b), n in sh.fleet_ingest.rung_bucket_dispatches.items():
+            rb[f"T{r}xM{b}"] = rb.get(f"T{r}xM{b}", 0) + n
+    return {"wall_ticks": len(wall), "arms": run["arms"], "staging_overlap_hits": hits,
+            "bucket_switches": switches, "async_rung_bucket_dispatches": rb,
+            "sheds": run["shadow_drops"], "max_depth": run["max_depth"], "cpu_wall_ticks": k,
+            "launches": run["launches"], "timed_ticks": run["timed_ticks"],
+            "pods": {n: p for n, (p, _f) in pods.items()}, "profile_items": _last_data_tick(wall)}
+
+
+def _cfg21(device) -> dict:
+    """Config 21 (bench_pod_scaleout): work stealing plus the autoscaler
+    against the static pod, 8 streams over 4 shards on 2 hosts: skewed
+    bursts on shard 0's two streams, an idle stretch, a full resume."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    sc, c = SCHEDULED, SCHEDULED[21]
+    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
+    need = c["skew_len"] * c["burst"] + c["resume_len"] + 2
+    revs = -(-(need * c["run"] * 40) // sc["points"]) + 2
+    frames = ring_frames(revs, sc["points"])
+    data = [stream_data_ticks(frames, c["run"], ans, 1000.0 + 7.0 * s)
+            for s in range(c["streams"])]
+
+    def build(backend, pod_arm):
+        fake = {"now": 0.0}
+        params = _sched_params(
+            backend, c, sched_rungs=c["rungs"], admission_max_backlog_ticks=c["cap"],
+            pod_hosts=c["hosts"], steal_threshold_ticks=2 if pod_arm else 0,
+            autoscale_enable=pod_arm, autoscale_low_watermark=0.3,
+            autoscale_high_watermark=0.75, autoscale_hysteresis_ticks=3,
+            shard_starvation_ticks=4 * (c["skew_len"] + c["idle_len"] + c["resume_len"]))
+        return _sched_pod(params, c, (c["run"],), fake), fake
+
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    pods = {"static": build(backend, False), "pod": build(backend, True)}
+    deep = [s for s in pods["pod"][0].topology.lane_streams(0) if s is not None][:2]
+    cursor = [0] * c["streams"]
+
+    def take(s, n):
+        got = data[s][cursor[s]: cursor[s] + n]
+        cursor[s] += len(got)
+        return list(got) or None
+
+    wall = [[take(s, c["burst"] if s in deep else 1) for s in range(c["streams"])]
+            for _ in range(c["skew_len"])]
+    wall += [[None] * c["streams"] for _ in range(c["idle_len"])]
+    wall += [[take(s, 1) for s in range(c["streams"])] for _ in range(c["resume_len"])]
+    run = _serve(device, pods, wall, c["warm"], "config 21 pair", cap=c["cap"])
+    pp, ps = pods["pod"][0], pods["static"][0]
+    for name, (pod, _f) in pods.items():
+        _check_accounting(pod, f"config 21 {name}")
+        check(list(pod.scheduler.admission_drops) == run["shadow_drops"],
+              f"config 21 {name}: sheds differ from the shadow admission")
+    check(ps.scheduler.steals == 0 and ps.scale_events == [],
+          "config 21: the static pod stole or scaled")
+    check(pp.scheduler.steals > 0 and pp.steal_drops == 0,
+          f"config 21: {pp.scheduler.steals} steals, {pp.steal_drops} dropped")
+    check(pp.scheduler.steal_ticks == sum(n for *_, n in pp.scheduler.steal_log),
+          "config 21: steal_ticks != the sum of the steal log")
+    check(all(src == 0 and stream in deep for _dst, src, stream, _n in pp.scheduler.steal_log),
+          f"config 21: a steal off another shard than the deep one: {pp.scheduler.steal_log}")
+    downs = [e for e in pp.scale_events if e[1] == "down"]
+    ups = [e for e in pp.scale_events if e[1] == "up"]
+    check(downs and ups and pp.pod_status()["parked"] == [],
+          f"config 21: no full scale cycle: {pp.scale_events}")
+    check(run["max_depth"] <= c["cap"], "config 21: backlog over the bound")
+    per = {n: _per_stream(run["outs"][n]) for n in pods}
+    check(per["pod"] == per["static"], "config 21: the pod arm's outputs differ from the static "
+          "arm's")
+    check(all(len(o) > 0 for o in per["pod"]), "config 21: a stream never published")
+    k = sc["cpu_wall_ticks"][21]
+    for name, flag in (("static", False), ("pod", True)):
+        check(run["outs"][name][:k] == _cpu_prefix(lambda b, f=flag: build(b, f), wall, k)[0],
+              f"config 21 {name}: the card's outputs differ from the CPU run")
+    return {"wall_ticks": len(wall), "arms": run["arms"], "deep": deep,
+            "steals": pp.scheduler.steals, "steal_ticks": pp.scheduler.steal_ticks,
+            "scale_events": pp.scale_events, "sheds": run["shadow_drops"],
+            "max_depth": run["max_depth"], "cpu_wall_ticks": k, "launches": run["launches"],
+            "timed_ticks": run["timed_ticks"], "pods": {n: p for n, (p, _f) in pods.items()},
+            "profile_items": _last_data_tick(wall)}
+
+
+def _cfg22(device) -> dict:
+    """Config 22 (bench_map_serving): 6 streams over 3 shards with the
+    fused FleetMapper on 256² at 0.05 m; the world map arm (merges on the
+    drain, tiles published on its idle half) against per-stream pulls."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.mapping.tiles import snapshot_grid
+    from rplidar_ros2_driver_tpu_torch.ops.tile_quant import fuse_planes_np
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    sc, c = SCHEDULED, SCHEDULED[22]
+    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
+    revs = -(-(c["wall_len"] * c["run"] * 40) // sc["points"]) + 2
+    frames = ring_frames(revs, sc["points"])
+    data = [stream_data_ticks(frames, c["run"], ans, 1000.0 + 7.0 * s)
+            for s in range(c["streams"])]
+    wall = [[[data[s][t]] for s in range(c["streams"])] for t in range(c["wall_len"])]
+
+    def build(backend, world_arm):
+        fake = {"now": 0.0}
+        params = _sched_params(
+            backend, c, map_enable=True, map_backend="fused", map_grid=c["map_grid"],
+            map_cell_m=c["map_cell_m"], shard_starvation_ticks=4 * c["wall_len"],
+            world_map_enable=world_arm, map_tile_backend="auto",
+            world_tile_cells=c["tile_cells"], world_max_submaps=c["world_cap"],
+            world_merge_revs=c["merge_revs"], world_publish_ticks=c["publish_ticks"])
+        return _sched_pod(params, c, (c["run"],), fake, world=world_arm), fake
+
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    pods = {"tiles": build(backend, True), "pull": build(backend, False)}
+    world = pods["tiles"][0].world
+    reads = {"tiles": [], "pull": []}
+    k = sc["cpu_wall_ticks"][22]
+    at_k: dict = {}
+
+    def counts(name):
+        return [dict(sh.fleet_ingest.rung_dispatches) for sh in pods[name][0].shards]
+
+    def on_tick(t):
+        check(len(world._members) <= world.cfg.max_submaps, "config 22: membership over the cap")
+        if t == k - 1:
+            # the world as the CPU run leaves it after its last wall tick
+            at_k.update(acc=world.accumulation(), merges=world.merges,
+                        evictions=world.evictions, snapshot=world.snapshot())
+        if world.snapshot() is None:
+            return
+        before = counts("tiles")
+        x0 = time.perf_counter()
+        grid = snapshot_grid(world.snapshot())
+        t_tiles = time.perf_counter() - x0
+        x0 = time.perf_counter()
+        acc = np.zeros((c["map_grid"], c["map_grid"]), np.int64)
+        pull = pods["pull"][0]
+        for s, sh in enumerate(pull.shards):
+            for lane, stream in enumerate(pull.topology.lane_streams(s)):
+                if stream is not None:
+                    acc += np.asarray(sh.mapper.snapshot_stream(lane)["log_odds"], np.int64)
+        t_pull = time.perf_counter() - x0
+        check(counts("tiles") == before, "config 22: a map read moved a dispatch counter")
+        check(grid.shape == acc.shape == (c["map_grid"], c["map_grid"]),
+              "config 22: a read grid is misshapen")
+        if t >= c["warm"]:
+            reads["tiles"].append(t_tiles)
+            reads["pull"].append(t_pull)
+
+    run = _serve(device, pods, wall, c["warm"], "config 22 pair", on_tick=on_tick)
+    for name, (pod, _f) in pods.items():
+        _check_accounting(pod, f"config 22 {name}")
+    check(counts("tiles") == counts("pull"),
+          "config 22: the world arm's dispatch counts differ from the pull arm's")
+    check(world.merges >= c["world_cap"] + 1 and world.evictions >= 1,
+          f"config 22: {world.merges} merges, {world.evictions} evictions")
+    check(world.serving_version >= 1 and world.snapshot() is not None,
+          "config 22: no tile snapshot was published")
+    check(np.array_equal(world.accumulation(),
+                         fuse_planes_np([m.plane for m in world._members])),
+          "config 22: the accumulation differs from the sum of its members")
+    check(_per_stream(run["outs"]["tiles"]) == _per_stream(run["outs"]["pull"]),
+          "config 22: the world arm's outputs differ from the pull arm's")
+    cpu = {name: _cpu_prefix(lambda b, f=flag: build(b, f), wall, k)
+           for name, flag in (("tiles", True), ("pull", False))}
+    for name, (got, _pod) in cpu.items():
+        check(run["outs"][name][:k] == got,
+              f"config 22 {name}: the card's outputs differ from the CPU run")
+    # the card's world after k wall ticks against the CPU run's
+    cw = cpu["tiles"][1].world
+    check(at_k["merges"] == cw.merges >= 1 and at_k["evictions"] == cw.evictions,
+          f"config 22: after {k} wall ticks the card's world has {at_k['merges']} merges, "
+          f"{at_k['evictions']} evictions; the CPU's {cw.merges}, {cw.evictions}")
+    check(np.array_equal(at_k["acc"], cw.accumulation()),
+          f"config 22: after {k} wall ticks the card's world accumulation differs from the CPU's")
+    snaps = (at_k["snapshot"], cw.snapshot())
+    check(None not in snaps and snaps[0].version == snaps[1].version
+          and np.array_equal(snapshot_grid(snaps[0]), snapshot_grid(snaps[1])),
+          f"config 22: after {k} wall ticks the card's published tiles differ from the CPU's")
+    return {"wall_ticks": len(wall), "arms": run["arms"], "merges": world.merges,
+            "evictions": world.evictions, "serving_version": world.serving_version,
+            "tiles": world.snapshot().tiles,
+            "compression_ratio": world.snapshot().compression_ratio,
+            "read_ms": {n: _pcts(v) for n, v in reads.items()}, "cpu_wall_ticks": k,
+            "launches": run["launches"], "timed_ticks": run["timed_ticks"],
+            "pods": {n: p for n, (p, _f) in pods.items()}, "profile_items": _last_data_tick(wall)}
+
+
+def phase_scheduled(device) -> dict:
+    """Scheduled serving (ROADMAP A.10b) on the card: bench.py configs
+    19-22 at full geometry, two pods per config drained tick-paired under
+    guards.steady_state — rung and bucket switches, snapshot pulls, the
+    kill and evacuation, steals, park and unpark, the world's merges and
+    publications — each arm byte-equal to the other and to its CPU run
+    over the first wall ticks, the bench's identities asserted.  Runs
+    before any profiler session; the profiled drains are
+    :func:`scheduled_profile`."""
+    t0 = time.perf_counter()
+    row = {"phase": "scheduled", "configs": {}}
+    launches: dict = {}
+    for n, fn in ((19, _cfg19), (20, _cfg20), (21, _cfg21), (22, _cfg22)):
+        c0 = time.perf_counter()
+        got = fn(device)
+        # guards (a) and (b) raise when the guarded window closes; guard
+        # (c) and a failed launch raise inside a drain, where the pod's
+        # heartbeat boundary turns them into a lost shard: clean means
+        # every arm lost exactly its planned chaos kills
+        planned = 1 if n == 19 else 0
+        losses = {arm: v["losses"] for arm, v in got["arms"].items()}
+        clean = all(len(v) == planned and all(r.startswith("chaos:") for *_x, r in v)
+                    for v in losses.values())
+        check(clean, f"scheduled: config {n}'s shard losses {losses} are not its {planned} "
+              "planned kill(s)")
+        # every check above held: the arms and the CPU runs
+        got.update(seconds=time.perf_counter() - c0,
+                   steady_state="clean" if clean else "violated", arms_equal=True,
+                   cpu_equal=True)
+        for k, v in got["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        row["configs"][n] = got
+    if device.type == "cuda":
+        check(all(row["configs"][n]["launches"].get("temporal_median", 0) > 0
+                  for n in (19, 20, 21, 22)), "scheduled: B1 never launched on a config")
+        for k in ("coarse_scores", "fine_scores", "log_odds_update"):
+            check(row["configs"][22]["launches"].get(k, 0) > 0,
+                  f"scheduled: {k} never launched on config 22's path")
+    row["seconds"] = time.perf_counter() - t0
+    row["scheduled_launches"] = launches
+    return row
+
+
+def scheduled_profile(device, row: dict, card: str) -> dict:
+    """The profiled half of the scheduled phase, after the other phases'
+    host timings: one more drain of each config's new arm (its last wall
+    tick offered again) under torch.profiler — device operations, busy ms
+    and the idle share — then the phase's line."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    arms = {19: "adaptive", 20: "async", 21: "pod", 22: "tiles"}
+    for n, arm in arms.items():
+        cfg = row["configs"][n]
+        pod = cfg["pods"][arm]
+        pod.offer_bytes(cfg["profile_items"])
+        _sync(device)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            pod.drain_scheduled()
+            _sync(device)
+            wall = time.perf_counter() - w0
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in ev)
+        cfg["profiled_drain"] = {"arm": arm, "device_ops": len(ev),
+                                 "device_busy_ms": busy_us / 1e3, "wall_ms": wall * 1e3,
+                                 "device_idle_share": 1.0 - busy_us / 1e6 / wall}
+    out = {k: v for k, v in row.items() if k != "configs"}
+    out["configs"] = {n: {k: v for k, v in cfg.items()
+                          if k not in ("pods", "profile_items", "launches")}
+                      | {"launches": cfg["launches"]} for n, cfg in row["configs"].items()}
+    out.pop("scheduled_launches")
+    out.update(profile_seconds=time.perf_counter() - t0, card=card)
+    emit(out)
+    return row
+
+
 def redesign_report(name: str, timed: list, launched: list) -> dict:
     """B1's and B4's extra keys in the kernels line.  ``timed``: the kernel
     and deskew_kernels phases' rows at each of the path's shapes (device
@@ -4445,6 +5131,8 @@ ONE_PHASE = {
     "fused_mapping": lambda device, seed, card: fused_mapping_profile(
         device, phase_fused_mapping(device), card),
     "failover": lambda device, seed, card: failover_profile(device, phase_failover(device), card),
+    "scheduled": lambda device, seed, card: scheduled_profile(device, phase_scheduled(device),
+                                                              card),
     "fleet": lambda device, seed, card: phase_fleet(device, seed),
 }
 
@@ -4507,9 +5195,11 @@ def main(argv=None) -> int:
     fmap = phase_fused_mapping(device)
     # the failover pod's timed pass, before any profiler session
     failover = phase_failover(device)
+    sched = phase_scheduled(device)
     fleet = phase_fleet(device, args.seed)
     fused_mapping_profile(device, fmap, info["nvidia_smi"])
     failover_profile(device, failover, info["nvidia_smi"])
+    scheduled_profile(device, sched, info["nvidia_smi"])
     kern = phase_kernels(device, np.random.default_rng(args.seed))
     revs = make_revolutions(args.seed, args.revs, GEOMETRY["points"])
     chain = phase_chain(device, revs)
@@ -4636,6 +5326,12 @@ def main(argv=None) -> int:
         if k["name"] not in ("sorted_replace", "sliding_median"):
             check(k["failover_launches"] > 0,
                   f"kernel {k['name']} never launched on the failover path")
+        # the scheduled pods' paths: configs 19-22 (B1; B6-B8 on config
+        # 22's mappers); B2-B5 are not on them
+        k["scheduled_launches"] = sched["scheduled_launches"].get(k["name"], 0)
+        if k["name"] in ("temporal_median", "coarse_scores", "fine_scores", "log_odds_update"):
+            check(k["scheduled_launches"] > 0,
+                  f"kernel {k['name']} never launched on the scheduled path")
     for name in ("temporal_median", "sliding_median"):
         entry = next(k for k in kernels if k["name"] == name)
         entry["fleet_shapes"] = {key: v for key, v in fleet["shapes"].items()

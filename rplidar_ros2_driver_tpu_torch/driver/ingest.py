@@ -35,6 +35,11 @@ The fleet engine's serving-pod surface (parallel/service.ElasticFleetService)
 is a staging pool shared by the engines of one host (``staging_pool=``) and
 the cold reset of a lost shard (:meth:`FleetFusedIngest.capture_cold_template`
 once before traffic, :meth:`FleetFusedIngest.cold_reset` in place after).
+Its scheduled-serving surface (parallel/scheduler.py) is the rung ladder
+(``rungs``, :meth:`FleetFusedIngest.ensure_rungs`, ``submit_backlog(rung=,
+overlap_work=)``), the bucket ladder (:meth:`FleetFusedIngest.set_active_bucket`),
+the double-buffered staging order (``staging_double_buffer``) and the warm-up
+costs precompile times for the latency model.
 Every synchronising fetch of these engines — the result copies, the row
 snapshot pulls and restores — runs inside ``utils/guards.declared_sync``, so
 a steady-state loop under ``utils/guards.steady_state`` lets exactly those
@@ -79,6 +84,7 @@ from rplidar_ros2_driver_tpu_torch.ops.ingest import (
     unpack_fleet_ingest_result,
     unpack_ingest_result,
     unpack_super_fleet_ingest_result,
+    warm_revolution_path,
 )
 from rplidar_ros2_driver_tpu_torch.protocol import crc as crcmod
 from rplidar_ros2_driver_tpu_torch.protocol import timing as timingmod
@@ -510,6 +516,15 @@ class FleetFusedIngest:
     frame_bytes) plane, uploaded once and run as one super-step; a short
     group is padded with all-idle ticks.
 
+    ``rungs`` is the ladder of drain depths the engine warms (always 1 and
+    ``super_tick_max``): a scheduler (parallel/scheduler.py) picks one per
+    drain (:meth:`submit_backlog` ``rung=``), and :meth:`precompile` runs
+    every (rung, bucket) step once on a throwaway state and times a second
+    run (``warmup_costs``), so a rung or bucket switch mid-serving builds
+    nothing and maps no new device memory.  ``staging_double_buffer``
+    stages drain t+1 while drain t runs; :meth:`set_active_bucket` moves
+    the frame-run slicing cap among the warmed buckets.
+
     ``staging_pool`` injects the :class:`StagingPool` the engine stages its
     uploads through; the serving pod shares one among the engines of a
     host, so an engine carries only device state.  By default the engine
@@ -529,6 +544,7 @@ class FleetFusedIngest:
         buckets: tuple = _FUSED_BUCKETS,
         super_tick_max: Optional[int] = None,
         staging_pool: Optional[StagingPool] = None,
+        rungs: Optional[tuple] = None,
     ) -> None:
         from rplidar_ros2_driver_tpu_torch.ops.deskew import deskew_config_from_params
 
@@ -579,7 +595,38 @@ class FleetFusedIngest:
         if super_tick_max < 1:
             raise ValueError("super_tick_max must be >= 1")
         self.super_tick_max = int(super_tick_max)
+        # the super-tick RUNG ladder: the drain depths precompile warms,
+        # so a scheduler can pick another depth per drain with nothing to
+        # build; depth 1 (the per-tick step) is always a rung
+        self.rungs = tuple(sorted({1, self.super_tick_max} | {int(r) for r in (rungs or ())}))
+        if self.rungs[0] < 1:
+            raise ValueError("super-tick rungs must be >= 1")
+        # dispatches per rung depth (depth 1 counts per-tick dispatches)
+        self.rung_dispatches: dict = {r: 0 for r in self.rungs}
+        # set by precompile: extending the ladder afterwards would hand
+        # out depths nothing warmed (ensure_rungs refuses); the cold-drain
+        # warning fires once per depth
+        self._rungs_warmed = False
+        self._cold_rungs_warned: set = set()
         self._buckets = tuple(sorted(buckets))
+        # double-buffered staging: within a multi-group drain the NEXT
+        # group's planes are filled and uploaded after the previous
+        # group's step was issued (a ping/pong pair per staging key);
+        # off, every group stages then runs, one after another
+        self.double_buffer = bool(getattr(params, "staging_double_buffer", True))
+        # dispatches whose staging followed an issued step (the
+        # /diagnostics staging-overlap counter)
+        self.staging_overlap_hits = 0
+        # the adaptive bucket ladder's slicing cap (a warmed bucket), None
+        # = the largest; a switch only re-slices future ticks
+        self.active_bucket: Optional[int] = None
+        self.bucket_switches = 0
+        # dispatches per (rung, bucket): sums to dispatch_count, its
+        # marginal over buckets is rung_dispatches
+        self.rung_bucket_dispatches: dict = {}
+        # precompile's timed second run of each (rung, bucket) step, in
+        # seconds: the LatencyModel's seeds (parallel/scheduler.py)
+        self.warmup_costs: dict = {}
         self.timing = timingmod.TimingDesc()
         self.recorder = None
         self._lock = threading.Lock()
@@ -601,6 +648,7 @@ class FleetFusedIngest:
         self.ticks = 0
         self.dispatch_count = 0
         self.super_dispatches = 0
+        self.ticks_super_fused = 0
         self.frames_decoded = 0
         self.nodes_decoded = 0
         self.scans_completed = 0
@@ -634,25 +682,67 @@ class FleetFusedIngest:
             emit_nodes=self.emit_nodes, deskew=self._deskew, mapping=self._mapping,
         )
 
+    def ensure_rungs(self, rungs) -> None:
+        """Extend the warmed rung ladder (a scheduler attaching to an
+        engine already built).  Only BEFORE precompile and traffic: a new
+        depth on a live engine would be run for the first time inside the
+        serving loop, which the ladder exists to forbid."""
+        need = {1} | {int(r) for r in rungs}
+        if need <= set(self.rungs):
+            return
+        if self.ticks > 0 or self._rungs_warmed:
+            raise RuntimeError(
+                f"cannot extend the rung ladder {self.rungs} with "
+                f"{sorted(need - set(self.rungs))} on an engine that "
+                "has already "
+                + ("ticked" if self.ticks > 0 else "precompiled")
+                + " — attach the scheduler BEFORE precompile/traffic"
+            )
+        if min(need) < 1:
+            raise ValueError("super-tick rungs must be >= 1")
+        self.rungs = tuple(sorted(set(self.rungs) | need))
+        self.rung_dispatches = {r: self.rung_dispatches.get(r, 0) for r in self.rungs}
+
     def precompile(self, formats, buckets: Optional[tuple] = None) -> None:
-        """Build the path's kernels and warm the per-tick step and the
-        super-step for each padding bucket on a throwaway state."""
+        """Build the path's kernels, run a completed revolution's work once
+        (ops/ingest.warm_revolution_path), and warm EVERY (rung, bucket) step on
+        a throwaway state, through the live staging path: each staging
+        key's pair is taken from the pool and given back, the step runs
+        once, then a second run is timed into
+        ``warmup_costs[(rung, bucket)]`` (the LatencyModel's seed; the
+        first run, which builds and maps memory, stays out of it).  Every
+        warm run's results stay alive until the end, so the allocator
+        holds blocks for a drain's results in flight: a rung or bucket
+        switch later builds nothing and maps no new segment."""
         with self._lock:
             self._ensure_cfg(formats)
             icfg = self._icfg
         if icfg is None:
             return
+        self._rungs_warmed = True
         _build_kernels(self.device, self._deskew, self._mapping)
+        # the warm steps' idle frames complete no revolution: run what a
+        # completed one runs (the slot filter, the de-skew profiles) apart
+        warm_revolution_path(icfg, self.streams, self.device)
+        cuda = self.device.type == "cuda"
+        keep = []
         for b in buckets or self._buckets:
-            for t in sorted({1, self.super_tick_max}):
+            for t_depth in self.rungs:
+                skey = ("super", t_depth, b) if t_depth > 1 else ("tick", b)
+                buf, aux = pair = self._staging_buffers(skey)
+                aux.numpy()[..., 2 * b + 1] = 1.0  # m=1: the live-lane path
+                step = super_fleet_ingest_step if t_depth > 1 else fleet_fused_ingest_step
                 st = create_fleet_ingest_state(icfg, self.streams, device=self.device)
-                lead = (t,) if t > 1 else ()
-                aux = np.zeros(lead + (self.streams, fleet_aux_len(b)), np.float32)
-                aux[..., 2 * b + 1] = 1.0  # m=1: the live-lane path
-                frames = torch.zeros(lead + (self.streams, b, icfg.frame_bytes),
-                                     dtype=torch.uint8, device=self.device)
-                step = super_fleet_ingest_step if t > 1 else fleet_fused_ingest_step
-                step(st, frames, aux, icfg)
+                keep.append(step(st, buf.to(self.device, non_blocking=True), aux, icfg))
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                t0 = time.perf_counter()
+                keep.append(step(st, buf.to(self.device, non_blocking=True), aux, icfg))
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                self.warmup_costs[(t_depth, b)] = time.perf_counter() - t0
+                self.staging.give(skey, pair)
+        del keep
 
     # -- producer side -------------------------------------------------------
 
@@ -661,6 +751,30 @@ class FleetFusedIngest:
             if n <= b:
                 return b
         return self._buckets[-1]
+
+    def set_active_bucket(self, bucket: int) -> None:
+        """Move the frame-run slicing cap to ``bucket`` (the scheduler's
+        BucketLadder pick).  The bucket must be warmed: precompile ran
+        every listed bucket at every rung, so a switch builds nothing.
+        The cap only re-slices FUTURE ticks — contents and order never
+        change — so any cap sequence is byte-equal by construction."""
+        b = int(bucket)
+        if b not in self._buckets:
+            raise ValueError(
+                f"bucket {b} is not a warmed padding bucket "
+                f"{self._buckets} — list it in bucket_rungs (every "
+                "ladder bucket is warmed per rung at precompile)"
+            )
+        prev = self.active_bucket or self._buckets[-1]
+        self.active_bucket = b
+        if b != prev:
+            self.bucket_switches += 1
+
+    @property
+    def slicing_bucket(self) -> int:
+        """The active slicing cap: the bucket ladder's pick, or the
+        largest warmed bucket when no ladder has spoken."""
+        return self.active_bucket or self._buckets[-1]
 
     def _normalize_tick(self, items) -> list:
         """Validate one tick's per-stream byte runs: payload-size filter,
@@ -710,7 +824,9 @@ class FleetFusedIngest:
         resets = self._reset_next
         self._reset_next = [False] * self.streams
         no_reset = [False] * self.streams
-        cap = self._buckets[-1]
+        # the bucket ladder's slicing cap: a collapsed fleet slices at a
+        # small warmed bucket, a full one at the largest
+        cap = self.slicing_bucket
         slices = []
         off = 0
         while True:
@@ -723,20 +839,53 @@ class FleetFusedIngest:
                 break
         return slices
 
-    def _dispatch_slices(self, slices) -> None:
-        """One per-tick step per slice when ``super_tick_max`` is 1 (or for
-        a single slice), else groups of up to ``super_tick_max`` slices per
-        super-step."""
-        depth = self.super_tick_max
+    def _dispatch_slices(self, slices, depth: Optional[int] = None) -> None:
+        """Dispatch a queue of tick slices: one per-tick step each at depth
+        1 (or for a single queued slice), else groups of up to ``depth``
+        slices per super-step.  The default depth is ``super_tick_max``; a
+        scheduler picks another WARMED rung per drain — an unwarmed depth
+        is refused, since it would run for the first time inside the
+        serving loop.
+
+        With ``staging_double_buffer`` on and more than one group queued,
+        staging runs one group AHEAD: group t's step is issued, THEN group
+        t+1's planes are filled and uploaded, while the card still runs
+        t's work.  Groups stage strictly in tick order, so the timestamp
+        bases and the pending queue see the same sequence either way."""
+        if depth is None:
+            depth = self.super_tick_max
+        elif depth not in self.rungs:
+            raise ValueError(
+                f"drain depth {depth} is not a warmed rung "
+                f"{self.rungs} — extend sched_rungs (ensure_rungs) "
+                "before traffic"
+            )
+        elif depth > 1 and not self._rungs_warmed and depth not in self._cold_rungs_warned:
+            # a LISTED rung on an engine precompile never warmed: fine for
+            # offline tools and tests, a latency spike in a serving loop
+            self._cold_rungs_warned.add(depth)
+            log.warning("rung-%d drain on an engine precompile() never warmed — "
+                        "this dispatch runs its step for the first time", depth)
         if depth <= 1:
             groups = [[sl] for sl in slices]
         else:
             groups = [slices[off : off + depth] for off in range(0, len(slices), depth)]
-        for group in groups:
+
+        def stage(group):
             if len(group) == 1:
-                self._launch(self._stage_tick(group[0]))
-            else:
-                self._launch(self._stage_super(group, depth))
+                return self._stage_tick(group[0])
+            return self._stage_super(group, depth)
+
+        if not self.double_buffer or len(groups) < 2:
+            for group in groups:
+                self._launch(stage(group))
+            return
+        staged = stage(groups[0])
+        for group in groups[1:]:
+            self._launch(staged)   # drain t is issued
+            staged = stage(group)  # drain t+1 stages behind it
+            self.staging_overlap_hits += 1
+        self._launch(staged)
 
     def _stage_slice(self, sl, mb: int, buf: torch.Tensor, aux: np.ndarray) -> None:
         """Fill one tick slice's staging planes (``buf`` (streams, mb,
@@ -813,7 +962,11 @@ class FleetFusedIngest:
             event.record(torch.cuda.current_stream(self.device))
         if kind == "super":
             self.super_dispatches += 1
+            self.ticks_super_fused += n
         self.dispatch_count += 1
+        self.rung_dispatches[t_depth] = self.rung_dispatches.get(t_depth, 0) + 1
+        rb = (t_depth, skey[-1])
+        self.rung_bucket_dispatches[rb] = self.rung_bucket_dispatches.get(rb, 0) + 1
         self._pending.append((kind, tuple(res), icfg, bases, skey, pair, event))
         while len(self._pending) > self._max_queue:
             self._release_entry(self._pending.popleft())
@@ -902,15 +1055,26 @@ class FleetFusedIngest:
             self._pending.clear()
             return self._parse_entries(entries)
 
-    def submit_backlog(self, ticks) -> list:
-        """Drain a BACKLOG of queued fleet ticks in ``ceil(len/T)``
-        super-steps (T = ``super_tick_max``); ticks are normalized in order
-        and the result is exact against submitting them one by one."""
+    def submit_backlog(self, ticks, *, rung: Optional[int] = None, overlap_work=None) -> list:
+        """Drain a BACKLOG of queued fleet ticks in ``ceil(slices/T)``
+        super-steps; T is ``super_tick_max``, or ``rung`` (another WARMED
+        depth — the scheduler's pick; an unwarmed one is refused).  Ticks
+        are normalized in order and the result is exact against
+        submitting them one by one, for any rung sequence.
+
+        ``overlap_work`` (a zero-argument callable) runs after every
+        dispatch is issued and before any result is parsed, outside the
+        engine lock: the serving pod's snapshot pulls and tile publication
+        ride there.  A row gather it queues runs after the drain's steps
+        on the same stream, so it sees the post-drain state."""
         with self._lock:
             slices = []
             for items in ticks:
                 slices.extend(self._tick_slices(items))
-            self._dispatch_slices(slices)
+            self._dispatch_slices(slices, depth=rung)
+        if overlap_work is not None:
+            overlap_work()
+        with self._lock:
             entries = list(self._pending)
             self._pending.clear()
             return self._parse_entries(entries)

@@ -58,6 +58,7 @@ from rplidar_ros2_driver_tpu_torch.ops.tile_quant import (
     fuse_accumulate,
     fuse_retract,
 )
+from rplidar_ros2_driver_tpu_torch.utils import guards
 
 WORLD_STATE_VERSION = 1
 
@@ -199,12 +200,16 @@ class WorldMap:
 
     def _upload(self, plane: np.ndarray) -> torch.Tensor:
         # always a copy: the accumulation is updated in place, and a CPU
-        # tensor from_numpy would share the caller's (maybe read-only) buffer
-        return torch.tensor(np.asarray(plane, np.int32), device=self.device)
+        # tensor from_numpy would share the caller's (maybe read-only)
+        # buffer; the upload is a declared transfer (utils/guards)
+        with guards.declared_sync():
+            return torch.tensor(np.asarray(plane, np.int32), device=self.device)
 
     def accumulation(self) -> np.ndarray:
-        """A host copy of the accumulation (one device->host copy)."""
-        return self._acc.cpu().numpy().copy()
+        """A host copy of the accumulation (one declared device->host
+        copy: the serving pod publishes inside its guarded drain loop)."""
+        with guards.declared_sync():
+            return self._acc.cpu().numpy().copy()
 
     # -- merge cadence ----------------------------------------------------
 

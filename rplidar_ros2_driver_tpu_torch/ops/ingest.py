@@ -654,31 +654,8 @@ def _segment_filter_core(cfg, st: IngestState, filters: list, batch4, ts_c, nv,
             ts_arr = torch.where(lv, fullts.gather(1, idx.reshape(n_streams, -1)).reshape(
                 n_streams, big_r, mn), 0.0)
     if sum(n_host):
-        angle_r, dist_r = nodes_all[..., 0], nodes_all[..., 1]
-        if dsk is not None:
-            # per-revolution range-only de-skew for every stream and slot at
-            # once: profile each slot RAW (one B4 launch), estimate its
-            # motion against the previous slot's profile — the carried one
-            # for slot 0 — (one B5 launch), re-project its nodes
-            prof_rows = deskewmod.profile_from_nodes(angle_r, dist_r, lv, dsk)
-            prev = torch.cat([st.deskew_prof[:, None], prof_rows[:, :-1]], dim=1)
-            motion_rows = deskewmod.estimate_motion(prev, prof_rows, dsk)
-            angle_r, dist_r = deskewmod.apply_deskew(angle_r, dist_r, lv, motion_rows, dsk)
-            # the carries come from each stream's LAST live slot
-            has = n_completed > 0
-            last = (n_completed - 1).clamp(min=0).long()
-            rows = torch.arange(n_streams, device=dev)
-            new_prof = torch.where(has[:, None], prof_rows[rows, last], st.deskew_prof)
-            new_motion = torch.where(has[:, None], motion_rows[rows, last], st.deskew_motion)
-        for s, k_s in enumerate(n_host):
-            for r in range(k_s):
-                batch = ScanBatch(
-                    angle_q14=angle_r[s, r], dist_q2=dist_r[s, r],
-                    quality=nodes_all[s, r, :, 2], flag=nodes_all[s, r, :, 3],
-                    valid=lv[s, r], count=counts[s, r],
-                )
-                filters[s], out = _filter_step_impl(filters[s], batch, fcfg)
-                out_wires[s, r] = _pack_output_wire(out)
+        new_prof, new_motion = _revolution_slots(
+            filters, nodes_all, lv, counts, n_completed, n_host, st, cfg, out_wires)
 
     meta = torch.cat([
         torch.stack([n_completed, drop_head, syncs, nodes_appended], dim=1).to(_F32),
@@ -697,6 +674,43 @@ def _segment_filter_core(cfg, st: IngestState, filters: list, batch4, ts_c, nv,
         meta=meta, out_wires=out_wires, nodes=nodes_arr, node_ts=ts_arr,
         deskew_prof=new_prof, deskew_motion=new_motion, n_host=n_host, **recon,
     )
+
+
+def _revolution_slots(filters: list, nodes_all, lv, counts, n_completed, n_host: list,
+                      st: IngestState, cfg: FleetIngestConfig, out_wires):
+    """What only a COMPLETED revolution runs, for every stream's live
+    slots: the per-revolution range-only de-skew (B4, B5) and the slot
+    filter (B1, or B2 for ``inc``), each slot's wire packed into
+    ``out_wires`` in place and ``filters[s]`` advanced.  Returns the
+    de-skew carries (profile, motion)."""
+    dsk = cfg.deskew
+    angle_r, dist_r = nodes_all[..., 0], nodes_all[..., 1]
+    new_prof, new_motion = st.deskew_prof, st.deskew_motion
+    if dsk is not None:
+        # per-revolution range-only de-skew for every stream and slot at
+        # once: profile each slot RAW (one B4 launch), estimate its
+        # motion against the previous slot's profile — the carried one
+        # for slot 0 — (one B5 launch), re-project its nodes
+        prof_rows = deskewmod.profile_from_nodes(angle_r, dist_r, lv, dsk)
+        prev = torch.cat([st.deskew_prof[:, None], prof_rows[:, :-1]], dim=1)
+        motion_rows = deskewmod.estimate_motion(prev, prof_rows, dsk)
+        angle_r, dist_r = deskewmod.apply_deskew(angle_r, dist_r, lv, motion_rows, dsk)
+        # the carries come from each stream's LAST live slot
+        has = n_completed > 0
+        last = (n_completed - 1).clamp(min=0).long()
+        rows = torch.arange(n_completed.shape[0], device=n_completed.device)
+        new_prof = torch.where(has[:, None], prof_rows[rows, last], st.deskew_prof)
+        new_motion = torch.where(has[:, None], motion_rows[rows, last], st.deskew_motion)
+    for s, k_s in enumerate(n_host):
+        for r in range(k_s):
+            batch = ScanBatch(
+                angle_q14=angle_r[s, r], dist_q2=dist_r[s, r],
+                quality=nodes_all[s, r, :, 2], flag=nodes_all[s, r, :, 3],
+                valid=lv[s, r], count=counts[s, r],
+            )
+            filters[s], out = _filter_step_impl(filters[s], batch, cfg.filter)
+            out_wires[s, r] = _pack_output_wire(out)
+    return new_prof, new_motion
 
 
 def _core_outputs(cfg, core: _CoreResult, map_wire=None, lane=slice(None)) -> tuple:
@@ -1063,6 +1077,25 @@ def super_fleet_ingest_step(state: IngestState, frames, aux, cfg: FleetIngestCon
         state, *res = _fleet_tick(cfg, state, frames[t], aux_h[t], aux_d[t])
         per_tick.append(res)
     return (state,) + tuple(torch.stack(col) for col in zip(*per_tick))
+
+
+def warm_revolution_path(cfg: FleetIngestConfig, streams: int, device: torch.device) -> None:
+    """Run :func:`_revolution_slots` once — the code a COMPLETED revolution
+    runs in the fleet step — on a throwaway ``streams``-wide state, an
+    empty revolution in stream 0's first slot.  A warm-up tick of idle
+    frames completes none, so an engine's precompile calls this: the first
+    revolution in a steady-state loop then loads and resolves nothing."""
+    st = create_fleet_ingest_state(cfg, streams, device=device)
+    big_r, mn = cfg.max_revs, cfg.max_nodes
+    nodes_all = torch.zeros((streams, big_r, mn, 4), dtype=_I32, device=device)
+    lv = torch.zeros((streams, big_r, mn), dtype=torch.bool, device=device)
+    counts = torch.zeros((streams, big_r), dtype=_I32, device=device)
+    n_host = [1] + [0] * (streams - 1)
+    n_completed = torch.tensor(n_host, dtype=_I32, device=device)
+    out_wires = torch.zeros((streams, big_r, wire_output_len(cfg.filter)), dtype=_F32,
+                            device=device)
+    filters = [_stream_filter(st.filter, s) for s in range(streams)]
+    _revolution_slots(filters, nodes_all, lv, counts, n_completed, n_host, st, cfg, out_wires)
 
 
 def unpack_fleet_ingest_result(res, cfg: FleetIngestConfig) -> list:

@@ -30,9 +30,12 @@ rows to a checkpoint and back.
 (shards): placement, shard supervision, per-stream snapshots, evacuation on
 shard loss and re-admission, one dispatch a tick per shard.
 
-Not in this package yet, each raising NotImplementedError naming its
-ROADMAP item: the traffic shaper and the pod's scheduled serving (A.10b)
-and the sharded checkpoints (A.11).
+Both serve the scheduled seam too (``attach_scheduler``, ``offer_bytes``,
+``drain_scheduled``, ``scheduler_status``): parallel/scheduler.TrafficShaper
+admits arrivals into bounded per-stream queues and picks each drain's rung
+and bucket; the pod adds work stealing, the autoscaler and one shared world
+map.  Not in this package yet, raising NotImplementedError naming its
+ROADMAP item: the sharded checkpoints (A.11).
 """
 
 from __future__ import annotations
@@ -202,6 +205,13 @@ class ShardedFilterService:
         self.stream_checkpoints: dict = {}
         self.quarantines = 0
         self.rejoins = 0
+        # while a double-buffered scheduled drain is in flight: the streams
+        # whose quarantine checkpoints wait for the drain's idle half
+        # (drain_scheduled sets and flushes it; None = checkpoint inline)
+        self._defer_checkpoints: Optional[list] = None
+        # traffic-shaping seam (parallel/scheduler.TrafficShaper): bounded
+        # per-stream admission queues and the rung picked per drain
+        self.scheduler = None
         if getattr(params, "health_enable", False):
             self.attach_health()
 
@@ -566,6 +576,14 @@ class ShardedFilterService:
         per-stream device rows to freeze; masking alone degrades them."""
         from rplidar_ros2_driver_tpu_torch.mapping.mapper import is_carried
 
+        if self._defer_checkpoints is not None:
+            # a double-buffered scheduled drain is dispatching: the pull
+            # rides its idle half (drain_scheduled's overlap hook).  The
+            # lane was masked for this drain — an idle row passes its
+            # carries through — so the deferred snapshot equals an inline
+            # one
+            self._defer_checkpoints.append(i)
+            return
         snap: dict = {}
         if self.fleet_ingest is not None:
             snap["ingest"] = self.fleet_ingest.snapshot_stream(i)
@@ -600,19 +618,124 @@ class ShardedFilterService:
         when no supervisor is attached)."""
         return None if self.health is None else self.health.status()
 
-    # -- traffic shaping (the serving pod) ----------------------------------
+    # -- traffic-shaping seam ----------------------------------------------
 
     def attach_scheduler(self, shaper=None) -> "object":
-        _not_ported("traffic shaper (attach_scheduler)", "A.10b")
+        """Attach a TrafficShaper (built from this service's
+        ``sched_*``/``admission_*`` params when not given) over the byte
+        seam: :meth:`offer_bytes` admits arrivals into bounded per-stream
+        queues (the oldest tick shed past the cap) and
+        :meth:`drain_scheduled` drains the whole backlog at the rung the
+        shaper picks from its depth.  Fused backend only, and BEFORE
+        precompile and traffic: every ladder rung must be warmed (the
+        engine refuses late extensions).  Returns the shaper."""
+        from rplidar_ros2_driver_tpu_torch.parallel.scheduler import (
+            SchedulerConfig,
+            TrafficShaper,
+        )
+
+        self._ensure_byte_ingest()
+        if self.fleet_ingest_backend != "fused":
+            raise ValueError(
+                "attach_scheduler needs fleet_ingest_backend='fused' "
+                "(the rung ladder is a set of warmed super-step drain "
+                "depths; the host path has none)"
+            )
+        if shaper is None:
+            shaper = TrafficShaper(self.streams, SchedulerConfig.from_params(self.params))
+        if shaper.streams != self.streams:
+            raise ValueError(
+                f"shaper has {shaper.streams} streams, service has {self.streams}"
+            )
+        self.fleet_ingest.ensure_rungs(shaper.cfg.rungs)
+        self.scheduler = shaper
+        return shaper
 
     def offer_bytes(self, items) -> None:
-        _not_ported("scheduled admission (offer_bytes)", "A.10b")
+        """Admit one wall tick of arrivals into the shaper's bounded
+        per-stream queues (``items[i]``: None, one ``(ans_type, frames)``
+        data tick, or a LIST of data ticks — a reconnect storm delivers
+        several at once).  Nothing dispatches here."""
+        if self.scheduler is None:
+            raise RuntimeError("attach_scheduler() first")
+        self.scheduler.offer_tick(items)
 
-    def drain_scheduled(self) -> list:
-        _not_ported("scheduled drain (drain_scheduled)", "A.10b")
+    def drain_scheduled(self) -> list[list[FilterOutput]]:
+        """Drain the whole admitted backlog at the rung the shaper picks
+        from its depth — ``ceil(depth/rung)`` dispatches — and feed the
+        measured wall time back into the per-(rung, bucket) latency model.
+        The bucket ladder's pick (with ``bucket_rungs``) becomes the
+        engine's slicing cap first; quarantine checkpoints the masking
+        triggers, and a due world-map publication, ride the idle half of
+        the double buffer.  Returns the :meth:`submit_bytes_backlog`
+        per-stream lists (all empty when nothing was queued; the ladder
+        still observes the empty drain)."""
+        if self.scheduler is None:
+            raise RuntimeError("attach_scheduler() first")
+        eng = self.fleet_ingest
+        if eng is not None and eng.warmup_costs:
+            # precompile's timed runs seed the cost table once; the first
+            # live measurement of each key replaces its seed
+            self.scheduler.model.seed_many(eng.warmup_costs)
+            eng.warmup_costs = {}
+        ticks, rung = self.scheduler.drain_plan(0, range(self.streams))
+        if not ticks:
+            # nothing queued: no pose is current this tick
+            self.last_poses = [None] * self.streams
+            return [[] for _ in range(self.streams)]
+        bucket = self.scheduler.bucket_plan(0)
+        if bucket is not None:
+            eng.set_active_bucket(bucket)
+        deferred: Optional[list] = None
+        if eng is not None and eng.double_buffer and self.health is not None:
+            deferred = []
+            self._defer_checkpoints = deferred
+        # a due tile publication rides the same idle half: host work from
+        # one declared fetch of the accumulation, no dispatch
+        overlapped_world = self.world is not None and eng is not None and eng.double_buffer
+        world_pub = self.world.overlap_hook() if overlapped_world else None
+
+        def _overlap(deferred=deferred, world_pub=world_pub) -> None:
+            self._defer_checkpoints = None
+            while deferred:
+                self._quarantine_stream(deferred.pop(0))
+            if world_pub is not None:
+                world_pub()
+
+        t0 = time.perf_counter()
+        try:
+            outs = self.submit_bytes_backlog(
+                ticks, rung=rung,
+                overlap_work=_overlap if deferred is not None or world_pub is not None else None,
+            )
+        finally:
+            self._defer_checkpoints = None
+            while deferred:
+                # the drain raised before its overlap hook: checkpoint now
+                # — a deferred checkpoint is never dropped
+                self._quarantine_stream(deferred.pop(0))
+        self.scheduler.note_drain(0, len(ticks), time.perf_counter() - t0, rung=rung,
+                                  bucket=eng.slicing_bucket)
+        if self.world is not None and not overlapped_world and self.world.tick():
+            # single-buffered engine: publish in the epilogue
+            self.world.publish()
+        return outs
 
     def scheduler_status(self) -> Optional[dict]:
-        _not_ported("scheduler status", "A.10b")
+        """The /diagnostics scheduler value group's payload (None when no
+        shaper is attached), with the engine's rung and staging counters."""
+        if self.scheduler is None:
+            return None
+        status = self.scheduler.status()
+        status["rung_dispatches"] = ({} if self.fleet_ingest is None
+                                     else dict(self.fleet_ingest.rung_dispatches))
+        if self.fleet_ingest is not None:
+            eng = self.fleet_ingest
+            status["rung_bucket_dispatches"] = {
+                f"T{r}xM{b}": n for (r, b), n in sorted(eng.rung_bucket_dispatches.items())
+            }
+            status["staging_overlap_hits"] = eng.staging_overlap_hits
+        return status
 
     # -- raw-bytes ingest seam ----------------------------------------------
 
@@ -749,9 +872,13 @@ class ShardedFilterService:
             decode + the one batched lockstep tick.
 
         Returns one list per stream holding EVERY completed revolution's
-        FilterOutput across the backlog, in tick order.  ``rung`` and
-        ``overlap_work`` (the scheduler's drain controls) are ROADMAP
-        A.10b."""
+        FilterOutput across the backlog, in tick order.
+
+        ``rung`` overrides the drain's super-tick depth with another
+        warmed ladder rung (fused backend only — the scheduler's pick).
+        ``overlap_work`` (fused only) runs on the idle half of the double
+        buffer: after the drain's dispatches are issued, before their
+        results are parsed."""
         self._ensure_byte_ingest()
         if rung is not None and self.fleet_ingest_backend != "fused":
             raise ValueError(
@@ -765,14 +892,13 @@ class ShardedFilterService:
                 "(the host path has no async dispatch window for the "
                 "work to overlap with)"
             )
-        if rung is not None or overlap_work is not None:
-            _not_ported("scheduled drain controls (rung, overlap_work)", "A.10b")
         if self.health is not None:
             # masking only: a catch-up drain is one event, not len(ticks)
             # ticks of evidence — the FSMs advance on live ticks
             ticks = [self.health.mask(t) for t in ticks]
         if self.fleet_ingest_backend == "fused":
-            outs = self.fleet_ingest.submit_backlog(ticks)
+            outs = self.fleet_ingest.submit_backlog(ticks, rung=rung,
+                                                    overlap_work=overlap_work)
             results = [[o for (o, _ts0, _dur) in s] for s in outs]
             if self.fleet_ingest._mapping is not None:
                 # fused mapping route: every drained tick's map update ran
@@ -1146,13 +1272,6 @@ class ShardedFilterService:
 # ---------------------------------------------------------------------------
 
 
-def _pod_not_ported(what: str):
-    raise NotImplementedError(
-        f"ElasticFleetService {what} is not ported to the PyTorch package yet "
-        "(ROADMAP A.10b)"
-    )
-
-
 class ElasticFleetService:
     """Fleet of fleets: ``streams`` lidars spread over S *shards*, each shard
     one fused engine pair (FleetFusedIngest + mapper behind a
@@ -1187,9 +1306,16 @@ class ElasticFleetService:
     ``cuda:(s % device_count)`` (one card: every shard shares ``cuda:0``), or
     on the host with ``filter_backend: cpu``; a given ``mesh`` serves every
     shard.  Each host of ``hosts`` owns one StagingPool that its shards'
-    engines share.  Single controller, per-tick byte seam only; the
-    scheduled seam (``attach_scheduler``, ``offer_bytes``,
-    ``drain_scheduled``) and the pod world map are ROADMAP A.10b."""
+    engines share.  Single controller.
+
+    Beside the per-tick seam (:meth:`submit_bytes`) the pod serves the
+    scheduled seam: :meth:`attach_scheduler` (one pod-level TrafficShaper,
+    one rung ladder per shard), :meth:`offer_bytes` and
+    :meth:`drain_scheduled` — with cross-shard work stealing (a sibling
+    drains a deep shard's whole queues on borrowed idle lanes) and the
+    byte-rate autoscaler (park a shard on thin occupancy, unpark it on
+    pressure) — and one pod-level shared world (:meth:`attach_world_map`)
+    fused from every shard's finalized submaps."""
 
     def __init__(
         self,
@@ -1287,6 +1413,24 @@ class ElasticFleetService:
         self.last_evacuation: Optional[dict] = None
         self._first_tick_pending = False
         self.last_poses: list = [None] * streams
+        # the scheduled seam (attach_scheduler): the pod-level shaper and
+        # the per-drain (tick, shard, rung, depth[, seconds]) logs
+        self.scheduler = None
+        self.rung_log: list = []
+        self.drain_log: list = []
+        # the pod-of-pods seams: the autoscaler (built by attach_scheduler
+        # with autoscale_enable), parked shards (engine wiped, membership
+        # kept), the streams borrowed away this tick
+        self.autoscaler = None
+        self._parked: set = set()
+        self.scale_events: list = []
+        self.steal_drops = 0
+        self._stolen_this_tick: set = set()
+        # queued ticks a park would strand, shed through the shaper's
+        # counters (_park_shard)
+        self.park_sheds = 0
+        # the pod-level shared world (attach_world_map)
+        self.world = None
 
     # -- warm-up ------------------------------------------------------------
 
@@ -1321,6 +1465,80 @@ class ElasticFleetService:
             if sh0.loop is not None:
                 self._fresh_snap["loop"] = sh0.loop.snapshot_stream(0)
 
+    # -- the shared world ---------------------------------------------------
+
+    def attach_world_map(self, world=None) -> "object":
+        """Attach ONE pod-level shared world (built from params when not
+        given): every shard's finalized submaps fuse into the same
+        accumulation on the card — order-free, the fusion is an int32 sum —
+        and a due tile publication rides the first double-buffered shard's
+        idle half each pod drain (:meth:`drain_scheduled`).  Shards with a
+        loop engine feed it through the engine's ``on_install`` tap (the
+        lane resolved to its global stream at install time); shards without
+        one contribute row snapshots at the ``world_merge_revs`` cadence
+        after their drain.  Needs :meth:`precompile` first (the shard
+        mappers must exist)."""
+        if self.shards[0].mapper is None:
+            raise RuntimeError(
+                "attach_world_map needs the shard mappers: run "
+                "precompile(formats) with map_enable first"
+            )
+        if world is None:
+            from rplidar_ros2_driver_tpu_torch.mapping.worldmap import (
+                WorldMap,
+                world_config_from_params,
+            )
+
+            world = WorldMap(world_config_from_params(self.params, self.shards[0].mapper.cfg),
+                             device=self.meshes[0].device)
+        world.precompile()
+        self.world = world
+        for s, sh in enumerate(self.shards):
+            if sh.loop is not None:
+                sh.loop.on_install = self._make_world_tap(s)
+        return world
+
+    def _make_world_tap(self, s: int):
+        """A shard-bound ``on_install`` tap: resolves the installing LANE
+        to its current global stream when called (steals and scale events
+        move placements) and fuses the library's plane into the world."""
+
+        def tap(lane: int, plane, anchor) -> None:
+            if self.world is None:
+                return
+            tbl = self.topology.lane_streams(s)
+            stream = tbl[lane] if lane < len(tbl) else None
+            self.world.ingest_submap(lane if stream is None else stream, plane, anchor)
+
+        return tap
+
+    def _world_merge_shard(self, s: int, eff: list) -> None:
+        """Shard ``s``'s merge without a loop engine, after its drain:
+        streams whose revolution count crossed the merge cadence
+        contribute a row snapshot quantized through the one finalization
+        path (mapping/submap.quantize_submap_plane)."""
+        sh = self.shards[s]
+        if self.world is None or sh.loop is not None or sh.mapper is None:
+            return
+        from rplidar_ros2_driver_tpu_torch.mapping.submap import quantize_submap_plane
+
+        for lane, stream in enumerate(eff):
+            if stream is None:
+                continue
+            est = sh.last_poses[lane]
+            if est is None:
+                continue
+            rev = int(est.revision)
+            if self.world.merge_due(stream, rev):
+                snap = sh.mapper.snapshot_stream(lane)
+                plane = quantize_submap_plane(snap["log_odds"], sh.mapper.cfg)
+                self.world.ingest_submap(stream, plane, snap["pose"])
+                self.world.note_merged(stream, rev)
+
+    def world_status(self) -> Optional[dict]:
+        """The /diagnostics "World Map" payload (None without a world)."""
+        return None if self.world is None else self.world.status()
+
     # -- chaos seam ---------------------------------------------------------
 
     def attach_shard_chaos(self, schedule) -> None:
@@ -1354,6 +1572,11 @@ class ElasticFleetService:
         half-applied tick."""
         from rplidar_ros2_driver_tpu_torch.driver.health import ShardState
 
+        if self._parked:
+            raise RuntimeError(
+                f"pod is autoscaled down (parked shards: {sorted(self._parked)}) — the "
+                "per-tick seam has no scale-up path; use offer_bytes/drain_scheduled"
+            )
         if len(items) != self.streams:
             raise ValueError(f"expected {self.streams} per-stream items, got {len(items)}")
         t = self.tick_no
@@ -1439,24 +1662,408 @@ class ElasticFleetService:
             if hs.poll_readmit() is not None:
                 self._readmit_shard(s)
 
-    # -- the scheduled seam (ROADMAP A.10b) ----------------------------------
+    # -- the scheduled seam -------------------------------------------------
 
     def attach_scheduler(self, shaper=None) -> "object":
-        _pod_not_ported("traffic shaper (attach_scheduler)")
+        """Attach a pod-level TrafficShaper (built from this pod's
+        ``sched_*``/``admission_*`` params when not given): per-STREAM
+        bounded admission queues (they follow a stream across migrations),
+        one rung ladder PER SHARD, and the byte-rate EWMA that weights
+        placement, so evacuation and re-admission land hot streams on cold
+        shards.  With ``autoscale_enable`` also the PodAutoscaler.  Must run
+        BEFORE :meth:`precompile` so every rung is warmed on every shard's
+        engine (the engines refuse late extensions)."""
+        from rplidar_ros2_driver_tpu_torch.parallel.scheduler import (
+            PodAutoscaler,
+            SchedulerConfig,
+            TrafficShaper,
+        )
+
+        if shaper is None:
+            shaper = TrafficShaper(self.streams, SchedulerConfig.from_params(self.params),
+                                   shards=len(self.shards))
+        if shaper.streams != self.streams or len(shaper.ladders) != len(self.shards):
+            raise ValueError(
+                f"shaper geometry ({shaper.streams} streams, {len(shaper.ladders)} ladders) "
+                f"does not match the pod ({self.streams} streams, {len(self.shards)} shards)"
+            )
+        if ((shaper.cfg.steal_threshold_ticks > 0 or shaper.cfg.autoscale_enable)
+                and getattr(self.params, "loop_enable", False)):
+            # steal and scale moves carry ingest and map rows; loop rows do
+            # not migrate, so a borrowed lane would run the back-end over a
+            # stranger's history
+            raise ValueError(
+                "work stealing / autoscale do not support the loop-closure "
+                "back-end (loop rows do not migrate)"
+            )
+        for sh in self.shards:
+            sh._ensure_byte_ingest()
+            sh.fleet_ingest.ensure_rungs(shaper.cfg.rungs)
+        self.scheduler = shaper
+        self.rung_log = []
+        self.drain_log = []
+        if shaper.cfg.autoscale_enable:
+            self.autoscaler = PodAutoscaler(shaper.cfg, self.topology.lanes)
+        return shaper
+
+    def _refresh_weights(self) -> None:
+        """The shaper's byte-rate EWMAs as placement weights, ``1 +
+        rate/mean``: idle streams keep the stream-count rule, one hot
+        stream outweighs several cold ones."""
+        rates = self.scheduler.rates.rates()
+        live = [r for r in rates if r > 0]
+        if not live:
+            return
+        mean = sum(live) / len(live)
+        for i, r in enumerate(rates):
+            self.topology.set_weight(i, 1.0 + r / mean)
 
     def offer_bytes(self, items) -> None:
-        _pod_not_ported("scheduled admission (offer_bytes)")
+        """Admit one wall tick of pod arrivals (the :meth:`submit_bytes`
+        layout; an entry may be a LIST of data ticks — a reconnect storm).
+        Admission sheds and the weight refresh happen here; nothing
+        dispatches until :meth:`drain_scheduled`."""
+        if self.scheduler is None:
+            raise RuntimeError("attach_scheduler() first")
+        if len(items) != self.streams:
+            raise ValueError(f"expected {self.streams} per-stream items, got {len(items)}")
+        self.scheduler.offer_tick(items)
+        self._refresh_weights()
 
     def drain_scheduled(self) -> list:
-        _pod_not_ported("scheduled drain (drain_scheduled)")
+        """One scheduled pod drain: the tick-boundary faults
+        (:meth:`_tick_faults`), the autoscaler's observation, the steal
+        plan, then every hosting shard drains its streams' queued backlog
+        at the rung ITS ladder picks, the drain timed into the ladder's
+        latency model.  A raised drain is the heartbeat failure: the shard
+        is LOST and evacuated; the popped ticks died with it, the victims'
+        queues survive.  A borrowed stream's row is copied LIVE onto the
+        taker's idle lane before the taker's drain and back after it.
+        Returns per-GLOBAL-stream lists of FilterOutputs in tick order."""
+        if self.scheduler is None:
+            raise RuntimeError("attach_scheduler() first")
+        from rplidar_ros2_driver_tpu_torch.driver.health import ShardState
+        from rplidar_ros2_driver_tpu_torch.mapping.mapper import is_carried
 
-    def attach_world_map(self, world=None) -> "object":
-        _pod_not_ported("pod world map (attach_world_map)")
+        t = self.tick_no
+        t0 = time.perf_counter()
+        self._tick_faults()
+        self._tick_autoscale()
+        outs: list = [[] for _ in range(self.streams)]
+        snap_due = self.snapshot_ticks > 0 and (t + 1) % self.snapshot_ticks == 0
+        steals = self._plan_steals()
+        stolen_away = {stream for plans in steals.values() for stream, _src in plans}
+        self._stolen_this_tick = stolen_away
+        # ONE due tile publication a pod drain: the first double-buffered
+        # shard's idle half claims it, else the epilogue runs it
+        world_box = {"pub": self.world.overlap_hook() if self.world is not None else None}
+        for s, hs in enumerate(self.shard_health):
+            if not hs.hosting or s in self._parked:
+                continue
+            sh = self.shards[s]
+            eng = sh.fleet_ingest
+            if eng is not None and eng.warmup_costs:
+                # one pod model: each engine's warm-up timings seed the
+                # keys still absent
+                self.scheduler.model.seed_many(eng.warmup_costs)
+                eng.warmup_costs = {}
+            lane_streams = self.topology.lane_streams(s)
+            # a donor's stolen streams are masked out of its own plan: its
+            # lanes idle through this drain (rows carried through)
+            plan_ids = ([None if st in stolen_away else st for st in lane_streams]
+                        if stolen_away else lane_streams)
+            borrows = self._stage_borrows(s, steals.get(s, []))
+            ticks, rung = self.scheduler.drain_plan(s, plan_ids,
+                                                     extra_streams=[b[0] for b in borrows])
+            if not ticks:
+                # nothing queued: no pose is current this tick (stolen
+                # streams are the taker's to publish)
+                for stream in lane_streams:
+                    if stream is not None and stream not in stolen_away:
+                        self.last_poses[stream] = None
+                # the FSM still observes the empty drain
+                tr = hs.observe(False, 0)
+                if tr is not None and tr[1] is ShardState.LOST:
+                    self._on_lost(s, hs.last_reason)
+                continue
+            bucket = self.scheduler.bucket_plan(s)
+            if bucket is not None:
+                eng.set_active_bucket(bucket)
+            # this shard's lanes plus the rows borrowed onto its idle ones
+            eff = list(lane_streams)
+            for stream, _src, _sl, lane in borrows:
+                eff[lane] = stream
+            borrow_lanes = {lane for *_x, lane in borrows}
+            lane_ticks = [[None if st is None else tick[st] for st in eff] for tick in ticks]
+            offered = any(any(it for it in lt) for lt in lane_ticks)
+            overlap = None
+            if eng is not None and eng.double_buffer:
+                # due snapshot pulls ride the idle half (a non-carried
+                # mapper updates after the engine drain returns, so its
+                # rows are not final yet: those shards pull in the
+                # epilogue)
+                do_snap = snap_due and (sh.mapper is None or is_carried(sh.mapper))
+                world_pub = world_box["pub"]
+                if do_snap or world_pub is not None:
+                    world_box["pub"] = None
+
+                    def overlap(t=t, s=s, do_snap=do_snap, wp=world_pub):
+                        if do_snap:
+                            self._overlap_snapshots(t, s)
+                        if wp is not None:
+                            wp()
+
+            x0 = time.perf_counter()
+            try:
+                shard_outs = sh.submit_bytes_backlog(lane_ticks, rung=rung, overlap_work=overlap)
+            except Exception as e:  # noqa: BLE001 - the heartbeat boundary
+                logger.exception("shard %d drain failed", s)
+                self._lose_shard(s, f"heartbeat: {type(e).__name__}: {e}")
+                # the popped ticks died with the dispatch (the pre-loss
+                # lane table; a stream stolen away is the taker's)
+                for stream in lane_streams:
+                    if stream is not None and stream not in stolen_away:
+                        self._excluded[stream].add(t)
+                for stream, _src, _sl, _bl in borrows:
+                    # the return never ran: the donor holds the pre-drain
+                    # row, only the popped wall tick is lost
+                    self._excluded[stream].add(t)
+                continue
+            dt = time.perf_counter() - x0
+            self.scheduler.note_drain(s, len(ticks), dt, rung=rung,
+                                      bucket=None if eng is None else eng.slicing_bucket)
+            self.rung_log.append((t, s, rung, len(ticks)))
+            self.drain_log.append((t, s, rung, len(ticks), dt))
+            completed = 0
+            for lane, stream in enumerate(eff):
+                if stream is None:
+                    continue
+                if stream in stolen_away and lane not in borrow_lanes:
+                    continue  # drained by the taker this tick
+                outs[stream].extend(shard_outs[lane])
+                self.last_poses[stream] = sh.last_poses[lane]
+                completed += len(shard_outs[lane])
+                if any(tick[stream] for tick in ticks):
+                    # one wall tick of un-snapshotted history, however
+                    # deep the drained backlog
+                    self._since_snap[stream].append(t)
+            self._world_merge_shard(s, eff)
+            self._return_borrows(s, borrows)
+            tr = hs.observe(offered, completed)
+            if tr is not None and tr[1] is ShardState.LOST:
+                self._on_lost(s, hs.last_reason)
+        self._stolen_this_tick = set()
+        if self.world is not None and world_box["pub"] is not None:
+            world_box["pub"]()
+        # unhosted streams' queues keep building toward the admission
+        # bound: nothing to exclude, the data is still queued
+        if snap_due:
+            self._refresh_snapshots(t)
+        if self._first_tick_pending and self.last_evacuation is not None:
+            self.last_evacuation["first_tick_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+            self._first_tick_pending = False
+        self.tick_no += 1
+        return outs
+
+    # -- work stealing and autoscale ------------------------------------------
+
+    def _plan_steals(self) -> dict:
+        """This wall tick's steal plan ({taker: [(stream, donor), ...]})
+        from the shaper, fed the live membership: hosting, unparked shards
+        and their free-lane counts."""
+        sched = self.scheduler
+        if sched is None or sched.cfg.steal_threshold_ticks <= 0:
+            return {}
+        hosted: dict = {}
+        free: dict = {}
+        for s, hs in enumerate(self.shard_health):
+            if not hs.hosting or s in self._parked:
+                continue
+            tbl = self.topology.lane_streams(s)
+            hosted[s] = [st for st in tbl if st is not None]
+            free[s] = sum(1 for st in tbl if st is None)
+        if len(hosted) < 2:
+            return {}
+        return sched.plan_steals(hosted, free)
+
+    def _stage_borrows(self, s: int, plans: list) -> list:
+        """Copy each planned donor row LIVE onto one of taker ``s``'s idle
+        lanes before its drain.  Best effort: a donor that died or parked,
+        a stream moved since planning, or no idle lane left drops the
+        borrow (its queue was not popped; it drains at home next tick).
+        Returns ``[(stream, donor, donor_lane, borrow_lane), ...]``."""
+        if not plans:
+            return []
+        t = self.tick_no
+        idle = [lane for lane, st in enumerate(self.topology.lane_streams(s)) if st is None]
+        out = []
+        for stream, src in plans:
+            got = self.topology.placement(stream)
+            if (not idle or src in self._parked or not self.shard_health[src].hosting
+                    or got is None or got[0] != src):
+                self.steal_drops += 1
+                self._stolen_this_tick.discard(stream)
+                continue
+            lane = idle.pop(0)
+            self._move_row_live(stream, src, got[1], s, lane)
+            out.append((stream, src, got[1], lane))
+            self.events.append((t, "stolen", stream, src, s, lane))
+        return out
+
+    def _return_borrows(self, s: int, borrows: list) -> None:
+        """Copy each borrowed row home after the taker's drain (placement
+        never moved, so the steal ends when the row lands)."""
+        for stream, src, src_lane, lane in borrows:
+            self._move_row_live(stream, s, lane, src, src_lane)
+
+    def _move_row_live(self, stream: int, src: int, src_lane: int, dst: int,
+                       dst_lane: int) -> None:
+        """Move a row between two HEALTHY engines with its decode carries
+        (``restore_decode=True``): nothing resets and nothing enters the
+        replay plan, so steals and graceful scale moves leave the outputs
+        unchanged.  The map row travels as ``carried_map_row`` of the
+        ingest snapshot on the carried route, as the mapper's own
+        ``snapshot_stream`` otherwise."""
+        from rplidar_ros2_driver_tpu_torch.mapping.mapper import carried_map_row, is_carried
+
+        snap = self.shards[src].fleet_ingest.snapshot_stream(src_lane)
+        sh = self.shards[dst]
+        if not sh.fleet_ingest.restore_stream(dst_lane, snap, restore_decode=True):
+            raise RuntimeError(
+                f"stream {stream}: live row rejected by shard {dst} lane {dst_lane} "
+                "(schema/geometry drift)"
+            )
+        if sh.mapper is None:
+            return
+        if is_carried(sh.mapper):
+            ok = sh.mapper.restore_stream(dst_lane, carried_map_row(snap))
+        else:
+            ok = sh.mapper.restore_stream(dst_lane,
+                                          self.shards[src].mapper.snapshot_stream(src_lane))
+        if not ok:
+            raise RuntimeError(
+                f"stream {stream}: live map row rejected by shard {dst} lane {dst_lane} "
+                "(schema/geometry drift)"
+            )
+
+    def _tick_autoscale(self) -> None:
+        """One autoscaler observation at the tick boundary; a decision
+        parks (down) or unparks (up) one shard.  Scale-down needs the
+        survivors' lanes to cover the LIVE streams (byte rate over the
+        floor) and the shard floor; scale-up needs a parked shard."""
+        if self.autoscaler is None:
+            return
+        active = [s for s, hs in enumerate(self.shard_health)
+                  if hs.hosting and s not in self._parked]
+        if not active:
+            return
+        cfg = self.autoscaler.cfg
+        rates = self.scheduler.rates.rates()
+        live = self.autoscaler.live_streams(rates)
+        can_down = (len(active) > cfg.autoscale_min_shards
+                    and (len(active) - 1) * self.topology.lanes >= live)
+        d = self.autoscaler.note_tick(rates, len(active), can_down=can_down,
+                                      can_up=bool(self._parked))
+        if d == "down":
+            self._park_shard(min(active, key=lambda s: (self.topology.shard_load(s), s)))
+        elif d == "up":
+            self._unpark_shard(min(self._parked))
+
+    def _park_shard(self, s: int) -> None:
+        """Autoscale DOWN: drain shard ``s`` out of the pod.  Every hosted
+        stream's row moves LIVE onto siblings' idle lanes (the placement is
+        the failover evacuate relabel); a stream the survivors cannot host
+        has its queued backlog shed through the shaper's counters and its
+        row snapshotted, for the scale-up rebalance to restore.  Then the
+        engine is wiped in place (``cold_reset``) and the mapper reset."""
+        from rplidar_ros2_driver_tpu_torch.mapping.mapper import is_carried
+
+        t = self.tick_no
+        lane_of = {stream: self.topology.placement(stream)[1]
+                   for stream in self.topology.streams_on(s)}
+        avoid = sorted({x for x, hs in enumerate(self.shard_health)
+                        if not hs.hosting and x != s} | (self._parked - {s}))
+        plan = self.topology.evacuate(s, avoid=avoid)
+        if len(plan) != len(lane_of):
+            moved = {stream for stream, _dst, _lane in plan}
+            sh = self.shards[s]
+            for stream in sorted(lane_of):
+                if stream in moved:
+                    continue
+                snap = {"ingest": sh.fleet_ingest.snapshot_stream(lane_of[stream])}
+                if sh.mapper is not None and not is_carried(sh.mapper):
+                    snap["map"] = sh.mapper.snapshot_stream(lane_of[stream])
+                self._snap[stream] = (t, snap)
+                shed = 0 if self.scheduler is None else self.scheduler.shed_stream(stream)
+                self.park_sheds += shed
+                self.events.append((t, "park_shed", stream, s, shed))
+        for stream, dst, lane in plan:
+            self._move_row_live(stream, s, lane_of[stream], dst, lane)
+            self.migrations += 1
+            self.shard_migrations_in[dst] += 1
+            self.shard_last_migration_tick[dst] = t
+            self.last_migration_tick = t
+            self.events.append((t, "scale_down_migrated", stream, s, dst, lane))
+        self._parked.add(s)
+        self.streams_lost_unhosted = len(self.topology.unhosted())
+        self.scale_events.append((t, "down", s))
+        self.events.append((t, "scale_down", s))
+        sh = self.shards[s]
+        if sh.fleet_ingest is not None:
+            sh.fleet_ingest.cold_reset()
+        if sh.mapper is not None:
+            sh.mapper.reset()
+        logger.info("shard %d parked (autoscale down), %d streams moved live", s, len(plan))
+
+    def _unpark_shard(self, s: int) -> None:
+        """Autoscale UP: re-admit parked shard ``s`` (wiped at park time,
+        every step still warm) through ``topology.rebalance_into``; movers
+        travel LIVE, and a stream stranded unhosted restores from its stored
+        snapshot with the failover reset/replay bookkeeping."""
+        t = self.tick_no
+        self._parked.discard(s)
+        self.scale_events.append((t, "up", s))
+        self.events.append((t, "scale_up", s))
+        moves = self.topology.rebalance_into(s)
+        for stream, src, src_lane, dst, lane in moves:
+            if src < 0:
+                entry = self._snap.get(stream)
+                self._restore_into(stream, dst, lane, entry[1] if entry else None)
+                self._resets[stream].add(t)
+            else:
+                self._move_row_live(stream, src, src_lane, dst, lane)
+            self.migrations += 1
+            self.shard_migrations_in[dst] += 1
+            self.shard_last_migration_tick[dst] = t
+            self.last_migration_tick = t
+            self.events.append((t, "scale_up_migrated", stream, src, dst, lane))
+        self.streams_lost_unhosted = len(self.topology.unhosted())
+        logger.info("shard %d unparked (autoscale up), %d streams moved", s, len(moves))
 
     def scheduler_status(self) -> Optional[dict]:
-        """The /diagnostics scheduler payload: None, no shaper is attached
-        (the scheduled seam is ROADMAP A.10b)."""
-        return None
+        """The /diagnostics scheduler payload (None without a shaper): the
+        shaper's status with the rung, (rung, bucket) and staging-overlap
+        counters summed over the pod's engines, and the placement
+        weights."""
+        if self.scheduler is None:
+            return None
+        status = self.scheduler.status()
+        rung_d: dict = {}
+        rb: dict = {}
+        overlap_hits = 0
+        for sh in self.shards:
+            if sh.fleet_ingest is None:
+                continue
+            for r, n in sh.fleet_ingest.rung_dispatches.items():
+                rung_d[r] = rung_d.get(r, 0) + n
+            for key, n in sh.fleet_ingest.rung_bucket_dispatches.items():
+                rb[key] = rb.get(key, 0) + n
+            overlap_hits += sh.fleet_ingest.staging_overlap_hits
+        status["rung_dispatches"] = rung_d
+        status["rung_bucket_dispatches"] = {f"T{r}xM{b}": n for (r, b), n in sorted(rb.items())}
+        status["staging_overlap_hits"] = overlap_hits
+        status["weights"] = [round(self.topology.weight_of(i), 3) for i in range(self.streams)]
+        return status
 
     # -- snapshots ----------------------------------------------------------
 
@@ -1473,18 +2080,39 @@ class ElasticFleetService:
             snap["map"] = sh.mapper.snapshot_stream(lane)
         return snap
 
+    def _overlap_snapshots(self, t: int, s: int) -> None:
+        """Snapshot pulls on the idle half of shard ``s``'s double buffer:
+        the row gathers are queued after the drain's steps on the same
+        stream, so they hold the post-drain rows, as an epilogue pull
+        would.  :meth:`_refresh_snapshots` recognises streams pulled here
+        (same stored tick) and only clears their bookkeeping.  A stream
+        borrowed away this tick is left to the epilogue: its home row is
+        behind its borrowed copy until it returns."""
+        from rplidar_ros2_driver_tpu_torch.driver.health import ShardState
+
+        if self.shard_health[s].state is not ShardState.UP:
+            return
+        for lane, stream in enumerate(self.topology.lane_streams(s)):
+            if stream is None or stream in self._stolen_this_tick:
+                continue
+            self._snap[stream] = (t, self._live_snapshot(s, lane))
+
     def _refresh_snapshots(self, t: int) -> None:
         """Refresh the snapshot store for every hosted stream on an UP
         shard; the stored tick says how much history the snapshot holds
         (ticks <= t).  SUSPECT and READMITTING shards are skipped: their
         state is what the FSM stopped trusting, and restoring from it later
         would break the replay plan (which excludes every tick since the
-        last TRUSTED snapshot)."""
+        last TRUSTED snapshot).  A stream already pulled at tick t on a
+        drain's idle half only has its bookkeeping cleared."""
         from rplidar_ros2_driver_tpu_torch.driver.health import ShardState
 
         for stream in range(self.streams):
             got = self.topology.placement(stream)
             if got is None or self.shard_health[got[0]].state is not ShardState.UP:
+                continue
+            if self._snap.get(stream, (None, None))[0] == t:
+                self._since_snap[stream] = []
                 continue
             self._snap[stream] = (t, self._live_snapshot(*got))
             self._since_snap[stream] = []
@@ -1548,9 +2176,10 @@ class ElasticFleetService:
     def _evacuate_shard(self, s: int) -> None:
         t = self.tick_no
         t0 = time.perf_counter()
-        # victims land only on shards that can host them, never on an
-        # earlier casualty's wiped lanes
-        dead = [x for x, hs in enumerate(self.shard_health) if not hs.hosting and x != s]
+        # victims land only on shards that can host them: never on an
+        # earlier casualty's wiped lanes, nor on a parked shard's
+        dead = [x for x, hs in enumerate(self.shard_health)
+                if (not hs.hosting or x in self._parked) and x != s]
         victims = self.topology.streams_on(s)
         plan = self.topology.evacuate(s, avoid=dead)
         # the ticks the dead shard absorbed after the last snapshot are
@@ -1641,7 +2270,7 @@ class ElasticFleetService:
         for s, hs in enumerate(self.shard_health):
             d = hs.status()
             d["host"] = self.topology.host_of(s)
-            d["parked"] = False  # parking is the autoscaler's (A.10b)
+            d["parked"] = s in self._parked
             d["streams"] = self.topology.streams_on(s)
             d["evacuations"] = self.shard_evacuations[s]
             d["migrations_in"] = self.shard_migrations_in[s]
@@ -1662,25 +2291,27 @@ class ElasticFleetService:
         }
 
     def pod_status(self) -> dict:
-        """The /diagnostics "Pod" payload: per-host shard states and the
-        steal and scale counters (no scheduler here: all zero, nothing
-        parked)."""
+        """The /diagnostics "Pod" payload: per-host shard states (a parked
+        shard reports PARKED — its FSM still says UP, but its engine is
+        wiped), the steal and scale counters and the autoscaler's state."""
         per_host = [
             {"host": h, "shards": [
-                {"shard": s, "state": self.shard_health[s].state.name,
+                {"shard": s,
+                 "state": "PARKED" if s in self._parked else self.shard_health[s].state.name,
                  "streams": len(self.topology.streams_on(s))}
                 for s in self.topology.shards_on_host(h)]}
             for h in range(self.topology.hosts)
         ]
+        sched, auto = self.scheduler, self.autoscaler
         return {
             "hosts": self.topology.hosts,
             "per_host": per_host,
-            "parked": [],
-            "steals": 0,
-            "steal_ticks": 0,
-            "steal_drops": 0,
-            "park_sheds": 0,
-            "scale_downs": 0,
-            "scale_ups": 0,
-            "autoscaler": None,
+            "parked": sorted(self._parked),
+            "steals": 0 if sched is None else sched.steals,
+            "steal_ticks": 0 if sched is None else sched.steal_ticks,
+            "steal_drops": self.steal_drops,
+            "park_sheds": self.park_sheds,
+            "scale_downs": 0 if auto is None else auto.scale_downs,
+            "scale_ups": 0 if auto is None else auto.scale_ups,
+            "autoscaler": None if auto is None else auto.status(),
         }

@@ -13,7 +13,8 @@ Also: the carried map riding the v3 ingest snapshot through a failover
 (JAX tests/test_fused_mapping.py), one staging pool per host (JAX
 tests/test_super_tick.py), a JAX snapshot store restored into the port's
 lanes and continued byte-equal, the service seams, the /diagnostics
-payloads and the A.10b surfaces.
+payloads and the scheduled surfaces (held to JAX's pod in
+tests/test_torch_pod_scaleout.py).
 """
 
 from __future__ import annotations
@@ -541,13 +542,35 @@ def test_cold_reset_needs_its_template():
 
 @pytest.mark.parametrize("call", ["attach_scheduler", "offer_bytes", "drain_scheduled",
                                   "attach_world_map"])
-def test_scheduled_surfaces_raise_naming_a10b(call):
-    pod = TPod(_pod_params("torch", shard_count=2, map_enable=False), 4, shards=2, beams=BEAMS,
-               fleet_ingest_buckets=(8,))
-    args = ([None] * 4,) if call == "offer_bytes" else ()
-    with pytest.raises(NotImplementedError, match="A.10b"):
-        getattr(pod, call)(*args)
+def test_scheduled_surfaces_are_served(call):
+    """The pod's scheduled seam (ROADMAP A.10b) is served: one shaper with a
+    ladder per shard, admission on offer, a drain through every hosting
+    shard, and the pod world over the shard mappers."""
+    pod = TPod(_pod_params("torch", shard_count=2, map_enable=call == "attach_world_map",
+                           world_map_enable=call == "attach_world_map", sched_rungs=(1, 2)),
+               4, shards=2, beams=BEAMS, fleet_ingest_buckets=(8,))
     assert pod.scheduler_status() is None
+    shaper = pod.attach_scheduler()
+    assert len(shaper.ladders) == 2 and pod.scheduler_status()["backlog"] == [0] * 4
+    assert all(sh.fleet_ingest.rungs == (1, 2) for sh in pod.shards)
+    if call == "attach_scheduler":
+        return
+    pod.precompile([DENSE])
+    if call == "attach_world_map":
+        world = pod.attach_world_map()
+        assert pod.world is world and pod.world_status()["merges"] == 0
+        return
+    ticks = _fleet_ticks(4, 2)
+    pod.offer_bytes([[t[i] for t in ticks[:3]] for i in range(4)])
+    assert shaper.backlog_depths() == [3] * 4
+    if call == "offer_bytes":
+        with pytest.raises(ValueError, match="per-stream items"):
+            pod.offer_bytes([None] * 3)
+        return
+    outs = pod.drain_scheduled()
+    assert len(outs) == 4 and shaper.backlog_depths() == [0] * 4
+    assert [(t, s, r, d) for t, s, r, d in pod.rung_log] == [(0, 0, 2, 3), (0, 1, 2, 3)]
+    assert pod.tick_no == 1
 
 
 def _render(payload):

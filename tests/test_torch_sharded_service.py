@@ -651,16 +651,63 @@ def test_cli_replay_chain_of_several_captures_prints_the_jax_lines(tmp_path, cap
 def test_unported_surfaces_raise_naming_their_roadmap_items(mesh):
     svc = ShardedFilterService(_params(), streams=2, mesh=mesh, beams=128)
     for call, item in (
-        (svc.attach_scheduler, "A.10b"), (lambda: svc.offer_bytes([None, None]), "A.10b"),
-        (svc.drain_scheduled, "A.10b"), (svc.scheduler_status, "A.10b"),
         (lambda: svc.save_sharded("x"), "A.11"), (lambda: svc.load_sharded("x"), "A.11"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             call()
-    fused = ShardedFilterService(_params(fleet_ingest_backend="fused"), streams=2, mesh=mesh,
-                                 beams=128)
-    with pytest.raises(NotImplementedError, match="A.10b"):
-        fused.submit_bytes_backlog([], rung=2)
     with pytest.raises(ValueError, match="deskew_enable requires the fused"):
         ShardedFilterService(_params(deskew_enable=True), streams=2, mesh=mesh,
                              beams=128).submit_bytes([None, None])
+
+
+def _dense_tick(t0: float, k: int, streams: int = 2) -> list:
+    """One byte tick of ``k`` dense-capsule frames a stream (the payloads of
+    a 400-point ring, each stream on its own stamp lane)."""
+    from rplidar_ros2_driver_tpu_torch.ops import wire as twire
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    frames = [twire.encode_dense_capsule(int(360.0 * (40 * f % 400) / 400 * 64) & 0x7FFF,
+                                         f == 0, np.full(40, 2000, int)) for f in range(k)]
+    return [(int(Ans.MEASUREMENT_DENSE_CAPSULED),
+             [(fr, t0 + 7.0 * s + 1.25e-3 * f) for f, fr in enumerate(frames)])
+            for s in range(streams)]
+
+
+@pytest.mark.parametrize("surface", ["attach_scheduler", "offer_bytes", "drain_scheduled",
+                                     "scheduler_status", "submit_bytes_backlog_rung"])
+def test_scheduled_seam_is_served(mesh, surface):
+    """The scheduled seam (ROADMAP A.10b) is served: the shaper attaches over
+    the fused engine, admission queues what is offered, a drain empties
+    them at the shaper's rung, the status carries the engine's counters,
+    and a backlog drains at an explicit warmed rung."""
+    from rplidar_ros2_driver_tpu_torch.parallel.scheduler import TrafficShaper
+
+    svc = ShardedFilterService(_params(fleet_ingest_backend="fused", sched_rungs=(1, 2, 4),
+                                       super_tick_max=4),
+                               streams=2, mesh=mesh, beams=128, fleet_ingest_buckets=(4,))
+    if surface == "submit_bytes_backlog_rung":
+        # the engine's own ladder: 1 and super_tick_max
+        outs = svc.submit_bytes_backlog([_dense_tick(10.0 + k, 4) for k in range(3)], rung=4)
+        assert len(outs) == 2 and svc.fleet_ingest.rung_dispatches[4] == 1
+        with pytest.raises(ValueError, match="not a warmed rung"):
+            svc.submit_bytes_backlog([_dense_tick(20.0, 4)], rung=3)
+        return
+    shaper = svc.attach_scheduler()
+    assert isinstance(shaper, TrafficShaper) and svc.scheduler is shaper
+    assert svc.fleet_ingest.rungs == (1, 2, 4)
+    if surface == "attach_scheduler":
+        with pytest.raises(ValueError, match="streams"):
+            svc.attach_scheduler(TrafficShaper(3, shaper.cfg))
+        return
+    svc.offer_bytes([[_dense_tick(10.0 + k, 4)[i] for k in range(3)] for i in range(2)])
+    if surface == "offer_bytes":
+        assert shaper.backlog_depths() == [3, 3] and svc.fleet_ingest.dispatch_count == 0
+        return
+    outs = svc.drain_scheduled()
+    if surface == "drain_scheduled":
+        assert len(outs) == 2 and shaper.backlog_depths() == [0, 0]
+        assert svc.fleet_ingest.rung_dispatches == {1: 0, 2: 0, 4: 1}
+        return
+    st = svc.scheduler_status()
+    assert st["backlog"] == [0, 0] and st["rung_dispatches"] == {1: 0, 2: 0, 4: 1}
+    assert st["rung_bucket_dispatches"] == {"T4xM4": 1} and st["staging_overlap_hits"] == 0
