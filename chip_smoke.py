@@ -108,6 +108,42 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 arm, reads of config 22; one profiled drain of each config
                 (device operations, busy ms, idle share) after the fleet
                 phase;
+ 5d. checkpoints — the sharded checkpoints
+                (utils/checkpoint_sharded.py, torch.distributed.checkpoint):
+                config 10's ShardedFilterService at full geometry (8
+                streams, W=64, 2048 beams, 256x256 at 0.25 m, 20 ticks of
+                seeded 3200-point revolutions) with the sort (B1) and inc
+                (B2) medians, and config 12's fused FleetMapper (4 streams,
+                256x256 at 0.05 m, 2048 beams, 20 ticks of the room; B6-B8):
+                each saved after tick 10, loaded into a fresh one (the
+                restored state byte-equal to the saved one) and both
+                continued byte-equal to the end; then a checkpoint of
+                another window (another grid for the mapper) refused with
+                the live state untouched, an absent one refused, the .old
+                fallback of the rotation's crash window, and an overwrite
+                in place keeping the newest; save and load ms and the bytes
+                on disk;
+ 5e. scenarios — bench.py config 23 (bench_scenarios) at its full geometry
+                through tools/scenario_matrix: 128x128 at 0.05 m, 384 beams,
+                seed 20260807, 3 scenes x 2 chaos columns x fleets (2, 4),
+                24 revolutions (128 on the loop ring), the loop probes 64 on
+                4 streams; each cell's scenes built once and fed to the
+                host matcher and to one fused FleetMapper fleet on the card
+                (B6-B8), held equal pose for pose and map for map in all 12
+                cells; the de-skew probe's B4/B5 estimate equal to the host
+                estimator; each loop probe's fused engine on the card equal
+                to the same probe on the CPU; the five claims asserted;
+                each cell's end-pose error and map F1 printed beside the
+                committed JAX CPU figures (artifacts/scenario_matrix_cpu.json,
+                a recorded comparison, not a gate);
+ 5f. tooling — the CLI's doctor on the card (every row PASS but the
+                serial port's WARN, the torch backend probe on cuda:0),
+                view --pgm, udev (the JAX package's text, by digest); the
+                composable-node container's two dummy nodes publishing over
+                the intra-process bus with the chain on the card; compat's
+                force scan against the simulator; the four examples/torch/
+                scripts on the card in process at the JAX suite's lengths
+                (multihost_fleet's two workers over gloo on the one card);
   6. fleet    — the mesh and the sharded fleet service (ROADMAP A.7a):
                 (a) config 10 (bench.py bench_fleet_ingest)
                 at full geometry — W=64, 2048 beams, 256x256 at 0.25 m,
@@ -245,20 +281,26 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 kernel whether each of its goals was met, every kernel its
                 launches on the fleet phase's paths (``fleet_launches``)
                 and on config 18's (``fused_mapping_launches``), the
-                failover phase's (``failover_launches``) and the
-                scheduled phase's (``scheduled_launches``), B1 and
+                failover phase's (``failover_launches``), the
+                scheduled phase's (``scheduled_launches``) and the
+                checkpoints, scenarios and tooling phases'
+                (``checkpoints_launches``, ``scenarios_launches``,
+                ``tooling_launches``), B1 and
                 B3 their times at the fleet's widths (``fleet_shapes``),
                 B6, B7 and B8 theirs at config 18's tick
                 (``fused_mapping_tick``).
 
-``--phase NAME`` (e2e, fused_mapping, failover, scheduled, fleet) builds the kernels
+``--phase NAME`` (e2e, fused_mapping, failover, scheduled, checkpoints,
+scenarios, tooling, fleet) builds the kernels
 and runs that phase alone, its profiled half included, then the same last
 two lines: a long phase's line then fits the end of the output.
 
 ``--mesh-check N`` runs only the fleet's multi-process check on N cards:
 N NCCL processes, rank r on cuda:r, on the (1, N) and (2, N/2) meshes,
 each process's step and scan (psum and ring) held to its own one-process
-run; it prints the card's name and power limit last.
+run, and the (1, N) mesh's state saved as a sharded checkpoint and
+restored onto the (2, N/2) mesh and whole onto one process, bit-equal; it
+prints the card's name and power limit last.
 
 The wrapper's host time split piece by piece is
 rplidar_ros2_driver_tpu_torch/tools/launch_cost.py.  Then the card's name
@@ -358,6 +400,27 @@ SCHEDULED = {
     22: dict(streams=6, shards=3, run=8, map_grid=256, map_cell_m=0.05, world_cap=8,
              merge_revs=1, publish_ticks=4, tile_cells=8, wall_len=40, warm=4),
 }
+# the sharded checkpoints (utils/checkpoint_sharded.py): config 10's service
+# (FLEET's widths, N = 8) over 20 ticks of seeded 3200-point revolutions,
+# saved after tick 10; config 12's fused mapper (MAPPING) saved after its
+# tick 10 of 20
+CHECKPOINTS = dict(streams=8, ticks=20, save_tick=10, map_save_tick=10, seed=15)
+# the doctor's rows, in the JAX package's order with the torch backend in
+# place of the JAX one
+DOCTOR_ROWS = ["python deps", "native I/O library", "torch backend",
+               "loopback protocol round-trip", "serial port"]
+# sha256 of the JAX package's udev rules text (tools/udev.udev_rules_text();
+# tests/test_torch_tooling.py holds this digest to the JAX package's text)
+UDEV_SHA256 = "69a18bf3b9d0550da97d45dc3cfbbcfd228a43182b33f5d5969c4cca8e876c09"
+# the four examples/torch/ scripts at the lengths of the JAX suite's
+# tests/test_examples.py, and a line each must print
+EXAMPLES = (
+    ("single_lidar.py", ["--seconds", "3"], "resumed: restore=True"),
+    ("fleet_gateway.py", ["--ticks", "3"],
+     "sharded checkpoint restore into a fresh service: ok (next tick equal: True)"),
+    ("record_replay.py", ["--seconds", "2"], "chain replay: per-rev range images"),
+    ("multihost_fleet.py", ["--ticks", "2"], "proc 1: done"),
+)
 # B1's and B4's figures before their redesign, constants copied from
 # PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W) and printed on a
 # line of their own, never in the kernels line: B1 as first written (commit
@@ -3575,11 +3638,43 @@ def fleet_mp_worker(rank: int, port: int, world: int = 2, stream: int = 1,
                       f"mp scan voxel {reduce}/{median} differs")
                 compared += 1
     _sync(device)
+    import torch.distributed as dist
+
+    ckpt = None
+    if stream == 1 and world % 2 == 0:
+        # the sharded checkpoint: each rank writes its block of the (1, N)
+        # mesh; restored onto the (2, N/2) mesh of the same group and whole
+        # onto one process, each bit-equal to the one-process run
+        import shutil
+
+        from rplidar_ros2_driver_tpu_torch.utils import checkpoint_sharded as cs
+
+        path = os.path.join(tempfile.gettempdir(), f"rpl_mesh_ckpt_{port}")
+        core = {k: v for k, v in cs.as_tensor_dict(gs).items() if k != "median_sorted"}
+        t0 = time.perf_counter()
+        cs.save_sharded(path, core, mesh=mesh, specs=ts.STATE_SPEC)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        tmpl = ts.abstract_sharded_state(mesh, cfg, s_n)
+        other = multihost.make_global_mesh(stream=2, device=device)
+        back = cs.restore_sharded(path, tmpl, mesh=other, specs=ts.STATE_SPEC)
+        check(back is not None, "mp checkpoint: the (2, N/2) restore refused")
+        r2, c2 = other.local_streams(s_n), other.local_beams(b)
+        for name, v in back.items():
+            want = getattr(ls, name)[r2]
+            want = want[..., c2] if "beam" in ts.STATE_SPEC[name] else want
+            check(exact(v, want)[0], f"mp checkpoint: {name} on {other.shape} differs")
+        whole = cs.restore_sharded(path, tmpl, device=device)
+        for name, v in whole.items():
+            check(exact(v, getattr(ls, name))[0], f"mp checkpoint: whole {name} differs")
+        dist.barrier()
+        if rank == 0:
+            shutil.rmtree(path, ignore_errors=True)
+        ckpt = {"saved_on": mesh.shape, "restored_on": [other.shape, "one process"],
+                "save_ms": save_ms, "equal": True}
     print(json.dumps({"rank": rank, "backend": backend, "device": str(device),
                       "mesh": mesh.shape, "coords": list(mesh.coords),
                       "compared": compared, "ring_host_hops": ts.ring_host_hops,
-                      "launches": dict(mk.launch_counts)}), flush=True)
-    import torch.distributed as dist
+                      "launches": dict(mk.launch_counts), "checkpoint": ckpt}), flush=True)
 
     dist.destroy_process_group()
     return 0
@@ -3626,6 +3721,9 @@ def _fleet_multiprocess(world: int = 2, stream: int = 1, backend: str = "gloo",
         check(rc == 0, f"fleet worker {r} failed (rc {rc}): {err[-3000:]}")
         rows.append(json.loads(out.strip().splitlines()[-1]))
     check(all(r["compared"] > 0 for r in rows), "a fleet worker compared nothing")
+    if stream == 1 and world % 2 == 0:
+        check(all(r["checkpoint"] and r["checkpoint"]["equal"] for r in rows),
+              "a fleet worker's sharded checkpoint was not restored across meshes")
     return {"workers": rows}
 
 
@@ -5086,6 +5184,399 @@ def scheduled_profile(device, row: dict, card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# checkpoints: the sharded checkpoints of the service and the mapper
+# ---------------------------------------------------------------------------
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _dirs, files in os.walk(path) for f in files)
+
+
+def _snap_equal(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def _ckpt_service(backend: str, median: str, window: int = None):
+    from rplidar_ros2_driver_tpu_torch.parallel.service import ShardedFilterService
+
+    over = {"median_backend": median}
+    if window is not None:
+        over["filter_window"] = window
+    svc = ShardedFilterService(_fleet_params(backend, "host", **over), CHECKPOINTS["streams"],
+                               beams=FLEET["beams"], capacity=FLEET["capacity"])
+    svc.precompile()
+    return svc
+
+
+def _ckpt_service_arm(device, median: str, ticks, tmp: str) -> dict:
+    """Config 10's service (N = 8, W = 64, 2048 beams, 256x256 grid) with
+    the ``median`` backend: saved mid-trace, loaded into a fresh service,
+    both continued over the rest of the trace byte-equal; the restored
+    state byte-equal to the saved one (the ``inc`` backend's recomputed
+    sorted window too)."""
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    save_at = CHECKPOINTS["save_tick"]
+    svc = _ckpt_service(backend, median)
+    for scans in ticks[:save_at]:
+        svc.submit(scans)
+    path = os.path.join(tmp, f"service_{median}")
+    _sync(device)
+    t0 = time.perf_counter()
+    svc.save_sharded(path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    saved = svc.snapshot()
+    fresh = _ckpt_service(backend, median)
+    t0 = time.perf_counter()
+    check(fresh.load_sharded(path), f"checkpoints: the {median} service's checkpoint refused")
+    _sync(device)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(_snap_equal(fresh.snapshot(), saved),
+          f"checkpoints: the restored {median} state differs from the saved one")
+    if median == "inc":
+        check(exact(fresh._state.median_sorted, svc._state.median_sorted)[0],
+              "checkpoints: the recomputed sorted window differs")
+    compared = 0
+    for scans in ticks[save_at:]:
+        for a, b in zip(svc.submit(scans), fresh.submit(scans)):
+            check((a is None) == (b is None) and (a is None or _same_output(a, b)),
+                  f"checkpoints: the restored {median} service diverged")
+            compared += a is not None
+    check(compared > 0, "checkpoints: nothing compared after the restore")
+    check(_snap_equal(fresh.snapshot(), svc.snapshot()),
+          f"checkpoints: the {median} services ended in different states")
+    stats = {"save_ms": save_ms, "load_ms": load_ms, "bytes_on_disk": _dir_bytes(path),
+             "saved_at_tick": save_at, "outputs_compared": compared}
+    return stats, svc, path, saved
+
+
+def _ckpt_mapper(device, tmp: str) -> dict:
+    """Config 12's fused FleetMapper (N = 4, 256x256 at 0.05 m, 2048
+    beams): saved mid-trace, loaded into a fresh mapper, both continued
+    byte-equal; another grid refuses the checkpoint untouched."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
+
+    backend = "cuda" if device.type == "cuda" else "cpu"
+    n, b = MAPPING["streams"], MAPPING["beams"]
+    ticks, _truth = room_fleet_ticks(n, b, MAPPING["ticks"])
+    masks, live = np.ones((n, b), bool), np.ones((n,), np.int32)
+    save_at = CHECKPOINTS["map_save_tick"]
+
+    def mapper(**over):
+        m = FleetMapper(_map_params(backend, **over), n, beams=b, device=device)
+        m.precompile()
+        return m
+
+    m = mapper()
+    for pts in ticks[:save_at]:
+        m.submit_points(pts, masks, live)
+    path = os.path.join(tmp, "mapper")
+    _sync(device)
+    t0 = time.perf_counter()
+    m.save_sharded(path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    saved = m.snapshot()
+    fresh = mapper()
+    t0 = time.perf_counter()
+    check(fresh.load_sharded(path), "checkpoints: the mapper's checkpoint refused")
+    _sync(device)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(_snap_equal(fresh.snapshot(), saved), "checkpoints: the restored map differs")
+    for pts in ticks[save_at:]:
+        for a, c in zip(m.submit_points(pts, masks, live), fresh.submit_points(pts, masks, live)):
+            check(np.array_equal(a.pose_q, c.pose_q) and a.score == c.score,
+                  "checkpoints: the restored mapper diverged")
+    check(_snap_equal(fresh.snapshot(), m.snapshot()), "checkpoints: the mappers' maps differ")
+    other = mapper(map_grid=MAPPING["grid"] // 2)
+    other.submit_points(ticks[0], masks, live)
+    before = other.snapshot()
+    check(not other.load_sharded(path) and _snap_equal(other.snapshot(), before),
+          "checkpoints: a mapper of another grid took the checkpoint")
+    return {"save_ms": save_ms, "load_ms": load_ms, "bytes_on_disk": _dir_bytes(path),
+            "saved_at_tick": save_at, "ticks_after": len(ticks) - save_at}
+
+
+def phase_checkpoints(device) -> dict:
+    """The sharded checkpoints (utils/checkpoint_sharded.py) on the card:
+    config 10's service with the sort (B1) and ``inc`` (B2) medians and
+    config 12's fused mapper (B6-B8), each saved mid-trace, loaded into a
+    fresh one and continued byte-equal; then a checkpoint of another
+    window refused with the state untouched, the ``.old`` fallback, an
+    overwrite in place.  Save and load ms and the bytes on disk."""
+    import shutil
+
+    t0 = time.perf_counter()
+    n = CHECKPOINTS["streams"]
+    revs = make_revolutions(CHECKPOINTS["seed"], n * CHECKPOINTS["ticks"], FLEET["points"])
+    ticks = [revs[k * n:(k + 1) * n] for k in range(CHECKPOINTS["ticks"])]
+    tmp = tempfile.mkdtemp(prefix="rpl_ckpt_")
+    _sync(device)
+    _reset_counts()
+    try:
+        # DCP's first save in a process pays a one-time set-up of seconds:
+        # taken on a one-element state and reported apart
+        import torch
+
+        from rplidar_ros2_driver_tpu_torch.utils import checkpoint_sharded
+
+        c0 = time.perf_counter()
+        checkpoint_sharded.save_sharded(os.path.join(tmp, "first"),
+                                        {"x": torch.zeros(1, device=device)})
+        first_save_ms = (time.perf_counter() - c0) * 1e3
+        arms = {}
+        for median in ("inc", "pallas"):  # the sort arm's service stays for the cases below
+            arms[median], svc, path, saved = _ckpt_service_arm(device, median, ticks, tmp)
+        mapper = _ckpt_mapper(device, tmp)
+        backend = "cuda" if device.type == "cuda" else "cpu"
+        # another window: refused, the live state untouched
+        other = _ckpt_service(backend, "pallas", window=FLEET["window"] // 2)
+        other.submit(ticks[0])
+        before = other.snapshot()
+        check(not other.load_sharded(path) and _snap_equal(other.snapshot(), before),
+              "checkpoints: a service of another window took the checkpoint")
+        check(not other.load_sharded(os.path.join(tmp, "absent")),
+              "checkpoints: an absent checkpoint loaded")
+        # the rotation's crash window: the previous checkpoint at .old
+        shutil.move(path, path + ".old")
+        fresh = _ckpt_service(backend, "pallas")
+        check(fresh.load_sharded(path) and _snap_equal(fresh.snapshot(), saved),
+              "checkpoints: the .old fallback failed")
+        # an overwrite in place keeps the newest, and no sibling
+        over = os.path.join(tmp, "overwrite")
+        svc.save_sharded(over)
+        svc.submit(ticks[0])
+        svc.save_sharded(over)
+        newest = svc.snapshot()
+        again = _ckpt_service(backend, "pallas")
+        check(again.load_sharded(over) and _snap_equal(again.snapshot(), newest),
+              "checkpoints: the overwrite in place did not keep the newest")
+        check(not os.path.exists(over + ".old") and not os.path.exists(over + ".saving"),
+              "checkpoints: the overwrite left a sibling behind")
+        _sync(device)
+        launches = _counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if device.type == "cuda":
+        for k in ("temporal_median", "sorted_replace", "coarse_scores", "fine_scores",
+                  "log_odds_update"):
+            check(launches.get(k, 0) > 0, f"checkpoints: {k} never launched")
+    row = {"phase": "checkpoints", "first_save_ms": first_save_ms, "service": arms,
+           "mapper": mapper,
+           "wrong_geometry_refused": True, "old_fallback": True, "overwrite_in_place": True,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# scenarios: the scenario matrix (bench config 23) over the port
+# ---------------------------------------------------------------------------
+
+
+def phase_scenarios(device) -> dict:
+    """bench.py config 23 at its full geometry through
+    tools/scenario_matrix on the card: the fused FleetMapper arm (B6-B8)
+    equal to the host matcher in all 12 cells, the de-skew probe's B4/B5
+    estimate equal to the host estimator's, claims 1-5; each loop probe's
+    fused engine on the card equal to the same probe on the CPU.  Each
+    cell's end_pose_err_cells and map_f1 are printed beside the committed
+    JAX CPU figures (artifacts/scenario_matrix_cpu.json: a recorded
+    comparison, not a gate)."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.tools import scenario_matrix as smx
+
+    t0 = time.perf_counter()
+    _sync(device)
+    _reset_counts()
+    res = smx.scenario_matrix(smoke=False, device=device)
+    _sync(device)
+    launches = _counts()
+    matrix_s = time.perf_counter() - t0
+    check(res["matrix_cells"] == 12 and all(c["fused_equal"] for c in res["scenario_matrix"]),
+          "scenarios: the fused arm was not held to the host matcher in every cell")
+    g = smx.geometry(smoke=False)
+    cpu_probes = {}
+    for chaos in smx.CHAOS:
+        c0 = time.perf_counter()
+        cpu = smx.loop_probe(chaos, g["fleets"][-1], g["probe_revs"], g["loop_grid"],
+                             g["loop_cell"], g["beams"], smx.SEED, torch.device("cpu"))
+        check(cpu == res["loop_probe"][chaos],
+              f"scenarios: the {chaos} loop probe on the card differs from the CPU's")
+        cpu_probes[chaos] = time.perf_counter() - c0
+    if device.type == "cuda":
+        for k in ("beam_min", "shift_sad", "coarse_scores", "fine_scores", "log_odds_update"):
+            check(launches.get(k, 0) > 0, f"scenarios: {k} never launched")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "artifacts", "scenario_matrix_cpu.json")) as f:
+        jax_cpu = json.load(f)
+    jcells = {(c["scene"], c["chaos"], c["fleet"]): c for c in jax_cpu["scenario_matrix"]}
+    beside = []
+    for c in res["scenario_matrix"]:
+        j = jcells.get((c["scene"], c["chaos"], c["fleet"]), {})
+        beside.append({"cell": f"{c['scene']}/{c['chaos']}/{c['fleet']}",
+                       "end_pose_err_cells": c["end_pose_err_cells"],
+                       "jax_cpu_end_pose_err_cells": j.get("end_pose_err_cells"),
+                       "map_f1": c["map_f1"], "jax_cpu_map_f1": j.get("map_f1"),
+                       "host_scans_per_s": c["scans_per_sec"],
+                       "fused_ticks_per_s": c["fused_ticks_per_sec"],
+                       "fused_dispatches": c["fused_dispatches"]})
+    row = {"phase": "scenarios", "cells": beside,
+           "deskew_probe": res["deskew_probe"], "loop_probe": res["loop_probe"],
+           "decay_probe": res["decay_probe"], "structural": res["structural"],
+           "worst_end_pose_err_cells": res["worst_end_pose_err_cells"],
+           "worst_map_f1": res["worst_map_f1"], "host_scans_per_s": res["scans_per_sec"],
+           "geometry": {k: res[k] for k in ("grid", "cell_m", "loop_grid", "loop_cell_m",
+                                            "beams", "fleets")},
+           "loop_probe_equal_cpu": True, "launches": launches, "matrix_seconds": matrix_s,
+           "cpu_probe_seconds": cpu_probes, "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# tooling: the CLI's doctor/view/udev, the container, compat, the examples
+# ---------------------------------------------------------------------------
+
+
+def _cli(argv) -> tuple:
+    """The package's CLI in process: (exit code, standard output)."""
+    import contextlib
+    import io
+
+    from rplidar_ros2_driver_tpu_torch.__main__ import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(argv)
+    return rc, out.getvalue()
+
+
+def _example(script: str, argv) -> tuple:
+    """One script of examples/torch/ in process: (exit code, output)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{script[:-3]}", os.path.join(here, "examples", "torch", script))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(argv)
+    return rc, out.getvalue()
+
+
+def phase_tooling(device) -> dict:
+    """The CLI's ``doctor`` (every row PASS but the serial port's WARN, the
+    torch backend on the card), ``view --pgm`` and ``udev`` (the JAX
+    package's text, by digest), the composable-node container's two nodes
+    publishing over the bus (each with the chain on the card: B1), compat's
+    force scan against the simulator, and the four examples/torch/ scripts
+    on the card at the lengths of the JAX suite's tests/test_examples.py.
+    On a CPU device (a rehearsal) every step runs with ``--cpu``."""
+    import hashlib
+    import re
+
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
+    from rplidar_ros2_driver_tpu_torch.launch import NodeContainer
+
+    t0 = time.perf_counter()
+    row = {"phase": "tooling"}
+    # on the card unless the phase is rehearsed on the host
+    host = [] if device.type == "cuda" else ["--cpu"]
+    _sync(device)
+    _reset_counts()
+    c0 = time.perf_counter()
+    rc, out = _cli(["doctor", "--port", "/dev/definitely_not_a_lidar", *host])
+    rows = re.findall(r"^\[(\w+)\s*\] ([^:]+): (.*)$", out, re.M)
+    levels = {name: level for level, name, _ in rows}
+    check(rc == 0 and [n for _, n, _ in rows] == DOCTOR_ROWS
+          and all(v == "PASS" for k, v in levels.items() if k != "serial port")
+          and levels["serial port"] == "WARN", f"tooling: doctor rows {rows} (rc {rc})")
+    row["doctor"] = {"rc": rc, "rows": {n: f"{lvl}: {d}" for lvl, n, d in rows},
+                     "seconds": time.perf_counter() - c0}
+    c0 = time.perf_counter()
+    pgm = os.path.join(tempfile.mkdtemp(prefix="rpl_view_"), "view.pgm")
+    rc, out = _cli(["view", "--scans", "3", "--pgm", pgm, *host])
+    with open(pgm, "rb") as f:
+        head = f.read(15)
+    check(rc == 0 and head.startswith(b"P5\n256 256\n255"), f"tooling: view --pgm ({rc}, {head})")
+    row["view"] = {"rc": rc, "pgm_header": head.decode("ascii", "replace"),
+                   "seconds": time.perf_counter() - c0}
+    rc, out = _cli(["udev"])
+    digest = hashlib.sha256(out.encode()).hexdigest()
+    check(rc == 0 and digest == UDEV_SHA256, f"tooling: udev text digest {digest}")
+    row["udev"] = {"rc": rc, "sha256": digest}
+    c0 = time.perf_counter()
+    with NodeContainer() as cont:
+        for name in ("lidar_a", "lidar_b"):
+            cont.add_node(name, DriverParams(dummy_mode=True,
+                                             filter_chain=("clip", "median", "voxel"),
+                                             **({"filter_backend": "cpu"} if host else {})))
+        subs = [cont.bus.subscribe(f"/{name}/scan") for name in ("lidar_a", "lidar_b")]
+        check(cont.configure_all() and cont.activate_all(), "tooling: container bring-up failed")
+        got = [0, 0]
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and min(got) < 5:
+            for i, s in enumerate(subs):
+                got[i] += len(s.drain())
+            time.sleep(0.02)
+        devices = sorted({str(n.chain.device) for n in cont.nodes.values()})
+    check(min(got) >= 5 and not cont.nodes and devices == [str(device)],
+          f"tooling: composed nodes published {got} on {devices}")
+    row["container"] = {"scans": got, "devices": devices, "seconds": time.perf_counter() - c0}
+    row["compat"] = _compat_force_scan()
+    row["examples"] = {}
+    for script, argv, expect in EXAMPLES:
+        c0 = time.perf_counter()
+        rc, out = _example(script, [*argv, *host])
+        check(rc == 0 and expect in out, f"tooling: example {script} (rc {rc}): {out[-2000:]}")
+        row["examples"][script] = {"rc": rc, "seconds": time.perf_counter() - c0,
+                                   "last_line": out.strip().splitlines()[-1]}
+    _sync(device)
+    row["launches"] = _counts()
+    if device.type == "cuda":
+        for k in ("temporal_median", "sliding_median"):
+            check(row["launches"].get(k, 0) > 0, f"tooling: {k} never launched")
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def _compat_force_scan() -> dict:
+    """compat.RPlidarDriver.startScan(force=True) against the simulator:
+    FORCE_SCAN goes out and revolutions come back."""
+    from rplidar_ros2_driver_tpu_torch import compat
+    from rplidar_ros2_driver_tpu_torch.driver.real import RealLidarDriver
+    from rplidar_ros2_driver_tpu_torch.driver.sim_device import SimulatedDevice
+
+    sim = SimulatedDevice().start()
+    try:
+        drv = RealLidarDriver(channel_type="tcp", tcp_host="127.0.0.1", tcp_port=sim.port,
+                              motor_warmup_s=0.0, legacy_warmup_s=0.0)
+        facade = compat.RPlidarDriver(drv)
+        check(facade.connect("sim", 0) and facade.startScan(force=True),
+              "tooling: compat connect/force scan failed")
+        batch = facade.grabScanDataHq(5000)
+        check(batch is not None and int(batch.count) > 0, "tooling: compat grabbed nothing")
+        mode = drv.profile.active_mode
+        check(mode == "Standard (forced)", f"tooling: compat mode {mode!r}")
+        facade.stop()
+        facade.disconnect()
+        return {"active_mode": mode, "nodes": int(batch.count)}
+    finally:
+        sim.stop()
+
+
 def redesign_report(name: str, timed: list, launched: list) -> dict:
     """B1's and B4's extra keys in the kernels line.  ``timed``: the kernel
     and deskew_kernels phases' rows at each of the path's shapes (device
@@ -5134,6 +5625,9 @@ ONE_PHASE = {
     "scheduled": lambda device, seed, card: scheduled_profile(device, phase_scheduled(device),
                                                               card),
     "fleet": lambda device, seed, card: phase_fleet(device, seed),
+    "checkpoints": lambda device, seed, card: phase_checkpoints(device),
+    "scenarios": lambda device, seed, card: phase_scenarios(device),
+    "tooling": lambda device, seed, card: phase_tooling(device),
 }
 
 
@@ -5196,6 +5690,9 @@ def main(argv=None) -> int:
     # the failover pod's timed pass, before any profiler session
     failover = phase_failover(device)
     sched = phase_scheduled(device)
+    ckpt = phase_checkpoints(device)
+    scen = phase_scenarios(device)
+    tooling = phase_tooling(device)
     fleet = phase_fleet(device, args.seed)
     fused_mapping_profile(device, fmap, info["nvidia_smi"])
     failover_profile(device, failover, info["nvidia_smi"])
@@ -5332,6 +5829,11 @@ def main(argv=None) -> int:
         if k["name"] in ("temporal_median", "coarse_scores", "fine_scores", "log_odds_update"):
             check(k["scheduled_launches"] > 0,
                   f"kernel {k['name']} never launched on the scheduled path")
+        # this slice's paths: the sharded checkpoints, the scenario matrix,
+        # the tooling (each phase checks its own kernels launched)
+        k["checkpoints_launches"] = ckpt["launches"].get(k["name"], 0)
+        k["scenarios_launches"] = scen["launches"].get(k["name"], 0)
+        k["tooling_launches"] = tooling["launches"].get(k["name"], 0)
     for name in ("temporal_median", "sliding_median"):
         entry = next(k for k in kernels if k["name"] == name)
         entry["fleet_shapes"] = {key: v for key, v in fleet["shapes"].items()

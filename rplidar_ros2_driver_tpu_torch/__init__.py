@@ -10,11 +10,16 @@ JAX package; its tests hold it to the JAX package on the CPU.
 
 Layer map (top to bottom):
   node/      — lifecycle node, 5-state fault-tolerant FSM, publishing
-  launch/    — lifecycle launch
+  launch/    — lifecycle launch, intra-process bus, composable-node container
+  parallel/  — the (stream, beam) mesh, the sharded fleet service, the pods
+  mapping/, slam/ — SLAM front-end mapper, loop closure, the world map
   filters/   — ScanFilterChain (the north-star seam)
-  driver/    — driver contract + dummy backend
+  driver/    — driver contract, dummy, real driver, simulator, fused ingest
+  protocol/, native/ — wire protocol engine and the native I/O library
   ops/       — tensor ops: filter step, LaserScan conversion, kernel wrappers
   csrc/      — CUDA C++ kernel sources
+  scenarios/ — procedural worlds, trajectories and accuracy metrics
+  tools/, utils/ — CLI helpers, scenario matrix, checkpoints, build, probes
 """
 
 __version__ = "0.2.0"  # keep in lockstep with pyproject.toml

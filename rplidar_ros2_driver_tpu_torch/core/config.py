@@ -149,9 +149,11 @@ class DriverParams:
     # dispatches only); each (T, bucket) pair costs one extra program
     # compile, warmed by FleetFusedIngest.precompile.
     super_tick_max: int = 1
-    # the JAX package's persistent compilation-cache directory; accepted
-    # so one YAML drives both packages, unused here (PyTorch runs eagerly
-    # and the kernels build once per source hash into build/)
+    # where the CUDA kernel libraries are built and kept
+    # (utils/backend.maybe_enable_compilation_cache moves
+    # utils/cuda_build.BUILD_DIR there; None keeps build/torch_kernels/):
+    # a restart that finds a library there loads it instead of running
+    # nvcc (the JAX package names its XLA compilation cache with this key)
     compilation_cache_dir: str | None = None
     # -- SLAM front-end (mapping/mapper.FleetMapper + ops/scan_match) --
     # enable the per-stream log-odds mapper + correlative scan matcher:

@@ -229,7 +229,9 @@ class FusedIngest:
         emit_nodes: bool = False,
         buckets: tuple = _FUSED_BUCKETS,
     ) -> None:
+        from rplidar_ros2_driver_tpu_torch.utils.backend import maybe_enable_compilation_cache
 
+        maybe_enable_compilation_cache(getattr(params, "compilation_cache_dir", None))
         self.device = pick_device(params.filter_backend)
         self.cfg = config_from_params(params, beams or DEFAULT_BEAMS, platform=self.device.type)
         self._deskew = deskew_config_from_params(params, self.cfg.beams, platform=self.device.type)
@@ -547,7 +549,9 @@ class FleetFusedIngest:
         rungs: Optional[tuple] = None,
     ) -> None:
         from rplidar_ros2_driver_tpu_torch.ops.deskew import deskew_config_from_params
+        from rplidar_ros2_driver_tpu_torch.utils.backend import maybe_enable_compilation_cache
 
+        maybe_enable_compilation_cache(getattr(params, "compilation_cache_dir", None))
         if streams < 1:
             raise ValueError("fleet ingest needs at least one stream")
         self.streams = streams

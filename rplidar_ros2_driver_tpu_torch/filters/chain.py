@@ -192,6 +192,9 @@ class ScanFilterChain:
         warmup: bool = True,
         capacity: Optional[int] = None,
     ) -> None:
+        from rplidar_ros2_driver_tpu_torch.utils.backend import maybe_enable_compilation_cache
+
+        maybe_enable_compilation_cache(getattr(params, "compilation_cache_dir", None))
         self.device = pick_device(params.filter_backend)
         self.cfg = config_from_params(params, beams, platform=self.device.type)
         # wire capacity (nodes per packed upload): an oversized revolution

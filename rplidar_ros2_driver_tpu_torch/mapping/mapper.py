@@ -25,13 +25,14 @@ against the JAX package, so the choice changes speed only.
 
 Checkpoint surface: ``snapshot``/``restore`` (and per stream) in the JAX
 package's format (numpy arrays, ``version`` key 1), so a map carries
-across the two packages byte for byte.
+across the two packages byte for byte; ``save_sharded``/``load_sharded``
+(fused backend) write and read the stacked MapState with
+torch.distributed.checkpoint (utils/checkpoint_sharded.py).
 
 :class:`CarriedFleetMapper` is the mapper face of the fused mapping route
 (``fused_mapping_backend='fused'``): the map rides the fused ingest state
 and is updated inside its tick, so that face dispatches nothing and reads
-and writes the engine's carried planes.  Not in this package yet: the
-Orbax sharded checkpoints (A.11), which raise NotImplementedError.
+and writes the engine's carried planes.
 """
 
 from __future__ import annotations
@@ -457,16 +458,38 @@ class FleetMapper:
     # -- sharded checkpoints ------------------------------------------------
 
     def save_sharded(self, path: str) -> None:
-        raise NotImplementedError(
-            "sharded (Orbax) mapper checkpoints are not ported to the PyTorch "
-            "package yet (ROADMAP A.11); use snapshot() + utils/checkpoint"
-        )
+        """Persist the fused backend's stacked MapState with
+        torch.distributed.checkpoint (utils/checkpoint_sharded — the
+        checkpointer is schema-agnostic, so MapState rides the same
+        save/rotate machinery as FilterState).  Host-backend states go
+        through snapshot()+npz."""
+        if self.backend != "fused":
+            raise RuntimeError(
+                "save_sharded needs the fused backend (host states "
+                "checkpoint via snapshot() + utils/checkpoint)"
+            )
+        from rplidar_ros2_driver_tpu_torch.utils import checkpoint_sharded
+
+        with self._lock:
+            state = {k: getattr(self._states, k).clone() for k in STATE_KEYS}
+        checkpoint_sharded.save_sharded(path, state)
 
     def load_sharded(self, path: str) -> bool:
-        raise NotImplementedError(
-            "sharded (Orbax) mapper checkpoints are not ported to the PyTorch "
-            "package yet (ROADMAP A.11); use restore() + utils/checkpoint"
-        )
+        """Restore a :meth:`save_sharded` checkpoint onto this mapper's
+        device; absence or another geometry is rejected with the live state
+        untouched.  The template is the fused backend's fresh state as meta
+        tensors (no allocation)."""
+        if self.backend != "fused":
+            raise RuntimeError("load_sharded needs the fused backend")
+        from rplidar_ros2_driver_tpu_torch.utils import checkpoint_sharded
+
+        template = MapState.create(self.cfg, self.streams, "meta")
+        got = checkpoint_sharded.restore_sharded(path, template, device=self.device)
+        if got is None:
+            return False
+        with self._lock:
+            self._states = MapState(**got)
+        return True
 
 
 class CarriedFleetMapper:

@@ -171,6 +171,11 @@ class RPlidarNode(LifecycleNode):
 
     def on_configure(self) -> bool:
         log.info("%s: configuring (port=%s)", self.name, self.params.serial_port)
+        # the kernel build cache first, ahead of any engine or chain that
+        # builds hot-path kernels: a warm restart loads them, no nvcc
+        from rplidar_ros2_driver_tpu_torch.utils.backend import maybe_enable_compilation_cache
+
+        maybe_enable_compilation_cache(self.params.compilation_cache_dir)
         if self._driver_factory is None and not self.params.dummy_mode:
             # probe the native I/O library here, not inside the scan thread:
             # when it cannot be built/loaded the driver falls back to the

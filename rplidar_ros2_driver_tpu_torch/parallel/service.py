@@ -34,8 +34,9 @@ Both serve the scheduled seam too (``attach_scheduler``, ``offer_bytes``,
 ``drain_scheduled``, ``scheduler_status``): parallel/scheduler.TrafficShaper
 admits arrivals into bounded per-stream queues and picks each drain's rung
 and bucket; the pod adds work stealing, the autoscaler and one shared world
-map.  Not in this package yet, raising NotImplementedError naming its
-ROADMAP item: the sharded checkpoints (A.11).
+map.  ``save_sharded``/``load_sharded`` write and read this process's
+block of the state with torch.distributed.checkpoint
+(utils/checkpoint_sharded.py), resharding onto another mesh shape.
 """
 
 from __future__ import annotations
@@ -68,8 +69,10 @@ from rplidar_ros2_driver_tpu_torch.ops.filters import (
 )
 from rplidar_ros2_driver_tpu_torch.parallel import multihost
 from rplidar_ros2_driver_tpu_torch.parallel.sharding import (
+    STATE_SPEC,
     _filter_step_shard,
     _shard_of,
+    abstract_sharded_state,
     create_sharded_state,
     make_mesh,
     place_state,
@@ -77,13 +80,6 @@ from rplidar_ros2_driver_tpu_torch.parallel.sharding import (
 from rplidar_ros2_driver_tpu_torch.utils.fetch import bounded_fetch
 
 logger = logging.getLogger("rplidar_tpu.service")
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"ShardedFilterService {what} is not ported to the PyTorch package yet "
-        f"(ROADMAP {item})"
-    )
 
 
 def _tick_wire(out: FilterOutput) -> torch.Tensor:
@@ -136,6 +132,9 @@ class ShardedFilterService:
         fleet_ingest_buckets: Optional[tuple] = None,
         staging_pool=None,
     ) -> None:
+        from rplidar_ros2_driver_tpu_torch.utils.backend import maybe_enable_compilation_cache
+
+        maybe_enable_compilation_cache(getattr(params, "compilation_cache_dir", None))
         if mesh is None:
             # a multi-process topology (the coordinator variables) joins
             # the process group first, so the default mesh spans every
@@ -1215,19 +1214,59 @@ class ShardedFilterService:
         ``median_sorted`` excluded).  The device copy is taken under the
         lock, the host copy after it."""
         self._single_controller("snapshot")
+        return {k: v.cpu().numpy() for k, v in self._copy_state().items()}
+
+    def _copy_state(self) -> dict[str, torch.Tensor]:
+        """A device copy of this process's block of the state, taken under
+        the lock; the derived ``median_sorted`` excluded, so the checkpoint
+        format is the same for every median backend."""
         with self._lock:
-            state = {
+            return {
                 f.name: getattr(self._state, f.name).clone()
                 for f in dataclasses.fields(FilterState)
                 if f.name != "median_sorted"
             }
-        return {k: v.cpu().numpy() for k, v in state.items()}
 
     def save_sharded(self, path: str) -> None:
-        _not_ported("sharded checkpoints (save_sharded)", "A.11")
+        """Persist the sharded state with torch.distributed.checkpoint — no
+        host gather: each process writes its own block
+        (utils/checkpoint_sharded.py).  Use this instead of snapshot()+npz
+        once the fleet state stops fitting comfortably in one host buffer.
+
+        Collective: in a mesh that spans processes EVERY process must call
+        this, and every process must sequence its submit()/save_sharded()
+        calls in the same global order (e.g. checkpoint between ticks from
+        the same control loop) — the internal lock only orders threads
+        within one process, and mismatched collectives deadlock the mesh.
+        """
+        from rplidar_ros2_driver_tpu_torch.utils import checkpoint_sharded
+
+        checkpoint_sharded.save_sharded(path, self._copy_state(), mesh=self.mesh,
+                                        specs=STATE_SPEC)
 
     def load_sharded(self, path: str) -> bool:
-        _not_ported("sharded checkpoints (load_sharded)", "A.11")
+        """Restore a sharded checkpoint directly onto this service's mesh
+        (saved on any mesh shape with the same global geometry).  Absence
+        or a geometry mismatch is rejected with the current state left
+        untouched; returns whether the restore happened.  The template is
+        abstract (meta tensors): no throwaway device state is allocated."""
+        from rplidar_ros2_driver_tpu_torch.utils import checkpoint_sharded
+
+        template = abstract_sharded_state(self.mesh, self.cfg, self.streams)
+        got = checkpoint_sharded.restore_sharded(path, template, mesh=self.mesh,
+                                                 specs=STATE_SPEC)
+        if got is None:
+            return False
+        state = FilterState(**{**got, "median_sorted": None})
+        if self.cfg.median_backend.startswith("inc"):
+            # the derived sorted window, recomputed on this process's block
+            # (the sort runs along the unsharded window axis)
+            state.median_sorted = recompute_median_sorted(state.range_window)
+        with self._lock:
+            self._state = state
+            self._pending = None  # pre-restore outputs: never publish
+            self._epoch += 1
+        return True
 
     def restore(self, snap: Optional[dict[str, np.ndarray]]) -> bool:
         """Restore a :meth:`snapshot` (either package's), or reset when

@@ -491,12 +491,25 @@ def create_sharded_state(mesh: Mesh, cfg: FilterConfig, streams: int) -> FilterS
     )
 
 
-def abstract_sharded_state(mesh: Mesh, cfg: FilterConfig, streams: int):
-    """The restore template of the sharded (Orbax) checkpoints."""
-    raise NotImplementedError(
-        "sharded checkpoints (abstract_sharded_state, save_sharded/load_sharded) "
-        "are not ported to the PyTorch package yet (ROADMAP A.11)"
-    )
+def abstract_sharded_state(mesh: Mesh, cfg: FilterConfig, streams: int) -> FilterState:
+    """The restore template of the sharded checkpoints
+    (utils/checkpoint_sharded.py): :func:`create_sharded_state`'s GLOBAL
+    shapes and dtypes as meta tensors — no device allocation — with the
+    same validation, and without the derived ``median_sorted`` (checkpoints
+    exclude it; ``load_sharded`` recomputes it when the config needs it).
+    Shapes come from ``FilterState.shapes`` so they cannot drift from the
+    single-stream constructor."""
+    if streams % mesh.shape["stream"]:
+        raise ValueError(
+            f"streams={streams} not divisible by stream axis {mesh.shape['stream']}"
+        )
+    _beams_per_shard(mesh, cfg.beams)  # the beam axis must divide too
+    per = FilterState.shapes(cfg.window, cfg.beams, cfg.grid)
+    return FilterState(**{
+        f.name: None if f.name not in per else torch.empty(
+            (streams, *per[f.name]), dtype=_STATE_DTYPES[f.name], device="meta")
+        for f in dataclasses.fields(FilterState)
+    })
 
 
 def shard_batch(mesh: Mesh, batch: ScanBatch) -> ScanBatch:

@@ -18,6 +18,7 @@ from rplidar_ros2_driver_tpu.filters import chain as jchain
 from rplidar_ros2_driver_tpu_torch.core.config import DriverParams as TParams
 from rplidar_ros2_driver_tpu_torch.filters import chain as tchain
 from rplidar_ros2_driver_tpu_torch.ops import filters as tf
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BEAMS = 256
 CHAIN = ("clip", "polar", "median", "voxel")

@@ -25,6 +25,7 @@ from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
 from rplidar_ros2_driver_tpu_torch.ops import deskew as td
 from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
 from rplidar_ros2_driver_tpu_torch.ops import deskew_ref as tref
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BEAMS = 256
 EMPTY = td.RECON_EMPTY

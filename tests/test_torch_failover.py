@@ -34,6 +34,7 @@ from rplidar_ros2_driver_tpu_torch.driver.health import ShardState
 from rplidar_ros2_driver_tpu_torch.parallel.service import ElasticFleetService as TPod
 from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
 from rplidar_ros2_driver_tpu_torch.utils import guards
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BEAMS = 256
 DENSE = int(Ans.MEASUREMENT_DENSE_CAPSULED)

@@ -18,6 +18,7 @@ from rplidar_ros2_driver_tpu.core.types import ScanBatch as JScanBatch
 from rplidar_ros2_driver_tpu.ops import filters as jf
 from rplidar_ros2_driver_tpu_torch.core.types import ScanBatch as TScanBatch
 from rplidar_ros2_driver_tpu_torch.ops import filters as tf
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CPU = torch.device("cpu")
 # small geometry: W=8, B=256, grid 64

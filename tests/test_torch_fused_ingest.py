@@ -40,6 +40,7 @@ from rplidar_ros2_driver_tpu_torch.protocol import timing as ttiming
 from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
 
 from test_live_decode import _make_stream, _rng
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ALL_FORMATS = [int(a) for a in sorted(ttiming.SAMPLES_PER_FRAME, key=int)]
 DENSE = int(Ans.MEASUREMENT_DENSE_CAPSULED)

@@ -40,6 +40,7 @@ from test_torch_fused_mapping import (
     assert_outputs_equal,
     dense_frames,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _ops_configs(pkg: str, match_backend: str):

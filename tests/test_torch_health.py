@@ -32,6 +32,7 @@ from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper as TFleetMa
 from rplidar_ros2_driver_tpu_torch.parallel.service import ShardedFilterService as TService
 from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh as tmake_mesh
 from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BEAMS = 256
 DENSE = int(Ans.MEASUREMENT_DENSE_CAPSULED)

@@ -19,6 +19,7 @@ from rplidar_ros2_driver_tpu_torch.driver.sim_device import SimulatedDevice
 from rplidar_ros2_driver_tpu_torch.node.fsm import FsmTimings
 from rplidar_ros2_driver_tpu_torch.node.node import RPlidarNode
 from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _wait_scans(node, n, timeout=20.0):

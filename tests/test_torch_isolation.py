@@ -1,4 +1,4 @@
-"""The PyTorch package stands alone: no JAX, no JAX package.
+"""The PyTorch package, its examples and chip_smoke.py stand alone: no JAX, no JAX package.
 
 The check reads the source (an AST scan of every import, top level and
 nested), not ``sys.modules``: this environment imports JAX at interpreter
@@ -9,6 +9,7 @@ import ast
 import os
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "rplidar_ros2_driver_tpu_torch")
@@ -17,8 +18,9 @@ JAX_PACKAGE = "rplidar_ros2_driver_tpu"
 
 def port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _dirs, files in os.walk(PORT):
-        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for top in (PORT, os.path.join(REPO, "examples", "torch")):
+        for root, _dirs, files in os.walk(top):
+            out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
 
 
@@ -76,6 +78,14 @@ def test_scan_sees_the_whole_port():
         "parallel/service.py",
         # the carried map's row surface and the health supervisor
         "utils/rowops.py", "driver/health.py",
+        # the sharded checkpoints, the scenario foundry and matrix, the tooling
+        "utils/checkpoint_sharded.py", "utils/backend.py", "scenarios/__init__.py",
+        "scenarios/foundry.py", "scenarios/metrics.py", "scenarios/trajectory.py",
+        "tools/scenario_matrix.py", "tools/udev.py", "tools/ros_bridge.py",
+        "launch/bus.py", "launch/container.py", "compat.py",
+        # the examples
+        "../examples/torch/single_lidar.py", "../examples/torch/fleet_gateway.py",
+        "../examples/torch/record_replay.py", "../examples/torch/multihost_fleet.py",
     ):
         assert module in rel
     for source in ("median.cu", "sliding_median.cu", "scan_match.cu", "deskew.cu",

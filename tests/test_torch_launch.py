@@ -15,6 +15,7 @@ from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
 from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
 from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
 from rplidar_ros2_driver_tpu_torch.utils import cuda_build, launch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 _PROTO = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
 

@@ -33,6 +33,7 @@ from rplidar_ros2_driver_tpu_torch.protocol.timing import (
     TimingDesc,
     sample_delay_us,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _rng():

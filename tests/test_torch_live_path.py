@@ -66,6 +66,7 @@ from rplidar_ros2_driver_tpu_torch.replay import read_frames
 
 from conftest import wait_for
 from test_torch_fused_ingest import _assert_output_equal, _stamps_close
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 pytestmark = pytest.mark.skipif(not native.available(), reason="native library unavailable")
 

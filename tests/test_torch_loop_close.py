@@ -40,6 +40,7 @@ from rplidar_ros2_driver_tpu_torch.tools.loop_drift import (
     end_error_cells,
     loop_drift_trace,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 # bench.py bench_loop_close(smoke=True)
 SMOKE = dict(grid=64, cell=0.1, beams=256, streams=2, revs=24)

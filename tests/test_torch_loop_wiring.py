@@ -19,6 +19,7 @@ from rplidar_ros2_driver_tpu_torch.node.fsm import FsmTimings
 from rplidar_ros2_driver_tpu_torch.node.node import RPlidarNode
 from rplidar_ros2_driver_tpu_torch.ops.filters import FilterOutput
 from test_torch_replay import dense_frames, write_capture
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CHAIN = ("clip", "median", "voxel")
 LOOP = dict(filter_backend="cpu", filter_chain=CHAIN, filter_window=2, voxel_grid_size=32,

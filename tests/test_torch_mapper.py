@@ -31,6 +31,7 @@ from rplidar_ros2_driver_tpu_torch.node.lifecycle import LifecycleState
 from rplidar_ros2_driver_tpu_torch.node.node import RPlidarNode
 from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
 from test_torch_replay import dense_frames, write_capture
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BEAMS = 128
 MAP = dict(map_enable=True, map_grid=64, map_cell_m=0.1, map_match_window=0.4)
@@ -312,15 +313,17 @@ def test_no_card_means_no_mapper(monkeypatch):
                                1).backend == "host"
 
 
-def test_unported_mapper_faces_raise():
-    # the carried face is ported: it refuses an engine without the route
+def test_unported_mapper_faces_raise(tmp_path):
+    """Every mapper face is ported.  The carried face refuses an engine
+    without the route; the sharded checkpoints round-trip a fused mapper
+    (tests/test_torch_checkpoint_sharded.py holds them to JAX's MapState)
+    and reject an absent path."""
     with pytest.raises(ValueError, match="fused mapping route"):
         tmapper.CarriedFleetMapper(port_params(), types.SimpleNamespace(_mapping=None))
     m = tmapper.FleetMapper(port_params(map_backend="fused"), 1, beams=BEAMS)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        m.save_sharded("/nonexistent")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        m.load_sharded("/nonexistent")
+    m.save_sharded(str(tmp_path / "map"))
+    assert m.load_sharded(str(tmp_path / "map"))
+    assert not m.load_sharded(str(tmp_path / "nonexistent"))
     m.precompile()  # a warm tick on a throwaway state leaves the map alone
     assert int(m.snapshot()["revision"][0]) == 0 and m.ticks == 0
 

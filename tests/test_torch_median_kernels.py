@@ -22,6 +22,7 @@ from rplidar_ros2_driver_tpu.ops.pallas_kernels import (
 )
 from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
 from rplidar_ros2_driver_tpu_torch.utils import cuda_build
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def rand_window(rng, w, b, inf_frac=0.3):

@@ -22,6 +22,7 @@ from rplidar_ros2_driver_tpu_torch.protocol.constants import (
     AUTOBAUD_MAGICBYTE,
     Cmd,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 pytestmark = pytest.mark.skipif(
     not native_mod.available(), reason="native library unavailable"

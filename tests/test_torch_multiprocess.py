@@ -11,6 +11,9 @@ same worker, bit for bit:
     plain versions (``pallas``, ``inc``).  The beam axis spans the
     processes, so the accumulator equals the one-process one only if the
     all-reduce delivered every peer's partial counts;
+    The last state is then saved as a sharded checkpoint (each process
+    its block, utils/checkpoint_sharded.py) and restored onto a
+    (2, nproc / 2) mesh of the same group and whole onto one process;
   * a (2, 1) mesh: ``ShardedFilterService.submit_local`` (and its
     pipelined form) equal to ``submit`` on the whole fleet, the
     single-controller surfaces refusing the spanning mesh.
@@ -29,6 +32,7 @@ import textwrap
 import time
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -120,6 +124,34 @@ _MESH_WORKER = _COMMON + textwrap.dedent(
                 eq(gr, lr[rows][..., cols], f"{what} scan {lo_k}:{hi_k}")
             eq(gs.voxel_acc, ls.voxel_acc[rows], f"{what} scan voxel_acc")
             eq(gs.hit_window, ls.hit_window[rows], f"{what} scan hit_window")
+    # the sharded checkpoint of the last state: each process writes its
+    # block of this (1, nproc) mesh; restored onto a (2, nproc / 2) mesh of
+    # the same group and whole onto one process, bit-equal to the
+    # one-process run
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from rplidar_ros2_driver_tpu_torch.utils import checkpoint_sharded as cs
+
+    path = os.path.join(tempfile.gettempdir(), f"rpl_ckpt_{port}")
+    core = {k: v for k, v in cs.as_tensor_dict(gs).items() if k != "median_sorted"}
+    cs.save_sharded(path, core, mesh=mesh, specs=ts.STATE_SPEC)
+    tmpl = ts.abstract_sharded_state(mesh, cfg, S)
+    other = multihost.make_global_mesh(stream=2, device="cpu")
+    back = cs.restore_sharded(path, tmpl, mesh=other, specs=ts.STATE_SPEC)
+    rows2, cols2 = other.local_streams(S), other.local_beams(B)
+    assert back is not None and set(back) == set(core)
+    for name, v in back.items():
+        want = getattr(ls, name)[rows2]
+        eq(v, want[..., cols2] if "beam" in ts.STATE_SPEC[name] else want, f"restore {name}")
+    whole = cs.restore_sharded(path, tmpl, device="cpu")
+    for name, v in whole.items():
+        eq(v, getattr(ls, name), f"one-process restore {name}")
+    dist.barrier()
+    if pid == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    print(f"proc {pid}: checkpoint of {mesh.shape} restored on {other.shape} and whole",
+          flush=True)
     print(f"proc {pid}: mesh {mesh.shape} bit-exact, ring host hops {ts.ring_host_hops}",
           flush=True)
     """
@@ -228,6 +260,7 @@ def test_beam_axis_across_processes_matches_one_process(nproc):
     outs = _run_group(_MESH_WORKER, nproc, stream=1)
     for pid, out in enumerate(outs):
         assert f"proc {pid}: mesh" in out and "bit-exact" in out, out
+        assert f"proc {pid}: checkpoint of" in out and "restored on" in out, out
         assert "ring host hops 0" in out  # host tensors: the ring stages nothing
 
 

@@ -16,6 +16,7 @@ import pytest
 
 from rplidar_ros2_driver_tpu_torch import native as native_mod
 from rplidar_ros2_driver_tpu_torch.protocol.codec import AnsHeader, ResponseDecoder, encode_command
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 pytestmark = pytest.mark.skipif(
     not native_mod.available(), reason="native library unavailable"

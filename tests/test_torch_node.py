@@ -28,6 +28,7 @@ from rplidar_ros2_driver_tpu_torch.node.lifecycle import LifecycleState
 from rplidar_ros2_driver_tpu_torch.node.node import RPlidarNode
 from rplidar_ros2_driver_tpu_torch.ops.ascend import apply_angle_compensation, ascend_scan
 from rplidar_ros2_driver_tpu_torch.ops.laserscan import to_laserscan
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHAIN = ("clip", "polar", "median", "voxel")

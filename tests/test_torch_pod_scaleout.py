@@ -35,6 +35,7 @@ from rplidar_ros2_driver_tpu_torch.parallel.service import ElasticFleetService a
 from rplidar_ros2_driver_tpu_torch.utils import guards
 
 from test_torch_failover import DENSE, MAP_KEYS, _assert_out_equal, _fleet_ticks, _params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BEAMS = 256
 STREAMS, SHARDS = 6, 3

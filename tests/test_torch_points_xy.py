@@ -28,6 +28,7 @@ from rplidar_ros2_driver_tpu_torch.core.config import DriverParams as TParams
 from rplidar_ros2_driver_tpu_torch.filters import chain as tchain
 from rplidar_ros2_driver_tpu_torch.mapping.mapper import map_config_from_params
 from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 POINTS, BEAMS, WINDOW, GRID, CAPACITY = 3200, 2048, 64, 256, 4096
 REVS = 300  # the window fills at 64; the rest slide it (the one-off check's count)

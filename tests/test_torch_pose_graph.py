@@ -17,6 +17,7 @@ from rplidar_ros2_driver_tpu.ops import pose_graph_ref as jref
 from rplidar_ros2_driver_tpu_torch.ops import pose_graph as tpg
 from rplidar_ros2_driver_tpu_torch.ops import pose_graph_ref as tref
 from rplidar_ros2_driver_tpu_torch.ops.scan_match import SUB, rotation_table
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def cfgs(**kw):

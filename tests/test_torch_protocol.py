@@ -15,6 +15,7 @@ from rplidar_ros2_driver_tpu_torch.protocol import (
     crc32_padded,
     encode_command,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 class TestEncodeCommand:

@@ -18,6 +18,7 @@ from rplidar_ros2_driver_tpu_torch.driver.sim_device import (
     SimulatedDevice,
 )
 from rplidar_ros2_driver_tpu_torch.protocol.pytransport import PyChannel, PyTransceiver
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _py_factory(channel_type, port, baudrate, host, net_port):

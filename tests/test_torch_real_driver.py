@@ -14,6 +14,7 @@ from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
 from rplidar_ros2_driver_tpu_torch.core.results import DeviceHealth
 from rplidar_ros2_driver_tpu_torch.driver.real import RealLidarDriver
 from rplidar_ros2_driver_tpu_torch.driver.sim_device import SimConfig, SimulatedDevice
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 pytestmark = pytest.mark.skipif(
     not native_mod.available(), reason="native library unavailable"

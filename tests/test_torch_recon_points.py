@@ -31,6 +31,7 @@ from rplidar_ros2_driver_tpu_torch.core.config import DriverParams as TParams
 from rplidar_ros2_driver_tpu_torch.driver.ingest import FleetFusedIngest as TEngine
 from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
 from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 POINTS, RUN, BEAMS, CAPACITY = 3200, 16, 2048, 4096
 TICKS = 300

@@ -27,6 +27,7 @@ from rplidar_ros2_driver_tpu_torch.ops import filters as tf
 from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
 from rplidar_ros2_driver_tpu_torch.ops import wire
 from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 STATE_FIELDS = ("range_window", "inten_window", "hit_window", "voxel_acc", "cursor", "filled")
 

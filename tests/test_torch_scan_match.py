@@ -24,6 +24,7 @@ from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
 from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
 from rplidar_ros2_driver_tpu_torch.ops import scan_match_ref as ref
 from rplidar_ros2_driver_tpu_torch.tools.update_plans import plan_for, stripe_edge_fixture
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SUB, PQ_LIMIT = tsm.SUB, tsm.PQ_LIMIT
 BEAMS = 192

@@ -32,6 +32,7 @@ from rplidar_ros2_driver_tpu_torch.utils import guards
 
 from test_fleet_fused_ingest import _mk_ticks
 from test_live_decode import _make_stream
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BEAMS = 256
 DENSE = int(Ans.MEASUREMENT_DENSE_CAPSULED)

@@ -22,6 +22,7 @@ from rplidar_ros2_driver_tpu.core.config import DriverParams as JParams
 from rplidar_ros2_driver_tpu.parallel import scheduler as jsched
 from rplidar_ros2_driver_tpu_torch.core.config import DriverParams as TParams
 from rplidar_ros2_driver_tpu_torch.parallel import scheduler as tsched
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 DENSE = 0x85  # the dense capsule's answer type (the payload is not decoded)
 MODS = {"jax": jsched, "torch": tsched}

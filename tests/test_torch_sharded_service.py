@@ -9,8 +9,8 @@ restore/failure paths, ``submit_local``.  Then the byte seams at config
 10's smoke geometry (bench.py ``bench_fleet_ingest``) on both arms,
 ``FleetFusedIngest`` and service snapshots JAX -> port -> JAX continued
 byte-equal, the three SLAM seams on config 12's room, ``replay_fleet``
-and the ``replay --chain`` lines of several captures, and the surfaces
-still raising.  Every output is bit-exact except ``points_xy``, within 2
+and the ``replay --chain`` lines of several captures, and the sharded
+checkpoints' round trip.  Every output is bit-exact except ``points_xy``, within 2
 ulp (ROADMAP C.1).
 """
 
@@ -39,6 +39,7 @@ from rplidar_ros2_driver_tpu_torch.parallel.service import ShardedFilterService
 from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
 
 from test_torch_replay import dense_frames, write_capture
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 DENSE = int(Ans.MEASUREMENT_DENSE_CAPSULED)
 OUT_FIELDS = ("ranges", "intensities", "point_mask", "voxel")
@@ -648,13 +649,18 @@ def test_cli_replay_chain_of_several_captures_prints_the_jax_lines(tmp_path, cap
     assert "through the sharded fleet replay (2 streams)" in out
 
 
-def test_unported_surfaces_raise_naming_their_roadmap_items(mesh):
+def test_unported_surfaces_raise_naming_their_roadmap_items(mesh, tmp_path):
+    """Every surface of the service is ported: the sharded checkpoints
+    (utils/checkpoint_sharded.py) save and restore through the abstract
+    template (tests/test_torch_checkpoint_sharded.py holds them to JAX's
+    cases); de-skew still needs the fused ingest."""
     svc = ShardedFilterService(_params(), streams=2, mesh=mesh, beams=128)
-    for call, item in (
-        (lambda: svc.save_sharded("x"), "A.11"), (lambda: svc.load_sharded("x"), "A.11"),
-    ):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    svc.submit([_scan(1), _scan(2)])
+    svc.save_sharded(str(tmp_path / "ckpt"))
+    fresh = ShardedFilterService(_params(), streams=2, mesh=mesh, beams=128)
+    assert fresh.load_sharded(str(tmp_path / "ckpt"))
+    assert_same_snapshot(fresh.snapshot(), svc.snapshot())
+    assert not fresh.load_sharded(str(tmp_path / "absent"))
     with pytest.raises(ValueError, match="deskew_enable requires the fused"):
         ShardedFilterService(_params(deskew_enable=True), streams=2, mesh=mesh,
                              beams=128).submit_bytes([None, None])

@@ -23,6 +23,7 @@ from rplidar_ros2_driver_tpu.ops import filters as jf
 from rplidar_ros2_driver_tpu.parallel import sharding as js
 from rplidar_ros2_driver_tpu_torch.ops import filters as tf
 from rplidar_ros2_driver_tpu_torch.parallel import sharding as ts
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CPU = torch.device("cpu")
 W, B, G, CELL = 8, 512, 64, 0.25
@@ -224,7 +225,9 @@ def test_make_mesh_shapes_and_errors(monkeypatch):
 def test_placement_helpers(port_mesh):
     """place_state takes the JAX package's stream-batched state (or its
     snapshot dict) as this process's block, COPIED; shard_batch takes a
-    batch's local rows; the Orbax template raises naming A.11."""
+    batch's local rows; the sharded checkpoints' restore template is JAX's
+    abstract state (global shapes and dtypes, no median_sorted) as meta
+    tensors."""
     jcfg = jf.FilterConfig(window=W, beams=B, grid=G, cell_m=CELL)
     jstate = js.create_sharded_state(js.make_mesh(8, stream=2), jcfg, STREAMS)
     snap = {k: np.array(getattr(jstate, k)) for k in STATE_FIELDS}
@@ -239,8 +242,16 @@ def test_placement_helpers(port_mesh):
     seq, counts = packed_tick(fleet_ticks(3, 1)[0])
     rows = ts.shard_batch(half, torch_batch(seq, counts))
     np.testing.assert_array_equal(rows.count.numpy(), counts[2:])
-    with pytest.raises(NotImplementedError, match="A.11"):
-        ts.abstract_sharded_state(port_mesh, tf.FilterConfig(), STREAMS)
+    jtmpl = js.abstract_sharded_state(js.make_mesh(8, stream=2), jcfg, STREAMS)
+    tmpl = ts.abstract_sharded_state(half, tf.FilterConfig(window=W, beams=B, grid=G,
+                                                            cell_m=CELL), STREAMS)
+    for f in STATE_FIELDS:
+        want, got = getattr(jtmpl, f), getattr(tmpl, f)
+        assert tuple(got.shape) == tuple(want.shape) and got.device.type == "meta", f
+        assert str(got.dtype).split(".")[-1] == str(want.dtype), f
+    assert jtmpl.median_sorted is None and tmpl.median_sorted is None
+    with pytest.raises(ValueError, match="not divisible by stream axis"):
+        ts.abstract_sharded_state(ts.Mesh(3, 1, CPU), tf.FilterConfig(), STREAMS)
 
 
 def _topology_script(mod):

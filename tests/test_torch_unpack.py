@@ -19,6 +19,7 @@ from rplidar_ros2_driver_tpu.ops import unpack as junpack
 from rplidar_ros2_driver_tpu.ops import unpack_ref
 from rplidar_ros2_driver_tpu_torch.ops import unpack as tunpack
 from rplidar_ros2_driver_tpu_torch.ops import wire
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
 def _rng(seed=1234):

@@ -30,6 +30,7 @@ from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
 from rplidar_ros2_driver_tpu_torch.ops import tile_quant as ttq
 from rplidar_ros2_driver_tpu_torch.slam.loop import LoopClosureEngine
 from rplidar_ros2_driver_tpu_torch.tools.loop_drift import DriftingFrontEnd, loop_drift_trace
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 GRID = 64
 Z3 = np.zeros((3,), np.int32)
