@@ -31,8 +31,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 launches, the FSM states and each thread's CPU share;
                 it runs on the native transceiver or fails;
   5. fused_mapping — this slice's path (ROADMAP A.7b): bench.py config 18
-                (bench_fused_mapping) at full geometry — 4 streams,
-                DenseBoost 3200 points a revolution, 24 revolutions, 16
+                (bench_fused_mapping) at full width — 4 streams,
+                DenseBoost 3200 points a revolution, 12 revolutions, 16
                 frames a tick, W=64, 2048 beams, 256x256 at 0.25 m, de-skew
                 over 4 sub-sweeps (B4, B5), a 128x128 map at 0.1 m — in
                 drains of T = 8 ticks (one warm, the arms alternating which
@@ -131,8 +131,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 host matcher and to one fused FleetMapper fleet on the card
                 (B6-B8), held equal pose for pose and map for map in all 12
                 cells; the de-skew probe's B4/B5 estimate equal to the host
-                estimator; each loop probe's fused engine on the card equal
-                to the same probe on the CPU; the five claims asserted;
+                estimator; each loop probe's fused engine on the card, under
+                the whole guards.steady_state, equal to the same probe on
+                the CPU; the five claims asserted;
                 each cell's end-pose error and map F1 printed beside the
                 committed JAX CPU figures (artifacts/scenario_matrix_cpu.json,
                 a recorded comparison, not a gate);
@@ -144,6 +145,35 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 force scan against the simulator; the four examples/torch/
                 scripts on the card in process at the JAX suite's lengths
                 (multihost_fleet's two workers over gloo on the one card);
+ 5g. graded   — bench.py's remaining graded configurations through
+                rplidar_ros2_driver_tpu_torch/tools/graded.py at their full
+                widths (depth cut as its GEOMETRY["full"] lists), each on
+                the card and on the CPU with every output byte-equal and
+                every count equal: config 1 (to_laserscan on 360-node
+                batches), configs 2-3 (the chain at W = 1, median and voxel
+                off, 3200 and 920 points: no B1/B2 launch), config 4 (800
+                points, W = 16, voxel off: B1 a revolution, and B2 on the
+                inc arm), config 9 (one DenseBoost byte stream through the
+                host ingest and FusedIngest: one dispatch a frame run, the
+                arms byte-equal, B1 a revolution on each), config 11 (a
+                backlog per tick against super-steps of T = 8: ticks
+                against ceil(ticks/8) dispatches, two staged transfers a
+                dispatch, the same revolutions), config 13 (K = 0, 1, 3 of
+                8 streams fed chaos_ticks under the health supervisor, under
+                the whole guards.steady_state: one dispatch a tick, the
+                faulty streams quarantined and rejoined, the healthy
+                streams byte-identical across K), config 16 (the
+                reconstruct arm against the plain fused fleet, each with a
+                host-reference FleetMapper, under guards.steady_state: the
+                same dispatches, >= 2 mapper updates a revolution, the
+                zero-motion identity, stream 0 equal to DeskewHostTwin + a
+                golden chain; B4/B5 on the reconstruct arm only) and config
+                12's room on a 1024x1024 map at 0.05 m (B6/B7/B8 a tick,
+                update_plan's remote route and coarse_plan printed); one
+                line a configuration with its rates beside the card's name
+                and power limit.  Its profiled half (B6/B7/B8 at the 1024^2
+                tick against their plain versions, events and device ms,
+                bounds) runs after the fleet phase;
   6. fleet    — the mesh and the sharded fleet service (ROADMAP A.7a):
                 (a) config 10 (bench.py bench_fleet_ingest)
                 at full geometry — W=64, 2048 beams, 256x256 at 0.25 m,
@@ -238,7 +268,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 drift a revolution (tools/loop_drift.py), submaps every 4,
                 checks every 2, 16 submaps, 2 candidates, weight 8, 32
                 loop constraints, 256 sweeps; three arms on identical
-                inputs: off, host (numpy) and fused on the card. (a) host
+                inputs: off, host (numpy) and fused on the card, the
+                fused arm under the whole guards.steady_state, then the
+                fused arm again without the guard, byte-equal to it (the
+                guard's cost; each arm's garbage-collector pauses). (a) host
                 and fused wires, corrected poses and final LoopState
                 byte-equal; (b) corrected end error <= 2 cells, the
                 baseline's > 4; (c) one check call and one B6 and one B7
@@ -250,7 +283,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 checkpoint with loop.* keys saved and restored; (f)
                 replay_with_loop_closure over 64 revolutions of the
                 config-7 capture on the card, equal to the CPU host
-                replay. Prints the check's wall ms (p50/p99), B6/B7 at the
+                replay. Prints the check's wall ms (p50/p99) guarded and
+                not, B6/B7 at the
                 check's shape (N = 8) and the solver's share of a check;
  17. deskew_kernels — the de-skew kernels B4, B5 against their plain
                 PyTorch versions on the card (exact) over the JAX suite's
@@ -285,15 +319,19 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 scheduled phase's (``scheduled_launches``) and the
                 checkpoints, scenarios and tooling phases'
                 (``checkpoints_launches``, ``scenarios_launches``,
-                ``tooling_launches``), B1 and
+                ``tooling_launches``), the graded phase's
+                (``graded_launches``), B6, B7 and B8 theirs at the 1024^2
+                mapper's tick (``graded_map1024_tick``), B1 and
                 B3 their times at the fleet's widths (``fleet_shapes``),
                 B6, B7 and B8 theirs at config 18's tick
                 (``fused_mapping_tick``).
 
 ``--phase NAME`` (e2e, fused_mapping, failover, scheduled, checkpoints,
-scenarios, tooling, fleet) builds the kernels
-and runs that phase alone, its profiled half included, then the same last
-two lines: a long phase's line then fits the end of the output.
+scenarios, tooling, graded, fleet, loop — the last after the replay phase
+that makes its capture) builds the kernels and runs that phase alone, its
+profiled half included, then the same last two lines: a long phase's line
+then fits the end of the output.  Given more than once, the phases run in
+the order given in one process.
 
 ``--mesh-check N`` runs only the fleet's multi-process check on N cards:
 N NCCL processes, rank r on cuda:r, on the (1, N) and (2, N/2) meshes,
@@ -312,12 +350,14 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -360,14 +400,15 @@ FLEET = dict(window=64, beams=2048, grid=256, cell_m=0.25, points=3200, revs=20,
              snapshot_tick=10, mp_streams=4, mp_ticks=8, mp_timeout_s=300)
 # the map carried in the fused ingest state (ROADMAP A.7b): bench.py
 # GRADED[18] (bench_fused_mapping, the non-smoke branch) at its full
-# geometry — 4 streams, DenseBoost 3200 points a revolution, 24
-# revolutions, 16 frames a tick, drains of T = 8 ticks (one warm), W=64,
+# width — 4 streams, DenseBoost 3200 points a revolution, 12 revolutions
+# (cut from 24: the CPU arms' drains were ~100 s of the script), 16
+# frames a tick, drains of T = 8 ticks (one warm), W=64,
 # 2048 beams, 256x256 at 0.25 m, capacity 4096, de-skew over 4 sub-sweeps
 # with 128 profile beams and shift window 4, a 128x128 map at 0.1 m —; the
 # loop leg with tests/test_fused_mapping.py's loop settings over its first
 # ticks; the quarantine cycle: stream 1's frames 160-480 corrupted (seed 3)
 # under the health supervisor, 60 ticks
-FUSED_MAPPING = dict(window=64, beams=2048, grid=256, cell_m=0.25, points=3200, revs=24,
+FUSED_MAPPING = dict(window=64, beams=2048, grid=256, cell_m=0.25, points=3200, revs=12,
                      capacity=4096, streams=4, run=16, T=8, warm=1, map_grid=128, map_cell_m=0.1,
                      recon_window=4, profile_beams=128, shift_window=4, loop_ticks=40,
                      chaos_ticks=60, chaos_frames=(160, 480), profile_groups=3)
@@ -1703,31 +1744,12 @@ def room_fleet_ticks(streams: int, beams: int, n_ticks: int):
     room seen from per-stream drifting poses, B rays cast to the walls in
     the sensor frame, one (N, B, 2) float32 plane per tick; drift is one to
     two cells per tick.  Returns (ticks, truth_pose)."""
-    import numpy as np
-
-    half_room = 2.5
-    t = np.linspace(0, 2 * np.pi, beams, endpoint=False)
-    dx, dy = np.cos(t), np.sin(t)
-    with np.errstate(divide="ignore"):
-        r_wall = np.minimum(
-            np.where(np.abs(dx) > 1e-12, half_room / np.abs(dx), np.inf),
-            np.where(np.abs(dy) > 1e-12, half_room / np.abs(dy), np.inf),
-        )
-    wx, wy = dx * r_wall, dy * r_wall
+    from rplidar_ros2_driver_tpu_torch.tools.graded import room_ticks
 
     def truth_pose(s: int, k: int) -> tuple:
         return (0.03 * k * (1 + 0.1 * s), -0.02 * k * (1 + 0.2 * s), 0.004 * k)
 
-    ticks = []
-    for k in range(n_ticks):
-        pts = np.zeros((streams, beams, 2), np.float32)
-        for s in range(streams):
-            x0, y0, th = truth_pose(s, k)
-            c, si = np.cos(-th), np.sin(-th)
-            pts[s, :, 0] = c * (wx - x0) - si * (wy - y0)
-            pts[s, :, 1] = si * (wx - x0) + c * (wy - y0)
-        ticks.append(pts)
-    return ticks, truth_pose
+    return room_ticks(streams, beams, n_ticks), truth_pose
 
 
 def _map_params(backend: str, map_backend: str = "fused", **over):
@@ -1897,9 +1919,36 @@ def match_tick(device, n: int):
     return cfg, coarse, (pq, okm, posec, cos_q, sin_q, uv), mq
 
 
-def match_bounds(cfg, n: int, nvalid: int) -> dict:
+def fine_cells(fine, cfg) -> int:
+    """The distinct in-map cells of ``mq`` that B7 reads at its inputs
+    ``fine`` (its arguments but ``mq``): the four bilinear corners of every
+    valid beam at every θ candidate and fine offset, counted once a stream
+    — the least of ``mq`` that B7 must move (it gathers, it does not scan)."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops.scan_match import SUB, SUB_BITS, rotate_rows
+
+    pq, ok, posec, cos_q, sin_q, uv = fine
+    g, r, csub = cfg.grid, cfg.fine_radius, cfg.coarse * SUB
+    rx, ry = rotate_rows(pq[:, None, :, 0], pq[:, None, :, 1], cos_q[..., None], sin_q[..., None])
+    cx = (rx + (posec[:, 0] + uv[:, 0] * csub)[:, None, None]) >> SUB_BITS    # (N, T, B)
+    cy = (ry + (posec[:, 1] + uv[:, 1] * csub)[:, None, None]) >> SUB_BITS
+    # the offsets -r..r and each one's upper corner: -r..r+1 on both axes
+    sh = torch.arange(-r, r + 2, dtype=torch.int32, device=pq.device)
+    cells = 0
+    for i in range(pq.shape[0]):
+        x, y = torch.broadcast_tensors(cx[i][:, ok[i]][..., None, None] + sh[:, None],
+                                       cy[i][:, ok[i]][..., None, None] + sh[None, :])
+        x, y = x.reshape(-1), y.reshape(-1)
+        inside = (x >= 0) & (x < g) & (y >= 0) & (y < g)
+        cells += int(torch.unique(x[inside].long() * g + y[inside]).numel())
+    return cells
+
+
+def match_bounds(cfg, n: int, nvalid: int, fine) -> dict:
     """(ms, by) of B6, B7, B8 at a tick of ``n`` streams with ``nvalid``
-    valid beams: bytes over HBM, int32 operations over the int32 rate."""
+    valid beams, ``fine`` B7's arguments but ``mq``: bytes over HBM, int32
+    operations over the int32 rate."""
     b, g, u = cfg.beams, cfg.grid, 2 * cfg.window_cells + 1
     t, f = 2 * cfg.theta_window + 1, 2 * cfg.fine_radius + 1
     scan_bytes = n * b * 9 + n * 16                    # pq, ok, posec, trig
@@ -1908,8 +1957,10 @@ def match_bounds(cfg, n: int, nvalid: int) -> dict:
         # clip/shift/pool each cell, 8 int32 ops per corner per candidate
         "coarse_scores": bound(2 * n * g * g * 4 + scan_bytes + n * u * u * 4,
                                3 * n * g * g + 8 * u * u * nvalid, int32=True),
-        "fine_scores": bound(n * g * g * 4 + scan_bytes + 8 * n * t + n * t * f * f * 4,
-                             8 * t * f * f * nvalid, int32=True),
+        # read the cells of mq the scan's candidates gather and the scan,
+        # write the (T, F, F) volume; 8 int32 ops per corner per candidate
+        "fine_scores": bound(fine_cells(fine, cfg) * 4 + scan_bytes + 8 * n * t
+                             + n * t * f * f * 4, 8 * t * f * f * nvalid, int32=True),
         # read and write the map once; mark 1 + S cells per valid beam,
         # 3 ops per cell for delta and clamp
         "log_odds_update": bound(2 * n * g * g * 4 + scan_bytes,
@@ -2044,7 +2095,7 @@ def phase_mapkernels(device, rng) -> dict:
             }
             for name, (kern, plain) in calls.items()
         }
-        bounds[key] = match_bounds(cfg, n, nvalid)
+        bounds[key] = match_bounds(cfg, n, nvalid, fine)
         shape_of[key] = {"N": n, "G": cfg.grid, "B": cfg.beams, "U": 2 * cfg.window_cells + 1,
                          "T": 2 * cfg.theta_window + 1, "F": 2 * cfg.fine_radius + 1,
                          "valid_beams": nvalid,
@@ -2265,16 +2316,20 @@ def loop_match_config(grid: int, beams: int, cell_m: float = 0.05):
     return loop_config_from_params(p, map_config_from_params(p, beams), "cuda").match
 
 
-def _loop_arm(device, arm: str, trace, masks, world=None):
+def _loop_arm(device, arm: str, trace, masks, world=None, guard: bool = True):
     """One arm of config 17: the scripted drifting front-end alone ("off")
     or with a LoopClosureEngine ("host", or "fused" on ``device``).  The
-    fused arm times each check call and counts B6/B7 launches around the
-    run (after precompile)."""
+    fused arm times each check call, counts B6/B7 launches around the run
+    (after precompile) and runs under ``guards.steady_state`` unless
+    ``guard`` is False; every arm records the garbage collector's pauses."""
+    import gc
+
     import torch
 
     from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
     from rplidar_ros2_driver_tpu_torch.slam.loop import LoopClosureEngine
     from rplidar_ros2_driver_tpu_torch.tools.loop_drift import DriftingFrontEnd
+    from rplidar_ros2_driver_tpu_torch.utils import guards
 
     backend = "cuda" if arm == "fused" else "cpu"
     p = _loop_params(backend, "host" if arm == "off" else arm)
@@ -2301,19 +2356,42 @@ def _loop_arm(device, arm: str, trace, masks, world=None):
                 eng.on_install = world.ingest_submap
     smk.reset_launch_counts()
     log, check_ticks = [], 0
+    # the fused arm runs under the whole guards.steady_state, as bench.py
+    # holds JAX's (nothing built, no new device segment, no undeclared
+    # synchronisation: every blocking transfer of a check is declared)
+    scope = (guards.steady_state(tag="loop phase fused arm") if arm == "fused" and guard
+             else contextlib.nullcontext())
+    gc_pauses, gc_start = [], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start.append(time.perf_counter())
+        elif gc_start:
+            gc_pauses.append((info["generation"], (time.perf_counter() - gc_start.pop()) * 1e3))
+
+    gc.callbacks.append(on_gc)
     t0 = time.perf_counter()
-    for pts, drifted in trace:
-        ests = fe.submit(pts, masks, drifted)
-        if eng is None:
-            continue
-        sts = eng.observe(ests)
-        check_ticks += any(s is not None for s in sts)
-        log.append([None if s is None else (s.accepted, s.candidate, s.score, s.matched_points,
-                                            tuple(int(v) for v in s.corrected_q), s.constraints,
-                                            s.dropped) for s in sts])
+    try:
+        with scope:
+            for pts, drifted in trace:
+                ests = fe.submit(pts, masks, drifted)
+                if eng is None:
+                    continue
+                sts = eng.observe(ests)
+                check_ticks += any(s is not None for s in sts)
+                log.append([None if s is None else (s.accepted, s.candidate, s.score,
+                                                    s.matched_points,
+                                                    tuple(int(v) for v in s.corrected_q),
+                                                    s.constraints, s.dropped) for s in sts])
+    finally:
+        gc.callbacks.remove(on_gc)
     wall = time.perf_counter() - t0
+    gc_row = {"collections": [sum(1 for g, _ in gc_pauses if g == k) for k in range(3)],
+              "pause_ms": sum(ms for _, ms in gc_pauses),
+              "gen2_pause_ms": sum(ms for g, ms in gc_pauses if g == 2),
+              "tracked_objects": len(gc.get_objects())}
     return {"engine": eng, "fe": fe, "log": log, "check_ticks": check_ticks, "wall_s": wall,
-            "check_ms": check_ms, "launches": dict(smk.launch_counts),
+            "check_ms": check_ms, "launches": dict(smk.launch_counts), "gc": gc_row,
             "snap": None if eng is None else eng.snapshot()}
 
 
@@ -2505,10 +2583,18 @@ def phase_loop(device, replay_revs) -> dict:
     map_cfg = map_config_from_params(p_world, LOOP["beams"])
     world = WorldMap(world_config_from_params(p_world, map_cfg), device=device)
     world.precompile()
+    threads = sorted(t.name for t in threading.enumerate())
     arms = {arm: _loop_arm(device, arm, trace, masks, world if arm == "fused" else None)
             for arm in ("off", "host", "fused")}
+    # the same fused run without the guard, right after the guarded one:
+    # what the guard itself costs a check, at this point of the script
+    arms["fused_unguarded"] = _loop_arm(device, "fused", trace, masks, guard=False)
     off, host, fused = arms["off"], arms["host"], arms["fused"]
     eng = fused["engine"]
+    bare = arms["fused_unguarded"]
+    check(bare["log"] == fused["log"]
+          and all(bare["snap"][k].tobytes() == fused["snap"][k].tobytes() for k in bare["snap"]),
+          "the unguarded fused arm differs from the guarded one")
 
     # (a) host and fused: the same wires, corrected poses and final state
     check(host["log"] == fused["log"], "host and fused loop wires differ")
@@ -2563,7 +2649,7 @@ def phase_loop(device, replay_revs) -> dict:
             ok, err = exact(a, b)
             check(ok, f"{name} differs from its plain version at the loop shape: {err}")
     nvalid = int(coarse[2].sum())
-    bounds = match_bounds(cfg_k, n_k, nvalid)
+    bounds = match_bounds(cfg_k, n_k, nvalid, fine)
     shape = {"N": n_k, "G": cfg_k.grid, "B": cfg_k.beams, "U": 2 * cfg_k.window_cells + 1,
              "T": 2 * cfg_k.theta_window + 1, "F": 2 * cfg_k.fine_radius + 1,
              "valid_beams": nvalid, "clamp_q": cfg_k.clamp_q, "quant_shift": cfg_k.quant_shift}
@@ -2653,7 +2739,11 @@ def phase_loop(device, replay_revs) -> dict:
     node = _loop_node(device)
     replay = _loop_replay(device, replay_revs)
 
-    cms = np.asarray(fused["check_ms"])
+    def wall_ms(a):
+        ms = np.asarray(a["check_ms"])
+        return {"p50": float(np.percentile(ms, 50)), "p99": float(np.percentile(ms, 99)),
+                "max": float(ms.max()), "n": int(ms.size)}
+
     row = {
         "phase": "loop", "streams": s, "grid": LOOP["grid"], "beams": LOOP["beams"],
         "revs": LOOP["revs"], "check_ticks": ticks, "dispatches": eng.dispatch_count,
@@ -2661,10 +2751,9 @@ def phase_loop(device, replay_revs) -> dict:
         "accepted": int(eng.closures_accepted.sum()), "rejected": int(eng.closures_rejected.sum()),
         "baseline_end_err_cells": base_err, "corrected_end_err_cells": corr_err,
         "launches": fused["launches"],
-        "check_wall_ms": {"p50": float(np.percentile(cms, 50)),
-                          "p99": float(np.percentile(cms, 99)), "max": float(cms.max()),
-                          "n": int(cms.size)},
+        "check_wall_ms": wall_ms(fused), "check_wall_ms_unguarded": wall_ms(bare),
         "arm_wall_s": {a: arms[a]["wall_s"] for a in arms},
+        "arm_gc": {a: arms[a]["gc"] for a in arms}, "threads_at_start": threads,
         "cost_split": split, "kernels_at_loop_shape": kernel_times,
         "world": world.status(), "node": node, "replay": replay,
         "seconds": time.perf_counter() - t_phase,
@@ -3167,18 +3256,9 @@ def fleet_byte_ticks(frames, streams: int, run: int, ans: int) -> list:
     """bench.py ``bench_fleet_ingest``'s ``make_ticks``: per tick ``run``
     frames (one revolution) per stream, every stream carrying the same
     frames on its own timestamp lane (7 s apart, 1.25 ms a frame)."""
-    ticks = []
-    t = [1000.0 + 7.0 * s for s in range(streams)]
-    for i in range(0, len(frames), run):
-        tick = []
-        for s in range(streams):
-            batch = []
-            for f in frames[i : i + run]:
-                t[s] += 1.25e-3
-                batch.append((f, t[s]))
-            tick.append((ans, batch))
-        ticks.append(tick)
-    return ticks
+    from rplidar_ros2_driver_tpu_torch.tools.graded import paced_fleet_ticks
+
+    return paced_fleet_ticks(frames, run, streams, ans)
 
 
 def _fleet_params(backend: str, ingest: str = "host", **over):
@@ -3809,17 +3889,9 @@ def phase_fleet(device, seed: int) -> dict:
 def ring_frames(revs: int, points: int) -> list[bytes]:
     """bench.py ``_denseboost_wire_frames``: the static 2 m +/- 0.5 m ring
     in dense capsules of 40 samples, ``revs`` revolutions."""
-    import numpy as np
+    from rplidar_ros2_driver_tpu_torch.tools.graded import wire_frames
 
-    from rplidar_ros2_driver_tpu_torch.ops import wire
-
-    frames = []
-    for n, idx in enumerate(range(0, revs * points, 40)):
-        pts = (np.arange(40) + idx) % points
-        mm = 2000.0 + 500.0 * np.sin(2 * np.pi * pts / points)
-        start_q6 = int(360.0 * (idx % points) / points * 64) & 0x7FFF
-        frames.append(wire.encode_dense_capsule(start_q6, n == 0, mm.astype(int)))
-    return frames
+    return wire_frames(revs, points)
 
 
 def _fm_service(backend: str, route: str, **over):
@@ -4132,7 +4204,7 @@ def fused_mapping_profile(device, row: dict, card: str) -> dict:
                             lambda: smk.log_odds_update_plain(*coarse, cfg)),
     }
     nvalid = int(okm.sum())
-    bounds = match_bounds(cfg, n, nvalid)
+    bounds = match_bounds(cfg, n, nvalid, fine)
     kernels = {}
     for name, (kern, plain) in calls.items():
         got, want = kern(), plain()
@@ -5577,6 +5649,189 @@ def _compat_force_scan() -> dict:
         sim.stop()
 
 
+# ---------------------------------------------------------------------------
+# graded: bench.py configs 1-4, 9, 11, 13, 16 and config 12's room at 1024^2
+# ---------------------------------------------------------------------------
+
+
+def _graded_arms(device, name: str, run) -> tuple:
+    """One configuration on the card and on the CPU (``run(backend)``):
+    the card arm's kernel launches counted around it, every output and
+    count of the two arms held equal.  Returns (card, cpu, launches)."""
+    from rplidar_ros2_driver_tpu_torch.tools import graded as gr
+
+    _sync(device)
+    _reset_counts()
+    card = run("cuda" if device.type == "cuda" else "cpu")
+    _sync(device)
+    launched = _counts()
+    cpu = run("cpu")
+    bad = gr.same_outputs(card["outputs"], cpu["outputs"])
+    check(not bad, f"graded {name}: the card's outputs differ from the CPU's in {bad[:6]}")
+    check(card["counts"] == cpu["counts"],
+          f"graded {name}: counts {card['counts']} on the card, {cpu['counts']} on the CPU")
+    return card, cpu, launched
+
+
+def phase_graded(device, card_name: str) -> dict:
+    """bench.py's configs 1-4, 9, 11, 13 and 16 and config 12's room on a
+    1024x1024 map at their full widths through tools/graded.py (its
+    GEOMETRY["full"]; depth cut as listed there), each on the card and on
+    the CPU: every output byte-equal between the two, every claim the bench
+    asserts checked (tools/graded raises), and here: no B1/B2 launch at
+    configs 2-3, B1 at W = 16 and B2 on config 4's arms, one B1 launch a
+    revolution on both of config 9's arms, B4/B5 on config 16's
+    reconstruct arm only, B6/B7/B8 once a tick at G = 1024 with B8's
+    remote route planned.  One line a configuration with its rates beside
+    the card's name and power limit."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+    from rplidar_ros2_driver_tpu_torch.tools import graded as gr
+
+    t_phase = time.perf_counter()
+    geo = gr.GEOMETRY["full"]
+    on_card = device.type == "cuda"
+    total: dict = {}
+    rows = {}
+
+    def one(name: str, run):
+        t0 = time.perf_counter()
+        card, cpu, launched = _graded_arms(device, name, run)
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+        row = {"phase": "graded", "config": name, "counts": card["counts"],
+               "launches": launched, "loop_launches": card["launches"],
+               "stats": card["stats"], "cpu_stats": cpu["stats"],
+               "seconds": time.perf_counter() - t0, "card": card_name}
+        rows[name] = row
+        emit(row)
+        return card, launched
+
+    one("1", lambda b: gr.run_config1(b, geo[1]))
+    for c in (2, 3):
+        _card, launched = one(str(c), lambda b, c=c: gr.run_chain_config(c, b, geo[c]))
+        check(launched["temporal_median"] == 0 and launched["sorted_replace"] == 0,
+              f"graded {c}: the median kernels launched with the median off: {launched}")
+    for median, kernel, other in (("pallas", "temporal_median", "sorted_replace"),
+                                  ("inc", "sorted_replace", "temporal_median")):
+        card, _l = one(f"4_{median}", lambda b, m=median: gr.run_chain_config(4, b, geo[4], m))
+        loop = card["launches"][median]
+        if on_card:
+            check(loop[kernel] == geo[4]["revs"] and loop[other] == 0,
+                  f"graded 4 ({median}): {loop} for {geo[4]['revs']} revolutions at W = 16")
+    card, _l = one("9", lambda b: gr.run_config9(b, geo[9]))
+    if on_card:
+        for arm in ("host", "fused"):
+            got = card["launches"][arm]["temporal_median"]
+            check(got == card["counts"]["revolutions"],
+                  f"graded 9: {got} B1 launches on the {arm} arm for "
+                  f"{card['counts']['revolutions']} revolutions")
+    card, _l = one("11", lambda b: gr.run_config11(b, geo[11]))
+    if on_card:
+        for arm in ("per_tick", "super"):
+            check(card["launches"][arm]["temporal_median"] > 0,
+                  f"graded 11: no B1 launch on the {arm} arm")
+    card, _l = one("13", lambda b: gr.run_config13(b, geo[13]))
+    if on_card:
+        check(card["launches"]["all_arms"]["temporal_median"] > 0, "graded 13: no B1 launch")
+    card, _l = one("16", lambda b: gr.run_config16(b, geo[16]))
+    if on_card:
+        rec, base = card["launches"]["rec"], card["launches"]["base"]
+        check(rec["beam_min"] > 0 and rec["shift_sad"] > 0 and rec["temporal_median"] > 0,
+              f"graded 16: the reconstruct arm launched {rec}")
+        check(base["beam_min"] == 0 and base["shift_sad"] == 0,
+              f"graded 16: the baseline arm launched the de-skew kernels: {base}")
+    g12 = geo["map1024"]
+    card, _l = one("map1024", lambda b: gr.run_map1024(b, g12))
+    if on_card:
+        loop = card["launches"]["mapper"]
+        check(all(loop[k] == g12["ticks"] for k in ("coarse_scores", "fine_scores",
+                                                    "log_odds_update")),
+              f"graded map1024: {loop} for {g12['ticks']} ticks")
+        cfg = card.pop("mapper").cfg
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = smk.update_plan(g12["streams"], cfg.grid, sms)
+        check(plan[0] == 0, f"graded map1024: B8 planned its local route at G = 1024: {plan}")
+        rows["map1024"]["update_plan"] = dict(zip(("local", "cluster", "threads", "rows",
+                                                   "smem"), plan))
+        rows["map1024"]["coarse_plan"] = smk.coarse_plan(
+            g12["streams"], cfg.grid, cfg.coarse, cfg.window_cells, cfg.clamp_q,
+            cfg.quant_shift, sms)
+        rows["map1024"]["sms"] = sms
+        emit({"phase": "graded", "config": "map1024_plans", "G": cfg.grid,
+              "update_plan": rows["map1024"]["update_plan"],
+              "coarse_plan": rows["map1024"]["coarse_plan"], "sms": sms, "card": card_name})
+    row = {"phase": "graded", "config": "all", "launches": total,
+           "seconds": time.perf_counter() - t_phase, "card": card_name}
+    emit(row)
+    return {"launches": total, "rows": rows, "seconds": row["seconds"]}
+
+
+def graded_profile(device, card_name: str) -> dict:
+    """B6, B7 and B8 at the 1024x1024 mapper's tick (N = 4, 2048 beams: the
+    map of the graded phase's room after its ticks, the next scan) against
+    their plain versions on the card: events ms, device ms and the bound —
+    B8 on its remote route, B6 on coarse_plan's.  Runs after the host
+    timings (a profiler session)."""
+    import numpy as np
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+    from rplidar_ros2_driver_tpu_torch.tools import graded as gr
+
+    t0 = time.perf_counter()
+    g = gr.GEOMETRY["full"]["map1024"]
+    n, b = g["streams"], g["beams"]
+    ticks = gr.room_ticks(n, b, g["ticks"] + 1)
+    mapper = FleetMapper(gr.map1024_params("cuda", g), n, beams=b)
+    masks, live = np.ones((n, b), bool), np.ones((n,), np.int32)
+    for pts in ticks[:-1]:
+        mapper.submit_points(pts, masks, live)
+    cfg = mapper.cfg
+    snap = mapper.snapshot()
+    pq, okm = tsm.quantize_points(torch.from_numpy(ticks[-1]).to(device),
+                                  torch.from_numpy(masks).to(device), cfg)
+    lo_t, _, _, posec, trig, pose_t = _map_kernel_args(
+        cfg, snap["log_odds"], snap["pose"], pq.cpu().numpy(), okm.cpu().numpy(), device)
+    cos_q, sin_q = tsm._theta_trig(pose_t, cfg)
+    coarse = (lo_t, pq, okm, posec, trig)
+    mq, _sc = smk.coarse_scores_plain(*coarse, cfg)
+    fine = (pq, okm, posec, cos_q, sin_q, torch.zeros((n, 2), dtype=torch.int32, device=device))
+    calls = {
+        "coarse_scores": (lambda: smk.coarse_scores_kernel(*coarse, cfg),
+                          lambda: smk.coarse_scores_plain(*coarse, cfg)),
+        "fine_scores": (lambda: smk.fine_scores_kernel(mq, *fine, cfg),
+                        lambda: smk.fine_scores_plain(mq, *fine, cfg)),
+        "log_odds_update": (lambda: smk.log_odds_update_kernel(*coarse, cfg),
+                            lambda: smk.log_odds_update_plain(*coarse, cfg)),
+    }
+    nvalid = int(okm.sum())
+    bounds = match_bounds(cfg, n, nvalid, fine)
+    kernels = {}
+    for name, (kern, plain) in calls.items():
+        got, want = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        check(all(torch.equal(a, w) for a, w in zip(got, want)),
+              f"graded: {name} differs from its plain version at the G = 1024 tick")
+        kernels[name] = {"ms": cuda_ms(kern, iters=50, warmup=5),
+                         "plain_ms": cuda_ms(plain, iters=10, warmup=2),
+                         "device_ms": device_ms(kern, iters=20),
+                         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                         "max_abs_err": 0.0}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    row = {"phase": "graded_profile", "shape": {"N": n, "G": cfg.grid, "B": b,
+                                                 "valid_beams": nvalid},
+           "update_plan": dict(zip(("local", "cluster", "threads", "rows", "smem"),
+                                   smk.update_plan(n, cfg.grid, sms))),
+           "kernels": kernels, "seconds": time.perf_counter() - t0, "card": card_name}
+    emit(row)
+    return row
+
+
 def redesign_report(name: str, timed: list, launched: list) -> dict:
     """B1's and B4's extra keys in the kernels line.  ``timed``: the kernel
     and deskew_kernels phases' rows at each of the path's shapes (device
@@ -5628,6 +5883,9 @@ ONE_PHASE = {
     "checkpoints": lambda device, seed, card: phase_checkpoints(device),
     "scenarios": lambda device, seed, card: phase_scenarios(device),
     "tooling": lambda device, seed, card: phase_tooling(device),
+    "graded": lambda device, seed, card: (phase_graded(device, card),
+                                          graded_profile(device, card)),
+    "loop": lambda device, seed, card: phase_loop(device, phase_replay(device, seed)[1]),
 }
 
 
@@ -5641,9 +5899,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-check", type=int, default=None, metavar="N",
                     help="only the fleet's multi-process check: N NCCL processes, one card "
                          "each, on (1, N) and (2, N/2) meshes (needs N cards)")
-    ap.add_argument("--phase", choices=sorted(ONE_PHASE), default=None,
+    ap.add_argument("--phase", choices=sorted(ONE_PHASE), action="append", default=None,
                     help="build the kernels and run this one phase alone (its profiled half "
-                         "included), with the same last lines")
+                         "included), with the same last lines; given again, the phases run "
+                         "in the order given, in one process")
     args = ap.parse_args(argv)
 
     try:
@@ -5679,7 +5938,8 @@ def main(argv=None) -> int:
     info = phase_device()
     phase_build()
     if args.phase:
-        ONE_PHASE[args.phase](device, args.seed, info["nvidia_smi"])
+        for name in args.phase:
+            ONE_PHASE[name](device, args.seed, info["nvidia_smi"])
         print(info["nvidia_smi"], flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -5693,10 +5953,12 @@ def main(argv=None) -> int:
     ckpt = phase_checkpoints(device)
     scen = phase_scenarios(device)
     tooling = phase_tooling(device)
+    graded = phase_graded(device, info["nvidia_smi"])
     fleet = phase_fleet(device, args.seed)
     fused_mapping_profile(device, fmap, info["nvidia_smi"])
     failover_profile(device, failover, info["nvidia_smi"])
     scheduled_profile(device, sched, info["nvidia_smi"])
+    graded_map = graded_profile(device, info["nvidia_smi"])
     kern = phase_kernels(device, np.random.default_rng(args.seed))
     revs = make_revolutions(args.seed, args.revs, GEOMETRY["points"])
     chain = phase_chain(device, revs)
@@ -5834,6 +6096,15 @@ def main(argv=None) -> int:
         k["checkpoints_launches"] = ckpt["launches"].get(k["name"], 0)
         k["scenarios_launches"] = scen["launches"].get(k["name"], 0)
         k["tooling_launches"] = tooling["launches"].get(k["name"], 0)
+        # this slice's path: the graded configurations (1-4, 9, 11, 13, 16
+        # and the 1024^2 map); B3 is not on it
+        k["graded_launches"] = graded["launches"].get(k["name"], 0)
+        if k["name"] != "sliding_median":
+            check(k["graded_launches"] > 0,
+                  f"kernel {k['name']} never launched on the graded path")
+        if k["name"] in graded_map["kernels"]:
+            k["graded_map1024_tick"] = {**graded_map["kernels"][k["name"]],
+                                        "shape": graded_map["shape"]}
     for name in ("temporal_median", "sliding_median"):
         entry = next(k for k in kernels if k["name"] == name)
         entry["fleet_shapes"] = {key: v for key, v in fleet["shapes"].items()

@@ -651,6 +651,9 @@ class FleetFusedIngest:
         self._max_queue = max_queue
         self.ticks = 0
         self.dispatch_count = 0
+        # staged host->device transfers: two a dispatch (the frames plane
+        # here, the aux plane inside the step), whatever the fleet size
+        self.h2d_transfers = 0
         self.super_dispatches = 0
         self.ticks_super_fused = 0
         self.frames_decoded = 0
@@ -936,6 +939,7 @@ class FleetFusedIngest:
         pair = self._staging_buffers(skey)
         buf, aux = pair
         self._stage_slice(sl, mb, buf, aux.numpy())
+        self.h2d_transfers += 2
         return ("tick", 1, 1, self._icfg, list(self._bases), skey, pair,
                 buf.to(self.device, non_blocking=True))
 
@@ -951,6 +955,7 @@ class FleetFusedIngest:
         for t, sl in enumerate(group):
             self._stage_slice(sl, mb, buf[t], a[t])
             bases_per_tick.append(list(self._bases))
+        self.h2d_transfers += 2
         return ("super", t_depth, len(group), self._icfg, bases_per_tick, skey, pair,
                 buf.to(self.device, non_blocking=True))
 

@@ -107,8 +107,12 @@ def wrap_steps(d, div: int):
 
 
 def _trig(table: torch.Tensor, th: torch.Tensor):
-    idx = th.long()
-    return table[:, 0][idx], table[:, 1][idx]
+    """(cos, sin) rows of ``table`` at ``th``, any shape, 0-d included: one
+    gather on the device (indexing by a 0-d tensor would read it on the
+    host).  A negative step in [-div, 0) wraps, as ``jnp.take`` does."""
+    idx = torch.remainder(th.reshape(-1).long(), table.shape[0])
+    rows = table.index_select(0, idx)
+    return rows[:, 0].reshape(th.shape), rows[:, 1].reshape(th.shape)
 
 
 def pose_compose(p, z, table, div: int):

@@ -2,12 +2,14 @@
 run the revolutions through the fused K-scan filter chain and, with
 :func:`replay_with_map`, through the SLAM front-end mapper (with
 :func:`replay_with_loop_closure`, the back-end too); or, with
-:func:`replay_raw_fused`, run the raw bytes through the fused device ingest.
+:func:`replay_raw_fused`, run the raw bytes through the fused device ingest;
+or, with :func:`replay_fleet`, run several captures side by side through
+the sharded fleet scan.
 
 The PyTorch counterpart of the JAX package's ``replay.py`` (its recorder,
-reader, batched decode, ``replay_through_chain``, ``replay_with_map``,
-``replay_with_loop_closure`` and ``replay_raw_fused``; the fleet replay is
-not ported): a capture decodes as
+reader, batched decode, ``replay_through_chain``, ``replay_fleet``,
+``replay_with_map``, ``replay_with_loop_closure`` and
+``replay_raw_fused``): a capture decodes as
 a handful of ``(M, frame_bytes)`` batch decodes (ops/unpack.py) on the
 chosen device instead of a per-byte loop; the revolution split stays numpy
 on the host; then the revolutions advance the rolling window ``chunk``

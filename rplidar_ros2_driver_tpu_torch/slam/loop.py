@@ -26,8 +26,13 @@ Backends:
     step per due stream on the host.
   * ``fused`` — the device path: the stream-stacked :class:`LoopState` on
     the engine's device, updated in place; one host read of the wires (and
-    the corrected anchors) a check.  On a CPU device it runs the kernels'
-    plain versions — bit-exact with the card and the host reference.
+    the corrected anchors) a check.  A check's inputs go up from pinned
+    buffers without blocking; every blocking transfer (that read, an
+    install's uploads, the row pulls and restores) runs inside
+    ``guards.declared_sync``, so a check holds the whole
+    ``guards.steady_state``.  On a CPU device it runs the
+    kernels' plain versions — bit-exact with the card and the host
+    reference.
   * ``auto``  — ``fused`` on a CUDA device, ``host`` otherwise.  This is
     where the port differs from the JAX package, whose resolver keeps
     ``auto`` on ``host`` until an on-chip A/B clears its decision bar: the
@@ -67,6 +72,7 @@ from rplidar_ros2_driver_tpu_torch.ops.loop_close import (
 )
 from rplidar_ros2_driver_tpu_torch.ops.pose_graph import PoseGraphConfig
 from rplidar_ros2_driver_tpu_torch.ops.scan_match import SUB, W_SCALE
+from rplidar_ros2_driver_tpu_torch.utils import guards
 
 log = logging.getLogger("rplidar_tpu.loop")
 
@@ -170,6 +176,7 @@ class LoopClosureEngine:
         self._lock = threading.Lock()
         self._states: Optional[LoopState] = None  # fused: device state
         self._states_np: Optional[dict] = None    # host: stacked numpy arrays
+        self._staging: dict = {}                   # fused on a card: pinned inputs
         s, k = self.streams, self.cfg.max_submaps
         # host mirrors of the selection inputs, kept identically by both
         # backends (finalize is host-side), so candidate selection is ONE
@@ -208,7 +215,8 @@ class LoopClosureEngine:
     def _install_state(self, stacked_np: dict) -> None:
         with self._lock:
             if self.backend == "fused":
-                self._states = LoopState.from_numpy(stacked_np, self.device)
+                with guards.declared_sync():  # the state's upload
+                    self._states = LoopState.from_numpy(stacked_np, self.device)
             else:
                 self._states_np = {k: np.asarray(stacked_np[k], np.int32).copy()
                                    for k in STATE_KEYS}
@@ -246,6 +254,14 @@ class LoopClosureEngine:
             torch.zeros((s, 3), dtype=torch.int32, device=dev),
             torch.full((s, kc), -1, dtype=torch.int32, device=dev),
             torch.zeros((s,), dtype=torch.int32, device=dev), cfg)
+        if dev.type == "cuda":
+            # the check's pinned input buffers, at the shapes observe() stages
+            for name, shape, dtype in (("points", (s, b, 2), np.float32),
+                                       ("masks", (s, b), bool), ("poses", (s, 3), np.int32),
+                                       ("cand_idx", (s, kc), np.int32),
+                                       ("check", (s,), np.int32)):
+                self._upload(name, np.zeros(shape, dtype), dtype)
+            torch.cuda.synchronize(dev)
         if cfg.reanchor:
             snap = self.mapper.snapshot_stream(0)
             self.mapper.reanchor_stream(0, snap["pose"])
@@ -258,9 +274,10 @@ class LoopClosureEngine:
 
             dev = self.device
             with self._lock:
-                fleet_install_submap(
-                    self._states, i, torch.from_numpy(np.asarray(plane, np.int32)).to(dev),
-                    torch.from_numpy(np.asarray(anchor, np.int32).copy()).to(dev), self.cfg)
+                with guards.declared_sync():  # the plane's and the anchor's uploads
+                    plane_t = torch.from_numpy(np.asarray(plane, np.int32)).to(dev)
+                    anchor_t = torch.from_numpy(np.asarray(anchor, np.int32).copy()).to(dev)
+                fleet_install_submap(self._states, i, plane_t, anchor_t, self.cfg)
         else:
             from rplidar_ros2_driver_tpu_torch.ops.loop_close_ref import install_submap_np
 
@@ -367,6 +384,20 @@ class LoopClosureEngine:
         self.last_status = statuses
         return statuses
 
+    def _upload(self, name: str, a, dtype) -> torch.Tensor:
+        """One check input on the engine's device.  On a card it is copied
+        into a pinned host buffer kept for that input and uploaded without
+        blocking; the buffer is rewritten only at the next check, after this
+        check's result fetch has waited for the copy."""
+        host = torch.from_numpy(np.ascontiguousarray(a, dtype))
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        buf = self._staging.get(name)
+        if buf is None or buf.shape != host.shape:
+            buf = self._staging[name] = torch.empty_like(host, pin_memory=True)
+        buf.copy_(host)
+        return buf.to(self.device, non_blocking=True)
+
     def _dispatch_check(self, points, masks, poses, cand_idx, check):
         """One batched check (fused) or one host step per due stream;
         returns host (S, WIRE_LEN) wires + (S, K, 3) corrected anchors."""
@@ -375,17 +406,17 @@ class LoopClosureEngine:
             if self.backend == "fused":
                 from rplidar_ros2_driver_tpu_torch.ops.loop_close import fleet_loop_close_step
 
-                dev = self.device
-
-                def up(a, dtype):
-                    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
-
-                _, wires, corrected = fleet_loop_close_step(
-                    self._states, up(points, np.float32), up(masks, bool), up(poses, np.int32),
-                    up(cand_idx, np.int32), up(check, np.int32), self.cfg)
+                inputs = (self._upload("points", points, np.float32),
+                          self._upload("masks", masks, bool),
+                          self._upload("poses", poses, np.int32),
+                          self._upload("cand_idx", cand_idx, np.int32),
+                          self._upload("check", check, np.int32))
+                _, wires, corrected = fleet_loop_close_step(self._states, *inputs, self.cfg)
                 self.dispatch_count += 1
                 # one device->host copy a check: the wires and the anchors
-                host = torch.cat([wires, corrected.reshape(s, k * 3)], dim=1).cpu().numpy()
+                with guards.declared_sync():
+                    host = torch.cat([wires, corrected.reshape(s, k * 3)],
+                                     dim=1).cpu().numpy()
                 return host[:, :WIRE_LEN], host[:, WIRE_LEN:].reshape(s, k, 3)
             from rplidar_ros2_driver_tpu_torch.ops.loop_close_ref import loop_close_step_np
 
@@ -447,7 +478,8 @@ class LoopClosureEngine:
         packages."""
         with self._lock:
             if self.backend == "fused":
-                snap = self._states.to_numpy()
+                with guards.declared_sync():
+                    snap = self._states.to_numpy()
             else:
                 snap = {k: v.copy() for k, v in self._states_np.items()}
         snap["version"] = np.asarray(LOOP_STATE_VERSION, np.int32)
@@ -485,7 +517,9 @@ class LoopClosureEngine:
         self._check_stream(i)
         with self._lock:
             if self.backend == "fused":
-                snap = {k: getattr(self._states, k)[i].cpu().numpy().copy() for k in STATE_KEYS}
+                with guards.declared_sync():  # the row's copy to the host
+                    snap = {k: getattr(self._states, k)[i].cpu().numpy().copy()
+                            for k in STATE_KEYS}
             else:
                 snap = {k: self._states_np[k][i].copy() for k in STATE_KEYS}
         snap["version"] = np.asarray(LOOP_STATE_VERSION, np.int32)
@@ -510,7 +544,8 @@ class LoopClosureEngine:
             for k in STATE_KEYS:
                 row = np.asarray(snap[k], np.int32)
                 if self.backend == "fused":
-                    getattr(self._states, k)[i].copy_(torch.from_numpy(row.copy()))
+                    with guards.declared_sync():  # the row's upload
+                        getattr(self._states, k)[i].copy_(torch.from_numpy(row.copy()))
                 else:
                     self._states_np[k][i] = row
         self._anchors[i] = np.asarray(snap["anchors"], np.int32)

@@ -200,12 +200,8 @@ def loop_probe(chaos: str, streams: int, n_revs: int, grid: int, cell: float, be
         truths.append(np.stack([smet.pose_to_lattice(rel[k, 0], rel[k, 1], rel[k, 2], fe.cfg)
                                 for k in range(n_revs)]))
         scenes.append(sc)
-    # the bench's guards.steady_state less its guard (c): the port's loop
-    # engine reads device scalars on the host inside a check (its pose
-    # helpers index tables by them), so only (a) nothing built and (b) no
-    # new device memory are held
-    tag = f"scenario loop probe {chaos}"
-    with guards.assert_no_recompile(tag=tag), guards.no_new_device_memory(tag):
+    # the bench's guards.steady_state
+    with guards.steady_state(tag=f"scenario loop probe {chaos}"):
         for k in range(n_revs):
             pts = np.zeros((streams, beams, 2), np.float32)
             masks = np.ones((streams, beams), bool)

@@ -489,7 +489,9 @@ def test_node_publishes_over_the_live_path(ingest, tmp_path, monkeypatch):
         launch(node)
         assert (node.fused_ingest is not None) == (ingest == "fused")
         assert (node.chain is None) == (ingest == "fused")
-        assert wait_for(lambda: pub.scan_count >= 12, 60.0), "no scans over the live path"
+        assert wait_for(lambda: pub.scan_count >= 12, 60.0), (
+            f"no scans over the live path: {pub.scan_count} scans in 60 s, "
+            f"{node.fsm.reset_count} resets, {len(made)} drivers, FSM {node.fsm.state.name}")
         node.deactivate()
         resets = node.fsm.reset_count
         timing = dataclasses.asdict(made[-1]._scan_decoder.timing)
@@ -497,7 +499,7 @@ def test_node_publishes_over_the_live_path(ingest, tmp_path, monkeypatch):
     finally:
         node.shutdown()
         sim.stop()
-    assert len(made) == 1 and resets == 0
+    assert len(made) == 1 and resets == 0, f"{len(made)} drivers made, {resets} resets"
     published = {m.stamp for m in pub.scans}
     if ingest == "host":
         # the node runs exactly the revolutions it publishes (the pipelined
@@ -511,13 +513,19 @@ def test_node_publishes_over_the_live_path(ingest, tmp_path, monkeypatch):
     for msg, cloud in zip(pub.scans, pub.clouds):
         k = int(np.argmin(np.abs(stamps - msg.stamp)))
         tol = 0.0 if ingest == "host" else 1e-5  # fused stamps: f32 offsets
-        assert abs(stamps[k] - msg.stamp) <= tol, f"revolution {msg.stamp} not in the replay"
+        assert abs(stamps[k] - msg.stamp) <= tol, (
+            f"revolution {msg.stamp} not in the replay: nearest {stamps[k]}, "
+            f"{len(stamps)} replayed for {len(pub.scans)} published")
         o = replay[k][0]
-        np.testing.assert_array_equal(msg.ranges, o.ranges)
-        np.testing.assert_array_equal(msg.intensities, o.intensities)
-        np.testing.assert_array_equal(cloud.voxel, o.voxel)
-        np.testing.assert_array_equal(cloud.points_xy, o.points_xy[o.point_mask])
-    assert len(pub.scans) == len(pub.clouds) >= 12
+        at = f"revolution {msg.stamp} of {len(pub.scans)}"
+        np.testing.assert_array_equal(msg.ranges, o.ranges, err_msg=f"{at}: ranges")
+        np.testing.assert_array_equal(msg.intensities, o.intensities,
+                                      err_msg=f"{at}: intensities")
+        np.testing.assert_array_equal(cloud.voxel, o.voxel, err_msg=f"{at}: voxel")
+        np.testing.assert_array_equal(cloud.points_xy, o.points_xy[o.point_mask],
+                                      err_msg=f"{at}: points_xy")
+    assert len(pub.scans) == len(pub.clouds) >= 12, (
+        f"{len(pub.scans)} scans and {len(pub.clouds)} clouds published")
 
 def test_dummy_mode_falls_back_to_host():
     """The dummy driver synthesizes scans above the protocol layer: fused

@@ -162,3 +162,93 @@ def test_shapes_are_checked():
     with pytest.raises(ValueError, match="expected"):
         tpg.fleet_solve_pose_graph(torch.zeros((1, 5, 3), dtype=torch.int32),
                                    torch.zeros((1, 4, 6), dtype=torch.int32), tc)
+
+
+# ---------------------------------------------------------------------------
+# the trig gather on the device, for any index shape (a 0-d index included)
+# ---------------------------------------------------------------------------
+
+POSE_SHAPES = [(), (5,), (4, 6)]
+
+
+@pytest.mark.parametrize("shape", POSE_SHAPES, ids=["0d", "n", "nk"])
+def test_trig_gathers_any_index_shape(shape):
+    """``_trig`` on a 0-d, (N,) and (N, K) angle: JAX's ``jnp.take`` rows
+    and the numpy twin's indexing, with the index's shape, negative steps
+    in [-div, 0) wrapping as ``jnp.take`` wraps them."""
+    import jax.numpy as jnp
+
+    table = rotation_table(720)
+    rng = np.random.default_rng(len(shape) + 40)
+    th = np.asarray(rng.integers(-720, 720, shape), np.int32)
+    cos_q, sin_q = tpg._trig(torch.from_numpy(table), torch.from_numpy(th))
+    assert tuple(cos_q.shape) == shape and tuple(sin_q.shape) == shape
+    np.testing.assert_array_equal(cos_q.numpy(), np.asarray(jnp.take(table[:, 0], th)))
+    np.testing.assert_array_equal(sin_q.numpy(), np.asarray(jnp.take(table[:, 1], th)))
+    np.testing.assert_array_equal(cos_q.numpy(), table[:, 0][th])
+    np.testing.assert_array_equal(sin_q.numpy(), table[:, 1][th])
+
+
+@pytest.mark.parametrize("shape", POSE_SHAPES, ids=["3", "n3", "nk3"])
+def test_pose_helpers_match_jax_at_every_pose_shape(shape):
+    """``pose_compose``, ``pose_relative`` and ``rel_inverse`` on poses of
+    shape (3,), (N, 3) and (N, K, 3) equal JAX's helpers and the numpy
+    twin's, byte for byte (the (3,) case is the install's odometry leg)."""
+    table = rotation_table(720)
+    rng = np.random.default_rng(len(shape) + 50)
+    a = rng.integers(-20000, 20000, shape + (3,)).astype(np.int32)
+    b = rng.integers(-20000, 20000, shape + (3,)).astype(np.int32)
+    a[..., 2] = rng.integers(0, 720, shape)
+    b[..., 2] = rng.integers(-1000, 1000, shape)
+    tt, ta, tb = torch.from_numpy(table), torch.from_numpy(a), torch.from_numpy(b)
+    for name in ("pose_compose", "pose_relative"):
+        want = np.asarray(getattr(jpg, name)(a, b, table, 720))
+        got = getattr(tpg, name)(ta, tb, tt, 720).numpy()
+        assert got.shape == shape + (3,), name
+        np.testing.assert_array_equal(got, want, name)
+        np.testing.assert_array_equal(getattr(tref, name + "_np")(a, b, table, 720), want, name)
+    want = np.asarray(jpg.rel_inverse(b, table, 720))
+    np.testing.assert_array_equal(tpg.rel_inverse(tb, tt, 720).numpy(), want)
+    np.testing.assert_array_equal(tref.rel_inverse_np(b, table, 720), want)
+
+
+@pytest.mark.parametrize("streams", [1, 3])
+def test_install_after_a_single_anchor_matches_jax(streams):
+    """``fleet_install_submap`` into a stream holding one anchor — the
+    odometry leg from that (3,) anchor (``pose_relative`` at a 0-d
+    heading) — equals JAX's install byte for byte, every stream."""
+    import jax.numpy as jnp
+
+    from rplidar_ros2_driver_tpu.core.config import DriverParams as JParams
+    from rplidar_ros2_driver_tpu.mapping import mapper as jmapper
+    from rplidar_ros2_driver_tpu.ops import loop_close as jlc
+    from rplidar_ros2_driver_tpu.slam import loop as jloop
+    from rplidar_ros2_driver_tpu_torch.core.config import DriverParams as TParams
+    from rplidar_ros2_driver_tpu_torch.mapping import mapper as tmapper
+    from rplidar_ros2_driver_tpu_torch.ops import loop_close as tlc
+    from rplidar_ros2_driver_tpu_torch.slam import loop as tloop
+
+    kw = dict(filter_backend="cpu", filter_chain=("clip",), map_enable=True, map_grid=32,
+              map_cell_m=0.1, loop_enable=True, loop_max_submaps=4,
+              pose_graph_max_constraints=4)
+    jp, tp = JParams(**kw), TParams(**kw)
+    jc = jloop.loop_config_from_params(jp, jmapper.map_config_from_params(jp, 64))
+    tc = tloop.loop_config_from_params(tp, tmapper.map_config_from_params(tp, 64))
+    g = tc.match.grid
+    rng = np.random.default_rng(60 + streams)
+    st = {k: np.zeros((streams,) + v, np.int32) for k, v in tlc.LoopState.shapes(tc).items()}
+    port = tlc.LoopState.from_numpy(st, "cpu")
+    jst = jlc.LoopState(**{k: jnp.asarray(np.array(st[k])) for k in tlc.STATE_KEYS})
+    for i in (streams - 1, streams - 1):          # the first anchor, then the leg from it
+        plane = rng.integers(0, tc.match.clamp_q + 1, (g, g)).astype(np.int32)
+        anchor = np.asarray([rng.integers(-900, 900), rng.integers(-900, 900),
+                             rng.integers(0, 720)], np.int32)
+        tlc.fleet_install_submap(port, i, torch.from_numpy(plane), torch.from_numpy(anchor), tc)
+        jst = jlc.fleet_install_submap(jst, jnp.int32(i), jnp.asarray(plane),
+                                       jnp.asarray(anchor), cfg=jc)
+    got = port.to_numpy()
+    for k in tlc.STATE_KEYS:
+        want = np.asarray(getattr(jst, k))
+        assert got[k].dtype == want.dtype, k
+        np.testing.assert_array_equal(got[k], want, err_msg=k)
+    assert int(got["count"][streams - 1]) == 2 and got["odom"][streams - 1, 1].any()
