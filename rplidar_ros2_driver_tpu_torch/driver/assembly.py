@@ -134,6 +134,7 @@ class ScanAssembler:
         chunk = chunk[:room]
         self._partial.append(chunk)
         self._partial_ts_chunks.append(ts_chunk[:room])
+        # graftlint: disable=GL012 — helper of push_nodes, under its self._lock
         self._partial_len += len(chunk)
 
     def _close_partial(self, end_ts: float = 0.0) -> None:
@@ -144,6 +145,7 @@ class ScanAssembler:
         if self._pending is not None:
             self.scans_dropped += 1  # consumer lagging: newest wins
         ts0 = float(node_ts[0])
+        # graftlint: disable=GL012 — helper of push_nodes, under its self._lock
         self._pending = {
             "angle_q14": scan[:, 0],
             "dist_q2": scan[:, 1],
@@ -154,8 +156,11 @@ class ScanAssembler:
             "duration": max(end_ts - ts0, 0.0),
         }
         self.scans_completed += 1
+        # graftlint: disable=GL012 — helper of push_nodes, under its self._lock
         self._partial = []
+        # graftlint: disable=GL012 — helper of push_nodes, under its self._lock
         self._partial_ts_chunks = []
+        # graftlint: disable=GL012 — helper of push_nodes, under its self._lock
         self._partial_len = 0
         if self._on_complete is not None:
             self._on_complete(self._pending)

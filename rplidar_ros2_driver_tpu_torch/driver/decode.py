@@ -22,6 +22,7 @@ per-sample delay model (protocol/timing.py).
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Optional
 
@@ -73,12 +74,24 @@ class BatchScanDecoder:
         self.frames_decoded = 0
         self.nodes_decoded = 0
         self.kernel_dispatches = 0
+        # serialises reset() (the scan loop's thread) against a run being
+        # decoded on the transceiver's pump thread: a reset landing inside
+        # a run would be undone by the run's later writes of the carries
+        # and its later pushes of old-mode nodes
+        # (re-entrant: an assembler callback on the pump may reset too)
+        self._lock = threading.RLock()
 
     def reset(self) -> None:
-        self._active_ans = None
-        self._prev = None
-        self._sync_carry = 0
-        self._dist_carry = 0
+        """Clear the carries and the sinks this decoder feeds.  Waits for a
+        run in flight, so nothing of that run lands after it returns."""
+        with self._lock:
+            self._active_ans = None
+            self._prev = None
+            self._sync_carry = 0
+            self._dist_carry = 0
+            self._assembler.reset()
+            if self._raw_holder is not None:
+                self._raw_holder.reset()
 
     # -- ingest --------------------------------------------------------------
 
@@ -92,28 +105,29 @@ class BatchScanDecoder:
         if rec is not None:
             for data, ts in items:
                 rec.write(ans_type, data, ts)
-        if ans_type != self._active_ans:
-            # answer type changed: new scan mode — reset decode state
-            self._active_ans = ans_type
-            self._prev = None
-            self._sync_carry = 0
-            self._dist_carry = 0
-            self._assembler.reset()
-        expect = ANS_PAYLOAD_BYTES.get(ans_type)
-        if expect is None:
-            return
-        items = [it for it in items if len(it[0]) == expect]
-        if not items:
-            return
-        self.frames_decoded += len(items)
-        # the carries make slicing exact, so runs of any length decode
-        cap = _BUCKETS[-1]
-        for i in range(0, len(items), cap):
-            chunk = items[i : i + cap]
-            if ans_type in _PAIRED_NODES:
-                self._decode_paired(ans_type, expect, chunk)
-            else:
-                self._decode_unpaired(ans_type, expect, chunk)
+        with self._lock:
+            if ans_type != self._active_ans:
+                # answer type changed: new scan mode — reset decode state
+                self._active_ans = ans_type
+                self._prev = None
+                self._sync_carry = 0
+                self._dist_carry = 0
+                self._assembler.reset()
+            expect = ANS_PAYLOAD_BYTES.get(ans_type)
+            if expect is None:
+                return
+            items = [it for it in items if len(it[0]) == expect]
+            if not items:
+                return
+            self.frames_decoded += len(items)
+            # the carries make slicing exact, so runs of any length decode
+            cap = _BUCKETS[-1]
+            for i in range(0, len(items), cap):
+                chunk = items[i : i + cap]
+                if ans_type in _PAIRED_NODES:
+                    self._decode_paired(ans_type, expect, chunk)
+                else:
+                    self._decode_unpaired(ans_type, expect, chunk)
 
     def precompile(self, ans_type: int) -> None:
         """Run this format's decoder once per bucket on zero frames with the
@@ -186,6 +200,8 @@ class BatchScanDecoder:
         """Capsule formats: (prev, cur) pairs through the batch decoders,
         carrying the previous frame / sync edge / smoothing state."""
         chain = ([self._prev] if self._prev is not None else []) + items
+        # graftlint: disable=GL012 — helper reached only from
+        # on_measurement_batch, which holds self._lock
         self._prev = items[-1]
         if len(chain) < 2:
             return  # first frame of a stream: nothing to pair yet
@@ -201,12 +217,14 @@ class BatchScanDecoder:
         valid = dec.node_valid.numpy()[:npairs]
         if ans_type in _CARRY_SYNC and npairs:
             # the edge filter's output at the stream's last sample position
+            # graftlint: disable=GL012 — under on_measurement_batch's lock
             self._sync_carry = int(dec.flag[npairs - 1, -1]) & 1
         if ans_type == Ans.MEASUREMENT_ULTRA_DENSE_CAPSULED and npairs:
             # smoothing carry = last non-skipped sample's smoothed distance
             d_flat = dec.dist_q2.numpy()[:npairs].reshape(-1)
             nz = np.flatnonzero(valid.reshape(-1))
             if nz.size:
+                # graftlint: disable=GL012 — under on_measurement_batch's lock
                 self._dist_carry = int(d_flat[nz[-1]])
         # nodes of pair (i, i+1) publish when frame i+1 completes: anchor
         # each pair at the CUR frame's rx time, back-date per sample index

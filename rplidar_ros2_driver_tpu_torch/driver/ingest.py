@@ -288,13 +288,19 @@ class FusedIngest:
     def _activate(self, ans_type: int) -> None:
         """Answer type changed: new scan mode — reset decode/assembly
         state, carry the filter window."""
+        # graftlint: disable=GL012 — callers (on_measurement_batch,
+        # reset_filter) hold self._lock
         self._active_ans = ans_type
+        # graftlint: disable=GL012 — callers (on_measurement_batch,
+        # reset_filter) hold self._lock
         self._icfg = self._config_for(ans_type)
         filt = (
             self._state.filter if self._state is not None
             else self._filter_state if self._filter_state is not None
             else self._fresh_filter_state()
         )
+        # graftlint: disable=GL012 — callers (on_measurement_batch,
+        # reset_filter) hold self._lock
         self._state = create_ingest_state(self._icfg, filter_state=filt, device=self.device)
 
     def reset(self) -> None:
@@ -374,8 +380,10 @@ class FusedIngest:
                 landing.release()
             else:
                 keep.append(entry)
+        # graftlint: disable=GL012 — callers hold self._lock (see above)
         self._retiring = keep
 
+    # graftlint: hot-loop
     def _dispatch(self, ans_type: int, expect: int, chunk: list) -> None:
         t0 = time.perf_counter()
         m = len(chunk)
@@ -390,7 +398,9 @@ class FusedIngest:
             a[mb : mb + m] = [float(crcmod.frame_crc_ok(d)) for d, _ in chunk]
         a[-2] = 0.0 if self._base is None else self._base - base
         a[-1] = m
+        # graftlint: disable=GL012 — under on_measurement_batch's self._lock
         self._base = base
+        # graftlint: disable=GL012 — under on_measurement_batch's self._lock
         self._state, res, n_done = fused_ingest_step_counted(
             self._state, buf.to(self.device, non_blocking=True), aux, self._icfg
         )
@@ -894,6 +904,7 @@ class FleetFusedIngest:
             self.staging_overlap_hits += 1
         self._launch(staged)
 
+    # graftlint: hot-loop
     def _stage_slice(self, sl, mb: int, buf: torch.Tensor, aux: np.ndarray) -> None:
         """Fill one tick slice's staging planes (``buf`` (streams, mb,
         frame_bytes) uint8, ``aux`` (streams, 2mb+4) f32, pre-zeroed),
@@ -931,6 +942,7 @@ class FleetFusedIngest:
     def _slice_bucket(self, slices) -> int:
         return self._bucket(max((len(c[1]) for sl in slices for c in sl[0] if c), default=1))
 
+    # graftlint: hot-loop
     def _stage_tick(self, sl) -> tuple:
         """Fill and upload ONE per-tick step's frames (the aux plane stays
         in pinned host memory; the step uploads it)."""
@@ -943,6 +955,7 @@ class FleetFusedIngest:
         return ("tick", 1, 1, self._icfg, list(self._bases), skey, pair,
                 buf.to(self.device, non_blocking=True))
 
+    # graftlint: hot-loop
     def _stage_super(self, group, t_depth: int) -> tuple:
         """Fill and upload one super-step's (T, streams, M, frame_bytes)
         planes; ticks beyond the group stay all-idle (zeroed)."""
@@ -959,6 +972,7 @@ class FleetFusedIngest:
         return ("super", t_depth, len(group), self._icfg, bases_per_tick, skey, pair,
                 buf.to(self.device, non_blocking=True))
 
+    # graftlint: hot-loop
     def _launch(self, staged) -> None:
         """Run the step of one staged descriptor and queue its results
         (with, on the card, the event that marks the staged inputs read)."""

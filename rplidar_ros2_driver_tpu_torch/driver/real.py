@@ -233,9 +233,9 @@ class RealLidarDriver(LidarDriverInterface):
                 self._engine = None
             self._connected = False
             self._scanning = False
+            self._scan_decoder.reset()
             self._assembler.reset()
             self._raw_holder.reset()
-            self._scan_decoder.reset()
 
     def is_connected(self) -> bool:
         with self._lock:
@@ -328,8 +328,8 @@ class RealLidarDriver(LidarDriverInterface):
         )
         if not self._engine.send_only(Cmd.EXPRESS_SCAN, payload):
             return False
-        # reached only from start_motor/_start_old_type, whose public
-        # entries hold self._lock (RLock)
+        # graftlint: disable=GL012 — helper reached only from start_motor/
+        # _start_old_type, whose public entries hold self._lock (RLock)
         self._scanning = True
         self.profile.active_mode = mode.name
         self.profile.active_rpm = target_rpm
@@ -387,8 +387,8 @@ class RealLidarDriver(LidarDriverInterface):
         self._begin_streaming()
         if not self._engine.send_only(Cmd.SCAN):
             return False
-        # reached only from start_motor/_start_old_type, whose public
-        # entries hold self._lock (RLock)
+        # graftlint: disable=GL012 — helper reached only from start_motor/
+        # _start_old_type, whose public entries hold self._lock (RLock)
         self._scanning = True
         self.profile.active_mode = "Standard"
         self.profile.active_rpm = DEFAULT_RPM
@@ -456,9 +456,11 @@ class RealLidarDriver(LidarDriverInterface):
         self._engine.send_only(Cmd.STOP)
         time.sleep(0.002)
         self._engine.reset_decoder()
+        # the decoder first: its reset waits for a run in flight on the
+        # pump, whose pushes would otherwise land in the sinks reset here
+        self._scan_decoder.reset()
         self._assembler.reset()
         self._raw_holder.reset()
-        self._scan_decoder.reset()
 
     def stop_motor(self) -> None:
         with self._lock:

@@ -75,8 +75,10 @@ DEFAULT_MODES = [
 ]
 
 
-# SimConfig is the mutable firmware-state holder of the simulated device
-# (tests flip health_status live, SET_LIDAR_CONF writes ip_conf)
+# graftlint: disable=GL006 — NOT a step config: SimConfig is the mutable
+# firmware-state holder of the simulated device (tests flip
+# health_status live, SET_LIDAR_CONF writes ip_conf); it never keys a
+# step cache
 @dataclass
 class SimConfig:
     model_id: int = 0x71           # S2M1 -> NEW_TYPE

@@ -136,8 +136,9 @@ def rasterize_subsweep_np(angle, dist, quality, valid, cfg: DeskewConfig):
     quality = np.asarray(quality, np.int32)
     ok = np.asarray(valid, bool) & (dist > 0)
     if cfg.enable_clip:
-        # the fused rasterizer's one float op: a single f32 multiply +
-        # compares gating the integer drop mask
+        # graftlint: policed — literal twin of the fused rasterizer's
+        # one sanctioned float op: a single f32 multiply + compares
+        # gating the integer drop mask (deterministic elementwise)
         dist_m = dist.astype(np.float32) * np.float32(1.0 / 4000.0)
         ok = (
             ok

@@ -454,6 +454,9 @@ def _voxel_cells(
     semantics) lives, shared by both voxel ops.  xy is bounded by the
     masked polar projection, so the float->int cast stays in range."""
     half = grid // 2
+    # graftlint: policed — xy comes from the masked polar projection
+    # (non-finite ranges project to r=0) and is bounded by range_max_m,
+    # so the cast never sees NaN/inf/out-of-int32 values
     ij = torch.floor(xy / _f32_scalar(cell_m, xy.device)).to(torch.int32) + half
     gx, gy = ij[..., 0], ij[..., 1]
     inb = mask & (gx >= 0) & (gx < grid) & (gy >= 0) & (gy < grid)
@@ -492,6 +495,10 @@ def voxel_hits_matmul(
     # mask folded into one side only: a dead/out-of-grid point is all-zero
     ohx = ((gx[..., None] == cells) & inb[..., None]).to(torch.float32)
     ohy = (gy[..., None] == cells).to(torch.float32)
+    # graftlint: disable=GL004 — the one sanctioned float accumulation:
+    # 0/1 one-hot products are exact and the f32 accumulation is exact
+    # for counts < 2^24, so order of reduction cannot matter
+    # graftlint: policed — exact small integers in f32 (see above)
     return (ohx.transpose(-1, -2) @ ohy).to(torch.int32)
 
 

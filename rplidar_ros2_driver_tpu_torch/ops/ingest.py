@@ -338,13 +338,21 @@ def _parse_row(mrow, wires, nodes, node_ts, cfg, recon_plane=None, recon_pts=Non
     (``wires`` only touched when the row completed revolutions)."""
     r = cfg.max_revs
     n = int(mrow[0])
+    # graftlint: policed — slot counts ride the f32 meta plane by wire
+    # contract: small non-negative ints (<= max_nodes), exact in f32
     counts = mrow[_META : _META + r].astype(np.int32)
     kw = {}
     if cfg.deskew is not None:
         doff = _META + 3 * r
+        # graftlint: policed — deskew meta rides the f32 plane by wire
+        # contract: pushed flag, beam count (<= recon_beams) and the
+        # clamped motion components (|dx|,|dy| <= 2^11, |dθ| <= 2^13)
+        # are all exact in f32
         kw = dict(
             recon_pushed=bool(mrow[doff] > 0.5),
             recon_valid=int(mrow[doff + 1]),
+            # graftlint: policed — the clamped motion rides the f32 plane
+            # exactly (see above)
             deskew_motion=mrow[doff + 2 : doff + 5].astype(np.int32),
             recon_plane=recon_plane,
             recon_pts=recon_pts,
@@ -360,6 +368,8 @@ def _parse_row(mrow, wires, nodes, node_ts, cfg, recon_plane=None, recon_pts=Non
         ts0=mrow[_META + r : _META + 2 * r][:n].copy(),
         end_ts=mrow[_META + 2 * r : _META + 3 * r][:n].copy(),
         outputs=[unpack_output_wire(wires[k], cfg.filter) for k in range(n)],
+        # graftlint: policed — debug node planes ride f32 by wire
+        # contract; the widest field (18-bit clamped dist) is exact
         nodes=nodes.astype(np.int32)[:n] if nodes is not None else None,
         node_ts=node_ts[:n] if node_ts is not None else None,
         **kw,
@@ -791,6 +801,8 @@ def _aux_pair(aux, dev: torch.device) -> tuple:
     if isinstance(aux, torch.Tensor):
         if aux.device.type != "cpu":
             raise ValueError("aux must live in host memory (it is read on the host)")
+        # graftlint: disable=GL001 — aux is a host tensor (checked just
+        # above): .numpy() is a view of its memory, no transfer
         return aux.numpy(), aux.to(dev, non_blocking=True)
     host = np.asarray(aux, np.float32)
     return host, torch.from_numpy(host.copy()).to(dev)
@@ -821,6 +833,8 @@ def fused_ingest_step_counted(state: IngestState, frames, aux, cfg: IngestConfig
     frames = _to_device(frames, dev)
     aux_h, aux_d = _aux_pair(aux, dev)
     mb = frames.shape[0]
+    # graftlint: policed — the live frame count rides the f32 aux plane
+    # by wire contract: a small non-negative int, exact in f32
     m = int(aux_h[-1])
     at = Ans(cfg.ans_type)
     planes = _empty_planes(1, mb, cfg.npts, dev)
@@ -1004,7 +1018,10 @@ def _fleet_tick(cfg: FleetIngestConfig, state: IngestState, frames, aux_h, aux_d
     all streams.  Shared by the per-tick step and the super-step."""
     n_streams, mb = frames.shape[0], frames.shape[1]
     dev = frames.device
+    # graftlint: policed — frame count and branch index ride the f32 aux
+    # plane by wire contract: small non-negative ints, exact in f32
     m = aux_h[:, 2 * mb + 1].astype(np.int64)
+    # graftlint: policed — see above
     branch = np.clip(aux_h[:, 2 * mb + 2].astype(np.int64), 0, len(cfg.formats) - 1)
     if (aux_h[:, 2 * mb + 3] > 0.5).any():
         state = _reset_stream_decode(state, aux_d[:, 2 * mb + 3] > 0.5)

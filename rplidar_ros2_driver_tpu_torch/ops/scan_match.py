@@ -185,7 +185,12 @@ def rotation_table(divisions: int) -> np.ndarray:
     """(divisions, 2) int32 [cos, sin] at ANG scale — built in float64 on
     the host, exactly as the JAX package builds it, so both packages (and
     every device) read the same integers."""
+    # graftlint: disable=GL005 — deliberate f64 HOST-side table build;
+    # both backends consume the resulting int32 table verbatim, so the
+    # float math here can never reach the parity-critical datapath
     k = np.arange(divisions, dtype=np.float64) * (2.0 * np.pi / divisions)
+    # graftlint: policed — |cos|,|sin| <= 1 so rint(· * 2^14) is within
+    # ±2^14, exactly representable and in int32 range on every backend
     return np.stack(
         [np.rint(np.cos(k) * ANG), np.rint(np.sin(k) * ANG)], axis=1
     ).astype(np.int32)
@@ -230,6 +235,9 @@ def quantize_points(xy: torch.Tensor, mask: torch.Tensor, cfg: MapConfig):
     lim = float(PQ_LIMIT)
     ok = mask & (s[..., 0].abs() <= lim) & (s[..., 1].abs() <= lim)
     s = torch.where(torch.isfinite(s), s, 0.0)
+    # graftlint: policed — the docstring's whole point: NaN/inf zeroed
+    # and the value clamped into ±PQ_LIMIT in FLOAT space above, so the
+    # cast never sees an implementation-defined conversion
     pq = torch.round(s.clamp(-lim, lim)).to(torch.int32)
     return pq, ok
 
@@ -289,6 +297,10 @@ def cell_hits_matmul(cells_x, cells_y, inb, grid: int) -> torch.Tensor:
     cells = torch.arange(grid, dtype=torch.int32, device=cells_x.device)
     ohx = ((cells_x[..., None] == cells) & inb[..., None]).to(torch.float32)
     ohy = (cells_y[..., None] == cells).to(torch.float32)
+    # graftlint: disable=GL004 — the one sanctioned float accumulation
+    # (ops/filters.voxel_hits_matmul note): 0/1 one-hot products are
+    # exact and f32 accumulation is exact below 2^24 counts
+    # graftlint: policed — exact small integers in f32 (see above)
     return torch.bmm(ohx.transpose(1, 2), ohy).to(torch.int32)
 
 

@@ -44,6 +44,8 @@ def quantize_points_np(xy, mask, cfg: MapConfig):
             & (np.abs(s[:, 1]) <= lim)
         )
         s = np.where(np.isfinite(s), s, np.float32(0.0))
+        # graftlint: policed — NaN/inf zeroed and clamped into ±PQ_LIMIT
+        # in float space above (literal twin of ops/scan_match.py)
         pq = np.rint(np.clip(s, -lim, lim)).astype(np.int32)
     return pq, ok
 

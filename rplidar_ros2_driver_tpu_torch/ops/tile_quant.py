@@ -148,6 +148,9 @@ def rle_payload_bytes(n_runs: int, bits: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+# graftlint: disable=GL011 — the accumulation is RAW int32 with wrap as
+# the documented group contract (retract is the exact inverse); no bound
+# exists to declare
 def fuse_accumulate(acc: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
     """``acc += plane`` in place (int32, wrap included) and return ``acc``
     — the world merge op.  int32 addition is associative/commutative, so
@@ -156,6 +159,7 @@ def fuse_accumulate(acc: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
     return acc.add_(plane)
 
 
+# graftlint: disable=GL011 — same wrap-group contract as fuse_accumulate
 def fuse_retract(acc: torch.Tensor, plane: torch.Tensor) -> torch.Tensor:
     """``acc -= plane`` in place and return ``acc`` — submap EVICTION.
     Addition forms a group over int32, so retracting a member restores the

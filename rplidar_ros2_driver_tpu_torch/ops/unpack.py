@@ -20,8 +20,9 @@ The two sequential recurrences:
     recurrence.  As per-element device operations it would be hundreds of
     thousands of launches, so it runs as ONE host loop over the int32
     sample stream, the same on every device (on CUDA its inputs come to
-    the host and its output goes back: one synchronisation per call).
-    Only the UltraDense format (0x86) reaches it.
+    the host and its output goes back: one synchronisation per call,
+    declared with ``guards.declared_sync``).  Only the UltraDense format
+    (0x86) reaches it.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rplidar_ros2_driver_tpu_torch.core.qmath import FULL_TURN_Q16, wrap_angle_q6
 from rplidar_ros2_driver_tpu_torch.protocol.constants import (
     CAPSULE_BYTES,
     DENSE_CAPSULE_BYTES,
@@ -49,9 +51,8 @@ from rplidar_ros2_driver_tpu_torch.protocol.constants import (
     VARBITSCALE_X16_DEST_VAL,
     VARBITSCALE_X16_SRC_BIT,
 )
+from rplidar_ros2_driver_tpu_torch.utils import guards
 
-FULL_TURN_Q6 = 360 << 6
-FULL_TURN_Q16 = 360 << 16
 _QUAL_VALID = 0x2F << 2  # synthetic quality for formats without one
 _I32 = torch.int32
 
@@ -83,7 +84,8 @@ def _u16(f: torch.Tensor, off) -> torch.Tensor:
 
 
 def _u32(f: torch.Tensor, off) -> torch.Tensor:
-    # byte<<24 wraps int32 by design: consumers read the bit pattern only
+    # graftlint: disable=GL011 — little-endian u32 assembly: byte<<24
+    # wraps int32 by design, consumers read the bit pattern only
     return f[:, off] | (f[:, off + 1] << 8) | (f[:, off + 2] << 16) | (f[:, off + 3] << 24)
 
 
@@ -164,17 +166,12 @@ def _sync_raw(raw: torch.Tensor, inc_q16: torch.Tensor, width_shift: int) -> tor
     return (torch.remainder(raw + inc, FULL_TURN_Q16) < (inc << width_shift)).to(_I32)
 
 
-def _wrap_q6(a: torch.Tensor) -> torch.Tensor:
-    a = torch.where(a < 0, a + FULL_TURN_Q6, a)
-    return torch.where(a >= FULL_TURN_Q6, a - FULL_TURN_Q6, a)
-
-
 def _flag(sync: torch.Tensor) -> torch.Tensor:
     return sync | ((sync == 0).to(_I32) << 1)
 
 
 def _finish_nodes(angle_q6, dist_q2, sync):
-    angle_q14 = _floordiv(_wrap_q6(angle_q6) << 8, 90)
+    angle_q14 = _floordiv(wrap_angle_q6(angle_q6) << 8, 90)
     quality = torch.where(dist_q2 != 0, _QUAL_VALID, 0).to(_I32)
     return angle_q14, quality, _flag(sync)
 
@@ -271,16 +268,19 @@ def _table(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     """One of this module's constant tables on ``like``'s device, uploaded
     once per device: an upload per call would synchronise the stream."""
     key = (id(values), like.device)
-    table = _TABLES.get(key)
-    if table is None:
-        table = _TABLES[key] = torch.from_numpy(values).to(like.device)
-    return table
+    cached = _TABLES.get(key)
+    if cached is None:
+        cached = _TABLES[key] = torch.from_numpy(values).to(like.device)
+    return cached
 
 
 def _varbitscale_decode(scaled: torch.Tensor):
     vbs_scaled = _table(_VBS_SCALED, scaled)
     lvl = ((scaled[..., None] >= vbs_scaled).sum(-1) - 1).to(_I32)
     idx = lvl.long()
+    # graftlint: disable=GL011 — lvl in [0, 4] by construction (sum over
+    # the 5-entry threshold axis), so the shift is <= 4 bits on a 12-bit
+    # residual; the interpreter over-approximates the axis sum
     value = _table(_VBS_TARGET, scaled)[idx] + ((scaled - vbs_scaled[idx]) << lvl)
     return value, lvl
 
@@ -321,7 +321,9 @@ def unpack_ultra_capsules(frames) -> DecodedNodes:
     cab_off = 4 + 4 * _iota(32, f)
     w = _u32(p, cab_off)  # may be "negative": the bit pattern is what matters
     major_raw = w & 0xFFF
-    # sign-extending 10-bit field extracts: the left shift wraps on purpose
+    # graftlint: disable=GL011 — (w<<10)>>22 is the sign-extending field
+    # extract from the C decoder: the left shift wraps deliberately so
+    # the arithmetic right shift reproduces the 10-bit two's complement
     predict1 = (w << 10) >> 22
     predict2 = w >> 22
     # next cabin's major: shift within frame; last cabin takes cabin 0 of cur
@@ -337,9 +339,17 @@ def unpack_ultra_capsules(frames) -> DecodedNodes:
     zero = torch.zeros((), dtype=_I32, device=f.device)
     d0 = major << 2
     inval1 = (predict1 == -512) | (predict1 == 511)
+    # graftlint: disable=GL011 — predict is a 10-bit two's-complement
+    # field (|predict| <= 512) and lvl <= 4 by varbitscale construction:
+    # (512<<4 + 28656) << 2 < 2^18, but the interpreter cannot see the
+    # data-dependent lvl cap
     d1 = torch.where(inval1, zero, ((predict1 << lvl1) + base1) << 2)
     inval2 = (predict2 == -512) | (predict2 == 511)
+    # graftlint: disable=GL011 — same 10-bit predict / lvl<=4 argument
     d2 = torch.where(inval2, zero, ((predict2 << lvl2) + major2) << 2)
+    # graftlint: disable=GL011 — |dist| <= (512<<4 + 28656) << 2 < 2^18
+    # by the predict/varbitscale widths above; clipping here would break
+    # bit-parity with unpack_ref.UltraCapsuleDecoder on garbage cabins
     dist = torch.stack([d0, d1, d2], -1).reshape(m, 96)
 
     k2 = torch.div(
@@ -462,7 +472,7 @@ def _ud_decode_words(w20: torch.Tensor):
 
 
 def _ud_smooth(
-    dist_raw: torch.Tensor, scale: torch.Tensor, skip: torch.Tensor, last_dist: int
+    dist_raw: torch.Tensor, scale: torch.Tensor, skip: torch.Tensor, last_dist
 ) -> torch.Tensor:
     """Exact +/-2 mm temporal smoothing (sequential; scale-0 samples only).
 
@@ -470,12 +480,16 @@ def _ud_smooth(
     |d_k - o_{k-1}| <= 8, else d_k.  ``skip`` marks samples of discarded
     pairs: they pass through without touching the carry (the reference
     never sees them).  One host loop over the flattened stream (see the
-    module note), in Python ints: every value stays far inside int32."""
-    d = dist_raw.cpu().tolist()
-    sc = scale.cpu().tolist()
-    sk = skip.cpu().tolist()
+    module note), in Python ints: every value stays far inside int32.
+    ``last_dist`` is an int or a 0-d tensor (the fused step's carry); the
+    reads of the inputs and the carry are the call's declared
+    synchronisation."""
+    with guards.declared_sync():
+        d = dist_raw.cpu().tolist()
+        sc = scale.cpu().tolist()
+        sk = skip.cpu().tolist()
+        carry = int(last_dist)
     out = [0] * len(d)
-    carry = int(last_dist)
     for k, dk in enumerate(d):
         o = (dk + carry) >> 1 if sc[k] == 0 and carry != 0 and abs(dk - carry) <= 8 else dk
         out[k] = o
@@ -514,12 +528,12 @@ def unpack_ultra_dense_capsules(
     dist_raw, quality, scale = _ud_decode_words(words)
     skip = ~_pair_mask(pair_valid, 64)
     dist = _ud_smooth(
-        dist_raw.reshape(-1), scale.reshape(-1), skip.reshape(-1), int(last_dist_q2)
+        dist_raw.reshape(-1), scale.reshape(-1), skip.reshape(-1), last_dist_q2
     ).reshape(dist_raw.shape)
 
     s_raw = _sync_raw(raw, inc_q16, 1) * pair_valid[:, None].to(_I32)
     sync = _sync_edge(s_raw.reshape(-1), last_sync_out).reshape(s_raw.shape)
-    angle_q14 = _floordiv(_wrap_q6(raw >> 10) << 8, 90)
+    angle_q14 = _floordiv(wrap_angle_q6(raw >> 10) << 8, 90)
     return DecodedNodes(
         angle_q14, dist, quality, _flag(sync), _pair_mask(pair_valid, 64), new_scan,
         frame_valid,
@@ -546,7 +560,9 @@ def unpack_hq_capsules(frames, crc_ok=None) -> DecodedNodes:
         frame_valid = sync_ok & torch.as_tensor(crc_ok, dtype=torch.bool, device=f.device)
     off = 9 + 8 * _iota(HQ_NODES_PER_CAPSULE, f)
     angle_q14 = _u16(f, off)
-    dist = _u32(f, off + 2)  # byte<<24 wraps int32 by design
+    # graftlint: disable=GL011 — u32 dist field assembly: byte<<24 wraps
+    # int32 by design (the wire field is 32-bit little-endian)
+    dist = _u32(f, off + 2)
     flag = f[:, off + 7]
     return DecodedNodes(
         angle_q14, dist, f[:, off + 6], flag,

@@ -258,6 +258,9 @@ class ShardedFilterService:
         event.record(torch.cuda.current_stream(self.device))
         return _TickFetch(host, event, self._out_pool)
 
+    # graftlint: hot-loop (one upload through the recycled pinned staging
+    # + one step per tick; allocation lives in _stack's packing, which the
+    # wire contract zero-pads per tick)
     def _dispatch(self, packed_np: np.ndarray, stash=None) -> _TickFetch:
         """Upload, step and start the fetch of one tick under the lock;
         ``stash`` = (live, collector) makes it the pending tick in the
@@ -720,6 +723,7 @@ class ShardedFilterService:
             self.world.publish()
         return outs
 
+    # graftlint: read-path
     def scheduler_status(self) -> Optional[dict]:
         """The /diagnostics scheduler value group's payload (None when no
         shaper is attached), with the engine's rung and staging counters."""
@@ -1016,6 +1020,7 @@ class ShardedFilterService:
         fetch.release()  # the unpack copied every row out of the buffer
         return results
 
+    # graftlint: hot-loop
     def submit_pipelined(self, scans: Sequence[Optional[dict]]) -> list[Optional[FilterOutput]]:
         """Fleet analog of ScanFilterChain.process_raw_pipelined: dispatch
         THIS tick's step, return the PREVIOUS tick's per-stream outputs —
@@ -2079,6 +2084,7 @@ class ElasticFleetService:
         self.streams_lost_unhosted = len(self.topology.unhosted())
         logger.info("shard %d unparked (autoscale up), %d streams moved", s, len(moves))
 
+    # graftlint: read-path
     def scheduler_status(self) -> Optional[dict]:
         """The /diagnostics scheduler payload (None without a shaper): the
         shaper's status with the rung, (rung, bucket) and staging-overlap

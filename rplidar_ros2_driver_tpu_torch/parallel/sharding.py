@@ -250,6 +250,9 @@ def _ring_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     prv = dist.get_global_rank(group, (me - 1) % n)
     staged = x.is_cuda and dist.get_backend(group) == "gloo"
     acc = x.clone()
+    # graftlint: disable=GL001 — gloo has no CUDA transport: a CUDA payload
+    # on a gloo group stages through pinned host memory (counted by
+    # ring_host_hops); NCCL groups and CPU tensors never take this branch
     rot = x.cpu().pin_memory() if staged else x.contiguous()
     for _ in range(n - 1):
         recv = torch.empty(rot.shape, dtype=rot.dtype, device=rot.device, pin_memory=staged)
