@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N] [--revs N] [--trace-dir DIR]
     python3 chip_smoke.py --phase NAME       # build, then one phase alone
     python3 chip_smoke.py --mesh-check N     # N cards: only the NCCL mesh check
+    python3 chip_smoke.py --pod-cards N      # N cards: only the pod, one shard a card
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
@@ -56,9 +57,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 of each arm; its line carries the card's name and limit;
  5b. failover — the failover pod (ROADMAP A.10a): bench.py config 15
                 (bench_failover) at full geometry — 8 streams over 4
-                shards of 3 lanes (ElasticFleetService, every shard on
-                cuda:0), W=64, 2048 beams, 256x256 at 0.25 m, one
-                3200-point revolution a stream a tick, the fused
+                shards of 3 lanes (ElasticFleetService, one card a
+                shard: on one card every shard on cuda:0), W=64, 2048
+                beams, 256x256 at 0.25 m, one 3200-point revolution a
+                stream a tick, the fused
                 FleetMapper on a 256x256 map at 0.05 m, snapshots every 4
                 ticks, shard 1 killed over ticks 10-12 on a fake clock of
                 0.1 s a tick — as a baseline pod and a chaos pod advancing
@@ -82,9 +84,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
  5c. scheduled — scheduled serving (ROADMAP A.10b): bench.py configs 19-22
                 at full geometry (W=64, 2048 beams, 256x256 at 0.25 m,
                 3200-point DenseBoost revolutions), two ElasticFleetService
-                pods a config (every shard on cuda:0) offered the same wall
-                ticks and drained tick-paired in alternating order, every
-                wall tick after the warm ones under
+                pods a config (one card a shard: on one card every shard
+                on cuda:0) offered the same wall ticks and drained
+                tick-paired in alternating order, every wall tick after
+                the warm ones under
                 utils/guards.steady_state: config 19 (8 streams over 4
                 shards, the reconnect-storm trace, admission cap 8, shard 1
                 killed near the end) rung 1 only against the ladder (1, 2,
@@ -340,6 +343,18 @@ run, and the (1, N) mesh's state saved as a sharded checkpoint and
 restored onto the (2, N/2) mesh and whole onto one process, bit-equal; it
 prints the card's name and power limit last.
 
+``--pod-cards N`` runs only the serving pod over N cards (phase_pod_cards):
+every kernel bit-equal to its plain version on each card; configs 15 and
+19-22 as the failover and scheduled phases run them, once with one shard a
+card (shard s on cuda:(s % N)) and once with every shard on cuda:0, the
+two byte-equal (outputs, events, replay plans, stored snapshots, map rows,
+logs) and equal to the one CPU run, each hosting card launching its
+path's kernels; both layouts' ticks/s, p50/p99 and per-card busy ms and
+idle share side by side; a shard's checkpoint saved on one card and
+loaded onto another.  It shows the pod only the first N cards
+(CUDA_VISIBLE_DEVICES, when unset) and exits non-zero with fewer; then
+the card's name and power limit and the usual last line.
+
 The wrapper's host time split piece by piece is
 rplidar_ros2_driver_tpu_torch/tools/launch_cost.py.  Then the card's name
 and power limit, then {"ok": true, "device": ...}.
@@ -526,6 +541,11 @@ GOAL_DEVICE_MS = {"temporal_median": 0.005, "beam_min": 0.003,
                   "sliding_median": 0.060, "shift_sad": 0.0015}
 GOAL_HOST_US = 8.0  # host time per call of the slim launch path
 GOAL_B5_GAP_US = 1.0
+# what a phase returns for the script's own use and leaves out of its line:
+# launch totals gathered into the kernels line, the layouts' records and
+# per-card launches that --pod-cards compares, pods and profiled inputs
+_INTERNAL = ("failover_launches", "scheduled_launches", "records", "card_launches", "pods",
+             "profile_items")
 
 
 def emit(obj) -> None:
@@ -547,7 +567,7 @@ def exact(a, b) -> tuple[bool, float]:
     in float64, exact for float32 and int32 alike."""
     import torch
 
-    a, b = a.double(), b.double()
+    a, b = a.double(), b.double().to(a.device)
     if a.shape != b.shape:
         return False, math.inf
     same = (a == b) | (torch.isnan(a) & torch.isnan(b))
@@ -631,13 +651,15 @@ def bound(nbytes: int, ops: int, int32: bool = False) -> tuple[float, str]:
 def phase_device() -> dict:
     import torch
 
-    smi = subprocess.run(
+    lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+    smi = lines[0]
     cap = torch.cuda.get_device_capability(0)
     info = {
-        "phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+        "phase": "device", "nvidia_smi": smi, "nvidia_smi_cards": lines,
+        "torch": torch.__version__,
         "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
         "capability": list(cap), "count": torch.cuda.device_count(),
     }
@@ -772,8 +794,11 @@ def _b2_fixtures(rng, w: int, b: int):
     }
 
 
-def phase_kernels(device, rng) -> dict:
-    """Each kernel against its plain version on the card, then timed."""
+def check_median_kernels(device, rng) -> dict:
+    """B1, B2 and B3 against their plain versions on ``device`` (exact)
+    over their fixtures and plan edges: the kernels phase's checks, which
+    ``--pod-cards`` also runs on every card.  Returns the largest errors
+    and what was checked."""
     import numpy as np
     import torch
 
@@ -863,36 +888,6 @@ def phase_kernels(device, rng) -> dict:
     b2(buf[1:].view(w, b), old, new, f"(W, B)=({w}, {b}) offset view")
     b2_fixtures += 1
 
-    # timing at the main path's shape, on a filled ring
-    w, b = GEOMETRY["window"], GEOMETRY["beams"]
-    win = torch.from_numpy(_median_fixtures(rng, w, b)["random_inf"]).to(device)
-    nan_win = torch.where(torch.isinf(win), torch.full_like(win, math.nan), win)
-    sor = torch.sort(win, dim=0).values
-    old = win[5].clone()
-    new_t = win[9].clone()
-    times = {
-        "temporal_median": {
-            "ms": cuda_ms(lambda: mk.temporal_median_kernel(win)),
-            "plain_ms": cuda_ms(lambda: mk.temporal_median_plain(win)),
-            "library_ms": cuda_ms(lambda: torch.nanmedian(nan_win, dim=0)),
-            "device_ms": device_ms(lambda: mk.temporal_median_kernel(win)),
-            "plain_device_ms": device_ms(lambda: mk.temporal_median_plain(win)),
-            "library_device_ms": device_ms(lambda: torch.nanmedian(nan_win, dim=0)),
-            # after the profiler has run (the launch phase has the cost before)
-            "host_us": host_us(lambda: mk.temporal_median_kernel(win)),
-            "library_host_us": host_us(lambda: torch.nanmedian(nan_win, dim=0)),
-        },
-        "sorted_replace": {
-            "ms": cuda_ms(lambda: mk.sorted_replace_kernel(sor, old, new_t)),
-            "plain_ms": cuda_ms(lambda: mk.sorted_replace_plain(sor, old, new_t)),
-            # no single PyTorch call computes the delete/insert; the median
-            # part's yardstick is the same nanmedian as B1's
-            "library_ms": None,
-            "yardstick_nanmedian_ms": cuda_ms(lambda: torch.nanmedian(nan_win, dim=0)),
-            "device_ms": device_ms(lambda: mk.sorted_replace_kernel(sor, old, new_t)),
-            "plain_device_ms": device_ms(lambda: mk.sorted_replace_plain(sor, old, new_t)),
-        },
-    }
     # B3 over the test grid (odd W, K not a multiple of 8, W=1, ragged
     # beams) and the replay path's stripe (W=64, K=512, B=2048), then its
     # launch plans' edges (mk.sliding_plan): K = 1; W > K with W far above a
@@ -934,6 +929,49 @@ def phase_kernels(device, rng) -> dict:
     flat = flat.view(-1)
     b3(flat[1 : 1 + (w3 + k3) * b3w].view(w3 + k3, b3w), w3,
        f"(W, K, B)=({w3}, {k3}, {b3w}) offset view")
+    return {"checked_b1_fixtures": checked, "b2_steps": b2_steps,
+            "checked_b2_fixtures": b2_fixtures, "checked_b3_fixtures": b3_checked,
+            "b3_plans": b3_plans, "max_abs_err": max_err}
+
+
+def phase_kernels(device, rng) -> dict:
+    """Each kernel against its plain version on the card, then timed."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+
+    checks = check_median_kernels(device, rng)
+    # timing at the main path's shape, on a filled ring
+    w, b = GEOMETRY["window"], GEOMETRY["beams"]
+    win = torch.from_numpy(_median_fixtures(rng, w, b)["random_inf"]).to(device)
+    nan_win = torch.where(torch.isinf(win), torch.full_like(win, math.nan), win)
+    sor = torch.sort(win, dim=0).values
+    old = win[5].clone()
+    new_t = win[9].clone()
+    times = {
+        "temporal_median": {
+            "ms": cuda_ms(lambda: mk.temporal_median_kernel(win)),
+            "plain_ms": cuda_ms(lambda: mk.temporal_median_plain(win)),
+            "library_ms": cuda_ms(lambda: torch.nanmedian(nan_win, dim=0)),
+            "device_ms": device_ms(lambda: mk.temporal_median_kernel(win)),
+            "plain_device_ms": device_ms(lambda: mk.temporal_median_plain(win)),
+            "library_device_ms": device_ms(lambda: torch.nanmedian(nan_win, dim=0)),
+            # after the profiler has run (the launch phase has the cost before)
+            "host_us": host_us(lambda: mk.temporal_median_kernel(win)),
+            "library_host_us": host_us(lambda: torch.nanmedian(nan_win, dim=0)),
+        },
+        "sorted_replace": {
+            "ms": cuda_ms(lambda: mk.sorted_replace_kernel(sor, old, new_t)),
+            "plain_ms": cuda_ms(lambda: mk.sorted_replace_plain(sor, old, new_t)),
+            # no single PyTorch call computes the delete/insert; the median
+            # part's yardstick is the same nanmedian as B1's
+            "library_ms": None,
+            "yardstick_nanmedian_ms": cuda_ms(lambda: torch.nanmedian(nan_win, dim=0)),
+            "device_ms": device_ms(lambda: mk.sorted_replace_kernel(sor, old, new_t)),
+            "plain_device_ms": device_ms(lambda: mk.sorted_replace_plain(sor, old, new_t)),
+        },
+    }
+    w3, k3, b3w = REPLAY["window"], REPLAY["chunk"], REPLAY["beams"]
     ext = torch.from_numpy(_median_fixtures(rng, w3 + k3, b3w)["ties_1mm"]).to(device)
     nan_ext = torch.where(torch.isinf(ext), torch.full_like(ext, math.nan), ext)
     # the replay's tail chunk: 520 turns give 519 revolutions, 512 + 7
@@ -952,11 +990,9 @@ def phase_kernels(device, rng) -> dict:
                     "device_ms": device_ms(lambda: mk.sliding_median_kernel(tail, w3), iters=20),
                     "plan": list(mk.sliding_plan(w3, 7))},
     }
-    emit({"phase": "kernels", "checked_b1_fixtures": checked, "b2_steps": b2_steps,
-          "checked_b2_fixtures": b2_fixtures,
-          "checked_b3_fixtures": b3_checked, "b3_plans": b3_plans, "max_abs_err": max_err,
-          "times_ms": times, "shape": [w, b], "b3_shape": [w3, k3, b3w]})
-    return {"max_abs_err": max_err, "times": times}
+    emit({"phase": "kernels", **checks, "times_ms": times, "shape": [w, b],
+          "b3_shape": [w3, k3, b3w]})
+    return {"max_abs_err": checks["max_abs_err"], "times": times}
 
 
 def make_revolutions(seed: int, n: int, points: int):
@@ -1902,7 +1938,7 @@ def match_tick(device, n: int):
 
     b = MAPPING["beams"]
     ticks, _truth = room_fleet_ticks(n, b, 6)
-    mapper = FleetMapper(_map_params("cuda"), n, beams=b)
+    mapper = FleetMapper(_map_params("cuda"), n, beams=b, device=device)
     masks, live = np.ones((n, b), bool), np.ones((n,), np.int32)
     for pts in ticks[:5]:
         mapper.submit_points(pts, masks, live)
@@ -1969,11 +2005,29 @@ def match_bounds(cfg, n: int, nvalid: int, fine) -> dict:
     }
 
 
-def phase_mapkernels(device, rng) -> dict:
-    """B6, B7 and B8 against their plain versions on the card (exact) over
-    the fixtures (B8 also over its stripe edges, on both routes and every
-    cluster size) and an offset view, then timed at config 12's fleet tick
-    (N=4) and at the map replay's one-stream tick (N=1)."""
+def _map_tick_calls(cfg, coarse, fine, mq) -> dict:
+    """B6, B7 and B8 at one ``match_tick``'s inputs: name -> (kernel call,
+    plain call)."""
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+
+    return {
+        "coarse_scores": (lambda: smk.coarse_scores_kernel(*coarse, cfg),
+                          lambda: smk.coarse_scores_plain(*coarse, cfg)),
+        "fine_scores": (lambda: smk.fine_scores_kernel(mq, *fine, cfg),
+                        lambda: smk.fine_scores_plain(mq, *fine, cfg)),
+        "log_odds_update": (lambda: smk.log_odds_update_kernel(*coarse, cfg),
+                            lambda: smk.log_odds_update_plain(*coarse, cfg)),
+    }
+
+
+def check_map_kernels(device, rng) -> dict:
+    """B6, B7 and B8 against their plain versions on ``device`` (exact)
+    over the fixtures (B8 also over its stripe edges, on both routes and
+    every cluster size), an offset view and config 12's and the map
+    replay's ticks: the mapkernels phase's checks, which ``--pod-cards``
+    also runs on every card (B6-B8 set up their cluster launches once per
+    card).  Returns the largest errors, what was checked and the two
+    ticks' inputs (``shapes``: N -> (cfg, coarse, fine, mq))."""
     import numpy as np
     import torch
 
@@ -2039,7 +2093,7 @@ def phase_mapkernels(device, rng) -> dict:
                      f"{name} route {local} cluster {k}")
                 swept.append(f"{name}:route{local}:K{k}")
                 k *= 2
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(device)
 
     shapes = {}
     for n in (MAPPING["streams"], 1):
@@ -2067,22 +2121,29 @@ def phase_mapkernels(device, rng) -> dict:
         same("log_odds_update", smk.log_odds_update_kernel(lo_in, *coarse[1:], cfg),
              smk.log_odds_update_plain(lo_t, *coarse[1:], cfg), what)
 
-    times, bounds, shape_of = {}, {}, {}
     for n, (cfg, coarse, fine, mq) in shapes.items():
-        calls = {
-            "coarse_scores": (lambda c=coarse, g=cfg: smk.coarse_scores_kernel(*c, g),
-                              lambda c=coarse, g=cfg: smk.coarse_scores_plain(*c, g)),
-            "fine_scores": (lambda m=mq, f=fine, g=cfg: smk.fine_scores_kernel(m, *f, g),
-                            lambda m=mq, f=fine, g=cfg: smk.fine_scores_plain(m, *f, g)),
-        }
-        calls["log_odds_update"] = (
-            lambda c=coarse, g=cfg: smk.log_odds_update_kernel(*c, g),
-            lambda c=coarse, g=cfg: smk.log_odds_update_plain(*c, g))
-        for name, (kern, plain) in calls.items():
+        for name, (kern, plain) in _map_tick_calls(cfg, coarse, fine, mq).items():
             got, want = kern(), plain()
             for a, c in zip(got if name == "coarse_scores" else (got,),
                             want if name == "coarse_scores" else (want,)):
                 same(name, a, c, f"the N={n} tick")
+    return {"fixtures": checked, "update_plan_sweep": swept, "plans": plans,
+            "max_abs_err": max_err, "shapes": shapes}
+
+
+def phase_mapkernels(device, rng) -> dict:
+    """B6, B7 and B8 against their plain versions on the card (exact),
+    :func:`check_map_kernels`, then timed at config 12's fleet tick (N=4)
+    and at the map replay's one-stream tick (N=1)."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+
+    checks = check_map_kernels(device, rng)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    times, bounds, shape_of = {}, {}, {}
+    for n, (cfg, coarse, fine, mq) in checks["shapes"].items():
+        calls = _map_tick_calls(cfg, coarse, fine, mq)
         nvalid = int(coarse[2].sum())
         key = "config12" if n == MAPPING["streams"] else "replay_map"
         times[key] = {
@@ -2104,13 +2165,13 @@ def phase_mapkernels(device, rng) -> dict:
                          "fine_plan": smk.fine_plan(n, 2 * cfg.theta_window + 1,
                                                     cfg.fine_radius, sms),
                          "update_plan": smk.update_plan(n, cfg.grid, sms)}
-    row = {"phase": "mapkernels", "fixtures": checked, "update_plan_sweep": swept,
-           "plans": plans, "max_abs_err": max_err,
-           "times_ms": times, "shapes": shape_of,
+    row = {"phase": "mapkernels", "fixtures": checks["fixtures"],
+           "update_plan_sweep": checks["update_plan_sweep"], "plans": checks["plans"],
+           "max_abs_err": checks["max_abs_err"], "times_ms": times, "shapes": shape_of,
            "bounds_ms": {s: {k: {"ms": v[0], "by": v[1]} for k, v in b.items()}
                          for s, b in bounds.items()}}
     emit(row)
-    return {"max_abs_err": max_err, "times": times, "bounds": bounds}
+    return {"max_abs_err": checks["max_abs_err"], "times": times, "bounds": bounds}
 
 
 def phase_mapping(device) -> dict:
@@ -2843,10 +2904,14 @@ def _scatter_min(beam, vals, nb: int):
     return lambda: out.scatter_reduce_(1, idx, vals, reduce="amin", include_self=True)
 
 
-def phase_deskew_kernels(device, rng) -> dict:
-    """B4 and B5 against their plain versions on the card (exact) over the
-    JAX kernel suite's geometries, degenerate inputs, the featureless tie
-    and the fused ingest's own shapes; then timed at those shapes."""
+def check_deskew_kernels(device, rng) -> dict:
+    """B4 and B5 against their plain versions on ``device`` (exact) over
+    the JAX kernel suite's geometries, degenerate inputs, the featureless
+    tie, the redesigned kernels' edges and the fused ingest's own shapes:
+    the deskew_kernels phase's checks, which ``--pod-cards`` also runs on
+    every card.  Returns the largest errors, what was checked and the
+    path's inputs on ``device`` (``path``: the rasterizer's and the
+    profiles' (beam, values, nbeams) and B5's (prev, cur, shifts))."""
     import numpy as np
     import torch
 
@@ -2989,11 +3054,23 @@ def phase_deskew_kernels(device, rng) -> dict:
             b5(ep, ec, np.asarray([0, 1, -1, 256], np.int32), f"{n_valid} valid, min_valid {mv}",
                min_valid=mv)
             b5_edges += 1
-    s_prev, s_cur, s_sh = t(prev), t(cur), t(cands)
+    return {"checked": checked, "b5_edge_fixtures": b5_edges, "max_abs_err": max_err,
+            "path": {"raster": (r_beam, r_val, 2048), "profile": (p_beam, p_val, 256),
+                     "shift_sad": (t(prev), t(cur), t(cands))}}
 
+
+def phase_deskew_kernels(device, rng) -> dict:
+    """B4 and B5 against their plain versions on the card (exact),
+    :func:`check_deskew_kernels`; then timed at the fused ingest's
+    shapes."""
+    from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
+
+    checks = check_deskew_kernels(device, rng)
+    path = checks["path"]
+    s_prev, s_cur, s_sh = path["shift_sad"]
     times = {}
-    for name, (bb, vv, nb) in (("raster", (r_beam, r_val, 2048)),
-                               ("profile", (p_beam, p_val, 256))):
+    for name in ("raster", "profile"):
+        bb, vv, nb = path[name]
         times[f"beam_min_{name}"] = {
             "ms": cuda_ms(lambda: dk.beam_min_kernel(bb, vv, nb)),
             "plain_ms": cuda_ms(lambda: dk.beam_min_plain(bb, vv, nb), iters=50),
@@ -3007,7 +3084,7 @@ def phase_deskew_kernels(device, rng) -> dict:
             "bound": bound(bb.numel() * 8 + bb.shape[0] * nb * 4, bb.numel(), int32=True),
             "shape": [bb.shape[0], bb.shape[1], nb],
         }
-    c, dd = len(cands), s_prev.shape[1]
+    c, dd = s_sh.shape[0], s_prev.shape[1]
     times["shift_sad"] = {
         "ms": cuda_ms(lambda: dk.shift_sad_kernel(s_prev, s_cur, s_sh, 16, 2048)),
         "plain_ms": cuda_ms(lambda: dk.shift_sad_plain(s_prev, s_cur, s_sh, 16, 2048), iters=50),
@@ -3023,8 +3100,9 @@ def phase_deskew_kernels(device, rng) -> dict:
                        7 * s_prev.shape[0] * c * dd, int32=True),
         "shape": [s_prev.shape[0], c, dd],
     }
-    row = {"phase": "deskew_kernels", "checked": checked, "b5_edge_fixtures": b5_edges,
-           "max_abs_err": max_err, "times_ms": times}
+    row = {"phase": "deskew_kernels", "checked": checks["checked"],
+           "b5_edge_fixtures": checks["b5_edge_fixtures"], "max_abs_err": checks["max_abs_err"],
+           "times_ms": times}
     emit(row)
     return row
 
@@ -3307,6 +3385,20 @@ def _counts() -> dict:
     return {**mk.launch_counts, **dk.launch_counts, **smk.launch_counts}
 
 
+def _card_counts() -> dict:
+    """The launches since the last :func:`_reset_counts` by card: {card
+    index: {kernel name: launches}}."""
+    from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
+    from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
+    from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
+
+    out: dict = {}
+    for counts in (mk.card_launches, dk.card_launches, smk.card_launches):
+        for (name, card), n in counts.items():
+            out.setdefault(card, {})[name] = n
+    return dict(sorted(out.items()))
+
+
 def _reset_counts() -> None:
     from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
     from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
@@ -3318,10 +3410,35 @@ def _reset_counts() -> None:
 
 
 def _sync(device) -> None:
+    """Wait for every card when ``device`` is one (a pod's shards may run
+    on several)."""
     import torch
 
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
+
+def _memo(cpu, key, run):
+    """``run()``, kept in ``cpu`` under ``key`` when ``cpu`` is a dict: a
+    CPU arm that two card layouts are both held to runs once."""
+    if cpu is None:
+        return run()
+    if key not in cpu:
+        cpu[key] = run()
+    return cpu[key]
+
+
+def _digest(arrays) -> str:
+    """Arrays' bytes, in order, as one short hash."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+    return h.hexdigest()[:16]
 
 
 def _bytes_arm(device, ingest: str, n: int, ticks, run: int, **over) -> tuple:
@@ -4286,16 +4403,18 @@ def _carried_params(backend: str):
         map_cell_m=fm["map_cell_m"], **_pod_keys(FAILOVER["carried_shards"]))
 
 
-def _fo_pod(backend: str, kill, params, streams: int, beams: int, capacity: int, run: int):
+def _fo_pod(backend: str, kill, params, streams: int, beams: int, capacity: int, run: int,
+            mesh=None):
     """A warmed pod on ``backend`` with a fake clock; ``kill`` a (shard,
-    start, stop) chaos kill or None."""
+    start, stop) chaos kill or None; ``mesh`` one mesh for every shard, or
+    None: one card a shard (``--pod-cards``; one card: all on it)."""
     from rplidar_ros2_driver_tpu_torch.driver.chaos import ShardChaosConfig, ShardChaosSchedule
     from rplidar_ros2_driver_tpu_torch.parallel.service import ElasticFleetService
     from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
 
     fake = {"now": 0.0}
     pod = ElasticFleetService(params, streams, beams=beams, capacity=capacity,
-                              fleet_ingest_buckets=(run,), clock=lambda: fake["now"])
+                              fleet_ingest_buckets=(run,), clock=lambda: fake["now"], mesh=mesh)
     if kill is not None:
         pod.attach_shard_chaos(ShardChaosSchedule(ShardChaosConfig(kills=(kill,))))
     pod.precompile([int(Ans.MEASUREMENT_DENSE_CAPSULED)])
@@ -4317,26 +4436,35 @@ def _out_digest(out):
     return h.hexdigest()[:16]
 
 
+def _shard_cards(pod) -> list:
+    """Each shard's card index (-1: the host)."""
+    return [-1 if m.device.type == "cpu" else m.device.index for m in pod.meshes]
+
+
 def _fo_record(pod) -> dict:
-    """What the CPU comparison holds: events, replay plan, counters and
-    each stream's final map row (hashed), after a run."""
-    import hashlib
-
-    import numpy as np
-
+    """What the CPU comparison holds: events, replay plan, counters, the
+    snapshot store's ticks and each stream's final map row (hashed), after
+    a run; and what two card layouts of one pod are also held equal on:
+    the stored snapshots' bytes (hashed) and the scheduled seam's logs."""
     rows = []
     for i in range(pod.streams):
         got = pod.topology.placement(i)
-        if got is None:
+        mapper = None if got is None else pod.shards[got[0]].mapper
+        if mapper is None:
             rows.append(None)
             continue
-        row = pod.shards[got[0]].mapper.snapshot_stream(got[1])
-        rows.append(hashlib.sha1(b"".join(np.ascontiguousarray(row[k]).tobytes()
-                                          for k in ("log_odds", "pose", "origin_xy",
-                                                    "revision"))).hexdigest()[:16])
+        row = mapper.snapshot_stream(got[1])
+        rows.append(_digest(row[k] for k in ("log_odds", "pose", "origin_xy", "revision")))
+    store = sorted(pod._snap.items())
     return {"events": [list(e) for e in pod.events], "plan": pod.replay_plan(),
             "evacuations": pod.evacuations, "readmits": pod.readmits,
-            "migrations": pod.migrations, "map_rows": rows}
+            "migrations": pod.migrations, "map_rows": rows,
+            "snap_ticks": [(i, tick) for i, (tick, _snap) in store],
+            "snaps": [(i, _digest(part[k] for name in sorted(snap) for part in (snap[name],)
+                                  for k in sorted(part)))
+                      for i, (_tick, snap) in store],
+            "rung_log": list(pod.rung_log), "scale_events": list(pod.scale_events),
+            "steal_log": [] if pod.scheduler is None else list(pod.scheduler.steal_log)}
 
 
 def _fo_cpu(kill, params, ticks, streams: int, beams: int, capacity: int, run: int,
@@ -4350,11 +4478,11 @@ def _fo_cpu(kill, params, ticks, streams: int, beams: int, capacity: int, run: i
     return {"outs": outs[warm:], **_fo_record(pod)}
 
 
-def _fo_timed(device, ticks) -> dict:
+def _fo_timed(device, ticks, mesh=None) -> dict:
     """Config 15's tick-paired pass on the card: the baseline pod and the
     chaos pod alternate which goes first each tick, the whole post-warm
-    loop under guards.steady_state (nothing built, no new device memory,
-    no undeclared synchronisation)."""
+    loop under guards.steady_state (nothing built, no new device memory on
+    any card, no undeclared synchronisation)."""
     import numpy as np
 
     from rplidar_ros2_driver_tpu_torch.utils import guards
@@ -4364,7 +4492,7 @@ def _fo_timed(device, ticks) -> dict:
     pods = {}
     for name, kill in (("base", None), ("chaos", fo["kill"])):
         pods[name] = _fo_pod(backend, kill, _fo_params(backend), fo["streams"], fo["beams"],
-                             fo["capacity"], fo["points"] // 40)
+                             fo["capacity"], fo["points"] // 40, mesh)
     for tick in ticks[: fo["warm"]]:
         for pod, fake in pods.values():
             pod.submit_bytes(tick)
@@ -4384,7 +4512,7 @@ def _fo_timed(device, ticks) -> dict:
                 secs[name].append(time.perf_counter() - t0)
                 outs[name].append([_out_digest(r) for r in res])
                 fake["now"] += fo["dt"]
-    launches = _counts()
+    launches, card_launches = _counts(), _card_counts()
     n = len(ticks) - fo["warm"]
     dispatches = [sh.fleet_ingest.dispatch_count - d for sh, d in zip(chaos.shards, d0)]
     base_s, deg_s = np.asarray(secs["base"]), np.asarray(secs["chaos"])
@@ -4397,8 +4525,9 @@ def _fo_timed(device, ticks) -> dict:
                     "slowest": [[int(tick_no[i]), float(v[i]) * 1e3]
                                 for i in np.argsort(v)[::-1][:3]]}
              for name, v in (("base", base_s), ("chaos", deg_s))}
-    return {"tick_split": split,"pods": {k: v[0] for k, v in pods.items()}, "outs": outs, "launches": launches,
-            "ticks": n, "dispatches": dispatches,
+    return {"tick_split": split, "pods": {k: v[0] for k, v in pods.items()}, "outs": outs,
+            "launches": launches, "card_launches": card_launches, "ticks": n,
+            "dispatches": dispatches,
             "base_ticks_per_s": n / float(base_s.sum()),
             "chaos_ticks_per_s": n / float(deg_s.sum()),
             "paired_median_tick_ratio": float(np.median(base_s / np.maximum(deg_s, 1e-9))),
@@ -4407,12 +4536,12 @@ def _fo_timed(device, ticks) -> dict:
             "chaos_tick_max_ms": float(deg_s.max()) * 1e3}
 
 
-def _fo_carried(device) -> dict:
+def _fo_carried(device, mesh=None) -> dict:
     """The carried-map arm on ``device``: config 18's route as a 2-shard
     pod, killed after its second snapshot.  Returns the record, the
-    per-tick output hashes, the victim's map revision each tick and
-    whether the store ever held a "map" key or lacked the ingest.map_*
-    rows."""
+    per-tick output hashes, the victim's map revision each tick, whether
+    the store ever held a "map" key or lacked the ingest.map_* rows, and
+    the run's launches (by kernel and by card)."""
     from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
 
     fm, fo = FUSED_MAPPING, FAILOVER
@@ -4420,9 +4549,9 @@ def _fo_carried(device) -> dict:
                              fm["run"], int(Ans.MEASUREMENT_DENSE_CAPSULED))
     backend = "cuda" if device.type == "cuda" else "cpu"
     pod, fake = _fo_pod(backend, fo["carried_kill"], _carried_params(backend), fm["streams"],
-                        fm["beams"], fm["capacity"], fm["run"])
+                        fm["beams"], fm["capacity"], fm["run"], mesh)
     _sync(device)
-    before = _counts()
+    _reset_counts()
     outs, revs, store_ok = [], [], True
     victims = set(pod.topology.streams_on(fo["carried_kill"][0]))
     for tick in ticks:
@@ -4434,18 +4563,19 @@ def _fo_carried(device) -> dict:
                                                   for k in ("log_odds", "pose", "origin_xy",
                                                             "revision"))
                         for _t, snap in pod._snap.values())
-    launches = {k: v - before.get(k, 0) for k, v in _counts().items()}
-    return {"outs": outs, "revs": revs, "store_ok": store_ok, "launches": launches,
-            "backend": pod.shards[0].mapper.backend, "victims": sorted(victims),
-            **_fo_record(pod)}
+    _sync(device)
+    return {"outs": outs, "revs": revs, "store_ok": store_ok, "launches": _counts(),
+            "card_launches": _card_counts(), "backend": pod.shards[0].mapper.backend,
+            "victims": sorted(victims), "pod": pod, **_fo_record(pod)}
 
 
 def _guard_controls(device) -> dict:
     """The sentinels fire on the card (so a clean guarded loop means
     something): an undeclared ``.item()`` and device->host copy raise
     under no_implicit_transfers, the same copy inside declared_sync
-    passes, and a fresh 64 MiB segment raises under
-    no_new_device_memory."""
+    passes, and a fresh segment raises under no_new_device_memory (at
+    least 64 MiB, and more than every cached free byte of the card, so no
+    cached block can serve it)."""
     import torch
 
     from rplidar_ros2_driver_tpu_torch.utils import guards
@@ -4462,9 +4592,11 @@ def _guard_controls(device) -> dict:
     with guards.no_implicit_transfers(), guards.declared_sync():
         x.cpu()
     torch.cuda.empty_cache()
+    stats = torch.cuda.memory_stats(device)
+    free = stats.get("reserved_bytes.all.current", 0) - stats.get("allocated_bytes.all.current", 0)
     try:
         with guards.no_new_device_memory():
-            y = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+            y = torch.empty(max(64 << 20, free + (2 << 20)), dtype=torch.uint8, device=device)
             del y
         fired["new_segment"] = False
     except AssertionError:
@@ -4473,14 +4605,17 @@ def _guard_controls(device) -> dict:
     return fired
 
 
-def phase_failover(device) -> dict:
+def phase_failover(device, mesh=None, cpu_runs=None) -> dict:
     """Config 15 on the card (the failover pod's per-tick seam, ROADMAP
     A.10a): the tick-paired baseline and chaos pods under the steady-state
     guard, the chaos pod byte-equal to its CPU run and the survivors to the
     baseline pod, the kill -> evacuate -> re-admit cycle's counts, one
     dispatch a tick on every surviving shard, only chaos losses; then the
     carried-map arm held to its CPU run.  Runs before any profiler session
-    (its host times); the profiled half is :func:`failover_profile`."""
+    (its host times); the profiled half is :func:`failover_profile`.
+    ``mesh`` serves every shard (None: one card a shard); ``cpu_runs``
+    keeps the CPU runs for a second layout (:func:`_memo`).  ``records`` holds what
+    ``--pod-cards`` compares across layouts."""
     import torch
 
     from rplidar_ros2_driver_tpu_torch.driver.health import ShardState
@@ -4491,13 +4626,17 @@ def phase_failover(device) -> dict:
     run = fo["points"] // 40
     ticks = fleet_byte_ticks(ring_frames(fo["revs"], fo["points"]), fo["streams"], run,
                              int(Ans.MEASUREMENT_DENSE_CAPSULED))
-    timed = _fo_timed(device, ticks)
+    timed = _fo_timed(device, ticks, mesh)
     chaos = timed["pods"]["chaos"]
     card = _fo_record(chaos)
-    t_cpu = time.perf_counter()
-    cpu = _fo_cpu(fo["kill"], _fo_params("cpu"), ticks, fo["streams"], fo["beams"],
-                  fo["capacity"], run, fo["warm"])
-    cpu_s = time.perf_counter() - t_cpu
+
+    def cpu_pod():
+        c0 = time.perf_counter()
+        got = _fo_cpu(fo["kill"], _fo_params("cpu"), ticks, fo["streams"], fo["beams"],
+                      fo["capacity"], run, fo["warm"])
+        return got, time.perf_counter() - c0
+
+    cpu, cpu_s = _memo(cpu_runs, "failover", cpu_pod)
     check(all(e[3].startswith("chaos:") for e in chaos.events if e[1] == "lost"),
           f"failover: a loss that the chaos schedule did not cause: {chaos.events}")
     base = timed["pods"]["base"]
@@ -4514,7 +4653,8 @@ def phase_failover(device) -> dict:
               f"failover: surviving shard {s} made {got} dispatches in {timed['ticks']} ticks")
     check(timed["outs"]["chaos"] == cpu["outs"], "failover: the chaos pod's outputs differ "
           "from its CPU run")
-    for key in ("events", "plan", "evacuations", "readmits", "migrations", "map_rows"):
+    for key in ("events", "plan", "evacuations", "readmits", "migrations", "map_rows",
+                "snap_ticks"):
         check(card[key] == cpu[key], f"failover: the chaos pod's {key} differ from its CPU run")
     migrated = sorted({e[2] for e in chaos.events if e[1] in ("evacuated", "migrated")})
     survivors = [i for i in range(fo["streams"]) if i not in migrated]
@@ -4525,8 +4665,8 @@ def phase_failover(device) -> dict:
     if device.type == "cuda":
         for k in ("temporal_median", "coarse_scores", "fine_scores", "log_odds_update"):
             check(lc[k] > 0, f"failover: {k} never launched on config 15's path")
-    c_card = _fo_carried(device)
-    c_cpu = _fo_carried(torch.device("cpu"))
+    c_card = _fo_carried(device, mesh)
+    c_cpu = _memo(cpu_runs, "failover carried", lambda: _fo_carried(torch.device("cpu")))
     check(c_card["backend"] == "carried", "failover carried arm: the mapper is not the carried one")
     check(c_card["store_ok"], "failover carried arm: a stored snapshot held a map key or lacked "
           "the ingest.map_* rows")
@@ -4538,7 +4678,7 @@ def phase_failover(device) -> dict:
     check(all(r[i] > c_card["revs"][kill_t][i] > 0 for r in c_card["revs"][-1:]
               for i in c_card["victims"]),
           "failover carried arm: a victim's map revision stopped after migrating")
-    for key in ("outs", "revs", "events", "plan", "map_rows"):
+    for key in ("outs", "revs", "events", "plan", "map_rows", "snap_ticks"):
         check(c_card[key] == c_cpu[key], f"failover carried arm: {key} differ from the CPU run")
     if device.type == "cuda":
         for k in ("temporal_median", "beam_min", "shift_sad", "coarse_scores", "fine_scores",
@@ -4568,22 +4708,60 @@ def phase_failover(device) -> dict:
                     [c_card["revs"][kill_t], c_card["revs"][-1]], "launches": c_card["launches"],
                     "cpu_equal": True},
         "launches": lc,
+        "shard_cards": _shard_cards(chaos),
     }
     if device.type == "cuda":
         row["guard_controls"] = _guard_controls(device)
     row["seconds"] = time.perf_counter() - t0
     row["failover_launches"] = launches
+    row["card_launches"] = {"config15": timed["card_launches"],
+                            "carried": c_card["card_launches"]}
+    row["hosting_cards"] = {"config15": _shard_cards(chaos),
+                            "carried": _shard_cards(c_card["pod"])}
+    row["records"] = {"outs": timed["outs"], "chaos": card,
+                      "base": _fo_record(timed["pods"]["base"]),
+                      "carried": {k: c_card[k] for k in ("outs", "revs", "events", "plan",
+                                                         "map_rows", "snap_ticks", "snaps")}}
     return row
 
 
-def failover_profile(device, row: dict, card: str) -> dict:
-    """The profiled half of the failover phase, after the other phases'
-    host timings: a fresh warmed config-15 pod without chaos over
-    ``profile_ticks`` ticks — device operations and busy ms a pod tick and
-    the idle share."""
+def _profiled(device, step, k: int) -> dict:
+    """``k`` calls of ``step`` (a pod tick or drain each) under
+    torch.profiler, every card synchronised before and after: device
+    operations and busy ms a call, the wall ms a call and the idle share —
+    in all and per card (``per_card``: a card's busy time against the
+    same wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        for _ in range(k):
+            step()
+        _sync(device)
+        wall = time.perf_counter() - w0
+    per: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ops_us = per.setdefault(e.device_index, [0, 0.0])
+            ops_us[0] += 1
+            ops_us[1] += e.time_range.elapsed_us()
+    busy_us = sum(us for _n, us in per.values())
+    return {"device_ops": sum(n for n, _us in per.values()) / k,
+            "device_busy_ms": busy_us / k / 1e3, "wall_ms": wall / k * 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "per_card": {d: {"device_ops": n / k, "device_busy_ms": us / k / 1e3,
+                             "device_idle_share": 1.0 - us / 1e6 / wall}
+                         for d, (n, us) in sorted(per.items())}}
+
+
+def failover_profile(device, row: dict, card: str, mesh=None) -> dict:
+    """The profiled half of the failover phase, after the other phases'
+    host timings: a fresh warmed config-15 pod without chaos (``mesh`` as
+    in :func:`phase_failover`) over ``profile_ticks`` ticks — device
+    operations and busy ms a pod tick and the idle share, in all and per
+    card."""
     from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
 
     fo = FAILOVER
@@ -4593,28 +4771,24 @@ def failover_profile(device, row: dict, card: str) -> dict:
     ticks = fleet_byte_ticks(ring_frames(fo["warm"] + k, fo["points"]), fo["streams"], run,
                              int(Ans.MEASUREMENT_DENSE_CAPSULED))
     pod, fake = _fo_pod("cuda", None, _fo_params("cuda"), fo["streams"], fo["beams"],
-                        fo["capacity"], run)
+                        fo["capacity"], run, mesh)
     for tick in ticks[: fo["warm"]]:
         pod.submit_bytes(tick)
         fake["now"] += fo["dt"]
-    _sync(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        w0 = time.perf_counter()
-        for tick in ticks[fo["warm"]:]:
-            pod.submit_bytes(tick)
-            fake["now"] += fo["dt"]
-        _sync(device)
-        wall = time.perf_counter() - w0
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in ev)
-    row.update(profiled={"ticks": k, "device_ops_per_pod_tick": len(ev) / k,
-                         "device_busy_ms_per_pod_tick": busy_us / k / 1e3,
-                         "profiled_wall_ms_per_pod_tick": wall / k * 1e3,
-                         "device_idle_share": 1.0 - busy_us / 1e6 / wall},
+    live = iter(ticks[fo["warm"]:])
+
+    def step():
+        pod.submit_bytes(next(live))
+        fake["now"] += fo["dt"]
+
+    got = _profiled(device, step, k)
+    row.update(profiled={"ticks": k, "device_ops_per_pod_tick": got["device_ops"],
+                         "device_busy_ms_per_pod_tick": got["device_busy_ms"],
+                         "profiled_wall_ms_per_pod_tick": got["wall_ms"],
+                         "device_idle_share": got["device_idle_share"],
+                         "per_card": got["per_card"], "shard_cards": _shard_cards(pod)},
                profile_seconds=time.perf_counter() - t0, card=card)
-    launches = row.pop("failover_launches")
-    emit(row)
-    row["failover_launches"] = launches
+    emit({k: v for k, v in row.items() if k not in _INTERNAL})
     return row
 
 
@@ -4688,10 +4862,13 @@ def _sched_params(backend: str, c: dict, **over):
                         **over)
 
 
-def _sched_pod(params, c: dict, buckets: tuple, fake: dict, kill=None, world: bool = False):
+def _sched_pod(params, c: dict, buckets: tuple, fake: dict, kill=None, world: bool = False,
+               mesh=None):
     """A warmed scheduled pod: the shaper attached before precompile (the
     rung ladder is warmed there), the chaos kill after it, as the bench
-    builds them; every shard on the one card, a fake clock."""
+    builds them; a fake clock.  ``mesh`` serves every shard; None gives
+    each shard a card of its own (shard s on cuda:(s % cards); one card:
+    all on it) or the host."""
     from rplidar_ros2_driver_tpu_torch.driver.chaos import ShardChaosConfig, ShardChaosSchedule
     from rplidar_ros2_driver_tpu_torch.parallel.service import ElasticFleetService
     from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
@@ -4699,7 +4876,7 @@ def _sched_pod(params, c: dict, buckets: tuple, fake: dict, kill=None, world: bo
     sc = SCHEDULED
     pod = ElasticFleetService(params, c["streams"], shards=c["shards"], beams=sc["beams"],
                               capacity=sc["capacity"], fleet_ingest_buckets=buckets,
-                              clock=lambda: fake["now"])
+                              clock=lambda: fake["now"], mesh=mesh)
     pod.attach_scheduler()
     pod.precompile([int(Ans.MEASUREMENT_DENSE_CAPSULED)])
     if kill is not None:
@@ -4759,7 +4936,8 @@ def _serve(device, pods: dict, wall, warm: int, tag: str, cap=None, on_tick=None
     ``warm`` on runs under guards.steady_state on the card.  Per arm: the
     digests of every wall tick's outputs, each drain's wall seconds and
     its slowest shard drain; the deepest admission queue seen, the shadow
-    admission's sheds and the launches of the guarded window."""
+    admission's sheds and the launches of the guarded window (by kernel
+    and by card)."""
     import contextlib
 
     from rplidar_ros2_driver_tpu_torch.utils import guards
@@ -4807,7 +4985,7 @@ def _serve(device, pods: dict, wall, warm: int, tag: str, cap=None, on_tick=None
             if on_tick is not None:
                 on_tick(t)
         _sync(device)
-        launches = _counts()
+        launches, card_launches = _counts(), _card_counts()
     finally:
         stack.close()
     timed = len(wall) - warm
@@ -4820,7 +4998,7 @@ def _serve(device, pods: dict, wall, warm: int, tag: str, cap=None, on_tick=None
                    "dispatches_per_pod_drain": (total - d0[n]) / max(timed, 1),
                    "dispatches": total}
     return {"outs": outs, "arms": arms, "max_depth": max_depth, "shadow_drops": shadow_drops,
-            "launches": launches, "timed_ticks": timed}
+            "launches": launches, "card_launches": card_launches, "timed_ticks": timed}
 
 
 def _last_data_tick(wall: list) -> list:
@@ -4847,7 +5025,21 @@ def _cpu_prefix(build, wall, k: int) -> tuple:
     return got, pod
 
 
-def _cfg19(device) -> dict:
+def _sched_result(run: dict, pods: dict, wall: list, **extra) -> dict:
+    """A scheduled config's result: its figures (``extra``), the guarded
+    window's launches, the pods and the last data tick (for the profiled
+    drain), the shard -> card map, and the records ``--pod-cards`` holds
+    across layouts (every arm's per-wall-tick outputs and
+    :func:`_fo_record`)."""
+    got = {n: p for n, (p, _f) in pods.items()}
+    return {"wall_ticks": len(wall), "arms": run["arms"], **extra, "launches": run["launches"],
+            "card_launches": run["card_launches"], "timed_ticks": run["timed_ticks"],
+            "pods": got, "profile_items": _last_data_tick(wall),
+            "shard_cards": _shard_cards(next(iter(got.values()))),
+            "records": {"outs": run["outs"], "pods": {n: _fo_record(p) for n, p in got.items()}}}
+
+
+def _cfg19(device, mesh=None, cpu_runs=None) -> dict:
     """Config 19 (bench_elastic_serving): the static arm pinned to rung 1
     against the adaptive ladder (1, 2, 4, 8) over the reconnect-storm
     trace, admission cap 8, shard 1 killed near the end."""
@@ -4866,15 +5058,15 @@ def _cfg19(device) -> dict:
     kill_tick = len(wall) - max(4, len(wall) // 5)
     kill = (1, kill_tick, 0)
 
-    def build(backend, arm_rungs):
+    def build(backend, arm_rungs, mesh=None):
         fake = {"now": 0.0}
         params = _sched_params(backend, c, sched_rungs=arm_rungs,
                                admission_max_backlog_ticks=c["cap"],
                                shard_starvation_ticks=2 * (c["storm_len"] + c["stall_frames"]))
-        return _sched_pod(params, c, (c["run"],), fake, kill=kill), fake
+        return _sched_pod(params, c, (c["run"],), fake, kill=kill, mesh=mesh), fake
 
     backend = "cuda" if device.type == "cuda" else "cpu"
-    pods = {"static": build(backend, (1,)), "adaptive": build(backend, c["rungs"])}
+    pods = {"static": build(backend, (1,), mesh), "adaptive": build(backend, c["rungs"], mesh)}
     weights = {}
 
     def on_tick(t):
@@ -4909,20 +5101,19 @@ def _cfg19(device) -> dict:
         w = [weights["at_kill"][s] for s in group]
         check(w == sorted(w, reverse=True), f"config 19: evacuation {key} not heaviest first")
     k = sc["cpu_wall_ticks"][19]
-    cpu = {name: _cpu_prefix(lambda b, r=r: build(b, r), wall, k)[0]
+    cpu = {name: _memo(cpu_runs, (19, name),
+                       lambda r=r: _cpu_prefix(lambda b: build(b, r), wall, k))[0]
            for name, r in (("static", (1,)), ("adaptive", c["rungs"]))}
     for name in pods:
         check(run["outs"][name][:k] == cpu[name],
               f"config 19 {name}: the card's outputs differ from the CPU run")
-    return {"wall_ticks": len(wall), "kill_tick": kill_tick, "arms": run["arms"],
-            "rung_dispatches": {"static": st_table, "adaptive": ad_table},
-            "sheds": run["shadow_drops"], "max_depth": run["max_depth"],
-            "evacuated": [g for g in groups.values()], "cpu_wall_ticks": k,
-            "launches": run["launches"], "timed_ticks": run["timed_ticks"],
-            "pods": {n: p for n, (p, _f) in pods.items()}, "profile_items": _last_data_tick(wall)}
+    return _sched_result(run, pods, wall, kill_tick=kill_tick,
+                         rung_dispatches={"static": st_table, "adaptive": ad_table},
+                         sheds=run["shadow_drops"], max_depth=run["max_depth"],
+                         evacuated=list(groups.values()), cpu_wall_ticks=k)
 
 
-def _cfg20(device) -> dict:
+def _cfg20(device, mesh=None, cpu_runs=None) -> dict:
     """Config 20 (bench_async_serving): the double buffer and the bucket
     ladder (4, 16) against the single-buffered static bucket, both on the
     rung ladder (1, 2, 4, 8): the storm trace, then an occupancy collapse,
@@ -4947,17 +5138,17 @@ def _cfg20(device) -> dict:
     for _ in range(c["recovery_len"]):
         wall.append([[rem[s].pop(0)] for s in range(c["streams"])])
 
-    def build(backend, async_arm):
+    def build(backend, async_arm, mesh=None):
         fake = {"now": 0.0}
         params = _sched_params(
             backend, c, sched_rungs=c["rungs"], admission_max_backlog_ticks=c["cap"],
             staging_double_buffer=async_arm, bucket_rungs=buckets if async_arm else (),
             shard_starvation_ticks=2 * (c["storm_len"] + c["stall_frames"]
                                         + c["collapse_len"]))
-        return _sched_pod(params, c, buckets, fake), fake
+        return _sched_pod(params, c, buckets, fake, mesh=mesh), fake
 
     backend = "cuda" if device.type == "cuda" else "cpu"
-    pods = {"pr14": build(backend, False), "async": build(backend, True)}
+    pods = {"pr14": build(backend, False, mesh), "async": build(backend, True, mesh)}
     seeded = {}
 
     def on_tick(t):
@@ -4988,20 +5179,20 @@ def _cfg20(device) -> dict:
           "config 20: the double-buffered arm's outputs differ from the single-buffered arm's")
     k = sc["cpu_wall_ticks"][20]
     for name, flag in (("pr14", False), ("async", True)):
-        check(run["outs"][name][:k] == _cpu_prefix(lambda b, f=flag: build(b, f), wall, k)[0],
+        cpu = _memo(cpu_runs, (20, name),
+                    lambda f=flag: _cpu_prefix(lambda b: build(b, f), wall, k))
+        check(run["outs"][name][:k] == cpu[0],
               f"config 20 {name}: the card's outputs differ from the CPU run")
     rb = {}
     for sh in async_pod.shards:
         for (r, b), n in sh.fleet_ingest.rung_bucket_dispatches.items():
             rb[f"T{r}xM{b}"] = rb.get(f"T{r}xM{b}", 0) + n
-    return {"wall_ticks": len(wall), "arms": run["arms"], "staging_overlap_hits": hits,
-            "bucket_switches": switches, "async_rung_bucket_dispatches": rb,
-            "sheds": run["shadow_drops"], "max_depth": run["max_depth"], "cpu_wall_ticks": k,
-            "launches": run["launches"], "timed_ticks": run["timed_ticks"],
-            "pods": {n: p for n, (p, _f) in pods.items()}, "profile_items": _last_data_tick(wall)}
+    return _sched_result(run, pods, wall, staging_overlap_hits=hits, bucket_switches=switches,
+                         async_rung_bucket_dispatches=rb, sheds=run["shadow_drops"],
+                         max_depth=run["max_depth"], cpu_wall_ticks=k)
 
 
-def _cfg21(device) -> dict:
+def _cfg21(device, mesh=None, cpu_runs=None) -> dict:
     """Config 21 (bench_pod_scaleout): work stealing plus the autoscaler
     against the static pod, 8 streams over 4 shards on 2 hosts: skewed
     bursts on shard 0's two streams, an idle stretch, a full resume."""
@@ -5015,7 +5206,7 @@ def _cfg21(device) -> dict:
     data = [stream_data_ticks(frames, c["run"], ans, 1000.0 + 7.0 * s)
             for s in range(c["streams"])]
 
-    def build(backend, pod_arm):
+    def build(backend, pod_arm, mesh=None):
         fake = {"now": 0.0}
         params = _sched_params(
             backend, c, sched_rungs=c["rungs"], admission_max_backlog_ticks=c["cap"],
@@ -5023,10 +5214,10 @@ def _cfg21(device) -> dict:
             autoscale_enable=pod_arm, autoscale_low_watermark=0.3,
             autoscale_high_watermark=0.75, autoscale_hysteresis_ticks=3,
             shard_starvation_ticks=4 * (c["skew_len"] + c["idle_len"] + c["resume_len"]))
-        return _sched_pod(params, c, (c["run"],), fake), fake
+        return _sched_pod(params, c, (c["run"],), fake, mesh=mesh), fake
 
     backend = "cuda" if device.type == "cuda" else "cpu"
-    pods = {"static": build(backend, False), "pod": build(backend, True)}
+    pods = {"static": build(backend, False, mesh), "pod": build(backend, True, mesh)}
     deep = [s for s in pods["pod"][0].topology.lane_streams(0) if s is not None][:2]
     cursor = [0] * c["streams"]
 
@@ -5064,17 +5255,16 @@ def _cfg21(device) -> dict:
     check(all(len(o) > 0 for o in per["pod"]), "config 21: a stream never published")
     k = sc["cpu_wall_ticks"][21]
     for name, flag in (("static", False), ("pod", True)):
-        check(run["outs"][name][:k] == _cpu_prefix(lambda b, f=flag: build(b, f), wall, k)[0],
+        cpu = _memo(cpu_runs, (21, name),
+                    lambda f=flag: _cpu_prefix(lambda b: build(b, f), wall, k))
+        check(run["outs"][name][:k] == cpu[0],
               f"config 21 {name}: the card's outputs differ from the CPU run")
-    return {"wall_ticks": len(wall), "arms": run["arms"], "deep": deep,
-            "steals": pp.scheduler.steals, "steal_ticks": pp.scheduler.steal_ticks,
-            "scale_events": pp.scale_events, "sheds": run["shadow_drops"],
-            "max_depth": run["max_depth"], "cpu_wall_ticks": k, "launches": run["launches"],
-            "timed_ticks": run["timed_ticks"], "pods": {n: p for n, (p, _f) in pods.items()},
-            "profile_items": _last_data_tick(wall)}
+    return _sched_result(run, pods, wall, deep=deep, steals=pp.scheduler.steals,
+                         steal_ticks=pp.scheduler.steal_ticks, scale_events=pp.scale_events,
+                         sheds=run["shadow_drops"], max_depth=run["max_depth"], cpu_wall_ticks=k)
 
 
-def _cfg22(device) -> dict:
+def _cfg22(device, mesh=None, cpu_runs=None) -> dict:
     """Config 22 (bench_map_serving): 6 streams over 3 shards with the
     fused FleetMapper on 256² at 0.05 m; the world map arm (merges on the
     drain, tiles published on its idle half) against per-stream pulls."""
@@ -5092,7 +5282,7 @@ def _cfg22(device) -> dict:
             for s in range(c["streams"])]
     wall = [[[data[s][t]] for s in range(c["streams"])] for t in range(c["wall_len"])]
 
-    def build(backend, world_arm):
+    def build(backend, world_arm, mesh=None):
         fake = {"now": 0.0}
         params = _sched_params(
             backend, c, map_enable=True, map_backend="fused", map_grid=c["map_grid"],
@@ -5100,10 +5290,10 @@ def _cfg22(device) -> dict:
             world_map_enable=world_arm, map_tile_backend="auto",
             world_tile_cells=c["tile_cells"], world_max_submaps=c["world_cap"],
             world_merge_revs=c["merge_revs"], world_publish_ticks=c["publish_ticks"])
-        return _sched_pod(params, c, (c["run"],), fake, world=world_arm), fake
+        return _sched_pod(params, c, (c["run"],), fake, world=world_arm, mesh=mesh), fake
 
     backend = "cuda" if device.type == "cuda" else "cpu"
-    pods = {"tiles": build(backend, True), "pull": build(backend, False)}
+    pods = {"tiles": build(backend, True, mesh), "pull": build(backend, False, mesh)}
     world = pods["tiles"][0].world
     reads = {"tiles": [], "pull": []}
     k = sc["cpu_wall_ticks"][22]
@@ -5153,7 +5343,8 @@ def _cfg22(device) -> dict:
           "config 22: the accumulation differs from the sum of its members")
     check(_per_stream(run["outs"]["tiles"]) == _per_stream(run["outs"]["pull"]),
           "config 22: the world arm's outputs differ from the pull arm's")
-    cpu = {name: _cpu_prefix(lambda b, f=flag: build(b, f), wall, k)
+    cpu = {name: _memo(cpu_runs, (22, name),
+                       lambda f=flag: _cpu_prefix(lambda b: build(b, f), wall, k))
            for name, flag in (("tiles", True), ("pull", False))}
     for name, (got, _pod) in cpu.items():
         check(run["outs"][name][:k] == got,
@@ -5169,16 +5360,21 @@ def _cfg22(device) -> dict:
     check(None not in snaps and snaps[0].version == snaps[1].version
           and np.array_equal(snapshot_grid(snaps[0]), snapshot_grid(snaps[1])),
           f"config 22: after {k} wall ticks the card's published tiles differ from the CPU's")
-    return {"wall_ticks": len(wall), "arms": run["arms"], "merges": world.merges,
-            "evictions": world.evictions, "serving_version": world.serving_version,
-            "tiles": world.snapshot().tiles,
-            "compression_ratio": world.snapshot().compression_ratio,
-            "read_ms": {n: _pcts(v) for n, v in reads.items()}, "cpu_wall_ticks": k,
-            "launches": run["launches"], "timed_ticks": run["timed_ticks"],
-            "pods": {n: p for n, (p, _f) in pods.items()}, "profile_items": _last_data_tick(wall)}
+    got = _sched_result(run, pods, wall, merges=world.merges, evictions=world.evictions,
+                        serving_version=world.serving_version, tiles=world.snapshot().tiles,
+                        compression_ratio=world.snapshot().compression_ratio,
+                        read_ms={n: _pcts(v) for n, v in reads.items()}, cpu_wall_ticks=k,
+                        world_card=world.device.index)
+    # the world on card 0, fed by every shard's card
+    got["records"]["world"] = {
+        "at_cpu_ticks": _digest([at_k["acc"], snapshot_grid(at_k["snapshot"])]),
+        "end": _digest([world.accumulation(), snapshot_grid(world.snapshot())]),
+        "merges": world.merges, "evictions": world.evictions,
+        "serving_version": world.serving_version}
+    return got
 
 
-def phase_scheduled(device) -> dict:
+def phase_scheduled(device, mesh=None, cpu_runs=None) -> dict:
     """Scheduled serving (ROADMAP A.10b) on the card: bench.py configs
     19-22 at full geometry, two pods per config drained tick-paired under
     guards.steady_state — rung and bucket switches, snapshot pulls, the
@@ -5186,13 +5382,14 @@ def phase_scheduled(device) -> dict:
     publications — each arm byte-equal to the other and to its CPU run
     over the first wall ticks, the bench's identities asserted.  Runs
     before any profiler session; the profiled drains are
-    :func:`scheduled_profile`."""
+    :func:`scheduled_profile`.  ``mesh`` and ``cpu_runs`` as in
+    :func:`phase_failover`."""
     t0 = time.perf_counter()
     row = {"phase": "scheduled", "configs": {}}
     launches: dict = {}
     for n, fn in ((19, _cfg19), (20, _cfg20), (21, _cfg21), (22, _cfg22)):
         c0 = time.perf_counter()
-        got = fn(device)
+        got = fn(device, mesh, cpu_runs)
         # guards (a) and (b) raise when the guarded window closes; guard
         # (c) and a failed launch raise inside a drain, where the pod's
         # heartbeat boundary turns them into a lost shard: clean means
@@ -5225,32 +5422,18 @@ def scheduled_profile(device, row: dict, card: str) -> dict:
     """The profiled half of the scheduled phase, after the other phases'
     host timings: one more drain of each config's new arm (its last wall
     tick offered again) under torch.profiler — device operations, busy ms
-    and the idle share — then the phase's line."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    and the idle share, in all and per card — then the phase's line."""
     t0 = time.perf_counter()
     arms = {19: "adaptive", 20: "async", 21: "pod", 22: "tiles"}
     for n, arm in arms.items():
         cfg = row["configs"][n]
         pod = cfg["pods"][arm]
         pod.offer_bytes(cfg["profile_items"])
-        _sync(device)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            w0 = time.perf_counter()
-            pod.drain_scheduled()
-            _sync(device)
-            wall = time.perf_counter() - w0
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy_us = sum(e.time_range.elapsed_us() for e in ev)
-        cfg["profiled_drain"] = {"arm": arm, "device_ops": len(ev),
-                                 "device_busy_ms": busy_us / 1e3, "wall_ms": wall * 1e3,
-                                 "device_idle_share": 1.0 - busy_us / 1e6 / wall}
-    out = {k: v for k, v in row.items() if k != "configs"}
-    out["configs"] = {n: {k: v for k, v in cfg.items()
-                          if k not in ("pods", "profile_items", "launches")}
-                      | {"launches": cfg["launches"]} for n, cfg in row["configs"].items()}
-    out.pop("scheduled_launches")
+        got = _profiled(device, pod.drain_scheduled, 1)
+        cfg["profiled_drain"] = {"arm": arm, **got}
+    out = {k: v for k, v in row.items() if k not in ("configs", *_INTERNAL)}
+    out["configs"] = {n: {k: v for k, v in cfg.items() if k not in _INTERNAL}
+                      for n, cfg in row["configs"].items()}
     out.update(profile_seconds=time.perf_counter() - t0, card=card)
     emit(out)
     return row
@@ -5273,27 +5456,28 @@ def _snap_equal(a: dict, b: dict) -> bool:
         a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
 
 
-def _ckpt_service(backend: str, median: str, window: int = None):
+def _ckpt_service(backend: str, median: str, window: int = None, mesh=None):
     from rplidar_ros2_driver_tpu_torch.parallel.service import ShardedFilterService
 
     over = {"median_backend": median}
     if window is not None:
         over["filter_window"] = window
     svc = ShardedFilterService(_fleet_params(backend, "host", **over), CHECKPOINTS["streams"],
-                               beams=FLEET["beams"], capacity=FLEET["capacity"])
+                               beams=FLEET["beams"], capacity=FLEET["capacity"], mesh=mesh)
     svc.precompile()
     return svc
 
 
-def _ckpt_service_arm(device, median: str, ticks, tmp: str) -> dict:
+def _ckpt_service_arm(device, median: str, ticks, tmp: str, meshes=(None, None)) -> dict:
     """Config 10's service (N = 8, W = 64, 2048 beams, 256x256 grid) with
     the ``median`` backend: saved mid-trace, loaded into a fresh service,
     both continued over the rest of the trace byte-equal; the restored
     state byte-equal to the saved one (the ``inc`` backend's recomputed
-    sorted window too)."""
+    sorted window too).  ``meshes``: the saving and the loading service's
+    meshes (None: the default card)."""
     backend = "cuda" if device.type == "cuda" else "cpu"
     save_at = CHECKPOINTS["save_tick"]
-    svc = _ckpt_service(backend, median)
+    svc = _ckpt_service(backend, median, mesh=meshes[0])
     for scans in ticks[:save_at]:
         svc.submit(scans)
     path = os.path.join(tmp, f"service_{median}")
@@ -5302,7 +5486,7 @@ def _ckpt_service_arm(device, median: str, ticks, tmp: str) -> dict:
     svc.save_sharded(path)
     save_ms = (time.perf_counter() - t0) * 1e3
     saved = svc.snapshot()
-    fresh = _ckpt_service(backend, median)
+    fresh = _ckpt_service(backend, median, mesh=meshes[1])
     t0 = time.perf_counter()
     check(fresh.load_sharded(path), f"checkpoints: the {median} service's checkpoint refused")
     _sync(device)
@@ -5326,10 +5510,11 @@ def _ckpt_service_arm(device, median: str, ticks, tmp: str) -> dict:
     return stats, svc, path, saved
 
 
-def _ckpt_mapper(device, tmp: str) -> dict:
+def _ckpt_mapper(device, tmp: str, load_on=None) -> dict:
     """Config 12's fused FleetMapper (N = 4, 256x256 at 0.05 m, 2048
-    beams): saved mid-trace, loaded into a fresh mapper, both continued
-    byte-equal; another grid refuses the checkpoint untouched."""
+    beams): saved mid-trace, loaded into a fresh mapper (on ``load_on``,
+    default ``device``), both continued byte-equal; another grid refuses
+    the checkpoint untouched."""
     import numpy as np
 
     from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
@@ -5340,8 +5525,8 @@ def _ckpt_mapper(device, tmp: str) -> dict:
     masks, live = np.ones((n, b), bool), np.ones((n,), np.int32)
     save_at = CHECKPOINTS["map_save_tick"]
 
-    def mapper(**over):
-        m = FleetMapper(_map_params(backend, **over), n, beams=b, device=device)
+    def mapper(on=device, **over):
+        m = FleetMapper(_map_params(backend, **over), n, beams=b, device=on)
         m.precompile()
         return m
 
@@ -5354,7 +5539,7 @@ def _ckpt_mapper(device, tmp: str) -> dict:
     m.save_sharded(path)
     save_ms = (time.perf_counter() - t0) * 1e3
     saved = m.snapshot()
-    fresh = mapper()
+    fresh = mapper(load_on or device)
     t0 = time.perf_counter()
     check(fresh.load_sharded(path), "checkpoints: the mapper's checkpoint refused")
     _sync(device)
@@ -5832,6 +6017,193 @@ def graded_profile(device, card_name: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# --pod-cards: the serving pod with one shard a card
+# ---------------------------------------------------------------------------
+
+# the kernels each hosting card must launch on a pod path: the fused
+# ingest's median (B1) everywhere, the fused FleetMapper's B6-B8 on config
+# 15 and 22, and the carried arm's de-skew (B4, B5) besides
+POD_B1 = ("temporal_median",)
+POD_MAP = POD_B1 + ("coarse_scores", "fine_scores", "log_odds_update")
+POD_CARRIED = POD_MAP + ("beam_min", "shift_sad")
+
+
+def _check_cards(what: str, counts: dict, hosting: list, names: tuple) -> None:
+    """Every card in ``hosting`` launched each kernel of ``names`` in
+    ``counts`` ({card: {kernel: launches}}), and no other card launched
+    anything."""
+    for card in sorted(set(hosting)):
+        for name in names:
+            check(counts.get(card, {}).get(name, 0) > 0,
+                  f"pod cards: {what}: {name} never launched on cuda:{card} (launches {counts})")
+    check(set(counts) <= set(hosting),
+          f"pod cards: {what}: a card that hosts no shard launched a kernel: {counts}, "
+          f"shards on {hosting}")
+
+
+def _kernels_on_card(dev) -> dict:
+    """All eight kernels against their plain versions on card ``dev``
+    (the kernels phases' checks; B6-B8 set up their cluster launches once
+    per card): what was checked and the largest errors (0)."""
+    import numpy as np
+    import torch
+
+    cap = torch.cuda.get_device_capability(dev)
+    check(tuple(cap) == (9, 0), f"pod cards: {dev} has compute capability {cap}, not (9, 0)")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(dev.index)
+    med = check_median_kernels(dev, rng)
+    mp = check_map_kernels(dev, rng)
+    dsk = check_deskew_kernels(dev, rng)
+    return {"name": torch.cuda.get_device_name(dev),
+            "max_abs_err": {**med["max_abs_err"], **mp["max_abs_err"], **dsk["max_abs_err"]},
+            "checked": {"temporal_median": med["checked_b1_fixtures"],
+                        "sorted_replace": med["checked_b2_fixtures"] + med["b2_steps"],
+                        "sliding_median": med["checked_b3_fixtures"],
+                        "beam_min": dsk["checked"]["beam_min"],
+                        "shift_sad": dsk["checked"]["shift_sad"] + dsk["b5_edge_fixtures"],
+                        "matcher_fixtures": len(mp["fixtures"]),
+                        "update_plan_sweep": len(mp["update_plan_sweep"])},
+            "seconds": time.perf_counter() - t0}
+
+
+def _checkpoint_across_cards(src, dst) -> dict:
+    """A shard's state saved from card ``src`` and loaded onto card
+    ``dst``, as a pod restarted with another layout needs: config 10's
+    service with the inc (B2) and sort (B1) medians and config 12's fused
+    mapper (B6-B8), each saved mid-trace on ``src``, loaded onto a fresh
+    one on ``dst`` (the restored state byte-equal to the saved one) and
+    both continued byte-equal; every kernel launched on both cards."""
+    import shutil
+
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh
+
+    t0 = time.perf_counter()
+    n = CHECKPOINTS["streams"]
+    revs = make_revolutions(CHECKPOINTS["seed"], n * CHECKPOINTS["ticks"], FLEET["points"])
+    ticks = [revs[k * n:(k + 1) * n] for k in range(CHECKPOINTS["ticks"])]
+    meshes = (make_mesh(1, device=src), make_mesh(1, device=dst))
+    tmp = tempfile.mkdtemp(prefix="rpl_pod_ckpt_")
+    _sync(src)
+    _reset_counts()
+    try:
+        service = {median: _ckpt_service_arm(src, median, ticks, tmp, meshes)[0]
+                   for median in ("inc", "pallas")}
+        mapper = _ckpt_mapper(src, tmp, load_on=dst)
+        launches = _card_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _check_cards("the checkpoint leg", launches, [src.index, dst.index],
+                 ("temporal_median", "sorted_replace") + POD_MAP[1:])
+    return {"from": src.index, "to": dst.index, "service": service, "mapper": mapper,
+            "card_launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def _layout_figures(run: dict) -> dict:
+    """One layout's pod figures: config 15's ticks/s and tick p50/p99 of
+    both pods and its profiled pod tick; each scheduled config's pod
+    ticks/s and drain p50/p99 per arm and its profiled drain."""
+    fo, sc = run["failover"], run["scheduled"]
+    out = {"config15": {k: fo[k] for k in ("base_ticks_per_s", "chaos_ticks_per_s",
+                                           "base_tick_ms", "chaos_tick_ms", "profiled")}}
+    for c, cfg in sc["configs"].items():
+        out[f"config{c}"] = {
+            "arms": {arm: {k: v[k] for k in ("pod_ticks_per_s", "drain_ms")}
+                     for arm, v in cfg["arms"].items()},
+            "profiled_drain": cfg["profiled_drain"]}
+    return out
+
+
+def phase_pod_cards(n: int, card: str, names: list) -> dict:
+    """``--pod-cards N``: the serving pod over N cards in one process, one
+    shard a card (parallel/sharding.shard_card).  First every kernel is
+    held bit-equal to its plain version on each card (the kernels phases'
+    checks: B6-B8 set up their cluster launches once per card).  Then
+    config 15 (the failover pod and its carried arm) and configs 19-22
+    (scheduled serving) run twice, as their phases run them — every check
+    of those phases, guards.steady_state over the whole pod on every card,
+    only the planned chaos kills lost: once with one shard a card and once
+    with one ``make_mesh(1, device="cuda:0")`` serving every shard; every
+    output, event, replay plan, stored snapshot (tick and bytes), map row
+    and log of the first equals the second's, and both equal the one CPU
+    run they are held to.  Each hosting card launched its path's kernels,
+    and no other card did.  Then each layout's profiled pod tick and
+    drains (busy ms and idle share per card), a shard's checkpoint saved
+    on card 1 and loaded onto card N-1, and one line with the figures of
+    both layouts, recorded beside each other (no claim)."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh, shard_card
+
+    t0 = time.perf_counter()
+    cards = [torch.device("cuda", d) for d in range(n)]
+    per_card = {d.index: _kernels_on_card(d) for d in cards}
+    emit({"phase": "pod_cards_kernels", "cards": n, "per_card": per_card})
+
+    layouts = {"cards": None, "one_card": make_mesh(1, device=cards[0])}
+    cpu_runs: dict = {}
+    runs = {}
+    for name, mesh in layouts.items():
+        l0 = time.perf_counter()
+        runs[name] = {"failover": phase_failover(cards[0], mesh, cpu_runs),
+                      "scheduled": phase_scheduled(cards[0], mesh, cpu_runs)}
+        runs[name]["seconds"] = time.perf_counter() - l0
+    spread, one = runs["cards"], runs["one_card"]
+    for key, got in spread["failover"]["records"].items():
+        check(got == one["failover"]["records"][key],
+              f"pod cards: config 15's {key} over {n} cards differ from the one-card pod's")
+    for c, cfg in spread["scheduled"]["configs"].items():
+        for key, got in cfg["records"].items():
+            check(got == one["scheduled"]["configs"][c]["records"][key],
+                  f"pod cards: config {c}'s {key} over {n} cards differ from the one-card pod's")
+    # the shard -> card maps and each hosting card's launches
+    maps = {}
+    for name, run in runs.items():
+        fo = run["failover"]
+        maps[name] = {"config15": fo["hosting_cards"]["config15"],
+                      "carried": fo["hosting_cards"]["carried"]}
+        for part, names_ in (("config15", POD_MAP), ("carried", POD_CARRIED)):
+            _check_cards(f"{name} config 15 {part}", fo["card_launches"][part],
+                         fo["hosting_cards"][part], names_)
+        for c, cfg in run["scheduled"]["configs"].items():
+            maps[name][f"config{c}"] = cfg["shard_cards"]
+            _check_cards(f"{name} config {c}", cfg["card_launches"], cfg["shard_cards"],
+                         POD_MAP if c == 22 else POD_B1)
+    for part, cards_of in maps["cards"].items():
+        check(cards_of == [shard_card(s, n) for s in range(len(cards_of))],
+              f"pod cards: {part}'s shards sit on {cards_of}, not one card a shard over {n}")
+        check(maps["one_card"][part] == [0] * len(cards_of),
+              f"pod cards: the one-card {part} pod's shards sit on {maps['one_card'][part]}")
+    emit({"phase": "pod_cards_map", "cards": n, "shard_cards": maps})
+
+    # the profiled halves, after every host timing of both layouts
+    for name, mesh in layouts.items():
+        for half in ("failover", "scheduled"):
+            runs[name][half]["layout"] = name
+        failover_profile(cards[0], runs[name]["failover"], card, mesh)
+        scheduled_profile(cards[0], runs[name]["scheduled"], card)
+    ckpt = _checkpoint_across_cards(cards[1 % n], cards[n - 1])
+    row = {
+        "phase": "pod_cards", "cards": n, "card_names": names, "shard_cards": maps,
+        "kernels_bit_equal_on": sorted(per_card), "equal_across_layouts": True,
+        "cpu_equal": True, "steady_state": "clean",
+        "losses": {name: {"config15": [e for e in run["failover"]["events"] if e[1] == "lost"],
+                          **{f"config{c}": {arm: v["losses"] for arm, v in cfg["arms"].items()}
+                             for c, cfg in run["scheduled"]["configs"].items()}}
+                   for name, run in runs.items()},
+        "card_launches": {name: {"config15": run["failover"]["card_launches"],
+                                 **{f"config{c}": cfg["card_launches"]
+                                    for c, cfg in run["scheduled"]["configs"].items()}}
+                          for name, run in runs.items()},
+        "figures": {name: _layout_figures(run) for name, run in runs.items()},
+        "layout_seconds": {name: run["seconds"] for name, run in runs.items()},
+        "checkpoint_across_cards": ckpt, "card": card, "seconds": time.perf_counter() - t0,
+    }
+    emit(row)
+    return row
+
+
 def redesign_report(name: str, timed: list, launched: list) -> dict:
     """B1's and B4's extra keys in the kernels line.  ``timed``: the kernel
     and deskew_kernels phases' rows at each of the path's shapes (device
@@ -5899,11 +6271,18 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-check", type=int, default=None, metavar="N",
                     help="only the fleet's multi-process check: N NCCL processes, one card "
                          "each, on (1, N) and (2, N/2) meshes (needs N cards)")
+    ap.add_argument("--pod-cards", type=int, default=None, metavar="N",
+                    help="only the serving pod over N cards, one shard a card (configs 15 and "
+                         "19-22), held to the same pod on one card and to the CPU, and every "
+                         "kernel checked on each card (needs N cards)")
     ap.add_argument("--phase", choices=sorted(ONE_PHASE), action="append", default=None,
                     help="build the kernels and run this one phase alone (its profiled half "
                          "included), with the same last lines; given again, the phases run "
                          "in the order given, in one process")
     args = ap.parse_args(argv)
+    if args.pod_cards and "CUDA_VISIBLE_DEVICES" not in os.environ:
+        # the pod spreads over every visible card: show it the first N
+        os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(str(d) for d in range(args.pod_cards))
 
     try:
         import torch
@@ -5929,6 +6308,19 @@ def main(argv=None) -> int:
                 for s in (1, 2) if n % s == 0}
         emit({"phase": "mesh_check", "cards": n, "meshes": rows})
         print(info["nvidia_smi"], flush=True)
+        return 0
+    if args.pod_cards:
+        n = args.pod_cards
+        check(torch.cuda.device_count() == n,
+              f"--pod-cards {n} needs {n} cards, {torch.cuda.device_count()} visible")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        info = phase_device()
+        phase_build()
+        phase_pod_cards(n, info["nvidia_smi"], info["nvidia_smi_cards"])
+        print(info["nvidia_smi"], flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
         return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False

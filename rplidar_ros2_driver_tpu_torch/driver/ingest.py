@@ -116,7 +116,11 @@ class StagingPool:
     Reuse safety is the caller's completion barrier: a pair is ``give``-n
     back only after its dispatch's results were fetched (or, on the card,
     its completion event fired), which proves the device consumed the
-    staged inputs.  Thread-safe."""
+    staged inputs.  The serving pod shares one pool between shards on
+    different cards: page-locked memory is mapped for every card, and each
+    engine's barrier is on its OWN card's stream (the fetch from its
+    device, the event recorded on its device's current stream), the one
+    its staged upload was issued on.  Thread-safe."""
 
     def __init__(self, pin: bool = False) -> None:
         self.pin = pin
@@ -183,7 +187,9 @@ class _Landing:
                 dst.copy_(src, non_blocking=True)
             self.host.append(buf)
         self.event = torch.cuda.Event()
-        self.event.record()
+        # on the results' card, whose stream the copies were issued on
+        # (the current device may be another card)
+        self.event.record(torch.cuda.current_stream(results[0].device))
 
     def _take(self, shape: tuple, dtype) -> torch.Tensor:
         free = self._pool.get((shape, dtype))

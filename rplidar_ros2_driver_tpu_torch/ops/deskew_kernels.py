@@ -20,9 +20,10 @@ CPU runs the kernel's plain PyTorch version (:func:`beam_min_plain`,
 :func:`shift_sad_plain` — also the ``deskew_backend="xla"`` arm); a CUDA
 tensor launches the kernel (built from the source at first use,
 utils/cuda_build.py) or raises — there is no fallback.  ``launch_counts``
-counts the launches of each kernel; only a launch adds to it.  The
-kernels' design is in the source's header note.  Both launch through the
-slim launch path (utils/launch.py).
+counts the launches of each kernel and ``card_launches`` each kernel's on
+each card; only a launch adds to them.  The kernels' design is in the
+source's header note.  Both launch through the slim launch path
+(utils/launch.py).
 """
 
 from __future__ import annotations
@@ -30,18 +31,27 @@ from __future__ import annotations
 import torch
 
 from rplidar_ros2_driver_tpu_torch.ops.filters import _INT_INF
-from rplidar_ros2_driver_tpu_torch.utils.launch import I, VP, KernelEntry, current_stream
+from rplidar_ros2_driver_tpu_torch.utils.launch import (
+    I,
+    VP,
+    KernelEntry,
+    count_launch,
+    current_stream,
+)
 
 _EMPTY = _INT_INF
 _INT32 = torch.int32
 
 # kernel name -> launches since the last reset_launch_counts()
 launch_counts = {"beam_min": 0, "shift_sad": 0}
+# (kernel name, card index) -> launches since the last reset_launch_counts()
+card_launches: dict = {}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    card_launches.clear()
 
 
 # the C entries: pointers, sizes, the card's index, the stream
@@ -105,7 +115,7 @@ def beam_min_kernel(beam: torch.Tensor, values: torch.Tensor, nbeams: int) -> to
         return out
     _B4(beam.data_ptr(), values.data_ptr(), out.data_ptr(), rows, n, nbeams, dev,
         current_stream(dev))
-    launch_counts["beam_min"] += 1
+    count_launch(launch_counts, card_launches, "beam_min", dev)
     return out
 
 
@@ -174,5 +184,5 @@ def shift_sad_kernel(prev: torch.Tensor, cur: torch.Tensor, shifts: torch.Tensor
         return out
     _B5(prev.data_ptr(), cur.data_ptr(), shifts.data_ptr(), out.data_ptr(), rows, c, d,
         min_valid, max_trans, dev, current_stream(dev))
-    launch_counts["shift_sad"] += 1
+    count_launch(launch_counts, card_launches, "shift_sad", dev)
     return out

@@ -18,8 +18,9 @@ CPU runs the kernel's plain PyTorch version (:func:`temporal_median_plain`,
 :func:`sorted_replace_plain`, :func:`sliding_median_plain`); a CUDA tensor
 launches the kernel (built from the source at first use,
 utils/cuda_build.py) or raises — there is no fallback.  ``launch_counts``
-counts the launches of each kernel; only a launch adds to it.  What bounds
-the kernels and how they are built is in each source's header note.
+counts the launches of each kernel and ``card_launches`` each kernel's on
+each card; only a launch adds to them.  What bounds the kernels and how
+they are built is in each source's header note.
 Each launches through the slim launch path (utils/launch.py: its C entry
 resolved once, the raw current stream, the device index handed to C).
 """
@@ -36,15 +37,24 @@ from rplidar_ros2_driver_tpu_torch.ops.filters import (
     sorted_replace,
     temporal_median,
 )
-from rplidar_ros2_driver_tpu_torch.utils.launch import I, VP, KernelEntry, current_stream
+from rplidar_ros2_driver_tpu_torch.utils.launch import (
+    I,
+    VP,
+    KernelEntry,
+    count_launch,
+    current_stream,
+)
 
 # kernel name -> launches since the last reset_launch_counts()
 launch_counts = {"temporal_median": 0, "sorted_replace": 0, "sliding_median": 0}
+# (kernel name, card index) -> launches since the last reset_launch_counts()
+card_launches: dict = {}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    card_launches.clear()
 
 
 _FLOAT32 = torch.float32
@@ -106,7 +116,7 @@ def temporal_median_kernel(window: torch.Tensor) -> torch.Tensor:
         return out
     dev = window.get_device()
     _B1(window.data_ptr(), out.data_ptr(), w, b, dev, current_stream(dev))
-    launch_counts["temporal_median"] += 1
+    count_launch(launch_counts, card_launches, "temporal_median", dev)
     return out
 
 
@@ -133,7 +143,7 @@ def sorted_replace_kernel(
         return out, med
     _B2(sorted_w.data_ptr(), old_v.data_ptr(), new_v.data_ptr(), out.data_ptr(),
         med.data_ptr(), w, b, dev.index, current_stream(dev.index))
-    launch_counts["sorted_replace"] += 1
+    count_launch(launch_counts, card_launches, "sorted_replace", dev.index)
     return out, med
 
 
@@ -181,5 +191,5 @@ def sliding_median_kernel(ext: torch.Tensor, window: int) -> torch.Tensor:
     dev = ext.device.index
     warps, rows = sliding_plan(window, k)
     _B3(ext.data_ptr(), out.data_ptr(), window, k, b, warps, rows, dev, current_stream(dev))
-    launch_counts["sliding_median"] += 1
+    count_launch(launch_counts, card_launches, "sliding_median", dev)
     return out

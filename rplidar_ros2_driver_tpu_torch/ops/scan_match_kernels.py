@@ -19,12 +19,13 @@ CPU runs the kernel's plain PyTorch version (:func:`coarse_scores_plain`,
 :func:`fine_scores_plain`, :func:`log_odds_update_plain` — also the
 ``match_backend="xla"`` arm); a CUDA tensor launches the kernel (built
 from the source at first use, utils/cuda_build.py) or raises — there is
-no fallback.  ``launch_counts`` counts the launches of each kernel; only a
-launch adds to it.  Each launches through the slim launch path
-(utils/launch.py).  The design of each kernel is in the source's header
-note; all three launch in thread block clusters on the shapes
-:func:`coarse_plan`, :func:`fine_plan` and :func:`update_plan` choose (pure
-functions of the shape and the card's SM count).
+no fallback.  ``launch_counts`` counts the launches of each kernel and
+``card_launches`` each kernel's on each card; only a launch adds to them.
+Each launches through the slim launch path (utils/launch.py).  The design
+of each kernel is in the source's header note; all three launch in thread
+block clusters on the shapes :func:`coarse_plan`, :func:`fine_plan` and
+:func:`update_plan` choose (pure functions of the shape and the card's SM
+count).
 """
 
 from __future__ import annotations
@@ -42,15 +43,24 @@ from rplidar_ros2_driver_tpu_torch.ops.scan_match import (
     rotate_rows,
     select_cell_hits,
 )
-from rplidar_ros2_driver_tpu_torch.utils.launch import I, VP, KernelEntry, current_stream
+from rplidar_ros2_driver_tpu_torch.utils.launch import (
+    I,
+    VP,
+    KernelEntry,
+    count_launch,
+    current_stream,
+)
 
 # kernel name -> launches since the last reset_launch_counts()
 launch_counts = {"coarse_scores": 0, "fine_scores": 0, "log_odds_update": 0}
+# (kernel name, card index) -> launches since the last reset_launch_counts()
+card_launches: dict = {}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    card_launches.clear()
 
 
 # the C entries: pointers, sizes and the plan, the card's index, the stream
@@ -272,7 +282,7 @@ def coarse_scores_kernel(log_odds, pq, ok, posec, trig, cfg: MapConfig):
         n, cfg.grid, b, cfg.coarse, int(math.log2(cfg.coarse)), cfg.clamp_q,
         cfg.quant_shift, cfg.window_cells, *plan, dev.index, current_stream(dev.index),
     )
-    launch_counts["coarse_scores"] += 1
+    count_launch(launch_counts, card_launches, "coarse_scores", dev.index)
     return mq, score
 
 
@@ -324,7 +334,7 @@ def fine_scores_kernel(mq, pq, ok, posec, cos_q, sin_q, uv, cfg: MapConfig):
         n, cfg.grid, b, t, cfg.coarse * SUB, cfg.fine_radius, *plan, dev.index,
         current_stream(dev.index),
     )
-    launch_counts["fine_scores"] += 1
+    count_launch(launch_counts, card_launches, "fine_scores", dev.index)
     return out
 
 
@@ -382,5 +392,5 @@ def log_odds_update_kernel(log_odds, pq, ok, posec, trig, cfg: MapConfig):
         n, cfg.grid, b, cfg.hit_q, cfg.miss_q, cfg.clamp_q, cfg.free_samples,
         *update_plan(n, cfg.grid, _sm_count(dev.index)), dev.index, current_stream(dev.index),
     )
-    launch_counts["log_odds_update"] += 1
+    count_launch(launch_counts, card_launches, "log_odds_update", dev.index)
     return out

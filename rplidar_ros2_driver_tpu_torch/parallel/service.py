@@ -76,6 +76,7 @@ from rplidar_ros2_driver_tpu_torch.parallel.sharding import (
     create_sharded_state,
     make_mesh,
     place_state,
+    shard_card,
 )
 from rplidar_ros2_driver_tpu_torch.utils.fetch import bounded_fetch
 
@@ -1346,11 +1347,16 @@ class ElasticFleetService:
     state; on re-admission streams migrate back through fresh live
     snapshots.
 
-    Placement: with ``mesh=None`` shard ``s`` runs on
-    ``cuda:(s % device_count)`` (one card: every shard shares ``cuda:0``), or
-    on the host with ``filter_backend: cpu``; a given ``mesh`` serves every
-    shard.  Each host of ``hosts`` owns one StagingPool that its shards'
-    engines share.  Single controller.
+    Placement: with ``mesh=None`` each shard has a card of its own,
+    shard ``s`` on ``cuda:(s % device_count)``
+    (:func:`~rplidar_ros2_driver_tpu_torch.parallel.sharding.shard_card`:
+    a shard loss is a card dropping out of the pod; with fewer cards than
+    shards they take shards round-robin), or the host with
+    ``filter_backend: cpu``; a given ``mesh`` serves every shard on its one
+    device.  A stream crosses cards only as host arrays (its snapshot rows,
+    restored onto the destination lane's card).  Each host of ``hosts``
+    owns one StagingPool that its shards' engines share, whatever their
+    cards.  Single controller.
 
     Beside the per-tick seam (:meth:`submit_bytes`) the pod serves the
     scheduled seam: :meth:`attach_scheduler` (one pod-level TrafficShaper,
@@ -1396,19 +1402,20 @@ class ElasticFleetService:
         self.topology = FleetTopology(streams, shards, lanes, hosts=hosts)
         self.clock = clock or time.monotonic
         if mesh is None:
-            # one shard = one card, round-robin over the cards there are
-            # (one card: every shard shares it); the host on filter_backend cpu
+            # one shard = one card (sharding.shard_card); the host on
+            # filter_backend cpu
             dev = pick_device(params.filter_backend)
             meshes = [
-                make_mesh(1, device=dev if dev.type == "cpu"
-                          else torch.device("cuda", s % torch.cuda.device_count()))
+                make_mesh(1, device=dev if dev.type == "cpu" else torch.device(
+                    "cuda", shard_card(s, torch.cuda.device_count())))
                 for s in range(shards)
             ]
         else:
             meshes = [mesh] * shards
         self.meshes = meshes
         # one staging pool per HOST, owned by the pod and shared by the
-        # engines of its shards (pinned when they run on a card)
+        # engines of its shards, whatever their cards (pinned when they run
+        # on a card; a pair goes back only once its own card read it)
         pin = meshes[0].device.type == "cuda"
         self.staging_pools = [StagingPool(pin=pin) for _ in range(hosts)]
         self.shards = [

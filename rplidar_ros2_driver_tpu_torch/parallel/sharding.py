@@ -166,6 +166,20 @@ def make_mesh(
     return Mesh(stream, beam, device, coords=tuple(dm.get_coordinate()), device_mesh=dm)
 
 
+def shard_card(shard: int, cards: int) -> int:
+    """The card of serving-pod shard ``shard`` over ``cards`` cards: one
+    shard a card, round-robin, ``shard % cards`` (one card: every shard on
+    it).  With ``cards <= shards`` this is the first device of the JAX
+    pod's group for the shard (its groups are one device wide there).  With
+    more cards than shards the JAX pod gives each shard a group of ``cards
+    // shards`` devices on a stream = 1 mesh; a port mesh spans one device
+    in a process, so here shard ``s`` runs on card ``s`` alone and the
+    cards past the last shard stay idle."""
+    if cards < 1:
+        raise ValueError(f"a pod needs at least one card, got {cards}")
+    return shard % cards
+
+
 def _beams_per_shard(mesh: Mesh, beams: int) -> int:
     n_beam = mesh.shape["beam"]
     if beams % n_beam:

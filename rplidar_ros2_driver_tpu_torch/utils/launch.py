@@ -67,6 +67,14 @@ class KernelEntry:
             raise RuntimeError(f"{self.name} kernel launch failed: cudaError {rc}")
 
 
+def count_launch(totals: dict, by_card: dict, name: str, card: int) -> None:
+    """Count one launch of kernel ``name`` on card ``card`` in a kernel
+    module's ``launch_counts`` (by name) and ``card_launches`` (by (name,
+    card)): the wrapper calls this where it launches, and nowhere else."""
+    totals[name] += 1
+    by_card[name, card] = by_card.get((name, card), 0) + 1
+
+
 def current_stream(device_index: int) -> int:
     """The raw ``cudaStream_t`` of the current stream on card
     ``device_index``, as an int."""
