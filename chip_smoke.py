@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N] [--revs N] [--trace-dir DIR]
     python3 chip_smoke.py --phase NAME       # build, then one phase alone
     python3 chip_smoke.py --mesh-check N     # N cards: only the NCCL mesh check
-    python3 chip_smoke.py --pod-cards N      # N cards: only the pod, one shard a card
+    python3 chip_smoke.py --pod-cards N      # N cards: the pod and the meshes over them
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
@@ -203,6 +203,18 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 scan with psum and ring, each equal to one process); then
                 B1 at (64, N*2048) and B3 at (64, 256, 4*2048) timed with
                 their bounds;
+ 6b. mesh_blocks — the mesh held in one process (parallel/sharding.Mesh
+                over several blocks): a (2, 2) mesh whose four blocks all
+                sit on cuda:0 (make_mesh(devices=[cuda:0] * 4)); config 8
+                at full width (8 streams, W=64, 2048 beams, 256x256 at
+                0.25 m, 3200 points, 2 chunks of 256 scans) with the sort
+                (B3 once a block a chunk) and inc medians, and config 10's
+                host arm at N = 8 for 16 ticks (sort with psum and with
+                ring, B1 once a block a dispatched tick; inc, B2), the
+                ticks after two under guards.steady_state; every chunk's
+                ranges and state, every published output and the final
+                snapshot byte-equal to the (1, 1) card mesh and to the CPU
+                (config 8's first chunk);
   7. kernels  — each kernel (B1, B2, B3) against its plain PyTorch version
                 on the card (exact equality; +inf equals +inf; B1 also at
                 W = 1, 31, 32, 33, 96, 1536 and 1537 — the last past its
@@ -323,14 +335,16 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 checkpoints, scenarios and tooling phases'
                 (``checkpoints_launches``, ``scenarios_launches``,
                 ``tooling_launches``), the graded phase's
-                (``graded_launches``), B6, B7 and B8 theirs at the 1024^2
-                mapper's tick (``graded_map1024_tick``), B1 and
+                (``graded_launches``), B1, B2 and B3 theirs on the
+                mesh_blocks phase's (``mesh_blocks_launches``), B6, B7 and
+                B8 theirs at the 1024^2 mapper's tick (``graded_map1024_tick``), B1 and
                 B3 their times at the fleet's widths (``fleet_shapes``),
                 B6, B7 and B8 theirs at config 18's tick
                 (``fused_mapping_tick``).
 
 ``--phase NAME`` (e2e, fused_mapping, failover, scheduled, checkpoints,
-scenarios, tooling, graded, fleet, loop — the last after the replay phase
+scenarios, tooling, graded, fleet, mesh_blocks, loop — the last after the
+replay phase
 that makes its capture) builds the kernels and runs that phase alone, its
 profiled half included, then the same last two lines: a long phase's line
 then fits the end of the output.  Given more than once, the phases run in
@@ -343,15 +357,27 @@ run, and the (1, N) mesh's state saved as a sharded checkpoint and
 restored onto the (2, N/2) mesh and whole onto one process, bit-equal; it
 prints the card's name and power limit last.
 
-``--pod-cards N`` runs only the serving pod over N cards (phase_pod_cards):
-every kernel bit-equal to its plain version on each card; configs 15 and
-19-22 as the failover and scheduled phases run them, once with one shard a
-card (shard s on cuda:(s % N)) and once with every shard on cuda:0, the
-two byte-equal (outputs, events, replay plans, stored snapshots, map rows,
-logs) and equal to the one CPU run, each hosting card launching its
-path's kernels; both layouts' ticks/s, p50/p99 and per-card busy ms and
-idle share side by side; a shard's checkpoint saved on one card and
-loaded onto another.  It shows the pod only the first N cards
+``--pod-cards N`` runs only the N cards in one process (phase_pod_cards):
+each pair's peer access; every kernel bit-equal to its plain version on
+each card; configs 15 and 19-22 as the failover and scheduled phases run
+them, once over the cards (the pod's groups, parallel/sharding.pod_groups:
+one card a shard for 3-4 shards, the carried arm's 2 shards on cards 0-1
+and 2-3, its engines on each group's lead card) and once with every shard
+on cuda:0, the two byte-equal (outputs, events, replay plans, stored
+snapshots, map rows, logs) and equal to the one CPU run, each lead card
+launching its path's kernels; both layouts' ticks/s, p50/p99 and per-card
+busy ms and idle share side by side; a shard's checkpoint saved on one
+card and loaded onto another.  Then the one-process meshes over the cards
+(phase_pod_cards_mesh): config 8 and config 10's host arm as mesh_blocks
+runs them over (2, N/2) and (1, N) meshes of the cards, byte-equal to the
+(1, 1) card run and the CPU, each card launching its blocks' kernels and
+no other card any; config 15's traffic on pods of 2 shards of N/2 cards
+(shard 1 killed over ticks 10-12) and 1 shard of N cards (each shard on
+its group's lead card, the group's other cards without work), each equal
+to the same pod on cuda:0 under the guard; a (2, N/2)
+mesh's checkpoint loaded onto a (1, 1) card mesh and continued
+byte-equal; each layout's profiled config-8 chunk and config-10 tick
+(per-card busy ms, idle share, scans/s) beside the (1, 1) card's.  It shows the pod only the first N cards
 (CUDA_VISIBLE_DEVICES, when unset) and exits non-zero with fewer; then
 the card's name and power limit and the usual last line.
 
@@ -456,6 +482,14 @@ SCHEDULED = {
     22: dict(streams=6, shards=3, run=8, map_grid=256, map_cell_m=0.05, world_cap=8,
              merge_revs=1, publish_ticks=4, tile_cells=8, wall_len=40, warm=4),
 }
+# the mesh held in one process over several blocks (parallel/sharding.Mesh):
+# config 8 (bench.py GRADED[8], bench_fleet) at full width — 8 streams, W=64,
+# 2048 beams, 256x256 at 0.25 m, 3200-point revolutions cycled from 32 seeded
+# ones, 2 chunks of 256 scans — and config 10's host arm at N = 8 for 16
+# ticks; a (2, 2) mesh of four blocks on cuda:0 in the default run, (2, 2)
+# and (1, 4) meshes of cards 0-3 with --pod-cards 4 (and the (2, 2) mesh's
+# checkpoint, saved after tick 8, loaded onto a (1, 1) card mesh)
+MESH_BLOCKS = dict(streams=8, chunk=256, chunks=2, seed_revs=32, ticks=16, ckpt_save=8)
 # the sharded checkpoints (utils/checkpoint_sharded.py): config 10's service
 # (FLEET's widths, N = 8) over 20 ticks of seeded 3200-point revolutions,
 # saved after tick 10; config 12's fused mapper (MAPPING) saved after its
@@ -3349,8 +3383,9 @@ def _fleet_params(backend: str, ingest: str = "host", **over):
     return DriverParams(**kw)
 
 
-def _fleet_service(backend: str, ingest: str, n: int, run: int, **over):
-    """A warmed service of config 10 (both kernels built and loaded)."""
+def _fleet_service(backend: str, ingest: str, n: int, run: int, mesh=None, **over):
+    """A warmed service of config 10 (both kernels built and loaded) on
+    ``mesh`` (None: the service's default)."""
     from rplidar_ros2_driver_tpu_torch.parallel.service import ShardedFilterService
     from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
 
@@ -3358,6 +3393,7 @@ def _fleet_service(backend: str, ingest: str, n: int, run: int, **over):
         _fleet_params(backend, ingest, **over), n, beams=FLEET["beams"],
         capacity=FLEET["capacity"],
         fleet_ingest_buckets=(run,) if ingest == "fused" else None,
+        mesh=mesh,
     )
     svc._ensure_byte_ingest()
     if ingest == "fused":
@@ -4407,7 +4443,9 @@ def _fo_pod(backend: str, kill, params, streams: int, beams: int, capacity: int,
             mesh=None):
     """A warmed pod on ``backend`` with a fake clock; ``kill`` a (shard,
     start, stop) chaos kill or None; ``mesh`` one mesh for every shard, or
-    None: one card a shard (``--pod-cards``; one card: all on it)."""
+    None: the pod's groups of the visible cards (one card a shard with as
+    many cards as shards, one card: all on it), each shard on its group's
+    lead card."""
     from rplidar_ros2_driver_tpu_torch.driver.chaos import ShardChaosConfig, ShardChaosSchedule
     from rplidar_ros2_driver_tpu_torch.parallel.service import ElasticFleetService
     from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
@@ -4437,7 +4475,7 @@ def _out_digest(out):
 
 
 def _shard_cards(pod) -> list:
-    """Each shard's card index (-1: the host)."""
+    """Each shard's lead card index (-1: the host)."""
     return [-1 if m.device.type == "cpu" else m.device.index for m in pod.meshes]
 
 
@@ -4613,7 +4651,7 @@ def phase_failover(device, mesh=None, cpu_runs=None) -> dict:
     dispatch a tick on every surviving shard, only chaos losses; then the
     carried-map arm held to its CPU run.  Runs before any profiler session
     (its host times); the profiled half is :func:`failover_profile`.
-    ``mesh`` serves every shard (None: one card a shard); ``cpu_runs``
+    ``mesh`` serves every shard (None: the pod's groups of cards); ``cpu_runs``
     keeps the CPU runs for a second layout (:func:`_memo`).  ``records`` holds what
     ``--pod-cards`` compares across layouts."""
     import torch
@@ -6018,7 +6056,7 @@ def graded_profile(device, card_name: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# --pod-cards: the serving pod with one shard a card
+# --pod-cards: the serving pod over the cards (the pod's groups)
 # ---------------------------------------------------------------------------
 
 # the kernels each hosting card must launch on a pod path: the fused
@@ -6115,29 +6153,38 @@ def _layout_figures(run: dict) -> dict:
     return out
 
 
-def phase_pod_cards(n: int, card: str, names: list) -> dict:
-    """``--pod-cards N``: the serving pod over N cards in one process, one
-    shard a card (parallel/sharding.shard_card).  First every kernel is
+def phase_pod_cards(n: int, card: str, names: list, seed: int = 0) -> dict:
+    """``--pod-cards N``: the serving pod over N cards in one process, the
+    shards on the pod's groups (parallel/sharding.pod_groups: one card a
+    shard when the shards are at least as many, else N/shards cards a
+    shard, its fused engines on the group's lead card).  First every kernel is
     held bit-equal to its plain version on each card (the kernels phases'
     checks: B6-B8 set up their cluster launches once per card).  Then
     config 15 (the failover pod and its carried arm) and configs 19-22
     (scheduled serving) run twice, as their phases run them — every check
     of those phases, guards.steady_state over the whole pod on every card,
-    only the planned chaos kills lost: once with one shard a card and once
+    only the planned chaos kills lost: once over the cards and once
     with one ``make_mesh(1, device="cuda:0")`` serving every shard; every
     output, event, replay plan, stored snapshot (tick and bytes), map row
     and log of the first equals the second's, and both equal the one CPU
-    run they are held to.  Each hosting card launched its path's kernels,
+    run they are held to.  Each lead card launched its path's kernels,
     and no other card did.  Then each layout's profiled pod tick and
     drains (busy ms and idle share per card), a shard's checkpoint saved
     on card 1 and loaded onto card N-1, and one line with the figures of
-    both layouts, recorded beside each other (no claim)."""
+    both layouts, recorded beside each other (no claim); then the
+    one-process meshes over the cards (:func:`phase_pod_cards_mesh`)."""
     import torch
 
-    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh, shard_card
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh, pod_groups
 
     t0 = time.perf_counter()
     cards = [torch.device("cuda", d) for d in range(n)]
+    for a in range(n):
+        # peer access between every pair of cards (a copy between two cards
+        # without it is staged through the host by CUDA)
+        emit({"phase": "pod_cards_peer", "card": a,
+              "can_access_peer": {b: torch.cuda.can_device_access_peer(a, b)
+                                  for b in range(n) if b != a}})
     per_card = {d.index: _kernels_on_card(d) for d in cards}
     emit({"phase": "pod_cards_kernels", "cards": n, "per_card": per_card})
 
@@ -6171,8 +6218,9 @@ def phase_pod_cards(n: int, card: str, names: list) -> dict:
             _check_cards(f"{name} config {c}", cfg["card_launches"], cfg["shard_cards"],
                          POD_MAP if c == 22 else POD_B1)
     for part, cards_of in maps["cards"].items():
-        check(cards_of == [shard_card(s, n) for s in range(len(cards_of))],
-              f"pod cards: {part}'s shards sit on {cards_of}, not one card a shard over {n}")
+        leads = [g[0] for g in pod_groups(len(cards_of), n)]
+        check(cards_of == leads,
+              f"pod cards: {part}'s shards lead on {cards_of}, not {leads} (the pod's groups)")
         check(maps["one_card"][part] == [0] * len(cards_of),
               f"pod cards: the one-card {part} pod's shards sit on {maps['one_card'][part]}")
     emit({"phase": "pod_cards_map", "cards": n, "shard_cards": maps})
@@ -6184,6 +6232,7 @@ def phase_pod_cards(n: int, card: str, names: list) -> dict:
         failover_profile(cards[0], runs[name]["failover"], card, mesh)
         scheduled_profile(cards[0], runs[name]["scheduled"], card)
     ckpt = _checkpoint_across_cards(cards[1 % n], cards[n - 1])
+    mesh_row = phase_pod_cards_mesh(n, cards, card, seed)
     row = {
         "phase": "pod_cards", "cards": n, "card_names": names, "shard_cards": maps,
         "kernels_bit_equal_on": sorted(per_card), "equal_across_layouts": True,
@@ -6198,10 +6247,428 @@ def phase_pod_cards(n: int, card: str, names: list) -> dict:
                           for name, run in runs.items()},
         "figures": {name: _layout_figures(run) for name, run in runs.items()},
         "layout_seconds": {name: run["seconds"] for name, run in runs.items()},
-        "checkpoint_across_cards": ckpt, "card": card, "seconds": time.perf_counter() - t0,
+        "checkpoint_across_cards": ckpt, "mesh": {k: mesh_row[k] for k in ("layouts", "seconds")},
+        "card": card, "seconds": time.perf_counter() - t0,
     }
     emit(row)
     return row
+
+
+def phase_pod_cards_mesh(n: int, cards: list, card: str, seed: int) -> dict:
+    """``--pod-cards N``'s one-process meshes over the N cards: config 8
+    and config 10's host arm over (2, N/2) and (1, N) meshes of the cards,
+    each byte-equal to the one-card (1, 1) run and the CPU, each card
+    launching its blocks' kernels (:func:`_mb_layouts`); the pod with 2
+    shards of N/2 cards and 1 shard of N, each equal to the one-card pod
+    (:func:`_mb_pods`); a (2, N/2) checkpoint loaded onto a (1, 1) card
+    mesh and continued (:func:`_mb_checkpoint`); then each layout's
+    profiled config-8 chunk and config-10 tick beside the one-card run's
+    (per-card busy ms, idle share, scans/s; no claim)."""
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh
+
+    t0 = time.perf_counter()
+    layouts = {f"1x{n}": make_mesh(devices=cards, stream=1)}
+    if n % 2 == 0:
+        layouts = {f"2x{n // 2}": make_mesh(devices=cards, stream=2), **layouts}
+    cpu: dict = {}
+    row = {"phase": "pod_cards_mesh", "cards": n, **_mb_layouts(layouts, seed, cpu)}
+    emit({**row, "part": "layouts"})
+    if n >= 2:
+        row["pods"] = _mb_pods(n, cards)
+        emit({"phase": "pod_cards_mesh", "part": "pods", "pods": row["pods"], "card": card})
+    if n % 2 == 0 and n >= 4:
+        row["checkpoint"] = _mb_checkpoint(cards)
+    row["profiles"] = _mb_profiles(layouts, seed, cpu)
+    row.update(card=card, seconds=time.perf_counter() - t0)
+    emit({"phase": "pod_cards_mesh", "part": "profiles", "profiles": row["profiles"],
+          "checkpoint": row.get("checkpoint"), "card": card, "seconds": row["seconds"]})
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the mesh held in one process over several blocks (parallel/sharding.Mesh)
+# ---------------------------------------------------------------------------
+
+
+def _mb_chunks(seed: int) -> list:
+    """Config 8's packed chunks at full width: MESH_BLOCKS' streams, each
+    cycled from seeded revolutions as bench.py bench_fleet does, in
+    ``chunks`` chunks of ``chunk`` scans: (S, K, 3, N) uint16 and (S, K)
+    counts each."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.ops.filters import pack_host_scans_compact
+
+    mb = MESH_BLOCKS
+    scans = make_revolutions(seed, mb["seed_revs"], FLEET["points"])
+    out = []
+    for c in range(mb["chunks"]):
+        seqs, counts = zip(*[pack_host_scans_compact(
+            [scans[(c * mb["chunk"] + i + 7 * s) % len(scans)] for i in range(mb["chunk"])],
+            FLEET["capacity"]) for s in range(mb["streams"])])
+        out.append((np.stack(seqs), np.stack(counts).astype(np.int32)))
+    return out
+
+
+def _mb_ticks() -> list:
+    """Config 10's byte ticks at N = MESH_BLOCKS' streams: one 3200-point
+    DenseBoost revolution a stream a tick (bench.py bench_fleet_ingest)."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    mb = MESH_BLOCKS
+    frames = denseboost_frames(FLEET["seed"], mb["ticks"] + 1, FLEET["points"])
+    return fleet_byte_ticks(frames, mb["streams"], FLEET["points"] // 40,
+                            int(Ans.MEASUREMENT_DENSE_CAPSULED))[: mb["ticks"]]
+
+
+def _mb_blocks_on(mesh) -> dict:
+    """{card index: blocks of ``mesh`` on it}."""
+    out: dict = {}
+    for v in mesh.blocks:
+        if v.device.type == "cuda":
+            out[v.device.index] = out.get(v.device.index, 0) + 1
+    return out
+
+
+def _mb_check_launches(what: str, mesh, got: dict, by_card: dict, name: str, units: int) -> None:
+    """``name`` launched once a block a unit (tick or chunk): ``units`` x
+    blocks in all, each card as many times as it holds blocks, and no card
+    outside the mesh launched anything.  On the host nothing launches."""
+    if mesh.device.type != "cuda":
+        return
+    per = _mb_blocks_on(mesh)
+    check(got.get(name, 0) == units * len(mesh.blocks),
+          f"mesh blocks: {what}: {name} launched {got.get(name, 0)} times, not once a block "
+          f"a unit ({units} x {len(mesh.blocks)})")
+    for card, n in per.items():
+        check(by_card.get(card, {}).get(name, 0) == units * n,
+              f"mesh blocks: {what}: cuda:{card} launched {name} "
+              f"{by_card.get(card, {}).get(name, 0)} times for its {n} blocks x {units}")
+    check(set(by_card) <= set(per),
+          f"mesh blocks: {what}: a card outside the mesh launched a kernel: {by_card}")
+
+
+def _mb_scan(mesh, median: str, reduce: str, chunks) -> dict:
+    """Config 8's fused replay over ``mesh`` (build_sharded_scan; median
+    ``pallas`` is B3 a block a chunk): each chunk's ranges and the state
+    after it (digests), the launches in all and by card, the seconds.  On
+    a card one chunk runs first on a state thrown away, untimed and
+    uncounted: each card's first chunk maps its allocator's blocks."""
+    import dataclasses
+
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.filters.chain import config_from_params
+    from rplidar_ros2_driver_tpu_torch.parallel import sharding as ts
+
+    backend = "cuda" if mesh.device.type == "cuda" else "cpu"
+    cfg = dataclasses.replace(
+        config_from_params(_fleet_params(backend, median_backend=median), FLEET["beams"],
+                           platform=mesh.device.type), voxel_reduce=reduce)
+    scan = ts.build_sharded_scan(mesh, cfg)
+    if mesh.device.type == "cuda":
+        scan(ts.create_sharded_state(mesh, cfg, MESH_BLOCKS["streams"]), *chunks[0])
+    state = ts.create_sharded_state(mesh, cfg, MESH_BLOCKS["streams"])
+    _sync(mesh.device)
+    _reset_counts()
+    ranges, states, wall = [], [], 0.0
+    for seq, cnt in chunks:
+        t0 = time.perf_counter()
+        state, r = scan(state, seq, cnt)
+        _sync(mesh.device)
+        wall += time.perf_counter() - t0
+        ranges.append(_digest([r.cpu().numpy()]))
+        st = ts.gather_state(mesh, state)
+        states.append(_digest(st[k] for k in sorted(st)))
+    return {"ranges": ranges, "states": states, "launches": _counts(),
+            "card_launches": _card_counts(), "seconds": wall,
+            "scans_per_s": MESH_BLOCKS["streams"] * MESH_BLOCKS["chunk"] * len(chunks) / wall}
+
+
+def _mb_host_service(mesh, median: str, reduce: str):
+    """Config 10's host-arm service over ``mesh``, warmed, its blocks'
+    voxel partials summed by ``reduce`` (a FilterConfig choice, set on the
+    service's config: the service takes the params' psum)."""
+    import dataclasses
+
+    backend = "cuda" if mesh.device.type == "cuda" else "cpu"
+    svc = _fleet_service(backend, "host", MESH_BLOCKS["streams"], FLEET["points"] // 40,
+                         mesh=mesh, median_backend=median)
+    svc.cfg = dataclasses.replace(svc.cfg, voxel_reduce=reduce)
+    return svc
+
+
+def _mb_host(mesh, median: str, reduce: str, ticks) -> dict:
+    """Config 10's host arm over ``mesh``: submit_bytes a tick, the ticks
+    after the first two under guards.steady_state on a card (every card
+    of the mesh: nothing built, no new segment, no undeclared sync).
+    Returns the published outputs (digests), the final snapshot (digest),
+    the launches in all and by card, the dispatched ticks, ticks/s and the
+    copies between cards a dispatched tick (``sharding.peer_copies``)."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.parallel import sharding as ts
+    from rplidar_ros2_driver_tpu_torch.utils import guards
+
+    svc = _mb_host_service(mesh, median, reduce)
+    warm = 2
+    outs = [svc.submit_bytes(t) for t in ticks[:warm]]
+    _sync(mesh.device)
+    _reset_counts()
+    copies = ts.peer_copies
+    scope = (guards.steady_state(tag=f"mesh blocks config 10 {mesh}")
+             if mesh.device.type == "cuda" else contextlib.nullcontext())
+    lat = []
+    with scope:
+        for t in ticks[warm:]:
+            t0 = time.perf_counter()
+            outs.append(svc.submit_bytes(t))
+            lat.append(time.perf_counter() - t0)
+    _sync(mesh.device)
+    copies = ts.peer_copies - copies
+    snap = svc.snapshot()
+    pub = _published(outs, MESH_BLOCKS["streams"])
+    dispatched = sum(any(o is not None for o in res) for res in outs[warm:])
+    return {"published": [[_out_digest(o) for o in p] for p in pub],
+            "snapshot": _digest(snap[k] for k in sorted(snap)),
+            "launches": _counts(), "card_launches": _card_counts(), "dispatched": dispatched,
+            "peer_copies_per_tick": copies / max(dispatched, 1),
+            "ticks_per_s": len(lat) / float(np.sum(lat)), "tick_ms": _pcts(np.asarray(lat))}
+
+
+def _mb_layouts(layouts: dict, seed: int, cpu: dict) -> dict:
+    """Config 8 (both medians) and config 10's host arm (the sort median
+    with psum and ring, the inc median with psum) over each mesh of
+    ``layouts`` and over the (1, 1) mesh on cuda:0: every layout byte-equal
+    to the (1, 1) card run (every chunk's ranges and state, every published
+    output and the final snapshot) and to the CPU arm (config 8's first
+    chunk, config 10's whole run); B3 / B1 / B2 launched once a block a
+    chunk or tick on each block's card, and on no other card.  The (1, 1)
+    mesh sits on the first layout's lead device."""
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh
+
+    mb = MESH_BLOCKS
+    t0 = time.perf_counter()
+    lead = next(iter(layouts.values())).device
+    one, host = make_mesh(device=lead), make_mesh(device="cpu")
+    chunks = _memo(cpu, "mb chunks", lambda: _mb_chunks(seed))
+    ticks = _memo(cpu, "mb ticks", _mb_ticks)
+    row: dict = {"config8": {}, "config10": {}, "launches": {}}
+
+    def add(launches: dict) -> None:
+        for k, v in launches.items():
+            row["launches"][k] = row["launches"].get(k, 0) + v
+
+    for median in ("pallas", "inc"):
+        ref = _mb_scan(one, median, "psum", chunks)
+        cpu_run = _memo(cpu, f"mb config8 {median}", lambda: _mb_scan(host, median, "psum",
+                                                                        chunks[:1]))
+        check(ref["ranges"][:1] == cpu_run["ranges"] and ref["states"][:1] == cpu_run["states"],
+              f"mesh blocks: config 8 {median}: the (1, 1) card run differs from the CPU")
+        arm = {"one_card_scans_per_s": ref["scans_per_s"]}
+        for name, mesh in layouts.items():
+            got = _mb_scan(mesh, median, "psum", chunks)
+            check(got["ranges"] == ref["ranges"] and got["states"] == ref["states"],
+                  f"mesh blocks: config 8 {median} over {name} differs from the (1, 1) card run")
+            if median == "pallas":
+                _mb_check_launches(f"config 8 over {name}", mesh, got["launches"],
+                                   got["card_launches"], "sliding_median", len(chunks))
+            add(got["launches"])
+            arm[name] = {"scans_per_s": got["scans_per_s"], "seconds": got["seconds"],
+                         "card_launches": got["card_launches"]}
+        row["config8"][median] = arm
+    for median, reduce in (("pallas", "psum"), ("pallas", "ring"), ("inc", "psum")):
+        ref = _mb_host(one, median, reduce, ticks)
+        cpu_run = _memo(cpu, f"mb config10 {median}", lambda: _mb_host(host, median, "psum", ticks))
+        check(ref["published"] == cpu_run["published"] and ref["snapshot"] == cpu_run["snapshot"],
+              f"mesh blocks: config 10 {median}: the (1, 1) card run differs from the CPU")
+        check(sum(len(p) for p in ref["published"]) > 0, "mesh blocks: config 10 published nothing")
+        kernel = "sorted_replace" if median == "inc" else "temporal_median"
+        arm = {"one_card_ticks_per_s": ref["ticks_per_s"], "dispatched": ref["dispatched"]}
+        for name, mesh in layouts.items():
+            got = _mb_host(mesh, median, reduce, ticks)
+            check(got["published"] == ref["published"] and got["snapshot"] == ref["snapshot"],
+                  f"mesh blocks: config 10 {median}/{reduce} over {name} differs from the "
+                  "(1, 1) card run")
+            _mb_check_launches(f"config 10 {median}/{reduce} over {name}", mesh, got["launches"],
+                               got["card_launches"], kernel, got["dispatched"])
+            add(got["launches"])
+            arm[name] = {"ticks_per_s": got["ticks_per_s"], "tick_ms": got["tick_ms"],
+                         "peer_copies_per_tick": got["peer_copies_per_tick"],
+                         "card_launches": got["card_launches"]}
+        row["config10"][f"{median}_{reduce}"] = arm
+    row.update(streams=mb["streams"], chunk=mb["chunk"], chunks=mb["chunks"], ticks=mb["ticks"],
+               layouts={name: str(m) for name, m in layouts.items()}, steady_state="clean",
+               equal_to_one_card=True, cpu_equal=True, seconds=time.perf_counter() - t0)
+    return row
+
+
+def phase_mesh_blocks(device, seed: int, card: str) -> dict:
+    """The default run's one-process mesh: a (2, 2) mesh whose four blocks
+    all sit on ``device`` (make_mesh(devices=[card] * 4)), config 8 and
+    config 10's host arm over it (:func:`_mb_layouts`)."""
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(devices=[device] * 4, stream=2)
+    row = {"phase": "mesh_blocks", **_mb_layouts({"2x2_one_card": mesh}, seed, {}), "card": card}
+    emit(row)
+    return row
+
+
+def _mb_pods(n: int, cards: list) -> dict:
+    """Config 15's traffic on pods whose shards hold several cards
+    (ElasticFleetService(mesh=None) over the n visible cards: the groups
+    of parallel/sharding.pod_groups): 2 shards of n/2 cards (shard 1
+    killed over ticks 10-12) and 1 shard of n cards, each against the same
+    pod with every shard on cuda:0, the post-warm ticks under
+    guards.steady_state: outputs, events, replay plan, stored snapshots
+    and map rows equal; the pod's groups JAX's, each shard's one-card mesh
+    on its group's lead card, the lead cards launching the pod's kernels
+    and no other card launching any (a shard computes on its lead card
+    alone)."""
+    import dataclasses
+
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh, pod_groups
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+    from rplidar_ros2_driver_tpu_torch.utils import guards
+
+    fo = FAILOVER
+    run = fo["points"] // 40
+    ticks = fleet_byte_ticks(ring_frames(fo["revs"], fo["points"]), fo["streams"], run,
+                             int(Ans.MEASUREMENT_DENSE_CAPSULED))
+    backend = "cuda" if cards[0].type == "cuda" else "cpu"
+    out = {}
+    for shards, kill in ((2, fo["kill"]), (1, None)):
+        params = dataclasses.replace(_fo_params(backend), shard_count=shards)
+        recs = {}
+        for layout, mesh in (("groups", None), ("one_card", make_mesh(device=cards[0]))):
+            pod, fake = _fo_pod(backend, kill, params, fo["streams"], fo["beams"],
+                                fo["capacity"], run, mesh)
+            for tick in ticks[: fo["warm"]]:
+                pod.submit_bytes(tick)
+                fake["now"] += fo["dt"]
+            _sync(cards[0])
+            _reset_counts()
+            outs, secs = [], []
+            with guards.steady_state(tag=f"pod {shards} shards {layout}"):
+                for tick in ticks[fo["warm"]:]:
+                    t0 = time.perf_counter()
+                    outs.append([_out_digest(r) for r in pod.submit_bytes(tick)])
+                    secs.append(time.perf_counter() - t0)
+                    fake["now"] += fo["dt"]
+            _sync(cards[0])
+            recs[layout] = {"outs": outs, "record": _fo_record(pod),
+                            "card_launches": _card_counts(), "pod": pod,
+                            "ticks_per_s": len(secs) / float(np.sum(secs)),
+                            "tick_ms": _pcts(np.asarray(secs))}
+        g, o = recs["groups"], recs["one_card"]
+        what = f"pod cards: {shards} shard(s) of {n // shards} cards"
+        check(g["outs"] == o["outs"], f"{what}: outputs differ from the one-card pod")
+        for key, got in g["record"].items():
+            check(got == o["record"][key], f"{what}: {key} differ from the one-card pod")
+        groups = pod_groups(shards, n)
+        pod = g["pod"]
+        check(pod.groups == groups
+              and [m.device for m in pod.meshes] == [cards[grp[0]] for grp in groups]
+              and not any(m.multi_block for m in pod.meshes),
+              f"{what}: the shards are not on the lead cards of the groups {groups}")
+        if backend == "cuda":
+            _check_cards(what, g["card_launches"], [grp[0] for grp in groups], POD_MAP)
+        if kill is not None:
+            check(pod.evacuations == 1 and pod.readmits == 1,
+                  f"{what}: {pod.evacuations} evacuations, {pod.readmits} re-admissions")
+        out[f"{shards}x{n // shards}"] = {
+            "groups": groups, "events": g["record"]["events"],
+            "ticks_per_s": g["ticks_per_s"], "tick_ms": g["tick_ms"],
+            "one_card_ticks_per_s": o["ticks_per_s"], "one_card_tick_ms": o["tick_ms"],
+            "card_launches": g["card_launches"], "equal_to_one_card": True}
+    return out
+
+
+def _mb_checkpoint(cards: list) -> dict:
+    """Config 10's service over a (2, N/2) mesh of ``cards`` fed seeded
+    3200-point revolutions (submit, a revolution a stream a tick), saved
+    after MESH_BLOCKS["ckpt_save"] ticks (save_sharded: the global layout),
+    loaded onto a fresh (1, 1) service on the first card (the restored
+    snapshot equal to the saved one) and both continued byte-equal to the
+    end."""
+    import shutil
+
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh
+
+    mb = MESH_BLOCKS
+    t0 = time.perf_counter()
+    n = mb["streams"]
+    revs = make_revolutions(CHECKPOINTS["seed"], n * mb["ticks"], FLEET["points"])
+    ticks = [revs[k * n:(k + 1) * n] for k in range(mb["ticks"])]
+    src = _mb_host_service(make_mesh(devices=cards, stream=2), "pallas", "psum")
+    dst = _mb_host_service(make_mesh(device=cards[0]), "pallas", "psum")
+    cut = mb["ckpt_save"]
+    for t in ticks[:cut]:
+        src.submit(t)
+    tmp = tempfile.mkdtemp(prefix="rpl_mesh_ckpt_")
+    try:
+        path = os.path.join(tmp, "ckpt")
+        s0 = time.perf_counter()
+        src.save_sharded(path)
+        save_ms = (time.perf_counter() - s0) * 1e3
+        s0 = time.perf_counter()
+        check(dst.load_sharded(path), "mesh blocks checkpoint: the (1, 1) service refused it")
+        load_ms = (time.perf_counter() - s0) * 1e3
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = src.snapshot(), dst.snapshot()
+    check(all(_bits_equal(a[k], b[k]) for k in a), "mesh blocks checkpoint: the restored "
+          "(1, 1) state differs from the (2, 2) one")
+    for t in ticks[cut:]:
+        for x, y in zip(src.submit(t), dst.submit(t)):
+            check((x is None) == (y is None) and (x is None or _same_output(x, y)),
+                  "mesh blocks checkpoint: the continued (1, 1) service differs from the (2, 2)")
+    a, b = src.snapshot(), dst.snapshot()
+    check(all(_bits_equal(a[k], b[k]) for k in a),
+          "mesh blocks checkpoint: the final states differ")
+    return {"from": f"2x{len(cards) // 2} over {[str(c) for c in cards]}",
+            "to": f"1x1 on {cards[0]}", "saved_after": cut,
+            "ticks": len(ticks), "save_ms": save_ms, "load_ms": load_ms,
+            "seconds": time.perf_counter() - t0}
+
+
+def _mb_profiles(layouts: dict, seed: int, cpu: dict) -> dict:
+    """Per-card busy ms and idle share, beside the (1, 1) card run's: two
+    config-8 chunks (sort median; scans/s) and four config-10 host ticks
+    (sort, psum) over each layout, profiled after every host timing."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.filters.chain import config_from_params
+    from rplidar_ros2_driver_tpu_torch.parallel import sharding as ts
+
+    chunks = _memo(cpu, "mb chunks", lambda: _mb_chunks(seed))
+    ticks = _memo(cpu, "mb ticks", _mb_ticks)
+    card0 = torch.device("cuda", 0)
+    cfg = config_from_params(_fleet_params("cuda", median_backend="pallas"), FLEET["beams"],
+                             platform="cuda")
+    out = {}
+    for name, mesh in {"one_card": ts.make_mesh(device=card0), **layouts}.items():
+        scan = ts.build_sharded_scan(mesh, cfg)
+        box = {"state": ts.create_sharded_state(mesh, cfg, MESH_BLOCKS["streams"])}
+        feed = iter(chunks * 2)
+
+        def chunk_step():
+            seq, cnt = next(feed)
+            box["state"], _r = scan(box["state"], seq, cnt)
+
+        chunk_step()  # warm
+        c8 = _profiled(card0, chunk_step, 2)
+        c8["scans_per_s"] = MESH_BLOCKS["streams"] * MESH_BLOCKS["chunk"] / (c8["wall_ms"] / 1e3)
+        svc = _mb_host_service(mesh, "pallas", "psum")
+        for t in ticks[:2]:
+            svc.submit_bytes(t)
+        live = iter(ticks[2:6])
+        c10 = _profiled(card0, lambda: svc.submit_bytes(next(live)), 4)
+        out[name] = {"config8_chunk": c8, "config10_tick": c10}
+    return out
 
 
 def redesign_report(name: str, timed: list, launched: list) -> dict:
@@ -6252,6 +6719,7 @@ ONE_PHASE = {
     "scheduled": lambda device, seed, card: scheduled_profile(device, phase_scheduled(device),
                                                               card),
     "fleet": lambda device, seed, card: phase_fleet(device, seed),
+    "mesh_blocks": lambda device, seed, card: phase_mesh_blocks(device, seed, card),
     "checkpoints": lambda device, seed, card: phase_checkpoints(device),
     "scenarios": lambda device, seed, card: phase_scenarios(device),
     "tooling": lambda device, seed, card: phase_tooling(device),
@@ -6272,9 +6740,10 @@ def main(argv=None) -> int:
                     help="only the fleet's multi-process check: N NCCL processes, one card "
                          "each, on (1, N) and (2, N/2) meshes (needs N cards)")
     ap.add_argument("--pod-cards", type=int, default=None, metavar="N",
-                    help="only the serving pod over N cards, one shard a card (configs 15 and "
-                         "19-22), held to the same pod on one card and to the CPU, and every "
-                         "kernel checked on each card (needs N cards)")
+                    help="only the N cards in one process: the serving pod over them (configs 15 "
+                         "and 19-22, the pod's groups), config 8 and config 10's host arm over "
+                         "(2, N/2) and (1, N) meshes of them, each held to one card and to the "
+                         "CPU, and every kernel checked on each card (needs N cards)")
     ap.add_argument("--phase", choices=sorted(ONE_PHASE), action="append", default=None,
                     help="build the kernels and run this one phase alone (its profiled half "
                          "included), with the same last lines; given again, the phases run "
@@ -6317,7 +6786,7 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         info = phase_device()
         phase_build()
-        phase_pod_cards(n, info["nvidia_smi"], info["nvidia_smi_cards"])
+        phase_pod_cards(n, info["nvidia_smi"], info["nvidia_smi_cards"], args.seed)
         print(info["nvidia_smi"], flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -6347,6 +6816,7 @@ def main(argv=None) -> int:
     tooling = phase_tooling(device)
     graded = phase_graded(device, info["nvidia_smi"])
     fleet = phase_fleet(device, args.seed)
+    mesh_blocks = phase_mesh_blocks(device, args.seed, info["nvidia_smi"])
     fused_mapping_profile(device, fmap, info["nvidia_smi"])
     failover_profile(device, failover, info["nvidia_smi"])
     scheduled_profile(device, sched, info["nvidia_smi"])
@@ -6491,6 +6961,12 @@ def main(argv=None) -> int:
         # this slice's path: the graded configurations (1-4, 9, 11, 13, 16
         # and the 1024^2 map); B3 is not on it
         k["graded_launches"] = graded["launches"].get(k["name"], 0)
+        # this slice's path: config 8 and config 10's host arm over a (2, 2)
+        # mesh of four blocks on the card (B1, B2 and B3, once a block)
+        k["mesh_blocks_launches"] = mesh_blocks["launches"].get(k["name"], 0)
+        if k["name"] in ("temporal_median", "sorted_replace", "sliding_median"):
+            check(k["mesh_blocks_launches"] > 0,
+                  f"kernel {k['name']} never launched on the mesh blocks path")
         if k["name"] != "sliding_median":
             check(k["graded_launches"] > 0,
                   f"kernel {k['name']} never launched on the graded path")

@@ -20,8 +20,8 @@ backlog of ticks T at a time through the super-step.
 The host path (decoder + assembler + chain) stays the golden reference;
 the engines are held to it bit for bit (tests/test_torch_fused_ingest.py).
 
-The fleet engine runs on the card of ``params.filter_backend``, or on a
-one-process mesh's device (parallel/sharding.Mesh), and has the JAX
+The fleet engine runs on the card of ``params.filter_backend``, or on the
+lead card of a mesh held in this process (parallel/sharding.Mesh), and has the JAX
 package's checkpoint surface in its formats: the whole fleet
 (:meth:`FleetFusedIngest.snapshot` / :meth:`FleetFusedIngest.restore`)
 and one stream's rows (``snapshot_stream`` / ``restore_stream``, schema
@@ -576,7 +576,11 @@ class FleetFusedIngest:
             self.device = pick_device(params.filter_backend)
         elif mesh.spans_processes:
             # the engine runs N independent per-stream pipelines on one
-            # device; splitting them across processes is not its layout
+            # device; splitting them across processes is not its layout.
+            # A mesh held in this process (several cards included) runs
+            # them on its lead card: the JAX package places this state
+            # P("stream", ...), at stream = 1 a replica of one computation
+            # on every device of the mesh
             raise ValueError(
                 "FleetFusedIngest runs on a one-process mesh; a mesh that "
                 "spans processes feeds each process's streams through "

@@ -788,7 +788,36 @@ def fused_scan_core(
     Updates ``state`` IN PLACE, like the streaming step: the ring, hit
     grids, accumulator, cursor and fill count are written into the
     tensors it holds; only the derived ``median_sorted`` is replaced (one
-    re-sort per chunk).  Returns (state, (..., K, B) ranges)."""
+    re-sort per chunk).  Returns (state, (..., K, B) ranges).
+
+    It is :func:`fused_scan_front` then :func:`fused_scan_back`: several
+    beam blocks held in one process run every block's front half, sum
+    their partial hit grids, then every block's back half."""
+    front = fused_scan_front(state, packed_seq, counts, cfg, keys_fn=keys_fn,
+                             polar_fn=polar_fn, hits_fn=hits_fn)
+    return fused_scan_back(state, front, front.hits)
+
+
+@dataclasses.dataclass
+class ScanFront:
+    """What the front half of a fused chunk hands its back half: the
+    medians, the ring's age and ring index maps, the new cursor, the chunk
+    length, and the surviving scans' hit grids (None without the voxel
+    stage)."""
+
+    med: torch.Tensor
+    age: torch.Tensor
+    ring: torch.Tensor
+    cursor2: torch.Tensor
+    k: int
+    hits: Optional[torch.Tensor]
+
+
+def fused_scan_front(state, packed_seq, counts, cfg: FilterConfig, *, keys_fn, polar_fn,
+                     hits_fn) -> ScanFront:
+    """Steps 1-4 of :func:`fused_scan_core` and the voxel stage's hit
+    grids of the last min(K, W) scans (``hits_fn``'s output: partial on a
+    beam block whose sum is left to the caller)."""
     k = packed_seq.shape[-3]
     w, b_local = state.range_window.shape[-2:]
     dev = state.range_window.device
@@ -828,10 +857,22 @@ def fused_scan_core(
     # 5. voxel: the accumulator after the last step is the sum of the
     # final window's hit grids; only the last min(K, W) scans' grids
     # survive, so only those scans are projected
+    hits = None
     if cfg.enable_voxel:
         m = min(k, w)
-        new_hits = hits_fn(*polar_fn(med[..., k - m :, :]))  # (..., m, G, G)
-        if m < w:
+        hits = hits_fn(*polar_fn(med[..., k - m :, :]))  # (..., m, G, G)
+    return ScanFront(med, age, ring, cursor2, k, hits)
+
+
+def fused_scan_back(state: FilterState, front: ScanFront, new_hits: Optional[torch.Tensor]):
+    """The rest of :func:`fused_scan_core` once the chunk's hit grids are
+    whole (``new_hits``, None without the voxel stage): the hit ring, the
+    accumulator, the cursor, the fill count and the sorted window.
+    Returns (state, (..., K, B) ranges)."""
+    k, age, ring = front.k, front.age, front.ring
+    w = state.range_window.shape[-2]
+    if new_hits is not None:
+        if min(k, w) < w:
             # the W-K newest old grids
             kept = state.hit_window.take_along_dim(age[..., k:, :, None], dim=-3)
             ext_h = torch.cat([kept, new_hits], dim=-3)
@@ -840,13 +881,13 @@ def fused_scan_core(
         state.hit_window.copy_(ext_h.take_along_dim(ring[..., None], dim=-3))
         state.voxel_acc.copy_(ext_h.sum(dim=-3, dtype=torch.int32))
 
-    state.cursor.copy_(cursor2)
+    state.cursor.copy_(front.cursor2)
     state.filled.add_(k).clamp_(max=w)
     if state.median_sorted is not None:
         # K scans at once: the incremental backends' sorted window is
         # re-sorted wholesale to restore its invariant
         state.median_sorted = recompute_median_sorted(state.range_window)
-    return state, med
+    return state, front.med
 
 
 def compact_filter_scan(

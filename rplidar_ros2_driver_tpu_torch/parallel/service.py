@@ -6,9 +6,12 @@ rig or a fleet gateway): each stream keeps its own rolling window/voxel
 state, all hosted on one ``(stream, beam)`` mesh (parallel/sharding.py).
 Per tick the service stacks every stream's newest revolution into one
 count-embedded ``(streams, 3, N+1)`` upload, runs the one batched sharded
-step — ONE median launch for the whole fleet (B1, or B2 for ``inc``) —
-and hands back per-stream host outputs from ONE device->host copy of the
-tick's flat output wires.
+step — ONE median launch a mesh block (B1, or B2 for ``inc``) — and hands
+back per-stream host outputs from ONE device->host copy of the tick's flat
+output wires.  On a mesh held in this process with several blocks (by
+default every visible card) each block's stream rows go up to its own
+device, the blocks' voxel partials are summed in the process, and the
+outputs come together in global stream and beam order on the lead card.
 
 Where the JAX package donates the state to its compiled step, the state
 here is updated in place under ``self._lock`` (as ``ScanFilterChain``
@@ -72,11 +75,15 @@ from rplidar_ros2_driver_tpu_torch.parallel.sharding import (
     STATE_SPEC,
     _filter_step_shard,
     _shard_of,
+    _visible_cards,
     abstract_sharded_state,
+    block_states,
     create_sharded_state,
+    gather_state,
     make_mesh,
     place_state,
-    shard_card,
+    pod_groups,
+    step_blocks,
 )
 from rplidar_ros2_driver_tpu_torch.utils.fetch import bounded_fetch
 
@@ -139,7 +146,8 @@ class ShardedFilterService:
         if mesh is None:
             # a multi-process topology (the coordinator variables) joins
             # the process group first, so the default mesh spans every
-            # process; single-process this is the (1, 1) mesh
+            # process; single-process it spans every visible card (the
+            # (1, 1) host mesh on filter_backend cpu)
             multihost.initialize()
             dev = pick_device(params.filter_backend)
             mesh = make_mesh(device=dev if dev.type == "cpu" else None)
@@ -151,8 +159,11 @@ class ShardedFilterService:
         self.capacity = capacity
         # bound on tick collects (see _collect_pending); 0/None = unbounded
         self.collect_timeout_s = params.collect_timeout_s
-        self._shard = _shard_of(mesh, self.cfg)
+        self._shards = [_shard_of(v, self.cfg) for v in mesh.blocks]
         self._local = mesh.local_streams(streams)
+        # the rows of the upload each block's device gets (one block: all)
+        self._block_rows = ([v.local_streams(streams) for v in mesh.blocks] if mesh.multi_block
+                            else [slice(None)])
         self._step = self._step_packed
         # the step updates the state in place: ticks, snapshots and
         # restores in THIS process serialize on this lock.  In
@@ -167,10 +178,11 @@ class ShardedFilterService:
         self._pending = None
         self._epoch = 0
         self._cuda = self.device.type == "cuda"
-        # pinned staging of the upload (reused once its copy landed) and
-        # a pool of pinned output buffers (returned once read)
+        # pinned staging of the upload (reused once its copies landed: one
+        # event a block) and a pool of pinned output buffers (returned
+        # once read)
         self._in_host: dict = {}
-        self._in_done = None
+        self._in_done: list = []
         self._out_pool: list = []
         # raw-bytes tick seam: resolved once, engines built lazily
         self.fleet_ingest_backend = resolve_fleet_ingest_backend(
@@ -217,31 +229,42 @@ class ShardedFilterService:
 
     # -- the step -----------------------------------------------------------
 
-    def _step_packed(self, state: FilterState, packed: torch.Tensor):
+    def _step_packed(self, state, packed):
         """The counted compact ingest: the (streams, 3, N+1) upload with
         each stream's node count in its reserved last slot, unpacked on
-        the device, then the batched sharded step (state in place)."""
-        count = packed[:, 0, -1].to(torch.int32) & 0xFFFF
-        return _filter_step_shard(state, _unpack_compact(packed, count), self.cfg, self._shard)
+        the device, then the batched sharded step (state in place).  On a
+        mesh of several blocks ``state`` and ``packed`` are lists, one
+        entry a block."""
+        if not self.mesh.multi_block:
+            count = packed[:, 0, -1].to(torch.int32) & 0xFFFF
+            return _filter_step_shard(state, _unpack_compact(packed, count), self.cfg,
+                                      self._shards[0])
+        batches = [_unpack_compact(p, p[:, 0, -1].to(torch.int32) & 0xFFFF) for p in packed]
+        return step_blocks(self.mesh, self.cfg, state, batches, self._shards)
 
-    def _upload(self, packed_np: np.ndarray) -> torch.Tensor:
-        """The packed uint16 block on the device, as int16 (same bytes).
-        On CUDA through a pinned staging buffer, reused once the previous
-        upload has landed.  Called under the lock."""
+    def _upload(self, packed_np: np.ndarray):
+        """The packed uint16 block on the device, as int16 (same bytes);
+        on a mesh of several blocks, each block's stream rows on its own
+        device.  On CUDA through a pinned staging buffer, reused once the
+        previous upload has landed.  Called under the lock."""
         wire = torch.from_numpy(packed_np.view(np.int16))
+        blocks = self.mesh.blocks
         if not self._cuda:
-            return wire
-        if self._in_done is not None:
-            self._in_done.synchronize()
+            return [wire[r] for r in self._block_rows] if self.mesh.multi_block else wire
+        for done in self._in_done:
+            done.synchronize()
         buf = self._in_host.get(wire.shape)
         if buf is None:
             buf = self._in_host[wire.shape] = torch.empty(
                 wire.shape, dtype=torch.int16, pin_memory=True)
         buf.copy_(wire)
-        dev = buf.to(self.device, non_blocking=True)
-        self._in_done = torch.cuda.Event()
-        self._in_done.record(torch.cuda.current_stream(self.device))
-        return dev
+        ups = [buf[r].to(v.device, non_blocking=True) for r, v in zip(self._block_rows, blocks)]
+        self._in_done = []
+        for dev in dict.fromkeys(v.device for v in blocks):
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+            self._in_done.append(done)
+        return ups if self.mesh.multi_block else ups[0]
 
     def _start_fetch(self, wire: torch.Tensor) -> _TickFetch:
         """Start the one device->host copy of a tick's output wires."""
@@ -289,16 +312,18 @@ class ShardedFilterService:
         only values the state already holds and the cursor/filled advance
         is undone; a state that has absorbed scans skips the warmup."""
         with self._lock:
-            if bool(self._state.filled.any()):
+            if any(bool(st.filled.any()) for st in block_states(self._state)):
                 return
         packed_np = self._stack([None] * (self._local.stop - self._local.start))
         with self._lock:
             packed = self._upload(packed_np)
             self._state, _ = self._step(self._state, packed)
-            self._state.cursor.zero_()
-            self._state.filled.zero_()
+            for st in block_states(self._state):
+                st.cursor.zero_()
+                st.filled.zero_()
             if self._cuda:
-                torch.cuda.synchronize(self.device)
+                for dev in dict.fromkeys(v.device for v in self.mesh.blocks):
+                    torch.cuda.synchronize(dev)
 
     # -- SLAM seams ---------------------------------------------------------
 
@@ -1220,18 +1245,20 @@ class ShardedFilterService:
         ``median_sorted`` excluded).  The device copy is taken under the
         lock, the host copy after it."""
         self._single_controller("snapshot")
-        return {k: v.cpu().numpy() for k, v in self._copy_state().items()}
+        return gather_state(self.mesh, self._copy_state())
 
-    def _copy_state(self) -> dict[str, torch.Tensor]:
+    def _copy_state(self):
         """A device copy of this process's block of the state, taken under
-        the lock; the derived ``median_sorted`` excluded, so the checkpoint
-        format is the same for every median backend."""
+        the lock (on a mesh of several blocks, a list of every block's);
+        the derived ``median_sorted`` excluded, so the checkpoint format is
+        the same for every median backend."""
         with self._lock:
-            return {
-                f.name: getattr(self._state, f.name).clone()
-                for f in dataclasses.fields(FilterState)
-                if f.name != "median_sorted"
-            }
+            copies = [
+                {f.name: getattr(st, f.name).clone()
+                 for f in dataclasses.fields(FilterState) if f.name != "median_sorted"}
+                for st in block_states(self._state)
+            ]
+        return copies if self.mesh.multi_block else copies[0]
 
     def save_sharded(self, path: str) -> None:
         """Persist the sharded state with torch.distributed.checkpoint — no
@@ -1247,6 +1274,13 @@ class ShardedFilterService:
         """
         from rplidar_ros2_driver_tpu_torch.utils import checkpoint_sharded
 
+        if self.mesh.multi_block:
+            # the blocks held in this process, put together on the host:
+            # the global layout a (1, 1) mesh writes
+            whole = {k: torch.from_numpy(v)
+                     for k, v in gather_state(self.mesh, self._copy_state()).items()}
+            checkpoint_sharded.save_sharded(path, whole)
+            return
         checkpoint_sharded.save_sharded(path, self._copy_state(), mesh=self.mesh,
                                         specs=STATE_SPEC)
 
@@ -1259,15 +1293,22 @@ class ShardedFilterService:
         from rplidar_ros2_driver_tpu_torch.utils import checkpoint_sharded
 
         template = abstract_sharded_state(self.mesh, self.cfg, self.streams)
-        got = checkpoint_sharded.restore_sharded(path, template, mesh=self.mesh,
-                                                 specs=STATE_SPEC)
-        if got is None:
+        if self.mesh.multi_block:
+            # the global state on the host, then each block's part of it
+            got = checkpoint_sharded.restore_sharded(path, template, device="cpu")
+            state = None if got is None else place_state(
+                self.mesh, {**got, "median_sorted": None}, beams=self.cfg.beams)
+        else:
+            got = checkpoint_sharded.restore_sharded(path, template, mesh=self.mesh,
+                                                     specs=STATE_SPEC)
+            state = None if got is None else FilterState(**{**got, "median_sorted": None})
+        if state is None:
             return False
-        state = FilterState(**{**got, "median_sorted": None})
         if self.cfg.median_backend.startswith("inc"):
-            # the derived sorted window, recomputed on this process's block
-            # (the sort runs along the unsharded window axis)
-            state.median_sorted = recompute_median_sorted(state.range_window)
+            # the derived sorted window, recomputed on each block (the sort
+            # runs along the unsharded window axis)
+            for st in block_states(state):
+                st.median_sorted = recompute_median_sorted(st.range_window)
         with self._lock:
             self._state = state
             self._pending = None  # pre-restore outputs: never publish
@@ -1298,7 +1339,8 @@ class ShardedFilterService:
             restored = place_state(self.mesh, {**core, "median_sorted": None},
                                    beams=self.cfg.beams)
             if self.cfg.median_backend.startswith("inc"):
-                restored.median_sorted = recompute_median_sorted(restored.range_window)
+                for st in block_states(restored):
+                    st.median_sorted = recompute_median_sorted(st.range_window)
             with self._lock:
                 self._state = restored
                 self._pending = None
@@ -1315,6 +1357,13 @@ class ShardedFilterService:
 # ---------------------------------------------------------------------------
 # the failover pod (elastic fleet of fleets)
 # ---------------------------------------------------------------------------
+
+
+def _pod_cards(params: DriverParams) -> list:
+    """The devices a pod built with ``mesh=None`` splits into its groups:
+    every visible card, or the host with ``filter_backend: cpu``."""
+    dev = pick_device(params.filter_backend)
+    return [dev] if dev.type == "cpu" else _visible_cards()
 
 
 class ElasticFleetService:
@@ -1347,14 +1396,18 @@ class ElasticFleetService:
     state; on re-admission streams migrate back through fresh live
     snapshots.
 
-    Placement: with ``mesh=None`` each shard has a card of its own,
-    shard ``s`` on ``cuda:(s % device_count)``
-    (:func:`~rplidar_ros2_driver_tpu_torch.parallel.sharding.shard_card`:
-    a shard loss is a card dropping out of the pod; with fewer cards than
-    shards they take shards round-robin), or the host with
-    ``filter_backend: cpu``; a given ``mesh`` serves every shard on its one
-    device.  A stream crosses cards only as host arrays (its snapshot rows,
-    restored onto the destination lane's card).  Each host of ``hosts``
+    Placement: with ``mesh=None`` the pod's cards (every visible card, or
+    the host with ``filter_backend: cpu``) split into the JAX pod's groups
+    (``groups``, from
+    :func:`~rplidar_ros2_driver_tpu_torch.parallel.sharding.pod_groups`:
+    ``cards // shards`` cards a shard, round-robin one each when there are
+    fewer cards than shards): a shard loss is its group dropping out of the
+    pod.  A shard computes on its group's lead card alone: its work is its
+    fused engines, which JAX replicates over the group (a ``stream = 1``
+    mesh) and the port runs once; the group's other cards hold no state
+    and do no work.  A given ``mesh`` serves every shard.  A stream
+    crosses cards only as host arrays (its snapshot rows, restored onto the
+    destination lane's card).  Each host of ``hosts``
     owns one StagingPool that its shards' engines share, whatever their
     cards.  Single controller.
 
@@ -1401,15 +1454,13 @@ class ElasticFleetService:
         self.streams = streams
         self.topology = FleetTopology(streams, shards, lanes, hosts=hosts)
         self.clock = clock or time.monotonic
+        # the cards of each shard (indices into _pod_cards; None with a
+        # given mesh): JAX's groups, each shard's one-card mesh on its lead
+        self.groups = None
         if mesh is None:
-            # one shard = one card (sharding.shard_card); the host on
-            # filter_backend cpu
-            dev = pick_device(params.filter_backend)
-            meshes = [
-                make_mesh(1, device=dev if dev.type == "cpu" else torch.device(
-                    "cuda", shard_card(s, torch.cuda.device_count())))
-                for s in range(shards)
-            ]
+            cards = _pod_cards(params)
+            self.groups = pod_groups(shards, len(cards))
+            meshes = [make_mesh(device=cards[group[0]]) for group in self.groups]
         else:
             meshes = [mesh] * shards
         self.meshes = meshes

@@ -11,29 +11,47 @@ The PyTorch counterpart of the JAX package's ``parallel/sharding.py``:
     voxel accumulation is a partial sum per shard, reduced over the beam
     axis — one all-reduce per step (or per fused chunk).
 
-**One device per process.**  JAX runs one controller over many devices
-and its ``shard_map`` program holds every shard.  PyTorch's SPMD idiom is
-one process per device, so here a :class:`Mesh` is this process's view:
-the axis extents, its own device and coordinates, and — across processes
-— a ``torch.distributed`` ``DeviceMesh`` whose ``"beam"`` group carries
-the voxel all-reduce.  Every function below works on the LOCAL block: the
-process at mesh coordinates ``(i, j)`` holds streams ``[i*S/s,
-(i+1)*S/s)`` and beams ``[j*B/b, (j+1)*B/b)``.  In one process (no process
-group) the mesh is ``(1, 1)`` and the local block is the whole fleet.
+**One process, several devices.**  JAX runs one controller over many
+devices and its ``shard_map`` program holds every shard.  Here a
+:class:`Mesh` takes one of two forms:
 
-The local streams are batched, never looped: one step is one median
-launch for the whole block (B1, or B2 for ``inc``), its rings laid side
-by side as one ``(W, S_local*b_local)`` stripe, and one fused chunk is one
-B3 launch over the ``(W+K, S_local*b_local)`` history stripe.
+  * **held in this process**: a ``(stream, beam)`` grid of devices
+    (``mesh.devices``), each block a separate set of tensors on its own
+    device — every visible card by default (:func:`make_mesh`), or a given
+    list; a list that repeats a device (``[cpu] * 8``, or four blocks on
+    ``cuda:0``) runs the same block split on fewer devices.  A step runs
+    every block's front half on its device, sums each stream row's voxel
+    partials in the process (``psum`` onto the row's first block and back,
+    or a ``ring`` of N-1 peer hops, each followed by an int32 add), then
+    every block's back half; outputs come back in global stream and beam
+    order on the lead device (block ``(0, 0)``).  The ``(1, 1)`` mesh is
+    the one-block case;
+  * **one device per process** (PyTorch's SPMD idiom): a
+    ``torch.distributed`` ``DeviceMesh`` whose ``"beam"`` group carries the
+    voxel all-reduce, and this process's view of it — the axis extents,
+    its device and its coordinates.  The process at mesh coordinates
+    ``(i, j)`` holds streams ``[i*S/s, (i+1)*S/s)`` and beams ``[j*B/b,
+    (j+1)*B/b)``.
 
-The all-reduce is ``psum`` (``dist.all_reduce(SUM)``) or an explicit
-``ring`` of N-1 ``batch_isend_irecv`` hops (``FilterConfig.voxel_reduce``);
-int32 adds are exact in any order, so the two are bit-equal.  On a gloo
-group the ring stages each hop of a CUDA tensor through pinned host
-tensors — explicitly, only in that mode, counted in ``ring_host_hops`` —
-since gloo's point-to-point ops are host-memory transports (its
-all-reduce takes CUDA tensors).  NCCL refuses two ranks on one device;
-two processes sharing one card use gloo.
+The functions below take a block's view (:attr:`Mesh.blocks`), so both
+forms share every per-block line; on a mesh held in this process a state
+is the list of its blocks' states (:func:`create_sharded_state`).
+
+The local streams of a block are batched, never looped: one step is one
+median launch a block (B1, or B2 for ``inc``), its rings laid side by side
+as one ``(W, S_local*b_local)`` stripe, and one fused chunk is one B3
+launch a block over the ``(W+K, S_local*b_local)`` history stripe.
+
+Across processes the all-reduce is ``psum`` (``dist.all_reduce(SUM)``) or an
+explicit ``ring`` of N-1 ``batch_isend_irecv`` hops
+(``FilterConfig.voxel_reduce``); int32 adds are exact in any order, so the
+two are bit-equal.  On a gloo group the ring stages each hop of a CUDA
+tensor through pinned host tensors — explicitly, only in that mode,
+counted in ``ring_host_hops`` — since gloo's point-to-point ops are
+host-memory transports (its all-reduce takes CUDA tensors).  NCCL refuses
+two ranks on one device; two processes sharing one card use gloo.  In one
+process every copy between two cards goes through :func:`peer_copy`,
+counted in ``peer_copies``.
 """
 
 from __future__ import annotations
@@ -55,7 +73,9 @@ from rplidar_ros2_driver_tpu_torch.ops.filters import (
     _stripe,
     _trig_table,
     _unstripe,
+    fused_scan_back,
     fused_scan_core,
+    fused_scan_front,
     median_from_sorted,
     pin_inc_lowering,
     select_voxel_hits,
@@ -67,114 +87,185 @@ _INT_INF = 0x7FFFFFFF
 
 # ring hops of a CUDA tensor staged through host memory (gloo groups)
 ring_host_hops = 0
+# copies between two devices of a mesh held in one process (peer_copy)
+peer_copies = 0
 
 
-def _default_device() -> torch.device:
-    """The card of this process: ``cuda:(rank % cards)`` in a process
-    group, ``cuda:0`` alone; raises without CUDA (never a silent host
+def _visible_cards() -> list:
+    """Every visible card; raises without CUDA (never a silent host
     fallback — pass ``device="cpu"`` to run on the host)."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "make_mesh needs a CUDA device and none is available; pass "
             "device='cpu' to run the mesh on the host"
         )
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    return torch.device("cuda", rank % torch.cuda.device_count())
+    return [torch.device("cuda", d) for d in range(torch.cuda.device_count())]
+
+
+def _default_device() -> torch.device:
+    """The card of this process in a process group: ``cuda:(rank %
+    cards)``; raises without CUDA."""
+    cards = _visible_cards()
+    return cards[dist.get_rank() % len(cards)]
 
 
 class Mesh:
-    """This process's view of a ``(stream, beam)`` mesh: the axis extents
-    (``shape``), its device, its ``coords`` on the mesh and, when the mesh
-    spans processes, the ``DeviceMesh`` that holds the per-axis groups."""
+    """A ``(stream, beam)`` mesh: the axis extents (``shape``), the lead
+    device (``device``: block ``(0, 0)``, or this process's block), this
+    view's ``coords``, and either the grid of devices this process holds
+    (``devices``, a (stream, beam) object array) or, when the mesh spans
+    processes, the ``DeviceMesh`` that holds the per-axis groups.  Built
+    with neither, it is one block's view: what :attr:`blocks` hands the
+    per-block functions."""
 
     def __init__(self, stream: int, beam: int, device, *, coords=(0, 0),
-                 device_mesh=None) -> None:
+                 device_mesh=None, devices=None) -> None:
         self.shape = {"stream": int(stream), "beam": int(beam)}
         self.device = torch.device(device)
         self.coords = tuple(int(c) for c in coords)
         self.device_mesh = device_mesh
+        self.devices = None
+        self._blocks = None
+        if devices is not None:
+            grid = np.empty((int(stream), int(beam)), dtype=object)
+            for k, d in enumerate(devices):
+                grid.flat[k] = torch.device(d)
+            self.devices = grid
+            if grid.size > 1:
+                self._blocks = [Mesh(stream, beam, grid[i, j], coords=(i, j))
+                                for i in range(int(stream)) for j in range(int(beam))]
 
     @property
     def spans_processes(self) -> bool:
         return self.device_mesh is not None
 
     @property
+    def multi_block(self) -> bool:
+        """This process holds several blocks of the mesh."""
+        return self.devices is not None and self.devices.size > 1
+
+    @property
+    def blocks(self) -> list:
+        """Each block this process holds as a one-block view (the mesh's
+        extents, the block's coords and device), row-major; ``[self]``
+        when it holds one.  Built once, with the mesh."""
+        return [self] if self._blocks is None else self._blocks
+
+    @property
     def beam_group(self):
         """The process group of this process's beam row (None when the
-        beam axis has extent 1: the all-reduce is the identity)."""
+        beam axis has extent 1, or in one process: no collective)."""
         if self.device_mesh is None or self.shape["beam"] == 1:
             return None
         return self.device_mesh["beam"].get_group()
 
     def local_streams(self, streams: int) -> slice:
-        """The stream rows this process holds."""
+        """The stream rows this process (or this block) holds."""
         s = self.shape["stream"]
         if streams % s:
             raise ValueError(f"streams={streams} not divisible by stream axis {s}")
+        if self.multi_block:
+            return slice(0, streams)
         per = streams // s
         return slice(self.coords[0] * per, (self.coords[0] + 1) * per)
 
     def local_beams(self, beams: int) -> slice:
-        """The beam columns this process holds."""
+        """The beam columns this process (or this block) holds."""
         b_local = _beams_per_shard(self, beams)
+        if self.multi_block:
+            return slice(0, beams)
         return slice(self.coords[1] * b_local, (self.coords[1] + 1) * b_local)
 
     def __repr__(self) -> str:
-        return (f"Mesh(stream={self.shape['stream']}, beam={self.shape['beam']}, "
-                f"device={self.device}, coords={self.coords})")
+        where = (f"devices={[str(d) for d in self.devices.flat]}" if self.multi_block
+                 else f"device={self.device}, coords={self.coords}")
+        return f"Mesh(stream={self.shape['stream']}, beam={self.shape['beam']}, {where})"
+
+
+def _squarest(n: int) -> int:
+    """The stream extent of the squarest split of ``n`` with stream <=
+    beam."""
+    for s in range(int(np.sqrt(n)), 0, -1):
+        if n % s == 0:
+            return s
+    return 1
 
 
 def make_mesh(
     n_devices: Optional[int] = None,
     stream: Optional[int] = None,
+    devices: Optional[Sequence] = None,
     device=None,
 ) -> Mesh:
     """Build a 2-D ``(stream, beam)`` mesh.  ``stream`` fixes the
     data-parallel extent; the beam axis takes the rest (default: the
     squarest split with stream <= beam, as in the JAX package).
 
-    Without a process group there is one device: ``n_devices`` 1 (the
-    default) gives the ``(1, 1)`` mesh on ``device`` (default: the card).
-    In a process group, ``n_devices`` defaults to the world size and the
-    mesh spans every process (one device each); ``n_devices=1`` gives
-    this process a mesh of its own.  More devices than processes raise."""
-    world = dist.get_world_size() if dist.is_initialized() else 1
+    Without a process group (or with ``devices``) the mesh is held in this
+    process over ``devices`` — by default every visible card, or
+    ``[device]`` when ``device`` is given (``device="cpu"``: the ``(1, 1)``
+    host mesh) — cut to the first ``n_devices``.  A list may repeat a
+    device (``[cpu] * 8``).  In a process group ``n_devices`` defaults to
+    the world size and the mesh spans every process (one device each, this
+    process's ``device``); ``n_devices=1`` gives this process a mesh of its
+    own."""
+    if devices is None and dist.is_initialized():
+        return _process_mesh(n_devices, stream, device)
+    if devices is None:
+        devices = [torch.device(device)] if device is not None else _visible_cards()
+    devices = [torch.device(d) for d in devices]
+    if n_devices is None:
+        n_devices = len(devices)
+    if n_devices > len(devices):
+        raise ValueError(f"requested {n_devices} devices, only {len(devices)} available")
+    stream = _squarest(n_devices) if stream is None else stream
+    if n_devices % stream:
+        raise ValueError(f"stream={stream} does not divide {n_devices} devices")
+    devices = devices[:n_devices]
+    return Mesh(stream, n_devices // stream, devices[0], devices=devices)
+
+
+def _process_mesh(n_devices: Optional[int], stream: Optional[int], device) -> Mesh:
+    """The mesh over the processes of the group, one device each."""
+    world = dist.get_world_size()
     if n_devices is None:
         n_devices = world
     if n_devices > world:
         raise ValueError(f"requested {n_devices} devices, only {world} available")
     if n_devices not in (1, world):
         raise ValueError(
-            f"a mesh spans one device or every process of the group "
-            f"({world}), not {n_devices}"
+            f"a mesh over processes spans one device or every process of the "
+            f"group ({world}), not {n_devices}"
         )
-    if stream is None:
-        stream = 1
-        for s in range(int(np.sqrt(n_devices)), 0, -1):
-            if n_devices % s == 0:
-                stream = s
-                break
+    stream = _squarest(n_devices) if stream is None else stream
     if n_devices % stream:
         raise ValueError(f"stream={stream} does not divide {n_devices} devices")
-    beam = n_devices // stream
     device = torch.device(device) if device is not None else _default_device()
     if n_devices == 1:
-        return Mesh(1, 1, device)
+        return Mesh(1, 1, device, devices=[device])
     from torch.distributed.device_mesh import init_device_mesh
 
-    dm = init_device_mesh(device.type, (stream, beam), mesh_dim_names=("stream", "beam"))
-    return Mesh(stream, beam, device, coords=tuple(dm.get_coordinate()), device_mesh=dm)
+    dm = init_device_mesh(device.type, (stream, n_devices // stream),
+                          mesh_dim_names=("stream", "beam"))
+    return Mesh(stream, n_devices // stream, device, coords=tuple(dm.get_coordinate()),
+                device_mesh=dm)
+
+
+def pod_groups(shards: int, cards: int) -> list:
+    """The cards of each serving-pod shard, the JAX pod's group rule:
+    ``per = max(1, cards // shards)`` cards a shard, shard ``s`` on cards
+    ``(s*per + k) % cards`` for k < per.  With more cards than shards each
+    shard gets a group of cards (its mesh ``(1, per)`` over them); with
+    fewer, the shards take the cards round-robin, one each."""
+    if cards < 1:
+        raise ValueError(f"a pod needs at least one card, got {cards}")
+    per = max(1, cards // shards)
+    return [[(s * per + k) % cards for k in range(per)] for s in range(shards)]
 
 
 def shard_card(shard: int, cards: int) -> int:
-    """The card of serving-pod shard ``shard`` over ``cards`` cards: one
-    shard a card, round-robin, ``shard % cards`` (one card: every shard on
-    it).  With ``cards <= shards`` this is the first device of the JAX
-    pod's group for the shard (its groups are one device wide there).  With
-    more cards than shards the JAX pod gives each shard a group of ``cards
-    // shards`` devices on a stream = 1 mesh; a port mesh spans one device
-    in a process, so here shard ``s`` runs on card ``s`` alone and the
-    cards past the last shard stay idle."""
+    """The card of serving-pod shard ``shard`` when each shard has one
+    card: :func:`pod_groups`' rule at ``per = 1``, ``shard % cards``."""
     if cards < 1:
         raise ValueError(f"a pod needs at least one card, got {cards}")
     return shard % cards
@@ -317,14 +408,27 @@ def _inc_median_step(state: FilterState, ranges: torch.Tensor, rows, cur, cfg: F
     return med.reshape(s, b)
 
 
-def _filter_step_shard(state: FilterState, batch: ScanBatch, cfg: FilterConfig, sh: _Shard):
-    """One step of every local stream on this (stream, beam) shard,
-    batched over the streams (each with its own cursor).  Beam-local
-    throughout except the voxel partial-sum all-reduce at the end.
-    Updates ``state`` in place; the output's ``voxel`` IS the accumulator
-    (copy it before the next step)."""
+@dataclasses.dataclass
+class _StepFront:
+    """What the front half of a step hands its back half: the step's
+    outputs, the ring rows and cursors it writes, and the voxel partial
+    (None without the voxel stage)."""
+
+    med: torch.Tensor
+    inten: torch.Tensor
+    xy: torch.Tensor
+    mask: torch.Tensor
+    rows: torch.Tensor
+    cur: torch.Tensor
+    partial: Optional[torch.Tensor]
+
+
+def _step_front(state: FilterState, batch: ScanBatch, cfg: FilterConfig, sh: _Shard) -> _StepFront:
+    """The front half of one step of every local stream on this (stream,
+    beam) block, batched over the streams (each with its own cursor):
+    resample, ring write, median, projection and the voxel partial — all
+    beam-local."""
     ranges, inten = _grid_resample_shard(batch, cfg, sh)  # (S, b)
-    w = state.range_window.shape[1]
     rows = torch.arange(ranges.shape[0], device=ranges.device)
     cur = state.cursor.long()
     inc = cfg.enable_median and cfg.median_backend.startswith("inc")
@@ -343,42 +447,178 @@ def _filter_step_shard(state: FilterState, batch: ScanBatch, cfg: FilterConfig, 
             raise ValueError(f"unknown median_backend {cfg.median_backend!r}")
         med = med.reshape(ranges.shape)
     xy, mask = _polar_to_cartesian_shard(med, cfg, sh)
+    partial = _voxel_hits_partial(xy, mask, cfg) if cfg.enable_voxel else None
+    return _StepFront(med, inten, xy, mask, rows, cur, partial)
 
-    if cfg.enable_voxel:
-        new_hits = _all_reduce(_voxel_hits_partial(xy, mask, cfg), sh.group, sh.reduce)
-        old_hits = state.hit_window[rows, cur]
+
+def _step_back(state: FilterState, front: _StepFront, new_hits: Optional[torch.Tensor]):
+    """The back half once the voxel hits are summed over the beam row
+    (``new_hits``, None without the voxel stage): the accumulator, the hit
+    ring, the fill count and the cursor.  The output's ``voxel`` IS the
+    accumulator (copy it before the next step)."""
+    w = state.range_window.shape[1]
+    if new_hits is not None:
+        old_hits = state.hit_window[front.rows, front.cur]
         state.voxel_acc.add_(new_hits).sub_(old_hits)
-        state.hit_window[rows, cur] = new_hits
-
+        state.hit_window[front.rows, front.cur] = new_hits
     state.filled.add_(1).clamp_(max=w)
     state.cursor.add_(1).remainder_(w)
-    out = FilterOutput(ranges=med, intensities=inten, points_xy=xy, point_mask=mask,
-                       voxel=state.voxel_acc)
+    out = FilterOutput(ranges=front.med, intensities=front.inten, points_xy=front.xy,
+                       point_mask=front.mask, voxel=state.voxel_acc)
     return state, out
 
 
-def _filter_scan_shard(state: FilterState, packed_seq: torch.Tensor, counts: torch.Tensor,
-                       cfg: FilterConfig, sh: _Shard):
-    """Every local stream's fused K-scan chain on this shard:
-    ops.filters.fused_scan_core with the shard primitives injected —
-    beam-local resample keys, shard-offset Cartesian projection, and ONE
-    voxel all-reduce for the min(K, W) surviving hit grids of the whole
-    block.  The same trajectory as K successive :func:`_filter_step_shard`
-    calls."""
+def _filter_step_shard(state: FilterState, batch: ScanBatch, cfg: FilterConfig, sh: _Shard):
+    """One step of every local stream on this process's block: the front
+    half, the voxel partial-sum all-reduce over the beam group, the back
+    half.  Updates ``state`` in place; the output's ``voxel`` IS the
+    accumulator (copy it before the next step)."""
+    front = _step_front(state, batch, cfg, sh)
+    hits = None if front.partial is None else _all_reduce(front.partial, sh.group, sh.reduce)
+    return _step_back(state, front, hits)
+
+
+def _scan_primitives(cfg: FilterConfig, sh: _Shard, reduce: bool) -> dict:
+    """The shard primitives ops.filters.fused_scan_core takes on this
+    block: beam-local resample keys, shard-offset Cartesian projection,
+    and the block's hit grids — summed over the beam group when
+    ``reduce``, else partial (blocks summed in this process)."""
 
     def keys_fn(batch):
         beam_local, packed, _ = _resample_keys_shard(batch, cfg, sh)
         return beam_local, packed
 
     def hits_fn(xy, mask):
-        return _all_reduce(_voxel_hits_partial(xy, mask, cfg), sh.group, sh.reduce)
+        partial = _voxel_hits_partial(xy, mask, cfg)
+        return _all_reduce(partial, sh.group, sh.reduce) if reduce else partial
 
-    return fused_scan_core(
-        state, packed_seq, counts, cfg,
-        keys_fn=keys_fn,
-        polar_fn=lambda rows: _polar_to_cartesian_shard(rows, cfg, sh),
-        hits_fn=hits_fn,
-    )
+    return dict(keys_fn=keys_fn, polar_fn=lambda rows: _polar_to_cartesian_shard(rows, cfg, sh),
+                hits_fn=hits_fn)
+
+
+def _filter_scan_shard(state: FilterState, packed_seq: torch.Tensor, counts: torch.Tensor,
+                       cfg: FilterConfig, sh: _Shard):
+    """Every local stream's fused K-scan chain on this process's block:
+    ops.filters.fused_scan_core with the shard primitives injected, ONE
+    voxel all-reduce for the min(K, W) surviving hit grids of the whole
+    block.  The same trajectory as K successive :func:`_filter_step_shard`
+    calls."""
+    return fused_scan_core(state, packed_seq, counts, cfg, **_scan_primitives(cfg, sh, True))
+
+
+# ---------------------------------------------------------------------------
+# the blocks of a mesh held in one process
+# ---------------------------------------------------------------------------
+
+
+def peer_copy(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device``: the one copy between two devices of a mesh held
+    in one process (``x`` itself when it is there already).  Between two
+    cards PyTorch's device-to-device copy orders it after the producer's
+    work on the source card's current stream and the consumer's current
+    stream after it (events both ways, no host synchronisation); it is a
+    peer copy where the two cards have peer access, else CUDA stages
+    it.  Counted in ``peer_copies``."""
+    global peer_copies
+    if x.device == device:
+        return x
+    peer_copies += 1
+    return x.contiguous().to(device, non_blocking=True)
+
+
+def _stage(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device`` once: a host tensor goes to a card through
+    page-locked memory, asynchronously (PyTorch's pinned host allocator
+    keeps the staging block until its copy has landed); a device tensor
+    moves by :func:`peer_copy`."""
+    if x.device.type != "cpu":
+        return peer_copy(x, device)
+    if device.type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
+
+
+def _rows(mesh: Mesh, items: list) -> list:
+    """A per-block list (row-major) split into the mesh's stream rows."""
+    nb = mesh.shape["beam"]
+    return [items[i * nb:(i + 1) * nb] for i in range(mesh.shape["stream"])]
+
+
+def reduce_blocks(mesh: Mesh, partials: list, mode: str) -> list:
+    """Sum each stream row's per-block voxel partials (row-major, one a
+    block) in this process; returns each block's sum on its own device.
+    ``psum`` adds the row's partials onto its first block and copies the
+    sum back to the others; ``ring`` makes N-1 hops, every block's
+    rotating payload going to the next block of the row, each hop
+    followed by an int32 add.  int32 adds are exact in any order, so the
+    two are bit-equal."""
+    if mode not in ("psum", "ring"):
+        raise ValueError(f"unknown voxel_reduce mode {mode!r} (psum|ring)")
+    out = []
+    for row in _rows(mesh, partials):
+        n = len(row)
+        if mode == "psum":
+            acc = row[0]
+            for p in row[1:]:
+                acc = acc.add_(peer_copy(p, acc.device))
+            out += [acc] + [peer_copy(acc, p.device) for p in row[1:]]
+            continue
+        acc = [p.clone() for p in row]
+        rot = list(row)
+        for _ in range(n - 1):
+            rot = [peer_copy(rot[(j - 1) % n], row[j].device) for j in range(n)]
+            for j in range(n):
+                acc[j].add_(rot[j])
+        out += acc
+    return out
+
+
+def _gather_output(mesh: Mesh, outs: list) -> FilterOutput:
+    """The blocks' step outputs put together in global stream and beam
+    order on the lead device (new tensors: ``torch.cat`` copies); a stream
+    row's voxel is its first block's (every block of the row holds the
+    same sum)."""
+    lead = mesh.device
+    rows = _rows(mesh, outs)
+
+    def cat(name: str) -> torch.Tensor:
+        return torch.cat([torch.cat([peer_copy(getattr(o, name), lead) for o in row], dim=1)
+                          for row in rows])
+
+    return FilterOutput(ranges=cat("ranges"), intensities=cat("intensities"),
+                        points_xy=cat("points_xy"), point_mask=cat("point_mask"),
+                        voxel=torch.cat([peer_copy(row[0].voxel, lead) for row in rows]))
+
+
+def step_blocks(mesh: Mesh, cfg: FilterConfig, states: list, batches: list, shards: list):
+    """One step of a mesh held in one process: every block's front half on
+    its device (its stream rows ``batches[k]``, its beam columns, its
+    ``shards[k]`` built once by the caller), the voxel partials summed over
+    each stream row (:func:`reduce_blocks`), then every block's back half.
+    Updates each block's state in place; returns (states, the global output
+    on the lead device, owning its memory)."""
+    fronts = [_step_front(st, b, cfg, sh) for st, b, sh in zip(states, batches, shards)]
+    hits = ([None] * len(fronts) if not cfg.enable_voxel
+            else reduce_blocks(mesh, [f.partial for f in fronts], cfg.voxel_reduce))
+    outs = [_step_back(st, f, h)[1] for st, f, h in zip(states, fronts, hits)]
+    return states, _gather_output(mesh, outs)
+
+
+def scan_blocks(mesh: Mesh, cfg: FilterConfig, states: list, seqs: list, counts: list,
+                shards: list):
+    """One fused chunk of a mesh held in one process: every block's front
+    half (one B3 launch a block over its history stripe), the hit grids of
+    the chunk's surviving scans summed over each stream row, every block's
+    back half.  Returns (states, the global (streams, K, beams) ranges on
+    the lead device)."""
+    fronts = [fused_scan_front(st, q, c, cfg, **_scan_primitives(cfg, sh, False))
+              for st, q, c, sh in zip(states, seqs, counts, shards)]
+    hits = ([None] * len(fronts) if not cfg.enable_voxel
+            else reduce_blocks(mesh, [f.hits for f in fronts], cfg.voxel_reduce))
+    meds = [fused_scan_back(st, f, h)[1] for st, f, h in zip(states, fronts, hits)]
+    lead = mesh.device
+    return states, torch.cat([torch.cat([peer_copy(m, lead) for m in row], dim=-1)
+                              for row in _rows(mesh, meds)])
 
 
 # ---------------------------------------------------------------------------
@@ -427,18 +667,33 @@ def _to_device(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
 
 
+def block_states(state) -> list:
+    """The per-block states of a sharded state: the list itself on a mesh
+    held in one process with several blocks, else ``[state]``."""
+    return state if isinstance(state, list) else [state]
+
+
 def build_sharded_step(mesh: Mesh, cfg: FilterConfig):
     """The multi-stream filter step over ``mesh``.
 
-    Signature: ``step(state, batch) -> (state, out)`` on this process's
-    block: every field of ``state``/``batch`` has a leading LOCAL stream
-    axis, ``cfg.beams`` divides by the beam extent, and the state's beam
-    axes hold the local ``b_local`` columns.  ``state`` is updated in
-    place; ``out`` owns its memory."""
-    sh = _shard_of(mesh, cfg)
+    Signature: ``step(state, batch) -> (state, out)``.  On a one-block
+    mesh (this process's block of a mesh over processes, or ``(1, 1)``)
+    every field of ``state``/``batch`` has a leading LOCAL stream axis,
+    ``cfg.beams`` divides by the beam extent, and the state's beam axes
+    hold the local ``b_local`` columns.  On a mesh held in one process
+    with several blocks ``state`` is the list of the blocks' states
+    (:func:`create_sharded_state`), ``batch`` the global batch, and
+    ``out`` the global output on the lead device (:func:`step_blocks`).
+    ``state`` is updated in place; ``out`` owns its memory."""
+    shards = [_shard_of(v, cfg) for v in mesh.blocks]
+    if mesh.multi_block:
+        def step_all(states: list, batch: ScanBatch):
+            return step_blocks(mesh, cfg, states, shard_batch(mesh, batch), shards)
+
+        return step_all
 
     def step(state: FilterState, batch: ScanBatch):
-        state, out = _filter_step_shard(state, batch.to(mesh.device), cfg, sh)
+        state, out = _filter_step_shard(state, batch.to(mesh.device), cfg, shards[0])
         return state, dataclasses.replace(out, voxel=out.voxel.clone())
 
     return step
@@ -452,27 +707,45 @@ def build_sharded_scan(mesh: Mesh, cfg: FilterConfig):
     where ``packed_seq`` is the local (streams, K, 3, N) uint16 block
     (numpy, or the bytes as an int16 tensor), ``counts`` (streams, K)
     int32, and ``ranges`` comes back (streams, K, b_local).  One median
-    launch and one voxel all-reduce per call; the same trajectory as K
-    successive ``build_sharded_step`` calls."""
-    sh = _shard_of(mesh, cfg)
+    launch a block and one voxel all-reduce per call; the same trajectory
+    as K successive ``build_sharded_step`` calls.  On a mesh held in one
+    process with several blocks ``state`` is the list of the blocks'
+    states, the inputs are global and ``ranges`` is (streams, K, beams)
+    on the lead device (:func:`scan_blocks`)."""
+    shards = [_shard_of(v, cfg) for v in mesh.blocks]
 
-    def scan(state: FilterState, packed_seq, counts):
+    def scan(state, packed_seq, counts):
         if isinstance(packed_seq, np.ndarray):
             packed_seq = torch.from_numpy(np.ascontiguousarray(packed_seq).view(np.int16))
         if isinstance(counts, np.ndarray):
             counts = torch.from_numpy(np.asarray(counts, np.int32))
-        return _filter_scan_shard(
-            state, packed_seq.to(mesh.device), counts.to(mesh.device), cfg, sh
-        )
+        if not mesh.multi_block:
+            return _filter_scan_shard(
+                state, packed_seq.to(mesh.device), counts.to(mesh.device), cfg, shards[0]
+            )
+        # each stream row's scans go up once, to the row's first block,
+        # and on to the row's other blocks by peer_copy
+        streams = counts.shape[0]
+        seqs, cnts = [], []
+        for row in _rows(mesh, mesh.blocks):
+            rows = row[0].local_streams(streams)
+            seq = _stage(packed_seq[rows], row[0].device)
+            cnt = _stage(counts[rows], row[0].device)
+            seqs += [peer_copy(seq, v.device) for v in row]
+            cnts += [peer_copy(cnt, v.device) for v in row]
+        return scan_blocks(mesh, cfg, state, seqs, cnts, shards)
 
     return scan
 
 
-def place_state(mesh: Mesh, state, *, beams: Optional[int] = None) -> FilterState:
+def place_state(mesh: Mesh, state, *, beams: Optional[int] = None):
     """A GLOBAL stream-batched state (a FilterState, or the snapshot dict
     of numpy arrays) as this process's block on ``mesh.device``, copied —
-    the one placement point for fresh and restored state.  ``beams``
-    defaults to the range window's width."""
+    the one placement point for fresh and restored state; on a mesh held
+    in one process with several blocks, the list of every block's.
+    ``beams`` defaults to the range window's width."""
+    if mesh.multi_block:
+        return [place_state(v, state, beams=beams) for v in mesh.blocks]
     get = state.get if isinstance(state, dict) else (lambda k: getattr(state, k))
     rw = get("range_window")
     streams, beams = rw.shape[0], beams or rw.shape[-1]
@@ -485,10 +758,13 @@ def place_state(mesh: Mesh, state, *, beams: Optional[int] = None) -> FilterStat
     return FilterState(**fields)
 
 
-def create_sharded_state(mesh: Mesh, cfg: FilterConfig, streams: int) -> FilterState:
-    """This process's block of a fresh stream-batched FilterState: the
-    ``inc`` backends carry the sorted window (all +inf: trivially
-    sorted)."""
+def create_sharded_state(mesh: Mesh, cfg: FilterConfig, streams: int):
+    """This process's block of a fresh stream-batched FilterState (on a
+    mesh held in one process with several blocks, the list of every
+    block's, each on its own device): the ``inc`` backends carry the
+    sorted window (all +inf: trivially sorted)."""
+    if mesh.multi_block:
+        return [create_sharded_state(v, cfg, streams) for v in mesh.blocks]
     s_local = mesh.local_streams(streams)
     s = s_local.stop - s_local.start
     b = _beams_per_shard(mesh, cfg.beams)
@@ -506,6 +782,31 @@ def create_sharded_state(mesh: Mesh, cfg: FilterConfig, streams: int) -> FilterS
             if cfg.median_backend.startswith("inc") else None
         ),
     )
+
+
+def gather_state(mesh: Mesh, state) -> dict:
+    """The GLOBAL state as host numpy arrays keyed by field (the snapshot
+    format; ``median_sorted`` included when carried), put together from
+    the blocks of a mesh held in this process along :data:`STATE_SPEC`:
+    beam-split fields joined along their beam axis within a stream row,
+    the rest taken from the row's first block, the rows joined along the
+    stream axis.  ``state`` is a sharded state, or a list of per-block
+    dicts of tensors.  On a one-block mesh it is that block."""
+    blocks = [st if isinstance(st, dict) else
+              {f.name: getattr(st, f.name) for f in dataclasses.fields(FilterState)
+               if getattr(st, f.name) is not None}
+              for st in block_states(state)]
+    host = [{k: v.cpu().numpy() for k, v in b.items()} for b in blocks]
+    if len(host) == 1:
+        return host[0]
+    rows = _rows(mesh, host)
+    out = {}
+    for name in host[0]:
+        spec = STATE_SPEC[name]
+        parts = [np.concatenate([b[name] for b in row], axis=spec.index("beam"))
+                 if "beam" in spec else row[0][name] for row in rows]
+        out[name] = np.concatenate(parts, axis=spec.index("stream"))
+    return out
 
 
 def abstract_sharded_state(mesh: Mesh, cfg: FilterConfig, streams: int) -> FilterState:
@@ -529,9 +830,12 @@ def abstract_sharded_state(mesh: Mesh, cfg: FilterConfig, streams: int) -> Filte
     })
 
 
-def shard_batch(mesh: Mesh, batch: ScanBatch) -> ScanBatch:
+def shard_batch(mesh: Mesh, batch: ScanBatch):
     """This process's stream rows of a GLOBAL stream-batched ScanBatch, on
-    the mesh's device."""
+    the mesh's device; on a mesh held in one process with several blocks,
+    the list of every block's rows on its own device."""
+    if mesh.multi_block:
+        return [shard_batch(v, batch) for v in mesh.blocks]
     streams = batch.count.shape[0]
     return ScanBatch(**{
         f.name: _local_block(mesh, getattr(batch, f.name), BATCH_SPEC[f.name], streams, 1)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import math
 import struct
 import threading
 from typing import Iterator, Optional
@@ -251,12 +252,15 @@ def replay_fleet(
     voxel all-reduce, instead of one per scan.
 
     Streams are truncated to the shortest capture (a chunk is one
-    rectangular (S, K, 3, N) sequence).  The default mesh is the
-    one-device ``(1, 1)`` mesh on ``params.filter_backend``'s device (the
-    card unless it says ``cpu``); on a mesh that spans processes the
-    results are this process's block.  Returns ((S, K, beams) float32
-    range images, final FilterState copied to the host); an empty fleet
-    returns ((0, 0, beams), None) without touching a device."""
+    rectangular (S, K, 3, N) sequence).  The default mesh is the JAX
+    package's: over the visible cards, the largest card count whose
+    ``(stream, beam)`` split divides both the fleet size and ``beams``
+    (:func:`fleet_mesh_split`), held in this process; ``(1, 1)`` on the
+    host when ``params.filter_backend`` says ``cpu``, and on this process's
+    card inside a process group.  On a mesh that spans
+    processes the results are this process's block.  Returns ((S, K,
+    beams) float32 range images, final FilterState copied to the host); an
+    empty fleet returns ((0, 0, beams), None) without touching a device."""
     from rplidar_ros2_driver_tpu_torch.filters.chain import (
         DEFAULT_BEAMS,
         config_from_params,
@@ -266,6 +270,7 @@ def replay_fleet(
     from rplidar_ros2_driver_tpu_torch.parallel.sharding import (
         build_sharded_scan,
         create_sharded_state,
+        gather_state,
         make_mesh,
     )
 
@@ -273,7 +278,13 @@ def replay_fleet(
     if streams == 0:
         return np.zeros((0, 0, beams or DEFAULT_BEAMS), np.float32), None
     if mesh is None:
-        mesh = make_mesh(n_devices=1, device=pick_device(params.filter_backend))
+        dev = pick_device(params.filter_backend)
+        if dev.type == "cpu" or torch.distributed.is_initialized():
+            mesh = make_mesh(n_devices=1, device=dev)
+        else:
+            n, stream = fleet_mesh_split(streams, beams or DEFAULT_BEAMS,
+                                         torch.cuda.device_count())
+            mesh = make_mesh(n_devices=n, stream=stream)
     cfg = config_from_params(params, beams or DEFAULT_BEAMS, platform=mesh.device.type)
     k_total = min(len(r) for r in stream_revolutions)
     local = mesh.local_streams(streams)
@@ -293,7 +304,27 @@ def replay_fleet(
         torch.cat(outs, dim=1).cpu().numpy() if outs
         else np.zeros((local.stop - local.start, 0, cfg.beams), np.float32)
     )
+    if mesh.multi_block:
+        from rplidar_ros2_driver_tpu_torch.ops.filters import FilterState
+
+        whole = {k: torch.from_numpy(v) for k, v in gather_state(mesh, state).items()}
+        return ranges, FilterState(**{f.name: whole.get(f.name)
+                                      for f in dataclasses.fields(FilterState)})
     return ranges, state.to(torch.device("cpu"))
+
+
+def fleet_mesh_split(streams: int, beams: int, devices: int) -> tuple[int, int]:
+    """(devices used, stream extent) of :func:`replay_fleet`'s default
+    mesh, the JAX package's rule: the largest device count ``n`` for which
+    some stream extent divides ``gcd(streams, n)`` and leaves a beam extent
+    ``n // stream`` that divides ``beams`` (the largest such stream
+    extent); ``(1, 1)`` always qualifies."""
+    for n in range(devices, 0, -1):
+        g = math.gcd(streams, n)
+        ok = [d for d in range(g, 0, -1) if g % d == 0 and beams % (n // d) == 0]
+        if ok:
+            return n, ok[0]
+    return 1, 1
 
 
 def _replay_map_core(

@@ -1100,7 +1100,9 @@ def test_real_declarations_are_armed():
     index = RepoIndex(cfg)
     assert cfg.paths == (PORT,)
     assert not any("tools/graftlint" in rel for rel in index.modules)
-    assert len(index.device_roots()) == len(cfg.device_roots) == 7
+    # the seven device steps and the step of a mesh held in one process
+    # (sharding.step_blocks)
+    assert len(index.device_roots()) == len(cfg.device_roots) == 8
     assert any(z.endswith("ops/scan_match.py") for z in cfg.zones)
     assert cfg.gl011_bound_map()["motion"] == (-8192, 8192)
     locks = cfg.lock_map()

@@ -1,12 +1,12 @@
 """The serving pod over several cards, on the CPU: where its shards go and
 what carries a stream from one card to another.
 
-``parallel/sharding.shard_card`` places the port's pod (``ElasticFleetService``
-with ``mesh=None``): shard ``s`` on card ``s % cards``.  It is held to the JAX
-pod built with ``mesh=None`` under this suite's eight forced CPU devices, and
-to the JAX pod's grouping rule (``parallel/service.py``: ``per = max(1,
-devices // shards)``, shard ``s`` on devices ``(s * per + k) % devices``) for
-every pod of 1-8 shards over 1-8 cards.  A stream moves between cards only as
+``parallel/sharding.pod_groups`` places the port's pod (``ElasticFleetService``
+with ``mesh=None``): the JAX pod's grouping rule (``parallel/service.py``:
+``per = max(1, devices // shards)``, shard ``s`` on devices ``(s * per + k) %
+devices``), held to it for every pod of 1-8 shards over 1-8 cards, and its
+one-card case ``shard_card`` (shard ``s`` on card ``s % cards``) to the JAX pod
+built with ``mesh=None`` under this suite's eight forced CPU devices.  A stream moves between cards only as
 its snapshot rows: after a kill -> evacuate -> re-admit cycle and after steals
 and a park/unpark cycle, every value in the pod's snapshot store, its
 fresh-lane template and each live snapshot is a host array.  The launch
@@ -29,7 +29,7 @@ from rplidar_ros2_driver_tpu.parallel.service import ElasticFleetService as JPod
 from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
 from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
 from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
-from rplidar_ros2_driver_tpu_torch.parallel.sharding import shard_card
+from rplidar_ros2_driver_tpu_torch.parallel.sharding import pod_groups, shard_card
 from rplidar_ros2_driver_tpu_torch.utils.launch import count_launch
 
 from test_torch_failover import CASES, _pod_params, _run_case
@@ -61,29 +61,29 @@ def test_placement_is_the_jax_pods_on_eight_devices():
 
 @pytest.mark.parametrize("cards", range(1, 9))
 def test_placement_rule(cards):
-    """Shards 1-8 over ``cards`` cards.  Where ``cards <= shards`` the JAX
-    groups are one device wide and the port's card is that device: one
-    shard a card, round-robin.  Where ``cards > shards`` the JAX pod gives
-    shard ``s`` the ``cards // shards`` devices from ``s * per`` (a shard
-    spans several devices); the port's mesh spans one device in a process,
-    so shard ``s`` sits on card ``s`` alone and the cards from ``shards``
-    on stay idle — pinned here."""
+    """Shards 1-8 over ``cards`` cards: the port's groups are the JAX pod's.
+    Where ``cards <= shards`` each group is one card, round-robin, and
+    ``shard_card`` is that card; where ``cards > shards`` shard ``s`` holds
+    the ``cards // shards`` cards from ``s * per``.  Either way every card
+    of the first ``shards * per`` belongs to a shard's group (a shard
+    computes on its group's first card)."""
     for shards in range(1, 9):
-        port = [shard_card(s, cards) for s in range(shards)]
-        groups = _jax_groups(shards, cards)
+        groups = pod_groups(shards, cards)
+        assert groups == _jax_groups(shards, cards)
+        per = max(1, cards // shards)
+        assert all(len(g) == per for g in groups)
+        hosting = sorted({c for g in groups for c in g})
+        assert hosting == list(range(min(cards, shards * per)))
         if cards <= shards:
-            assert all(len(g) == 1 for g in groups)
-            assert port == [g[0] for g in groups]
-            assert sorted(set(port)) == list(range(cards))  # every card hosts
-        else:
-            assert port == list(range(shards))
-            assert all(len(g) == cards // shards for g in groups)
-            assert [g[0] for g in groups] == [s * (cards // shards) for s in range(shards)]
+            assert [g[0] for g in groups] == [shard_card(s, cards) for s in range(shards)]
+            assert hosting == list(range(cards))  # every card hosts
 
 
 def test_placement_needs_a_card():
     with pytest.raises(ValueError, match="at least one card"):
         shard_card(0, 0)
+    with pytest.raises(ValueError, match="at least one card"):
+        pod_groups(2, 0)
 
 
 def _assert_host_snapshot(snap: dict, what: str) -> None:

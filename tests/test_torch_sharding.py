@@ -1,13 +1,16 @@
 """The (stream, beam) mesh of the PyTorch package against the JAX package.
 
-The port's one-process ``(1, 1)`` mesh runs the batched sharded step and
-the fused fleet scan on the CPU (the median kernels' plain versions);
-the JAX package runs its ``shard_map`` programs on (2, 4), (4, 2) and
-(1, 8) meshes of the 8 forced CPU devices.  Every output and final-state
-field is bit-exact, except ``points_xy``: within 2 ulp (the port's trig
-table is correctly rounded, JAX's f32 cos/sin may sit one ulp off it).
-Beam extents above 1 on the port's side run through gloo in
-tests/test_torch_multiprocess.py.  Also ``FleetTopology`` (a copy)
+The port's meshes held in one process run the batched sharded step and
+the fused fleet scan on the CPU (the median kernels' plain versions): the
+``(1, 1)`` mesh, and the mesh of eight CPU blocks of the same shape as
+JAX's (``make_mesh(devices=[cpu] * 8)``: every block's front half, the
+voxel partials summed in the process, every block's back half), the latter
+also byte-equal to the former.  The JAX package runs its ``shard_map``
+programs on (2, 4), (4, 2) and (1, 8) meshes of the 8 forced CPU devices.
+Every output and final-state field is bit-exact, except ``points_xy``:
+within 2 ulp (the port's trig table is correctly rounded, JAX's f32 cos/sin
+may sit one ulp off it).  Beam extents above 1 over processes run through
+gloo in tests/test_torch_multiprocess.py.  Also ``FleetTopology`` (a copy)
 against the JAX package's on one scripted placement sequence.
 """
 
@@ -98,6 +101,14 @@ def assert_out_equal(jo, to, what: str) -> None:
     assert ulp_distance(np_(jo.points_xy), np_(to.points_xy)).max() <= 2, what
 
 
+def gathered(mesh, state):
+    """A sharded state as one object of global arrays (the blocks of a
+    mesh held in one process put together)."""
+    import types
+
+    return types.SimpleNamespace(**ts.gather_state(mesh, state))
+
+
 def assert_state_equal(jstate, tstate, what: str, sorted_window: bool = False) -> None:
     names = STATE_FIELDS + (("median_sorted",) if sorted_window else ())
     for name in names:
@@ -113,15 +124,37 @@ def port_mesh():
 MESHES = {"2x4": (8, 2), "4x2": (8, 4), "1x8": (8, 1)}
 
 
+def port_meshes(port: str, mesh_name: str, one_block) -> dict:
+    """The port's meshes of a case: ``(1, 1)`` alone, or the eight CPU
+    blocks shaped as ``mesh_name`` beside it."""
+    if port == "1x1":
+        return {"1x1": one_block}
+    n, stream = MESHES[mesh_name]
+    return {"1x1": one_block, "blocks": ts.make_mesh(devices=[CPU] * n, stream=stream)}
+
+
+def assert_blocks_equal_one_block(got, want, what: str) -> None:
+    """The blocks' output (or ranges) byte-equal to the (1, 1) mesh's."""
+    if isinstance(got, torch.Tensor):
+        assert torch.equal(got, want), what
+        return
+    for name in ("ranges", "intensities", "points_xy", "point_mask", "voxel"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), f"{what}: {name}"
+
+
+@pytest.mark.parametrize("port", ["1x1", "blocks"])
 @pytest.mark.parametrize("reduce", ["psum", "ring"])
 @pytest.mark.parametrize("median", ["sort", "inc"])
 @pytest.mark.parametrize("mesh_name", list(MESHES))
-def test_step_matches_jax_sharded_step(mesh_name, median, reduce, port_mesh):
-    """12 ticks with idle streams: the port's one-launch-per-tick batched
+def test_step_matches_jax_sharded_step(mesh_name, median, reduce, port, port_mesh):
+    """12 ticks with idle streams: the port's one-launch-a-block batched
     step (both median arms: ``xla`` and ``pallas`` — B1's plain version —
     for the sort backend, ``inc`` for the incremental one) against JAX's
-    shard_map step on a (stream, beam) mesh of 8 CPU devices."""
+    shard_map step on a (stream, beam) mesh of 8 CPU devices, on the
+    port's (1, 1) mesh or on eight CPU blocks of the same shape (then also
+    byte-equal to the (1, 1) mesh)."""
     n, stream = MESHES[mesh_name]
+    meshes = port_meshes(port, mesh_name, port_mesh)
     jmesh = js.make_mesh(n, stream=stream)
     jmed = "xla" if median == "sort" else "inc"
     jcfg = jf.FilterConfig(window=W, beams=B, grid=G, cell_m=CELL, median_backend=jmed,
@@ -133,16 +166,22 @@ def test_step_matches_jax_sharded_step(mesh_name, median, reduce, port_mesh):
     for tmed in tmeds:
         tcfg = tf.FilterConfig(window=W, beams=B, grid=G, cell_m=CELL, median_backend=tmed,
                                voxel_reduce=reduce)
-        runs[tmed] = [ts.build_sharded_step(port_mesh, tcfg),
-                      ts.create_sharded_state(port_mesh, tcfg, STREAMS)]
+        for key, mesh in meshes.items():
+            runs[tmed, key] = [mesh, ts.build_sharded_step(mesh, tcfg),
+                               ts.create_sharded_state(mesh, tcfg, STREAMS)]
     for t, row in enumerate(fleet_ticks(11, 12)):
         seq, counts = packed_tick(row)
         jstate, jout = jstep(jstate, js.shard_batch(jmesh, jax_batch(seq, counts)))
-        for tmed, run in runs.items():
-            run[1], tout = run[0](run[1], torch_batch(seq, counts))
-            assert_out_equal(jout, tout, f"{mesh_name} {tmed} tick {t}")
-    for tmed, (_step, tstate) in runs.items():
-        assert_state_equal(jstate, tstate, f"{mesh_name} {tmed}", sorted_window=median == "inc")
+        outs = {}
+        for (tmed, key), run in runs.items():
+            run[2], outs[tmed, key] = run[1](run[2], torch_batch(seq, counts))
+            assert_out_equal(jout, outs[tmed, key], f"{mesh_name} {tmed} {key} tick {t}")
+            if key == "blocks":
+                assert_blocks_equal_one_block(outs[tmed, key], outs[tmed, "1x1"],
+                                              f"{mesh_name} {tmed} tick {t}")
+    for (tmed, key), (mesh, _step, tstate) in runs.items():
+        assert_state_equal(jstate, gathered(mesh, tstate), f"{mesh_name} {tmed} {key}",
+                           sorted_window=median == "inc")
 
 
 def scan_fixture(seed: int, k: int):
@@ -155,34 +194,46 @@ def scan_fixture(seed: int, k: int):
     return seqs, counts
 
 
+@pytest.mark.parametrize("reduce", ["psum", "ring"])
+@pytest.mark.parametrize("port", ["1x1"] + list(MESHES))
 @pytest.mark.parametrize("median", ["pallas", "xla", "inc"])
-def test_scan_matches_jax_sharded_scan_and_k_steps(median, port_mesh):
-    """The fused fleet scan — one sliding-median call (B3's plain version
-    for ``pallas``) over the (W+K, S*B) history stripe per chunk — over a
-    K < W chunk then a K > W chunk: equal to JAX's sharded scan on a
-    (2, 4) mesh, and to K successive steps of the port's own step."""
+def test_scan_matches_jax_sharded_scan_and_k_steps(median, port, reduce, port_mesh):
+    """The fused fleet scan — one sliding-median call a block (B3's plain
+    version for ``pallas``) over its (W+K, S*B) history stripe per chunk —
+    over a K < W chunk then a K > W chunk: equal to JAX's sharded scan on a
+    (stream, beam) mesh of 8 devices ((2, 4) for the port's (1, 1) mesh,
+    else the port's blocks' shape), to K successive steps of the port's
+    own step on the same mesh, and on blocks byte-equal to the (1, 1)
+    mesh's scan."""
     seqs, counts = scan_fixture(5, 13)
-    jmesh = js.make_mesh(8, stream=2)
-    jcfg = jf.FilterConfig(window=W, beams=B, grid=G, cell_m=CELL,
+    meshes = port_meshes("1x1" if port == "1x1" else "blocks", port, port_mesh)
+    mesh = meshes.get("blocks", port_mesh)
+    jmesh = js.make_mesh(8, stream=MESHES["2x4" if port == "1x1" else port][1])
+    jcfg = jf.FilterConfig(window=W, beams=B, grid=G, cell_m=CELL, voxel_reduce=reduce,
                            median_backend="inc" if median == "inc" else "xla")
-    tcfg = tf.FilterConfig(window=W, beams=B, grid=G, cell_m=CELL, median_backend=median)
+    tcfg = tf.FilterConfig(window=W, beams=B, grid=G, cell_m=CELL, median_backend=median,
+                           voxel_reduce=reduce)
     jscan = js.build_sharded_scan(jmesh, jcfg)
     jstate = js.create_sharded_state(jmesh, jcfg, STREAMS)
-    tscan = ts.build_sharded_scan(port_mesh, tcfg)
-    tstate = ts.create_sharded_state(port_mesh, tcfg, STREAMS)
-    tstep = ts.build_sharded_step(port_mesh, tcfg)
-    sstate = ts.create_sharded_state(port_mesh, tcfg, STREAMS)
+    tscan = ts.build_sharded_scan(mesh, tcfg)
+    tstate = ts.create_sharded_state(mesh, tcfg, STREAMS)
+    tstep = ts.build_sharded_step(mesh, tcfg)
+    sstate = ts.create_sharded_state(mesh, tcfg, STREAMS)
+    oscan = ts.build_sharded_scan(port_mesh, tcfg)
+    ostate = ts.create_sharded_state(port_mesh, tcfg, STREAMS)
     for lo, hi in ((0, 3), (3, 13)):
         jstate, jr = jscan(jstate, jnp.asarray(seqs[:, lo:hi]), jnp.asarray(counts[:, lo:hi]))
         tstate, tr = tscan(tstate, seqs[:, lo:hi], counts[:, lo:hi])
         np.testing.assert_array_equal(np.asarray(jr), tr.numpy(), f"chunk {lo}:{hi}")
+        if mesh is not port_mesh:
+            ostate, orr = oscan(ostate, seqs[:, lo:hi], counts[:, lo:hi])
+            assert_blocks_equal_one_block(tr, orr, f"chunk {lo}:{hi}")
         for k in range(lo, hi):
             sstate, sout = tstep(sstate, torch_batch(seqs[:, k], counts[:, k]))
             np.testing.assert_array_equal(tr[:, k - lo].numpy(), sout.ranges.numpy(), f"step {k}")
-    assert_state_equal(jstate, tstate, "jax vs scan")
-    assert_state_equal(tstate, sstate, "scan vs steps")
-    if median == "inc":
-        np.testing.assert_array_equal(tstate.median_sorted.numpy(), sstate.median_sorted.numpy())
+    assert_state_equal(jstate, gathered(mesh, tstate), "jax vs scan")
+    assert_state_equal(gathered(mesh, tstate), gathered(mesh, sstate), "scan vs steps",
+                       sorted_window=median == "inc")
 
 
 def test_scan_of_one_stream_equals_compact_filter_scan(port_mesh):
@@ -201,10 +252,18 @@ def test_scan_of_one_stream_equals_compact_filter_scan(port_mesh):
 
 
 def test_make_mesh_shapes_and_errors(monkeypatch):
+    """``device`` alone gives the (1, 1) mesh on it; ``devices`` a mesh held
+    in this process over that list (the squarest split by default);
+    without CUDA and without either it raises, never running on the host."""
     mesh = ts.make_mesh(device=CPU)
     assert mesh.shape == {"stream": 1, "beam": 1} and mesh.device == CPU
     assert not mesh.spans_processes and mesh.beam_group is None and mesh.coords == (0, 0)
+    assert not mesh.multi_block and mesh.blocks == [mesh]
     assert ts.make_mesh(1, stream=1, device="cpu").shape == {"stream": 1, "beam": 1}
+    eight = ts.make_mesh(devices=[CPU] * 8)
+    assert eight.shape == {"stream": 2, "beam": 4} and eight.multi_block
+    assert len(eight.blocks) == 8 and eight.blocks[5].coords == (1, 1)
+    assert ts.make_mesh(devices=[CPU] * 8, stream=1).shape == {"stream": 1, "beam": 8}
     with pytest.raises(ValueError, match="only 1 available"):
         ts.make_mesh(2, device=CPU)
     with pytest.raises(ValueError, match="does not divide"):
