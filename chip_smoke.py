@@ -488,8 +488,17 @@ SCHEDULED = {
 # ones, 2 chunks of 256 scans — and config 10's host arm at N = 8 for 16
 # ticks; a (2, 2) mesh of four blocks on cuda:0 in the default run, (2, 2)
 # and (1, 4) meshes of cards 0-3 with --pod-cards 4 (and the (2, 2) mesh's
-# checkpoint, saved after tick 8, loaded onto a (1, 1) card mesh)
-MESH_BLOCKS = dict(streams=8, chunk=256, chunks=2, seed_revs=32, ticks=16, ckpt_save=8)
+# checkpoint, saved after tick 8, loaded onto a (1, 1) card mesh); the
+# fused byte ingest over the meshes' stream rows (each row's streams on its
+# lead block): config 10's fused arm at N = 8 (6 ticks, 2 warm) and config
+# 18's carried-map route (FUSED_MAPPING: 4 streams, drains of T = 8, 2
+# drains, 1 warm; the scheduled drains take 3), over the (2, 2) mesh on cuda:0 in the default run and
+# over (2, 2) and (4, 1) meshes of cards 0-3 with --pod-cards 4, where the
+# (2, 2) carried route also runs the quarantine cycle on stream 2 (row 1;
+# 60 ticks) and scheduled drains at rungs (1, 2, 8)
+MESH_BLOCKS = dict(streams=8, chunk=256, chunks=2, seed_revs=32, ticks=16, ckpt_save=8,
+                   fused_ticks=6, carried_groups=2, carried_chaos_ticks=60,
+                   sched_rungs=(1, 2, 8), profile_ticks=4)
 # the sharded checkpoints (utils/checkpoint_sharded.py): config 10's service
 # (FLEET's widths, N = 8) over 20 ticks of seeded 3200-point revolutions,
 # saved after tick 10; config 12's fused mapper (MAPPING) saved after its
@@ -4047,10 +4056,12 @@ def ring_frames(revs: int, points: int) -> list[bytes]:
     return wire_frames(revs, points)
 
 
-def _fm_service(backend: str, route: str, **over):
+def _fm_service(backend: str, route: str, mesh=None, scheduled: bool = False, **over):
     """One arm of config 18: ``route`` 'fused' (the map carried in the
     ingest state, T-tick super-steps) or 'host' (the fused FleetMapper fed
-    each tick's reconstructed sweeps, one ingest step a tick), warmed."""
+    each tick's reconstructed sweeps, one ingest step a tick), warmed, on
+    ``mesh`` (None: the service's default); ``scheduled`` attaches the
+    traffic shaper before the warm-up."""
     from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
     from rplidar_ros2_driver_tpu_torch.parallel.service import ShardedFilterService
     from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
@@ -4067,8 +4078,10 @@ def _fm_service(backend: str, route: str, **over):
         **over,
     )
     svc = ShardedFilterService(params, fm["streams"], beams=fm["beams"], capacity=fm["capacity"],
-                               fleet_ingest_buckets=(fm["run"],))
+                               fleet_ingest_buckets=(fm["run"],), mesh=mesh)
     svc._ensure_byte_ingest()
+    if scheduled:
+        svc.attach_scheduler()
     svc.fleet_ingest.precompile([int(Ans.MEASUREMENT_DENSE_CAPSULED)])
     svc.attach_mapper()
     return svc
@@ -4189,11 +4202,12 @@ def _fm_loop_leg(device, ticks) -> dict:
             "poses_corrected": sum(c is not None for row in corrected["fused"] for c in row)}
 
 
-def _fm_quarantine(device, ticks) -> dict:
-    """The fused route under the health supervisor with stream 1's frames
-    corrupted (driver/chaos.chaos_ticks, seed 3): its quarantine snapshot
-    carries the ``ingest.map_*`` rows; every output, pose, transition and
-    the final maps are returned for the comparison with the CPU."""
+def _fm_quarantine(device, ticks, mesh=None, stream: int = 1) -> dict:
+    """The fused route (on ``mesh``; None: the service's default) under
+    the health supervisor with ``stream``'s frames corrupted
+    (driver/chaos.chaos_ticks, seed 3): its quarantine snapshot carries the
+    ``ingest.map_*`` rows; every output, pose, transition and the final
+    maps are returned for the comparison with the CPU."""
     import numpy as np
 
     from rplidar_ros2_driver_tpu_torch.driver.chaos import ChaosConfig, chaos_ticks
@@ -4201,16 +4215,16 @@ def _fm_quarantine(device, ticks) -> dict:
 
     fm = FUSED_MAPPING
     start, stop = fm["chaos_frames"]
-    cticks = chaos_ticks(ticks, {1: ChaosConfig(seed=3, start_frame=start, stop_frame=stop,
-                                                corrupt_rate=0.9, truncate_rate=0.5)})
-    svc = _fm_service(device.type, "fused")
+    cticks = chaos_ticks(ticks, {stream: ChaosConfig(seed=3, start_frame=start, stop_frame=stop,
+                                                     corrupt_rate=0.9, truncate_rate=0.5)})
+    svc = _fm_service(device.type, "fused", mesh)
     fake = {"now": 0.0}
     # a revolution spans 5 ticks at 16 frames: starvation past 12 ticks
     health = FleetHealth(
         fm["streams"], HealthConfig(window_ticks=3, corrupt_ratio=0.5, starvation_ticks=12,
                                     suspect_ticks=2, probation_ticks=2, backoff_base_s=0.4,
                                     backoff_jitter=0.0, seed=5),
-        clock=lambda: fake["now"], probes={1: lambda: 0}, record_masks=True)
+        clock=lambda: fake["now"], probes={stream: lambda: 0}, record_masks=True)
     svc.attach_health(health)
     snaps = []
     quarantine = svc._quarantine_stream
@@ -6263,7 +6277,13 @@ def phase_pod_cards_mesh(n: int, cards: list, card: str, seed: int) -> dict:
     (:func:`_mb_pods`); a (2, N/2) checkpoint loaded onto a (1, 1) card
     mesh and continued (:func:`_mb_checkpoint`); then each layout's
     profiled config-8 chunk and config-10 tick beside the one-card run's
-    (per-card busy ms, idle share, scans/s; no claim)."""
+    (per-card busy ms, idle share, scans/s; no claim).  Then the fused byte
+    ingest over the stream rows of (2, N/2) and (N, 1) meshes: config 10's
+    fused arm and config 18's carried route equal to one card and the CPU,
+    launching on the row leads only (:func:`_mb_fused_layouts`); on
+    (2, N/2) the quarantine cycle of a row-1 stream, scheduled drains at a
+    rung and the engine's checkpoint loaded onto (1, 1); each layout's
+    profiled tick and drain."""
     from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh
 
     t0 = time.perf_counter()
@@ -6279,9 +6299,24 @@ def phase_pod_cards_mesh(n: int, cards: list, card: str, seed: int) -> dict:
     if n % 2 == 0 and n >= 4:
         row["checkpoint"] = _mb_checkpoint(cards)
     row["profiles"] = _mb_profiles(layouts, seed, cpu)
-    row.update(card=card, seconds=time.perf_counter() - t0)
     emit({"phase": "pod_cards_mesh", "part": "profiles", "profiles": row["profiles"],
-          "checkpoint": row.get("checkpoint"), "card": card, "seconds": row["seconds"]})
+          "checkpoint": row.get("checkpoint"), "card": card,
+          "seconds": time.perf_counter() - t0})
+    if n % 2 == 0:
+        rows = {f"2x{n // 2}": make_mesh(devices=cards, stream=2),
+                f"{n}x1": make_mesh(devices=cards, stream=n)}
+        one = make_mesh(device=cards[0])
+        half = rows[f"2x{n // 2}"]
+        row["rows"] = _mb_fused_layouts(rows, cpu)
+        emit({"phase": "pod_cards_mesh", "part": "rows", **row["rows"], "card": card})
+        row["rows_health"] = _mb_rows_health(half, one)
+        row["rows_scheduled"] = _mb_rows_scheduled(half, one)
+        row["rows_checkpoint"] = _mb_rows_checkpoint(half, one)
+        row["rows_profiles"] = _mb_rows_profiles(rows, cpu)
+        emit({"phase": "pod_cards_mesh", "part": "rows_legs",
+              **{k: row[k] for k in ("rows_health", "rows_scheduled", "rows_checkpoint",
+                                     "rows_profiles")}, "card": card})
+    row.update(card=card, seconds=time.perf_counter() - t0)
     return row
 
 
@@ -6506,11 +6541,14 @@ def _mb_layouts(layouts: dict, seed: int, cpu: dict) -> dict:
 def phase_mesh_blocks(device, seed: int, card: str) -> dict:
     """The default run's one-process mesh: a (2, 2) mesh whose four blocks
     all sit on ``device`` (make_mesh(devices=[card] * 4)), config 8 and
-    config 10's host arm over it (:func:`_mb_layouts`)."""
+    config 10's host arm over it (:func:`_mb_layouts`), then config 10's
+    fused arm and config 18's carried-map route over its two stream rows
+    (:func:`_mb_fused_layouts`)."""
     from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh
 
     mesh = make_mesh(devices=[device] * 4, stream=2)
     row = {"phase": "mesh_blocks", **_mb_layouts({"2x2_one_card": mesh}, seed, {}), "card": card}
+    row["rows"] = _mb_fused_layouts({"2x2_one_card": mesh}, {})
     emit(row)
     return row
 
@@ -6668,6 +6706,319 @@ def _mb_profiles(layouts: dict, seed: int, cpu: dict) -> dict:
         live = iter(ticks[2:6])
         c10 = _profiled(card0, lambda: svc.submit_bytes(next(live)), 4)
         out[name] = {"config8_chunk": c8, "config10_tick": c10}
+    return out
+
+
+# the fused byte ingest over a mesh's stream rows (FleetFusedIngest's rows)
+# ---------------------------------------------------------------------------
+
+# kernels whose launches scale with the rows (one a row per tick, or per
+# tick completing revolutions, on the lockstep scenes here); B1 is one a
+# completed revolution a stream, so the rows share the one-row count
+ROW_KERNELS = ("beam_min", "shift_sad", "coarse_scores", "fine_scores", "log_odds_update")
+
+
+def _mb_rows(svc) -> list:
+    return [[list(r.block), str(r.device), r.lanes.start, r.lanes.stop]
+            for r in svc.fleet_ingest.rows]
+
+
+def _mb_guard(device, what: str):
+    from rplidar_ros2_driver_tpu_torch.utils import guards
+
+    return (guards.steady_state(tag=what) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _mb_fused(mesh, ticks) -> dict:
+    """Config 10's fused arm over ``mesh``: submit_bytes a tick, the ticks
+    after the first two under guards.steady_state on a card (every card:
+    nothing built, no new segment, no undeclared sync).  Returns the
+    published outputs and the engine's final snapshot (digests), the
+    launches in all and by card, the rows, the dispatch counters and
+    ticks/s."""
+    import numpy as np
+
+    backend = "cuda" if mesh.device.type == "cuda" else "cpu"
+    n = MESH_BLOCKS["streams"]
+    svc = _fleet_service(backend, "fused", n, FLEET["points"] // 40, mesh=mesh)
+    warm = 2
+    outs = [svc.submit_bytes(t) for t in ticks[:warm]]
+    _sync(mesh.device)
+    _reset_counts()
+    lat = []
+    with _mb_guard(mesh.device, f"mesh rows config 10 fused {mesh}"):
+        for t in ticks[warm:]:
+            t0 = time.perf_counter()
+            outs.append(svc.submit_bytes(t))
+            lat.append(time.perf_counter() - t0)
+    _sync(mesh.device)
+    eng = svc.fleet_ingest
+    snap = eng.snapshot()
+    return {"published": [[_out_digest(o) for o in p] for p in _published(outs, n)],
+            "snapshot": _digest(snap[k] for k in sorted(snap)),
+            "launches": _counts(), "card_launches": _card_counts(), "rows": _mb_rows(svc),
+            "dispatches": eng.dispatch_count, "h2d_transfers": eng.h2d_transfers,
+            "card_dispatches": dict(eng.card_dispatches), "revolutions": eng.scans_completed,
+            "ticks_per_s": len(lat) / float(np.sum(lat)), "tick_ms": _pcts(np.asarray(lat))}
+
+
+def _mb_carried_groups(n: int = 0) -> list:
+    """Config 18's drains at full width: ``n`` (MESH_BLOCKS'
+    ``carried_groups``) drains of T ticks of FUSED_MAPPING's paced ring."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    fm = FUSED_MAPPING
+    n = n or MESH_BLOCKS["carried_groups"]
+    revs = -(-n * fm["T"] * fm["run"] * 40 // fm["points"]) + 1
+    ticks = fleet_byte_ticks(ring_frames(revs, fm["points"]), fm["streams"], fm["run"],
+                             int(Ans.MEASUREMENT_DENSE_CAPSULED))
+    return [ticks[g * fm["T"]:(g + 1) * fm["T"]] for g in range(n)]
+
+
+def _mb_carried(mesh, groups) -> dict:
+    """Config 18's carried-map route over ``mesh``: one super-step drain of
+    T ticks a group, the drains after the first under guards.steady_state
+    on a card.  Returns each stream's ranges, the drain-boundary poses, the
+    carried map and the engine's snapshot (digests), the launches in all
+    and by card, the rows, the dispatch counters and drains/s."""
+    import numpy as np
+
+    fm = FUSED_MAPPING
+    svc = _fm_service(mesh.device.type, "fused", mesh)
+    ranges, poses, lat = [[] for _ in range(fm["streams"])], [], []
+
+    def drain(group):
+        for i, outs in enumerate(svc.submit_bytes_backlog(group)):
+            ranges[i] += [_digest([np.asarray(o.ranges)]) for o in outs]
+        poses.append(_fm_pose_row(svc))
+
+    drain(groups[0])
+    _sync(mesh.device)
+    _reset_counts()
+    with _mb_guard(mesh.device, f"mesh rows config 18 {mesh}"):
+        for group in groups[1:]:
+            t0 = time.perf_counter()
+            drain(group)
+            lat.append(time.perf_counter() - t0)
+    _sync(mesh.device)
+    eng = svc.fleet_ingest
+    snap, cmap = eng.snapshot(), svc.mapper.snapshot()
+    return {"ranges": ranges, "poses": poses, "map": _digest(cmap[k] for k in sorted(cmap)),
+            "snapshot": _digest(snap[k] for k in sorted(snap)),
+            "launches": _counts(), "card_launches": _card_counts(), "rows": _mb_rows(svc),
+            "dispatches": eng.dispatch_count, "card_dispatches": dict(eng.card_dispatches),
+            "revolutions": eng.scans_completed,
+            "drains_per_s": len(lat) / float(np.sum(lat)), "drain_ms": _pcts(np.asarray(lat))}
+
+
+def _mb_check_rows(what: str, mesh, got: dict, ref: dict, names: tuple) -> None:
+    """Launches by card of a run over ``mesh``'s rows against the one-row
+    card run ``ref``: each row's lead card launched each kernel of
+    ``names`` once a row it leads for every launch of the one row, B1 as
+    many times in all as the one row (one a completed revolution a
+    stream) and on every lead card, and no card but a row lead launched
+    anything.  On the host nothing launches."""
+    if mesh.device.type != "cuda":
+        return
+    leads: dict = {}
+    for _block, dev, _start, _stop in got["rows"]:
+        card = int(dev.split(":")[1])
+        leads[card] = leads.get(card, 0) + 1
+    by_card, total = got["card_launches"], got["launches"]
+    check(set(by_card) <= set(leads),
+          f"mesh rows: {what}: a card that leads no row launched a kernel: {by_card}, "
+          f"row leads {leads}")
+    check(total.get("temporal_median", 0) == ref["launches"].get("temporal_median", 0) > 0,
+          f"mesh rows: {what}: B1 launched {total.get('temporal_median', 0)} times, the one "
+          f"row {ref['launches'].get('temporal_median', 0)}")
+    for card, k in leads.items():
+        check(by_card.get(card, {}).get("temporal_median", 0) > 0,
+              f"mesh rows: {what}: cuda:{card} leads a row and launched no B1")
+        for name in names:
+            want = k * ref["launches"].get(name, 0)
+            check(by_card.get(card, {}).get(name, 0) == want > 0,
+                  f"mesh rows: {what}: cuda:{card} launched {name} "
+                  f"{by_card.get(card, {}).get(name, 0)} times, not {want} ({k} rows)")
+
+
+def _mb_fused_layouts(layouts: dict, cpu: dict) -> dict:
+    """Config 10's fused arm and config 18's carried-map route over each
+    mesh of ``layouts`` (the engine's rows on the rows' lead blocks) and
+    over the (1, 1) mesh on the first layout's lead card: every layout
+    byte-equal to the (1, 1) card run (every published output or drain's
+    ranges and poses, the carried map, the engine's snapshot) and to the
+    CPU run; the dispatch counters of one engine whatever the rows; the
+    launches on the row leads (:func:`_mb_check_rows`)."""
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh
+
+    t0 = time.perf_counter()
+    lead = next(iter(layouts.values())).device
+    one, host = make_mesh(device=lead), make_mesh(device="cpu")
+    ticks = _memo(cpu, "mb ticks", _mb_ticks)[: MESH_BLOCKS["fused_ticks"]]
+    groups = _memo(cpu, "mb carried groups", _mb_carried_groups)
+    row: dict = {"config10_fused": {}, "config18_carried": {}, "launches": {}}
+    legs = (("config10_fused", _mb_fused, ticks, ("published", "snapshot"), ()),
+            ("config18_carried", _mb_carried, groups, ("ranges", "poses", "map", "snapshot"),
+             ROW_KERNELS))
+    for leg, run, data, keys, names in legs:
+        ref = run(one, data)
+        cpu_run = _memo(cpu, f"mb {leg} cpu", lambda: run(host, data))
+        check(all(ref[k] == cpu_run[k] for k in keys),
+              f"mesh rows: {leg}: the (1, 1) card run differs from the CPU")
+        rate = "ticks_per_s" if leg == "config10_fused" else "drains_per_s"
+        arm = {"one_card": {rate: ref[rate], "launches": ref["launches"],
+                            "dispatches": ref["dispatches"], "revolutions": ref["revolutions"]}}
+        for name, mesh in layouts.items():
+            got = run(mesh, data)
+            check(all(got[k] == ref[k] for k in keys),
+                  f"mesh rows: {leg} over {name} differs from the (1, 1) card run")
+            check(got["dispatches"] == ref["dispatches"]
+                  and sum(got["card_dispatches"].values())
+                  == len(got["rows"]) * got["dispatches"],
+                  f"mesh rows: {leg} over {name}: dispatches {got['dispatches']} (one row "
+                  f"{ref['dispatches']}), by card {got['card_dispatches']}")
+            _mb_check_rows(f"{leg} over {name}", mesh, got, ref, names)
+            for k, v in got["launches"].items():
+                row["launches"][k] = row["launches"].get(k, 0) + v
+            arm[name] = {rate: got[rate], "rows": got["rows"],
+                         "card_dispatches": got["card_dispatches"],
+                         "card_launches": got["card_launches"]}
+        row[leg] = arm
+    row.update(layouts={name: str(m) for name, m in layouts.items()}, steady_state="clean",
+               equal_to_one_card=True, cpu_equal=True, seconds=time.perf_counter() - t0)
+    return row
+
+
+def _mb_rows_health(mesh, one) -> dict:
+    """Config 18's carried route under the health supervisor over ``mesh``
+    with stream 2 (row 1 of a (2, 2) mesh) corrupted, against the same
+    cycle on the one-row mesh ``one``: outputs, poses, transitions and the
+    final maps equal; the stream quarantined and rejoined, its snapshot
+    carrying its ``ingest.map_*`` rows."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    fm = FUSED_MAPPING
+    ticks = fleet_byte_ticks(ring_frames(fm["revs"], fm["points"]), fm["streams"], fm["run"],
+                             int(Ans.MEASUREMENT_DENSE_CAPSULED))[: MESH_BLOCKS["carried_chaos_ticks"]]
+    t0 = time.perf_counter()
+    got = _fm_quarantine(mesh.device, ticks, mesh, stream=2)
+    ref = _fm_quarantine(one.device, ticks, one, stream=2)
+    check(got["quarantines"] >= 1 and got["rejoins"] >= 1
+          and all(s == 2 for (_t, s, _a, _b) in got["events"]),
+          f"mesh rows quarantine: stream 2 did not walk alone ({got['events']})")
+    check(all(f"ingest.map_{k}" in keys for keys in got["snapshot_keys"]
+              for k in ("log_odds", "pose", "origin_xy", "revision")),
+          "mesh rows quarantine: the snapshot lacks the ingest.map_* rows")
+    check(_fm_quarantine_same(got, ref), "mesh rows quarantine: the rows differ from one row")
+    return {"ticks": len(ticks), "stream": 2, "quarantines": got["quarantines"],
+            "rejoins": got["rejoins"], "walk": [list(e) for e in got["events"]],
+            "equal_to_one_card": True, "seconds": time.perf_counter() - t0}
+
+
+def _mb_rows_scheduled(mesh, one) -> dict:
+    """Config 18's carried route with the traffic shaper (rungs
+    MESH_BLOCKS["sched_rungs"]) over ``mesh`` and the one-row mesh
+    ``one``: a burst of T ticks, then two ticks, then a burst again, each
+    drained by drain_scheduled; every drain's outputs, the shaper's status
+    (its wall-clock model aside) and the rung counts equal."""
+    import numpy as np
+
+    fm = FUSED_MAPPING
+    ticks = [t for g in _mb_carried_groups(3) for t in g]
+    bursts = (fm["T"], 2, fm["T"])
+    t0 = time.perf_counter()
+    runs = []
+    for m in (mesh, one):
+        svc = _fm_service(m.device.type, "fused", m, scheduled=True,
+                          sched_rungs=MESH_BLOCKS["sched_rungs"],
+                          admission_max_backlog_ticks=2 * fm["T"])
+        outs, statuses, pos = [], [], 0
+        for n in bursts:
+            chunk = ticks[pos:pos + n]
+            pos += n
+            svc.offer_bytes([[t[i] for t in chunk] for i in range(fm["streams"])])
+            outs.append([[_digest([np.asarray(o.ranges)]) for o in s]
+                         for s in svc.drain_scheduled()])
+            st = svc.scheduler_status()
+            st.pop("latency_model")
+            statuses.append(st)
+        runs.append({"outs": outs, "statuses": statuses, "poses": _fm_pose_row(svc),
+                     "rungs": dict(svc.fleet_ingest.rung_dispatches)})
+    got, ref = runs
+    check(got == ref, "mesh rows scheduled: the rows' drains differ from one row")
+    check(got["rungs"].get(fm["T"], 0) >= 2, f"mesh rows scheduled: rung dispatches {got['rungs']}")
+    return {"bursts": list(bursts), "rung_dispatches": got["rungs"], "equal_to_one_card": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def _mb_rows_checkpoint(mesh, one) -> dict:
+    """Config 10's fused service over the (2, 2) ``mesh`` for four ticks,
+    its engine saved with save_sharded (the global layout from the rows),
+    loaded onto a fresh service on the one-row mesh ``one`` (the restored
+    snapshot equal) and both continued byte-equal to the end."""
+    import shutil
+
+    ticks = _mb_ticks()[: MESH_BLOCKS["fused_ticks"]]
+    n, run = MESH_BLOCKS["streams"], FLEET["points"] // 40
+    src = _fleet_service(mesh.device.type, "fused", n, run, mesh=mesh)
+    dst = _fleet_service(one.device.type, "fused", n, run, mesh=one)
+    cut = len(ticks) // 2
+    for t in ticks[:cut]:
+        src.submit_bytes(t)
+    tmp = tempfile.mkdtemp(prefix="rpl_rows_ckpt_")
+    try:
+        path = os.path.join(tmp, "ckpt")
+        s0 = time.perf_counter()
+        src.fleet_ingest.save_sharded(path)
+        save_ms = (time.perf_counter() - s0) * 1e3
+        s0 = time.perf_counter()
+        check(dst.fleet_ingest.load_sharded(path), "mesh rows checkpoint: the (1, 1) engine "
+              "refused it")
+        load_ms = (time.perf_counter() - s0) * 1e3
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = src.fleet_ingest.snapshot(), dst.fleet_ingest.snapshot()
+    check(all(_bits_equal(a[k], b[k]) for k in a),
+          "mesh rows checkpoint: the restored (1, 1) state differs from the rows'")
+    for t in ticks[cut:]:
+        for x, y in zip(src.submit_bytes(t), dst.submit_bytes(t)):
+            check((x is None) == (y is None) and (x is None or _same_output(x, y)),
+                  "mesh rows checkpoint: the continued (1, 1) service differs from the rows'")
+    a, b = src.fleet_ingest.snapshot(), dst.fleet_ingest.snapshot()
+    check(all(_bits_equal(a[k], b[k]) for k in a), "mesh rows checkpoint: the final states differ")
+    return {"from": str(mesh), "to": str(one), "saved_after": cut, "ticks": len(ticks),
+            "save_ms": save_ms, "load_ms": load_ms}
+
+
+def _mb_rows_profiles(layouts: dict, cpu: dict) -> dict:
+    """Per-card busy ms and idle share of a profiled config-10 fused tick
+    and config-18 drain over each layout, beside the (1, 1) card run's
+    (ticks/s and drains/s from the profiled wall; no claim)."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.parallel import sharding as ts
+
+    k = MESH_BLOCKS["profile_ticks"]
+    ticks = _memo(cpu, "mb ticks", _mb_ticks)
+    groups = _memo(cpu, "mb carried groups", _mb_carried_groups)
+    card0 = torch.device("cuda", 0)
+    out = {}
+    for name, mesh in {"one_card": ts.make_mesh(device=card0), **layouts}.items():
+        svc = _fleet_service("cuda", "fused", MESH_BLOCKS["streams"], FLEET["points"] // 40,
+                             mesh=mesh)
+        for t in ticks[:2]:
+            svc.submit_bytes(t)
+        live = iter(ticks[2:2 + k])
+        c10 = _profiled(card0, lambda: svc.submit_bytes(next(live)), k)
+        c10["ticks_per_s"] = 1e3 / c10["wall_ms"]
+        carried = _fm_service("cuda", "fused", mesh)
+        carried.submit_bytes_backlog(groups[0])
+        drains = iter(groups[1:])
+        c18 = _profiled(card0, lambda: carried.submit_bytes_backlog(next(drains)),
+                        len(groups) - 1)
+        c18["drains_per_s"] = 1e3 / c18["wall_ms"]
+        out[name] = {"config10_fused_tick": c10, "config18_drain": c18}
     return out
 
 

@@ -20,9 +20,17 @@ backlog of ticks T at a time through the super-step.
 The host path (decoder + assembler + chain) stays the golden reference;
 the engines are held to it bit for bit (tests/test_torch_fused_ingest.py).
 
-The fleet engine runs on the card of ``params.filter_backend``, or on the
-lead card of a mesh held in this process (parallel/sharding.Mesh), and has the JAX
-package's checkpoint surface in its formats: the whole fleet
+The fleet engine runs on the card of ``params.filter_backend``, or over
+the stream rows of a mesh held in this process (parallel/sharding.Mesh):
+row ``r`` of a ``stream = R`` mesh holds streams ``[r*N/R, (r+1)*N/R)`` —
+their decode carries, filter rows, sub-sweep cache and carried map — on the
+row's lead block ``(r, 0)``, which stages, runs and lands the row's part of
+every tick (parallel/sharding.fleet_rows).  The JAX package places this
+state ``P("stream", None, ...)``, a row replicated over its beam devices;
+here a row is computed once.  Slicing, counters and every output stay
+global: a tick is cut once for the fleet, every row runs the same slices,
+and outputs come back in stream order, byte-equal to one row.  The engine
+has the JAX package's checkpoint surface in its formats: the whole fleet
 (:meth:`FleetFusedIngest.snapshot` / :meth:`FleetFusedIngest.restore`)
 and one stream's rows (``snapshot_stream`` / ``restore_stream``, schema
 version 3, the health supervisor's quarantine transport).  With the fused
@@ -90,7 +98,19 @@ from rplidar_ros2_driver_tpu_torch.protocol import crc as crcmod
 from rplidar_ros2_driver_tpu_torch.protocol import timing as timingmod
 from rplidar_ros2_driver_tpu_torch.protocol.constants import ANS_PAYLOAD_BYTES, Ans
 from rplidar_ros2_driver_tpu_torch.utils import cuda_build, guards
-from rplidar_ros2_driver_tpu_torch.utils.rowops import gather_row, row_to_numpy, scatter_row
+from rplidar_ros2_driver_tpu_torch.parallel.sharding import (
+    FleetRow,
+    fleet_rows,
+    gather_fleet_ingest_state,
+    place_rows,
+)
+from rplidar_ros2_driver_tpu_torch.utils.rowops import (
+    gather_row,
+    lane_of,
+    map_state,
+    row_to_numpy,
+    scatter_row,
+)
 
 log = logging.getLogger("rplidar_tpu.ingest")
 
@@ -546,7 +566,15 @@ class FleetFusedIngest:
     ``staging_pool`` injects the :class:`StagingPool` the engine stages its
     uploads through; the serving pod shares one among the engines of a
     host, so an engine carries only device state.  By default the engine
-    owns a private pool (pinned on the card)."""
+    owns a private pool (pinned on the card).
+
+    On a mesh of several stream rows (``rows``, parallel/sharding.fleet_rows)
+    each row keeps its own state, cold template and staging pairs (a pool
+    key a row) on its lead block's card.  A dispatch stages and uploads
+    every row's planes, issues every row's step, and only then is any
+    row's result fetched; ``dispatch_count`` and ``h2d_transfers`` count a
+    dispatch once, as the JAX package does, and ``card_dispatches`` counts
+    the row steps each card ran."""
 
     def __init__(
         self,
@@ -573,21 +601,25 @@ class FleetFusedIngest:
         self.streams = streams
         self.mesh = mesh
         if mesh is None:
-            self.device = pick_device(params.filter_backend)
+            self.rows = [FleetRow((0, 0), pick_device(params.filter_backend), slice(0, streams))]
         elif mesh.spans_processes:
-            # the engine runs N independent per-stream pipelines on one
-            # device; splitting them across processes is not its layout.
-            # A mesh held in this process (several cards included) runs
-            # them on its lead card: the JAX package places this state
-            # P("stream", ...), at stream = 1 a replica of one computation
-            # on every device of the mesh
+            # the engine holds its rows in this process; splitting the
+            # streams across processes is not its layout
             raise ValueError(
                 "FleetFusedIngest runs on a one-process mesh; a mesh that "
                 "spans processes feeds each process's streams through "
                 "ShardedFilterService.submit_local"
             )
         else:
-            self.device = mesh.device
+            # each stream row's streams on the row's lead block: the JAX
+            # package's P("stream", None, ...), computed once a row instead
+            # of replicated over the row's beam devices
+            self.rows = fleet_rows(mesh, streams)
+        self.device = self.rows[0].device
+        self._widths = [row.lanes.stop - row.lanes.start for row in self.rows]
+        self._cards = list(dict.fromkeys(row.device for row in self.rows))
+        # global stream -> (row, lane in the row's state)
+        self._lane_of = [lane_of(self.rows, i) for i in range(streams)]
         self.cfg = config_from_params(params, beams or DEFAULT_BEAMS, platform=self.device.type)
         self._deskew = deskew_config_from_params(params, self.cfg.beams, platform=self.device.type)
         # the carried SLAM front-end (fused mapping route): each stream's
@@ -663,10 +695,11 @@ class FleetFusedIngest:
         self._bases: list = [None] * streams        # f64 timestamp base
         self._reset_next: list = [False] * streams  # decode-state reset flags
         self._icfg = None                           # active FleetIngestConfig
-        # the cold_reset template: a fresh fleet state on the device,
+        # the cold_reset template: a fresh state a row on its card,
         # captured only by capture_cold_template (the serving pod's)
         self._fresh = None
-        self._state = self._fresh_fleet_state()
+        # one stream-batched state a row, on the row's card
+        self._states = self._fresh_fleet_state()
         self._pending: deque = deque()
         self._max_queue = max_queue
         self.ticks = 0
@@ -674,6 +707,10 @@ class FleetFusedIngest:
         # staged host->device transfers: two a dispatch (the frames plane
         # here, the aux plane inside the step), whatever the fleet size
         self.h2d_transfers = 0
+        # row steps run per card (str(device)): each dispatch runs one step
+        # a row, so on a mesh of R rows the cards' counts sum to R per
+        # dispatch
+        self.card_dispatches: dict = {}
         self.super_dispatches = 0
         self.ticks_super_fused = 0
         self.frames_decoded = 0
@@ -682,15 +719,30 @@ class FleetFusedIngest:
         self.revs_dropped = 0
         self.wires_dropped = 0
 
-    def _fresh_fleet_state(self):
-        """A fresh fleet state (its shape is format-independent, so the
-        baseline single-format config describes every lane)."""
+    def _fresh_fleet_state(self) -> list:
+        """A fresh state a row, on the row's card (its shape is
+        format-independent, so the baseline single-format config describes
+        every lane)."""
         cfg = fleet_ingest_config_for(
             (Ans.MEASUREMENT,), self.timing, self.cfg,
             max_nodes=self.max_nodes, max_revs=self.max_revs, deskew=self._deskew,
             mapping=self._mapping,
         )
-        return create_fleet_ingest_state(cfg, self.streams, device=self.device)
+        return [create_fleet_ingest_state(cfg, w, device=row.device)
+                for row, w in zip(self.rows, self._widths)]
+
+    @property
+    def _state(self):
+        """The state of an engine of one row."""
+        if len(self._states) != 1:
+            raise RuntimeError("this engine holds one state a row (_states)")
+        return self._states[0]
+
+    def _synchronize(self) -> None:
+        """Wait for every row card's queued work (precompile's timing)."""
+        for dev in self._cards:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # -- configuration -------------------------------------------------------
 
@@ -740,7 +792,8 @@ class FleetFusedIngest:
         first run, which builds and maps memory, stays out of it).  Every
         warm run's results stay alive until the end, so the allocator
         holds blocks for a drain's results in flight: a rung or bucket
-        switch later builds nothing and maps no new segment."""
+        switch later builds nothing and maps no new segment.  Every row's
+        card is warmed, and a timed run is every row's step."""
         with self._lock:
             self._ensure_cfg(formats)
             icfg = self._icfg
@@ -748,27 +801,29 @@ class FleetFusedIngest:
             return
         self._rungs_warmed = True
         _build_kernels(self.device, self._deskew, self._mapping)
-        # the warm steps' idle frames complete no revolution: run what a
-        # completed one runs (the slot filter, the de-skew profiles) apart
-        warm_revolution_path(icfg, self.streams, self.device)
-        cuda = self.device.type == "cuda"
+        for row, w in zip(self.rows, self._widths):
+            # the warm steps' idle frames complete no revolution: run what
+            # a completed one runs (the slot filter, the de-skew profiles)
+            # apart
+            warm_revolution_path(icfg, w, row.device)
         keep = []
         for b in buckets or self._buckets:
             for t_depth in self.rungs:
                 skey = ("super", t_depth, b) if t_depth > 1 else ("tick", b)
-                buf, aux = pair = self._staging_buffers(skey)
-                aux.numpy()[..., 2 * b + 1] = 1.0  # m=1: the live-lane path
+                pairs = self._staging_buffers(skey)
+                for _buf, aux in pairs:
+                    aux.numpy()[..., 2 * b + 1] = 1.0  # m=1: the live-lane path
                 step = super_fleet_ingest_step if t_depth > 1 else fleet_fused_ingest_step
-                st = create_fleet_ingest_state(icfg, self.streams, device=self.device)
-                keep.append(step(st, buf.to(self.device, non_blocking=True), aux, icfg))
-                if cuda:
-                    torch.cuda.synchronize(self.device)
-                t0 = time.perf_counter()
-                keep.append(step(st, buf.to(self.device, non_blocking=True), aux, icfg))
-                if cuda:
-                    torch.cuda.synchronize(self.device)
-                self.warmup_costs[(t_depth, b)] = time.perf_counter() - t0
-                self.staging.give(skey, pair)
+                states = [create_fleet_ingest_state(icfg, w, device=row.device)
+                          for row, w in zip(self.rows, self._widths)]
+                for timed in (False, True):
+                    t0 = time.perf_counter()
+                    for row, st, (buf, aux) in zip(self.rows, states, pairs):
+                        keep.append(step(st, buf.to(row.device, non_blocking=True), aux, icfg))
+                    self._synchronize()
+                    if timed:
+                        self.warmup_costs[(t_depth, b)] = time.perf_counter() - t0
+                self._give(skey, pairs)
         del keep
 
     # -- producer side -------------------------------------------------------
@@ -915,39 +970,59 @@ class FleetFusedIngest:
         self._launch(staged)
 
     # graftlint: hot-loop
-    def _stage_slice(self, sl, mb: int, buf: torch.Tensor, aux: np.ndarray) -> None:
-        """Fill one tick slice's staging planes (``buf`` (streams, mb,
-        frame_bytes) uint8, ``aux`` (streams, 2mb+4) f32, pre-zeroed),
-        advancing the per-stream timestamp bases."""
+    def _stage_slice(self, sl, mb: int, bufs: list, auxs: list) -> None:
+        """Fill one tick slice's staging planes, one pair a row (``bufs[r]``
+        (row streams, mb, frame_bytes) uint8, ``auxs[r]`` (row streams,
+        2mb+4) f32, pre-zeroed), advancing the per-stream timestamp
+        bases."""
         icfg = self._icfg
         chunk, fmts, resets = sl
         for i, c in enumerate(chunk):
+            r, lane = self._lane_of[i]
+            aux = auxs[r][lane]
             fmt = fmts[i]
             if fmt is not None:
-                aux[i, 2 * mb + 2] = icfg.formats.index(int(fmt))
+                aux[2 * mb + 2] = icfg.formats.index(int(fmt))
             if resets[i]:
-                aux[i, 2 * mb + 3] = 1.0
+                aux[2 * mb + 3] = 1.0
                 self._bases[i] = None  # decode reset => fresh timestamp base
             if not c or not c[1]:
                 continue  # idle this slice: m=0, carries pass through
             ans, frames = c
             m = len(frames)
             base = frames[0][1]
-            _fill_frames(buf[i], [d for d, _ in frames], ANS_PAYLOAD_BYTES[Ans(ans)])
-            aux[i, :m] = [ts - base for _, ts in frames]
+            _fill_frames(bufs[r][lane], [d for d, _ in frames], ANS_PAYLOAD_BYTES[Ans(ans)])
+            aux[:m] = [ts - base for _, ts in frames]
             if ans == Ans.MEASUREMENT_HQ:
-                aux[i, mb : mb + m] = [float(crcmod.frame_crc_ok(d)) for d, _ in frames]
-            aux[i, 2 * mb] = 0.0 if self._bases[i] is None else self._bases[i] - base
-            aux[i, 2 * mb + 1] = m
+                aux[mb : mb + m] = [float(crcmod.frame_crc_ok(d)) for d, _ in frames]
+            aux[2 * mb] = 0.0 if self._bases[i] is None else self._bases[i] - base
+            aux[2 * mb + 1] = m
             self._bases[i] = base
 
-    def _staging_buffers(self, skey: tuple) -> tuple:
+    @staticmethod
+    def _pool_key(skey: tuple, r: int) -> tuple:
+        # row 0 keeps the one-row engine's keys; every other row has its
+        # own (a super plane is strided along its stream axis, so a row
+        # stages into a contiguous pair of its own, never a view)
+        return skey if r == 0 else ("row", r) + skey
+
+    def _staging_buffers(self, skey: tuple) -> list:
+        """One pooled (frames, aux) pair a row for staging key ``skey``."""
         fb = self._icfg.frame_bytes
         mb = skey[-1]
         lead = (skey[1],) if skey[0] == "super" else ()
-        return self.staging.take(
-            skey, lead + (self.streams, mb, fb), lead + (self.streams, fleet_aux_len(mb))
-        )
+        return [self.staging.take(self._pool_key(skey, r), lead + (w, mb, fb),
+                                  lead + (w, fleet_aux_len(mb)))
+                for r, w in enumerate(self._widths)]
+
+    def _give(self, skey: tuple, pairs: list) -> None:
+        for r, pair in enumerate(pairs):
+            self.staging.give(self._pool_key(skey, r), pair)
+
+    def _upload(self, pairs: list) -> list:
+        """Every row's frames plane on its card, without blocking (the aux
+        planes stay in pinned host memory; the step uploads them)."""
+        return [buf.to(row.device, non_blocking=True) for row, (buf, _) in zip(self.rows, pairs)]
 
     def _slice_bucket(self, slices) -> int:
         return self._bucket(max((len(c[1]) for sl in slices for c in sl[0] if c), default=1))
@@ -958,12 +1033,10 @@ class FleetFusedIngest:
         in pinned host memory; the step uploads it)."""
         mb = self._slice_bucket([sl])
         skey = ("tick", mb)
-        pair = self._staging_buffers(skey)
-        buf, aux = pair
-        self._stage_slice(sl, mb, buf, aux.numpy())
+        pairs = self._staging_buffers(skey)
+        self._stage_slice(sl, mb, [p[0] for p in pairs], [p[1].numpy() for p in pairs])
         self.h2d_transfers += 2
-        return ("tick", 1, 1, self._icfg, list(self._bases), skey, pair,
-                buf.to(self.device, non_blocking=True))
+        return ("tick", 1, 1, self._icfg, list(self._bases), skey, pairs, self._upload(pairs))
 
     # graftlint: hot-loop
     def _stage_super(self, group, t_depth: int) -> tuple:
@@ -971,28 +1044,35 @@ class FleetFusedIngest:
         planes; ticks beyond the group stay all-idle (zeroed)."""
         mb = self._slice_bucket(group)
         skey = ("super", t_depth, mb)
-        pair = self._staging_buffers(skey)
-        buf, aux = pair
-        a = aux.numpy()
+        pairs = self._staging_buffers(skey)
+        auxs = [p[1].numpy() for p in pairs]
         bases_per_tick = []
         for t, sl in enumerate(group):
-            self._stage_slice(sl, mb, buf[t], a[t])
+            self._stage_slice(sl, mb, [p[0][t] for p in pairs], [a[t] for a in auxs])
             bases_per_tick.append(list(self._bases))
         self.h2d_transfers += 2
-        return ("super", t_depth, len(group), self._icfg, bases_per_tick, skey, pair,
-                buf.to(self.device, non_blocking=True))
+        return ("super", t_depth, len(group), self._icfg, bases_per_tick, skey, pairs,
+                self._upload(pairs))
 
     # graftlint: hot-loop
     def _launch(self, staged) -> None:
-        """Run the step of one staged descriptor and queue its results
-        (with, on the card, the event that marks the staged inputs read)."""
-        kind, t_depth, n, icfg, bases, skey, pair, dbuf = staged
+        """Run every row's step of one staged descriptor and queue the
+        results (with, on the card, one event a row, recorded on the row
+        card's stream, that marks the row's staged inputs read).  No row's
+        result is waited for here."""
+        kind, t_depth, n, icfg, bases, skey, pairs, dbufs = staged
         step = super_fleet_ingest_step if kind == "super" else fleet_fused_ingest_step
-        self._state, *res = step(self._state, dbuf, pair[1], icfg)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+        results, events = [], []
+        for r, row in enumerate(self.rows):
+            self._states[r], *res = step(self._states[r], dbufs[r], pairs[r][1], icfg)
+            results.append(tuple(res))
+            event = None
+            if row.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(row.device))
+            events.append(event)
+            card = str(row.device)
+            self.card_dispatches[card] = self.card_dispatches.get(card, 0) + 1
         if kind == "super":
             self.super_dispatches += 1
             self.ticks_super_fused += n
@@ -1000,19 +1080,20 @@ class FleetFusedIngest:
         self.rung_dispatches[t_depth] = self.rung_dispatches.get(t_depth, 0) + 1
         rb = (t_depth, skey[-1])
         self.rung_bucket_dispatches[rb] = self.rung_bucket_dispatches.get(rb, 0) + 1
-        self._pending.append((kind, tuple(res), icfg, bases, skey, pair, event))
+        self._pending.append((kind, results, icfg, bases, skey, pairs, events))
         while len(self._pending) > self._max_queue:
             self._release_entry(self._pending.popleft())
             self.wires_dropped += 1
 
     def _release_entry(self, entry) -> None:
-        """Give an unparsed entry's staging pair back to the pool once the
-        device has read it (its event; on the CPU the step already has)."""
-        event = entry[6]
-        if event is not None:
-            with guards.declared_sync():
-                event.synchronize()
-        self.staging.give(entry[4], entry[5])
+        """Give an unparsed entry's staging pairs back to the pool once the
+        rows' cards have read them (their events; on the CPU the steps
+        already have)."""
+        for event in entry[6]:
+            if event is not None:
+                with guards.declared_sync():
+                    event.synchronize()
+        self._give(entry[4], entry[5])
 
     # -- consumer side -------------------------------------------------------
 
@@ -1043,17 +1124,23 @@ class FleetFusedIngest:
                     dur = max(float(res.end_ts[k]) - float(res.ts0[k]), 0.0)
                     out[i].append((res.outputs[k], ts0, dur))
 
-        for kind, arrays, icfg, bases, skey, pair, _event in entries:
-            # the declared fetch: the results' copy to the host waits on
-            # the step, which also proves the staged inputs were read
+        for kind, per_row, icfg, bases, skey, pairs, _events in entries:
+            # the declared fetch: each row's copy to the host waits on the
+            # row's step, which also proves its staged inputs were read;
+            # the rows' per-stream results join in stream order
             with guards.declared_sync():
-                parsed = (unpack_super_fleet_ingest_result(arrays, icfg) if kind == "super"
-                          else [unpack_fleet_ingest_result(arrays, icfg)])
+                if kind == "super":
+                    rows = [unpack_super_fleet_ingest_result(a, icfg) for a in per_row]
+                    parsed = [[res for row in rows for res in row[t]]
+                              for t in range(len(rows[0]))]
+                else:
+                    parsed = [[res for a in per_row
+                               for res in unpack_fleet_ingest_result(a, icfg)]]
             for t, results in enumerate(parsed):
                 # a super entry's pad ticks complete nothing; the last
                 # tick's bases cover them
                 absorb(results, bases[min(t, len(bases) - 1)] if kind == "super" else bases)
-            self.staging.give(skey, pair)
+            self._give(skey, pairs)
         return out
 
     def take_recon(self) -> list:
@@ -1148,12 +1235,8 @@ class FleetFusedIngest:
 
     def filter_state_of(self, i: int):
         """Stream ``i``'s FilterState, copied to the host."""
-        fs = self._state.filter
-
-        return FilterState(**{
-            f.name: None if getattr(fs, f.name) is None else getattr(fs, f.name)[i].cpu()
-            for f in dataclasses.fields(fs)
-        })
+        r, lane = self._lane_of[i]
+        return map_state(self._states[r].filter, lambda v: v[lane].cpu())
 
     # -- the serving surface (ShardedFilterService, the serving pod) ---------
 
@@ -1164,29 +1247,35 @@ class FleetFusedIngest:
         trackers, in the JAX package's format: ``ingest.*`` /
         ``filter.*`` stream-batched numpy planes, ``formats`` (int32, -1 =
         never streamed), ``bases`` (f64, nan = none).  ``median_sorted`` is
-        derived and excluded (restore recomputes it).  The device copy is
-        taken under the lock, the host copy after it."""
+        derived and excluded (restore recomputes it).  The rows' device
+        copies are taken under the lock; after it they are put together on
+        the host in stream order, the layout of one row."""
         with self._lock:
-            st = self._state
-            ing = {
-                f.name: getattr(st, f.name).clone()
-                for f in dataclasses.fields(st)
-                if f.name != "filter" and getattr(st, f.name) is not None
-            }
-            filt = {
-                f.name: getattr(st.filter, f.name).clone()
-                for f in dataclasses.fields(st.filter)
-                if f.name != "median_sorted" and getattr(st.filter, f.name) is not None
-            }
+            copies = [map_state(dataclasses.replace(st, filter=dataclasses.replace(
+                st.filter, median_sorted=None)), torch.clone) for st in self._states]
             formats = np.asarray([-1 if f is None else int(f) for f in self._stream_fmt],
                                  np.int32)
             bases = np.asarray([np.nan if b is None else float(b) for b in self._bases],
                                np.float64)
-        snap = {f"ingest.{k}": v.cpu().numpy() for k, v in ing.items()}
-        snap.update({f"filter.{k}": v.cpu().numpy() for k, v in filt.items()})
+        st = gather_fleet_ingest_state(copies)
+        snap = {f"ingest.{f.name}": getattr(st, f.name).numpy()
+                for f in dataclasses.fields(st)
+                if f.name != "filter" and getattr(st, f.name) is not None}
+        snap.update({f"filter.{f.name}": getattr(st.filter, f.name).numpy()
+                     for f in dataclasses.fields(st.filter)
+                     if getattr(st.filter, f.name) is not None})
         snap["formats"] = formats
         snap["bases"] = bases
         return snap
+
+    def _global_planes(self) -> dict:
+        """Each ``ingest.*`` plane's global shape and dtype (a row's, with
+        the whole fleet's stream axis)."""
+        st = self._states[0]
+        return {f.name: ((self.streams, *getattr(st, f.name).shape[1:]),
+                         getattr(st, f.name).dtype)
+                for f in dataclasses.fields(st)
+                if f.name != "filter" and getattr(st, f.name) is not None}
 
     def restore(self, snap: dict) -> bool:
         """Restore a :meth:`snapshot` (either package's).  A stream-count,
@@ -1211,12 +1300,8 @@ class FleetFusedIngest:
             log.warning("rejecting incompatible fleet ingest snapshot "
                         "(streams/geometry mismatch)")
             return False
-        st = self._state
-        expected_ing = {
-            f.name: tuple(getattr(st, f.name).shape)
-            for f in dataclasses.fields(st)
-            if f.name != "filter" and getattr(st, f.name) is not None
-        }
+        planes = self._global_planes()
+        expected_ing = {k: shape for k, (shape, _dtype) in planes.items()}
         got_ing = {k: tuple(v.shape) for k, v in ing.items()}
         if expected_ing != got_ing:
             log.warning("rejecting incompatible fleet ingest snapshot "
@@ -1232,23 +1317,58 @@ class FleetFusedIngest:
                         "(filter geometry %s != %s)", got_filter, expected_filter)
             return False
 
+        st = self._states[0]
+
         def up(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-            # a host copy: a CPU from_numpy would share the caller's buffer
-            return torch.from_numpy(np.array(arr)).to(device=self.device, dtype=like.dtype)
+            # a host copy in the state's dtype (a snapshot's arrays may be
+            # read-only views); placing it on the rows copies it again
+            return torch.from_numpy(np.array(arr)).to(dtype=like.dtype)
 
         fstate = FilterState(
             **{k: up(v, getattr(st.filter, k)) for k, v in filt.items()}, median_sorted=None,
         )
-        state = IngestState(filter=fstate, **{k: up(v, getattr(st, k)) for k, v in ing.items()})
+        states = place_rows(self.rows, IngestState(
+            filter=fstate, **{k: up(v, getattr(st, k)) for k, v in ing.items()}))
         if self.cfg.median_backend.startswith("inc"):
-            state.filter.median_sorted = recompute_median_sorted(state.filter.range_window)
+            for row_state in states:
+                row_state.filter.median_sorted = recompute_median_sorted(
+                    row_state.filter.range_window)
         with self._lock:
-            self._state = state
+            self._states = states
             self._stream_fmt = [None if f < 0 else int(f) for f in formats]
             self._bases = [None if np.isnan(b) else float(b) for b in bases]
             self._reset_next = [False] * self.streams
             self._drop_pending()
         return True
+
+    def save_sharded(self, path: str) -> None:
+        """Persist the whole fleet state with torch.distributed.checkpoint
+        (utils/checkpoint_sharded.py) in :meth:`snapshot`'s global layout:
+        the rows put together in stream order, so the checkpoint loads onto
+        an engine over any mesh shape."""
+        from rplidar_ros2_driver_tpu_torch.utils import checkpoint_sharded
+
+        checkpoint_sharded.save_sharded(
+            path, {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in self.snapshot().items()})
+
+    def load_sharded(self, path: str) -> bool:
+        """Restore a :meth:`save_sharded` checkpoint onto this engine's rows
+        (:meth:`restore`'s checks and effects).  Absence or a geometry
+        mismatch is rejected with the state untouched; the template is
+        meta tensors, so nothing is allocated before the check."""
+        from rplidar_ros2_driver_tpu_torch.utils import checkpoint_sharded
+
+        meta = {f"ingest.{k}": (shape, dtype) for k, (shape, dtype) in self._global_planes().items()}
+        per = FilterState.shapes(self.cfg.window, self.cfg.beams, self.cfg.grid)
+        fs = self._states[0].filter
+        meta.update({f"filter.{k}": ((self.streams, *shape), getattr(fs, k).dtype)
+                     for k, shape in per.items()})
+        meta["formats"] = ((self.streams,), torch.int32)
+        meta["bases"] = ((self.streams,), torch.float64)
+        template = {k: torch.empty(shape, dtype=dtype, device="meta")
+                    for k, (shape, dtype) in meta.items()}
+        got = checkpoint_sharded.restore_sharded(path, template, device="cpu")
+        return got is not None and self.restore({k: v.numpy() for k, v in got.items()})
 
     def _drop_pending(self) -> None:
         """Drop every unparsed result (lock held), their staging pairs
@@ -1270,8 +1390,9 @@ class FleetFusedIngest:
         quarantine checkpoint.  Row-sized traffic: one row gather on the
         device under the lock, its copy to the host after it."""
         self._check_stream(i)
+        r, lane = self._lane_of[i]
         with self._lock:
-            row = gather_row(self._state, i)
+            row = gather_row(self._states[r], lane)
             fmt = self._stream_fmt[i]
             base = self._bases[i]
         with guards.declared_sync():  # the row's copy to the host
@@ -1313,8 +1434,9 @@ class FleetFusedIngest:
             log.warning("rejecting incompatible stream snapshot (filter geometry %s != %s)",
                         got_filter, expected_filter)
             return False
+        r, lane = self._lane_of[i]
         with self._lock:
-            st = self._state
+            st = self._states[r]
             ing_rows = {}
             if restore_decode:
                 # the key space must cover THIS engine's state exactly: a
@@ -1336,11 +1458,11 @@ class FleetFusedIngest:
                         return False
                     ing_rows[k] = row
             with guards.declared_sync():  # the rows' upload
-                scatter_row(st.filter, {k: snap[f"filter.{k}"] for k in expected_filter}, i)
+                scatter_row(st.filter, {k: snap[f"filter.{k}"] for k in expected_filter}, lane)
                 if st.filter.median_sorted is not None:
-                    st.filter.median_sorted[i].copy_(
-                        recompute_median_sorted(st.filter.range_window[i]))
-                scatter_row(st, ing_rows, i)
+                    st.filter.median_sorted[lane].copy_(
+                        recompute_median_sorted(st.filter.range_window[lane]))
+                scatter_row(st, ing_rows, lane)
             fmt = int(np.asarray(snap.get("format", -1)))
             self._stream_fmt[i] = None if fmt < 0 else fmt
             if restore_decode:
@@ -1353,8 +1475,8 @@ class FleetFusedIngest:
         return True
 
     def capture_cold_template(self) -> None:
-        """Capture the :meth:`cold_reset` template: a fresh fleet state on
-        the engine's device, kept for the engine's lifetime.  The serving
+        """Capture the :meth:`cold_reset` template: a fresh state a row on
+        the row's card, kept for the engine's lifetime.  The serving
         pod calls this at precompile, before traffic, so the allocation
         never lands inside a guarded loop; engines that are never
         cold-reset skip the memory."""
@@ -1381,7 +1503,8 @@ class FleetFusedIngest:
             )
         with self._lock:
             self._drop_pending()
-            _copy_state(self._state, self._fresh)
+            for st, fresh in zip(self._states, self._fresh):
+                _copy_state(st, fresh)
             self._stream_fmt = [None] * self.streams
             self._bases = [None] * self.streams
             self._reset_next = [False] * self.streams
@@ -1407,9 +1530,11 @@ class FleetFusedIngest:
         ``revision``), so the two routes' map checkpoints interoperate."""
         self._require_mapping()
         with self._lock:
-            planes = {k: getattr(self._state, f"map_{k}").clone() for k in _MAP_KEYS}
+            planes = {k: [getattr(st, f"map_{k}").clone() for st in self._states]
+                      for k in _MAP_KEYS}
         with guards.declared_sync():
-            return {k: v.cpu().numpy() for k, v in planes.items()}
+            return {k: np.concatenate([v.cpu().numpy() for v in vs])
+                    for k, vs in planes.items()}
 
     def map_restore(self, core: dict) -> None:
         """Install stream-batched MapState planes into the carry (shapes
@@ -1417,15 +1542,18 @@ class FleetFusedIngest:
         self._require_mapping()
         with self._lock, guards.declared_sync():
             for k in _MAP_KEYS:
-                cur = getattr(self._state, f"map_{k}")
-                cur.copy_(torch.from_numpy(np.array(core[k])).reshape(cur.shape))
+                for row, st in zip(self.rows, self._states):
+                    cur = getattr(st, f"map_{k}")
+                    whole = torch.from_numpy(np.array(core[k]))
+                    cur.copy_(whole.reshape((self.streams, *cur.shape[1:]))[row.lanes])
 
     def map_snapshot_stream(self, i: int) -> dict:
         """One stream's carried MapState row (FleetMapper's keys)."""
         self._require_mapping()
         self._check_stream(i)
+        r, lane = self._lane_of[i]
         with self._lock:
-            rows = {k: getattr(self._state, f"map_{k}")[i].clone() for k in _MAP_KEYS}
+            rows = {k: getattr(self._states[r], f"map_{k}")[lane].clone() for k in _MAP_KEYS}
         with guards.declared_sync():
             return {k: v.cpu().numpy() for k, v in rows.items()}
 
@@ -1434,16 +1562,18 @@ class FleetFusedIngest:
         stream and this stream's decode and filter rows untouched."""
         self._require_mapping()
         self._check_stream(i)
+        r, lane = self._lane_of[i]
         with self._lock, guards.declared_sync():
-            scatter_row(self._state, {f"map_{k}": core[k] for k in _MAP_KEYS}, i)
+            scatter_row(self._states[r], {f"map_{k}": core[k] for k in _MAP_KEYS}, lane)
 
     def map_reanchor_stream(self, i: int, pose: np.ndarray) -> None:
         """Rewrite one stream's carried front-end pose (the loop-closure
         re-anchor, FleetMapper.reanchor_stream's carried twin)."""
         self._require_mapping()
         self._check_stream(i)
+        r, lane = self._lane_of[i]
         with self._lock, guards.declared_sync():
-            scatter_row(self._state, {"map_pose": np.asarray(pose, np.int32)}, i)
+            scatter_row(self._states[r], {"map_pose": np.asarray(pose, np.int32)}, lane)
 
 
 def _copy_state(dst, src) -> None:

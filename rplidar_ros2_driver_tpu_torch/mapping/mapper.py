@@ -509,7 +509,11 @@ class CarriedFleetMapper:
         map checkpoints interoperate byte for byte;
       * :meth:`reanchor_stream` rewrites the carried pose row.
 
-    ``submit``/``submit_points`` raise: the route has no mapper step."""
+    ``submit``/``submit_points`` raise: the route has no mapper step.
+
+    On a mesh of several stream rows the engine holds each row's map planes
+    on the row's lead card; its wires, recons and map snapshots come back
+    in global stream order, so this face reads the fleet as one."""
 
     backend = "carried"
 

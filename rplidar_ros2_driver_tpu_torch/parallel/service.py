@@ -21,8 +21,13 @@ field, the derived ``median_sorted`` excluded and recomputed), so a fleet
 window carries across the two packages.
 
 The byte seams (:meth:`submit_bytes`, :meth:`submit_bytes_backlog`) run
-the host decode + lockstep tick, or driver/ingest.FleetFusedIngest; the
-SLAM seams feed mapping/mapper.FleetMapper (or, on the fused mapping
+the host decode + lockstep tick, or driver/ingest.FleetFusedIngest built
+on this service's mesh: over a mesh of several stream rows each row's
+streams run on the row's lead block (the JAX package's ``P("stream",
+...)`` placement, a row computed once rather than replicated over its beam
+devices), and the engine's outputs, wires and checkpoints come back in
+global stream order.  The SLAM back-end stays on the lead card and reads
+the other rows' results as declared host reads; the SLAM seams feed mapping/mapper.FleetMapper (or, on the fused mapping
 route, read the map carried in the fused ingest state through
 CarriedFleetMapper), slam/loop.LoopClosureEngine and
 mapping/worldmap.WorldMap.  The health supervisor (driver/health.py,
@@ -127,7 +132,15 @@ class _TickFetch:
 
 class ShardedFilterService:
     """Many lidars' filter chains on one ``(stream, beam)`` mesh: one
-    batched tick for the whole fleet (see the module docstring)."""
+    batched tick for the whole fleet (see the module docstring).
+
+    The lockstep step splits each stream row over its beam blocks.  The
+    fused byte ingest (``fleet_ingest_backend='fused'``) has no beam split:
+    its engine places each stream row's streams — decode carries, filter
+    rows, sub-sweep cache, carried map — on the row's lead block ``(r,
+    0)``, which stages, runs and lands that row's part of every tick.  The
+    JAX package replicates such a row over the row's beam devices; here it
+    is computed once, and the row's other blocks hold none of it."""
 
     def __init__(
         self,

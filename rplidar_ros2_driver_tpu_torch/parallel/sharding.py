@@ -52,6 +52,12 @@ host-memory transports (its all-reduce takes CUDA tensors).  NCCL refuses
 two ranks on one device; two processes sharing one card use gloo.  In one
 process every copy between two cards goes through :func:`peer_copy`,
 counted in ``peer_copies``.
+
+The fused fleet ingest (driver/ingest.FleetFusedIngest) has no collective:
+its streams are independent pipelines.  JAX places its state
+``P("stream", None, ...)``, each stream row replicated over the row's beam
+devices; here a mesh row's streams are computed once, on the row's lead
+block (:func:`fleet_rows`, :func:`place_fleet_ingest_state`).
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ import torch
 import torch.distributed as dist
 
 from rplidar_ros2_driver_tpu_torch.core.types import ScanBatch
+from rplidar_ros2_driver_tpu_torch.utils.rowops import map_state, zip_states
 from rplidar_ros2_driver_tpu_torch.ops.filters import (
     FilterConfig,
     FilterOutput,
@@ -842,6 +849,63 @@ def shard_batch(mesh: Mesh, batch: ScanBatch):
         .to(mesh.device)
         for f in dataclasses.fields(ScanBatch)
     })
+
+
+# the fused fleet ingest's rows
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetRow:
+    """One stream row of a mesh held in this process, as the fused fleet
+    ingest (driver/ingest.FleetFusedIngest) places it: the global streams
+    ``lanes`` of mesh row ``block[0]``, computed once on the row's lead
+    block ``block`` = ``(row, 0)``, on ``device``."""
+
+    block: tuple
+    device: torch.device
+    lanes: slice
+
+
+def fleet_rows(mesh: Mesh, streams: int) -> list:
+    """The rows of the fused fleet ingest over ``mesh`` — the JAX package's
+    ``P("stream", None, ...)`` placement of that state: row ``r`` holds
+    streams ``[r*N/R, (r+1)*N/R)``.  JAX replicates a row over its beam
+    devices; here it is computed once, on the row's lead block.  A mesh
+    of one block (the ``(1, 1)`` mesh, or one block's view) is one row on
+    its device; a ``(1, C)`` mesh one row on card 0.  Raises JAX's
+    ``ValueError`` when the stream axis does not divide ``streams``."""
+    if mesh.spans_processes:
+        raise ValueError("fleet rows are the rows of a mesh held in one process")
+    if not mesh.multi_block:
+        return [FleetRow((0, 0), mesh.device, slice(0, streams))]
+    s = mesh.shape["stream"]
+    if streams % s:
+        raise ValueError(f"streams={streams} not divisible by stream axis {s}")
+    per = streams // s
+    return [FleetRow((r, 0), mesh.devices[r, 0], slice(r * per, (r + 1) * per))
+            for r in range(s)]
+
+
+def place_rows(rows: list, state) -> list:
+    """A GLOBAL stream-batched state split into one state a row of
+    ``rows`` (:class:`FleetRow`), each a copy on its row's device."""
+    return [map_state(state, lambda v, row=row: v[row.lanes].to(row.device, copy=True))
+            for row in rows]
+
+
+def place_fleet_ingest_state(mesh: Mesh, state) -> list:
+    """A GLOBAL stream-batched fleet ingest state (ops/ingest.IngestState,
+    nested FilterState included) split into one state a row of
+    :func:`fleet_rows`: the counterpart of the JAX package's
+    ``place_fleet_ingest_state``."""
+    return place_rows(fleet_rows(mesh, state.partial.shape[0]), state)
+
+
+def gather_fleet_ingest_state(states: list):
+    """The rows' states put back together in global stream order, as host
+    tensors (the layout of a one-row engine)."""
+    return zip_states(states, lambda vs: torch.cat([v.cpu() for v in vs]))
 
 
 class FleetTopology:

@@ -31,6 +31,11 @@ A state is a mapping ``name -> tensor`` (or a dataclass of tensors such as
 names each tensor's dimensions along the mesh (``"stream"``, ``"beam"`` or
 ``None`` per dimension, parallel/sharding.STATE_SPEC); without a mesh that
 spans processes it is not needed.
+
+The fused fleet ingest (driver/ingest.FleetFusedIngest.save_sharded) writes
+its whole state in its snapshot's global layout, put together from the
+engine's stream rows in stream order, so it loads onto an engine over any
+mesh shape.
 """
 
 from __future__ import annotations

@@ -12,7 +12,8 @@ tests/test_torch_sharding.py's, parametrised over these meshes):
   * the placement helpers per block and the gather of the global state;
   * ``ShardedFilterService`` against the JAX service on its default mesh
     (the eight devices as (2, 4)): submit, pipelined, the host byte seam
-    (config 10's host arm), the fused byte seam on the lead device,
+    (config 10's host arm), the fused byte seam over the mesh's stream rows
+    (each row's streams on its lead block),
     snapshots, and a restore onto another mesh shape;
   * ``save_sharded`` -> ``load_sharded`` across (2, 4) -> (1, 1) -> (4, 2);
   * ``replay_fleet`` (config 8) over eight blocks against JAX's;
@@ -240,9 +241,9 @@ def test_service_pipelined_and_local_on_blocks(jmesh, reduce):
 @pytest.mark.parametrize("backend", ["host", "fused"])
 def test_byte_seams_on_blocks_match_jax(backend, pipelined):
     """Config 10's byte seams at their smoke geometry with 4 streams: the
-    host arm's lockstep tick split over (2, 4) blocks, the fused engine on
-    the lead device, each against the JAX service's same arm on its
-    default mesh."""
+    host arm's lockstep tick split over (2, 4) blocks, the fused engine's
+    streams split over the mesh's two rows (each on its lead block), each
+    against the JAX service's same arm on its default mesh."""
     kw = dict(beams=BEAMS, capacity=CAP)
     if backend == "fused":
         kw["fleet_ingest_buckets"] = (RUN,)
@@ -257,7 +258,10 @@ def test_byte_seams_on_blocks_match_jax(backend, pipelined):
             published += t is not None
     assert published >= 12
     if backend == "fused":
-        assert svc.fleet_ingest.device == CPU
+        eng = svc.fleet_ingest
+        assert [(r.block, r.device, r.lanes) for r in eng.rows] == [
+            ((0, 0), CPU, slice(0, 2)), ((1, 0), CPU, slice(2, 4))]
+        assert [st.partial.shape[0] for st in eng._states] == [2, 2]
         assert svc.fleet_ingest.dispatch_count == jsvc.fleet_ingest.dispatch_count
     elif not pipelined:
         assert_same_snapshot(svc.snapshot(), jsvc.snapshot())
