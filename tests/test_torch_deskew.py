@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +30,14 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch th
 
 BEAMS = 256
 EMPTY = td.RECON_EMPTY
+# JAX's integer blocks compiled whole, as its fused ingest runs them: one
+# XLA program a configuration and shape, not one a primitive and shape
+# (integer arithmetic: the same values as an eager call)
+jbeam_of = jax.jit(jd.beam_of, static_argnames=("beams",))
+jprofile_from_nodes = jax.jit(jd.profile_from_nodes, static_argnames=("cfg", "block"))
+jrasterize_subsweep = jax.jit(jd.rasterize_subsweep, static_argnames=("cfg", "block"))
+jestimate_motion = jax.jit(jd.estimate_motion, static_argnames=("cfg",))
+japply_deskew = jax.jit(jd.apply_deskew, static_argnames=("cfg",))
 # the four (recon_beams, profile_beams) geometries of the JAX kernel suite
 GEOMETRIES = [(256, 64), (2048, 256), (100, 128), (8, 1024)]
 
@@ -76,21 +85,21 @@ def test_blocks_match_jax(beams, prof, clip):
         angle, dist, quality, valid = _rand_nodes(rng)
         ta, tdist, tq, tv = _t(angle, dist, quality, valid)
         np.testing.assert_array_equal(td.beam_of(ta, beams).numpy(),
-                                      np.asarray(jd.beam_of(jnp.asarray(angle), beams)))
+                                      np.asarray(jbeam_of(jnp.asarray(angle), beams)))
         np.testing.assert_array_equal(
             td.profile_from_nodes(ta, tdist, tv, tc).numpy(),
-            np.asarray(jd.profile_from_nodes(angle, dist, valid, jc)))
+            np.asarray(jprofile_from_nodes(angle, dist, valid, jc)))
         np.testing.assert_array_equal(
             td.rasterize_subsweep(ta, tdist, tq, tv, tc).numpy(),
-            np.asarray(jd.rasterize_subsweep(angle, dist, quality, valid, jc)))
+            np.asarray(jrasterize_subsweep(angle, dist, quality, valid, jc)))
         a2, d2, _q, v2 = _rand_nodes(rng)
         p1 = jref.profile_from_nodes_np(angle, dist, valid, jc)
         p2 = jref.profile_from_nodes_np(a2, d2, v2, jc)
-        mj = np.asarray(jd.estimate_motion(p1, p2, jc))
+        mj = np.asarray(jestimate_motion(p1, p2, jc))
         np.testing.assert_array_equal(td.estimate_motion(*_t(p1, p2), tc).numpy(), mj)
         motion = np.asarray([rng.integers(-2048, 2049), rng.integers(-2048, 2049),
                              rng.integers(-(1 << 13), (1 << 13) + 1)], np.int32)
-        aj, dj = jd.apply_deskew(angle, dist, valid, motion, jc)
+        aj, dj = japply_deskew(angle, dist, valid, motion, jc)
         at, dt = td.apply_deskew(ta, tdist, tv, torch.from_numpy(motion), tc)
         np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
         np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
@@ -111,14 +120,14 @@ def test_batched_rows_equal_per_row_calls():
     a2, d2 = td.apply_deskew(ta, tdist, tv, motion, tc)
     for i in range(2):
         for j in range(3):
-            pj = np.asarray(jd.profile_from_nodes(a[i, j], d[i, j], v[i, j], jc))
+            pj = np.asarray(jprofile_from_nodes(a[i, j], d[i, j], v[i, j], jc))
             np.testing.assert_array_equal(profs[i, j].numpy(), pj)
             np.testing.assert_array_equal(
                 segs[i, j].numpy(),
-                np.asarray(jd.rasterize_subsweep(a[i, j], d[i, j], q[i, j], v[i, j], jc)))
-            mj = np.asarray(jd.estimate_motion(prev[i, j].numpy(), pj, jc))
+                np.asarray(jrasterize_subsweep(a[i, j], d[i, j], q[i, j], v[i, j], jc)))
+            mj = np.asarray(jestimate_motion(prev[i, j].numpy(), pj, jc))
             np.testing.assert_array_equal(motion[i, j].numpy(), mj)
-            aj, dj = jd.apply_deskew(a[i, j], d[i, j], v[i, j], mj, jc)
+            aj, dj = japply_deskew(a[i, j], d[i, j], v[i, j], mj, jc)
             np.testing.assert_array_equal(a2[i, j].numpy(), np.asarray(aj))
             np.testing.assert_array_equal(d2[i, j].numpy(), np.asarray(dj))
 
@@ -129,7 +138,7 @@ def test_estimator_rotation_matches_jax(s0):
     prof = _room_profile(64)
     cur = np.roll(prof, -s0)
     m = td.estimate_motion(*_t(prof, cur), tc).numpy()
-    np.testing.assert_array_equal(m, np.asarray(jd.estimate_motion(prof, cur, jc)))
+    np.testing.assert_array_equal(m, np.asarray(jestimate_motion(prof, cur, jc)))
     assert m[2] == s0 * (65536 // 64)
 
 
@@ -142,7 +151,7 @@ def test_estimator_translation_matches_jax(dx, dy):
     radial = (dx * trig[:, 0] + dy * trig[:, 1] + (1 << 13)) >> 14
     cur = (prof - radial).astype(np.int32)
     m = td.estimate_motion(*_t(prof, cur), tc).numpy()
-    np.testing.assert_array_equal(m, np.asarray(jd.estimate_motion(prof, cur, jc)))
+    np.testing.assert_array_equal(m, np.asarray(jestimate_motion(prof, cur, jc)))
     assert m[2] == 0 and (dx == 0 or np.sign(m[0]) == np.sign(dx))
 
 
@@ -212,13 +221,13 @@ def test_b4_b5_plain_match_pallas_interpret_and_xla(beams, prof):
     tc, jc = _cfgs(beams, prof)
     angle, dist, quality, valid = _rand_nodes(rng)
     # B4 at the rasterizer's shape: packed values with EMPTY for dropped nodes
-    beam = np.asarray(jd.beam_of(jnp.asarray(angle), beams))
+    beam = np.asarray(jbeam_of(jnp.asarray(angle), beams))
     packed = np.where(valid & (dist > 0), (dist << 8) | quality, EMPTY).astype(np.int32)
     want = np.asarray(jpd.beam_min_pallas(beam, packed, beams, interpret=True))
     got = dk.beam_min_kernel(*_t(beam[None], packed[None]), beams)[0].numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
-        got, np.asarray(jd.rasterize_subsweep(angle, dist, quality, valid,
+        got, np.asarray(jrasterize_subsweep(angle, dist, quality, valid,
                                               dataclasses.replace(jc, enable_clip=False))))
     # B5 over the shift candidates, on real profiles
     a2, d2, _q, v2 = _rand_nodes(rng)

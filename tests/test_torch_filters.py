@@ -9,6 +9,7 @@ ulp off the correctly rounded value on some angles.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +24,13 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch th
 CPU = torch.device("cpu")
 # small geometry: W=8, B=256, grid 64
 W, B, G = 8, 256, 64
+# JAX's median formulations compiled whole, as its filter step runs them:
+# one XLA program a shape, not one a primitive and shape (sorts, counts and
+# selections: the same values as an eager call)
+jtemporal_median = jax.jit(jf.temporal_median)
+jrecompute_median_sorted = jax.jit(jf.recompute_median_sorted)
+jmedian_from_sorted = jax.jit(jf.median_from_sorted)
+jsorted_replace = jax.jit(jf.sorted_replace)
 
 
 def ulp_distance(a, b) -> np.ndarray:
@@ -119,15 +127,15 @@ def test_median_functions_match(w, b, ties):
     rng = np.random.default_rng(w * 31 + b)
     win = rand_window(rng, w, b, ties=ties)
     np.testing.assert_array_equal(
-        np_(jf.temporal_median(jnp.asarray(win))),
+        np_(jtemporal_median(jnp.asarray(win))),
         np_(tf.temporal_median(torch.from_numpy(win))),
     )
     s = np.sort(win, axis=0)
     np.testing.assert_array_equal(
-        np_(jf.recompute_median_sorted(win)), np_(tf.recompute_median_sorted(torch.from_numpy(win)))
+        np_(jrecompute_median_sorted(win)), np_(tf.recompute_median_sorted(torch.from_numpy(win)))
     )
     np.testing.assert_array_equal(
-        np_(jf.median_from_sorted(jnp.asarray(s))),
+        np_(jmedian_from_sorted(jnp.asarray(s))),
         np_(tf.median_from_sorted(torch.from_numpy(s))),
     )
     old = win[min(3, w - 1)].copy()
@@ -136,20 +144,20 @@ def test_median_functions_match(w, b, ties):
     if ties:
         new = np.round(new, 0).astype(np.float32)
     np.testing.assert_array_equal(
-        np_(jf.sorted_replace(jnp.asarray(s), jnp.asarray(old), jnp.asarray(new))),
+        np_(jsorted_replace(jnp.asarray(s), jnp.asarray(old), jnp.asarray(new))),
         np_(tf.sorted_replace(torch.from_numpy(s), torch.from_numpy(old), torch.from_numpy(new))),
     )
 
 
-@pytest.mark.parametrize("backend", ["inc", "inc_xla", "inc_pallas"])
-def test_inc_median_matches(backend):
-    """The port's inc lowerings on the CPU (inc_pallas goes through the B2
-    wrapper, which takes its plain version for a CPU tensor) against the
-    JAX package's jnp formulation."""
+@pytest.fixture(scope="module")
+def jax_inc_median() -> list:
+    """JAX's jnp formulation of the incremental median over 3 W ring
+    steps, once per module: per step the ring (before the step), the
+    cursor, the new row and JAX's (sorted window, median)."""
     rng = np.random.default_rng(5)
     ring = np.full((W, B), np.inf, np.float32)
     sor = ring.copy()
-    tsor = torch.from_numpy(sor.copy())
+    steps = []
     for step in range(3 * W):
         new = rng.uniform(0.1, 40.0, B).astype(np.float32)
         new[rng.random(B) < 0.3] = np.inf
@@ -160,14 +168,26 @@ def test_inc_median_matches(backend):
             jnp.asarray(ring), jnp.asarray(cur, jnp.int32), jnp.asarray(sor),
             jnp.asarray(new), backend="inc_xla",
         )
+        steps.append((ring.copy(), cur, new, np.asarray(jms), np.asarray(jmed)))
+        sor = np.asarray(jms)
+        ring[cur] = new
+    return steps
+
+
+@pytest.mark.parametrize("backend", ["inc", "inc_xla", "inc_pallas"])
+def test_inc_median_matches(backend, jax_inc_median):
+    """The port's inc lowerings on the CPU (inc_pallas goes through the B2
+    wrapper, which takes its plain version for a CPU tensor) against the
+    JAX package's jnp formulation (one JAX run for the three lowerings)."""
+    tsor = torch.from_numpy(np.full((W, B), np.inf, np.float32))
+    for ring, cur, new, jms, jmed in jax_inc_median:
         tms, tmed = tf.inc_median(
             torch.from_numpy(ring.copy()), torch.tensor(cur, dtype=torch.int32), tsor,
-            torch.from_numpy(new), backend=backend,
+            torch.from_numpy(new.copy()), backend=backend,
         )
-        np.testing.assert_array_equal(np_(jms), np_(tms))
-        np.testing.assert_array_equal(np_(jmed), np_(tmed))
-        sor, tsor = np.asarray(jms), tms
-        ring[cur] = new
+        np.testing.assert_array_equal(jms, np_(tms))
+        np.testing.assert_array_equal(jmed, np_(tmed))
+        tsor = tms
 
 
 def test_inc_median_requires_sorted_state_and_pins_lowering():

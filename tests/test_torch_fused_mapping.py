@@ -38,6 +38,9 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch th
 BEAMS = 256
 DENSE = int(Ans.MEASUREMENT_DENSE_CAPSULED)
 MAP_KEYS = ("log_odds", "pose", "origin_xy", "revision")
+# the fleet of the per-tick service cases: one width, so the JAX services
+# of those cases share their compiled per-tick steps
+STREAMS = 3
 
 
 def _params(pkg: str, route: str = "fused", **over):
@@ -139,7 +142,7 @@ def test_service_route_parity(match_backend):
     """Host route against fused route through the service, tick by tick,
     in both packages: outputs, per-tick poses and final maps byte-equal;
     the fused route launches no mapper step."""
-    streams = 3
+    streams = STREAMS
     arms = {(pkg, route): build(pkg, route, streams, match_backend)
             for pkg in ("jax", "torch") for route in ("host", "fused")}
     for n, t in enumerate(byte_ticks(dense_frames(3), streams)):
@@ -215,7 +218,7 @@ def test_mid_backlog_format_switch():
 def test_all_idle_tick_does_not_republish_stale_poses():
     """A tick that pushes no sub-sweep anywhere lands ``last_poses = [None]
     * streams``, in both packages, after ticks that published poses."""
-    streams = 2
+    streams = STREAMS
     arms = [build(pkg, "fused", streams) for pkg in ("jax", "torch")]
     for t in byte_ticks(dense_frames(2), streams):
         for svc in arms:
@@ -258,7 +261,7 @@ def test_snapshot_restore_mid_super_tick():
     """Per-stream snapshots (v3: the map rows inside the ingest unit) taken
     mid-run and restored with ``restore_decode=True`` into a fresh service
     resume bit for bit; the port restores the JAX package's snapshots."""
-    streams = 2
+    streams = STREAMS
     ticks = byte_ticks(dense_frames(4), streams)
     cut = len(ticks) // 2
     ref = build("torch", "fused", streams, super_tick_max=2)
@@ -341,7 +344,7 @@ def test_fleet_snapshots_round_trip_jax_port_jax():
     """The v3 whole-fleet snapshot (``ingest.map_*`` planes) and the
     per-stream one go JAX -> port -> JAX, and each run continued from them
     stays byte-equal to the uninterrupted JAX run."""
-    streams = 2
+    streams = STREAMS
     ticks = byte_ticks(dense_frames(4), streams)
     cut = len(ticks) // 2
     jref = build("jax", "fused", streams)
@@ -378,7 +381,7 @@ def test_loop_closure_tap_parity():
     """The loop engine observes the fused route as it observes the host
     route: the same installs, checks and corrected poses, in both
     packages."""
-    streams = 2
+    streams = STREAMS
     over = dict(loop_enable=True, loop_backend="host", loop_submap_revs=2, loop_check_revs=2,
                 loop_max_submaps=4, loop_candidates=1, loop_min_points=4, pose_graph_iters=16)
     arms = [build(pkg, route, streams, **over) for pkg in ("jax", "torch")

@@ -471,7 +471,8 @@ class TestServiceHealthSeam:
         from rplidar_ros2_driver_tpu_torch.node.lifecycle import LifecycleState
         from rplidar_ros2_driver_tpu_torch.node.publisher import CollectingPublisher
 
-        streams = 2
+        # the chaos cases' fleet: the JAX service shares their compiled steps
+        streams = 4
         ticks = _fleet_ticks(streams, 6)
         runs = {}
         for pkg in PKGS:

@@ -141,3 +141,38 @@ def test_kernels_are_hand_written_not_compiled_torch():
         text = open(path).read()
         assert "torch.compile" not in text, path
         assert "cpp_extension" not in text, path
+
+
+def test_port_console_command_is_its_main():
+    """pyproject.toml installs ``rplidar-tpu-torch`` for the port's CLI,
+    and that entry answers ``--help`` with exit 0."""
+    import importlib
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    assert scripts["rplidar-tpu-torch"] == "rplidar_ros2_driver_tpu_torch.__main__:main"
+    module, func = scripts["rplidar-tpu-torch"].split(":")
+    main = getattr(importlib.import_module(module), func)
+    from rplidar_ros2_driver_tpu_torch.__main__ import main as port_main
+
+    assert main is port_main
+    with pytest.raises(SystemExit) as exc:
+        main(["--help"])
+    assert exc.value.code == 0
+
+
+def test_every_port_test_file_takes_one_torch_thread():
+    """Each ``tests/test_torch_*.py`` imports the ``one_torch_thread``
+    fixture of ``tests/torch_threads.py`` (read from the source's AST)."""
+    tests = os.path.join(REPO, "tests")
+    files = sorted(f for f in os.listdir(tests) if f.startswith("test_torch_") and f.endswith(".py"))
+    assert files
+    missing = []
+    for name in files:
+        tree = ast.parse(open(os.path.join(tests, name)).read(), filename=name)
+        if not any(isinstance(node, ast.ImportFrom) and node.module == "torch_threads"
+                   and any(a.name == "one_torch_thread" for a in node.names)
+                   for node in ast.walk(tree)):
+            missing.append(name)
+    assert not missing, f"without one_torch_thread: {missing}"

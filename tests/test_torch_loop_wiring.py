@@ -55,25 +55,43 @@ def poses_of(pub):
             for p in pub.poses]
 
 
-@pytest.mark.parametrize("loop_backend", ["host", "fused"])
-def test_node_loop_matches_the_jax_node(loop_backend, tmp_path):
-    """Both nodes fed the same chain outputs publish the same corrected
-    poses and hold the same library; the port's checkpoint carries
-    ``loop.*`` keys a JAX node restores, and the reverse."""
+@pytest.fixture(scope="module")
+def jax_node(tmp_path_factory):
+    """The JAX node (host mapper and loop engine) fed the ten room outputs,
+    once per module for both of the port's loop backends: its published
+    poses, its loop and map snapshots and its checkpoint file."""
     from rplidar_ros2_driver_tpu.node.node import RPlidarNode as JNode
     from rplidar_ros2_driver_tpu.ops.filters import FilterOutput as JOutput
 
     jnode = JNode(JParams(**LOOP, map_backend="host", loop_backend="host"))
+    try:
+        assert jnode.configure()
+        for k in range(10):
+            jnode._publish_chain_output(JOutput(**room_output(k)), 1.0 + k, 0.1, 8.0)
+        jpath = str(tmp_path_factory.mktemp("jax_node") / "jax.npz")
+        assert jnode.save_checkpoint(jpath)
+        return {"poses": poses_of(jnode.publisher), "checkpoint": jpath,
+                "loop": {k: np.array(v) for k, v in jnode.loop.snapshot().items()},
+                "map": {k: np.array(v) for k, v in jnode.mapper.snapshot().items()}}
+    finally:
+        jnode.shutdown()
+
+
+@pytest.mark.parametrize("loop_backend", ["host", "fused"])
+def test_node_loop_matches_the_jax_node(loop_backend, tmp_path, jax_node):
+    """Both nodes fed the same chain outputs publish the same corrected
+    poses and hold the same library; the port's checkpoint carries
+    ``loop.*`` keys a JAX node restores, and the reverse."""
+    from rplidar_ros2_driver_tpu.node.node import RPlidarNode as JNode
+
     node = RPlidarNode(DriverParams(**LOOP, map_backend="fused", loop_backend=loop_backend))
     try:
-        assert jnode.configure() and node.configure()
+        assert node.configure()
         assert node.loop is not None and node.loop.backend == loop_backend
         for k in range(10):
-            out = room_output(k)
-            jnode._publish_chain_output(JOutput(**out), 1.0 + k, 0.1, 8.0)
-            node._publish_chain_output(FilterOutput(**out), 1.0 + k, 0.1, 8.0)
-        assert poses_of(node.publisher) == poses_of(jnode.publisher)
-        assert_same_arrays(node.loop.snapshot(), jnode.loop.snapshot())
+            node._publish_chain_output(FilterOutput(**room_output(k)), 1.0 + k, 0.1, 8.0)
+        assert poses_of(node.publisher) == jax_node["poses"]
+        assert_same_arrays(node.loop.snapshot(), jax_node["loop"])
         assert node.loop.checks > 0 and sum(node.loop.status()["submaps"]) > 0
         node._update_diagnostics()
         values = node.publisher.diagnostics[-1].values
@@ -88,24 +106,22 @@ def test_node_loop_matches_the_jax_node(loop_backend, tmp_path):
         assert_same_arrays(other.loop.snapshot(), node.loop.snapshot())
         other.shutdown()
         # JAX -> port, staged for the next configure and restored live
-        jpath = str(tmp_path / "jax.npz")
-        assert jnode.save_checkpoint(jpath)
+        jpath = jax_node["checkpoint"]
         fresh = RPlidarNode(DriverParams(**LOOP, map_backend="fused", loop_backend=loop_backend))
         assert fresh.load_checkpoint(jpath) and fresh.configure()
-        assert_same_arrays(fresh.loop.snapshot(), jnode.loop.snapshot())
-        assert_same_arrays(fresh.mapper.snapshot(), jnode.mapper.snapshot())
+        assert_same_arrays(fresh.loop.snapshot(), jax_node["loop"])
+        assert_same_arrays(fresh.mapper.snapshot(), jax_node["map"])
         assert fresh.load_checkpoint(jpath)
-        assert_same_arrays(fresh.loop.snapshot(), jnode.loop.snapshot())
+        assert_same_arrays(fresh.loop.snapshot(), jax_node["loop"])
         fresh.shutdown()
         # a library of another geometry is dropped, the chain and map kept
         small = RPlidarNode(DriverParams(**{**LOOP, "loop_max_submaps": 4}, map_backend="fused",
                                          loop_backend=loop_backend))
         assert small.load_checkpoint(jpath) and small.configure()
         assert int(small.loop.snapshot()["count"].sum()) == 0
-        assert_same_arrays(small.mapper.snapshot(), jnode.mapper.snapshot())
+        assert_same_arrays(small.mapper.snapshot(), jax_node["map"])
         small.shutdown()
     finally:
-        jnode.shutdown()
         node.shutdown()
 
 

@@ -9,12 +9,13 @@ bit-exact.  The CUDA kernels themselves
 are held to the plain versions on the card by chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from rplidar_ros2_driver_tpu.ops.filters import median_from_sorted, sorted_replace, temporal_median
+from rplidar_ros2_driver_tpu.ops import filters as jf
 from rplidar_ros2_driver_tpu.ops.pallas_kernels import (
     sliding_median_pallas,
     sorted_replace_pallas,
@@ -23,6 +24,13 @@ from rplidar_ros2_driver_tpu.ops.pallas_kernels import (
 from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
 from rplidar_ros2_driver_tpu_torch.utils import cuda_build
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
+# JAX's jnp formulations compiled whole, as its filter step runs them: one
+# XLA program a shape, not one a primitive and shape (sorts, counts and
+# selections: the same values as an eager call)
+temporal_median = jax.jit(jf.temporal_median)
+sorted_replace = jax.jit(jf.sorted_replace)
+median_from_sorted = jax.jit(jf.median_from_sorted)
 
 
 def rand_window(rng, w, b, inf_frac=0.3):

@@ -28,6 +28,7 @@ C.1), and byte-equal to the port's own (1, 1) mesh.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -66,9 +67,42 @@ def blocks(stream: int, n: int = 8) -> ts.Mesh:
     return ts.make_mesh(devices=[CPU] * n, stream=stream)
 
 
+def _jax_service(median: str) -> JService:
+    """The JAX service of four streams on its (2, 4) mesh (conftest forces 8
+    virtual CPU devices)."""
+    return JService(_params("jax", median_backend=median), streams=4, mesh=jmake_mesh(8),
+                    beams=128)
+
+
+def _jax_submits(median: str) -> tuple:
+    """The JAX service over ``_ticks(6)``: per tick the outputs, then the
+    final snapshot."""
+    jsvc = _jax_service(median)
+    outs = [jsvc.submit(scans) for scans in _ticks(6)]
+    return outs, {k: np.array(v) for k, v in jsvc.snapshot().items()}
+
+
 @pytest.fixture(scope="module")
-def jmesh():
-    return jmake_mesh(8)  # (2, 4): conftest forces 8 virtual CPU devices
+def jax_submits():
+    """``_jax_submits`` once per module for each median backend: every mesh
+    case of a median reads one run."""
+    return functools.cache(_jax_submits)
+
+
+@pytest.fixture(scope="module")
+def jax_continued() -> dict:
+    """The JAX service (``inc`` median) over ``_ticks(3)`` (then its
+    snapshot and ``_copy_state()``), continued over the next three ticks
+    (their outputs, then the final snapshot): once per module for the
+    restore and checkpoint cases."""
+    jsvc = _jax_service("inc")
+    for scans in _ticks(3):
+        jsvc.submit(scans)
+    run = {"snapshot": {k: np.array(v) for k, v in jsvc.snapshot().items()},
+           "copy_state": {k: np.array(getattr(jsvc._copy_state(), k)) for k in STATE_FIELDS}}
+    run["outs"] = [jsvc.submit(scans) for scans in _ticks(6)[3:]]
+    run["final"] = {k: np.array(v) for k, v in jsvc.snapshot().items()}
+    return run
 
 
 def _same_torch_outputs(a, b, what: str) -> None:
@@ -190,21 +224,21 @@ def _ticks(n: int, streams: int = 4) -> list:
 
 @pytest.mark.parametrize("median", ["xla", "inc"])
 @pytest.mark.parametrize("mesh_name", list(SHAPES))
-def test_service_on_blocks_matches_jax_and_the_one_block_mesh(jmesh, mesh_name, median):
+def test_service_on_blocks_matches_jax_and_the_one_block_mesh(mesh_name, median, jax_submits):
     """submit over 6 ticks with idle streams, against the JAX service on its
     (2, 4) mesh and the port's (1, 1) mesh; snapshots equal."""
-    jsvc = JService(_params("jax", median_backend=median), streams=4, mesh=jmesh, beams=128)
+    jrun, jsnap = jax_submits(median)
     svc = ShardedFilterService(_params(median_backend=median), streams=4,
                                mesh=blocks(SHAPES[mesh_name]), beams=128)
     one = ShardedFilterService(_params(median_backend=median), streams=4,
                                mesh=ts.make_mesh(device=CPU), beams=128)
     svc.precompile()
-    for k, scans in enumerate(_ticks(6)):
-        outs, jouts, ones = svc.submit(scans), jsvc.submit(scans), one.submit(scans)
+    for k, (scans, jouts) in enumerate(zip(_ticks(6), jrun)):
+        outs, ones = svc.submit(scans), one.submit(scans)
         for s in range(4):
             assert_same_output(jouts[s], outs[s], f"tick {k} stream {s}")
             _same_torch_outputs(ones[s], outs[s], f"tick {k} stream {s} (1, 1)")
-    assert_same_snapshot(svc.snapshot(), jsvc.snapshot())
+    assert_same_snapshot(svc.snapshot(), jsnap)
     assert_same_snapshot(svc.snapshot(), one.snapshot())
     if median == "inc":
         for st in svc._state:
@@ -213,18 +247,18 @@ def test_service_on_blocks_matches_jax_and_the_one_block_mesh(jmesh, mesh_name, 
 
 
 @pytest.mark.parametrize("reduce", ["psum", "ring"])
-def test_service_pipelined_and_local_on_blocks(jmesh, reduce):
+def test_service_pipelined_and_local_on_blocks(reduce, jax_submits):
     """submit_pipelined is submit shifted by one tick, flush drains the
     last, submit_local is submit; both reduces (a FilterConfig choice, set
     on each service's config)."""
     mesh = blocks(2)
-    jsvc = JService(_params("jax"), streams=4, mesh=jmesh, beams=128)
     svc = ShardedFilterService(_params(), streams=4, mesh=mesh, beams=128)
     local = ShardedFilterService(_params(), streams=4, mesh=mesh, beams=128)
     for s in (svc, local):
         s.cfg = dataclasses.replace(s.cfg, voxel_reduce=reduce)
     ticks = _ticks(5)
-    ref = [jsvc.submit(t) for t in ticks]
+    # the default median backend is "inc" on the CPU, in both packages
+    ref = jax_submits("inc")[0][:5]
     piped = [svc.submit_pipelined(t) for t in ticks]
     assert piped[0] == [None] * 4
     for k in range(1, len(ticks)):
@@ -268,56 +302,52 @@ def test_byte_seams_on_blocks_match_jax(backend, pipelined):
 
 
 @pytest.mark.parametrize("target", ["1x1", "4x2", "1x8"])
-def test_service_restore_onto_another_mesh_shape(jmesh, target):
+def test_service_restore_onto_another_mesh_shape(target, jax_continued):
     """A (2, 4) service's snapshot restored onto another mesh shape (and
     JAX's onto the port's blocks), both continued byte-equal to JAX."""
-    jsvc = JService(_params("jax", median_backend="inc"), streams=4, mesh=jmesh, beams=128)
+    jrun = jax_continued
     svc = ShardedFilterService(_params(median_backend="inc"), streams=4, mesh=blocks(2),
                                beams=128)
     for scans in _ticks(3):
-        jsvc.submit(scans)
         svc.submit(scans)
     mesh = ts.make_mesh(device=CPU) if target == "1x1" else blocks(SHAPES[target])
     moved = ShardedFilterService(_params(median_backend="inc"), streams=4, mesh=mesh, beams=128)
     assert moved.restore(svc.snapshot())
     from_jax = ShardedFilterService(_params(median_backend="inc"), streams=4, mesh=mesh,
                                     beams=128)
-    assert from_jax.restore({k: np.array(v) for k, v in jsvc.snapshot().items()})
-    for k, scans in enumerate(_ticks(6)[3:]):
-        jouts = jsvc.submit(scans)
+    assert from_jax.restore({k: v.copy() for k, v in jrun["snapshot"].items()})
+    for k, (scans, jouts) in enumerate(zip(_ticks(6)[3:], jrun["outs"])):
         for svc_ in (moved, from_jax):
             for s, (j, t) in enumerate(zip(jouts, svc_.submit(scans))):
                 assert_same_output(j, t, f"continued tick {k} stream {s}")
-    assert_same_snapshot(moved.snapshot(), jsvc.snapshot())
+    assert_same_snapshot(moved.snapshot(), jrun["final"])
 
 
-def test_checkpoints_across_mesh_shapes(jmesh, tmp_path):
+def test_checkpoints_across_mesh_shapes(tmp_path, jax_continued):
     """save_sharded on (2, 4) blocks writes the (1, 1) mesh's global
     layout — what JAX saves, JAX's ``_copy_state()`` — and loads onto
     (1, 1), whose save loads onto (4, 2); each continued byte-equal."""
     from rplidar_ros2_driver_tpu_torch.utils import checkpoint_sharded as cs
 
-    jsvc = JService(_params("jax", median_backend="inc"), streams=4, mesh=jmesh, beams=128)
+    jrun = jax_continued
     svc = ShardedFilterService(_params(median_backend="inc"), streams=4, mesh=blocks(2),
                                beams=128)
     for scans in _ticks(3):
-        jsvc.submit(scans)
         svc.submit(scans)
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
     svc.save_sharded(a)
     assert set(cs.saved_geometry(a)) == set(STATE_FIELDS)  # median_sorted never saved
     saved = cs.restore_sharded(a, ts.abstract_sharded_state(ts.make_mesh(device=CPU), svc.cfg, 4),
                                device="cpu")
-    want = jsvc._copy_state()
     for k in STATE_FIELDS:
-        w = np.asarray(getattr(want, k))
+        w = jrun["copy_state"][k]
         got = saved[k].numpy()
         assert got.dtype == w.dtype and got.shape == w.shape, k
         np.testing.assert_array_equal(got, w, k)
     one = ShardedFilterService(_params(median_backend="inc"), streams=4,
                                mesh=ts.make_mesh(device=CPU), beams=128)
     assert one.load_sharded(a)
-    assert_same_snapshot(one.snapshot(), jsvc.snapshot())
+    assert_same_snapshot(one.snapshot(), jrun["snapshot"])
     one.save_sharded(b)
     back = ShardedFilterService(_params(median_backend="inc"), streams=4, mesh=blocks(4),
                                 beams=128)
@@ -325,8 +355,7 @@ def test_checkpoints_across_mesh_shapes(jmesh, tmp_path):
     for st in back._state:
         np.testing.assert_array_equal(st.median_sorted.numpy(),
                                       np.sort(st.range_window.numpy(), axis=1))
-    for k, scans in enumerate(_ticks(6)[3:]):
-        jouts = jsvc.submit(scans)
+    for k, (scans, jouts) in enumerate(zip(_ticks(6)[3:], jrun["outs"])):
         for svc_ in (svc, one, back):
             for s, (j, t) in enumerate(zip(jouts, svc_.submit(scans))):
                 assert_same_output(j, t, f"continued tick {k} stream {s}")
@@ -341,22 +370,38 @@ def test_checkpoints_across_mesh_shapes(jmesh, tmp_path):
 # ---------------------------------------------------------------------------
 
 
+def replay_captures() -> list:
+    """Four captures of unequal length."""
+    return [_revs(1, 11), _revs(2, 9), _revs(3, 14), _revs(4, 10)]
+
+
+REPLAY_KW = dict(beams=256, capacity=512, chunk=4)
+
+
+@pytest.fixture(scope="module")
+def jax_replay():
+    """JAX's replay of the four captures on its own default mesh, once per
+    module for both of the port's median backends (JAX's ``xla``): the
+    ranges and the final state's fields."""
+    jr, jstate = jreplay.replay_fleet(replay_captures(), _params("jax", median_backend="xla"),
+                                      **REPLAY_KW)
+    return np.asarray(jr), {k: np.asarray(getattr(jstate, k)) for k in STATE_FIELDS}
+
+
 @pytest.mark.parametrize("median", ["pallas", "inc"])
-def test_replay_fleet_over_blocks_matches_jax(median):
+def test_replay_fleet_over_blocks_matches_jax(median, jax_replay):
     """Four captures of unequal length, chunks of 4, over (2, 4) blocks:
     ranges and the final state bit-exact against JAX's replay on its own
     default mesh and byte-equal to the port's (1, 1) replay."""
-    fleet = [_revs(1, 11), _revs(2, 9), _revs(3, 14), _revs(4, 10)]
-    kw = dict(beams=256, capacity=512, chunk=4)
-    jr, jstate = jreplay.replay_fleet(fleet, _params("jax", median_backend="xla"), **kw)
+    fleet, kw = replay_captures(), REPLAY_KW
+    jr, jstate = jax_replay
     tr, tstate = treplay.replay_fleet(fleet, _params(median_backend=median), mesh=blocks(2), **kw)
     one, ostate = treplay.replay_fleet(fleet, _params(median_backend=median), **kw)
     assert tr.shape == (4, 9, 256)
-    np.testing.assert_array_equal(tr, np.asarray(jr))
+    np.testing.assert_array_equal(tr, jr)
     np.testing.assert_array_equal(tr, one)
     for name in STATE_FIELDS:
-        np.testing.assert_array_equal(getattr(tstate, name).numpy(),
-                                      np.asarray(getattr(jstate, name)), name)
+        np.testing.assert_array_equal(getattr(tstate, name).numpy(), jstate[name], name)
         np.testing.assert_array_equal(getattr(tstate, name).numpy(),
                                       getattr(ostate, name).numpy(), name)
     assert (tstate.median_sorted is not None) == (median == "inc")

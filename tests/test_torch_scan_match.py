@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +29,12 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch th
 
 SUB, PQ_LIMIT = tsm.SUB, tsm.PQ_LIMIT
 BEAMS = 192
+# JAX's xla arm compiled whole, as its fused step runs it: one XLA program
+# a configuration, not one a primitive and shape (integer arithmetic, so
+# the same values as an eager call; each case still holds it to the NumPy
+# reference)
+jmatch_scan = jax.jit(jsm.match_scan, static_argnums=4)
+jupdate_map = jax.jit(jsm.update_map, static_argnums=4)
 
 
 def _cfg(grid: int = 64, beams: int = BEAMS, clamp_q: int = 8192, **kw) -> tsm.MapConfig:
@@ -74,7 +81,7 @@ def port_update(lo, pose, pq, ok, cfg):
 
 def assert_match_parity(lo, pose, pq, ok, cfg):
     """Port (both arms) = JAX xla arm = numpy reference."""
-    jdp, js, jn = jsm.match_scan(lo, pose, pq, ok, _jcfg(cfg))
+    jdp, js, jn = jmatch_scan(lo, pose, pq, ok, _jcfg(cfg))
     ndp, ns, nn = ref.match_scan_np(lo, pose, pq, ok, cfg)
     np.testing.assert_array_equal(np.asarray(jdp), ndp)
     assert int(js) == int(ns) and int(jn) == int(nn)
@@ -87,7 +94,7 @@ def assert_match_parity(lo, pose, pq, ok, cfg):
 
 def assert_update_parity(lo, pose, pq, ok, cfg):
     want = ref.update_map_np(lo, pose, pq, ok, cfg)
-    np.testing.assert_array_equal(np.asarray(jsm.update_map(lo, pose, pq, ok, _jcfg(cfg))), want)
+    np.testing.assert_array_equal(np.asarray(jupdate_map(lo, pose, pq, ok, _jcfg(cfg))), want)
     for backend in ("xla", "pallas"):
         got = port_update(lo, pose, pq, ok, dataclasses.replace(cfg, match_backend=backend))
         assert got.dtype == np.int32

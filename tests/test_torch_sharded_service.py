@@ -98,6 +98,27 @@ def mesh():
     return ts.make_mesh(device="cpu")
 
 
+@pytest.fixture(scope="module")
+def jax_two(jmesh):
+    """One JAX service of two streams (default params) built once per
+    module and run through every sequence the two-stream cases hold the
+    port to, each from the fresh state (``restore(None)``, the cold reset,
+    between them): their outputs, and the snapshot after one submit."""
+    jsvc = JService(_params("jax"), streams=2, mesh=jmesh, beams=128)
+    one_two, three_four = [_scan(1), _scan(2)], [_scan(3), _scan(4)]
+    runs = {"submit": jsvc.submit(one_two),
+            "snapshot": {k: np.array(v) for k, v in jsvc.snapshot().items()}}
+    jsvc.restore(None)
+    jsvc.submit(one_two)
+    jsvc.restore(None)
+    runs["submit_after_reset"] = jsvc.submit(three_four)
+    jsvc.restore(None)
+    runs["local"] = [jsvc.submit_local([_scan(2 * k), _scan(2 * k + 1)]) for k in range(4)]
+    jsvc.restore(None)
+    runs["local2"] = [jsvc.submit_local(one_two), jsvc.submit_local(three_four)]
+    return runs
+
+
 def pair(jmesh, mesh, streams: int, beams: int = 128, **kw):
     """(JAX service, port service) over the same params."""
     over = {k: v for k, v in kw.items() if k not in ("capacity",)}
@@ -184,15 +205,14 @@ class TestService:
         for j, t in zip(back.submit(scans), port.submit(scans)):
             assert_same_output(j, t, "back in JAX")
 
-    def test_restore_rejects_wrong_geometry(self, jmesh, mesh):
-        jsvc = JService(_params("jax"), streams=2, mesh=jmesh, beams=128)
-        jsvc.submit([_scan(1), _scan(2)])
+    def test_restore_rejects_wrong_geometry(self, jax_two, mesh):
+        jsnap = jax_two["snapshot"]
         other = ShardedFilterService(_params(filter_window=8), streams=2, mesh=mesh, beams=128)
         before = other.snapshot()
-        assert not other.restore(jsvc.snapshot())
+        assert not other.restore(jsnap)
         assert_same_snapshot(other.snapshot(), before)
         assert not ShardedFilterService(_params(), streams=3, mesh=mesh,
-                                        beams=128).restore(jsvc.snapshot())
+                                        beams=128).restore(jsnap)
         assert not other.restore(None)  # a cold reset is not a restore
 
     def test_submit_pipelined_is_submit_shifted_by_one_tick(self):
@@ -225,23 +245,19 @@ class TestService:
         svc.restore(None)
         assert svc.flush_pipelined() is None
 
-    def test_submit_pipelined_restore_drops_next_tick_output(self, jmesh, mesh):
+    def test_submit_pipelined_restore_drops_next_tick_output(self, jax_two, mesh):
         svc = ShardedFilterService(_params(), streams=2, mesh=mesh, beams=128)
-        ref = JService(_params("jax"), streams=2, mesh=jmesh, beams=128)
         svc.submit_pipelined([_scan(1), _scan(2)])
         svc.restore(None)
         assert svc.submit_pipelined([_scan(3), _scan(4)]) == [None, None]
-        ref.submit([_scan(1), _scan(2)])
-        ref.restore(None)
-        ref_out = ref.submit([_scan(3), _scan(4)])
+        ref_out = jax_two["submit_after_reset"]
         out = svc.submit_pipelined([_scan(5), _scan(6)])
         assert_same_output(ref_out[0], out[0])
 
-    def test_submit_pipelined_dispatch_failure_keeps_pending(self, jmesh, mesh):
+    def test_submit_pipelined_dispatch_failure_keeps_pending(self, jax_two, mesh):
         svc = ShardedFilterService(_params(), streams=2, mesh=mesh, beams=128)
-        ref = JService(_params("jax"), streams=2, mesh=jmesh, beams=128)
         svc.submit_pipelined([_scan(1), _scan(2)])
-        ref_out = ref.submit([_scan(1), _scan(2)])
+        ref_out = jax_two["submit"]
         step, svc._step = svc._step, None  # next tick: TypeError
         with pytest.raises(TypeError):
             svc.submit_pipelined([_scan(3), _scan(4)])
@@ -250,11 +266,10 @@ class TestService:
         assert tail is not None
         assert_same_output(ref_out[0], tail[0])
 
-    def test_submit_pipelined_fetch_failure_keeps_pending(self, jmesh, mesh):
+    def test_submit_pipelined_fetch_failure_keeps_pending(self, jax_two, mesh):
         svc = ShardedFilterService(_params(), streams=2, mesh=mesh, beams=128)
-        ref = JService(_params("jax"), streams=2, mesh=jmesh, beams=128)
         svc.submit_pipelined([_scan(1), _scan(2)])
-        ref_out = ref.submit([_scan(1), _scan(2)])
+        ref_out = jax_two["submit"]
 
         def boom(*a, **k):
             raise RuntimeError("fetch died")
@@ -268,11 +283,10 @@ class TestService:
         assert tail is not None
         assert_same_output(ref_out[0], tail[0])
 
-    def test_submit_local_pipelined_matches_submit_local_shifted(self, jmesh, mesh):
+    def test_submit_local_pipelined_matches_submit_local_shifted(self, jax_two, mesh):
         svc_p = ShardedFilterService(_params(), streams=2, mesh=mesh, beams=128)
-        jsvc = JService(_params("jax"), streams=2, mesh=jmesh, beams=128)
         ticks = [[_scan(2 * k), _scan(2 * k + 1)] for k in range(4)]
-        outs_s = [jsvc.submit_local(t) for t in ticks]
+        outs_s = jax_two["local"]
         outs_p = [svc_p.submit_local_pipelined(t) for t in ticks]
         assert outs_p[0] == [None, None]
         for k in range(1, len(ticks)):
@@ -283,11 +297,9 @@ class TestService:
             assert_same_output(b, a, "flush")
         assert svc_p.flush_pipelined() is None
 
-    def test_submit_local_pipelined_collect_failure_drops_not_raises(self, jmesh, mesh):
+    def test_submit_local_pipelined_collect_failure_drops_not_raises(self, jax_two, mesh):
         svc = ShardedFilterService(_params(), streams=2, mesh=mesh, beams=128)
-        ref = JService(_params("jax"), streams=2, mesh=jmesh, beams=128)
         svc.submit_local_pipelined([_scan(1), _scan(2)])
-        ref.submit_local([_scan(1), _scan(2)])
 
         def boom(*a, **k):
             raise RuntimeError("fetch died")
@@ -297,15 +309,14 @@ class TestService:
         out = svc.submit_local_pipelined([_scan(3), _scan(4)])
         svc._materialize = materialize
         assert out == [None, None]  # tick 1 dropped, no exception
-        ref_out2 = ref.submit_local([_scan(3), _scan(4)])
+        ref_out2 = jax_two["local2"][1]  # the second of two submit_local ticks
         out3 = svc.submit_local_pipelined([_scan(5), _scan(6)])
         assert_same_output(ref_out2[0], out3[0])
 
-    def test_submit_local_pipelined_dispatch_failure_keeps_collected_tick(self, jmesh, mesh):
+    def test_submit_local_pipelined_dispatch_failure_keeps_collected_tick(self, jax_two, mesh):
         svc = ShardedFilterService(_params(), streams=2, mesh=mesh, beams=128)
-        ref = JService(_params("jax"), streams=2, mesh=jmesh, beams=128)
         svc.submit_local_pipelined([_scan(1), _scan(2)])
-        ref_out = ref.submit_local([_scan(1), _scan(2)])
+        ref_out = jax_two["local2"][0]
         step, svc._step = svc._step, None
         with pytest.raises(TypeError):
             svc.submit_local_pipelined([_scan(3), _scan(4)])
@@ -534,41 +545,66 @@ def _same_loop(j, t, what):
                                           np.asarray(getattr(j, f.name)), f"{what} {f.name}")
 
 
+SLAM_STREAMS, SLAM_TICKS = 2, 12
+
+
+def slam_scans(k: int) -> list:
+    return [room_scan(s, k) if not (s == 1 and k == 5) else None for s in range(SLAM_STREAMS)]
+
+
+@pytest.fixture(scope="module")
+def jax_slam(jmesh) -> dict:
+    """The JAX service (host backends) on its (2, 4) mesh with the mapper,
+    loop closure and world map attached, over the 12 room ticks, once per
+    module for both of the port's loop backends: per tick the outputs,
+    poses, loop statuses and corrected poses; then the world accumulation,
+    the world and loop statuses and the loop engine's installs."""
+    jsvc = JService(_params("jax", **SLAM, map_backend="host", loop_backend="host"),
+                    SLAM_STREAMS, mesh=jmesh, beams=SLAM_BEAMS)
+    jsvc.attach_mapper()
+    jsvc.attach_loop_closure()
+    jsvc.attach_world_map()
+    ticks = []
+    for k in range(SLAM_TICKS):
+        outs = jsvc.submit(slam_scans(k))
+        ticks.append((outs, list(jsvc.last_poses), list(jsvc.last_loop),
+                      [None if c is None else np.array(c) for c in jsvc.last_corrected_poses]))
+    return {"ticks": ticks, "acc": np.array(jsvc.world._acc), "world": jsvc.world_status(),
+            "submaps": jsvc.loop_status()["submaps"], "installs": jsvc.loop.installs}
+
+
 @pytest.mark.parametrize("loop_backend", ["host", "fused"])
-def test_slam_seams_match_jax(jmesh, loop_backend):
+def test_slam_seams_match_jax(loop_backend, jax_slam):
     """attach_mapper + attach_loop_closure + attach_world_map on the
     service: poses, loop statuses, corrected poses and the world
     accumulation byte-equal to the JAX service's (host backends there;
     the port's fused loop arm runs its plain PyTorch ops on the CPU)."""
-    streams = 2
-    jsvc = JService(_params("jax", **SLAM, map_backend="host", loop_backend="host"),
-                    streams, mesh=jmesh, beams=SLAM_BEAMS)
+    streams = SLAM_STREAMS
+    jrun = jax_slam
     svc = ShardedFilterService(_params(**SLAM, map_backend="host", loop_backend=loop_backend),
                                streams, beams=SLAM_BEAMS)
-    for s in (jsvc, svc):
-        s.attach_mapper()
-        s.attach_loop_closure()
-        s.attach_world_map()
+    svc.attach_mapper()
+    svc.attach_loop_closure()
+    svc.attach_world_map()
     assert svc.loop.backend == loop_backend and svc.loop.on_install == svc._world_install
     checks = 0
-    for k in range(12):
-        scans = [room_scan(s, k) if not (s == 1 and k == 5) else None for s in range(streams)]
-        for j, t in zip(jsvc.submit(scans), svc.submit(scans)):
+    for k, (jouts, jposes, jloops, jcorrected) in enumerate(jrun["ticks"]):
+        for j, t in zip(jouts, svc.submit(slam_scans(k))):
             assert_same_output(j, t, f"tick {k}")
         for i in range(streams):
-            _same_pose(jsvc.last_poses[i], svc.last_poses[i], f"tick {k} pose {i}")
-            _same_loop(jsvc.last_loop[i], svc.last_loop[i], f"tick {k} loop {i}")
+            _same_pose(jposes[i], svc.last_poses[i], f"tick {k} pose {i}")
+            _same_loop(jloops[i], svc.last_loop[i], f"tick {k} loop {i}")
             checks += svc.last_loop[i] is not None
-            jc, tc = jsvc.last_corrected_poses[i], svc.last_corrected_poses[i]
+            jc, tc = jcorrected[i], svc.last_corrected_poses[i]
             assert (jc is None) == (tc is None)
             if tc is not None:
-                np.testing.assert_array_equal(tc, np.asarray(jc))
-    assert checks > 0 and svc.loop.installs == jsvc.loop.installs > 0
-    np.testing.assert_array_equal(svc.world.accumulation(), np.asarray(jsvc.world._acc))
-    js, tst = jsvc.world_status(), svc.world_status()
+                np.testing.assert_array_equal(tc, jc)
+    assert checks > 0 and svc.loop.installs == jrun["installs"] > 0
+    np.testing.assert_array_equal(svc.world.accumulation(), jrun["acc"])
+    js, tst = jrun["world"], svc.world_status()
     assert {k: tst[k] for k in ("merges", "evictions")} == {k: js[k] for k in ("merges",
                                                                               "evictions")}
-    assert svc.loop_status()["submaps"] == jsvc.loop_status()["submaps"]
+    assert svc.loop_status()["submaps"] == jrun["submaps"]
 
 
 def test_world_map_without_a_loop_engine_pulls_row_snapshots(jmesh):
@@ -611,20 +647,36 @@ def _revs(seed: int, n: int) -> list[dict]:
     return out
 
 
+REPLAY_STATE = ("range_window", "inten_window", "hit_window", "voxel_acc", "cursor", "filled")
+
+
+def replay_captures() -> list:
+    """Three captures of unequal length."""
+    return [_revs(1, 11), _revs(2, 9), _revs(3, 14)]
+
+
+@pytest.fixture(scope="module")
+def jax_replay() -> tuple:
+    """JAX's sharded replay of the three captures on its own default mesh,
+    once per module for both of the port's median backends (JAX's
+    ``xla``): the ranges and the final state's fields."""
+    jr, jstate = jreplay.replay_fleet(replay_captures(), _params("jax", median_backend="xla"),
+                                      beams=256, capacity=512, chunk=4)
+    return np.asarray(jr), {k: np.asarray(getattr(jstate, k)) for k in REPLAY_STATE}
+
+
 @pytest.mark.parametrize("median", ["pallas", "inc"])
-def test_replay_fleet_matches_jax(median):
+def test_replay_fleet_matches_jax(median, jax_replay):
     """Three captures of unequal length (truncated to the shortest),
     chunks of 4: ranges and the final state bit-exact against JAX's
     sharded replay on its own default mesh."""
-    fleet = [_revs(1, 11), _revs(2, 9), _revs(3, 14)]
-    kw = dict(beams=256, capacity=512, chunk=4)
-    jr, jstate = jreplay.replay_fleet(fleet, _params("jax", median_backend="xla"), **kw)
-    tr, tstate = treplay.replay_fleet(fleet, _params(median_backend=median), **kw)
+    jr, jstate = jax_replay
+    tr, tstate = treplay.replay_fleet(replay_captures(), _params(median_backend=median),
+                                      beams=256, capacity=512, chunk=4)
     assert tr.shape == (3, 9, 256)
-    np.testing.assert_array_equal(tr, np.asarray(jr))
-    for name in ("range_window", "inten_window", "hit_window", "voxel_acc", "cursor", "filled"):
-        np.testing.assert_array_equal(getattr(tstate, name).numpy(),
-                                      np.asarray(getattr(jstate, name)), name)
+    np.testing.assert_array_equal(tr, jr)
+    for name in REPLAY_STATE:
+        np.testing.assert_array_equal(getattr(tstate, name).numpy(), jstate[name], name)
     empty, none = treplay.replay_fleet([], _params(), beams=256)
     assert empty.shape == (0, 0, 256) and none is None
 

@@ -16,6 +16,9 @@ against the JAX package's on one scripted placement sequence.
 
 from __future__ import annotations
 
+import functools
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -104,8 +107,6 @@ def assert_out_equal(jo, to, what: str) -> None:
 def gathered(mesh, state):
     """A sharded state as one object of global arrays (the blocks of a
     mesh held in one process put together)."""
-    import types
-
     return types.SimpleNamespace(**ts.gather_state(mesh, state))
 
 
@@ -142,25 +143,47 @@ def assert_blocks_equal_one_block(got, want, what: str) -> None:
         assert torch.equal(getattr(got, name), getattr(want, name)), f"{what}: {name}"
 
 
+def jax_step_run(mesh_name: str, jmed: str, reduce: str) -> tuple:
+    """JAX's shard_map step over the 12 ticks on a (stream, beam) mesh of 8
+    CPU devices: per tick the output as numpy arrays, then the final
+    state's fields."""
+    n, stream = MESHES[mesh_name]
+    jmesh = js.make_mesh(n, stream=stream)
+    jcfg = jf.FilterConfig(window=W, beams=B, grid=G, cell_m=CELL, median_backend=jmed,
+                           voxel_reduce=reduce)
+    jstep = js.build_sharded_step(jmesh, jcfg)
+    jstate = js.create_sharded_state(jmesh, jcfg, STREAMS)
+    outs = []
+    for row in fleet_ticks(11, 12):
+        seq, counts = packed_tick(row)
+        jstate, jout = jstep(jstate, js.shard_batch(jmesh, jax_batch(seq, counts)))
+        outs.append(types.SimpleNamespace(**{
+            name: np.asarray(getattr(jout, name))
+            for name in ("ranges", "intensities", "points_xy", "point_mask", "voxel")}))
+    names = STATE_FIELDS + (("median_sorted",) if jmed == "inc" else ())
+    return outs, types.SimpleNamespace(**{k: np.asarray(getattr(jstate, k)) for k in names})
+
+
+@pytest.fixture(scope="module")
+def jax_steps():
+    """``jax_step_run`` once per module for each (mesh, median, reduce): the
+    port's (1, 1) and block cases of one JAX configuration read one run."""
+    return functools.cache(jax_step_run)
+
+
 @pytest.mark.parametrize("port", ["1x1", "blocks"])
 @pytest.mark.parametrize("reduce", ["psum", "ring"])
 @pytest.mark.parametrize("median", ["sort", "inc"])
 @pytest.mark.parametrize("mesh_name", list(MESHES))
-def test_step_matches_jax_sharded_step(mesh_name, median, reduce, port, port_mesh):
+def test_step_matches_jax_sharded_step(mesh_name, median, reduce, port, port_mesh, jax_steps):
     """12 ticks with idle streams: the port's one-launch-a-block batched
     step (both median arms: ``xla`` and ``pallas`` — B1's plain version —
     for the sort backend, ``inc`` for the incremental one) against JAX's
     shard_map step on a (stream, beam) mesh of 8 CPU devices, on the
     port's (1, 1) mesh or on eight CPU blocks of the same shape (then also
     byte-equal to the (1, 1) mesh)."""
-    n, stream = MESHES[mesh_name]
     meshes = port_meshes(port, mesh_name, port_mesh)
-    jmesh = js.make_mesh(n, stream=stream)
-    jmed = "xla" if median == "sort" else "inc"
-    jcfg = jf.FilterConfig(window=W, beams=B, grid=G, cell_m=CELL, median_backend=jmed,
-                           voxel_reduce=reduce)
-    jstep = js.build_sharded_step(jmesh, jcfg)
-    jstate = js.create_sharded_state(jmesh, jcfg, STREAMS)
+    jouts, jstate = jax_steps(mesh_name, "xla" if median == "sort" else "inc", reduce)
     tmeds = ("xla", "pallas") if median == "sort" else ("inc",)
     runs = {}
     for tmed in tmeds:
@@ -171,7 +194,7 @@ def test_step_matches_jax_sharded_step(mesh_name, median, reduce, port, port_mes
                                ts.create_sharded_state(mesh, tcfg, STREAMS)]
     for t, row in enumerate(fleet_ticks(11, 12)):
         seq, counts = packed_tick(row)
-        jstate, jout = jstep(jstate, js.shard_batch(jmesh, jax_batch(seq, counts)))
+        jout = jouts[t]
         outs = {}
         for (tmed, key), run in runs.items():
             run[2], outs[tmed, key] = run[1](run[2], torch_batch(seq, counts))
@@ -194,10 +217,39 @@ def scan_fixture(seed: int, k: int):
     return seqs, counts
 
 
+SCAN_CHUNKS = ((0, 3), (3, 13))  # a K < W chunk, then a K > W chunk
+
+
+def jax_scan_run(mesh_name: str, jmed: str, reduce: str) -> tuple:
+    """JAX's sharded scan over the K < W chunk then the K > W chunk on a
+    (stream, beam) mesh of 8 devices: each chunk's ranges and the final
+    state's fields, as numpy arrays."""
+    seqs, counts = scan_fixture(5, 13)
+    jmesh = js.make_mesh(8, stream=MESHES[mesh_name][1])
+    jcfg = jf.FilterConfig(window=W, beams=B, grid=G, cell_m=CELL, voxel_reduce=reduce,
+                           median_backend=jmed)
+    jscan = js.build_sharded_scan(jmesh, jcfg)
+    jstate = js.create_sharded_state(jmesh, jcfg, STREAMS)
+    chunks = []
+    for lo, hi in SCAN_CHUNKS:
+        jstate, jr = jscan(jstate, jnp.asarray(seqs[:, lo:hi]), jnp.asarray(counts[:, lo:hi]))
+        chunks.append(np.asarray(jr))
+    return chunks, types.SimpleNamespace(**{k: np.asarray(getattr(jstate, k))
+                                           for k in STATE_FIELDS})
+
+
+@pytest.fixture(scope="module")
+def jax_scans():
+    """``jax_scan_run`` once per module for each (mesh, median, reduce): the
+    port's ``pallas`` and ``xla`` arms (JAX's ``xla``) and its (1, 1) and
+    (2, 4) cases (JAX's (2, 4)) read one run."""
+    return functools.cache(jax_scan_run)
+
+
 @pytest.mark.parametrize("reduce", ["psum", "ring"])
 @pytest.mark.parametrize("port", ["1x1"] + list(MESHES))
 @pytest.mark.parametrize("median", ["pallas", "xla", "inc"])
-def test_scan_matches_jax_sharded_scan_and_k_steps(median, port, reduce, port_mesh):
+def test_scan_matches_jax_sharded_scan_and_k_steps(median, port, reduce, port_mesh, jax_scans):
     """The fused fleet scan — one sliding-median call a block (B3's plain
     version for ``pallas``) over its (W+K, S*B) history stripe per chunk —
     over a K < W chunk then a K > W chunk: equal to JAX's sharded scan on a
@@ -208,23 +260,19 @@ def test_scan_matches_jax_sharded_scan_and_k_steps(median, port, reduce, port_me
     seqs, counts = scan_fixture(5, 13)
     meshes = port_meshes("1x1" if port == "1x1" else "blocks", port, port_mesh)
     mesh = meshes.get("blocks", port_mesh)
-    jmesh = js.make_mesh(8, stream=MESHES["2x4" if port == "1x1" else port][1])
-    jcfg = jf.FilterConfig(window=W, beams=B, grid=G, cell_m=CELL, voxel_reduce=reduce,
-                           median_backend="inc" if median == "inc" else "xla")
+    jchunks, jstate = jax_scans("2x4" if port == "1x1" else port,
+                                "inc" if median == "inc" else "xla", reduce)
     tcfg = tf.FilterConfig(window=W, beams=B, grid=G, cell_m=CELL, median_backend=median,
                            voxel_reduce=reduce)
-    jscan = js.build_sharded_scan(jmesh, jcfg)
-    jstate = js.create_sharded_state(jmesh, jcfg, STREAMS)
     tscan = ts.build_sharded_scan(mesh, tcfg)
     tstate = ts.create_sharded_state(mesh, tcfg, STREAMS)
     tstep = ts.build_sharded_step(mesh, tcfg)
     sstate = ts.create_sharded_state(mesh, tcfg, STREAMS)
     oscan = ts.build_sharded_scan(port_mesh, tcfg)
     ostate = ts.create_sharded_state(port_mesh, tcfg, STREAMS)
-    for lo, hi in ((0, 3), (3, 13)):
-        jstate, jr = jscan(jstate, jnp.asarray(seqs[:, lo:hi]), jnp.asarray(counts[:, lo:hi]))
+    for (lo, hi), jr in zip(SCAN_CHUNKS, jchunks):
         tstate, tr = tscan(tstate, seqs[:, lo:hi], counts[:, lo:hi])
-        np.testing.assert_array_equal(np.asarray(jr), tr.numpy(), f"chunk {lo}:{hi}")
+        np.testing.assert_array_equal(jr, tr.numpy(), f"chunk {lo}:{hi}")
         if mesh is not port_mesh:
             ostate, orr = oscan(ostate, seqs[:, lo:hi], counts[:, lo:hi])
             assert_blocks_equal_one_block(tr, orr, f"chunk {lo}:{hi}")

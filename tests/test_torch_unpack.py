@@ -11,6 +11,7 @@ corrupt frames, scan restarts, angle jumps, the ``last_sync_out`` /
 
 from __future__ import annotations
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -20,6 +21,12 @@ from rplidar_ros2_driver_tpu.ops import unpack_ref
 from rplidar_ros2_driver_tpu_torch.ops import unpack as tunpack
 from rplidar_ros2_driver_tpu_torch.ops import wire
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
+# JAX's scans compiled whole, as its jitted decoders run them: one XLA
+# program a shape, not one a primitive and shape (integer arithmetic: the
+# same values as an eager call)
+jsync_edge = jax.jit(junpack._sync_edge)
+jud_smooth = jax.jit(junpack._ud_smooth)
 
 
 def _rng(seed=1234):
@@ -88,7 +95,7 @@ def test_sync_edge_matches_the_scalar_recurrence(carry):
     got = tunpack._sync_edge(torch.from_numpy(s), carry).numpy()
     np.testing.assert_array_equal(got, np.array(want, np.int32))
     np.testing.assert_array_equal(
-        got, np.asarray(junpack._sync_edge(s, np.int32(carry)))
+        got, np.asarray(jsync_edge(s, np.int32(carry)))
     )
 
 
@@ -101,7 +108,7 @@ def test_ud_smooth_matches_jax_scan():
         got = tunpack._ud_smooth(
             torch.from_numpy(d), torch.from_numpy(sc.astype(np.int32)), torch.from_numpy(sk), last
         ).numpy()
-        want = np.asarray(junpack._ud_smooth(d, sc.astype(np.int32), sk, np.int32(last)))
+        want = np.asarray(jud_smooth(d, sc.astype(np.int32), sk, np.int32(last)))
         np.testing.assert_array_equal(got, want)
 
 
