@@ -1406,8 +1406,42 @@ def _stamped_publisher(probe):
     return Stamped()
 
 
-def _e2e_node_class():
-    """RPlidarNode that keeps the FSM states it passes through."""
+class _E2eTap:
+    """What the node did on the live path, recorded as it ran, so that the
+    replay does the same: every revolution the driver's assembler completed,
+    in order; every host grab the FSM handed to ``_on_scan`` as (its index
+    among those revolutions, ts0, duration, the stamp handed on); every
+    frame run the fused engine was handed, as (answer type, frames).  A
+    revolution whose frames came in one read lasts 0 s, and the FSM hands it
+    on under its grab clock (node/fsm.py, tests/test_torch_live_stamps.py)."""
+
+    def __init__(self) -> None:
+        self.completed, self.grabs, self.fed = [], [], []
+
+    @property
+    def restamped(self) -> int:
+        """Grabs handed on under another stamp than their ts0 (the fused
+        RUNNING step hands on the engine's stamps: none there)."""
+        return sum(stamp != ts0 for _k, ts0, _d, stamp in self.grabs)
+
+    def grab(self, scan: dict, stamp: float) -> None:
+        k = next((i for i in range(len(self.completed) - 1, -1, -1)
+                  if self.completed[i] is scan), -1)
+        self.grabs.append((k, scan["ts0"], scan["duration"], stamp))
+
+    def feed(self, handed):
+        """``handed`` (an engine's ``on_measurement_batch``), each run counted."""
+
+        def record_run(ans_type, items):
+            self.fed.append((ans_type, len(items)))
+            return handed(ans_type, items)
+
+        return record_run
+
+
+def _e2e_node_class(tap: _E2eTap):
+    """RPlidarNode that keeps the FSM states it passes through and tells
+    ``tap`` what it ran."""
     from rplidar_ros2_driver_tpu_torch.node.node import RPlidarNode
 
     class StateLoggingNode(RPlidarNode):
@@ -1415,15 +1449,32 @@ def _e2e_node_class():
             self.states_seen.append(state.name)
             super()._on_fsm_state(state)
 
+        def configure(self) -> bool:
+            ok = super().configure()
+            if ok and self.fused_ingest is not None:
+                # the driver binds the engine's callback at connect, after this
+                eng = self.fused_ingest
+                eng.on_measurement_batch = tap.feed(eng.on_measurement_batch)
+            return ok
+
+        def _on_scan(self, scan: dict, start_time: float, duration: float) -> None:
+            tap.grab(scan, start_time)
+            super()._on_scan(scan, start_time, duration)
+
     return StateLoggingNode
 
 
-def _recording_factory(port: int, path: str):
+def _recording_factory(port: int, path: str, tap: _E2eTap):
     """RealLidarDrivers on the simulator's TCP port that start recording the
-    moment they connect (before any measurement frame)."""
+    moment they connect (before any measurement frame) and hand every
+    revolution their assembler completes to ``tap``."""
     from rplidar_ros2_driver_tpu_torch.driver.real import RealLidarDriver
 
     class RecordingDriver(RealLidarDriver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self._assembler._on_complete = tap.completed.append
+
         def connect(self, *a, **kw):
             ok = super().connect(*a, **kw)
             if ok and self._scan_decoder.recorder is None:
@@ -1465,36 +1516,56 @@ def _capture_runs(path: str, run: int = 64) -> list:
     return runs
 
 
-def _e2e_replay(arm: str, path: str, timing, published_stamps: set, deskew: bool) -> tuple:
-    """The capture through the package's CPU arm of the same path:
-    ``([(FilterOutput, ts0), ...] in order, the start stamp of every
-    revolution in the capture)``.  Host: the host decoder and
-    assembler, then the CPU chain over the revolutions the node ran (the
-    pipelined seam publishes every revolution it runs, its last at the
-    deactivate drain; one the FSM never grabbed stays out).  Fused: the
-    CPU FusedIngest over every frame (the fused window advances on every
-    revolution, published or not).  Both with the live stream's timing."""
+def _e2e_replay(arm: str, path: str, timing, tap: _E2eTap, deskew: bool) -> tuple:
+    """The capture through the package's CPU arm of the same path, as the
+    node ran it: ``([(FilterOutput, stamp), ...] in order, the start stamp
+    of every revolution in the capture)``.  Host: the host
+    decoder and assembler, then the CPU chain over the revolutions the FSM
+    grabbed, in its order, each under the stamp it handed on (the pipelined
+    seam publishes every revolution it runs, its last at the deactivate
+    drain; one the FSM never grabbed stays out).  Fused: the CPU FusedIngest
+    fed the runs the node's engine was handed (the fused window advances on
+    every revolution, published or not).  Both with the live stream's
+    timing."""
     from rplidar_ros2_driver_tpu_torch.driver.assembly import ScanAssembler
     from rplidar_ros2_driver_tpu_torch.driver.decode import BatchScanDecoder
     from rplidar_ros2_driver_tpu_torch.driver.ingest import FusedIngest
     from rplidar_ros2_driver_tpu_torch.filters.chain import ScanFilterChain
+    from rplidar_ros2_driver_tpu_torch.replay import read_frames
 
     params = _e2e_params("cpu", 0, arm, deskew)
-    runs = _capture_runs(path)
     if arm == "host":
         revs = []
         dec = BatchScanDecoder(ScanAssembler(on_complete=revs.append))
         dec.timing = timing
-        for ans, items in runs:
+        for ans, items in _capture_runs(path):
             dec.on_measurement_batch(ans, items)
         chain = ScanFilterChain(params)
-        outs = [(chain.process_raw(r["angle_q14"], r["dist_q2"], r["quality"], r["flag"]),
-                 r["ts0"]) for r in revs if r["ts0"] in published_stamps]
+        outs = []
+        for k, ts0, duration, stamp in tap.grabs:
+            r = revs[k] if 0 <= k < len(revs) else None
+            check(r is not None and (r["ts0"], r["duration"]) == (ts0, duration),
+                  f"e2e host: grabbed revolution {k} (ts0 {ts0}, duration {duration}) is not "
+                  f"the replay's ({len(revs)} replayed, {tap.restamped} restamped)")
+            # the FSM's clock fallback (node/fsm.py): a revolution goes out
+            # under another stamp than its ts0 only when it lasted <= 0 s
+            check(stamp == ts0 or r["duration"] <= 0,
+                  f"e2e host: revolution {k} (ts0 {ts0}, duration {r['duration']}) handed on "
+                  f"at {stamp} ({tap.restamped} restamped)")
+            outs.append((chain.process_raw(r["angle_q14"], r["dist_q2"], r["quality"],
+                                           r["flag"]), stamp))
         return outs, [r["ts0"] for r in revs]
     eng = FusedIngest(params, max_queue=1 << 30)
     eng.timing = timing
-    for ans, items in runs:
-        eng.on_measurement_batch(ans, items)
+    frames = [(ans, (payload, ts)) for ans, ts, payload in read_frames(path)]
+    off = 0
+    for ans, n in tap.fed:
+        run = frames[off : off + n]
+        if len(run) < n:
+            break  # handed over after the recording stopped
+        check(all(a == ans for a, _f in run), f"e2e {arm}: the recording is not the runs fed")
+        eng.on_measurement_batch(ans, [f for _a, f in run])
+        off += n
     outs = [(o, ts0) for o, ts0, _d in eng.flush()]
     return outs, [ts0 for _o, ts0 in outs]
 
@@ -1561,7 +1632,8 @@ def _e2e_arm(device, arm: str, deskew: bool, tmp: str) -> dict:
                                     frame_rate_hz=E2E["frame_rate_hz"])).start()
     node = None
     try:
-        factory, made = _recording_factory(sim.port, path)
+        tap = _E2eTap()
+        factory, made = _recording_factory(sim.port, path, tap)
         holder = {}
 
         def probe():
@@ -1569,7 +1641,7 @@ def _e2e_arm(device, arm: str, deskew: bool, tmp: str) -> dict:
             return (ch.last_collect_wait_s, ch.last_upload_dispatch_s) if ch is not None else None
 
         pub = _stamped_publisher(probe)
-        node = _e2e_node_class()(_e2e_params(backend, sim.port, arm, deskew), pub,
+        node = _e2e_node_class(tap)(_e2e_params(backend, sim.port, arm, deskew), pub,
                                  driver_factory=factory)
         node.states_seen = []
         holder["node"] = node
@@ -1666,18 +1738,23 @@ def _e2e_arm(device, arm: str, deskew: bool, tmp: str) -> dict:
     # every published revolution against the CPU replay of the recording
     t_replay = time.perf_counter()
     stamps = {m.stamp for m in msgs}
-    replay, every_rev = _e2e_replay(arm, path, timing, stamps, deskew)
-    rts = np.array([ts0 for _o, ts0 in replay])
+    replay, every_rev = _e2e_replay(arm, path, timing, tap, deskew)
+    rts = np.array([stamp for _o, stamp in replay])
     check(rts.size > 0, f"e2e {name}: the replay completed no revolution")
-    # host stamps are the same float64 sums live and replayed; fused ones
-    # are float32 offsets from a per-dispatch base, which the dispatches'
-    # different bases move by far less than 1e-5 s (revolutions are 0.1 s)
-    tol = 0.0 if arm == "host" else 1e-5
+    # host stamps are the same float64 sums live and replayed, or the FSM's
+    # clock for a revolution of duration <= 0; fused ones are float32
+    # offsets from each dispatch's base, the node's bases since the replay
+    # is fed the node's runs.  Matched in order: the fused arm hands on a
+    # revolution read at once and the next one under one stamp
     check(len(clouds) == len(msgs), f"e2e {name}: {len(msgs)} scans but {len(clouds)} clouds")
+    k = -1
     for msg, cloud in zip(msgs, clouds):
-        k = int(np.argmin(np.abs(rts - msg.stamp)))
-        check(abs(rts[k] - msg.stamp) <= tol,
-              f"e2e {name}: published revolution at {msg.stamp} is not in the replay")
+        after = np.flatnonzero(rts[k + 1 :] == msg.stamp)
+        check(after.size > 0,
+              f"e2e {name}: published revolution at {msg.stamp} is not in the replay after its "
+              f"revolution {k}: nearest {rts[int(np.argmin(np.abs(rts - msg.stamp)))]}, "
+              f"{len(rts)} replayed for {len(msgs)} published, {tap.restamped} restamped")
+        k += 1 + int(after[0])
         o = replay[k][0]
         for field, got, want in (
             ("ranges", msg.ranges, o.ranges), ("intensities", msg.intensities, o.intensities),
@@ -1689,10 +1766,14 @@ def _e2e_arm(device, arm: str, deskew: bool, tmp: str) -> dict:
     # revolutions completed between the first and the last publish that
     # were never published (host: never grabbed by the FSM; fused: a
     # dropped result), counted and printed
-    pub_stamps = np.array(sorted(stamps))
-    dropped_live = sum(1 for ts0 in every_rev if pub_stamps[0] <= ts0 <= pub_stamps[-1]
-                       and np.abs(pub_stamps - ts0).min() > tol)
-    result.update({"matched_replay": len(msgs), "dropped_live": dropped_live,
+    if arm == "host":
+        grabbed = sorted({i for i, _t, _d, _s in tap.grabs})
+        dropped_live = grabbed[-1] - grabbed[0] + 1 - len(grabbed) if grabbed else 0
+    else:
+        lo, hi = min(stamps), max(stamps)
+        dropped_live = sum(1 for ts0 in every_rev if lo <= ts0 <= hi and ts0 not in stamps)
+    result.update({"matched_replay": len(msgs), "restamped": tap.restamped,
+                   "dropped_live": dropped_live,
                    "replay_revolutions": len(every_rev),
                    "replay_s": time.perf_counter() - t_replay})
     return result

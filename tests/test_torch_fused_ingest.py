@@ -431,7 +431,7 @@ def test_fused_ingest_matches_deskew_host_twin_and_jax():
     for k, ((out, ts0, dur), tw, (jout, jts0, jdur)) in enumerate(zip(outs, twin_outs, jouts)):
         np.testing.assert_array_equal(out.ranges, tw.ranges, err_msg=f"rev {k}")
         _assert_output_equal(jout, out, f"rev {k}")
-        assert ts0 == jts0 and abs(dur - jdur) < 1e-6
+        assert ts0 == jts0 and dur == jdur
     assert (twin.stream.motion != 0).any()
     assert eng.scans_completed == jeng.scans_completed
 

@@ -13,7 +13,11 @@ host or fused ingest -> /scan.
     path and within 1 ulp at their magnitude on the fused one;
   * the node publishes over the live path with ``filter_backend: cpu``,
     host and fused ingest, and what it publishes equals the port's CPU
-    replay of its own recording;
+    replay of its own recording, stamps exact: the host replay runs the
+    revolutions the FSM grabbed under the stamps it handed on (a
+    revolution read at once lasts 0 s and goes out under the FSM's clock,
+    tests/test_torch_live_stamps.py), the fused one the runs the node's
+    engine was handed;
   * ``run`` without ``--dummy`` against the port's simulator exits 0 with
     scans published.
 
@@ -275,24 +279,36 @@ def _runs(path: str):
     items = [(payload, ts) for ans, ts, payload in read_frames(path) if ans == DENSE]
     return [items[i : i + RUN] for i in range(0, len(items), RUN)]
 
-def _host_replay(pkg: str, path: str, timing: dict, skip=None, beams: int = BEAMS):
+def _host_replay(pkg: str, path: str, timing: dict, beams: int = BEAMS, tap=None):
     """Host decode + chain of one package over the capture: every
-    revolution's (FilterOutput, ts0, duration), in order.  ``skip(ts0)``
-    keeps a revolution out of the chain (one the live node never ran)."""
+    revolution's (FilterOutput, ts0, duration), in order.  With a node's
+    ``tap`` (:class:`_NodeTap`) the chain runs what the node ran: the
+    revolutions the FSM grabbed, in its order, each as (FilterOutput, the
+    stamp the FSM handed on, duration)."""
     asm_mod, dec_mod, tim_mod = (jasm, jdec, jtiming) if pkg == "jax" else (tasm, tdec, ttiming)
     revs = []
     dec = dec_mod.BatchScanDecoder(asm_mod.ScanAssembler(on_complete=revs.append))
     dec.timing = tim_mod.TimingDesc(**timing)
     for run in _runs(path):
         dec.on_measurement_batch(DENSE, run)
+    picks = [(r, r["ts0"]) for r in revs]
+    if tap is not None:
+        picks = []
+        for k, ts0, duration, stamp in tap.grabs:
+            r = revs[k] if 0 <= k < len(revs) else None
+            assert r is not None and (r["ts0"], r["duration"]) == (ts0, duration), (
+                f"grabbed revolution {k} (ts0 {ts0}, duration {duration}) is not the "
+                f"replay's: {len(revs)} replayed, decoder resets at {tap.resets} "
+                f"(frames recorded, grabs), {tap.restamped} restamped")
+            # the FSM's clock fallback (node/fsm.py): a revolution goes out
+            # under another stamp than its ts0 only when it lasted <= 0 s
+            assert stamp == ts0 or r["duration"] <= 0, (
+                f"revolution {k} (ts0 {ts0}, duration {r['duration']}) handed on at {stamp}, "
+                f"{tap.restamped} restamped")
+            picks.append((r, stamp))
     chain = (JChain if pkg == "jax" else TChain)(_params(pkg), beams=beams)
-    out = []
-    for r in revs:
-        if skip is not None and skip(r["ts0"]):
-            continue
-        o = chain.process_raw(r["angle_q14"], r["dist_q2"], r["quality"], r["flag"])
-        out.append((o, r["ts0"], r["duration"]))
-    return out
+    return [(chain.process_raw(r["angle_q14"], r["dist_q2"], r["quality"], r["flag"]), stamp,
+             r["duration"]) for r, stamp in picks]
 
 def _fused_replay(pkg: str, path: str, timing: dict, beams: int = BEAMS, capacity=2048, **over):
     mod = jdi if pkg == "jax" else tdi
@@ -442,11 +458,56 @@ def test_fused_ingest_producer_and_consumer_threads(live_capture):
 # the node on the live path
 # ---------------------------------------------------------------------------
 
-def _recording_driver(port: int, path: str):
+class _NodeTap:
+    """What the node did on the live path, recorded as it ran, so that the
+    replay does the same: every revolution the driver's assembler completed,
+    in order (``completed``, filled by :func:`_recording_driver`); every grab
+    the FSM handed to ``_on_scan`` as (its index among those revolutions,
+    ts0, duration, the stamp handed on); every reset of the driver's decoder
+    as (frames recorded, grabs so far); every run a FusedIngest was handed,
+    as (answer type, frames).  A revolution whose frames came in one read
+    lasts 0 s, and the FSM hands it on under its grab clock
+    (tests/test_torch_live_stamps.py)."""
+
+    def __init__(self, monkeypatch) -> None:
+        self.completed, self.grabs, self.resets, self.fed = [], [], [], []
+        on_scan, reset = RPlidarNode._on_scan, tdec.BatchScanDecoder.reset
+        handed = tdi.FusedIngest.on_measurement_batch
+
+        def tap_on_scan(node, scan, stamp, duration):
+            k = next((i for i in range(len(self.completed) - 1, -1, -1)
+                      if self.completed[i] is scan), -1)
+            self.grabs.append((k, scan["ts0"], scan["duration"], stamp))
+            return on_scan(node, scan, stamp, duration)
+
+        def tap_reset(dec):
+            rec = dec.recorder
+            self.resets.append((None if rec is None else rec.frames, len(self.grabs)))
+            return reset(dec)
+
+        def record_run(eng, ans_type, items):
+            self.fed.append((ans_type, len(items)))
+            return handed(eng, ans_type, items)
+
+        monkeypatch.setattr(RPlidarNode, "_on_scan", tap_on_scan)
+        monkeypatch.setattr(tdec.BatchScanDecoder, "reset", tap_reset)
+        monkeypatch.setattr(tdi.FusedIngest, "on_measurement_batch", record_run)
+
+    @property
+    def restamped(self) -> int:
+        return sum(stamp != ts0 for _k, ts0, _d, stamp in self.grabs)
+
+
+def _recording_driver(port: int, path: str, tap: _NodeTap):
     """A factory of RealLidarDrivers that start recording once connected
-    (before any measurement frame)."""
+    (before any measurement frame) and hand every revolution their
+    assembler completes to ``tap``."""
 
     class RecordingDriver(RealLidarDriver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self._assembler._on_complete = tap.completed.append
+
         def connect(self, *a, **kw):
             ok = super().connect(*a, **kw)
             if ok and self._scan_decoder.recorder is None:
@@ -467,20 +528,14 @@ def test_node_publishes_over_the_live_path(ingest, tmp_path, monkeypatch):
     """ingest_backend host and fused end to end on the CPU: sim wire frames
     -> RealLidarDriver -> the seam -> FSM -> publisher; every published
     revolution equals the port's CPU replay of the node's own recording
-    (fused: replayed in the runs the node's engine was handed — under load
+    (host: the revolutions the FSM grabbed, under the stamps it handed on;
+    fused: replayed in the runs the node's engine was handed — under load
     the pump hands over longer runs, and a run completing more than
     ``max_revs`` revolutions keeps the newest, as the replay then does)."""
-    fed = []
-    handed = tdi.FusedIngest.on_measurement_batch
-
-    def record_run(self, ans_type, items):
-        fed.append((ans_type, len(items)))
-        return handed(self, ans_type, items)
-
-    monkeypatch.setattr(tdi.FusedIngest, "on_measurement_batch", record_run)
+    tap = _NodeTap(monkeypatch)
     path = str(tmp_path / "node.rplr")
     sim = tsim.SimulatedDevice(tsim.SimConfig(points_per_rev=PPR, frame_rate_hz=800.0)).start()
-    factory, made = _recording_driver(sim.port, path)
+    factory, made = _recording_driver(sim.port, path, tap)
     params = _params("torch", channel_type="tcp", tcp_host="127.0.0.1", tcp_port=sim.port,
                      ingest_backend=ingest, scan_mode="DenseBoost", pipelined_publish=True)
     pub = CollectingPublisher(reliable=True)  # keep every message
@@ -491,7 +546,8 @@ def test_node_publishes_over_the_live_path(ingest, tmp_path, monkeypatch):
         assert (node.chain is None) == (ingest == "fused")
         assert wait_for(lambda: pub.scan_count >= 12, 60.0), (
             f"no scans over the live path: {pub.scan_count} scans in 60 s, "
-            f"{node.fsm.reset_count} resets, {len(made)} drivers, FSM {node.fsm.state.name}")
+            f"{node.fsm.reset_count} resets, {len(made)} drivers, FSM {node.fsm.state.name}, "
+            f"{tap.restamped} restamped")
         node.deactivate()
         resets = node.fsm.reset_count
         timing = dataclasses.asdict(made[-1]._scan_decoder.timing)
@@ -499,23 +555,30 @@ def test_node_publishes_over_the_live_path(ingest, tmp_path, monkeypatch):
     finally:
         node.shutdown()
         sim.stop()
-    assert len(made) == 1 and resets == 0, f"{len(made)} drivers made, {resets} resets"
-    published = {m.stamp for m in pub.scans}
+    assert len(made) == 1 and resets == 0, (
+        f"{len(made)} drivers made, {resets} resets, {tap.restamped} restamped")
     if ingest == "host":
-        # the node runs exactly the revolutions it publishes (the pipelined
-        # seam's last one drains at deactivate); any the FSM missed (the
-        # assembler's newest-wins buffer) stay out of the replay's chain
-        replay = _host_replay("torch", path, timing, beams=DEFAULT_BEAMS,
-                              skip=lambda ts0: ts0 not in published)
+        # the node runs exactly the revolutions the FSM grabs and publishes
+        # them (the pipelined seam's last one drains at deactivate) under the
+        # stamps the FSM handed on; any the FSM missed (the assembler's
+        # newest-wins buffer) stay out of the replay's chain
+        replay = _host_replay("torch", path, timing, beams=DEFAULT_BEAMS, tap=tap)
     else:
-        replay = _fused_replay_as_fed(path, timing, fed, beams=DEFAULT_BEAMS)
+        replay = _fused_replay_as_fed(path, timing, tap.fed, beams=DEFAULT_BEAMS)
+    # host: the same float64 sums live and replayed, or the FSM's clock;
+    # fused: float32 offsets from each dispatch's base, and the replay is fed
+    # the node's runs, so its bases are the node's.  Matched in order: the
+    # fused arm hands on a revolution read at once and the next one under
+    # one stamp
     stamps = np.array([ts0 for _o, ts0, _d in replay])
+    k = -1
     for msg, cloud in zip(pub.scans, pub.clouds):
-        k = int(np.argmin(np.abs(stamps - msg.stamp)))
-        tol = 0.0 if ingest == "host" else 1e-5  # fused stamps: f32 offsets
-        assert abs(stamps[k] - msg.stamp) <= tol, (
-            f"revolution {msg.stamp} not in the replay: nearest {stamps[k]}, "
-            f"{len(stamps)} replayed for {len(pub.scans)} published")
+        after = np.flatnonzero(stamps[k + 1 :] == msg.stamp)
+        assert after.size, (
+            f"revolution {msg.stamp} not in the replay after its revolution {k}: nearest "
+            f"{stamps[int(np.argmin(np.abs(stamps - msg.stamp)))]}, {len(stamps)} replayed "
+            f"for {len(pub.scans)} published, {tap.restamped} restamped")
+        k += 1 + int(after[0])
         o = replay[k][0]
         at = f"revolution {msg.stamp} of {len(pub.scans)}"
         np.testing.assert_array_equal(msg.ranges, o.ranges, err_msg=f"{at}: ranges")
@@ -525,7 +588,8 @@ def test_node_publishes_over_the_live_path(ingest, tmp_path, monkeypatch):
         np.testing.assert_array_equal(cloud.points_xy, o.points_xy[o.point_mask],
                                       err_msg=f"{at}: points_xy")
     assert len(pub.scans) == len(pub.clouds) >= 12, (
-        f"{len(pub.scans)} scans and {len(pub.clouds)} clouds published")
+        f"{len(pub.scans)} scans and {len(pub.clouds)} clouds published, "
+        f"{tap.restamped} restamped")
 
 def test_dummy_mode_falls_back_to_host():
     """The dummy driver synthesizes scans above the protocol layer: fused

@@ -71,9 +71,8 @@ def _out_equal(a, b, what):
 
 def _outs_equal(got, want, what="", ts_tol=0.0):
     """Per-stream lists of FilterOutputs (or ``(out, ts0, dur)`` triples).
-    ``ts_tol``: the stamps' tolerance in seconds — against JAX, 1e-6 (a
-    revolution's f32 offset from its f64 base sits within 1 ulp: XLA's
-    fused multiply-add), between two runs of the port, exact."""
+    ``ts_tol``: the stamps' tolerance in seconds, exact unless a case
+    states its cause."""
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
         assert len(g) == len(w), f"{what} stream {i}: {len(g)} != {len(w)} revolutions"
@@ -134,7 +133,7 @@ def test_any_rung_is_byte_equal_to_jax_and_the_per_tick_seam(rung, ladder_ticks,
     eng = _ladder_engine("torch")
     outs = eng.submit_backlog(ladder_ticks, rung=rung)
     jouts, jcount = jax_ladder[rung]
-    _outs_equal(outs, jouts, f"rung {rung} vs jax", ts_tol=1e-6)
+    _outs_equal(outs, jouts, f"rung {rung} vs jax")
     _outs_equal(outs, per_tick_seam, f"rung {rung} vs the per-tick seam")
     assert sum(len(o) for o in outs) > 0
     assert _counters(eng) == jcount
@@ -291,7 +290,13 @@ def jax_buckets(bucket_ticks):
 def test_bucket_switches_and_overlap_snapshots_match_jax(bucket_ticks, jax_buckets):
     outs, counters, snaps, eng = _bucket_run("torch", bucket_ticks, guard=True)
     jouts, jcounters, jsnaps = jax_buckets
-    _outs_equal(outs, jouts, "bucket ladder", ts_tol=1e-6)
+    # one revolution's stamp (stream 1, revolution 2) is JAX's + 2^-28 s:
+    # 1 ulp of the f32 offset from its tick's base, under 2^-4 s here
+    # (frames 2 ms apart, revolutions of 17 frames).  JAX's offsets come out
+    # of XLA's compiled super-step, which may fuse ``first + step*i`` into
+    # one rounding or round twice; the port rounds the float64 value once
+    # (ops/ingest.py, ROADMAP C.5).  Every other stamp is exact.
+    _outs_equal(outs, jouts, "bucket ladder", ts_tol=2.0 ** -28)
     assert counters == jcounters
     assert eng.bucket_switches >= 2 and eng.staging_overlap_hits > counters[0][
         "staging_overlap_hits"]
