@@ -6,7 +6,25 @@
     python3 chip_smoke.py --mesh-check N     # N cards: only the NCCL mesh check
     python3 chip_smoke.py --pod-cards N      # N cards: the pod and the meshes over them
 
-Run from the root of a checkout.  Phases, each printing one JSON line:
+Run from the root of a checkout.  Every phase's JSON line carries
+``seconds``, its wall time so far (a phase run as a timed pass and a
+profiled half adds both), and ``cpu_seconds``, the part of it this process
+spent on CPU references: computing one, or waiting for a worker's; and
+``refs_pending``, the planned references no worker had finished when the
+line was printed (the phase's own figures were taken beside them).  The
+CPU references the card is held to (the phases' CPU arms and host
+references, :func:`ref_plan`) are computed once a run, each keyed by its
+function and its arguments; after the e2e phase, spawned processes
+without the card compute them on cores of their own (the upper half of
+the host's, at most REF_WORKERS, at the lowest priority) while this
+process drives the card, and the ``references`` line gives their cores
+and each reference's seconds in its worker.  The default
+run's order (:func:`_default_run`): device, build, launch, e2e, then
+checkpoints and tooling (no CPU reference: the workers start meanwhile),
+fused_mapping, failover, scheduled, scenarios, graded, fleet, mesh_blocks,
+the profiled halves, kernels, chain, profile, ab, node, replay,
+mapkernels, mapping, replay_map, loop, deskew_kernels, replay_fused,
+references, before, kernels.  The phases, each printing one JSON line:
 
   1. device   — the card (nvidia-smi name and power limit), torch version,
                 compute capability (must be 9.0);
@@ -392,6 +410,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -584,6 +603,9 @@ GOAL_DEVICE_MS = {"temporal_median": 0.005, "beam_min": 0.003,
                   "sliding_median": 0.060, "shift_sad": 0.0015}
 GOAL_HOST_US = 8.0  # host time per call of the slim launch path
 GOAL_B5_GAP_US = 1.0
+# the processes that compute the CPU references beside the card's driving,
+# one core each (at most; a host gets at most half its cores' worth)
+REF_WORKERS = 4
 # what a phase returns for the script's own use and leaves out of its line:
 # launch totals gathered into the kernels line, the layouts' records and
 # per-card launches that --pod-cards compares, pods and profiled inputs
@@ -591,7 +613,68 @@ _INTERNAL = ("failover_launches", "scheduled_launches", "records", "card_launche
              "profile_items")
 
 
+# the run's phase clocks: per phase name, the wall seconds and the seconds
+# spent building CPU reference arms so far (a phase run in two halves adds
+# both); the clocks open now, outermost first; the CPU reference seconds
+# of the whole run, counted by the outermost open cpu_reference()
+_CLOCKS: dict = {}
+_OPEN: list = []
+_CPU_REF = {"seconds": 0.0, "depth": 0}
+
+
+@contextlib.contextmanager
+def phase_clock(name: str):
+    """Time the phase ``name``: every JSON line of that phase printed
+    inside it (or, for a line of no clocked phase, of the innermost open
+    one) carries ``seconds`` and ``cpu_seconds`` so far."""
+    _OPEN.append((name, time.perf_counter(), _CPU_REF["seconds"]))
+    try:
+        yield
+    finally:
+        _name, t0, c0 = _OPEN.pop()
+        got = _CLOCKS.setdefault(name, [0.0, 0.0])
+        got[0] += time.perf_counter() - t0
+        got[1] += _CPU_REF["seconds"] - c0
+
+
+@contextlib.contextmanager
+def cpu_reference():
+    """Count the enclosed time as building a CPU reference arm or a host
+    reference (nested ones once)."""
+    _CPU_REF["depth"] += 1
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _CPU_REF["depth"] -= 1
+        if _CPU_REF["depth"] == 0:
+            _CPU_REF["seconds"] += time.perf_counter() - t0
+
+
+def _phase_seconds(name: str) -> dict | None:
+    """``seconds`` and ``cpu_seconds`` of phase ``name`` so far (the
+    innermost open clock's when ``name`` has none); None outside every
+    clock."""
+    if name not in _CLOCKS and all(n != name for n, _t, _c in _OPEN):
+        if not _OPEN:
+            return None
+        name = _OPEN[-1][0]
+    wall, cpu = _CLOCKS.get(name, (0.0, 0.0))
+    now = time.perf_counter()
+    for n, t0, c0 in _OPEN:
+        if n == name:
+            wall += now - t0
+            cpu += _CPU_REF["seconds"] - c0
+    return {"seconds": wall, "cpu_seconds": cpu}
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries its clock's figures and
+    how many planned CPU references were still being computed."""
+    if isinstance(obj, dict) and "phase" in obj:
+        clock = _phase_seconds(obj["phase"])
+        if clock is not None:
+            obj = {**obj, **clock, "refs_pending": REFS.running()}
     print(json.dumps(obj), flush=True)
 
 
@@ -1039,28 +1122,10 @@ def phase_kernels(device, rng) -> dict:
 
 
 def make_revolutions(seed: int, n: int, points: int):
-    """Seeded DenseBoost-shaped revolutions: a 2 m +/- 0.5 m ring with
-    noise, angle jitter, drop-outs (dist 0) and out-of-range points."""
-    import numpy as np
+    """Seeded DenseBoost-shaped revolutions (tools/scenes.make_revolutions)."""
+    from rplidar_ros2_driver_tpu_torch.tools.scenes import make_revolutions as revolutions
 
-    rng = np.random.default_rng(seed)
-    i = np.arange(points)
-    revs = []
-    for k in range(n):
-        angle = ((i * 65536) // points + rng.integers(-8, 9, points)).clip(0, 65535)
-        dist_m = 2.0 + 0.5 * np.sin(i * (2 * np.pi / points) + 0.1 * k)
-        dist_m = dist_m + rng.normal(0.0, 0.01, points)
-        dist = (dist_m * 4000.0).astype(np.int32)
-        dist[rng.random(points) < 0.05] = 0                  # drop-outs
-        dist[rng.random(points) < 0.02] = 50 * 4000          # beyond range_max
-        dist[rng.random(points) < 0.01] = int(0.05 * 4000)   # below range_min
-        revs.append({
-            "angle_q14": angle.astype(np.int32),
-            "dist_q2": dist,
-            "quality": rng.integers(0, 256, points).astype(np.int32),
-            "flag": (i == 0).astype(np.int32),
-        })
-    return revs
+    return revolutions(seed, n, points)
 
 
 def _chain(backend: str, median: str, cell_m: float):
@@ -1232,24 +1297,10 @@ def phase_ab(device, revs, rounds: int = 10, per_arm: int = 100) -> dict:
 
 
 def denseboost_frames(seed: int, revs: int, points: int) -> list[bytes]:
-    """Seeded DenseBoost capture (dense capsules of 40 samples; the pattern
-    of bench.py's _denseboost_wire_frames): a 2 m +/- 0.5 m ring with 10 mm
-    noise, 5% drop-outs and 2% returns beyond range_max."""
-    import numpy as np
+    """Seeded DenseBoost capture of the noisy ring (tools/scenes.denseboost_frames)."""
+    from rplidar_ros2_driver_tpu_torch.tools.scenes import denseboost_frames as frames
 
-    from rplidar_ros2_driver_tpu_torch.ops import wire
-
-    rng = np.random.default_rng(seed)
-    frames = []
-    for n, idx in enumerate(range(0, revs * points, 40)):
-        pts = (np.arange(40) + idx) % points
-        mm = 2000.0 + 500.0 * np.sin(2 * np.pi * pts / points + 0.1 * (idx // points))
-        mm = mm + rng.normal(0.0, 10.0, 40)
-        mm[rng.random(40) < 0.05] = 0
-        mm[rng.random(40) < 0.02] = 50000
-        start_q6 = int(360.0 * (idx % points) / points * 64) & 0x7FFF
-        frames.append(wire.encode_dense_capsule(start_q6, n == 0, mm.astype(int)))
-    return frames
+    return frames(seed, revs, points)
 
 
 def _replay_params(backend: str, **over):
@@ -1269,6 +1320,17 @@ def _same_state(a, b) -> bool:
     return sa.keys() == sb.keys() and all(np.array_equal(sa[k], sb[k]) for k in sa)
 
 
+def write_capture(path: str, frames) -> None:
+    """A one-format DenseBoost capture of ``frames``, 1 ms apart, written
+    with the package's FrameRecorder."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+    from rplidar_ros2_driver_tpu_torch.replay import FrameRecorder
+
+    with FrameRecorder(path) as rec:
+        for i, fr in enumerate(frames):
+            rec.write(int(Ans.MEASUREMENT_DENSE_CAPSULED), fr, i * 1e-3)
+
+
 def phase_replay(device, seed: int) -> dict:
     """The offline replay path at config 7's geometry: a seeded DenseBoost
     capture written with the package's FrameRecorder, decoded on the card,
@@ -1283,21 +1345,14 @@ def phase_replay(device, seed: int) -> dict:
     from rplidar_ros2_driver_tpu_torch.filters.chain import config_from_params
     from rplidar_ros2_driver_tpu_torch.ops import filters as tf
     from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
-    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
-    from rplidar_ros2_driver_tpu_torch.replay import (
-        FrameRecorder,
-        decode_recording,
-        replay_through_chain,
-    )
+    from rplidar_ros2_driver_tpu_torch.replay import decode_recording, replay_through_chain
 
     t0 = time.perf_counter()
     frames = denseboost_frames(seed, REPLAY["revs"], REPLAY["points"])
     encode_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "denseboost.rplr")
-        with FrameRecorder(path) as rec:
-            for i, fr in enumerate(frames):
-                rec.write(int(Ans.MEASUREMENT_DENSE_CAPSULED), fr, i * 1e-3)
+        write_capture(path, frames)
         decode_recording(path, device)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1904,12 +1959,9 @@ def room_fleet_ticks(streams: int, beams: int, n_ticks: int):
     room seen from per-stream drifting poses, B rays cast to the walls in
     the sensor frame, one (N, B, 2) float32 plane per tick; drift is one to
     two cells per tick.  Returns (ticks, truth_pose)."""
-    from rplidar_ros2_driver_tpu_torch.tools.graded import room_ticks
+    from rplidar_ros2_driver_tpu_torch.tools.scenes import room_pose, room_ticks
 
-    def truth_pose(s: int, k: int) -> tuple:
-        return (0.03 * k * (1 + 0.1 * s), -0.02 * k * (1 + 0.2 * s), 0.004 * k)
-
-    return room_ticks(streams, beams, n_ticks), truth_pose
+    return room_ticks(streams, beams, n_ticks), room_pose
 
 
 def _map_params(backend: str, map_backend: str = "fused", **over):
@@ -2341,11 +2393,8 @@ def phase_mapping(device) -> dict:
         check(count == k_ticks, f"{name} launched {count} times for {k_ticks} fleet ticks")
 
     refs = {}
-    for name, params in (("host", _map_params("cpu", "host")),
-                         ("cpu_torch", _map_params("cpu", "fused", match_backend="pallas"))):
-        t0 = time.perf_counter()
-        r_traj, r_scores, r_snap, _ = run(FleetMapper(params, n, beams=b))
-        refs[name] = time.perf_counter() - t0
+    for name in ("host", "cpu_torch"):
+        r_traj, r_scores, r_snap, refs[name] = _ref(None, ref_mapping, name)
         check(np.array_equal(traj, r_traj) and np.array_equal(scores, r_scores),
               f"config-12 trajectory on the card differs from the {name} arm")
         for key in r_snap:
@@ -2409,7 +2458,68 @@ def phase_mapping(device) -> dict:
     return row
 
 
-def phase_replay_map(device, revs) -> dict:
+def ref_mapping(name: str) -> tuple:
+    """The CPU reference of config 12's mapper: the ``host`` reference or
+    the ``cpu_torch`` arm over the room's ticks — (trajectory, scores,
+    snapshot, seconds)."""
+    import numpy as np
+
+    from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
+
+    n, b, k_ticks = MAPPING["streams"], MAPPING["beams"], MAPPING["ticks"]
+    params = (_map_params("cpu", "host") if name == "host"
+              else _map_params("cpu", "fused", match_backend="pallas"))
+    mapper = FleetMapper(params, n, beams=b)
+    masks, live = np.ones((n, b), bool), np.ones((n,), np.int32)
+    traj = np.zeros((k_ticks, n, 3), np.int32)
+    scores = np.zeros((k_ticks, n), np.int32)
+    t0 = time.perf_counter()
+    for k, pts in enumerate(room_fleet_ticks(n, b, k_ticks)[0]):
+        for s, est in enumerate(mapper.submit_points(pts, masks, live)):
+            traj[k, s], scores[k, s] = est.pose_q, est.score
+    return traj, scores, mapper.snapshot(), time.perf_counter() - t0
+
+
+@functools.cache
+def replay_capture(seed: int) -> tuple:
+    """Config 7's capture, built once a process (the references of the
+    replay phases share it): the seeded DenseBoost frames and their
+    revolutions, written with FrameRecorder and decoded on the host (the
+    replay phase holds the card's decode of the same capture equal to
+    it)."""
+    from rplidar_ros2_driver_tpu_torch.replay import decode_recording
+
+    frames = denseboost_frames(seed, REPLAY["revs"], REPLAY["points"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "denseboost.rplr")
+        write_capture(path, frames)
+        return frames, decode_recording(path, "cpu").revolutions()
+
+
+def replay_revolutions(seed: int) -> list:
+    """Config 7's revolutions, decoded on the host (:func:`replay_capture`)."""
+    return replay_capture(seed)[1]
+
+
+def _replay_map_params(backend: str):
+    # replay --map's mapper: the defaults (256x256 at 0.05 m), auto backend
+    return _replay_params(backend, map_enable=True, map_backend="auto")
+
+
+def ref_replay_map(seed: int) -> tuple:
+    """The CPU reference of the map replay: config 7's revolutions through
+    replay_with_map on the host (the host reference mapper) — trajectory,
+    scores, snapshot, the mapper's backend and the seconds."""
+    from rplidar_ros2_driver_tpu_torch.replay import replay_with_map
+
+    revs = replay_revolutions(seed)
+    t0 = time.perf_counter()
+    traj, scores, mapper = replay_with_map(revs, _replay_map_params("cpu"), beams=REPLAY["beams"],
+                                           capacity=REPLAY["capacity"], chunk=REPLAY["chunk"])
+    return traj, scores, mapper.snapshot(), mapper.backend, time.perf_counter() - t0
+
+
+def phase_replay_map(device, revs, seed: int) -> dict:
     """The config-7 capture's revolutions through replay_with_map on the
     card (chain with B3, fused mapper with B6/B7/B8), held equal to the CPU
     replay with the host reference mapper."""
@@ -2421,11 +2531,7 @@ def phase_replay_map(device, revs) -> dict:
     from rplidar_ros2_driver_tpu_torch.replay import replay_through_chain, replay_with_map
 
     kw = dict(beams=REPLAY["beams"], capacity=REPLAY["capacity"], chunk=REPLAY["chunk"])
-
-    def params(backend):
-        # replay --map's mapper: the defaults (256x256 at 0.05 m), auto backend
-        return _replay_params(backend, map_enable=True, map_backend="auto")
-
+    params = _replay_map_params
     replay_with_map(revs[:8], params("cuda"), **kw)     # warm-up: builds, allocator
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2444,13 +2550,11 @@ def phase_replay_map(device, revs) -> dict:
         check(launched[name] == k, f"{name} launched {launched[name]} times for {k} scans")
     check(launched["sliding_median"] == -(-k // REPLAY["chunk"]), "B3 launches on the map replay")
 
-    t0 = time.perf_counter()
-    c_traj, c_scores, c_mapper = replay_with_map(revs, params("cpu"), **kw)
-    cpu_wall = time.perf_counter() - t0
-    check(c_mapper.backend == "host", "the CPU replay did not use the host reference")
+    c_traj, c_scores, c_snap, c_backend, cpu_wall = _ref(None, ref_replay_map, seed)
+    check(c_backend == "host", "the CPU replay did not use the host reference")
     check(traj.tobytes() == c_traj.tobytes(), "card map replay trajectory differs from the CPU's")
     check(np.array_equal(scores, c_scores), "card map replay scores differ from the CPU's")
-    snap, c_snap = mapper.snapshot(), c_mapper.snapshot()
+    snap = mapper.snapshot()
     for key in c_snap:
         check(snap[key].tobytes() == c_snap[key].tobytes(),
               f"card map replay snapshot key {key!r} differs from the CPU's")
@@ -2687,7 +2791,26 @@ def _loop_node(device) -> dict:
     return info
 
 
-def _loop_replay(device, revs) -> dict:
+def _loop_replay_params(backend: str):
+    return _replay_params(backend, map_enable=True, loop_enable=True)
+
+
+def ref_loop_replay(seed: int) -> dict:
+    """The CPU reference of the loop replay: replay_with_loop_closure over
+    the config-7 capture's prefix on the host (the host references)."""
+    from rplidar_ros2_driver_tpu_torch.replay import replay_with_loop_closure
+
+    prefix = replay_revolutions(seed)[: LOOP["replay_revs"]]
+    t0 = time.perf_counter()
+    traj, corr, scores, mapper, eng = replay_with_loop_closure(
+        prefix, _loop_replay_params("cpu"), beams=REPLAY["beams"], capacity=REPLAY["capacity"],
+        chunk=REPLAY["chunk"])
+    return {"traj": traj, "corr": corr, "scores": scores, "status": eng.status(),
+            "snap": eng.snapshot(), "backends": (eng.backend, mapper.backend),
+            "wall_s": time.perf_counter() - t0}
+
+
+def _loop_replay(device, revs, seed: int) -> dict:
     """(f) replay_with_loop_closure over a prefix of the config-7 capture on
     the card (the chain with B3, the fused mapper, the fused loop engine),
     held equal to the CPU replay with the host references."""
@@ -2698,13 +2821,10 @@ def _loop_replay(device, revs) -> dict:
 
     kw = dict(beams=REPLAY["beams"], capacity=REPLAY["capacity"], chunk=REPLAY["chunk"])
     prefix = revs[:LOOP["replay_revs"]]
-
-    def params(backend):
-        return _replay_params(backend, map_enable=True, loop_enable=True)
-
     smk.reset_launch_counts()
     t0 = time.perf_counter()
-    traj, corr, scores, mapper, eng = replay_with_loop_closure(prefix, params("cuda"), **kw)
+    traj, corr, scores, mapper, eng = replay_with_loop_closure(prefix, _loop_replay_params("cuda"),
+                                                               **kw)
     wall = time.perf_counter() - t0
     launched = dict(smk.launch_counts)
     check(eng.backend == "fused" and mapper.backend == "fused",
@@ -2717,26 +2837,49 @@ def _loop_replay(device, revs) -> dict:
               f"{name} launched {launched[name]} times for {k} scans and "
               f"{eng.dispatch_count} checks")
     check(eng.checks > 0, "the loop replay ran no closure check")
-    t0 = time.perf_counter()
-    c_traj, c_corr, c_scores, c_mapper, c_eng = replay_with_loop_closure(prefix, params("cpu"),
-                                                                         **kw)
-    cpu_wall = time.perf_counter() - t0
-    check(c_eng.backend == "host" and c_mapper.backend == "host",
+    cpu = _ref(None, ref_loop_replay, seed)
+    check(cpu["backends"] == ("host", "host"),
           "the CPU loop replay did not use the host references")
-    check(traj.tobytes() == c_traj.tobytes(), "loop replay trajectory differs from the CPU's")
-    check(corr.tobytes() == c_corr.tobytes(), "loop replay corrected trajectory differs")
-    check(np.array_equal(scores, c_scores), "loop replay scores differ from the CPU's")
-    check({**eng.status(), "backend": "host"} == c_eng.status(),
-          f"loop replay engine status differs: {eng.status()} != {c_eng.status()}")
-    snap, c_snap = eng.snapshot(), c_eng.snapshot()
+    check(traj.tobytes() == cpu["traj"].tobytes(), "loop replay trajectory differs from the CPU's")
+    check(corr.tobytes() == cpu["corr"].tobytes(), "loop replay corrected trajectory differs")
+    check(np.array_equal(scores, cpu["scores"]), "loop replay scores differ from the CPU's")
+    check({**eng.status(), "backend": "host"} == cpu["status"],
+          f"loop replay engine status differs: {eng.status()} != {cpu['status']}")
+    snap, c_snap = eng.snapshot(), cpu["snap"]
     check(all(snap[key].tobytes() == c_snap[key].tobytes() for key in c_snap),
           "loop replay LoopState differs from the CPU's")
-    return {"scans": k, "wall_s": wall, "scans_per_s": k / wall, "cpu_wall_s": cpu_wall,
+    return {"scans": k, "wall_s": wall, "scans_per_s": k / wall, "cpu_wall_s": cpu["wall_s"],
             "checks": eng.checks, "dispatches": eng.dispatch_count, "launches": launched,
             "status": eng.status(), "corrected_final_pose_m": [float(v) for v in corr[-1]]}
 
 
-def phase_loop(device, replay_revs) -> dict:
+def _loop_trace() -> tuple:
+    """Config 17's return-to-start drift trace: (trace, masks, true end)."""
+    from rplidar_ros2_driver_tpu_torch.ops.scan_match import SUB
+    from rplidar_ros2_driver_tpu_torch.tools.loop_drift import loop_drift_trace
+
+    return loop_drift_trace(LOOP["streams"], LOOP["beams"], LOOP["revs"], SUB // 4,
+                            LOOP["cell_m"])
+
+
+def ref_loop_arm(arm: str) -> dict:
+    """The CPU reference of config 17's ``off`` or ``host`` arm: its record
+    with the front-end's end poses, the engine's corrected end poses and
+    its device calls in place of the objects."""
+    import numpy as np
+    import torch
+
+    trace, masks, _true_end = _loop_trace()
+    got = _loop_arm(torch.device("cpu"), arm, trace, masks)
+    eng, fe = got.pop("engine"), got.pop("fe")
+    got["pose"] = np.array(fe.pose)
+    got["corrected"] = None if eng is None else [eng.corrected_pose_q(i, fe.pose[i])
+                                                 for i in range(LOOP["streams"])]
+    got["dispatch_count"] = None if eng is None else eng.dispatch_count
+    return got
+
+
+def phase_loop(device, replay_revs, seed: int) -> dict:
     """Config 17 (bench.py bench_loop_close) at its full geometry on the
     card — 4 streams, 128² map at 0.05 m, 1024 beams, 48 revolutions of the
     return-to-start trace with SUB/4 of drift a revolution, submaps every 4,
@@ -2756,21 +2899,18 @@ def phase_loop(device, replay_revs) -> dict:
     from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
     from rplidar_ros2_driver_tpu_torch.ops.loop_close import LoopState, fleet_loop_close_step
     from rplidar_ros2_driver_tpu_torch.ops.pose_graph import fleet_solve_pose_graph
-    from rplidar_ros2_driver_tpu_torch.ops.scan_match import SUB
     from rplidar_ros2_driver_tpu_torch.ops.tile_quant import fuse_planes_np
-    from rplidar_ros2_driver_tpu_torch.tools.loop_drift import end_error_cells, loop_drift_trace
+    from rplidar_ros2_driver_tpu_torch.tools.loop_drift import end_error_cells
 
-    t_phase = time.perf_counter()
     s = LOOP["streams"]
-    trace, masks, true_end = loop_drift_trace(s, LOOP["beams"], LOOP["revs"], SUB // 4,
-                                              LOOP["cell_m"])
+    trace, masks, true_end = _loop_trace()
     p_world = _loop_params("cuda", "fused")
     map_cfg = map_config_from_params(p_world, LOOP["beams"])
     world = WorldMap(world_config_from_params(p_world, map_cfg), device=device)
     world.precompile()
     threads = sorted(t.name for t in threading.enumerate())
-    arms = {arm: _loop_arm(device, arm, trace, masks, world if arm == "fused" else None)
-            for arm in ("off", "host", "fused")}
+    arms = {arm: _ref(None, ref_loop_arm, arm) for arm in ("off", "host")}
+    arms["fused"] = _loop_arm(device, "fused", trace, masks, world)
     # the same fused run without the guard, right after the guarded one:
     # what the guard itself costs a check, at this point of the script
     arms["fused_unguarded"] = _loop_arm(device, "fused", trace, masks, guard=False)
@@ -2785,12 +2925,12 @@ def phase_loop(device, replay_revs) -> dict:
     check(host["log"] == fused["log"], "host and fused loop wires differ")
     check(all(host["snap"][k].tobytes() == fused["snap"][k].tobytes() for k in host["snap"]),
           "host and fused final LoopState differ")
-    cor_h = [host["engine"].corrected_pose_q(i, host["fe"].pose[i]) for i in range(s)]
+    cor_h = host["corrected"]
     cor_f = [eng.corrected_pose_q(i, fused["fe"].pose[i]) for i in range(s)]
     check(all(np.array_equal(a, b) for a, b in zip(cor_h, cor_f)),
           "host and fused corrected end poses differ")
     # (b) drift bounded: corrected end error <= 2 cells, the baseline > 4
-    base_err = max(end_error_cells(off["fe"].pose[i], true_end[i]) for i in range(s))
+    base_err = max(end_error_cells(off["pose"][i], true_end[i]) for i in range(s))
     corr_err = max(end_error_cells(c, true_end[i]) for i, c in enumerate(cor_f))
     check(corr_err <= 2.0, f"corrected end error {corr_err:.3f} cells > 2")
     check(base_err > 4.0, f"baseline end error {base_err:.3f} cells is not > 4")
@@ -2798,7 +2938,7 @@ def phase_loop(device, replay_revs) -> dict:
     # (c) one check call a check tick, one B6 and one B7 launch each
     ticks = fused["check_ticks"]
     check(eng.dispatch_count == ticks, f"{eng.dispatch_count} check calls for {ticks} check ticks")
-    check(host["engine"].dispatch_count == 0, "the host arm made device calls")
+    check(host["dispatch_count"] == 0, "the host arm made device calls")
     for name in ("coarse_scores", "fine_scores"):
         check(fused["launches"][name] == ticks,
               f"{name} launched {fused['launches'][name]} times for {ticks} check ticks")
@@ -2922,7 +3062,7 @@ def phase_loop(device, replay_revs) -> dict:
     split["device_idle_share"] = 1.0 - busy / split["check_ms"]
 
     node = _loop_node(device)
-    replay = _loop_replay(device, replay_revs)
+    replay = _loop_replay(device, replay_revs, seed)
 
     def wall_ms(a):
         ms = np.asarray(a["check_ms"])
@@ -2941,7 +3081,6 @@ def phase_loop(device, replay_revs) -> dict:
         "arm_gc": {a: arms[a]["gc"] for a in arms}, "threads_at_start": threads,
         "cost_split": split, "kernels_at_loop_shape": kernel_times,
         "world": world.status(), "node": node, "replay": replay,
-        "seconds": time.perf_counter() - t_phase,
     }
     emit(row)
     return row
@@ -3238,7 +3377,55 @@ def _tick_items(frames, ans: int, per_tick: int):
     return [items[i : i + per_tick] for i in range(0, len(items), per_tick)]
 
 
-def phase_replay_fused(device, frames, revs, trace_dir=None) -> dict:
+def _replay_fused_deskew() -> dict:
+    return dict(deskew_enable=True, deskew_backend="auto")
+
+
+def ref_replay_fused(seed: int, deskew: bool) -> tuple:
+    """The CPU reference of the fused replay: config 7's capture through
+    replay_raw_fused on the host, de-skew off or on — ((ranges, state,
+    stats), seconds)."""
+    from rplidar_ros2_driver_tpu_torch.replay import replay_raw_fused
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "denseboost.rplr")
+        write_capture(path, replay_capture(seed)[0])
+        t0 = time.perf_counter()
+        out = replay_raw_fused(path, _replay_params("cpu", **(_replay_fused_deskew() if deskew
+                                                              else {})),
+                               beams=REPLAY["beams"], capacity=REPLAY["capacity"], **FUSED)
+        return out, time.perf_counter() - t0
+
+
+def ref_deskew_twin(seed: int) -> tuple:
+    """The de-skewed replay's host twin: DeskewHostTwin + the CPU chain over
+    the capture's ticks — (swept planes, ranges, revolutions with motion,
+    seconds)."""
+    from rplidar_ros2_driver_tpu_torch.filters.chain import ScanFilterChain
+    from rplidar_ros2_driver_tpu_torch.ops.deskew import deskew_config_from_params
+    from rplidar_ros2_driver_tpu_torch.ops.deskew_ref import DeskewHostTwin
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
+    frames = replay_capture(seed)[0]
+    cpu_params = _replay_params("cpu", **_replay_fused_deskew())
+    twin = DeskewHostTwin(deskew_config_from_params(cpu_params, REPLAY["beams"], "cpu"),
+                          max_nodes=REPLAY["capacity"])
+    chain = ScanFilterChain(cpu_params, beams=REPLAY["beams"], warmup=False,
+                            capacity=REPLAY["capacity"])
+    t0 = time.perf_counter()
+    twin_recons, twin_ranges, moved = [], [], 0
+    for items in _tick_items(frames, ans, FUSED["frames_per_tick"]):
+        combined, pushed, tw_revs = twin.tick(ans, items)
+        if pushed:
+            twin_recons.append(combined)
+        for a2, d2, scan in tw_revs:
+            twin_ranges.append(chain.process_raw(a2, d2, scan["quality"], scan["flag"]).ranges)
+            moved += int((twin.stream.motion != 0).any())
+    return twin_recons, twin_ranges, moved, time.perf_counter() - t0
+
+
+def phase_replay_fused(device, frames, revs, seed: int, trace_dir=None) -> dict:
     """Config 7 through the fused device ingest (replay_raw_fused: 64
     frames per tick, T=8, max_revs 8, capacity 4096): de-skew off held
     equal to the card's host-path replay and to the CPU fused replay;
@@ -3257,21 +3444,14 @@ def phase_replay_fused(device, frames, revs, trace_dir=None) -> dict:
 
     from rplidar_ros2_driver_tpu_torch.__main__ import main as cli_main
     from rplidar_ros2_driver_tpu_torch.driver.ingest import FleetFusedIngest
-    from rplidar_ros2_driver_tpu_torch.filters.chain import ScanFilterChain
     from rplidar_ros2_driver_tpu_torch.ops import deskew_kernels as dk
     from rplidar_ros2_driver_tpu_torch.ops import median_kernels as mk
-    from rplidar_ros2_driver_tpu_torch.ops.deskew import deskew_config_from_params
-    from rplidar_ros2_driver_tpu_torch.ops.deskew_ref import DeskewHostTwin
     from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
-    from rplidar_ros2_driver_tpu_torch.replay import (
-        FrameRecorder,
-        replay_raw_fused,
-        replay_through_chain,
-    )
+    from rplidar_ros2_driver_tpu_torch.replay import replay_raw_fused, replay_through_chain
 
     ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
     kw = dict(beams=REPLAY["beams"], capacity=REPLAY["capacity"], **FUSED)
-    deskew_on = dict(deskew_enable=True, deskew_backend="auto")
+    deskew_on = _replay_fused_deskew()
     row = {"phase": "replay_fused", "turns": REPLAY["revs"], "frames": len(frames), **FUSED}
 
     def counts():
@@ -3292,20 +3472,16 @@ def phase_replay_fused(device, frames, revs, trace_dir=None) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "denseboost.rplr")
-        with FrameRecorder(path) as rec:
-            for i, fr in enumerate(frames):
-                rec.write(ans, fr, i * 1e-3)
+        write_capture(path, frames)
         warm = os.path.join(tmp, "warm.rplr")
-        with FrameRecorder(warm) as rec:
-            for i, fr in enumerate(frames[:1200]):
-                rec.write(ans, fr, i * 1e-3)
+        write_capture(warm, frames[:1200])
         for over in ({}, deskew_on):  # warm-up: builds, allocator
             replay_raw_fused(warm, _replay_params("cuda", **over), **kw)
 
         arms = {}
         for name, over in (("deskew_off", {}), ("deskew_on", deskew_on)):
             (ranges, state, stats), wall, launched = timed(_replay_params("cuda", **over), path)
-            (c_ranges, c_state, c_stats), c_wall, _ = timed(_replay_params("cpu", **over), path)
+            (c_ranges, c_state, c_stats), c_wall = _ref(None, ref_replay_fused, seed, bool(over))
             k = stats["scans"]
             check(k == len(revs), f"{name}: fused replay gave {k} scans for {len(revs)} revolutions")
             ok, err = exact(torch.from_numpy(ranges), torch.from_numpy(c_ranges))
@@ -3342,21 +3518,7 @@ def phase_replay_fused(device, frames, revs, trace_dir=None) -> dict:
 
         # de-skew on: DeskewHostTwin + the CPU chain over the same ticks
         on = arms["deskew_on"]
-        cpu_params = _replay_params("cpu", **deskew_on)
-        twin = DeskewHostTwin(deskew_config_from_params(cpu_params, REPLAY["beams"], "cpu"),
-                              max_nodes=REPLAY["capacity"])
-        chain = ScanFilterChain(cpu_params, beams=REPLAY["beams"], warmup=False,
-                                capacity=REPLAY["capacity"])
-        t0 = time.perf_counter()
-        twin_recons, twin_ranges, moved = [], [], 0
-        for items in _tick_items(frames, ans, FUSED["frames_per_tick"]):
-            combined, pushed, tw_revs = twin.tick(ans, items)
-            if pushed:
-                twin_recons.append(combined)
-            for a2, d2, scan in tw_revs:
-                twin_ranges.append(chain.process_raw(a2, d2, scan["quality"], scan["flag"]).ranges)
-                moved += int((twin.stream.motion != 0).any())
-        twin_wall = time.perf_counter() - t0
+        twin_recons, twin_ranges, moved, twin_wall = _ref(None, ref_deskew_twin, seed)
         hist = on["stats"]["recon_history"]
         check(len(twin_recons) == len(hist), f"{len(twin_recons)} twin sweeps vs {len(hist)}")
         for i, ((p, _pts), tp) in enumerate(zip(hist, twin_recons)):
@@ -3458,7 +3620,7 @@ def fleet_byte_ticks(frames, streams: int, run: int, ans: int) -> list:
     """bench.py ``bench_fleet_ingest``'s ``make_ticks``: per tick ``run``
     frames (one revolution) per stream, every stream carrying the same
     frames on its own timestamp lane (7 s apart, 1.25 ms a frame)."""
-    from rplidar_ros2_driver_tpu_torch.tools.graded import paced_fleet_ticks
+    from rplidar_ros2_driver_tpu_torch.tools.scenes import paced_fleet_ticks
 
     return paced_fleet_ticks(frames, run, streams, ans)
 
@@ -3546,13 +3708,150 @@ def _sync(device) -> None:
 
 
 def _memo(cpu, key, run):
-    """``run()``, kept in ``cpu`` under ``key`` when ``cpu`` is a dict: a
-    CPU arm that two card layouts are both held to runs once."""
+    """``run()``, kept in ``cpu`` under ``key`` when ``cpu`` is a dict: an
+    input that two card layouts are both fed is built once."""
     if cpu is None:
         return run()
     if key not in cpu:
         cpu[key] = run()
     return cpu[key]
+
+
+def _ref(cpu, fn, *args):
+    """The CPU reference ``fn(*args)`` (a function of this module whose
+    result pickles), under its key (:func:`_ref_key`): kept in ``cpu`` when
+    it is a dict (the card layouts of ``--pod-cards`` and ``--mesh-check``
+    share theirs), else taken from the run's :data:`REFS`, where a worker
+    process may have computed it."""
+    key = _ref_key(fn.__name__, args)
+    if cpu is None:
+        return REFS.get(key, lambda: fn(*args))
+    if key not in cpu:
+        with cpu_reference():
+            cpu[key] = fn(*args)
+    return cpu[key]
+
+
+def _ref_key(name: str, args: tuple) -> tuple:
+    """A reference's key: its function and its arguments (a geometry
+    passed as a dict compares by its items)."""
+    return (name, json.dumps(args, sort_keys=True, default=repr))
+
+
+def _worker_cpus() -> list:
+    """The cores the reference workers run on: the upper half of this
+    process's cores, at most REF_WORKERS of them; the lower half stays the
+    card driver's alone.  Empty on a host of one core."""
+    cpus = sorted(os.sched_getaffinity(0))
+    return cpus[len(cpus) - min(REF_WORKERS, len(cpus) // 2):]
+
+
+def _ref_worker_init(cpus: list) -> None:
+    """A reference worker: no card (CUDA_VISIBLE_DEVICES empty before torch
+    is imported), on ``cpus`` only, at the lowest priority, one torch
+    thread, anything it prints on stderr."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.sched_setaffinity(0, cpus)
+    os.nice(19)
+    os.dup2(2, 1)
+    sys.stdout = sys.stderr
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _ref_job(name: str, args: tuple, path: str) -> tuple:
+    """Run the reference ``name(*args)`` in a worker and pickle its result
+    to ``path``: (None, seconds), or (the error, seconds) — a failed check
+    (SystemExit) included, which would otherwise end the worker and leave
+    its result never set.  The result goes through a file so that the
+    parent unpickles it when a phase asks for it: the pool's own result
+    thread would unpickle it at once, holding the interpreter lock (and
+    running the collector) inside the card's timed windows."""
+    import pickle
+    import traceback
+
+    t0 = time.perf_counter()
+    try:
+        got = globals()[name](*args)
+        with open(path, "wb") as f:
+            pickle.dump(got, f, protocol=pickle.HIGHEST_PROTOCOL)
+        return None, time.perf_counter() - t0
+    except (Exception, SystemExit) as e:  # the parent reports it and fails the run
+        return f"{type(e).__name__}: {e}\n{traceback.format_exc()[-3000:]}", \
+            time.perf_counter() - t0
+
+
+class _References:
+    """The run's CPU references.  With :meth:`start`, worker processes on
+    cores of their own (:func:`_worker_cpus`) compute the references
+    :meth:`submit` plans while this process drives the card; :meth:`get`
+    waits for a planned one (the wait counts as CPU reference time) and
+    computes any other here."""
+
+    def __init__(self) -> None:
+        self.pending: dict = {}
+        self.worker_seconds: dict = {}
+        self.pool = None
+        self.cpus: list = []
+        self.dir = None
+        self.submitted = 0
+
+    def start(self) -> None:
+        import multiprocessing
+
+        self.cpus = _worker_cpus()
+        if self.cpus:
+            self.dir = tempfile.mkdtemp(prefix="chip_smoke_refs_")
+            self.pool = multiprocessing.get_context("spawn").Pool(
+                len(self.cpus), _ref_worker_init, (self.cpus,))
+
+    def submit(self, fn, *args) -> None:
+        if self.pool is not None:
+            self.submitted += 1
+            path = os.path.join(self.dir, f"{self.submitted}.pkl")
+            self.pending[_ref_key(fn.__name__, args)] = (
+                self.pool.apply_async(_ref_job, (fn.__name__, args, path)), path)
+
+    def running(self) -> int:
+        """Planned references not computed yet."""
+        return sum(not job.ready() for job, _path in self.pending.values())
+
+    def get(self, key, run):
+        import gc
+        import pickle
+
+        with cpu_reference():
+            job = self.pending.pop(key, None)
+            if job is None:
+                return run()
+            err, secs = job[0].get(timeout=600)
+            self.worker_seconds[f"{key[0]}{key[1]}"] = secs
+            check(err is None, f"CPU reference {key[0]}{key[1]} failed in a worker: {err}")
+            collecting = gc.isenabled()
+            gc.disable()  # unpickling only allocates: no collection pass mid-way
+            try:
+                with open(job[1], "rb") as f:
+                    got = pickle.load(f)
+            finally:
+                if collecting:
+                    gc.enable()
+            os.remove(job[1])
+        return got
+
+    def close(self) -> None:
+        import shutil
+
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+            self.pool = None
+        if self.dir is not None:
+            shutil.rmtree(self.dir, ignore_errors=True)
+            self.dir = None
+
+
+REFS = _References()
 
 
 def _digest(arrays) -> str:
@@ -3628,30 +3927,51 @@ def _device_ops_per_tick(device, ingest: str, n: int, ticks, run: int, **over) -
             "device_idle_share": 1.0 - busy_us / 1e6 / wall}
 
 
+# config 10's byte arms: name -> (ingest, parameter overrides); the last
+# two at the smaller fleet only
+FLEET_ARMS = {"host": ("host", {}), "fused": ("fused", {}),
+              "host_inc": ("host", {"median_backend": "inc"}),
+              "fused_deskew": ("fused", {"deskew_enable": True, "sweep_reconstruct_window": 6})}
+
+
+def _fleet_arms(n: int) -> list:
+    return list(FLEET_ARMS)[: 4 if n == FLEET["fleets"][0] else 2]
+
+
+def _fleet_byte_ticks(n: int) -> list:
+    """Config 10's byte ticks at N = ``n``: one seeded 3200-point DenseBoost
+    revolution a stream a tick."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    frames = denseboost_frames(FLEET["seed"], FLEET["revs"], FLEET["points"])
+    return fleet_byte_ticks(frames, n, FLEET["points"] // 40, int(Ans.MEASUREMENT_DENSE_CAPSULED))
+
+
+def ref_fleet_bytes(n: int, arm: str) -> tuple:
+    """The CPU reference of one config-10 byte arm: (published outputs,
+    stats)."""
+    import torch
+
+    ingest, over = FLEET_ARMS[arm]
+    pub, stats, _ = _bytes_arm(torch.device("cpu"), ingest, n, _fleet_byte_ticks(n),
+                               FLEET["points"] // 40, **over)
+    return pub, stats
+
+
 def _fleet_config10(device) -> dict:
     """(a) config 10 at full geometry: both submit_bytes arms at each
     fleet size on the card, every published output equal to the CPU
     service's same arm; B2 (the ``inc`` median) and B4/B5 (the fused arm
     with de-skew) at the smaller fleet."""
-    import torch
-
-    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
-
-    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
     run = FLEET["points"] // 40
-    frames = denseboost_frames(FLEET["seed"], FLEET["revs"], FLEET["points"])
     out, launches = {}, {}
     for n in FLEET["fleets"]:
-        ticks = fleet_byte_ticks(frames, n, run, ans)
-        arms = [("host", "host", {}), ("fused", "fused", {})]
-        if n == FLEET["fleets"][0]:
-            arms += [("host_inc", "host", {"median_backend": "inc"}),
-                     ("fused_deskew", "fused",
-                      {"deskew_enable": True, "sweep_reconstruct_window": 6})]
-        for arm, ingest, over in arms:
+        ticks = _fleet_byte_ticks(n)
+        for arm in _fleet_arms(n):
+            ingest, over = FLEET_ARMS[arm]
             name = f"{arm}_n{n}"
             pub, stats, _ = _bytes_arm(device, ingest, n, ticks, run, **over)
-            ref, ref_stats, _ = _bytes_arm(torch.device("cpu"), ingest, n, ticks, run, **over)
+            ref, ref_stats = _ref(None, ref_fleet_bytes, n, arm)
             check(stats["published"] > 0, f"config 10 {name}: nothing published")
             check(_same_published(pub, ref), f"config 10 {name}: the card differs from the CPU")
             if device.type == "cuda" and ingest == "host":
@@ -3672,6 +3992,25 @@ def _fleet_config10(device) -> dict:
     return {"arms": out, "launches": launches}
 
 
+def _fleet_replay_streams(seed: int) -> list:
+    """Config 8's streams: each cycled from seeded revolutions as bench.py
+    bench_fleet does."""
+    s_n, k_n = FLEET["replay_streams"], FLEET["replay_revs"]
+    scans = make_revolutions(seed, FLEET["replay_seed_revs"], FLEET["points"])
+    return [[scans[(i + 7 * s) % len(scans)] for i in range(k_n)] for s in range(s_n)]
+
+
+def ref_fleet_replay_chunk(seed: int):
+    """The CPU reference of config 8's first chunk: replay_fleet's ranges."""
+    from rplidar_ros2_driver_tpu_torch.replay import replay_fleet
+
+    chunk = FLEET["replay_chunk"]
+    ranges, _state = replay_fleet([f[:chunk] for f in _fleet_replay_streams(seed)],
+                                  _fleet_params("cpu", median_backend="pallas"),
+                                  beams=FLEET["beams"], capacity=FLEET["capacity"], chunk=chunk)
+    return ranges
+
+
 def _fleet_replay(device, seed: int) -> dict:
     """(b) config 8: replay_fleet of 4 streams, chunk 256, each stream
     cycled from 32 seeded revolutions as bench.py bench_fleet does; each
@@ -3684,8 +4023,7 @@ def _fleet_replay(device, seed: int) -> dict:
     from rplidar_ros2_driver_tpu_torch.replay import replay_fleet, replay_through_chain
 
     s_n, k_n, chunk = FLEET["replay_streams"], FLEET["replay_revs"], FLEET["replay_chunk"]
-    scans = make_revolutions(seed, FLEET["replay_seed_revs"], FLEET["points"])
-    fleet = [[scans[(i + 7 * s) % len(scans)] for i in range(k_n)] for s in range(s_n)]
+    fleet = _fleet_replay_streams(seed)
     kw = dict(beams=FLEET["beams"], capacity=FLEET["capacity"], chunk=chunk)
     backend = "cuda" if device.type == "cuda" else "cpu"
     params = _fleet_params(backend, median_backend="pallas")
@@ -3706,8 +4044,7 @@ def _fleet_replay(device, seed: int) -> dict:
         for name, v in st_s.to_numpy().items():
             check(np.array_equal(getattr(state, name)[s].numpy(), v),
                   f"replay_fleet stream {s} final {name} != its one-stream replay")
-    cpu_r, _ = replay_fleet([f[:chunk] for f in fleet], _fleet_params("cpu", median_backend="pallas"),
-                            **kw)
+    cpu_r = _ref(None, ref_fleet_replay_chunk, seed)
     check(np.array_equal(ranges[:, :chunk], cpu_r), "replay_fleet's first chunk != the CPU's")
     row = {"streams": s_n, "revs_per_stream": k_n, "chunk": chunk, "chunks": chunks,
            "scans_per_s": s_n * k_n / wall, "wall_s": wall, "launches": launched}
@@ -3751,24 +4088,6 @@ def _slam_params(backend: str, **over):
     return DriverParams(**kw)
 
 
-def room_scan(s: int, k: int, beams: int) -> dict:
-    """One revolution of config 12's room (bench.py _room_fleet_ticks: a
-    5 x 5 m square seen from per-stream drifting poses) as wire nodes at
-    the beam centres."""
-    import numpy as np
-
-    x0, y0, th = 0.03 * k * (1 + 0.1 * s), -0.02 * k * (1 + 0.2 * s), 0.004 * k
-    t = (np.arange(beams) + 0.5) * (2 * np.pi / beams)
-    dx, dy = np.cos(t + th), np.sin(t + th)
-    with np.errstate(divide="ignore"):
-        r = np.minimum(
-            np.where(np.abs(dx) > 1e-12, (2.5 - np.sign(dx) * x0) / np.abs(dx), np.inf),
-            np.where(np.abs(dy) > 1e-12, (2.5 - np.sign(dy) * y0) / np.abs(dy), np.inf))
-    return {"angle_q14": np.floor((np.arange(beams) + 0.5) * 65536 / beams).astype(np.int32),
-            "dist_q2": np.round(r * 4000).astype(np.int32),
-            "quality": np.full(beams, 180, np.int32), "flag": None}
-
-
 def _slam_service(backend: str):
     from rplidar_ros2_driver_tpu_torch.parallel.service import ShardedFilterService
 
@@ -3794,6 +4113,24 @@ def _slam_tick_record(svc, outs) -> tuple:
     return outs, poses, loops, corr
 
 
+def _slam_scans() -> list:
+    """Config 12's room as the SLAM service's ticks of wire nodes."""
+    from rplidar_ros2_driver_tpu_torch.tools.scenes import room_scan
+
+    n, beams = FLEET["slam_streams"], MAPPING["beams"]
+    return [[room_scan(s, k, beams) for s in range(n)] for k in range(FLEET["slam_ticks"])]
+
+
+def ref_fleet_slam() -> dict:
+    """The CPU reference of the fleet phase's SLAM seams: the service with
+    the host references over the same ticks — every tick's record, the
+    world's accumulation and merges."""
+    host = _slam_service("cpu")
+    records = [_slam_tick_record(host, host.submit(row)) for row in _slam_scans()]
+    return {"records": records, "accumulation": host.world.accumulation(),
+            "merges": host.world.status()["merges"]}
+
+
 def _fleet_slam(device) -> dict:
     """(c) the service with attach_mapper, attach_loop_closure and
     attach_world_map on config 12's room, 4 streams, 24 ticks (fused
@@ -3806,7 +4143,7 @@ def _fleet_slam(device) -> dict:
     import numpy as np
 
     n, ticks, beams = FLEET["slam_streams"], FLEET["slam_ticks"], MAPPING["beams"]
-    scans = [[room_scan(s, k, beams) for s in range(n)] for k in range(ticks)]
+    scans = _slam_scans()
     backend = "cuda" if device.type == "cuda" else "cpu"
     card = _slam_service(backend)
     if device.type == "cuda":
@@ -3828,11 +4165,9 @@ def _fleet_slam(device) -> dict:
     wall = time.perf_counter() - t0
     launched = _counts()
     acc = card.world.accumulation()
-    host = _slam_service("cpu")
+    host = _ref(None, ref_fleet_slam)
     checks = 0
-    for k, row in enumerate(scans):
-        outs = host.submit(row)
-        r_outs, r_poses, r_loops, r_corr = _slam_tick_record(host, outs)
+    for k, (r_outs, r_poses, r_loops, r_corr) in enumerate(host["records"]):
         c_outs, c_poses, c_loops, c_corr = recs[k]
         check(all(_same_output(a, b) for a, b in zip(c_outs, r_outs)),
               f"SLAM service tick {k}: filter outputs differ from the CPU")
@@ -3841,8 +4176,9 @@ def _fleet_slam(device) -> dict:
         check(c_corr == r_corr, f"SLAM service tick {k}: corrected poses differ from the CPU")
         checks += sum(st is not None for st in c_loops)
     check(checks > 0, "no loop check ran in the SLAM service's 24 ticks")
-    check(_bits_equal(acc, host.world.accumulation()), "world accumulation differs from the CPU")
-    check(card.world.status()["merges"] == host.world.status()["merges"] > 0,
+    check(len(host["records"]) == len(recs), "the SLAM service's CPU run has other ticks")
+    check(_bits_equal(acc, host["accumulation"]), "world accumulation differs from the CPU")
+    check(card.world.status()["merges"] == host["merges"] > 0,
           "the world merged no submap, or other ones than the CPU")
     if device.type == "cuda":
         check(launched["temporal_median"] == ticks, "the SLAM service's ticks launched B1 "
@@ -4096,7 +4432,6 @@ def phase_fleet(device, seed: int) -> dict:
     (e) the two-process gloo mesh; then B1/B3 at the fleet's widths."""
     import numpy as np
 
-    t0 = time.perf_counter()
     row = {"phase": "fleet", "config10": _fleet_config10(device)}
     row["config8"] = _fleet_replay(device, seed)
     row["slam"] = _fleet_slam(device)
@@ -4119,7 +4454,6 @@ def phase_fleet(device, seed: int) -> dict:
         for k, v in row[part]["launches"].items():
             launches[k] = launches.get(k, 0) + v
     row["launches"] = launches
-    row["seconds"] = time.perf_counter() - t0
     emit(row)
     return row
 
@@ -4132,7 +4466,7 @@ def phase_fleet(device, seed: int) -> dict:
 def ring_frames(revs: int, points: int) -> list[bytes]:
     """bench.py ``_denseboost_wire_frames``: the static 2 m +/- 0.5 m ring
     in dense capsules of 40 samples, ``revs`` revolutions."""
-    from rplidar_ros2_driver_tpu_torch.tools.graded import wire_frames
+    from rplidar_ros2_driver_tpu_torch.tools.scenes import wire_frames
 
     return wire_frames(revs, points)
 
@@ -4180,16 +4514,17 @@ def _fm_map_equal(a: dict, b: dict) -> bool:
                for k in ("log_odds", "pose", "origin_xy", "revision"))
 
 
-def _fm_drains(device, groups) -> dict:
-    """Both arms of config 18 over the same drains on ``device``, the
-    first ``warm`` drains untimed, the arms alternating which goes first.
-    Returns each arm's per-stream ranges, drain-boundary poses, final map,
-    drain seconds, dispatch and launch counts, and the fused arm's last
-    carried map and sweep (the kernels' inputs at this path's tick)."""
+def _fm_drains(device, groups, arms=("fused", "host")) -> dict:
+    """The ``arms`` of config 18 (both by default) over the same drains on
+    ``device``, the first ``warm`` drains untimed, the arms alternating
+    which goes first.  Returns each arm's per-stream ranges, drain-boundary
+    poses, final map, drain seconds, dispatch and launch counts, and with
+    the fused arm its last carried map and sweep (the kernels' inputs at
+    this path's tick)."""
     import numpy as np
 
     fm = FUSED_MAPPING
-    svcs = {"fused": _fm_service(device.type, "fused"), "host": _fm_service(device.type, "host")}
+    svcs = {name: _fm_service(device.type, name) for name in arms}
     out = {name: {"ranges": [[] for _ in range(fm["streams"])], "poses": [], "seconds": [],
                   "launches": {}} for name in svcs}
     rev_ticks = 0
@@ -4221,7 +4556,7 @@ def _fm_drains(device, groups) -> dict:
     _sync(device)
     _reset_counts()
     for g, group in enumerate(groups[fm["warm"]:]):
-        for name in (("fused", "host") if g % 2 == 0 else ("host", "fused")):
+        for name in (arms if g % 2 == 0 else arms[::-1]):
             before = _counts()
             t0 = time.perf_counter()
             advance(name, group)
@@ -4237,9 +4572,11 @@ def _fm_drains(device, groups) -> dict:
         rec["mapper_ticks"] = svc.mapper.ticks - base[name]["mapper_ticks"]
         rec["revolutions"] = svc.fleet_ingest.scans_completed - base[name]["revs"]
         rec["map"] = svc.mapper.snapshot()
-    eng = svcs["fused"].fleet_ingest
-    out["kernel_inputs"] = (svcs["fused"].mapper.cfg, eng._state.map_log_odds.clone(),
-                            eng._state.map_pose.clone(), np.stack([r[1] for r in eng.last_recon]))
+    if "fused" in svcs:
+        eng = svcs["fused"].fleet_ingest
+        out["kernel_inputs"] = (svcs["fused"].mapper.cfg, eng._state.map_log_odds.clone(),
+                                eng._state.map_pose.clone(),
+                                np.stack([r[1] for r in eng.last_recon]))
     out["rev_ticks"] = rev_ticks
     out["launches"] = launches
     return out
@@ -4346,19 +4683,12 @@ def phase_fused_mapping(device) -> dict:
     quarantine cycle held to the CPU service under the same chaos.  The
     profiled figures come later (:func:`fused_mapping_profile`), after the
     other phases' host timings."""
-    import torch
-
-    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
-
     fm = FUSED_MAPPING
-    t0 = time.perf_counter()
-    ticks = fleet_byte_ticks(ring_frames(fm["revs"], fm["points"]), fm["streams"], fm["run"],
-                             int(Ans.MEASUREMENT_DENSE_CAPSULED))
-    n_groups = len(ticks) // fm["T"]
+    ticks, groups = _fm_scene()
+    n_groups = len(groups)
     check(n_groups > fm["warm"] + 1, "fused_mapping: the scene is too short for a timed drain")
-    groups = [ticks[g * fm["T"] : (g + 1) * fm["T"]] for g in range(n_groups)]
     card = _fm_drains(device, groups)
-    cpu = _fm_drains(torch.device("cpu"), groups)
+    cpu = {arm: _ref(None, ref_fm_drains, arm) for arm in ("fused", "host")}
     fused, host = card["fused"], card["host"]
     timed = n_groups - fm["warm"]
     n_ticks = timed * fm["T"]
@@ -4400,7 +4730,7 @@ def phase_fused_mapping(device) -> dict:
            card["rev_ticks"], "arms": rows, "launches": card["launches"]}
     row["loop"] = _fm_loop_leg(device, ticks[: fm["loop_ticks"]])
     q_ticks = ticks[: fm["chaos_ticks"]]
-    qc, qr = _fm_quarantine(device, q_ticks), _fm_quarantine(torch.device("cpu"), q_ticks)
+    qc, qr = _fm_quarantine(device, q_ticks), _ref(None, ref_fm_quarantine)
     check(qc["quarantines"] >= 1 and qc["rejoins"] >= 1,
           "fused_mapping quarantine: stream 1 was never quarantined and rejoined")
     check(all(f"ingest.map_{k}" in keys for keys in qc["snapshot_keys"]
@@ -4410,9 +4740,34 @@ def phase_fused_mapping(device) -> dict:
     row["quarantine"] = {"ticks": len(q_ticks), "quarantines": qc["quarantines"],
                          "rejoins": qc["rejoins"],
                          "walk": [(t, s, a, b) for (t, s, a, b) in qc["events"]]}
-    row["seconds"] = time.perf_counter() - t0
     row["kernel_inputs"] = card["kernel_inputs"]
     return row
+
+
+def _fm_scene() -> tuple:
+    """Config 18's paced ring: every tick, and the drains of T ticks."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    fm = FUSED_MAPPING
+    ticks = fleet_byte_ticks(ring_frames(fm["revs"], fm["points"]), fm["streams"], fm["run"],
+                             int(Ans.MEASUREMENT_DENSE_CAPSULED))
+    return ticks, [ticks[g * fm["T"] : (g + 1) * fm["T"]] for g in range(len(ticks) // fm["T"])]
+
+
+def ref_fm_drains(arm: str) -> dict:
+    """The CPU reference of one arm of the fused_mapping phase's drains
+    (the arms are independent services): config 18 over the same drains
+    on the host."""
+    import torch
+
+    return _fm_drains(torch.device("cpu"), _fm_scene()[1], (arm,))[arm]
+
+
+def ref_fm_quarantine() -> dict:
+    """The CPU reference of the fused_mapping phase's quarantine cycle."""
+    import torch
+
+    return _fm_quarantine(torch.device("cpu"), _fm_scene()[0][: FUSED_MAPPING["chaos_ticks"]])
 
 
 def fused_mapping_profile(device, row: dict, card: str) -> dict:
@@ -4749,27 +5104,14 @@ def phase_failover(device, mesh=None, cpu_runs=None) -> dict:
     ``mesh`` serves every shard (None: the pod's groups of cards); ``cpu_runs``
     keeps the CPU runs for a second layout (:func:`_memo`).  ``records`` holds what
     ``--pod-cards`` compares across layouts."""
-    import torch
-
     from rplidar_ros2_driver_tpu_torch.driver.health import ShardState
-    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
 
     fo = FAILOVER
-    t0 = time.perf_counter()
-    run = fo["points"] // 40
-    ticks = fleet_byte_ticks(ring_frames(fo["revs"], fo["points"]), fo["streams"], run,
-                             int(Ans.MEASUREMENT_DENSE_CAPSULED))
+    ticks = _fo_ticks()
     timed = _fo_timed(device, ticks, mesh)
     chaos = timed["pods"]["chaos"]
     card = _fo_record(chaos)
-
-    def cpu_pod():
-        c0 = time.perf_counter()
-        got = _fo_cpu(fo["kill"], _fo_params("cpu"), ticks, fo["streams"], fo["beams"],
-                      fo["capacity"], run, fo["warm"])
-        return got, time.perf_counter() - c0
-
-    cpu, cpu_s = _memo(cpu_runs, "failover", cpu_pod)
+    cpu, cpu_s = _ref(cpu_runs, ref_fo_pod)
     check(all(e[3].startswith("chaos:") for e in chaos.events if e[1] == "lost"),
           f"failover: a loss that the chaos schedule did not cause: {chaos.events}")
     base = timed["pods"]["base"]
@@ -4799,7 +5141,7 @@ def phase_failover(device, mesh=None, cpu_runs=None) -> dict:
         for k in ("temporal_median", "coarse_scores", "fine_scores", "log_odds_update"):
             check(lc[k] > 0, f"failover: {k} never launched on config 15's path")
     c_card = _fo_carried(device, mesh)
-    c_cpu = _memo(cpu_runs, "failover carried", lambda: _fo_carried(torch.device("cpu")))
+    c_cpu = _ref(cpu_runs, ref_fo_carried)
     check(c_card["backend"] == "carried", "failover carried arm: the mapper is not the carried one")
     check(c_card["store_ok"], "failover carried arm: a stored snapshot held a map key or lacked "
           "the ingest.map_* rows")
@@ -4845,7 +5187,6 @@ def phase_failover(device, mesh=None, cpu_runs=None) -> dict:
     }
     if device.type == "cuda":
         row["guard_controls"] = _guard_controls(device)
-    row["seconds"] = time.perf_counter() - t0
     row["failover_launches"] = launches
     row["card_launches"] = {"config15": timed["card_launches"],
                             "carried": c_card["card_launches"]}
@@ -4856,6 +5197,34 @@ def phase_failover(device, mesh=None, cpu_runs=None) -> dict:
                       "carried": {k: c_card[k] for k in ("outs", "revs", "events", "plan",
                                                          "map_rows", "snap_ticks", "snaps")}}
     return row
+
+
+def _fo_ticks() -> list:
+    """Config 15's paced ring: one revolution a stream a tick."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    fo = FAILOVER
+    return fleet_byte_ticks(ring_frames(fo["revs"], fo["points"]), fo["streams"],
+                            fo["points"] // 40, int(Ans.MEASUREMENT_DENSE_CAPSULED))
+
+
+def ref_fo_pod() -> tuple:
+    """The CPU reference of the failover phase's chaos pod, and its
+    seconds."""
+    fo = FAILOVER
+    c0 = time.perf_counter()
+    got = _fo_cpu(fo["kill"], _fo_params("cpu"), _fo_ticks(), fo["streams"], fo["beams"],
+                  fo["capacity"], fo["points"] // 40, fo["warm"])
+    return got, time.perf_counter() - c0
+
+
+def ref_fo_carried() -> dict:
+    """The CPU reference of the failover phase's carried-map arm."""
+    import torch
+
+    got = _fo_carried(torch.device("cpu"))
+    got.pop("pod")
+    return got
 
 
 def _profiled(device, step, k: int) -> dict:
@@ -5144,10 +5513,9 @@ def _per_stream(per_tick: list) -> list:
     return [[d for tick in per_tick for d in tick[s]] for s in range(len(per_tick[0]))]
 
 
-def _cpu_prefix(build, wall, k: int) -> tuple:
-    """One arm rebuilt on the CPU over the first ``k`` wall ticks: its
-    per-wall-tick output digests, and the pod."""
-    pod, fake = build("cpu")
+def _cpu_prefix(pod, fake: dict, wall, k: int) -> list:
+    """One arm's CPU pod over the first ``k`` wall ticks: its per-wall-tick
+    output digests."""
     got = []
     mark = len(pod.events)
     for items in wall[:k]:
@@ -5155,7 +5523,151 @@ def _cpu_prefix(build, wall, k: int) -> tuple:
         got.append([[_out_digest(o) for o in g] for g in pod.drain_scheduled()])
         mark = _losses(pod, mark, "the CPU run")
         fake["now"] += SCHEDULED["dt"]
-    return got, pod
+    return got
+
+
+def _sched_wall(n: int, deep=None) -> list:
+    """Scheduled config ``n``'s wall ticks, as the bench builds them (config
+    21's from ``deep``, the two streams on shard 0's lanes that burst)."""
+    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+
+    sc, c = SCHEDULED, SCHEDULED[n]
+    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
+    if n == 19:
+        hot = max(1, c["streams"] // 4)
+        rates = [2 if s < hot else 1 for s in range(c["streams"])]
+        per_stream = [stream_data_ticks(ring_frames(c["revs"] * rates[s], sc["points"]),
+                                        c["run"], ans, 1000.0 + 7.0 * s)
+                      for s in range(c["streams"])]
+        return storm_wall_schedule(per_stream, rates, stall_period=c["stall_period"],
+                                   stall_frames=c["stall_frames"], phase=3,
+                                   storm_at=len(per_stream[hot]) // (2 * rates[hot]),
+                                   storm_len=c["storm_len"])
+    if n == 20:
+        live = max(1, c["streams"] // 4)
+        need = [c["ticks_a"] + (c["collapse_len"] if s < live else 0) + c["recovery_len"]
+                for s in range(c["streams"])]
+        frames = ring_frames(max(need) + 4, sc["points"])
+        data = [stream_data_ticks(frames, c["run"], ans, 1000.0 + 7.0 * s)
+                for s in range(c["streams"])]
+        wall = storm_wall_schedule([d[: c["ticks_a"]] for d in data], [1] * c["streams"],
+                                   stall_period=c["stall_period"],
+                                   stall_frames=c["stall_frames"], phase=3,
+                                   storm_at=c["ticks_a"] // 3, storm_len=c["storm_len"])
+        rem = [list(d[c["ticks_a"]: need[s]]) for s, d in enumerate(data)]
+        for _ in range(c["collapse_len"]):
+            wall.append([[rem[s].pop(0)] if s < live else None for s in range(c["streams"])])
+        for _ in range(c["recovery_len"]):
+            wall.append([[rem[s].pop(0)] for s in range(c["streams"])])
+        return wall
+    if n == 21:
+        need = c["skew_len"] * c["burst"] + c["resume_len"] + 2
+        revs = -(-(need * c["run"] * 40) // sc["points"]) + 2
+        frames = ring_frames(revs, sc["points"])
+        data = [stream_data_ticks(frames, c["run"], ans, 1000.0 + 7.0 * s)
+                for s in range(c["streams"])]
+        cursor = [0] * c["streams"]
+
+        def take(s, k):
+            got = data[s][cursor[s]: cursor[s] + k]
+            cursor[s] += len(got)
+            return list(got) or None
+
+        wall = [[take(s, c["burst"] if s in deep else 1) for s in range(c["streams"])]
+                for _ in range(c["skew_len"])]
+        wall += [[None] * c["streams"] for _ in range(c["idle_len"])]
+        wall += [[take(s, 1) for s in range(c["streams"])] for _ in range(c["resume_len"])]
+        return wall
+    revs = -(-(c["wall_len"] * c["run"] * 40) // sc["points"]) + 2
+    frames = ring_frames(revs, sc["points"])
+    data = [stream_data_ticks(frames, c["run"], ans, 1000.0 + 7.0 * s)
+            for s in range(c["streams"])]
+    return [[[data[s][t]] for s in range(c["streams"])] for t in range(c["wall_len"])]
+
+
+def _cfg19_kill(wall_len: int) -> tuple:
+    """Config 19's chaos kill: shard 1 near the end of the wall."""
+    return (1, wall_len - max(4, wall_len // 5), 0)
+
+
+def _sched_build(n: int, arm, backend: str, wall_len: int, mesh=None) -> tuple:
+    """One arm's warmed pod of scheduled config ``n`` and its fake clock:
+    ``arm`` is config 19's rung ladder, config 20's double buffer, config
+    21's stealing and autoscaling, config 22's world map (on or off)."""
+    c = SCHEDULED[n]
+    fake = {"now": 0.0}
+    if n == 19:
+        params = _sched_params(backend, c, sched_rungs=arm, admission_max_backlog_ticks=c["cap"],
+                               shard_starvation_ticks=2 * (c["storm_len"] + c["stall_frames"]))
+        return _sched_pod(params, c, (c["run"],), fake, kill=_cfg19_kill(wall_len),
+                          mesh=mesh), fake
+    if n == 20:
+        buckets = (4, c["run"])
+        params = _sched_params(
+            backend, c, sched_rungs=c["rungs"], admission_max_backlog_ticks=c["cap"],
+            staging_double_buffer=arm, bucket_rungs=buckets if arm else (),
+            shard_starvation_ticks=2 * (c["storm_len"] + c["stall_frames"]
+                                        + c["collapse_len"]))
+        return _sched_pod(params, c, buckets, fake, mesh=mesh), fake
+    if n == 21:
+        params = _sched_params(
+            backend, c, sched_rungs=c["rungs"], admission_max_backlog_ticks=c["cap"],
+            pod_hosts=c["hosts"], steal_threshold_ticks=2 if arm else 0,
+            autoscale_enable=arm, autoscale_low_watermark=0.3,
+            autoscale_high_watermark=0.75, autoscale_hysteresis_ticks=3,
+            shard_starvation_ticks=4 * (c["skew_len"] + c["idle_len"] + c["resume_len"]))
+        return _sched_pod(params, c, (c["run"],), fake, mesh=mesh), fake
+    params = _sched_params(
+        backend, c, map_enable=True, map_backend="fused", map_grid=c["map_grid"],
+        map_cell_m=c["map_cell_m"], shard_starvation_ticks=4 * c["wall_len"],
+        world_map_enable=arm, map_tile_backend="auto",
+        world_tile_cells=c["tile_cells"], world_max_submaps=c["world_cap"],
+        world_merge_revs=c["merge_revs"], world_publish_ticks=c["publish_ticks"])
+    return _sched_pod(params, c, (c["run"],), fake, world=arm, mesh=mesh), fake
+
+
+def _deep_streams(pod) -> list:
+    """Config 21's bursting streams: the first two on shard 0's lanes."""
+    return [s for s in pod.topology.lane_streams(0) if s is not None][:2]
+
+
+def _wall_digest(wall) -> str:
+    import hashlib
+    import pickle
+
+    return hashlib.sha1(pickle.dumps(wall)).hexdigest()[:16]
+
+
+def ref_sched_prefix(n: int, arm, k: int) -> tuple:
+    """The CPU reference of scheduled config ``n``'s arm over its first
+    ``k`` wall ticks: (output digests a wall tick, the digest of the wall
+    ticks fed, config 22's world then — merges, evictions, accumulation,
+    the published tiles' version and grid — or None)."""
+    from rplidar_ros2_driver_tpu_torch.mapping.tiles import snapshot_grid
+
+    if n == 21:
+        pod, fake = _sched_build(n, arm, "cpu", 0)
+        wall = _sched_wall(n, _deep_streams(pod))
+    else:
+        wall = _sched_wall(n)
+        pod, fake = _sched_build(n, arm, "cpu", len(wall))
+    got = _cpu_prefix(pod, fake, wall, k)
+    world = None
+    if n == 22 and arm:
+        w, snap = pod.world, pod.world.snapshot()
+        world = {"merges": w.merges, "evictions": w.evictions, "acc": w.accumulation(),
+                 "version": None if snap is None else snap.version,
+                 "grid": None if snap is None else snapshot_grid(snap)}
+    return got, _wall_digest(wall[:k]), world
+
+
+def _sched_cpu(cpu_runs, n: int, name: str, arm, wall, k: int) -> tuple:
+    """Scheduled config ``n``'s CPU reference for arm ``name``, held to have
+    been fed the card's first ``k`` wall ticks."""
+    got, fed, world = _ref(cpu_runs, ref_sched_prefix, n, arm, k)
+    check(fed == _wall_digest(wall[:k]),
+          f"config {n} {name}: the CPU run was fed other wall ticks than the card")
+    return got, world
 
 
 def _sched_result(run: dict, pods: dict, wall: list, **extra) -> dict:
@@ -5176,30 +5688,12 @@ def _cfg19(device, mesh=None, cpu_runs=None) -> dict:
     """Config 19 (bench_elastic_serving): the static arm pinned to rung 1
     against the adaptive ladder (1, 2, 4, 8) over the reconnect-storm
     trace, admission cap 8, shard 1 killed near the end."""
-    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
-
     sc, c = SCHEDULED, SCHEDULED[19]
-    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
-    hot = max(1, c["streams"] // 4)
-    rates = [2 if s < hot else 1 for s in range(c["streams"])]
-    per_stream = [stream_data_ticks(ring_frames(c["revs"] * rates[s], sc["points"]), c["run"],
-                                    ans, 1000.0 + 7.0 * s) for s in range(c["streams"])]
-    wall = storm_wall_schedule(per_stream, rates, stall_period=c["stall_period"],
-                               stall_frames=c["stall_frames"], phase=3,
-                               storm_at=len(per_stream[hot]) // (2 * rates[hot]),
-                               storm_len=c["storm_len"])
-    kill_tick = len(wall) - max(4, len(wall) // 5)
-    kill = (1, kill_tick, 0)
-
-    def build(backend, arm_rungs, mesh=None):
-        fake = {"now": 0.0}
-        params = _sched_params(backend, c, sched_rungs=arm_rungs,
-                               admission_max_backlog_ticks=c["cap"],
-                               shard_starvation_ticks=2 * (c["storm_len"] + c["stall_frames"]))
-        return _sched_pod(params, c, (c["run"],), fake, kill=kill, mesh=mesh), fake
-
+    wall = _sched_wall(19)
+    kill_tick = _cfg19_kill(len(wall))[1]
     backend = "cuda" if device.type == "cuda" else "cpu"
-    pods = {"static": build(backend, (1,), mesh), "adaptive": build(backend, c["rungs"], mesh)}
+    arms = {"static": (1,), "adaptive": c["rungs"]}
+    pods = {name: _sched_build(19, r, backend, len(wall), mesh) for name, r in arms.items()}
     weights = {}
 
     def on_tick(t):
@@ -5234,11 +5728,8 @@ def _cfg19(device, mesh=None, cpu_runs=None) -> dict:
         w = [weights["at_kill"][s] for s in group]
         check(w == sorted(w, reverse=True), f"config 19: evacuation {key} not heaviest first")
     k = sc["cpu_wall_ticks"][19]
-    cpu = {name: _memo(cpu_runs, (19, name),
-                       lambda r=r: _cpu_prefix(lambda b: build(b, r), wall, k))[0]
-           for name, r in (("static", (1,)), ("adaptive", c["rungs"]))}
-    for name in pods:
-        check(run["outs"][name][:k] == cpu[name],
+    for name, r in arms.items():
+        check(run["outs"][name][:k] == _sched_cpu(cpu_runs, 19, name, r, wall, k)[0],
               f"config 19 {name}: the card's outputs differ from the CPU run")
     return _sched_result(run, pods, wall, kill_tick=kill_tick,
                          rung_dispatches={"static": st_table, "adaptive": ad_table},
@@ -5251,37 +5742,12 @@ def _cfg20(device, mesh=None, cpu_runs=None) -> dict:
     ladder (4, 16) against the single-buffered static bucket, both on the
     rung ladder (1, 2, 4, 8): the storm trace, then an occupancy collapse,
     then recovery."""
-    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
-
     sc, c = SCHEDULED, SCHEDULED[20]
-    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
     buckets = (4, c["run"])
-    live = max(1, c["streams"] // 4)
-    need = [c["ticks_a"] + (c["collapse_len"] if s < live else 0) + c["recovery_len"]
-            for s in range(c["streams"])]
-    frames = ring_frames(max(need) + 4, sc["points"])
-    data = [stream_data_ticks(frames, c["run"], ans, 1000.0 + 7.0 * s)
-            for s in range(c["streams"])]
-    wall = storm_wall_schedule([d[: c["ticks_a"]] for d in data], [1] * c["streams"],
-                               stall_period=c["stall_period"], stall_frames=c["stall_frames"],
-                               phase=3, storm_at=c["ticks_a"] // 3, storm_len=c["storm_len"])
-    rem = [list(d[c["ticks_a"]: need[s]]) for s, d in enumerate(data)]
-    for _ in range(c["collapse_len"]):
-        wall.append([[rem[s].pop(0)] if s < live else None for s in range(c["streams"])])
-    for _ in range(c["recovery_len"]):
-        wall.append([[rem[s].pop(0)] for s in range(c["streams"])])
-
-    def build(backend, async_arm, mesh=None):
-        fake = {"now": 0.0}
-        params = _sched_params(
-            backend, c, sched_rungs=c["rungs"], admission_max_backlog_ticks=c["cap"],
-            staging_double_buffer=async_arm, bucket_rungs=buckets if async_arm else (),
-            shard_starvation_ticks=2 * (c["storm_len"] + c["stall_frames"]
-                                        + c["collapse_len"]))
-        return _sched_pod(params, c, buckets, fake, mesh=mesh), fake
-
+    wall = _sched_wall(20)
     backend = "cuda" if device.type == "cuda" else "cpu"
-    pods = {"pr14": build(backend, False, mesh), "async": build(backend, True, mesh)}
+    arms = {"pr14": False, "async": True}
+    pods = {name: _sched_build(20, on, backend, len(wall), mesh) for name, on in arms.items()}
     seeded = {}
 
     def on_tick(t):
@@ -5311,10 +5777,8 @@ def _cfg20(device, mesh=None, cpu_runs=None) -> dict:
     check(_per_stream(run["outs"]["pr14"]) == _per_stream(run["outs"]["async"]),
           "config 20: the double-buffered arm's outputs differ from the single-buffered arm's")
     k = sc["cpu_wall_ticks"][20]
-    for name, flag in (("pr14", False), ("async", True)):
-        cpu = _memo(cpu_runs, (20, name),
-                    lambda f=flag: _cpu_prefix(lambda b: build(b, f), wall, k))
-        check(run["outs"][name][:k] == cpu[0],
+    for name, on in arms.items():
+        check(run["outs"][name][:k] == _sched_cpu(cpu_runs, 20, name, on, wall, k)[0],
               f"config 20 {name}: the card's outputs differ from the CPU run")
     rb = {}
     for sh in async_pod.shards:
@@ -5329,40 +5793,12 @@ def _cfg21(device, mesh=None, cpu_runs=None) -> dict:
     """Config 21 (bench_pod_scaleout): work stealing plus the autoscaler
     against the static pod, 8 streams over 4 shards on 2 hosts: skewed
     bursts on shard 0's two streams, an idle stretch, a full resume."""
-    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
-
     sc, c = SCHEDULED, SCHEDULED[21]
-    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
-    need = c["skew_len"] * c["burst"] + c["resume_len"] + 2
-    revs = -(-(need * c["run"] * 40) // sc["points"]) + 2
-    frames = ring_frames(revs, sc["points"])
-    data = [stream_data_ticks(frames, c["run"], ans, 1000.0 + 7.0 * s)
-            for s in range(c["streams"])]
-
-    def build(backend, pod_arm, mesh=None):
-        fake = {"now": 0.0}
-        params = _sched_params(
-            backend, c, sched_rungs=c["rungs"], admission_max_backlog_ticks=c["cap"],
-            pod_hosts=c["hosts"], steal_threshold_ticks=2 if pod_arm else 0,
-            autoscale_enable=pod_arm, autoscale_low_watermark=0.3,
-            autoscale_high_watermark=0.75, autoscale_hysteresis_ticks=3,
-            shard_starvation_ticks=4 * (c["skew_len"] + c["idle_len"] + c["resume_len"]))
-        return _sched_pod(params, c, (c["run"],), fake, mesh=mesh), fake
-
     backend = "cuda" if device.type == "cuda" else "cpu"
-    pods = {"static": build(backend, False, mesh), "pod": build(backend, True, mesh)}
-    deep = [s for s in pods["pod"][0].topology.lane_streams(0) if s is not None][:2]
-    cursor = [0] * c["streams"]
-
-    def take(s, n):
-        got = data[s][cursor[s]: cursor[s] + n]
-        cursor[s] += len(got)
-        return list(got) or None
-
-    wall = [[take(s, c["burst"] if s in deep else 1) for s in range(c["streams"])]
-            for _ in range(c["skew_len"])]
-    wall += [[None] * c["streams"] for _ in range(c["idle_len"])]
-    wall += [[take(s, 1) for s in range(c["streams"])] for _ in range(c["resume_len"])]
+    arms = {"static": False, "pod": True}
+    pods = {name: _sched_build(21, on, backend, 0, mesh) for name, on in arms.items()}
+    deep = _deep_streams(pods["pod"][0])
+    wall = _sched_wall(21, deep)
     run = _serve(device, pods, wall, c["warm"], "config 21 pair", cap=c["cap"])
     pp, ps = pods["pod"][0], pods["static"][0]
     for name, (pod, _f) in pods.items():
@@ -5387,10 +5823,8 @@ def _cfg21(device, mesh=None, cpu_runs=None) -> dict:
           "arm's")
     check(all(len(o) > 0 for o in per["pod"]), "config 21: a stream never published")
     k = sc["cpu_wall_ticks"][21]
-    for name, flag in (("static", False), ("pod", True)):
-        cpu = _memo(cpu_runs, (21, name),
-                    lambda f=flag: _cpu_prefix(lambda b: build(b, f), wall, k))
-        check(run["outs"][name][:k] == cpu[0],
+    for name, on in arms.items():
+        check(run["outs"][name][:k] == _sched_cpu(cpu_runs, 21, name, on, wall, k)[0],
               f"config 21 {name}: the card's outputs differ from the CPU run")
     return _sched_result(run, pods, wall, deep=deep, steals=pp.scheduler.steals,
                          steal_ticks=pp.scheduler.steal_ticks, scale_events=pp.scale_events,
@@ -5405,28 +5839,11 @@ def _cfg22(device, mesh=None, cpu_runs=None) -> dict:
 
     from rplidar_ros2_driver_tpu_torch.mapping.tiles import snapshot_grid
     from rplidar_ros2_driver_tpu_torch.ops.tile_quant import fuse_planes_np
-    from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
-
     sc, c = SCHEDULED, SCHEDULED[22]
-    ans = int(Ans.MEASUREMENT_DENSE_CAPSULED)
-    revs = -(-(c["wall_len"] * c["run"] * 40) // sc["points"]) + 2
-    frames = ring_frames(revs, sc["points"])
-    data = [stream_data_ticks(frames, c["run"], ans, 1000.0 + 7.0 * s)
-            for s in range(c["streams"])]
-    wall = [[[data[s][t]] for s in range(c["streams"])] for t in range(c["wall_len"])]
-
-    def build(backend, world_arm, mesh=None):
-        fake = {"now": 0.0}
-        params = _sched_params(
-            backend, c, map_enable=True, map_backend="fused", map_grid=c["map_grid"],
-            map_cell_m=c["map_cell_m"], shard_starvation_ticks=4 * c["wall_len"],
-            world_map_enable=world_arm, map_tile_backend="auto",
-            world_tile_cells=c["tile_cells"], world_max_submaps=c["world_cap"],
-            world_merge_revs=c["merge_revs"], world_publish_ticks=c["publish_ticks"])
-        return _sched_pod(params, c, (c["run"],), fake, world=world_arm, mesh=mesh), fake
-
+    wall = _sched_wall(22)
     backend = "cuda" if device.type == "cuda" else "cpu"
-    pods = {"tiles": build(backend, True, mesh), "pull": build(backend, False, mesh)}
+    arms = {"tiles": True, "pull": False}
+    pods = {name: _sched_build(22, on, backend, len(wall), mesh) for name, on in arms.items()}
     world = pods["tiles"][0].world
     reads = {"tiles": [], "pull": []}
     k = sc["cpu_wall_ticks"][22]
@@ -5476,22 +5893,20 @@ def _cfg22(device, mesh=None, cpu_runs=None) -> dict:
           "config 22: the accumulation differs from the sum of its members")
     check(_per_stream(run["outs"]["tiles"]) == _per_stream(run["outs"]["pull"]),
           "config 22: the world arm's outputs differ from the pull arm's")
-    cpu = {name: _memo(cpu_runs, (22, name),
-                       lambda f=flag: _cpu_prefix(lambda b: build(b, f), wall, k))
-           for name, flag in (("tiles", True), ("pull", False))}
-    for name, (got, _pod) in cpu.items():
+    cpu = {name: _sched_cpu(cpu_runs, 22, name, on, wall, k) for name, on in arms.items()}
+    for name, (got, _world) in cpu.items():
         check(run["outs"][name][:k] == got,
               f"config 22 {name}: the card's outputs differ from the CPU run")
     # the card's world after k wall ticks against the CPU run's
-    cw = cpu["tiles"][1].world
-    check(at_k["merges"] == cw.merges >= 1 and at_k["evictions"] == cw.evictions,
+    cw = cpu["tiles"][1]
+    check(at_k["merges"] == cw["merges"] >= 1 and at_k["evictions"] == cw["evictions"],
           f"config 22: after {k} wall ticks the card's world has {at_k['merges']} merges, "
-          f"{at_k['evictions']} evictions; the CPU's {cw.merges}, {cw.evictions}")
-    check(np.array_equal(at_k["acc"], cw.accumulation()),
+          f"{at_k['evictions']} evictions; the CPU's {cw['merges']}, {cw['evictions']}")
+    check(np.array_equal(at_k["acc"], cw["acc"]),
           f"config 22: after {k} wall ticks the card's world accumulation differs from the CPU's")
-    snaps = (at_k["snapshot"], cw.snapshot())
-    check(None not in snaps and snaps[0].version == snaps[1].version
-          and np.array_equal(snapshot_grid(snaps[0]), snapshot_grid(snaps[1])),
+    snap = at_k["snapshot"]
+    check(snap is not None and cw["version"] is not None and snap.version == cw["version"]
+          and np.array_equal(snapshot_grid(snap), cw["grid"]),
           f"config 22: after {k} wall ticks the card's published tiles differ from the CPU's")
     got = _sched_result(run, pods, wall, merges=world.merges, evictions=world.evictions,
                         serving_version=world.serving_version, tiles=world.snapshot().tiles,
@@ -5517,7 +5932,6 @@ def phase_scheduled(device, mesh=None, cpu_runs=None) -> dict:
     before any profiler session; the profiled drains are
     :func:`scheduled_profile`.  ``mesh`` and ``cpu_runs`` as in
     :func:`phase_failover`."""
-    t0 = time.perf_counter()
     row = {"phase": "scheduled", "configs": {}}
     launches: dict = {}
     for n, fn in ((19, _cfg19), (20, _cfg20), (21, _cfg21), (22, _cfg22)):
@@ -5546,7 +5960,6 @@ def phase_scheduled(device, mesh=None, cpu_runs=None) -> dict:
         for k in ("coarse_scores", "fine_scores", "log_odds_update"):
             check(row["configs"][22]["launches"].get(k, 0) > 0,
                   f"scheduled: {k} never launched on config 22's path")
-    row["seconds"] = time.perf_counter() - t0
     row["scheduled_launches"] = launches
     return row
 
@@ -5701,7 +6114,6 @@ def phase_checkpoints(device) -> dict:
     overwrite in place.  Save and load ms and the bytes on disk."""
     import shutil
 
-    t0 = time.perf_counter()
     n = CHECKPOINTS["streams"]
     revs = make_revolutions(CHECKPOINTS["seed"], n * CHECKPOINTS["ticks"], FLEET["points"])
     ticks = [revs[k * n:(k + 1) * n] for k in range(CHECKPOINTS["ticks"])]
@@ -5759,7 +6171,7 @@ def phase_checkpoints(device) -> dict:
     row = {"phase": "checkpoints", "first_save_ms": first_save_ms, "service": arms,
            "mapper": mapper,
            "wrong_geometry_refused": True, "old_fallback": True, "overwrite_in_place": True,
-           "launches": launches, "seconds": time.perf_counter() - t0}
+           "launches": launches}
     emit(row)
     return row
 
@@ -5778,28 +6190,27 @@ def phase_scenarios(device) -> dict:
     cell's end_pose_err_cells and map_f1 are printed beside the committed
     JAX CPU figures (artifacts/scenario_matrix_cpu.json: a recorded
     comparison, not a gate)."""
-    import torch
-
     from rplidar_ros2_driver_tpu_torch.tools import scenario_matrix as smx
 
     t0 = time.perf_counter()
+
+    def host(kind, chaos, fleet, base_seed, n_revs, grid, cell, beams):
+        check(base_seed == smx.SEED, f"scenarios: seed {base_seed}")
+        return _ref(None, ref_scenario_cell, kind, chaos, fleet, n_revs, grid, cell, beams)
+
     _sync(device)
     _reset_counts()
-    res = smx.scenario_matrix(smoke=False, device=device)
+    res = smx.scenario_matrix(smoke=False, device=device, host=host)
     _sync(device)
     launches = _counts()
     matrix_s = time.perf_counter() - t0
     check(res["matrix_cells"] == 12 and all(c["fused_equal"] for c in res["scenario_matrix"]),
           "scenarios: the fused arm was not held to the host matcher in every cell")
-    g = smx.geometry(smoke=False)
     cpu_probes = {}
     for chaos in smx.CHAOS:
-        c0 = time.perf_counter()
-        cpu = smx.loop_probe(chaos, g["fleets"][-1], g["probe_revs"], g["loop_grid"],
-                             g["loop_cell"], g["beams"], smx.SEED, torch.device("cpu"))
+        cpu, cpu_probes[chaos] = _ref(None, ref_loop_probe, *_loop_probe_args(chaos))
         check(cpu == res["loop_probe"][chaos],
               f"scenarios: the {chaos} loop probe on the card differs from the CPU's")
-        cpu_probes[chaos] = time.perf_counter() - c0
     if device.type == "cuda":
         for k in ("beam_min", "shift_sad", "coarse_scores", "fine_scores", "log_odds_update"):
             check(launches.get(k, 0) > 0, f"scenarios: {k} never launched")
@@ -5825,9 +6236,40 @@ def phase_scenarios(device) -> dict:
            "geometry": {k: res[k] for k in ("grid", "cell_m", "loop_grid", "loop_cell_m",
                                             "beams", "fleets")},
            "loop_probe_equal_cpu": True, "launches": launches, "matrix_seconds": matrix_s,
-           "cpu_probe_seconds": cpu_probes, "seconds": time.perf_counter() - t0}
+           "cpu_probe_seconds": cpu_probes}
     emit(row)
     return row
+
+
+def ref_scenario_cell(kind: str, chaos: str, fleet: int, n_revs: int, grid: int, cell: float,
+                      beams: int) -> tuple:
+    """The CPU reference of one scenario-matrix cell: the host matcher's
+    (record, streams, poses, maps) (tools/scenario_matrix.host_arm)."""
+    from rplidar_ros2_driver_tpu_torch.tools import scenario_matrix as smx
+
+    return smx.host_arm(kind, chaos, fleet, smx.SEED, n_revs, grid, cell, beams)
+
+
+def _loop_probe_args(chaos: str) -> tuple:
+    """A scenario loop probe's arguments at config 23's geometry, as
+    scenario_matrix gives them."""
+    from rplidar_ros2_driver_tpu_torch.tools import scenario_matrix as smx
+
+    g = smx.geometry(smoke=False)
+    return (chaos, g["fleets"][-1], g["probe_revs"], g["loop_grid"], g["loop_cell"], g["beams"])
+
+
+def ref_loop_probe(chaos: str, streams: int, n_revs: int, grid: int, cell: float,
+                   beams: int) -> tuple:
+    """The CPU reference of one scenario loop probe, and its seconds."""
+    import torch
+
+    from rplidar_ros2_driver_tpu_torch.tools import scenario_matrix as smx
+
+    c0 = time.perf_counter()
+    got = smx.loop_probe(chaos, streams, n_revs, grid, cell, beams, smx.SEED,
+                         torch.device("cpu"))
+    return got, time.perf_counter() - c0
 
 
 # ---------------------------------------------------------------------------
@@ -5879,7 +6321,6 @@ def phase_tooling(device) -> dict:
     from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
     from rplidar_ros2_driver_tpu_torch.launch import NodeContainer
 
-    t0 = time.perf_counter()
     row = {"phase": "tooling"}
     # on the card unless the phase is rehearsed on the host
     host = [] if device.type == "cuda" else ["--cpu"]
@@ -5937,7 +6378,6 @@ def phase_tooling(device) -> dict:
     if device.type == "cuda":
         for k in ("temporal_median", "sliding_median"):
             check(row["launches"].get(k, 0) > 0, f"tooling: {k} never launched")
-    row["seconds"] = time.perf_counter() - t0
     emit(row)
     return row
 
@@ -5972,18 +6412,48 @@ def _compat_force_scan() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _graded_arms(device, name: str, run) -> tuple:
-    """One configuration on the card and on the CPU (``run(backend)``):
-    the card arm's kernel launches counted around it, every output and
-    count of the two arms held equal.  Returns (card, cpu, launches)."""
+def _graded_geometry(name: str) -> dict:
+    """Graded configuration ``name``'s full geometry (tools/graded.py)."""
+    from rplidar_ros2_driver_tpu_torch.tools import graded as gr
+
+    return gr.GEOMETRY["full"]["map1024" if name == "map1024" else int(name.split("_")[0])]
+
+
+def _graded_run(name: str, backend: str, g: dict) -> dict:
+    """Graded configuration ``name`` ("1", "2", "3", "4_pallas", "4_inc",
+    "9", "11", "13", "16", "map1024") on ``backend`` through tools/graded.py
+    at geometry ``g``."""
+    from rplidar_ros2_driver_tpu_torch.tools import graded as gr
+
+    if name in ("2", "3"):
+        return gr.run_chain_config(int(name), backend, g)
+    if name.startswith("4_"):
+        return gr.run_chain_config(4, backend, g, name[2:])
+    if name == "map1024":
+        return gr.run_map1024(backend, g)
+    return getattr(gr, f"run_config{name}")(backend, g)
+
+
+def ref_graded(name: str, g: dict) -> dict:
+    """The CPU reference of graded configuration ``name`` at geometry ``g``."""
+    got = _graded_run(name, "cpu", g)
+    got.pop("mapper", None)
+    return got
+
+
+def _graded_arms(device, name: str) -> tuple:
+    """One configuration on the card and on the CPU: the card arm's kernel
+    launches counted around it, every output and count of the two arms
+    held equal.  Returns (card, cpu, launches)."""
     from rplidar_ros2_driver_tpu_torch.tools import graded as gr
 
     _sync(device)
     _reset_counts()
-    card = run("cuda" if device.type == "cuda" else "cpu")
+    g = _graded_geometry(name)
+    card = _graded_run(name, "cuda" if device.type == "cuda" else "cpu", g)
     _sync(device)
     launched = _counts()
-    cpu = run("cpu")
+    cpu = _ref(None, ref_graded, name, g)
     bad = gr.same_outputs(card["outputs"], cpu["outputs"])
     check(not bad, f"graded {name}: the card's outputs differ from the CPU's in {bad[:6]}")
     check(card["counts"] == cpu["counts"],
@@ -6007,53 +6477,52 @@ def phase_graded(device, card_name: str) -> dict:
     from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
     from rplidar_ros2_driver_tpu_torch.tools import graded as gr
 
-    t_phase = time.perf_counter()
     geo = gr.GEOMETRY["full"]
     on_card = device.type == "cuda"
     total: dict = {}
     rows = {}
 
-    def one(name: str, run):
+    def one(name: str):
         t0 = time.perf_counter()
-        card, cpu, launched = _graded_arms(device, name, run)
+        card, cpu, launched = _graded_arms(device, name)
         for k, v in launched.items():
             total[k] = total.get(k, 0) + v
         row = {"phase": "graded", "config": name, "counts": card["counts"],
                "launches": launched, "loop_launches": card["launches"],
                "stats": card["stats"], "cpu_stats": cpu["stats"],
-               "seconds": time.perf_counter() - t0, "card": card_name}
+               "config_seconds": time.perf_counter() - t0, "card": card_name}
         rows[name] = row
         emit(row)
         return card, launched
 
-    one("1", lambda b: gr.run_config1(b, geo[1]))
+    one("1")
     for c in (2, 3):
-        _card, launched = one(str(c), lambda b, c=c: gr.run_chain_config(c, b, geo[c]))
+        _card, launched = one(str(c))
         check(launched["temporal_median"] == 0 and launched["sorted_replace"] == 0,
               f"graded {c}: the median kernels launched with the median off: {launched}")
     for median, kernel, other in (("pallas", "temporal_median", "sorted_replace"),
                                   ("inc", "sorted_replace", "temporal_median")):
-        card, _l = one(f"4_{median}", lambda b, m=median: gr.run_chain_config(4, b, geo[4], m))
+        card, _l = one(f"4_{median}")
         loop = card["launches"][median]
         if on_card:
             check(loop[kernel] == geo[4]["revs"] and loop[other] == 0,
                   f"graded 4 ({median}): {loop} for {geo[4]['revs']} revolutions at W = 16")
-    card, _l = one("9", lambda b: gr.run_config9(b, geo[9]))
+    card, _l = one("9")
     if on_card:
         for arm in ("host", "fused"):
             got = card["launches"][arm]["temporal_median"]
             check(got == card["counts"]["revolutions"],
                   f"graded 9: {got} B1 launches on the {arm} arm for "
                   f"{card['counts']['revolutions']} revolutions")
-    card, _l = one("11", lambda b: gr.run_config11(b, geo[11]))
+    card, _l = one("11")
     if on_card:
         for arm in ("per_tick", "super"):
             check(card["launches"][arm]["temporal_median"] > 0,
                   f"graded 11: no B1 launch on the {arm} arm")
-    card, _l = one("13", lambda b: gr.run_config13(b, geo[13]))
+    card, _l = one("13")
     if on_card:
         check(card["launches"]["all_arms"]["temporal_median"] > 0, "graded 13: no B1 launch")
-    card, _l = one("16", lambda b: gr.run_config16(b, geo[16]))
+    card, _l = one("16")
     if on_card:
         rec, base = card["launches"]["rec"], card["launches"]["base"]
         check(rec["beam_min"] > 0 and rec["shift_sad"] > 0 and rec["temporal_median"] > 0,
@@ -6061,7 +6530,7 @@ def phase_graded(device, card_name: str) -> dict:
         check(base["beam_min"] == 0 and base["shift_sad"] == 0,
               f"graded 16: the baseline arm launched the de-skew kernels: {base}")
     g12 = geo["map1024"]
-    card, _l = one("map1024", lambda b: gr.run_map1024(b, g12))
+    card, _l = one("map1024")
     if on_card:
         loop = card["launches"]["mapper"]
         check(all(loop[k] == g12["ticks"] for k in ("coarse_scores", "fine_scores",
@@ -6080,10 +6549,8 @@ def phase_graded(device, card_name: str) -> dict:
         emit({"phase": "graded", "config": "map1024_plans", "G": cfg.grid,
               "update_plan": rows["map1024"]["update_plan"],
               "coarse_plan": rows["map1024"]["coarse_plan"], "sms": sms, "card": card_name})
-    row = {"phase": "graded", "config": "all", "launches": total,
-           "seconds": time.perf_counter() - t_phase, "card": card_name}
-    emit(row)
-    return {"launches": total, "rows": rows, "seconds": row["seconds"]}
+    emit({"phase": "graded", "config": "all", "launches": total, "card": card_name})
+    return {"launches": total, "rows": rows}
 
 
 def graded_profile(device, card_name: str) -> dict:
@@ -6100,7 +6567,6 @@ def graded_profile(device, card_name: str) -> dict:
     from rplidar_ros2_driver_tpu_torch.ops import scan_match_kernels as smk
     from rplidar_ros2_driver_tpu_torch.tools import graded as gr
 
-    t0 = time.perf_counter()
     g = gr.GEOMETRY["full"]["map1024"]
     n, b = g["streams"], g["beams"]
     ticks = gr.room_ticks(n, b, g["ticks"] + 1)
@@ -6145,7 +6611,7 @@ def graded_profile(device, card_name: str) -> dict:
                                                  "valid_beams": nvalid},
            "update_plan": dict(zip(("local", "cluster", "threads", "rows", "smem"),
                                    smk.update_plan(n, cfg.grid, sms))),
-           "kernels": kernels, "seconds": time.perf_counter() - t0, "card": card_name}
+           "kernels": kernels, "card": card_name}
     emit(row)
     return row
 
@@ -6552,6 +7018,31 @@ def _mb_host(mesh, median: str, reduce: str, ticks) -> dict:
             "ticks_per_s": len(lat) / float(np.sum(lat)), "tick_ms": _pcts(np.asarray(lat))}
 
 
+def ref_mb_scan(seed: int, median: str) -> dict:
+    """The CPU reference of config 8's first chunk over the host mesh."""
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh
+
+    return _mb_scan(make_mesh(device="cpu"), median, "psum", _mb_chunks(seed)[:1])
+
+
+def ref_mb_host(median: str) -> dict:
+    """The CPU reference of config 10's host arm over the host mesh."""
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh
+
+    return _mb_host(make_mesh(device="cpu"), median, "psum", _mb_ticks())
+
+
+def ref_mb_leg(leg: str) -> dict:
+    """The CPU reference of a row leg over the host mesh: config 10's fused
+    arm or config 18's carried-map route."""
+    from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh
+
+    host = make_mesh(device="cpu")
+    if leg == "config10_fused":
+        return _mb_fused(host, _mb_ticks()[: MESH_BLOCKS["fused_ticks"]])
+    return _mb_carried(host, _mb_carried_groups())
+
+
 def _mb_layouts(layouts: dict, seed: int, cpu: dict) -> dict:
     """Config 8 (both medians) and config 10's host arm (the sort median
     with psum and ring, the inc median with psum) over each mesh of
@@ -6566,7 +7057,7 @@ def _mb_layouts(layouts: dict, seed: int, cpu: dict) -> dict:
     mb = MESH_BLOCKS
     t0 = time.perf_counter()
     lead = next(iter(layouts.values())).device
-    one, host = make_mesh(device=lead), make_mesh(device="cpu")
+    one = make_mesh(device=lead)
     chunks = _memo(cpu, "mb chunks", lambda: _mb_chunks(seed))
     ticks = _memo(cpu, "mb ticks", _mb_ticks)
     row: dict = {"config8": {}, "config10": {}, "launches": {}}
@@ -6577,8 +7068,7 @@ def _mb_layouts(layouts: dict, seed: int, cpu: dict) -> dict:
 
     for median in ("pallas", "inc"):
         ref = _mb_scan(one, median, "psum", chunks)
-        cpu_run = _memo(cpu, f"mb config8 {median}", lambda: _mb_scan(host, median, "psum",
-                                                                        chunks[:1]))
+        cpu_run = _ref(cpu, ref_mb_scan, seed, median)
         check(ref["ranges"][:1] == cpu_run["ranges"] and ref["states"][:1] == cpu_run["states"],
               f"mesh blocks: config 8 {median}: the (1, 1) card run differs from the CPU")
         arm = {"one_card_scans_per_s": ref["scans_per_s"]}
@@ -6595,7 +7085,7 @@ def _mb_layouts(layouts: dict, seed: int, cpu: dict) -> dict:
         row["config8"][median] = arm
     for median, reduce in (("pallas", "psum"), ("pallas", "ring"), ("inc", "psum")):
         ref = _mb_host(one, median, reduce, ticks)
-        cpu_run = _memo(cpu, f"mb config10 {median}", lambda: _mb_host(host, median, "psum", ticks))
+        cpu_run = _ref(cpu, ref_mb_host, median)
         check(ref["published"] == cpu_run["published"] and ref["snapshot"] == cpu_run["snapshot"],
               f"mesh blocks: config 10 {median}: the (1, 1) card run differs from the CPU")
         check(sum(len(p) for p in ref["published"]) > 0, "mesh blocks: config 10 published nothing")
@@ -6628,8 +7118,9 @@ def phase_mesh_blocks(device, seed: int, card: str) -> dict:
     from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh
 
     mesh = make_mesh(devices=[device] * 4, stream=2)
-    row = {"phase": "mesh_blocks", **_mb_layouts({"2x2_one_card": mesh}, seed, {}), "card": card}
-    row["rows"] = _mb_fused_layouts({"2x2_one_card": mesh}, {})
+    row = {"phase": "mesh_blocks", **_mb_layouts({"2x2_one_card": mesh}, seed, None),
+           "card": card}
+    row["rows"] = _mb_fused_layouts({"2x2_one_card": mesh}, None)
     emit(row)
     return row
 
@@ -6935,7 +7426,7 @@ def _mb_fused_layouts(layouts: dict, cpu: dict) -> dict:
 
     t0 = time.perf_counter()
     lead = next(iter(layouts.values())).device
-    one, host = make_mesh(device=lead), make_mesh(device="cpu")
+    one = make_mesh(device=lead)
     ticks = _memo(cpu, "mb ticks", _mb_ticks)[: MESH_BLOCKS["fused_ticks"]]
     groups = _memo(cpu, "mb carried groups", _mb_carried_groups)
     row: dict = {"config10_fused": {}, "config18_carried": {}, "launches": {}}
@@ -6944,7 +7435,7 @@ def _mb_fused_layouts(layouts: dict, cpu: dict) -> dict:
              ROW_KERNELS))
     for leg, run, data, keys, names in legs:
         ref = run(one, data)
-        cpu_run = _memo(cpu, f"mb {leg} cpu", lambda: run(host, data))
+        cpu_run = _ref(cpu, ref_mb_leg, leg)
         check(all(ref[k] == cpu_run[k] for k in keys),
               f"mesh rows: {leg}: the (1, 1) card run differs from the CPU")
         rate = "ticks_per_s" if leg == "config10_fused" else "drains_per_s"
@@ -7157,8 +7648,60 @@ ONE_PHASE = {
     "tooling": lambda device, seed, card: phase_tooling(device),
     "graded": lambda device, seed, card: (phase_graded(device, card),
                                           graded_profile(device, card)),
-    "loop": lambda device, seed, card: phase_loop(device, phase_replay(device, seed)[1]),
+    "loop": lambda device, seed, card: phase_loop(device, replay_revolutions(seed), seed),
 }
+# the graded phase's configurations, in its order
+GRADED_CONFIGS = ("1", "2", "3", "4_pallas", "4_inc", "9", "11", "13", "16", "map1024")
+
+
+def ref_plan(seed: int) -> dict:
+    """Every CPU reference a phase holds the card to, by phase, in the
+    order the phase asks for them: what the default run (and ``--phase``)
+    hands its reference workers as the run starts.  The configuration
+    phases' scheduled pods and every card-only comparison are not here."""
+    from rplidar_ros2_driver_tpu_torch.tools import scenario_matrix as smx
+
+    return {
+        "fused_mapping": [(ref_fm_drains, "fused"), (ref_fm_drains, "host"),
+                          (ref_fm_quarantine,)],
+        "failover": [(ref_fo_pod,), (ref_fo_carried,)],
+        "scheduled": [(ref_sched_prefix, n, arm, SCHEDULED["cpu_wall_ticks"][n])
+                      for n, arms in ((19, ((1,), SCHEDULED[19]["rungs"])), (20, (False, True)),
+                                      (21, (False, True)), (22, (True, False)))
+                      for arm in arms],
+        "scenarios": [(ref_scenario_cell, *a) for a in smx.cell_args(smx.geometry(False))]
+        + [(ref_loop_probe, *_loop_probe_args(chaos)) for chaos in smx.CHAOS],
+        "graded": [(ref_graded, name, _graded_geometry(name)) for name in GRADED_CONFIGS],
+        "fleet": [(ref_fleet_bytes, n, arm) for n in FLEET["fleets"] for arm in _fleet_arms(n)]
+        + [(ref_fleet_replay_chunk, seed), (ref_fleet_slam,)],
+        "mesh_blocks": [(ref_mb_scan, seed, m) for m in ("pallas", "inc")]
+        + [(ref_mb_host, m) for m in ("pallas", "inc")]
+        + [(ref_mb_leg, leg) for leg in ("config10_fused", "config18_carried")],
+        "mapping": [(ref_mapping, "host"), (ref_mapping, "cpu_torch")],
+        "replay_map": [(ref_replay_map, seed)],
+        "loop": [(ref_loop_arm, "off"), (ref_loop_arm, "host"), (ref_loop_replay, seed)],
+        "replay_fused": [(ref_replay_fused, seed, False), (ref_replay_fused, seed, True),
+                         (ref_deskew_twin, seed)],
+    }
+
+
+def _timed(name: str, fn, *args):
+    """``fn(*args)``, a phase (or half of one) under the clock ``name``."""
+    with phase_clock(name):
+        return fn(*args)
+
+
+def _start_references(phases, seed: int) -> None:
+    """Open the reference workers and hand them every CPU reference of
+    ``phases``, in order: they compute them on cores of their own while
+    this process drives the card.  Started after the e2e phase, whose live
+    arms keep their host to themselves."""
+    plan = ref_plan(seed)
+    jobs = [job for name in phases for job in plan.get(name, ())]
+    if jobs:
+        REFS.start()
+        for fn, *args in jobs:
+            REFS.submit(fn, *args)
 
 
 def main(argv=None) -> int:
@@ -7195,19 +7738,18 @@ def main(argv=None) -> int:
     if not os.path.isdir(os.path.join(here, "rplidar_ros2_driver_tpu_torch")):
         fail("run chip_smoke.py from the root of a checkout of the repository")
     sys.path.insert(0, here)
-    import numpy as np
-
     if args.fleet_mp_worker:
         rank, port, world, stream, backend, dev = args.fleet_mp_worker
         return fleet_mp_worker(int(rank), int(port), int(world), int(stream), backend, dev)
     if args.mesh_check:
         n = args.mesh_check
         check(torch.cuda.device_count() >= n, f"--mesh-check {n} needs {n} cards")
-        info = phase_device()
-        phase_build()
-        rows = {f"{s}x{n // s}": _fleet_multiprocess(n, s, "nccl", one_card=False)
-                for s in (1, 2) if n % s == 0}
-        emit({"phase": "mesh_check", "cards": n, "meshes": rows})
+        info = _timed("device", phase_device)
+        _timed("build", phase_build)
+        with phase_clock("mesh_check"):
+            rows = {f"{s}x{n // s}": _fleet_multiprocess(n, s, "nccl", one_card=False)
+                    for s in (1, 2) if n % s == 0}
+            emit({"phase": "mesh_check", "cards": n, "meshes": rows})
         print(info["nvidia_smi"], flush=True)
         return 0
     if args.pod_cards:
@@ -7216,9 +7758,10 @@ def main(argv=None) -> int:
               f"--pod-cards {n} needs {n} cards, {torch.cuda.device_count()} visible")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        info = phase_device()
-        phase_build()
-        phase_pod_cards(n, info["nvidia_smi"], info["nvidia_smi_cards"], args.seed)
+        info = _timed("device", phase_device)
+        _timed("build", phase_build)
+        _timed("pod_cards", phase_pod_cards, n, info["nvidia_smi"], info["nvidia_smi_cards"],
+               args.seed)
         print(info["nvidia_smi"], flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -7228,44 +7771,65 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    info = phase_device()
-    phase_build()
-    if args.phase:
-        for name in args.phase:
-            ONE_PHASE[name](device, args.seed, info["nvidia_smi"])
-        print(info["nvidia_smi"], flush=True)
-        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                     "count": torch.cuda.device_count()}})
-        return 0
-    launch = phase_launch(device, np.random.default_rng(args.seed + 3))
-    phase_e2e(device)
-    fmap = phase_fused_mapping(device)
+    info = _timed("device", phase_device)
+    _timed("build", phase_build)
+    try:
+        if args.phase:
+            if "e2e" not in args.phase:
+                _start_references(args.phase, args.seed)
+            for name in args.phase:
+                _timed(name, ONE_PHASE[name], device, args.seed, info["nvidia_smi"])
+            print(info["nvidia_smi"], flush=True)
+            emit({"ok": True, "device": {"platform": "gpu",
+                                         "kind": torch.cuda.get_device_name(0),
+                                         "count": torch.cuda.device_count()}})
+            return 0
+        return _default_run(args, device, info, t_start)
+    finally:
+        REFS.close()
+
+
+def _default_run(args, device, info: dict, t_start: float) -> int:
+    """Every phase in order, then the kernels line and the last lines."""
+    import numpy as np
+    import torch
+
+    card = info["nvidia_smi"]
+    # before any profiler session and before the reference workers start
+    launch = _timed("launch", phase_launch, device, np.random.default_rng(args.seed + 3))
+    _timed("e2e", phase_e2e, device)
+    _start_references(["fused_mapping", "failover", "scheduled", "scenarios", "graded", "fleet",
+                       "mesh_blocks", "mapping", "replay_map", "loop", "replay_fused"], args.seed)
+    # phases with no CPU reference first, while the workers start on theirs
+    ckpt = _timed("checkpoints", phase_checkpoints, device)
+    tooling = _timed("tooling", phase_tooling, device)
+    fmap = _timed("fused_mapping", phase_fused_mapping, device)
     # the failover pod's timed pass, before any profiler session
-    failover = phase_failover(device)
-    sched = phase_scheduled(device)
-    ckpt = phase_checkpoints(device)
-    scen = phase_scenarios(device)
-    tooling = phase_tooling(device)
-    graded = phase_graded(device, info["nvidia_smi"])
-    fleet = phase_fleet(device, args.seed)
-    mesh_blocks = phase_mesh_blocks(device, args.seed, info["nvidia_smi"])
-    fused_mapping_profile(device, fmap, info["nvidia_smi"])
-    failover_profile(device, failover, info["nvidia_smi"])
-    scheduled_profile(device, sched, info["nvidia_smi"])
-    graded_map = graded_profile(device, info["nvidia_smi"])
-    kern = phase_kernels(device, np.random.default_rng(args.seed))
+    failover = _timed("failover", phase_failover, device)
+    sched = _timed("scheduled", phase_scheduled, device)
+    scen = _timed("scenarios", phase_scenarios, device)
+    graded = _timed("graded", phase_graded, device, card)
+    fleet = _timed("fleet", phase_fleet, device, args.seed)
+    mesh_blocks = _timed("mesh_blocks", phase_mesh_blocks, device, args.seed, card)
+    _timed("fused_mapping", fused_mapping_profile, device, fmap, card)
+    _timed("failover", failover_profile, device, failover, card)
+    _timed("scheduled", scheduled_profile, device, sched, card)
+    graded_map = _timed("graded_profile", graded_profile, device, card)
+    kern = _timed("kernels", phase_kernels, device, np.random.default_rng(args.seed))
     revs = make_revolutions(args.seed, args.revs, GEOMETRY["points"])
-    chain = phase_chain(device, revs)
-    phase_profile(device, revs, args.trace_dir)
-    phase_ab(device, revs)
-    phase_node(device)
-    replay, replay_revs, replay_frames = phase_replay(device, args.seed)
-    mapk = phase_mapkernels(device, np.random.default_rng(args.seed + 1))
-    mapping = phase_mapping(device)
-    replay_map = phase_replay_map(device, replay_revs)
-    loop = phase_loop(device, replay_revs)
-    dskk = phase_deskew_kernels(device, np.random.default_rng(args.seed + 2))
-    fused = phase_replay_fused(device, replay_frames, replay_revs, args.trace_dir)
+    chain = _timed("chain", phase_chain, device, revs)
+    _timed("profile", phase_profile, device, revs, args.trace_dir)
+    _timed("ab", phase_ab, device, revs)
+    _timed("node", phase_node, device)
+    replay, replay_revs, replay_frames = _timed("replay", phase_replay, device, args.seed)
+    mapk = _timed("mapkernels", phase_mapkernels, device, np.random.default_rng(args.seed + 1))
+    mapping = _timed("mapping", phase_mapping, device)
+    replay_map = _timed("replay_map", phase_replay_map, device, replay_revs, args.seed)
+    loop = _timed("loop", phase_loop, device, replay_revs, args.seed)
+    dskk = _timed("deskew_kernels", phase_deskew_kernels, device,
+                  np.random.default_rng(args.seed + 2))
+    fused = _timed("replay_fused", phase_replay_fused, device, replay_frames, replay_revs,
+                   args.seed, args.trace_dir)
 
     w, b = GEOMETRY["window"], GEOMETRY["beams"]
     w3, k3, b3 = REPLAY["window"], REPLAY["chunk"], REPLAY["beams"]
@@ -7411,8 +7975,14 @@ def main(argv=None) -> int:
                                  if key.startswith(name)}
     for k in kernels:
         check(k["launches"] > 0, f"kernel {k['name']} never launched on the main path")
-    emit({"phase": "before", "constants_from": "PERF.md (not measured in this run)",
-          "figures": BEFORE, "goal_device_ms": GOAL_DEVICE_MS, "goal_host_us": GOAL_HOST_US})
+    with phase_clock("references"):
+        emit({"phase": "references", "workers": len(REFS.cpus), "worker_cpus": REFS.cpus,
+              "driver_cpus": sorted(os.sched_getaffinity(0)),
+              "worker_seconds": REFS.worker_seconds,
+              "cpu_seconds_by_phase": {k: v[1] for k, v in _CLOCKS.items()}})
+    with phase_clock("before"):
+        emit({"phase": "before", "constants_from": "PERF.md (not measured in this run)",
+              "figures": BEFORE, "goal_device_ms": GOAL_DEVICE_MS, "goal_host_us": GOAL_HOST_US})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t_start})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

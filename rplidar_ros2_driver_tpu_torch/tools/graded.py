@@ -24,7 +24,8 @@ the CPU the wrappers run their plain versions and count nothing).
 The scenes are the bench's own: :func:`wire_frames`,
 :func:`paced_fleet_ticks`, :func:`host_scans` and :func:`room_ticks` are
 copies of ``_denseboost_wire_frames``, ``_paced_fleet_byte_ticks``,
-``_host_scans`` and ``_room_fleet_ticks``.
+``_host_scans`` and ``_room_fleet_ticks``, kept in
+:mod:`rplidar_ros2_driver_tpu_torch.tools.scenes`.
 
 Used by ``chip_smoke.py``'s graded phase and
 tests/test_torch_graded_configs.py.
@@ -39,6 +40,12 @@ import numpy as np
 import torch
 
 from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+from rplidar_ros2_driver_tpu_torch.tools.scenes import (  # noqa: F401  (the scenes, re-exported)
+    host_scans,
+    paced_fleet_ticks,
+    room_ticks,
+    wire_frames,
+)
 from rplidar_ros2_driver_tpu_torch.utils import guards
 
 # bench.py's widths (full) and smoke geometry per config; ``revs``/``ticks``
@@ -90,84 +97,6 @@ class ClaimError(RuntimeError):
 def claim(cond, msg: str) -> None:
     if not cond:
         raise ClaimError(msg)
-
-
-# ---------------------------------------------------------------------------
-# the bench's scenes
-# ---------------------------------------------------------------------------
-
-
-def wire_frames(revs: int, points_per_rev: int) -> list[bytes]:
-    """bench.py ``_denseboost_wire_frames``: dense capsules of 40 samples
-    of a 2 m ± 0.5 m ring (no noise: the scene is static), ``revs``
-    revolutions."""
-    from rplidar_ros2_driver_tpu_torch.ops import wire
-
-    frames, idx, total = [], 0, revs * points_per_rev
-    while idx < total:
-        theta = 360.0 * (idx % points_per_rev) / points_per_rev
-        pts = (np.arange(40) + idx) % points_per_rev
-        dists_mm = 2000.0 + 500.0 * np.sin(2 * np.pi * pts / points_per_rev)
-        frames.append(wire.encode_dense_capsule(int(theta * 64) & 0x7FFF, idx == 0,
-                                                dists_mm.astype(int)))
-        idx += 40
-    return frames
-
-
-def paced_fleet_ticks(frames, run: int, streams: int, ans: int = DENSE) -> list:
-    """bench.py ``_paced_fleet_byte_ticks``: ``run`` frames a stream a
-    tick, every stream the same frames on its own timestamp lane (7 s
-    apart, 1.25 ms a frame)."""
-    ticks = []
-    t = [1000.0 + 7.0 * s for s in range(streams)]
-    for i in range(0, len(frames), run):
-        tick = []
-        for s in range(streams):
-            batch = []
-            for f in frames[i: i + run]:
-                t[s] += 1.25e-3
-                batch.append((f, t[s]))
-            tick.append((ans, batch))
-        ticks.append(tick)
-    return ticks
-
-
-def host_scans(n: int, points: int) -> list[dict]:
-    """bench.py ``_host_scans``: ``n`` raw revolutions of a 2 m ± 0.5 m
-    ring with 1 cm of seeded noise."""
-    rng = np.random.default_rng(0)
-    out = []
-    for k in range(n):
-        angle = ((np.arange(points) * 65536) // points).astype(np.int32)
-        dist_m = 2.0 + 0.5 * np.sin(np.arange(points) * (2 * np.pi / points) + 0.1 * k)
-        dist_m += rng.normal(0, 0.01, points)
-        out.append({"angle_q14": angle, "dist_q2": (dist_m * 4000.0).astype(np.int32),
-                    "quality": np.full(points, 190, np.int32)})
-    return out
-
-
-def room_ticks(streams: int, beams: int, n_ticks: int) -> list[np.ndarray]:
-    """bench.py ``_room_fleet_ticks``: a 5 x 5 m room seen from
-    per-stream drifting poses, one (N, B, 2) float32 plane a tick."""
-    half_room = 2.5
-    t = np.linspace(0, 2 * np.pi, beams, endpoint=False)
-    dx, dy = np.cos(t), np.sin(t)
-    with np.errstate(divide="ignore"):
-        r_wall = np.minimum(
-            np.where(np.abs(dx) > 1e-12, half_room / np.abs(dx), np.inf),
-            np.where(np.abs(dy) > 1e-12, half_room / np.abs(dy), np.inf),
-        )
-    wx, wy = dx * r_wall, dy * r_wall
-    ticks = []
-    for k in range(n_ticks):
-        pts = np.zeros((streams, beams, 2), np.float32)
-        for s in range(streams):
-            x0, y0, th = 0.03 * k * (1 + 0.1 * s), -0.02 * k * (1 + 0.2 * s), 0.004 * k
-            c, si = np.cos(-th), np.sin(-th)
-            pts[s, :, 0] = c * (wx - x0) - si * (wy - y0)
-            pts[s, :, 1] = si * (wx - x0) + c * (wy - y0)
-        ticks.append(pts)
-    return ticks
 
 
 # ---------------------------------------------------------------------------

@@ -381,16 +381,17 @@ def host_arm(kind: str, chaos: str, fleet: int, base_seed: int, n_revs: int, gri
 
 
 def matrix_cell(kind: str, chaos: str, fleet: int, base_seed: int, n_revs: int, grid: int,
-                cell: float, beams: int, device="cpu") -> dict:
+                cell: float, beams: int, device="cpu", host=host_arm) -> dict:
     """One matrix cell: :func:`host_arm`, then the same scans through one
     fused FleetMapper fleet on ``device`` (one B6/B7/B8 step a revolution on
     the card), held equal to the host matcher pose for pose and map for
-    map."""
+    map.  ``host`` stands for :func:`host_arm` (same arguments, same
+    result), e.g. to take its result from another process."""
     from rplidar_ros2_driver_tpu_torch.core.config import DriverParams
     from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper
 
-    rec, streams, host_poses, host_maps = host_arm(kind, chaos, fleet, base_seed, n_revs,
-                                                   grid, cell, beams)
+    rec, streams, host_poses, host_maps = host(kind, chaos, fleet, base_seed, n_revs, grid,
+                                               cell, beams)
     dev = torch.device(device)
     mapper = FleetMapper(DriverParams(map_enable=True, map_backend="fused", map_grid=grid,
                                       map_cell_m=cell, filter_backend=_backend_name(dev)),
@@ -469,10 +470,24 @@ def check_floors(cells: list) -> None:
         rec["match_ok"] = kind != "corridor"  # floors held (claim 5)
 
 
-def scenario_matrix(smoke: bool = False, device="cpu") -> dict:
+def cell_args(g: dict) -> list:
+    """The matrix's cells in order, as :func:`matrix_cell`'s (kind, chaos,
+    fleet, n_revs, grid, cell, beams) at geometry ``g``."""
+    out = []
+    for kind in SCENES:
+        for chaos in CHAOS:
+            for fleet in g["fleets"]:
+                loop_kind = kind == "loop"
+                out.append((kind, chaos, fleet, g["loop_revs"] if loop_kind else g["n_revs"],
+                            g["loop_grid"] if loop_kind else g["grid"],
+                            g["loop_cell"] if loop_kind else g["cell"], g["beams"]))
+    return out
+
+
+def scenario_matrix(smoke: bool = False, device="cpu", host=host_arm) -> dict:
     """The whole matrix (12 cells: 3 scenes × 2 chaos columns × 2 fleets)
     with its probes and claims on ``device``; returns the bench's record
-    plus the fused arm's counts."""
+    plus the fused arm's counts.  ``host`` as in :func:`matrix_cell`."""
     g = geometry(smoke)
     grid, cell, beams = g["grid"], g["cell"], g["beams"]
     base_seed = SEED
@@ -484,18 +499,9 @@ def scenario_matrix(smoke: bool = False, device="cpu") -> dict:
         for chaos in CHAOS
     }
     decay = decay_probe(grid, cell, beams, base_seed)
-    cells = []
-    for kind in SCENES:
-        for chaos in CHAOS:
-            for fleet in g["fleets"]:
-                loop_kind = kind == "loop"
-                cells.append(matrix_cell(
-                    kind, chaos, fleet, base_seed,
-                    g["loop_revs"] if loop_kind else g["n_revs"],
-                    g["loop_grid"] if loop_kind else grid,
-                    g["loop_cell"] if loop_kind else cell,
-                    beams, device,
-                ))
+    cells = [matrix_cell(kind, chaos, fleet, base_seed, n_revs, c_grid, c_cell, c_beams, device,
+                         host)
+             for kind, chaos, fleet, n_revs, c_grid, c_cell, c_beams in cell_args(g)]
     check_floors(cells)
     total_scans = sum(r["fleet"] * r["revs"] for r in cells)
     total_dt = sum(r.pop("_dt_s") for r in cells)

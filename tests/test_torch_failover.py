@@ -33,6 +33,7 @@ from rplidar_ros2_driver_tpu_torch.driver.chaos import ShardChaosSchedule as TCh
 from rplidar_ros2_driver_tpu_torch.driver.health import ShardState
 from rplidar_ros2_driver_tpu_torch.parallel.service import ElasticFleetService as TPod
 from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+from rplidar_ros2_driver_tpu_torch.tools import scenes
 from rplidar_ros2_driver_tpu_torch.utils import guards
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
@@ -67,15 +68,7 @@ def _pod_params(pkg: str, **over):
 
 
 def _denseboost_frames(revs: int, ppr: int = 400) -> list:
-    frames, idx, first = [], 0, True
-    while idx < revs * ppr:
-        theta = 360.0 * (idx % ppr) / ppr
-        pts = (np.arange(40) + idx) % ppr
-        d = 2000.0 + 500.0 * np.sin(2 * np.pi * pts / ppr)
-        frames.append(jwire.encode_dense_capsule(int(theta * 64) & 0x7FFF, first, d.astype(int)))
-        idx += 40
-        first = False
-    return frames
+    return scenes.wire_frames(revs, ppr)
 
 
 def _fleet_ticks(streams: int, revs: int, per_tick: int = 5) -> list:

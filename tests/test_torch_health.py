@@ -21,7 +21,6 @@ from rplidar_ros2_driver_tpu.core.config import DriverParams as JParams
 from rplidar_ros2_driver_tpu.driver import health as jhealth
 from rplidar_ros2_driver_tpu.driver.ingest import FleetFusedIngest as JEngine
 from rplidar_ros2_driver_tpu.mapping.mapper import FleetMapper as JFleetMapper
-from rplidar_ros2_driver_tpu.ops import wire as jwire
 from rplidar_ros2_driver_tpu.parallel.service import ShardedFilterService as JService
 from rplidar_ros2_driver_tpu.parallel.sharding import make_mesh as jmake_mesh
 from rplidar_ros2_driver_tpu_torch.core.config import DriverParams as TParams
@@ -32,6 +31,7 @@ from rplidar_ros2_driver_tpu_torch.mapping.mapper import FleetMapper as TFleetMa
 from rplidar_ros2_driver_tpu_torch.parallel.service import ShardedFilterService as TService
 from rplidar_ros2_driver_tpu_torch.parallel.sharding import make_mesh as tmake_mesh
 from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+from rplidar_ros2_driver_tpu_torch.tools import scenes
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 BEAMS = 256
@@ -60,15 +60,7 @@ def _carried_params(pkg: str, **over):
 
 
 def _denseboost_frames(revs: int, ppr: int = 400) -> list:
-    frames, idx, first = [], 0, True
-    while idx < revs * ppr:
-        theta = 360.0 * (idx % ppr) / ppr
-        pts = (np.arange(40) + idx) % ppr
-        d = 2000.0 + 500.0 * np.sin(2 * np.pi * pts / ppr)
-        frames.append(jwire.encode_dense_capsule(int(theta * 64) & 0x7FFF, first, d.astype(int)))
-        idx += 40
-        first = False
-    return frames
+    return scenes.wire_frames(revs, ppr)
 
 
 def _fleet_ticks(streams: int, revs: int, per_tick: int = 5) -> list:

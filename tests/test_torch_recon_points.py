@@ -26,11 +26,11 @@ import torch
 from rplidar_ros2_driver_tpu.core.config import DriverParams as JParams
 from rplidar_ros2_driver_tpu.driver.ingest import FleetFusedIngest as JEngine
 from rplidar_ros2_driver_tpu.ops import scan_match as jsm
-from rplidar_ros2_driver_tpu.ops import wire as jwire
 from rplidar_ros2_driver_tpu_torch.core.config import DriverParams as TParams
 from rplidar_ros2_driver_tpu_torch.driver.ingest import FleetFusedIngest as TEngine
 from rplidar_ros2_driver_tpu_torch.ops import scan_match as tsm
 from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+from rplidar_ros2_driver_tpu_torch.tools import scenes
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 POINTS, RUN, BEAMS, CAPACITY = 3200, 16, 2048, 4096
@@ -50,16 +50,7 @@ def ulp_distance(a, b) -> np.ndarray:
 def ring_frames(revs: int):
     """Config 18's dense-capsule bytes (bench.py ``_denseboost_wire_frames``):
     the static 2 m ± 0.5 m ring."""
-    frames, idx, first = [], 0, True
-    while idx < revs * POINTS:
-        theta = 360.0 * (idx % POINTS) / POINTS
-        pts = (np.arange(40) + idx) % POINTS
-        dists = 2000.0 + 500.0 * np.sin(2 * np.pi * pts / POINTS)
-        frames.append(jwire.encode_dense_capsule(int(theta * 64) & 0x7FFF, first,
-                                                 dists.astype(int)))
-        idx += 40
-        first = False
-    return frames
+    return scenes.wire_frames(revs, POINTS)
 
 
 def paced_ticks(frames, streams: int):

@@ -26,7 +26,6 @@ import torch
 from rplidar_ros2_driver_tpu import replay as jreplay
 from rplidar_ros2_driver_tpu.core.config import DriverParams as JParams
 from rplidar_ros2_driver_tpu.driver import ingest as jdi
-from rplidar_ros2_driver_tpu.ops import wire as jwire
 from rplidar_ros2_driver_tpu.parallel.service import ShardedFilterService as JService
 from rplidar_ros2_driver_tpu.parallel.sharding import make_mesh as jmake_mesh
 from rplidar_ros2_driver_tpu_torch import replay as treplay
@@ -37,6 +36,7 @@ from rplidar_ros2_driver_tpu_torch.filters.chain import ScanFilterChain
 from rplidar_ros2_driver_tpu_torch.parallel import sharding as ts
 from rplidar_ros2_driver_tpu_torch.parallel.service import ShardedFilterService
 from rplidar_ros2_driver_tpu_torch.protocol.constants import Ans
+from rplidar_ros2_driver_tpu_torch.tools import scenes
 
 from test_torch_replay import dense_frames, write_capture
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
@@ -368,16 +368,7 @@ RUN = PPR // 40
 
 def denseboost_frames(revs: int, ppr: int) -> list[bytes]:
     """bench.py ``_denseboost_wire_frames``: a 2 m +/- 0.5 m ring."""
-    frames, idx, first = [], 0, True
-    while idx < revs * ppr:
-        theta = 360.0 * (idx % ppr) / ppr
-        pts = (np.arange(40) + idx) % ppr
-        mm = 2000.0 + 500.0 * np.sin(2 * np.pi * pts / ppr)
-        frames.append(jwire.encode_dense_capsule(int(theta * 64) & 0x7FFF, first,
-                                                 mm.astype(int)))
-        idx += 40
-        first = False
-    return frames
+    return scenes.wire_frames(revs, ppr)
 
 
 def byte_ticks(n: int, idle=()) -> list:
@@ -514,18 +505,7 @@ SLAM_BEAMS = 512
 def room_scan(s: int, k: int, beams: int = SLAM_BEAMS) -> dict:
     """One revolution of bench.py's config-12 room (a 5 x 5 m square seen
     from per-stream drifting poses), as wire nodes at the beam centres."""
-    x0, y0, th = 0.03 * k * (1 + 0.1 * s), -0.02 * k * (1 + 0.2 * s), 0.004 * k
-    t = (np.arange(beams) + 0.5) * (2 * np.pi / beams)
-    dx, dy = np.cos(t + th), np.sin(t + th)
-    with np.errstate(divide="ignore"):
-        r = np.minimum(np.where(np.abs(dx) > 1e-12, (2.5 - np.sign(dx) * x0) / np.abs(dx), np.inf),
-                       np.where(np.abs(dy) > 1e-12, (2.5 - np.sign(dy) * y0) / np.abs(dy), np.inf))
-    return {
-        "angle_q14": np.floor((np.arange(beams) + 0.5) * 65536 / beams).astype(np.int32),
-        "dist_q2": np.round(r * 4000).astype(np.int32),
-        "quality": np.full(beams, 180, np.int32),
-        "flag": None,
-    }
+    return scenes.room_scan(s, k, beams)
 
 
 def _same_pose(j, t, what):
